@@ -1,0 +1,176 @@
+"""Upsample -> FIR filter -> downsample on NCHW images (ops/upfirdn2d.py).
+
+``upfirdn2d`` is the wrapper of CUDA kernel K4 (csrc/upfirdn2d.cu), which
+replaces the JAX op's three per-case TPU lowerings. ``upfirdn2d_plain`` is
+the same function in plain PyTorch (the reference formula: zero-insert, pad,
+grouped correlation, decimate): the CPU path and the kernel's oracle.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import KERNELS
+from ..kernels import build as kb
+
+
+def _parse_scaling(scaling):
+    if isinstance(scaling, int):
+        scaling = [scaling, scaling]
+    sx, sy = (int(s) for s in scaling)
+    if sx < 1 or sy < 1:
+        raise ValueError(f"scaling must be >= 1, got {scaling}")
+    return sx, sy
+
+
+def _parse_padding(padding):
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    padding = [int(p) for p in padding]
+    if len(padding) == 2:
+        px, py = padding
+        padding = [px, px, py, py]
+    px0, px1, py0, py1 = padding
+    return px0, px1, py0, py1
+
+
+def _get_filter_size(f):
+    if f is None:
+        return 1, 1
+    return int(f.shape[-1]), int(f.shape[0])
+
+
+def setup_filter(f, normalize=True, flip_filter=False, gain=1, separable=None,
+                 device=None) -> torch.Tensor:
+    """1-D taps with fewer than 8 elements become a 2-D outer product;
+    normalized to unit DC gain (reference upfirdn2d.py:73-119)."""
+    if f is None:
+        f = 1
+    f = torch.as_tensor(f, dtype=torch.float32, device=device)
+    if f.ndim == 0:
+        f = f[None]
+    if separable is None:
+        separable = f.ndim == 1 and f.numel() >= 8
+    if f.ndim == 1 and not separable:
+        f = torch.outer(f, f)
+    if normalize:
+        f = f / f.sum()
+    if flip_filter:
+        f = f.flip(list(range(f.ndim)))
+    return f * (gain ** (f.ndim / 2))
+
+
+def _out_size(h, w, fh, fw, up, down, pad):
+    upx, upy = up
+    downx, downy = down
+    px0, px1, py0, py1 = pad
+    return ((h * upy + py0 + py1 - fh) // downy + 1,
+            (w * upx + px0 + px1 - fw) // downx + 1)
+
+
+def upfirdn2d_plain(x, f2d, up, down, pad):
+    """Reference formula. ``f2d`` [fh, fw] is already flipped and gained (it
+    is correlated); up/down are (x, y) pairs, pad (px0, px1, py0, py1). Math
+    in at least f32; the result has x's dtype."""
+    upx, upy = up
+    downx, downy = down
+    px0, px1, py0, py1 = pad
+    n, c, h, w = x.shape
+    y = x.to(torch.promote_types(x.dtype, torch.float32))
+    y = y.reshape(n, c, h, 1, w, 1)
+    y = F.pad(y, [0, upx - 1, 0, 0, 0, upy - 1])
+    y = y.reshape(n, c, h * upy, w * upx)
+    y = F.pad(y, [max(px0, 0), max(px1, 0), max(py0, 0), max(py1, 0)])
+    y = y[:, :, max(-py0, 0): y.shape[2] - max(-py1, 0),
+          max(-px0, 0): y.shape[3] - max(-px1, 0)]
+    weight = f2d.to(device=y.device, dtype=y.dtype)[None, None].repeat(c, 1, 1, 1)
+    y = F.conv2d(y, weight, groups=c)
+    return y[:, :, ::downy, ::downx].to(x.dtype)
+
+
+_K4_ARGS = (kb.PTR, kb.PTR) + (kb.INT,) * 12 + (kb.PTR, kb.INT, kb.INT, kb.PTR)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def upfirdn2d_kernel(x, f2d, up, down, pad):
+    """Launch K4 on a CUDA tensor: same contract as :func:`upfirdn2d_plain`."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"upfirdn2d kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.ndim != 4 or not x.is_contiguous():
+        raise ValueError("upfirdn2d kernel takes a contiguous NCHW tensor")
+    fh, fw = int(f2d.shape[0]), int(f2d.shape[1])
+    n, c, h, w = x.shape
+    oh, ow = _out_size(h, w, fh, fw, up, down, pad)
+    if oh < 1 or ow < 1:
+        raise ValueError(f"upfirdn2d: empty output {oh}x{ow}")
+    y = torch.empty((n, c, oh, ow), device=x.device, dtype=x.dtype)
+    taps = kb.f32_array(f2d.detach().to("cpu", torch.float32).reshape(-1).tolist())
+    kb.launch(
+        "upfirdn2d", _K4_ARGS, x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype],
+        n * c, h, w, oh, ow, up[0], up[1], down[0], down[1], pad[0], pad[2],
+        taps, fw, fh, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    KERNELS["upfirdn2d"].launches += 1
+    return y
+
+
+def _fir(x, f2d, up, down, pad):
+    if x.device.type == "cpu":
+        return upfirdn2d_plain(x, f2d, up, down, pad)
+    if x.device.type == "cuda":
+        return upfirdn2d_kernel(x.contiguous(), f2d, up, down, pad)
+    raise RuntimeError(f"upfirdn2d: no path for device {x.device}")
+
+
+def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
+    """Pad, upsample, FIR-filter and downsample a batch of NCHW images.
+
+    Zero-insert upsample by ``up``, zero-pad/crop by ``padding`` (relative to
+    the upsampled image), correlate with ``f`` (flipped unless
+    ``flip_filter``), keep every ``down``-th pixel. A 1-D (separable) filter
+    runs as a horizontal then a vertical pass."""
+    if x.ndim != 4:
+        raise ValueError("upfirdn2d takes NCHW images")
+    if f is None:
+        f = torch.ones((1, 1), dtype=torch.float32)
+    upx, upy = _parse_scaling(up)
+    downx, downy = _parse_scaling(down)
+    px0, px1, py0, py1 = _parse_padding(padding)
+    f = f.to(torch.float32) * (gain ** (f.ndim / 2))
+    if not flip_filter:
+        f = f.flip(list(range(f.ndim)))
+    if f.ndim == 1:
+        x = _fir(x, f[None, :], (upx, 1), (downx, 1), (px0, px1, 0, 0))
+        return _fir(x, f[:, None], (1, upy), (1, downy), (0, 0, py0, py1))
+    return _fir(x, f, (upx, upy), (downx, downy), (px0, px1, py0, py1))
+
+
+def filter2d(x, f, padding=0, flip_filter=False, gain=1):
+    """FIR-filter without scaling (reference upfirdn2d.py:255+)."""
+    px0, px1, py0, py1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = [px0 + fw // 2, px1 + (fw - 1) // 2, py0 + fh // 2, py1 + (fh - 1) // 2]
+    return upfirdn2d(x, f, padding=p, flip_filter=flip_filter, gain=gain)
+
+
+def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1):
+    """Filtered upsample (reference upfirdn2d.py:315-351)."""
+    upx, upy = _parse_scaling(up)
+    px0, px1, py0, py1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = [px0 + (fw + upx - 1) // 2, px1 + (fw - upx) // 2,
+         py0 + (fh + upy - 1) // 2, py1 + (fh - upy) // 2]
+    return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
+                     gain=gain * upx * upy)
+
+
+def downsample2d(x, f, down=2, padding=0, flip_filter=False, gain=1):
+    """Filtered downsample (reference upfirdn2d.py:355-391)."""
+    downx, downy = _parse_scaling(down)
+    px0, px1, py0, py1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = [px0 + (fw - downx + 1) // 2, px1 + (fw - downx) // 2,
+         py0 + (fh - downy + 1) // 2, py1 + (fh - downy) // 2]
+    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter,
+                     gain=gain)
