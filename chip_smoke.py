@@ -1,24 +1,40 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (panic3d_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--kernels-only]
 
 1. Prints the setup (torch, CUDA, card name and power limit); exits non-zero
    without a CUDA device.
-2. Builds the four CUDA kernels from panic3d_tpu_torch/csrc/ into
-   build/kernels/ and prints the build time and nvcc's resource report.
+2. Builds the CUDA kernels from panic3d_tpu_torch/csrc/ into build/kernels/
+   (one nvcc per source, all started together) and prints the build time and
+   nvcc's resource report.
 3. Checks each kernel against its plain PyTorch version on the card, at the
-   flagship slice's shapes and working dtypes, and times both (median of
-   CUDA-event timings).
+   flagship paths' shapes and working dtypes (the ESS and occlusion kernels
+   on planes of the seeded flagship), and times both (median of CUDA-event
+   timings), with the single PyTorch call that computes the same function
+   where there is one (library_ms) and the least time the card could take
+   (bound_ms, from the bytes and operations of these inputs).
+   --kernels-only stops here.
 4. Checks the whole forward of the tiny config on the card (kernels) against
-   the same forward on the CPU (plain versions), in f32.
-5. Runs the flagship eval view forward -- configs.flagship(eval_mode=True),
-   seeded weights, 2 views (azimuths 0 and 330), triplane_crop=0.1,
-   cull_clouds=0.5 -- for a few requests through TriPlaneGenerator.f, with
-   the kernel launch counts zeroed before and read after; prints views/s and
-   peak memory, and checks the bf16 default against the same weights pinned
-   to f32.
-6. Prints one JSON line per kernel summary, the card line, and last the
+   the same forward on the CPU (plain versions), in f32: ESS and paste off,
+   then ESS and paste on.
+5. Drives three paths of the flagship eval forward (seeded weights, bench.py's
+   inputs, triplane_crop=0.1, cull_clouds=0.5), each with the kernel launch
+   counts zeroed before and read after:
+   - settings-parity: configs.flagship(eval_mode=True), 96+96 samples, paste
+     off, 2 views (azimuths 0 and 330) per request;
+   - ESS + paste per call: configs.flagship(eval_mode=True, ess=True) with
+     eval generate's paste_params, 2 views per request;
+   - per-portrait turntable: one planes bundle (planes, ESS occupancy,
+     occlusion volume), then the 16 eval views (4 ortho + spin12) in view
+     batches of 2;
+   and K12's own path, the gather-decode probe. It prints views/s, peak
+   memory, launches per request of every kernel and the host's waits for
+   the card (which must be 0) for each, and checks the bf16 default
+   against the same weights pinned to f32.
+6. Prints a JSON line of the paths, the script's wall time, a JSON line of
+   the kernels (one entry per entry point, with its launches on the ESS +
+   paste path, K12's on the probe), the card line, and last the
    {"ok": true, ...} line. Any failure raises before that line.
 """
 
@@ -36,7 +52,11 @@ import numpy as np
 SEED = 0
 BATCH = 2          # views per request, as bench.py's default BENCH_BATCH
 REQUESTS = 5       # timed flagship requests, after one warm-up request
+PORTRAITS = 3      # timed turntable portraits, after one warm-up portrait
 AZIMUTHS = (0.0, 330.0)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+PASTE_KEYS = ("mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
 
 
 def card_line() -> str:
@@ -47,15 +67,24 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters=10, warmup=2):
-    """Median milliseconds of fn() over ``iters`` CUDA-event-timed runs."""
+    """Median milliseconds of fn() on the card over ``iters`` CUDA-event-timed
+    runs. Each run is queued behind a sleep kernel that outlasts the host's
+    work for fn (twice a warm-up call's host time, plus 1 ms), so the card
+    meets fn's launches back to back and the events read device time, not
+    the host's launch overhead."""
     import torch
 
     for _ in range(warmup):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         fn()
+        host_s = time.perf_counter() - t
+    cycles = int((2 * host_s + 1e-3) * 2.0e9)     # SM clock at most ~2 GHz
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
         fn()
         end.record()
@@ -66,6 +95,17 @@ def cuda_ms(fn, iters=10, warmup=2):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def bound(n_bytes: float, flops: float):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the f32 peak -> (ms, bound_by)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def require(cond, msg):
@@ -97,9 +137,34 @@ def flagship_inputs(G, device):
     }
 
 
+def flagship_rays(x, device, res=64):
+    """The pinhole rays G.f builds for the flagship inputs (fov 30):
+    -> (origins [N,R,3], directions [N,R,3], the same as [N,3,res,res])."""
+    import torch
+
+    from panic3d_tpu_torch.cameras import camera_label, sample_rays
+
+    n = x["elevations"].shape[0]
+    ones = torch.ones(n, device=device)
+    cam = camera_label(x["elevations"], x["azimuths"], ones, 30 * ones)
+    ro, rd = sample_rays(cam[:, :16].reshape(-1, 4, 4), cam[:, 16:25].reshape(-1, 3, 3), res)
+    img = {"ray_origins": ro.transpose(1, 2).reshape(n, 3, res, res),
+           "ray_directions": rd.transpose(1, 2).reshape(n, 3, res, res)}
+    return ro.contiguous(), rd.contiguous(), img
+
+
+def record(err, fn, plain_fn, n_bytes, flops, library_fn=None):
+    """One kernel's summary: its error vs the plain version, the kernel's,
+    the plain version's and the library call's times, and its bound."""
+    bound_ms, bound_by = bound(n_bytes, flops)
+    return {"max_abs_err": err, "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain_fn),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cuda_ms(library_fn) if library_fn else None}
+
+
 def kernel_checks(G, device):
-    """Each kernel vs its plain version on the card at the slice's shapes.
-    -> {name: (max_abs_err, ms, plain_ms)}."""
+    """K1-K4 vs their plain versions on the card at the settings-parity
+    path's shapes. -> {name: summary}."""
     import torch
 
     from panic3d_tpu_torch.cameras import camera_label, sample_rays
@@ -145,11 +210,13 @@ def kernel_checks(G, device):
     e_sig = float((sig_k - sig_p).abs()[agree].max())
     check("rgb (bf16; 1 bf16 ulp below 1.0 = 2^-8)", e_rgb, 2.0 ** -8)
     check("sigma (f32, MLP summation order)", e_sig, 1e-4)
-    out["triplane_decode"] = (
+    # per point: 3 planes x 4 corners x 32 channel lerps, FC 32->64, FC 64->33
+    out["triplane_decode"] = record(
         max(e_rgb, e_sig),
-        cuda_ms(lambda: vr.triplane_decode_kernel(planes_cl, x_c, dec, rk["box_warp"], axes, filt)),
-        cuda_ms(lambda: vr.triplane_decode_plain(planes_cl, x_c, dec, rk["box_warp"], axes, filt)),
-    )
+        lambda: vr.triplane_decode_kernel(planes_cl, x_c, dec, rk["box_warp"], axes, filt),
+        lambda: vr.triplane_decode_plain(planes_cl, x_c, dec, rk["box_warp"], axes, filt),
+        nbytes(planes_cl, x_c, rgb_k, sig_k),
+        x_c.shape[0] * x_c.shape[1] * (3 * 32 * 6 + 2 * (32 * 64 + 64 * 33)))
 
     # K3 on the coarse pass's real sigmas: [2,4096,96,1] -> 96 fine depths
     s_c = sig_k.reshape(BATCH, R, S, 1)
@@ -158,9 +225,10 @@ def kernel_checks(G, device):
     d_fp = vr.importance_sample_plain(d_c, s_c, K)
     e = max_err(d_fk, d_fp)
     check("fine depths (f32; cdf summation order at the bracket edges)", e, 1e-4)
-    out["importance_sample"] = (
-        e, cuda_ms(lambda: vr.importance_sample_kernel(d_c, s_c, K)),
-        cuda_ms(lambda: vr.importance_sample_plain(d_c, s_c, K)))
+    out["importance_sample"] = record(
+        e, lambda: vr.importance_sample_kernel(d_c, s_c, K),
+        lambda: vr.importance_sample_plain(d_c, s_c, K), nbytes(d_c, s_c, d_fk),
+        BATCH * R * (S * 20 + K * 10))
 
     # K2 on the real coarse + fine samples (bf16 colors)
     x_f = coords_of(d_fk)
@@ -174,8 +242,10 @@ def kernel_checks(G, device):
     errs = [max_err(a, b) for a, b in zip(ck, cp)]
     for label, e in zip(("rgb", "depth", "weight total", "xyz"), errs):
         check(f"{label} (f32, summation order)", e, 1e-4)
-    out["ray_composite"] = (max(errs), cuda_ms(lambda: vr.ray_composite_kernel(*args)),
-                            cuda_ms(lambda: vr.ray_composite_plain(*args)))
+    out["ray_composite"] = record(
+        max(errs), lambda: vr.ray_composite_kernel(*args), lambda: vr.ray_composite_plain(*args),
+        nbytes(*[a for a in args if torch.is_tensor(a)], *ck),
+        BATCH * R * (S + K) * (2 * 35 + 20))
 
     # K4 at its largest call (SR block1 conv0: bf16 [2,256,256,256], up=2)
     # and at the backbone's f32 skip-image upsample
@@ -190,23 +260,201 @@ def kernel_checks(G, device):
     e32 = max_err(upfirdn2d_kernel(x32, f, (2, 2), (1, 1), (2, 1, 2, 1)),
                   upfirdn2d_plain(x32, f, (2, 2), (1, 1), (2, 1, 2, 1)))
     check("f32 skip-image upsample [2,96,128,128] (summation order)", e32, 1e-5)
-    out["upfirdn2d"] = (e, cuda_ms(lambda: upfirdn2d_kernel(x, *spec)),
-                        cuda_ms(lambda: upfirdn2d_plain(x, *spec)))
+    # the single library call for this upsample: a depthwise transposed
+    # convolution (stride 2) with the flipped 4x4 filter; check it first
+    w_t = f.flip([0, 1]).to(x.device, x.dtype)[None, None].expand(x.shape[1], 1, 4, 4).contiguous()
+
+    def library():
+        return torch.nn.functional.conv_transpose2d(x, w_t, stride=2, groups=x.shape[1])
+
+    e_lib = max_err(library(), yp)
+    check("library conv_transpose2d vs plain (1 bf16 ulp)", e_lib,
+          2.0 ** -7 * float(yp.abs().max()))
+    # each output takes 4 of the 16 taps (the others hit inserted zeros)
+    out["upfirdn2d"] = record(e, lambda: upfirdn2d_kernel(x, *spec),
+                              lambda: upfirdn2d_plain(x, *spec), nbytes(x, yk),
+                              yk.numel() * 4 * 2, library)
     return out
 
 
-def tiny_end_to_end(device):
-    """Tiny config in f32: the card (kernels) against the CPU (plain)."""
+def ess_paste_kernel_checks(G, x, device):
+    """K6, K7, K8 and K12 vs their plain versions on the card: K6 and K7 on
+    the planes of the seeded flagship (bench.py's inputs), K7's sampler and
+    K8 on its ESS render, K12 at the Pallas probe's shapes.
+    -> {name: summary}."""
+    import torch
+
+    from panic3d_tpu_torch.eval.generate import INFERENCE_OPTS
+    from panic3d_tpu_torch.models import triplane as tp
+    from panic3d_tpu_torch.models.volumetric import lattice as vlat
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+    from panic3d_tpu_torch.ops.gather_dot import gather_dot_kernel, gather_dot_plain
+
+    out = {}
+    rk, bw = G.rk, G.rk["box_warp"]
+    dec = G._decoder()
+    filt = vr.DensityFilters(x["triplane_crop"], x["cull_clouds"], None)
+    axes = vr.generate_plane_axes(rk["use_triplane"])
+    ref = G.f(x)                                       # ESS on, paste off
+    planes = ref["triplane"].float()
+    N = planes.shape[0]
+    ess = rk["ess"]
+    G_, ss = ess["grid"], ess.get("supersample", 2)
+    C = planes.shape[2]
+    mlp_flops = 2 * (C * 64 + 64) + 3 * C             # sigma-only decode of one point
+
+    # K6 occupancy: differing cells counted apart (a sigma within f32
+    # rounding of the cull or occupancy threshold may fall either side)
+    terms = vlat.lattice_features(planes, axes, (G_ * ss,) * 3, bw)
+    args6 = (terms, dec, bw, G_, ss, ess["thresh"], filt)
+    occ_k = vr.ess_occupancy_kernel(*args6)
+    occ_p = vr.ess_occupancy_plain(*args6)
+    differ = int((occ_k != occ_p).sum())
+    print(f"K6 ess_occupancy: {N} x {G_ * ss}^3 lattice -> {G_}^3, occupied "
+          f"{float(occ_k.mean()):.4f}; cells that differ: {differ} of {occ_k.numel()} "
+          f"(tol {occ_k.numel() // 10000})")
+    require(differ <= occ_k.numel() // 10000, f"K6: {differ} occupancy cells differ")
+    out["ess_occupancy"] = record(
+        float(differ), lambda: vr.ess_occupancy_kernel(*args6),
+        lambda: vr.ess_occupancy_plain(*args6), nbytes(*(t[0] for t in terms), occ_k),
+        N * (G_ * ss) ** 3 * mlp_flops)
+
+    # K6 narrowing, fed the same occupancy
+    occ_out = (vr.zero_feature_density(planes, dec, filt.cull_clouds, None)
+               > ess["thresh"]).float()
+    ro, rd, rays_img = flagship_rays(x, device)
+    S = rk["depth_resolution"]
+    args6b = (occ_k, occ_out, ro, rd, rk["ray_start"], rk["ray_end"], bw, rk, S)
+    nk, npl = vr.ess_narrow_kernel(*args6b), vr.ess_narrow_plain(*args6b)
+    errs = [max_err(a, b) for a, b in zip(nk, npl)]
+    for label, e in zip(("t0", "t1", "coarse depths"), errs):
+        check(f"K6 ess_narrow {label} (f32, the same rounded operations)", e, 1e-6)
+    span = float((nk[1] - nk[0]).mean())
+    print(f"  {ro.shape[0]} x {ro.shape[1]} rays, {ess['taps']} taps; mean narrowed span "
+          f"{span:.4f} of {rk['ray_end'] - rk['ray_start']}")
+    out["ess_narrow"] = record(
+        max(errs), lambda: vr.ess_narrow_kernel(*args6b), lambda: vr.ess_narrow_plain(*args6b),
+        nbytes(occ_k, ro, rd, *nk), ro.shape[0] * ro.shape[1] * (ess["taps"] * 20 + S * 5))
+
+    # K7 volume: a 256-long f32 suffix sum in another order; and a cull
+    # decision that flips changes a whole column below it, so columns that
+    # differ beyond the tolerance are counted apart
+    grid = tuple(rk.get("occ_grid", (128, 128, 256)))
+    terms7 = vlat.lattice_features(planes, axes, grid, bw)
+    args7 = (terms7, dec, bw, grid, filt)
+    A_k, A_p = vlat.occlusion_volume_kernel(*args7), vlat.occlusion_volume_plain(*args7)
+    tol7 = 1e-5 * float(A_p.abs().max())
+    col_err = (A_k - A_p).abs().amax(-1)
+    bad = int((col_err > tol7).sum())
+    print(f"K7 occlusion_volume: {N} x {grid} lattice; columns beyond tol: {bad} of "
+          f"{col_err.numel()} (tol {col_err.numel() // 10000})")
+    require(bad <= col_err.numel() // 10000, f"K7: {bad} columns differ")
+    e7 = float(col_err[col_err <= tol7].max())
+    check("A (f32; 1e-5 x max|A|, scan order)", e7, tol7)
+    out["occlusion_volume"] = record(
+        e7, lambda: vlat.occlusion_volume_kernel(*args7),
+        lambda: vlat.occlusion_volume_plain(*args7), nbytes(*(t[0] for t in terms7), A_k),
+        A_k.numel() * (mlp_flops + 4))
+
+    # K7 sampler on the render's surface points, fed the same volume
+    vol = G.front_occlusion_volume(ref["triplane"], x["triplane_crop"], x["cull_clouds"])
+    p = ref["image_xyz"] * torch.tensor([-1.0, 1.0, -1.0], device=device)[None, :, None, None]
+    pts = p.reshape(N, 3, -1).transpose(1, 2).contiguous()
+    seg = float(rk["ray_end"]) - float(rk["ray_start"])
+    args7b = (vol["A"], vol["density0"], pts, bw, 0.01, seg)
+    ok, op = vlat.occlusion_sample_kernel(*args7b), vlat.occlusion_sample_plain(*args7b)
+    e = max_err(ok, op)
+    check("K7 occlusion_sample (f32, the same rounded operations)", e, 1e-5)
+    out["occlusion_sample"] = record(
+        e, lambda: vlat.occlusion_sample_kernel(*args7b),
+        lambda: vlat.occlusion_sample_plain(*args7b), nbytes(pts, ok) + pts.shape[1] * N * 32,
+        pts.shape[1] * N * 40)
+
+    # K8 on the render, and on the render with its denser half made opaque
+    # and its surface points put on their rays (so that every mask passes
+    # part of the image: the seeded weights are not opaque anywhere)
+    pp = INFERENCE_OPTS["paste_params"]
+    occ_bin = (ok.transpose(1, 2).reshape(N, 1, 64, 64) < pp["thresh_occ"]).float()
+    front = x["cond"]["image_ortho_front"]
+    w_op = (ref["image_weights"] * 2).clamp_max(1.0)
+    flip = torch.tensor([-1.0, 1.0, -1.0], device=device)[None, :, None, None]
+    on_ray = (rays_img["ray_origins"] + ref["image_depth"] * rays_img["ray_directions"]) * flip
+    xyz_op = torch.where(w_op > 0.95, on_ray, ref["image_xyz"])
+    e8 = 0.0
+    for label, wts, xyz in (("render", ref["image_weights"], ref["image_xyz"]),
+                            ("opaque variant", w_op, xyz_op)):
+        dxyz = G._get_xyz_discrepancy(xyz, rays_img)
+        args8 = (ref["image"], front, wts, xyz, occ_bin, dxyz, bw, pp["thresh_weight"],
+                 pp["thresh_edges"], pp["thresh_dxyz"])
+        k8, p8 = tp.paste_composite_kernel(*args8), tp.paste_composite_plain(*args8)
+        agree = torch.ones_like(k8["mask"], dtype=torch.bool)
+        n_pix = k8["mask"].numel()
+        for key in ("mask_weights", "mask_edges", "mask_dxyz"):
+            flips = int((k8[key] != p8[key]).sum())
+            print(f"K8 paste_front ({label}) {key}: {flips} of {n_pix} pixels differ, passes "
+                  f"{float(k8[key].mean()):.4f} (tol {n_pix // 1000})")
+            require(flips <= n_pix // 1000, f"K8: {flips} {key} pixels differ")
+            agree &= k8[key] == p8[key]
+        e8 = max(e8, max_err(k8["mask_occ"], p8["mask_occ"]))
+        check("K8 mask_occ (bilinear upsample, f32)", max_err(k8["mask_occ"], p8["mask_occ"]),
+              1e-5)
+        print(f"  mask passes {float(k8['mask'].mean()):.4f}")
+
+        def where_agree(key):
+            return float((k8[key] - p8[key]).abs()[agree.expand_as(k8[key])].max())
+
+        e8 = max(e8, where_agree("mask"))
+        check("K8 mask where the binary masks agree (f32)", where_agree("mask"), 1e-5)
+        # the upsampled xyz and the front uv are the plain version's rounded
+        # operations, so the projection reads the same texels with the same
+        # weights
+        for key in ("paste", "image"):
+            e8 = max(e8, where_agree(key))
+            check(f"K8 {key} where the masks agree (f32, the same rounded operations)",
+                  where_agree(key), 1e-5)
+        if label == "render":
+            args_main, out_main = args8, k8
+    out["paste_front"] = record(
+        e8, lambda: tp.paste_composite_kernel(*args_main),
+        lambda: tp.paste_composite_plain(*args_main),
+        nbytes(*(a for a in args_main if torch.is_tensor(a)))
+        + nbytes(*(v for k_, v in out_main.items() if k_ != "mask_frontweight")),
+        n_pix * 400)
+
+    # K12 at the Pallas probe's shapes (scripts/bench_pallas_gather.py)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    table = torch.randn((4096, 128), generator=gen, device=device)
+    w = torch.randn((128, 64), generator=gen, device=device) * 0.1
+    idx = torch.randint(0, 4096, (131072,), generator=gen, device=device, dtype=torch.int32)
+    gk, gp = gather_dot_kernel(idx, table, w), gather_dot_plain(idx, table, w)
+    e = max_err(gk, gp)
+    check("K12 gather_dot (f32 dot of 128, summation order)", e, 2e-5)
+    # the function needs one row product per distinct index, then the copies
+    distinct = int(torch.unique(idx).numel())
+    print(f"  {idx.numel()} indices, {distinct} distinct rows")
+    out["gather_dot"] = record(
+        e, lambda: gather_dot_kernel(idx, table, w), lambda: gather_dot_plain(idx, table, w),
+        nbytes(idx, table, w, gk), distinct * w.shape[0] * w.shape[1] * 2)
+    return out
+
+
+def tiny_end_to_end(device, ess_paste: bool):
+    """Tiny config in f32: the card (kernels) against the CPU (plain); with
+    ess_paste, ESS (grid 8, 16 taps) and eval generate's paste_params on a
+    small occlusion lattice."""
     import torch
 
     from panic3d_tpu_torch import configs
+    from panic3d_tpu_torch.eval.generate import INFERENCE_OPTS
 
     rk = dict(superresolution_module="training.superresolution.SuperresolutionHybrid2X",
               depth_resolution=8, depth_resolution_importance=8, box_warp=0.7,
               ray_start=0.5, ray_end=1.5, white_back=True, use_triplane=True,
               render_dtype="float32")
+    if ess_paste:
+        rk.update(ess=dict(grid=8, taps=16, thresh=0.01, margin=1.0), occ_grid=(32, 32, 64))
     G = configs.tiny(synthesis_kwargs=dict(channel_base=2048, channel_max=64, num_fp16_res=0),
-                     rendering_kwargs=rk).init_weights(SEED).eval()
+                     rendering_kwargs=rk, device="cpu").init_weights(SEED).eval()
     with torch.no_grad():
         G.decoder.net[2].bias[0] += 2.5
     rng = np.random.RandomState(SEED)
@@ -215,40 +463,177 @@ def tiny_end_to_end(device):
          "cond": {"image_ortho_front": torch.from_numpy(rng.rand(BATCH, 3, 64, 64)).float(),
                   "resnet_chonk": torch.from_numpy(rng.randn(BATCH, 16, 8, 8)).float()},
          "triplane_crop": 0.1, "cull_clouds": 0.5}
+    if ess_paste:
+        x["paste_params"] = INFERENCE_OPTS["paste_params"]
     with torch.no_grad():
         ref = G.f(x)
         G.to(device)
         xd = dict(x, z=x["z"].to(device), cond={k: v.to(device) for k, v in x["cond"].items()})
         got = G.f(xd)
-    print("tiny config, f32: card (kernels) vs CPU (plain), tol 2e-3 (importance "
-          "resampling amplifies f32 rounding)")
-    for k in ("triplane", "image_raw", "image_depth", "image_weights", "image_xyz", "image"):
+    print(f"tiny config, f32, ESS and paste {'on' if ess_paste else 'off'}: card (kernels) vs "
+          "CPU (plain), tol 2e-3 (importance resampling amplifies f32 rounding)")
+    keys = ["triplane", "image_raw", "image_depth", "image_weights", "image_xyz"]
+    if not ess_paste:
+        keys.append("image")
+        for k in keys:
+            check(k, max_err(got[k].cpu(), ref[k]), 2e-3)
+        return
+    differ = int((got["_ess_occ"][0].cpu() != ref["_ess_occ"][0]).sum())
+    print(f"  occupancy cells that differ: {differ}")
+    require(differ == 0, f"tiny: {differ} occupancy cells differ")
+    for k in keys + ["image_prepaste"]:
         check(k, max_err(got[k].cpu(), ref[k]), 2e-3)
+    compare_paste(got["paste"], ref["paste"], 2e-3)
 
 
-def bf16_closeness(G, x, out, device):
+def compare_paste(got, ref, tol, with_projection=True):
+    """Paste outputs against a reference: the binary masks by the pixels
+    that differ (at most 1 % of them: each is a threshold of a value that
+    carries the render's rounding), the rest where every mask agrees. The
+    projected front image is compared only when both sides project the same
+    surface points (with_projection): its uv moves ~730 texels per unit of
+    xyz, so another precision's xyz reads other texels."""
+    import torch
+
+    got = {k: v.to(ref[k].device) for k, v in got.items() if torch.is_tensor(v)}
+    agree = torch.ones_like(ref["mask"], dtype=torch.bool)
+    n_pix = ref["mask"].numel()
+    for k in ("mask_weights", "mask_edges", "mask_dxyz"):
+        flips = int((got[k] != ref[k]).sum())
+        print(f"  {k}: {flips} of {n_pix} pixels differ; passes {float(ref[k].mean()):.4f}")
+        require(flips <= n_pix // 100, f"{k}: {flips} pixels differ")
+        agree &= got[k] == ref[k]
+    check("mask_occ (bilinear of the binary occlusion)",
+          float((got["mask_occ"] - ref["mask_occ"]).abs()[agree].max()), tol)
+    for k in ("image", "paste") if with_projection else ("image",):
+        check(f"paste {k} where the masks agree",
+              float((got[k] - ref[k]).abs()[agree.expand_as(ref[k])].max()), tol)
+
+
+def bf16_closeness(G, x, out, make_f32):
     """The flagship's default precision (bf16 planes, bf16 backbone blocks
     >= 32^2 and SR) against the same weights pinned to f32, on the card,
     within the JAX package's mixed-precision bounds
-    (tests/test_reference_parity.py::test_bf16_close)."""
+    (tests/test_reference_parity.py::test_bf16_close). With paste on, the
+    pre-paste image is held to the image bound and the pasted image is
+    compared where the paste masks agree."""
+    G32 = make_f32(sr_num_fp16_res=0, rendering_kwargs=dict(render_dtype="float32"),
+                   synthesis_kwargs=dict(channel_base=32768, channel_max=512, num_fp16_res=0))
+    G32.load_state_dict(G.state_dict())
+    ref = G32.eval().f(x)
+    print("flagship default (bf16) vs f32-pinned, same weights, on the card:")
+    image = "image_prepaste" if "paste" in out else "image"
+    for k, tol in (("image_raw", 0.05), (image, 0.08), ("image_depth", 0.05)):
+        check(k, max_err(out[k], ref[k]), tol)
+    if "paste" in out:
+        compare_paste(out["paste"], ref["paste"], 0.08, with_projection=False)
+    del G32
+
+
+def count_syncs(fn) -> int:
+    """The times one run of fn makes the host wait for the card (torch's
+    sync debug mode: a copy from or to pageable host memory, .item(), a
+    data-dependent shape)."""
+    import warnings
+
     import torch
 
-    from panic3d_tpu_torch import configs
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught)
 
-    G32 = configs.flagship(
-        eval_mode=True, sr_num_fp16_res=0, rendering_kwargs=dict(render_dtype="float32"),
-        synthesis_kwargs=dict(channel_base=32768, channel_max=512, num_fp16_res=0)).eval()
-    G32.load_state_dict(G.state_dict())
-    ref = G32.to(device).f(x)
-    print("flagship default (bf16) vs f32-pinned, same weights, on the card:")
-    for k, tol in (("image_raw", 0.05), ("image", 0.08), ("image_depth", 0.05)):
-        check(k, max_err(out[k], ref[k]), tol)
+
+def drive(label, fn, n_views, n_runs, card, unit="views"):
+    """Runs fn once to warm up, then n_runs times with the launch counts
+    zeroed before and read after, then once more counting its host waits;
+    prints views/s, peak memory, launches and host waits per run.
+    -> (last output, launch counts of the n_runs, summary dict)."""
+    import torch
+
+    from panic3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for _ in range(n_runs):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    counts = launch_counts()
+    per_run = {k: n / n_runs for k, n in counts.items() if n}
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times)
+    syncs = count_syncs(fn)
+    print(f"{label}: {n_runs} runs of {n_views} {unit}, median {med * 1e3:.3f} ms/run = "
+          f"{n_views / med:.3f} {unit}/s; peak memory {peak / 2**30:.3f} GiB; host waits "
+          f"per run {syncs}; launches per run "
+          + ", ".join(f"{k}={n:g}" for k, n in per_run.items()) + f"  [{card}]")
+    print("  run ms: " + ", ".join(f"{t * 1e3:.3f}" for t in times))
+    require(syncs == 0, f"{label}: the host waited for the card {syncs} times in a run")
+    return out, counts, {f"{unit}_per_s": n_views / med, "ms_per_run": med * 1e3,
+                         "peak_gib": peak / 2**30, "host_waits_per_run": syncs,
+                         "launches_per_run": per_run}
+
+
+def require_launched(counts, names, label):
+    missing = [k for k in names if counts[k] == 0]
+    require(not missing, f"{label}: kernels not launched: {missing}")
+
+
+def check_outputs(out, shape):
+    import torch
+
+    img = out["image"]
+    require(tuple(img.shape) == shape, f"image shape {tuple(img.shape)}")
+    for k in ("image", "image_raw", "image_depth", "image_weights", "image_xyz"):
+        if k in out:
+            require(bool(torch.isfinite(out[k]).all()), f"non-finite {k}")
+    require(float(out["image_weights"].abs().max()) > 0, "image_weights all zero")
+    print(f"  image range [{float(img.min()):.4f}, {float(img.max()):.4f}], "
+          f"mean weight {float(out['image_weights'].mean()):.4f}")
+
+
+def device_busy(trace: dict) -> str:
+    """The card's busy share in a profiled run, from its chrome trace: the
+    union of kernel, copy and memset intervals against the span from the
+    first host-side op to the last device interval."""
+    ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in ev
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    ops = [e for e in ev if e.get("cat") == "cpu_op"]
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in dev:
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    span = end - min(e["ts"] for e in ops + [{"ts": dev[0][0]}])
+    return (f"profiled request: device busy {busy / 1e3:.3f} ms of a {span / 1e3:.3f} ms span "
+            f"({100 * busy / span:.1f} %); {len(dev)} device kernels and copies from "
+            f"{len(ops)} host-side ops")
+
+
+RENDER_KERNELS = ("triplane_decode", "ray_composite", "importance_sample", "upfirdn2d")
+ESS_PASTE_KERNELS = RENDER_KERNELS + ("ess_occupancy", "ess_narrow", "occlusion_volume",
+                                      "occlusion_sample", "paste_front")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--profile", metavar="DIR", help="also profile one request into DIR")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="also profile one ESS + paste request into DIR")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build and check the kernels, then stop")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -263,11 +648,15 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from panic3d_tpu_torch import configs
-    from panic3d_tpu_torch.kernels import KERNELS, build, launch_counts, reset_launch_counts
+    from panic3d_tpu_torch.cameras import cam60, camsubs
+    from panic3d_tpu_torch.eval.generate import (
+        EVAL_VIEWS, INFERENCE_OPTS, plane_cache_ok, planes_bundle, render_from_planes)
+    from panic3d_tpu_torch.kernels import KERNELS, build, reset_launch_counts
+    from panic3d_tpu_torch.ops.gather_dot import gather_dot
 
     t0 = time.perf_counter()
     per = build.build_all()
-    print(f"built {len(per)} kernels in {time.perf_counter() - t0:.1f} s "
+    print(f"built {len(per)} sources in {time.perf_counter() - t0:.1f} s "
           + " ".join(f"{k}={v:.1f}s" for k, v in per.items()))
     for log in sorted(build.BUILD_DIR.glob("*.log")):
         for line in log.read_text().splitlines():
@@ -277,43 +666,79 @@ def main(argv=None) -> int:
     G = configs.flagship(eval_mode=True).init_weights(SEED).eval()
     with torch.no_grad():
         G.decoder.net[2].bias[0] += 2.5   # so that something renders (as test_flagship_parity)
-    G.to(device)
+    Ge = configs.flagship(eval_mode=True, ess=True).eval()
+    Ge.load_state_dict(G.state_dict())
+    paste = INFERENCE_OPTS["paste_params"]
 
     with torch.no_grad():
-        checks = kernel_checks(G, device)
-        tiny_end_to_end(device)
-
         x = flagship_inputs(G, device)
-        G.f(x)                                        # warm-up request
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        times = []
-        for _ in range(REQUESTS):
-            t = time.perf_counter()
-            out = G.f(x)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        counts = launch_counts()
-        peak = torch.cuda.max_memory_allocated()
+        checks = kernel_checks(G, device)
+        checks.update(ess_paste_kernel_checks(Ge, x, device))
+        if args.kernels_only:
+            print(json.dumps({"kernels": [dict(name=n, **checks[n]) for n in KERNELS]}))
+            print(card)
+            return 0
+        tiny_end_to_end(device, ess_paste=False)
+        tiny_end_to_end(device, ess_paste=True)
 
-        img = out["image"]
-        require(tuple(img.shape) == (BATCH, 3, 512, 512), f"image shape {tuple(img.shape)}")
-        for k in ("image", "image_raw", "image_depth", "image_weights", "image_xyz", "triplane"):
-            require(bool(torch.isfinite(out[k]).all()), f"non-finite {k}")
-        require(float(out["image_weights"].abs().max()) > 0, "image_weights all zero")
-        missing = [k for k, n in counts.items() if n == 0]
-        require(not missing, f"kernels not launched on the main path: {missing}")
-        med = statistics.median(times)
-        print(f"flagship eval forward (ess off, 96+96, bs={BATCH}): {REQUESTS} requests, "
-              f"median {med * 1e3:.3f} ms/request = {BATCH / med:.3f} views/s; "
-              f"peak memory {peak / 2**30:.3f} GiB; launches per request "
-              + ", ".join(f"{k}={n // REQUESTS}" for k, n in counts.items())
-              + f"  [{card}]")
-        print("  request ms: " + ", ".join(f"{t * 1e3:.3f}" for t in times))
-        print(f"  image range [{float(img.min()):.4f}, {float(img.max()):.4f}], "
-              f"mean weight {float(out['image_weights'].mean()):.4f}")
-        bf16_closeness(G, x, out, device)
+        # path 1: settings parity (ESS off, 96+96, paste off)
+        out, counts_parity, parity = drive(
+            f"settings-parity (ess off, 96+96, paste off, bs={BATCH})", lambda: G.f(x),
+            BATCH, REQUESTS, card)
+        check_outputs(out, (BATCH, 3, 512, 512))
+        require_launched(counts_parity, RENDER_KERNELS, "settings-parity")
+        bf16_closeness(G, x, out, lambda **kw: configs.flagship(eval_mode=True, **kw))
+        del out
+
+        # path 2: ESS + paste, per call
+        xp = dict(x, paste_params=paste)
+        out, counts_main, per_call = drive(
+            f"ESS + paste per call (48+48, bs={BATCH})", lambda: Ge.f(xp), BATCH, REQUESTS,
+            card)
+        check_outputs(out, (BATCH, 3, 512, 512))
+        require_launched(counts_main, ESS_PASTE_KERNELS, "ESS + paste per call")
+        for k in PASTE_KEYS:
+            print(f"  {k} passes {float(out['paste'][k].mean()):.4f}")
+        bf16_closeness(Ge, xp, out, lambda **kw: configs.flagship(eval_mode=True, ess=True,
+                                                                   **kw))
+        del out
+
+        # path 3: the per-portrait turntable (bench.py:202-264)
+        require(plane_cache_ok(Ge), "flagship eval mapping must be camera-free")
+        opts = dict(triplane_crop=0.1, cull_clouds=0.5, paste_params=paste)
+        cond1 = {k: v[:1] for k, v in x["cond"].items()}
+        spin = [("camP", f"{v:04d}", float(cam60[v][0]), float(cam60[v][1]), 30)
+                for v in camsubs["spin12"]]
+        views = EVAL_VIEWS + spin
+
+        def portrait():
+            bundle = planes_bundle(Ge, SEED, cond1, opts)
+            last = None
+            for i in range(0, len(views), BATCH):
+                cc = views[i:i + BATCH]
+                cc = cc + [cc[-1]] * (BATCH - len(cc))
+                last = render_from_planes(Ge, opts, bundle, [c[2] for c in cc],
+                                          [c[3] for c in cc], [c[4] for c in cc], cond1)
+            return last
+
+        out, counts_turn, turn = drive(
+            f"per-portrait turntable ({len(views)} views, view batch {BATCH})", portrait,
+            len(views), PORTRAITS, card)
+        check_outputs(out, (BATCH, 3, 512, 512))
+        require_launched(counts_turn, ESS_PASTE_KERNELS, "turntable")
+        print(f"  {turn['ms_per_run'] / 1e3:.4f} s/portrait")
+        del out
+
+        # K12's own path: the gather-decode probe at its shapes
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        table = torch.randn((4096, 128), generator=gen, device=device)
+        w = torch.randn((128, 64), generator=gen, device=device) * 0.1
+        idx = torch.randint(0, 4096, (131072,), generator=gen, device=device,
+                            dtype=torch.int32)
+        _, counts_probe, probe = drive("gather-decode probe (131072 rows)",
+                                       lambda: gather_dot(idx, table, w), 1, REQUESTS, card,
+                                       unit="calls")
+        require_launched(counts_probe, ("gather_dot",), "probe")
 
         if args.profile:
             from pathlib import Path
@@ -321,19 +746,26 @@ def main(argv=None) -> int:
             from torch.profiler import ProfilerActivity, profile
 
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                G.f(x)
+                Ge.f(xp)
                 torch.cuda.synchronize()
-            table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+            table_txt = prof.key_averages().table(sort_by="cuda_time_total", row_limit=50)
             Path(args.profile).mkdir(parents=True, exist_ok=True)
-            (Path(args.profile) / "flagship_profile.txt").write_text(table)
-            prof.export_chrome_trace(str(Path(args.profile) / "flagship_trace.json"))
-            print("\n".join(table.splitlines()[:30]))
+            (Path(args.profile) / "ess_paste_profile.txt").write_text(table_txt)
+            trace = Path(args.profile) / "ess_paste_trace.json"
+            prof.export_chrome_trace(str(trace))
+            print("\n".join(table_txt.splitlines()[:40]))
+            print(device_busy(json.loads(trace.read_text())) + f"  [{card}]")
 
+    reset_launch_counts()
+    paths = {"settings_parity": parity, "ess_paste_per_call": per_call, "turntable": turn,
+             "probe": probe}
+    print(json.dumps({"paths": paths, "card": card}))
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-         "launches": counts[name], "max_abs_err": checks[name][0],
-         "ms": checks[name][1], "plain_ms": checks[name][2]}
+         "launches": (counts_probe if name == "gather_dot" else counts_main)[name],
+         **checks[name]}
         for name, k in KERNELS.items()]}
+    print(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,10 +3,14 @@
 The module layout mirrors ``panic3d_tpu`` so each counterpart is easy to find:
 
   ops/        upfirdn2d (CUDA kernel K4), bias_act, conv2d_resample,
-              modulated_conv2d, grid_sample_2d_points
-  cameras/    camera labels, orthographic and pinhole rays
+              modulated_conv2d, 2-D / 3-D grid sampling, gather_dot (K12)
+  cameras/    camera labels, orthographic and pinhole rays, the view grid
   models/     StyleGAN2 generator side, superresolution, the triplane
-              generator, and volumetric/renderer.py with kernels K1-K3
+              generator with paste-front (K8), volumetric/renderer.py with
+              K1-K3 and empty-space skipping (K6), and volumetric/lattice.py
+              with the factorised lattice decode and occlusion volume (K7)
+  eval/       the per-portrait turntable of eval generate
+  utils/      image ops (sobel, morphology, nearest resize), device constants
   kernels/    the nvcc builder and the launch-count registry
   csrc/       the hand-written CUDA sources (sm_90a)
   runtime/    checkpoint name mapping (flax tree <-> torch state_dict)

@@ -1,2 +1,2 @@
-from .conventions import camera_label, euler_xyz_matrix, fov_to_focal, get_rays_ortho
+from .conventions import cam60, camera_label, camsubs, euler_xyz_matrix, fov_to_focal, get_rays_ortho
 from .rays import sample_rays

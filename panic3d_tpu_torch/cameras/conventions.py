@@ -8,7 +8,23 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from ..utils.device import constant
+
+# 60-view render grid: 5 elevations x 12 azimuths, transposed meshgrid order
+# (lustrous_renders_v1.py:14-17). Row i = (elev, azim).
+cam60 = np.stack(
+    np.meshgrid(np.linspace(60, -20, 5), np.linspace(-180, 150, 12))
+).T.reshape(60, 2).astype(np.float32)
+
+camsubs = {
+    "all": list(range(60)),
+    "front1": [42],
+    "front15": [28, 29, 30, 31, 32, 40, 41, 42, 43, 44, 52, 53, 54, 55, 56],
+    "spin12": [*range(42, 48), *range(36, 42)],
+}
 
 
 def _f32(v, device=None):
@@ -66,9 +82,11 @@ def camera_label(elev, azim, dist, fov):
     r4[..., 0, :] *= -1
     r4[..., 2, :] *= -1
     r4[..., 2, 3] = -dist
-    flip_a = torch.diag(_f32([-1.0, 1.0, -1.0, 1.0], elev.device))
-    flip_b = torch.diag(_f32([1.0, -1.0, -1.0, 1.0], elev.device))
-    extr = flip_a @ torch.linalg.inv(r4) @ flip_b
+    flip_a = torch.diag(constant([-1.0, 1.0, -1.0, 1.0], elev.device))
+    flip_b = torch.diag(constant([1.0, -1.0, -1.0, 1.0], elev.device))
+    # inv_ex skips inv's singularity check, which makes the host wait for the
+    # card; r4 is a rotation and a translation, never singular
+    extr = flip_a @ torch.linalg.inv_ex(r4).inverse @ flip_b
     return torch.cat([extr.reshape(batch + (16,)), intr.reshape(batch + (9,))], -1)
 
 
@@ -81,8 +99,8 @@ def get_rays_ortho(elev, azim, dist, boxwarp, resolution):
     u = (torch.arange(r, dtype=torch.float32, device=dev) + 0.5) / r * bw - bw / 2
     gx, gy = torch.meshgrid(u, -u, indexing="xy")
     p0 = torch.stack([gx, gy, torch.zeros_like(gx)], 0)            # [3, r, r]
-    p1 = p0 + _f32([0.0, 0.0, -1.0], dev)[:, None, None]
-    dz = dist.reshape(batch + (1, 1, 1)) * _f32([0.0, 0.0, 1.0], dev).reshape(
+    p1 = p0 + constant([0.0, 0.0, -1.0], dev)[:, None, None]
+    dz = dist.reshape(batch + (1, 1, 1)) * constant([0.0, 0.0, 1.0], dev).reshape(
         (1,) * len(batch) + (3, 1, 1))
     p0 = p0 + dz
     p1 = p1 + dz

@@ -1,11 +1,28 @@
 """Model configurations (panic3d_tpu/configs.py): ``flagship`` is the
 ecrutileE_eclustrousC 512^2 generator, ``tiny`` the CPU-sized test config.
-Empty-space skipping (``ess=True``) is not ported yet; the flagship here
-runs the reference's 96+96 quadrature in eval mode."""
+
+Both build on the CUDA device unless the caller passes ``device="cpu"``
+(or another device); without a CUDA device and without that argument they
+raise, so nothing falls back to the CPU silently. Seeded weights
+(``init_weights``) are drawn on the CPU and copied, so they are the same on
+either device."""
 
 from __future__ import annotations
 
+import torch
+
 from .models.triplane import TriPlaneGenerator
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else CUDA; raises when CUDA is asked for (or
+    defaulted to) and no CUDA device is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU; pass device='cpu' to "
+            "build the model on the CPU (plain PyTorch versions of the kernels)")
+    return dev
 
 FLAGSHIP_RENDERING_KWARGS = dict(
     image_resolution=512,
@@ -33,15 +50,21 @@ FLAGSHIP_RENDERING_KWARGS = dict(
 )
 
 
-def flagship(eval_mode: bool = False, ess: bool = False, **overrides) -> TriPlaneGenerator:
+def flagship(eval_mode: bool = False, ess: bool = False, device=None,
+             **overrides) -> TriPlaneGenerator:
     """The ecrutileE_eclustrousC 512^2 generator; eval_mode=True doubles the
-    ray samples (96+96) and sets force_sigmoid (eg3dc_v0.py:30-31,55-56)."""
-    if ess:
-        raise NotImplementedError("empty-space skipping (ess=True) is not ported yet")
+    ray samples (96+96) and sets force_sigmoid (eg3dc_v0.py:30-31,55-56).
+    ess=True turns on empty-space skipping: a 32^3 occupancy grid narrows
+    each ray to its occupied span, with 48+48 samples."""
+    dev = resolve_device(device)
     rk = dict(FLAGSHIP_RENDERING_KWARGS)
     if eval_mode:
         rk["depth_resolution"] = 96
         rk["depth_resolution_importance"] = 96
+    if ess:
+        rk["ess"] = dict(grid=32, taps=64, thresh=0.01, margin=1.0)
+        rk["depth_resolution"] = 48
+        rk["depth_resolution_importance"] = 48
     rk.update(overrides.pop("rendering_kwargs", {}))
     kwargs = dict(
         z_dim=512,
@@ -61,11 +84,12 @@ def flagship(eval_mode: bool = False, ess: bool = False, **overrides) -> TriPlan
         sr_num_fp16_res=4,
     )
     kwargs.update(overrides)
-    return TriPlaneGenerator(**kwargs)
+    return TriPlaneGenerator(**kwargs).to(dev)
 
 
-def tiny(**overrides) -> TriPlaneGenerator:
+def tiny(device=None, **overrides) -> TriPlaneGenerator:
     """Small config for tests and dry-runs (CPU-friendly)."""
+    dev = resolve_device(device)
     kwargs = dict(
         z_dim=64,
         c_dim=25,
@@ -91,4 +115,4 @@ def tiny(**overrides) -> TriPlaneGenerator:
         neural_rendering_resolution=16,
     )
     kwargs.update(overrides)
-    return TriPlaneGenerator(**kwargs)
+    return TriPlaneGenerator(**kwargs).to(dev)

@@ -13,7 +13,7 @@ from dataclasses import dataclass
 
 @dataclass
 class Kernel:
-    name: str
+    name: str        # the C entry point (one source may hold two)
     source: str      # CUDA source, relative to the repository root
     replaces: str    # the JAX op it stands in for, file:line
     launches: int = 0
@@ -42,8 +42,43 @@ KERNELS = {
             "panic3d_tpu_torch/csrc/upfirdn2d.cu",
             "panic3d_tpu/ops/upfirdn2d.py:238",
         ),
+        Kernel(
+            "ess_occupancy",
+            "panic3d_tpu_torch/csrc/ess.cu",
+            "panic3d_tpu/models/volumetric/renderer.py:303",
+        ),
+        Kernel(
+            "ess_narrow",
+            "panic3d_tpu_torch/csrc/ess.cu",
+            "panic3d_tpu/models/volumetric/renderer.py:378",
+        ),
+        Kernel(
+            "occlusion_volume",
+            "panic3d_tpu_torch/csrc/front_occlusion.cu",
+            "panic3d_tpu/models/volumetric/lattice.py:239",
+        ),
+        Kernel(
+            "occlusion_sample",
+            "panic3d_tpu_torch/csrc/front_occlusion.cu",
+            "panic3d_tpu/models/volumetric/lattice.py:303",
+        ),
+        Kernel(
+            "paste_front",
+            "panic3d_tpu_torch/csrc/paste_front.cu",
+            "panic3d_tpu/models/triplane.py:730",
+        ),
+        Kernel(
+            "gather_dot",
+            "panic3d_tpu_torch/csrc/gather_dot.cu",
+            "scripts/bench_pallas_gather.py:43",
+        ),
     )
 }
+
+
+def sources() -> list:
+    """The CUDA sources to build, one per file, in registry order."""
+    return list(dict.fromkeys(k.source for k in KERNELS.values()))
 
 
 def reset_launch_counts() -> None:

@@ -1,8 +1,9 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 The pattern of ``panic3d_tpu/runtime/native_ops.py`` (hash-keyed build
-cache, ctypes loading), pointed at nvcc: each ``csrc/<name>.cu`` becomes
-``build/kernels/<name>-<hash>.so`` at first use, so a fresh checkout builds
+cache, ctypes loading), pointed at nvcc: each ``csrc/<stem>.cu`` becomes
+``build/kernels/<stem>-<hash>.so`` at first use (a source may hold more
+than one entry point), so a fresh checkout builds
 everything the first time a kernel is called. The sources expose a plain C
 interface (no PyTorch headers), which keeps a build to seconds. Each C entry
 point launches on the stream it is given and returns ``cudaGetLastError()``;
@@ -21,7 +22,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from . import KERNELS
+from . import KERNELS, sources
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -41,14 +42,14 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu (plus the shared headers) into a cached .so.
+def build(stem: str) -> Path:
+    """Compile csrc/<stem>.cu (plus the shared headers) into a cached .so.
     The compiler's resource report (-Xptxas -v) is kept beside it as .log."""
-    src = CSRC / f"{name}.cu"
+    src = CSRC / f"{stem}.cu"
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in (src, *sorted(CSRC.glob("*.cuh"))):
         h.update(p.read_bytes())
-    so = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    so = BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
     if so.is_file():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -65,19 +66,21 @@ def build(name: str) -> Path:
 
 
 def build_all() -> dict:
-    """Build every kernel (in parallel); -> {name: seconds}."""
-    def one(name):
+    """Build every source (one nvcc each, all started together);
+    -> {stem: seconds}."""
+    def one(stem):
         t0 = time.perf_counter()
-        build(name)
-        return name, time.perf_counter() - t0
+        build(stem)
+        return stem, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(KERNELS)) as ex:
-        return dict(f.result() for f in [ex.submit(one, n) for n in KERNELS])
+    stems = [Path(src).stem for src in sources()]
+    with ThreadPoolExecutor(len(stems)) as ex:
+        return dict(f.result() for f in [ex.submit(one, s) for s in stems])
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(name: str, argtypes: tuple):
-    lib = ctypes.CDLL(str(build(name)))
+    lib = ctypes.CDLL(str(build(Path(KERNELS[name].source).stem)))
     lib.panic3d_error_string.restype = ctypes.c_char_p
     lib.panic3d_error_string.argtypes = [ctypes.c_int]
     fn = getattr(lib, name)
@@ -87,8 +90,8 @@ def _entry(name: str, argtypes: tuple):
 
 
 def launch(name: str, argtypes: tuple, *args) -> None:
-    """Call the C entry point ``name`` of csrc/<name>.cu; raise on a CUDA
-    error it reports (a refused launch never runs, and a later synchronize
+    """Call the C entry point ``name`` (from its registered source); raise on
+    a CUDA error it reports (a refused launch never runs, and a later synchronize
     would not report it)."""
     lib, fn = _entry(name, argtypes)
     rc = fn(*args)
@@ -107,4 +110,6 @@ def f32_array(values) -> ctypes.Array:
 # c_void_p (a plain int would be cut to 32 bits)
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+LONG = ctypes.c_longlong
 FLOAT = ctypes.c_float
+DOUBLE = ctypes.c_double

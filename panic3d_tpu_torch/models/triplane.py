@@ -1,13 +1,19 @@
 """TriPlaneGenerator: StyleGAN2 backbone -> triplanes -> volume render -> SR
-(panic3d_tpu/models/triplane.py).
+-> paste-front (panic3d_tpu/models/triplane.py).
 
 ``G.f(x)``, the kwargs-dict inference entry, is the public API, as in the
 JAX package. Ported: z / seeds / ws latents, camera labels from
 elevations/azimuths[/distances/fovs] or camera_params, the ortho/pinhole ray
-select, mapping, synthesis, triplane_crop / cull_clouds / binarize_clouds.
-Not ported yet (raise NotImplementedError): paste_params (paste-front),
-per-slot z+ latents (``zs``), latent injection, precomputed planes and the
-ESS occupancy inputs.
+select, mapping, synthesis, triplane_crop / cull_clouds / binarize_clouds,
+empty-space skipping (rendering_kwargs['ess']), paste-front compositing
+(``paste_params``, grid and render occlusion) and the precomputed inputs
+``_planes``, ``_skip_sr``, ``_ess_occ``, ``_occ_vol`` (``_rays_z_aligned``
+is accepted and changes nothing: the JAX package's z-aligned gather is a
+TPU row trick, bit-equal to the plain render). Kernel K8
+(csrc/paste_front.cu) does paste-front's per-pixel work; its wrapper sits
+here beside its plain version.
+Not ported yet (raise NotImplementedError): per-slot z+ latents (``zs``)
+and latent injection.
 """
 
 from __future__ import annotations
@@ -20,12 +26,18 @@ import torch.nn as nn
 
 from ..cameras.conventions import camera_label, get_rays_ortho
 from ..cameras.rays import sample_rays
-from .stylegan2 import FullyConnectedLayer, Generator, init_weights
+from ..kernels import KERNELS
+from ..kernels import build as kb
+from ..ops.grid_sample import grid_sample_2d_points
+from ..utils.device import constant
+from ..utils.imageops import erosion, resize_nearest, sobel_magnitude
+from .stylegan2 import FullyConnectedLayer, Generator, init_weights, resize_bilinear
 from .superresolution import SR_MODULES
+from .volumetric import lattice as vlat
 from .volumetric import renderer as vr
 
-_UNPORTED_INPUTS = ("zs", "latent_injection", "_planes", "_skip_sr", "_ess_occ",
-                    "_occ_vol", "_rays_z_aligned")
+_UNPORTED_INPUTS = ("zs", "latent_injection")
+_XYZ_FLIP = (-1.0, 1.0, -1.0)
 
 
 def seeds_to_z(seeds, z_dim: int) -> np.ndarray:
@@ -136,10 +148,43 @@ class TriPlaneGenerator(nn.Module):
         return self.backbone.mapping(z, c, truncation_psi=truncation_psi,
                                      truncation_cutoff=truncation_cutoff)
 
+    def _planes_from_ws(self, ws, cond, noise_mode="const"):
+        """Backbone synthesis -> planes [N,3,C,H,W] (triplane.py:264)."""
+        planes = self.backbone.synthesis(ws, cond, noise_mode=noise_mode)
+        return planes.reshape(planes.shape[0], 3, self.triplane_width, planes.shape[-2],
+                              planes.shape[-1])
+
+    def _decoder(self) -> vr.Decoder:
+        return self.decoder.weights(self.force_sigmoid)
+
+    def ess_occupancy_for_planes(self, planes, triplane_crop=None, cull_clouds=None,
+                                 binarize_clouds=None):
+        """The empty-space-skipping occupancy of ``planes`` (triplane.py:419),
+        computed once and passed as ``x['_ess_occ']`` to every view of
+        the same portrait. -> (occ [N,G,G,G], occ_outside 0-d)."""
+        rk = self.rk
+        return vr.ess_occupancy(vr.generate_plane_axes(rk.get("use_triplane", False)), planes,
+                                self._decoder(), rk["box_warp"], rk,
+                                vr.DensityFilters(triplane_crop, cull_clouds, binarize_clouds))
+
+    def front_occlusion_volume(self, planes, triplane_crop=None, cull_clouds=None,
+                               binarize_clouds=None):
+        """The paste-front occlusion volume of ``planes`` (triplane.py:640),
+        computed once and passed as ``x['_occ_vol']`` to every view."""
+        rk = self.rk
+        return vlat.front_occlusion_volume(
+            planes, self._decoder(), rk["box_warp"], rk, triplane_crop=triplane_crop,
+            cull_clouds=cull_clouds, binarize_clouds=binarize_clouds,
+            grid=tuple(rk.get("occ_grid", (128, 128, 256))))
+
     def synthesis(self, ws, c, cond=None, neural_rendering_resolution: Optional[int] = None,
                   force_rays=None, triplane_crop=None, cull_clouds=None,
-                  binarize_clouds=None, normalize_images=True, noise_mode="const"):
-        """triplane.py:145-252 -> the output dict."""
+                  binarize_clouds=None, normalize_images=True, noise_mode="const",
+                  planes=None, skip_superresolution=False, ess_occ=None):
+        """triplane.py:288-417 -> the output dict. ``planes`` skips the
+        backbone, ``skip_superresolution`` leaves ``image`` None (for
+        consumers of image_weights only), ``ess_occ`` pre-seeds the ESS
+        occupancy."""
         rk = self.rk
         res = neural_rendering_resolution or self.neural_rendering_resolution
         N = ws.shape[0]
@@ -151,21 +196,27 @@ class TriPlaneGenerator(nn.Module):
             if ray_origins.ndim == 4:   # [N,3,r,r] -> [N,M,3]
                 ray_origins = ray_origins.reshape(N, 3, -1).transpose(1, 2)
                 ray_directions = ray_directions.reshape(N, 3, -1).transpose(1, 2)
-        planes = self.backbone.synthesis(ws, cond, noise_mode=noise_mode)
-        planes = planes.reshape(N, 3, self.triplane_width, planes.shape[-2], planes.shape[-1])
-        out = vr.render(planes, self.decoder.weights(self.force_sigmoid),
-                        ray_origins.contiguous(), ray_directions.contiguous(), rk,
-                        triplane_crop=triplane_crop, cull_clouds=cull_clouds,
-                        binarize_clouds=binarize_clouds)
+        if planes is None:
+            planes = self._planes_from_ws(ws, cond, noise_mode=noise_mode)
+        if rk.get("ess"):
+            # the occupancy depends only on the planes: computed once and
+            # shared by every render of them (paste-front, turntables)
+            if ess_occ is None:
+                ess_occ = self.ess_occupancy_for_planes(planes, triplane_crop, cull_clouds,
+                                                        binarize_clouds)
+            rk = dict(rk, _ess_occ=ess_occ)
+        out = vr.render(planes, self._decoder(), ray_origins.contiguous(),
+                        ray_directions.contiguous(), rk, triplane_crop=triplane_crop,
+                        cull_clouds=cull_clouds, binarize_clouds=binarize_clouds)
 
         def image(t):
             return t.transpose(1, 2).reshape(N, -1, res, res)
 
         feature_image = image(out.rgb)
-        xyz_image = 0.5 * (image(out.xyz) + 1) * self._t([-1.0, 1.0, -1.0])[None, :, None, None]
+        xyz_image = 0.5 * (image(out.xyz) + 1) * constant(_XYZ_FLIP, self.device)[None, :, None, None]
         rgb_image = feature_image[:, :3]
-        sr_image = self.superresolution(rgb_image, feature_image, ws,
-                                        noise_mode=rk["superresolution_noise_mode"])
+        sr_image = None if skip_superresolution else self.superresolution(
+            rgb_image, feature_image, ws, noise_mode=rk["superresolution_noise_mode"])
         ans = {
             "image": sr_image,
             "image_raw": rgb_image,
@@ -174,27 +225,31 @@ class TriPlaneGenerator(nn.Module):
             "image_weights": image(out.weights),
             "image_xyz": xyz_image,
         }
+        if ess_occ is not None:
+            ans["_ess_occ"] = ess_occ
         if rk.get("tanh_rgb_output", False):
-            ans["image"] = torch.tanh(ans["image"])
+            if ans["image"] is not None:
+                ans["image"] = torch.tanh(ans["image"])
             ans["image_raw"] = torch.tanh(ans["image_raw"])
         if not normalize_images:
-            ans["image"] = 0.5 * ans["image"] + 0.5
+            if ans["image"] is not None:
+                ans["image"] = 0.5 * ans["image"] + 0.5
             ans["image_raw"] = 0.5 * ans["image_raw"] + 0.5
         return ans
 
     def f(self, x: Dict[str, Any], truncation_psi=1.0, truncation_cutoff=None,
           normalize_images=False, noise_mode="const"):
-        """Universal inference entry (triplane.py:313-508). Accepts ws | z |
+        """Universal inference entry (triplane.py:473-622). Accepts ws | z |
         seeds, camera_params | (elevations, azimuths[, distances, fovs]),
-        cond, triplane_crop / cull_clouds / binarize_clouds, force_rays.
-        Returns image, image_raw, image_depth, image_weights, image_xyz,
-        triplane, normalize_images."""
+        cond, triplane_crop / cull_clouds / binarize_clouds / paste_params,
+        force_rays, and the precomputed _planes / _skip_sr / _ess_occ /
+        _occ_vol. Returns image, image_raw, image_depth, image_weights,
+        image_xyz, triplane, normalize_images, plus _ess_occ with ESS on and
+        image_prepaste / paste when pasting."""
         x = dict(x)
         for k in _UNPORTED_INPUTS:
             if k in x:
                 raise NotImplementedError(f"G.f input {k!r} is not ported yet")
-        if x.get("paste_params"):
-            raise NotImplementedError("paste_params (paste-front) is not ported yet")
         rk = self.rk
         if "ws" not in x and "z" not in x:
             x["z"] = self._t(seeds_to_z(x["seeds"], self.z_dim))
@@ -226,20 +281,239 @@ class TriPlaneGenerator(nn.Module):
                 ro = torch.where(is_ortho, oro, ro)
                 rd = torch.where(is_ortho, ord_, rd)
             force_rays = {"ray_origins": ro, "ray_directions": rd}
+            x["force_rays"] = force_rays
 
         cond = x.get("cond")
-        ws = x["ws"] if "ws" in x else self.mapping(
-            self._t(x["z"]), cam, truncation_psi=truncation_psi,
-            truncation_cutoff=truncation_cutoff)
+        if "ws" not in x:
+            x["ws"] = self.mapping(self._t(x["z"]), cam, truncation_psi=truncation_psi,
+                                   truncation_cutoff=truncation_cutoff)
         normalize_images = x.get("normalize_images", normalize_images)
         synth = self.synthesis(
-            ws, cam, cond, neural_rendering_resolution=res, force_rays=force_rays,
+            x["ws"], cam, cond, neural_rendering_resolution=res, force_rays=force_rays,
             triplane_crop=x.get("triplane_crop"), cull_clouds=x.get("cull_clouds"),
             binarize_clouds=x.get("binarize_clouds"), normalize_images=normalize_images,
-            noise_mode=noise_mode)
-        return {k: synth[k] for k in ("image", "image_raw", "image_depth",
-                                      "image_weights", "triplane", "image_xyz")} | {
-            "normalize_images": normalize_images}
+            noise_mode=noise_mode, planes=x.get("_planes"),
+            skip_superresolution=x.get("_skip_sr", False), ess_occ=x.get("_ess_occ"))
+        ret = {k: synth[k] for k in ("image", "image_raw", "image_depth", "image_weights",
+                                     "triplane", "image_xyz")}
+        ret["normalize_images"] = normalize_images
+        if "_ess_occ" in synth:
+            # shared with paste-front's auxiliary renders
+            ret["_ess_occ"] = synth["_ess_occ"]
+        x.update(ret)
+        if x.get("paste_params"):
+            ret["image_prepaste"] = ret["image"]
+            paste = self.paste_front(x, ret, noise_mode=noise_mode, **x["paste_params"])
+            ret["paste"] = paste
+            ret["image"] = paste["image"]
+        return ret
 
-    def paste_front(self, *args, **kwargs):
-        raise NotImplementedError("paste-front compositing is not ported yet")
+    # -- paste-front compositing (triplane.py:626-815) ------------------------
+
+    def _get_front_occlusion_grid(self, x, out, offset=0.01):
+        """Front occlusion from the per-portrait volume (triplane.py:657):
+        the total +z opacity past each surface point, [N,1,H,W]."""
+        rk = self.rk
+        vol = x.get("_occ_vol")
+        if vol is None:
+            vol = self.front_occlusion_volume(
+                x["triplane"], triplane_crop=x.get("triplane_crop"),
+                cull_clouds=x.get("cull_clouds"), binarize_clouds=x.get("binarize_clouds"))
+        p = out["image_xyz"] * constant(_XYZ_FLIP, self.device)[None, :, None, None]   # plane-space xyz
+        N, _, H, W = p.shape
+        pts = p.reshape(N, 3, -1).transpose(1, 2)
+        seg_len = float(rk["ray_end"]) - float(rk["ray_start"])
+        occ = vlat.sample_front_occlusion(vol, pts, offset, seg_len)
+        return occ.transpose(1, 2).reshape(N, 1, H, W)
+
+    def _get_front_occlusion(self, x, out, offset=0.01, noise_mode="const"):
+        """Front occlusion by a re-render along +z from each surface point
+        (triplane.py:686, occ_impl='render'), reusing the planes and the
+        ESS occupancy; SR is skipped (image_weights does not need it)."""
+        ro = out["image_xyz"] * constant(_XYZ_FLIP, self.device)[None, :, None, None]
+        ro = ro.clone()
+        ro[:, 2] += -(self.rk["ray_start"] - offset)
+        rd = torch.zeros_like(ro)
+        rd[:, 2] = 1.0
+        xin = {k: v for k, v in x.items() if k not in ("paste_params", "force_rays")}
+        xin["paste_params"] = None
+        xin["force_rays"] = {"ray_origins": ro, "ray_directions": rd}
+        if "triplane" in x:
+            xin["_planes"] = x["triplane"]
+        xin["_skip_sr"] = True
+        xin["_rays_z_aligned"] = True
+        return self.f(xin, noise_mode=noise_mode)["image_weights"]
+
+    def _get_front_weights(self, x, noise_mode="const"):
+        """The front ortho view's weights (triplane.py:705), for
+        front_weight_erosion."""
+        bs = x["cond"]["image_ortho_front"].shape[0]
+        xin = {k: v for k, v in x.items()
+               if k not in ("paste_params", "camera_params", "conditioning_params",
+                            "force_rays")}
+        xin["elevations"] = torch.zeros(bs, device=self.device)
+        xin["azimuths"] = torch.zeros(bs, device=self.device)
+        xin["fovs"] = -torch.ones(bs, device=self.device)
+        if "triplane" in x:
+            xin["_planes"] = x["triplane"]
+        xin["_skip_sr"] = True
+        return self.f(xin, noise_mode=noise_mode)["image_weights"]
+
+    @staticmethod
+    def _get_xyz_discrepancy(xyz, rays):
+        """Distance of each composited point from its ray (triplane.py:723)."""
+        a, n = rays["ray_origins"], rays["ray_directions"]
+        p = xyz * constant(_XYZ_FLIP, xyz.device).to(xyz.dtype)[None, :, None, None]
+        perp = (p - a) - torch.sum((p - a) * n, dim=1, keepdim=True) * n
+        return torch.linalg.vector_norm(perp, dim=1, keepdim=True)
+
+    def paste_front(self, x, out, mode="default", thresh_weight=0.95, thresh_edges=0.02,
+                    thresh_occ=0.05, offset_occ=0.01, thresh_dxyz=0.01,
+                    front_weight_erosion=0, force_image=None, occ_impl="grid",
+                    noise_mode="const", **kwargs):
+        """Project the conditioning front view onto the render where the
+        surface faces the front camera unoccluded (triplane.py:730). The
+        64^2 inputs (occlusion, xyz discrepancy) are plain torch; the
+        per-pixel masks, projection and blend are kernel K8."""
+        bw = self.rk["box_warp"]
+        front_rgb = x["cond"]["image_ortho_front"]
+        size = out["image"].shape[-1]
+        if front_rgb.shape[-1] != size:
+            front_rgb = resize_bilinear(front_rgb, size)
+        with torch.no_grad():
+            if occ_impl == "grid" and isinstance(self.rk["ray_start"], (int, float)):
+                occ = self._get_front_occlusion_grid(x, out, offset=offset_occ)
+            else:
+                occ = self._get_front_occlusion(x, out, offset=offset_occ,
+                                                noise_mode=noise_mode)
+            occ_bin = (occ < thresh_occ).to(torch.float32)
+            dxyz = self._get_xyz_discrepancy(out["image_xyz"], x["force_rays"])
+            frontw = fwmask = None
+            if front_weight_erosion >= 1:
+                frontw = self._get_front_weights(x, noise_mode=noise_mode)
+                fw = erosion((frontw > 0.5).to(torch.float32), front_weight_erosion)
+                fwmask = resize_nearest(
+                    sample_orthofront(fw, resize_bilinear(out["image_xyz"], size), bw), size)
+        if force_image is None:
+            tocopy = front_rgb if not x["normalize_images"] else front_rgb * 2 - 1
+        else:
+            tocopy = force_image
+        ans = paste_composite(out["image"], tocopy, out["image_weights"], out["image_xyz"],
+                              occ_bin, dxyz, bw, thresh_weight, thresh_edges, thresh_dxyz,
+                              fwmask)
+        ans["frontweight"] = frontw
+        return ans
+
+
+# ---------------------------------------------------------------------------
+# K8 paste_front: the per-pixel masks, front projection and blend
+
+def sample_orthofront(front, view_xyz, bw: float):
+    """Border-clamped bilinear sample of the front image [N,C,Hf,Wf] at
+    each pixel's front-view uv, uv = 1 - (xyz[[1,0]] + bw/2) / bw
+    (triplane.py:626) -> [N,C,Hg,Wg]."""
+    vij = 1 - (view_xyz[:, [1, 0]] + bw / 2) / bw
+    img = front.transpose(2, 3)
+    N, C = img.shape[:2]
+    Hg, Wg = vij.shape[-2:]
+    out = grid_sample_2d_points(img, (vij.permute(0, 2, 3, 1) * 2 - 1).reshape(N, -1, 2),
+                                padding_mode="border")
+    return out.transpose(1, 2).reshape(N, C, Hg, Wg)
+
+
+def upsample_bilinear(m, size: int):
+    """[N,C,r,r] -> [N,C,size,size], bilinear with align_corners=False:
+    F.interpolate's formula (source index clamped at 0, upper neighbour
+    clamped at the edge), each multiply and add a torch op of its own, so
+    that every rounding is fixed and K8 can repeat it."""
+    r = m.shape[-1]
+    src = ((torch.arange(size, dtype=torch.float32, device=m.device) + 0.5) * (r / size)
+           - 0.5).clamp_min(0.0)
+    i0 = src.to(torch.int64)
+    i1 = (i0 + 1).clamp_max(r - 1)
+    l1 = src - i0
+    l0 = 1 - l1
+    m = m.to(torch.float32)
+
+    def lerp_w(rows):
+        return rows[..., i0] * l0 + rows[..., i1] * l1
+
+    return lerp_w(m[:, :, i0]) * l0[:, None] + lerp_w(m[:, :, i1]) * l1[:, None]
+
+
+def paste_composite_plain(image, front, weights, xyz, occ_bin, dxyz, bw: float,
+                          thresh_weight: float, thresh_edges: float, thresh_dxyz: float,
+                          fwmask=None):
+    """paste_front's per-pixel work at the output size S = image's
+    (triplane.py:750-815): weights, xyz, the binary occlusion map and the
+    xyz discrepancy [N,*,r,r] are upsampled to S (bilinear; nearest for
+    the discrepancy) and thresholded into masks; the front image is
+    projected through the upsampled xyz; the blend is
+    image + (paste - image) * mask. -> dict of image, paste, mask and the
+    masks (mask_weights, mask_edges, mask_occ, mask_dxyz, mask_frontweight)."""
+    image = image.to(torch.float32)
+    size = image.shape[-1]
+    wmask = (upsample_bilinear(weights, size) > thresh_weight).to(torch.float32)
+    xyz_up = upsample_bilinear(xyz, size)
+    smask = (sobel_magnitude(xyz_up) < thresh_edges).to(torch.float32)
+    fmask = upsample_bilinear(occ_bin, size)
+    dmask = (resize_nearest(dxyz, size) < thresh_dxyz).to(torch.float32)
+    fw = torch.ones_like(dmask) if fwmask is None else fwmask
+    mask = wmask * smask * fmask * dmask * fw
+    paste = sample_orthofront(front, xyz_up, bw)
+    return {"image": image + (paste - image) * mask, "paste": paste, "mask": mask,
+            "mask_weights": wmask, "mask_edges": smask, "mask_occ": fmask,
+            "mask_dxyz": dmask, "mask_frontweight": fw}
+
+
+_K8_ARGS = ((kb.PTR,) * 2 + (kb.INT,) * 3 + (kb.PTR,) * 5 + (kb.PTR,) * 7 + (kb.INT,) * 3
+            + (kb.FLOAT,) * 6 + (kb.PTR,))
+
+
+def paste_composite_kernel(image, front, weights, xyz, occ_bin, dxyz, bw: float,
+                           thresh_weight: float, thresh_edges: float, thresh_dxyz: float,
+                           fwmask=None):
+    """Launch K8 on CUDA tensors: same contract as paste_composite_plain."""
+    dev = image.device
+    image = image.to(torch.float32).contiguous()
+    N, _, S, S2 = image.shape
+    vr._require(S == S2, "K8 takes square images")
+    C, Hf, Wf = front.shape[1:]
+    vr._require(C == image.shape[1] and front.shape[0] == N and front.device == dev,
+                "K8 front must be [N,C,Hf,Wf] with the image's N and C, on its device")
+    r = weights.shape[-1]
+    ins = [front.to(torch.float32).contiguous()]
+    for t_, ch in ((weights, 1), (xyz, 3), (occ_bin, 1), (dxyz, 1)):
+        vr._require(tuple(t_.shape) == (N, ch, r, r) and t_.device == dev,
+                    f"K8 takes [N,{ch},r,r] maps on the image's device")
+        ins.append(t_.to(torch.float32).contiguous())
+    if fwmask is not None:
+        vr._require(tuple(fwmask.shape) == (N, 1, S, S), "K8 fwmask must be [N,1,S,S]")
+        ins.append(fwmask.to(torch.float32).contiguous())
+    out = {"image": torch.empty_like(image),
+           "paste": torch.empty((N, C, S, S), dtype=torch.float32, device=dev)}
+    for k in ("mask", "mask_weights", "mask_edges", "mask_occ", "mask_dxyz"):
+        out[k] = torch.empty((N, 1, S, S), dtype=torch.float32, device=dev)
+    kb.launch(
+        "paste_front", _K8_ARGS, image.data_ptr(), ins[0].data_ptr(), C, Hf, Wf,
+        *(t_.data_ptr() for t_ in ins[1:5]),
+        ins[5].data_ptr() if fwmask is not None else None,
+        *(out[k].data_ptr() for k in ("image", "paste", "mask", "mask_weights", "mask_edges",
+                                      "mask_occ", "mask_dxyz")),
+        N, S, r, float(bw), float(thresh_weight), float(thresh_edges), float(thresh_dxyz),
+        float(r / S), float(r / S), vr._stream(image))
+    KERNELS["paste_front"].launches += 1
+    out["mask_frontweight"] = torch.ones_like(out["mask"]) if fwmask is None else fwmask
+    return out
+
+
+def paste_composite(image, front, weights, xyz, occ_bin, dxyz, bw: float,
+                    thresh_weight: float, thresh_edges: float, thresh_dxyz: float,
+                    fwmask=None):
+    args = (image, front, weights, xyz, occ_bin, dxyz, bw, thresh_weight, thresh_edges,
+            thresh_dxyz, fwmask)
+    if image.device.type == "cpu":
+        return paste_composite_plain(*args)
+    if image.device.type == "cuda":
+        return paste_composite_kernel(*args)
+    raise RuntimeError(f"paste_front: no path for device {image.device}")

@@ -1,7 +1,8 @@
 """Hierarchical (coarse + importance) triplane volume renderer
-(panic3d_tpu/models/volumetric/renderer.py), eval path.
+(panic3d_tpu/models/volumetric/renderer.py), eval path, with empty-space
+skipping.
 
-Three CUDA kernels carry the render on the card, each wrapped here beside
+Five CUDA kernels carry the render on the card, each wrapped here beside
 its plain PyTorch version:
 
 - K1 ``triplane_decode`` (csrc/triplane_decode.cu): triplane sample -> plane
@@ -9,13 +10,15 @@ its plain PyTorch version:
 - K2 ``ray_composite`` (csrc/ray_composite.cu): stable depth merge of the
   coarse and fine samples + midpoint-quadrature composite, per ray;
 - K3 ``importance_sample`` (csrc/importance_sample.cu): coarse weights ->
-  smoothed pdf -> inverse-CDF depths at u = linspace(0, 1, K), per ray.
+  smoothed pdf -> inverse-CDF depths at u = linspace(0, 1, K), per ray;
+- K6 ``ess_occupancy`` and ``ess_narrow`` (csrc/ess.cu): the empty-space-
+  skipping occupancy grid decoded from the factorised lattice terms
+  (lattice.py), and each ray's narrowed interval with its coarse depths.
 
 A wrapper takes its plain version only for CPU tensors; on a CUDA tensor it
-launches its kernel or raises. Not ported yet: empty-space skipping
-(``options['ess']``), ``ray_start='auto'``, disparity-space sampling,
-triplane_depth > 1, random (keyed) sampling, and the TPU-only ray chunking
-and corner packing (ROADMAP "Do not port").
+launches its kernel or raises. Not ported yet: ``ray_start='auto'``,
+disparity-space sampling, triplane_depth > 1, random (keyed) sampling, and
+the TPU-only ray chunking and corner packing (ROADMAP "Do not port").
 """
 
 from __future__ import annotations
@@ -144,15 +147,27 @@ def _apply_density_filters(densities, xyz, box_warp, triplane_crop, cull_clouds,
 # ---------------------------------------------------------------------------
 # sampling (deterministic eval form, key=None)
 
-def sample_stratified(ray_origins, ray_start: float, ray_end: float,
-                      depth_resolution: int):
-    """Midpoint-stratified depths [N,M,S,1] over a fixed interval
-    (renderer.py:303-326 with key=None: jitter 0.5)."""
+def batched_linspace(start, stop, num: int):
+    """[num, *start.shape] linspace (math_utils.py:101-118), in the JAX
+    package's formula start + arange(n)/(n-1) * (stop - start)."""
+    steps = torch.arange(num, dtype=torch.float32, device=start.device) / (num - 1)
+    steps = steps.reshape((num,) + (1,) * start.ndim)
+    return start[None] + steps * (stop - start)[None]
+
+
+def sample_stratified(ray_origins, ray_start, ray_end, depth_resolution: int):
+    """Midpoint-stratified depths [N,M,S,1] (renderer.py:479-483 with
+    key=None: jitter 0.5) over a fixed interval (floats) or per-ray
+    intervals ([N,M,1] tensors, the ESS-narrowed form)."""
     N, M, _ = ray_origins.shape
     S = depth_resolution
-    depths = torch.linspace(ray_start, ray_end, S, device=ray_origins.device)
-    depths = depths.reshape(1, 1, S, 1) + 0.5 * ((ray_end - ray_start) / (S - 1))
-    return depths.expand(N, M, S, 1)
+    if isinstance(ray_start, (int, float)):
+        depths = torch.linspace(ray_start, ray_end, S, device=ray_origins.device)
+        depths = depths.reshape(1, 1, S, 1) + 0.5 * ((ray_end - ray_start) / (S - 1))
+        return depths.expand(N, M, S, 1)
+    depths = batched_linspace(ray_start, ray_end, S).permute(1, 2, 0, 3)   # [N,M,S,1]
+    delta = (ray_end - ray_start) / (S - 1)
+    return depths + 0.5 * delta[..., None]
 
 
 def sample_pdf(bins, weights, n_importance: int, eps: float = 1e-5):
@@ -222,6 +237,22 @@ class DensityFilters(NamedTuple):
     binarize_clouds: Optional[float] = None
 
 
+def _decoder_f32(dec: Decoder, dev):
+    """The decoder's raw parameters as contiguous f32 on ``dev``; the
+    equalized-lr gains are applied in the kernels."""
+    return tuple(t.to(device=dev, dtype=torch.float32).contiguous()
+                 for t in (dec.w0, dec.b0, dec.w1, dec.b1))
+
+
+def _filter_args(filters: DensityFilters, box_warp: float):
+    """(use_crop, crop_lim, cull_mode, cull_thresh) as K1, K6 and K7 take
+    them; cull_mode 0 off, 1 cull, 2 binarize."""
+    crop, cull, binarize = filters
+    cull_mode, thresh = (2, binarize) if binarize else ((1, cull) if cull else (0, 0.0))
+    return (int(bool(crop)), (box_warp / 2 - crop) if crop else 0.0, cull_mode,
+            float(thresh))
+
+
 def triplane_decode_plain(planes_cl, coords, dec: Decoder, box_warp: float,
                           plane_axes, filters: DensityFilters):
     """planes_cl [N,3,H,W,C] channels-last, coords [N,M,3] ->
@@ -229,16 +260,32 @@ def triplane_decode_plain(planes_cl, coords, dec: Decoder, box_warp: float,
     least f32 (bf16 planes are upcast as they are read)."""
     acc = _acc(planes_cl.dtype)
     planes = planes_cl.to(acc).permute(0, 1, 4, 2, 3)
-    x = sample_from_planes(plane_axes, planes, coords.to(acc), box_warp).mean(dim=1)
+    rgb, sigma = osg_decode(sample_from_planes(plane_axes, planes, coords.to(acc), box_warp),
+                            dec)
+    sigma = _apply_density_filters(sigma, coords.to(acc), box_warp, *filters)
+    return rgb.to(planes_cl.dtype), sigma
+
+
+def osg_decode(feats, dec: Decoder, sigma_only: bool = False):
+    """OSGDecoder on sampled features [N,P,M,C] (triplane.py:63-130): mean
+    over the planes -> FC(C->64) -> softplus -> FC(64->33) -> (rgb [N,M,32],
+    sigma [N,M,1]); sigma_only keeps net2's sigma row alone (rgb None), as
+    the density-only consumers (ESS occupancy, occlusion volume) do."""
+    acc = _acc(feats.dtype)
+    x = feats.to(acc).mean(dim=1)
     C, hidden = dec.w0.shape[1], dec.w0.shape[0]
     x = x @ (dec.w0.to(acc) * (dec.lr_mul / math.sqrt(C))).T + dec.b0.to(acc) * dec.lr_mul
     x = softplus(x)
-    x = x @ (dec.w1.to(acc) * (dec.lr_mul / math.sqrt(hidden))).T + dec.b1.to(acc) * dec.lr_mul
+    w1, b1 = dec.w1.to(acc), dec.b1.to(acc)
+    if sigma_only:
+        w1, b1 = w1[0:1], b1[0:1]
+    x = x @ (w1 * (dec.lr_mul / math.sqrt(hidden))).T + b1 * dec.lr_mul
+    if sigma_only:
+        return None, x
     rgb = torch.sigmoid(x[..., 1:])
     if not dec.force_sigmoid:
         rgb = rgb * (1 + 2 * 0.001) - 0.001        # MipNeRF sigmoid clamp
-    sigma = _apply_density_filters(x[..., 0:1], coords.to(acc), box_warp, *filters)
-    return rgb.to(planes_cl.dtype), sigma
+    return rgb, x[..., 0:1]
 
 
 _K1_ARGS = ((kb.PTR, kb.INT) + (kb.PTR,) * 7 + (kb.INT,) * 5 + (kb.PTR,) + (kb.FLOAT,) * 4
@@ -260,8 +307,7 @@ def triplane_decode_kernel(planes_cl, coords, dec: Decoder, box_warp: float,
              "K1 coords must be contiguous f32 [N,M,3]")
     dev = planes_cl.device
     _require(coords.device == dev, "K1 inputs must share a device")
-    w0, b0, w1, b1 = (t.to(device=dev, dtype=torch.float32).contiguous()
-                      for t in (dec.w0, dec.b0, dec.w1, dec.b1))
+    w0, b0, w1, b1 = _decoder_f32(dec, dev)
     _require(tuple(w0.shape) == (64, C) and tuple(b0.shape) == (64,)
              and tuple(w1.shape) == (33, 64) and tuple(b1.shape) == (33,),
              "K1 takes a 64-wide hidden layer and 33 outputs")
@@ -269,16 +315,13 @@ def triplane_decode_kernel(planes_cl, coords, dec: Decoder, box_warp: float,
     rgb = torch.empty((N, M, 32), dtype=planes_cl.dtype, device=dev)
     sigma = torch.empty((N, M, 1), dtype=torch.float32, device=dev)
     proj = np.linalg.inv(plane_axes)[:, :, :2]                  # [plane][xyz][uv]
-    crop, cull, binarize = filters
-    cull_mode, thresh = (2, binarize) if binarize else ((1, cull) if cull else (0, 0.0))
     kb.launch(
         "triplane_decode", _K1_ARGS, planes_cl.data_ptr(), _DTYPES[planes_cl.dtype],
         coords.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         rgb.data_ptr(), sigma.data_ptr(), N, M, H, W, C,
         kb.f32_array(proj.reshape(-1)), 2.0 / box_warp,
         dec.lr_mul / math.sqrt(C), dec.lr_mul / math.sqrt(64), dec.lr_mul,
-        int(dec.force_sigmoid), int(bool(crop)), (box_warp / 2 - crop) if crop else 0.0,
-        cull_mode, float(thresh), _stream(planes_cl),
+        int(dec.force_sigmoid), *_filter_args(filters, box_warp), _stream(planes_cl),
     )
     KERNELS["triplane_decode"].launches += 1
     return rgb, sigma
@@ -383,6 +426,229 @@ def importance_sample(depths, sigmas, n_importance: int):
 
 
 # ---------------------------------------------------------------------------
+# empty-space skipping (renderer.py:275-440): a conservative occupancy grid
+# decoded once per set of planes narrows each ray's interval to its
+# occupied span, so 48+48 samples do the work of 96+96
+
+def zero_feature_density(planes, dec: Decoder, cull_clouds, binarize_clouds):
+    """Filtered density of the zero-feature decode (what a point outside
+    the box sees), a 0-d f32 tensor (renderer.py:275). triplane_crop is not
+    applied (it needs a position): conservative. ``planes`` [N,3,C,H,W]
+    gives only the device and the channel count."""
+    C, n_planes = planes.shape[2], planes.shape[1]
+    _, sigma0 = osg_decode(torch.zeros((1, n_planes, 1, C), device=planes.device), dec,
+                           sigma_only=True)
+    sigma0 = sigma0.float()
+    density0 = softplus(sigma0 - 1)
+    if binarize_clouds:
+        density0 = torch.where(cull_clouds_mask(sigma0, binarize_clouds),
+                               torch.zeros_like(density0), torch.full_like(density0, math.inf))
+    elif cull_clouds:
+        density0 = torch.where(cull_clouds_mask(sigma0, cull_clouds),
+                               torch.zeros_like(density0), density0)
+    return density0.reshape(-1)[0]
+
+
+def ess_occupancy_plain(terms, dec: Decoder, box_warp: float, grid: int, supersample: int,
+                        thresh: float, filters: DensityFilters):
+    """The occupancy of renderer.py:303 from the factorised lattice terms
+    (lattice.lattice_features on a (grid*supersample)^3 lattice): the
+    plane-mean decode (sigma only), the density filters at the cell centres,
+    softplus(sigma-1) > thresh, the supersample max-pool and the 3^3
+    dilation -> occ [N,G,G,G] f32 0/1."""
+    from . import lattice as vlat
+
+    Gs = grid * supersample
+    N = terms[0][0].shape[0]
+    sigma = vlat.decode_lattice_terms(
+        terms, lambda f: osg_decode(f, dec, sigma_only=True), (Gs, Gs, Gs),
+        plane_reduce="mean").reshape(N, -1, 1)
+    coords = vlat.lattice_world_coords((Gs, Gs, Gs), box_warp, sigma.device)
+    sigma = _apply_density_filters(sigma, coords.reshape(1, -1, 3).expand(N, -1, 3),
+                                   box_warp, *filters)
+    density = softplus(sigma.float() - 1).reshape(N, 1, Gs, Gs, Gs)
+    occ = F.max_pool3d((density > thresh).to(torch.float32), supersample, supersample)
+    # SAME padding adds 0 in the JAX op; the window always holds its centre,
+    # so max_pool3d's -inf padding gives the same grid
+    return F.max_pool3d(occ, 3, 1, 1)[:, 0]
+
+
+def lattice_term_args(terms, dev):
+    """Kernel arguments of the three factorised terms: per term a
+    contiguous f32 [N,Ga,Gb,C] pointer and its two world axes."""
+    out, keep = [], []
+    for F_, aa, ab in terms:
+        _require(F_.device == dev and F_.dtype == torch.float32 and F_.ndim == 4,
+                 "lattice terms must be f32 [N,Ga,Gb,C] on the kernel's device")
+        F_ = F_.contiguous()
+        keep.append(F_)
+        out += [F_.data_ptr(), int(aa), int(ab)]
+    return out, keep
+
+
+_K6A_ARGS = ((kb.PTR, kb.INT, kb.INT) * 3 + (kb.PTR,) * 6 + (kb.INT,) * 4 + (kb.DOUBLE,)
+             + (kb.FLOAT,) * 4 + (kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
+
+
+def ess_occupancy_kernel(terms, dec: Decoder, box_warp: float, grid: int, supersample: int,
+                         thresh: float, filters: DensityFilters):
+    """Launch K6's occupancy on CUDA tensors: same contract as
+    ess_occupancy_plain."""
+    dev = terms[0][0].device
+    N, C = terms[0][0].shape[0], terms[0][0].shape[-1]
+    Gs = grid * supersample
+    _require(supersample in (1, 2), f"K6 takes supersample 1 or 2, got {supersample}")
+    _require(C in (8, 16, 32), f"K6 supports 8, 16 or 32 plane channels, got {C}")
+    for F_, aa, ab in terms:
+        _require(tuple(F_.shape) == (N, Gs, Gs, C), "K6 terms must be [N,Gs,Gs,C]")
+    targs, keep = lattice_term_args(terms, dev)
+    w0, b0, w1, b1 = _decoder_f32(dec, dev)
+    _require(tuple(w0.shape) == (64, C) and tuple(w1.shape) == (33, 64),
+             "K6 takes a 64-wide hidden layer")
+    pooled = torch.empty((N, grid, grid, grid), dtype=torch.float32, device=dev)
+    occ = torch.empty_like(pooled)
+    kb.launch(
+        "ess_occupancy", _K6A_ARGS, *targs, w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), pooled.data_ptr(), occ.data_ptr(), N, grid, supersample, C,
+        float(box_warp), float(thresh), dec.lr_mul / math.sqrt(C),
+        dec.lr_mul / math.sqrt(64), dec.lr_mul, *_filter_args(filters, box_warp),
+        _stream(occ))
+    KERNELS["ess_occupancy"].launches += 1
+    del keep
+    return occ
+
+
+def ess_occupancy_grid(terms, dec: Decoder, box_warp: float, grid: int, supersample: int,
+                       thresh: float, filters: DensityFilters):
+    dev = terms[0][0].device
+    if dev.type == "cpu":
+        return ess_occupancy_plain(terms, dec, box_warp, grid, supersample, thresh, filters)
+    if dev.type == "cuda":
+        return ess_occupancy_kernel(terms, dec, box_warp, grid, supersample, thresh, filters)
+    raise RuntimeError(f"ess_occupancy: no path for device {dev}")
+
+
+def ess_occupancy(plane_axes, planes, dec: Decoder, box_warp: float, options: dict,
+                  filters: DensityFilters = DensityFilters()):
+    """Conservative occupancy for empty-space skipping (renderer.py:303):
+    the planes resampled onto a (grid*supersample)^3 cell-centre lattice
+    (two small matmuls per plane, lattice.lattice_features), then K6.
+    Always from the raw planes in f32, so every call path yields the same
+    occupancy. -> (occ [N,G,G,G] f32 0/1, occ_outside 0-d f32 0/1)."""
+    from . import lattice as vlat
+
+    ess = options["ess"]
+    G, ss = int(ess.get("grid", 32)), int(ess.get("supersample", 2))
+    thresh = float(ess.get("thresh", 0.01))
+    _require(planes.ndim == 5, "ess_occupancy needs raw [N,3,C,H,W] planes")
+    with torch.no_grad():
+        terms = vlat.lattice_features(planes.float(), plane_axes, (G * ss,) * 3, box_warp)
+        occ = ess_occupancy_grid(terms, dec, box_warp, G, ss, thresh, filters)
+        density0 = zero_feature_density(planes, dec, filters.cull_clouds,
+                                        filters.binarize_clouds)
+    return occ, (density0 > thresh).to(torch.float32)
+
+
+def _narrow_check(ray_start, ray_end, box_warp, G, K):
+    """The no-step-over invariant (renderer.py:394-410): the tap spacing
+    must not exceed the occupancy cell."""
+    max_len = float(ray_end) - float(ray_start)
+    if max_len / K > box_warp / G:
+        raise ValueError(
+            f"ess: taps={K} cannot cover interval length {max_len:g} at grid={G} (tap "
+            f"spacing {max_len / K:g} > cell {box_warp / G:g}); need taps >= "
+            f"{int(np.ceil(max_len * G / box_warp))}")
+
+
+def ess_narrow_intervals(occ, occ_outside, ray_origins, ray_directions, ray_start: float,
+                         ray_end: float, box_warp: float, options: dict):
+    """Per-ray [t0, t1] covering the occupied span plus ``margin`` taps
+    (renderer.py:378-440): K taps along each ray's interval; rays with no
+    occupied tap keep their full interval. -> ([N,R,1] t0, [N,R,1] t1)."""
+    ess = options["ess"]
+    K, margin = int(ess.get("taps", 64)), float(ess.get("margin", 1))
+    N, R, _ = ray_origins.shape
+    G = occ.shape[-1]
+    _narrow_check(ray_start, ray_end, box_warp, G, K)
+    dev = ray_origins.device
+    rs = torch.full((N, R, 1), float(ray_start), dtype=torch.float32, device=dev)
+    re = torch.full((N, R, 1), float(ray_end), dtype=torch.float32, device=dev)
+    L = re - rs
+    frac = (torch.arange(K, dtype=torch.float32, device=dev) + 0.5) / K
+    tk = rs + frac[None, None, :] * L                                   # [N,R,K]
+    pts = ray_origins[:, :, None, :] + tk[..., None] * ray_directions[:, :, None, :]
+    gidx = torch.floor((pts / box_warp + 0.5) * G).to(torch.int64)
+    inside = ((gidx >= 0) & (gidx < G)).all(-1)
+    gc = gidx.clamp(0, G - 1)
+    flat = (gc[..., 0] * G + gc[..., 1]) * G + gc[..., 2]
+    flat = flat + (torch.arange(N, device=dev) * G ** 3)[:, None, None]
+    occ_t = occ.reshape(-1)[flat.reshape(-1)].reshape(N, R, K)
+    occ_t = torch.where(inside, occ_t > 0, occ_outside > 0)
+    kk = torch.arange(K, dtype=torch.float32, device=dev)
+    first = torch.where(occ_t, kk, torch.full_like(kk, math.inf)).amin(-1)
+    last = torch.where(occ_t, kk, torch.full_like(kk, -math.inf)).amax(-1)
+    hit = torch.isfinite(first)
+    step = L[..., 0] / K
+    t0 = rs[..., 0] + torch.clamp_min(first - margin, 0.0) * step
+    t1 = rs[..., 0] + torch.clamp_max(last + 1 + margin, float(K)) * step
+    t0 = torch.where(hit, t0, rs[..., 0])
+    t1 = torch.where(hit, t1, re[..., 0])
+    return t0[..., None], t1[..., None]
+
+
+def ess_narrow_plain(occ, occ_outside, ray_origins, ray_directions, ray_start: float,
+                     ray_end: float, box_warp: float, options: dict, depth_resolution: int):
+    """ess_narrow_intervals, then the per-ray stratified coarse depths.
+    -> (t0 [N,R,1], t1 [N,R,1], depths [N,R,S,1])."""
+    t0, t1 = ess_narrow_intervals(occ, occ_outside, ray_origins, ray_directions, ray_start,
+                                  ray_end, box_warp, options)
+    return t0, t1, sample_stratified(ray_origins, t0, t1, depth_resolution)
+
+
+_K6B_ARGS = ((kb.PTR,) * 7 + (kb.INT,) * 4 + (kb.LONG,) + (kb.FLOAT,) * 4 + (kb.INT, kb.PTR))
+
+
+def ess_narrow_kernel(occ, occ_outside, ray_origins, ray_directions, ray_start: float,
+                      ray_end: float, box_warp: float, options: dict, depth_resolution: int):
+    """Launch K6's narrowing on CUDA tensors: same contract as
+    ess_narrow_plain."""
+    ess = options["ess"]
+    K, margin = int(ess.get("taps", 64)), float(ess.get("margin", 1))
+    N, R, _ = ray_origins.shape
+    G, S = occ.shape[-1], depth_resolution
+    _narrow_check(ray_start, ray_end, box_warp, G, K)
+    dev = occ.device
+    for t_ in (ray_origins, ray_directions):
+        _require(t_.dtype == torch.float32 and t_.is_contiguous() and t_.device == dev,
+                 "K6 rays must be contiguous f32 [N,R,3] on the occupancy's device")
+    # occ may be one portrait's grid broadcast over a view batch (stride 0)
+    _require(occ.dtype == torch.float32 and occ[0].is_contiguous()
+             and tuple(occ.shape) == (N, G, G, G), "K6 occupancy must be f32 [N,G,G,G]")
+    _require(S >= 2, "K6 takes at least 2 coarse samples")
+    occ_out = occ_outside.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
+    t0 = torch.empty((N, R, 1), dtype=torch.float32, device=dev)
+    t1 = torch.empty_like(t0)
+    depths = torch.empty((N, R, S, 1), dtype=torch.float32, device=dev)
+    kb.launch("ess_narrow", _K6B_ARGS, occ.data_ptr(), occ_out.data_ptr(),
+              ray_origins.data_ptr(), ray_directions.data_ptr(), t0.data_ptr(),
+              t1.data_ptr(), depths.data_ptr(), N * R, R, G, K, occ.stride(0), float(ray_start),
+              float(ray_end), float(box_warp), margin, S, _stream(occ))
+    KERNELS["ess_narrow"].launches += 1
+    return t0, t1, depths
+
+
+def ess_narrow(occ, occ_outside, ray_origins, ray_directions, ray_start: float,
+               ray_end: float, box_warp: float, options: dict, depth_resolution: int):
+    args = (occ, occ_outside, ray_origins, ray_directions, ray_start, ray_end, box_warp,
+            options, depth_resolution)
+    if occ.device.type == "cpu":
+        return ess_narrow_plain(*args)
+    if occ.device.type == "cuda":
+        return ess_narrow_kernel(*args)
+    raise RuntimeError(f"ess_narrow: no path for device {occ.device}")
+
+
+# ---------------------------------------------------------------------------
 # full renderer (renderer.py:864)
 
 class RenderOutput(NamedTuple):
@@ -396,11 +662,13 @@ def render(planes, decoder: Decoder, ray_origins, ray_directions, options: dict,
            triplane_crop=None, cull_clouds=None, binarize_clouds=None) -> RenderOutput:
     """Two-pass hierarchical render: stratified coarse pass (K1), importance
     depths (K3), fine pass (K1), merged composite (K2). planes [N,3,C,H,W];
-    rays [N,R,3]; ``options`` are the reference rendering_kwargs."""
-    for key, why in (("ess", "empty-space skipping"),
-                     ("disparity_space_sampling", "disparity-space sampling")):
-        if options.get(key):
-            raise NotImplementedError(f"render: {why} is not ported yet")
+    rays [N,R,3]; ``options`` are the reference rendering_kwargs. With
+    ``options['ess']`` the coarse depths come from K6's narrowed intervals;
+    the occupancy is ``options['_ess_occ']`` when the caller pre-seeds it
+    (paste-front's auxiliary renders, turntables), else it is computed here
+    from the planes (renderer.py:899-907, :992-997)."""
+    if options.get("disparity_space_sampling"):
+        raise NotImplementedError("render: disparity-space sampling is not ported yet")
     if options.get("triplane_depth", 1) != 1:
         raise NotImplementedError("render: triplane_depth > 1 is not ported yet")
     ray_start, ray_end = options["ray_start"], options["ray_end"]
@@ -414,6 +682,9 @@ def render(planes, decoder: Decoder, ray_origins, ray_directions, options: dict,
     plane_axes = generate_plane_axes(options.get("use_triplane", False))
     filters = DensityFilters(triplane_crop, cull_clouds, binarize_clouds)
     white_back = options.get("white_back", False)
+    if options.get("ess") and "_ess_occ" not in options:
+        options = dict(options, _ess_occ=ess_occupancy(plane_axes, planes, decoder, box_warp,
+                                                       options, filters))
 
     def eval_pass(depths):
         n = depths.shape[2]
@@ -424,8 +695,14 @@ def render(planes, decoder: Decoder, ray_origins, ray_directions, options: dict,
         return (rgb.reshape(N, R, n, -1), sigma.reshape(N, R, n, 1),
                 coords.reshape(N, R, n, 3))
 
-    depths_coarse = sample_stratified(ray_origins, ray_start, ray_end,
-                                      options["depth_resolution"])
+    if options.get("ess"):
+        occ, occ_outside = options["_ess_occ"]
+        _, _, depths_coarse = ess_narrow(occ, occ_outside, ray_origins, ray_directions,
+                                         ray_start, ray_end, box_warp, options,
+                                         options["depth_resolution"])
+    else:
+        depths_coarse = sample_stratified(ray_origins, ray_start, ray_end,
+                                          options["depth_resolution"])
     depths_coarse = depths_coarse.to(ray_origins.dtype).contiguous()
     colors_c, sigma_c, xyz_c = eval_pass(depths_coarse)
     n_imp = options.get("depth_resolution_importance") or 0

@@ -74,7 +74,7 @@ def pair():
     }
     g = jcfg.tiny(**F32)
     variables = seeded_variables(g, jax_inputs(inputs, fov=30.0))
-    G = tcfg.tiny(**F32).eval()
+    G = tcfg.tiny(device="cpu", **F32).eval()
     G.load_state_dict(state_dict_from_flax(variables), strict=True)
 
     @jax.jit
@@ -135,10 +135,19 @@ def test_camera_labels_and_ortho_rays_match_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
-def test_unported_inputs_raise(pair):
+UNPORTED_RENDERING = {"ray_start_auto": dict(ray_start="auto", ray_end="auto"),
+                      "triplane_depth": dict(triplane_depth=2),
+                      "disparity_space_sampling": dict(disparity_space_sampling=True)}
+
+
+@pytest.mark.parametrize("what", ["zs", "latent_injection", *UNPORTED_RENDERING])
+def test_unported_inputs_raise(pair, what):
     G = pair[3]
+    x = {"ws": torch.zeros(1, G.num_ws, 64), "camera_params": torch.zeros(1, 25),
+         "_planes": torch.zeros(1, 3, 8, 16, 16)}
     with pytest.raises(NotImplementedError):
-        G.f({"ws": torch.zeros(1, G.num_ws, 64), "camera_params": torch.zeros(1, 25),
-             "paste_params": dict(mode="default")})
-    with pytest.raises(NotImplementedError):
-        tcfg.flagship(eval_mode=True, ess=True)
+        if what in UNPORTED_RENDERING:
+            rk = dict(F32["rendering_kwargs"], **UNPORTED_RENDERING[what])
+            tcfg.tiny(device="cpu", **dict(F32, rendering_kwargs=rk)).f(x)
+        else:
+            G.f(dict(x, **{what: torch.zeros(1, G.num_ws, 64)}))

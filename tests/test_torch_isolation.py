@@ -1,6 +1,7 @@
 """The port stands alone: it imports with jax blocked, chip_smoke.py refuses
-to run without a CUDA device (no CPU fallback), and the kernel wrappers take
-their plain versions on CPU tensors without counting a launch."""
+to run without a CUDA device (no CPU fallback), the constructors refuse to
+build on the CPU unless asked to, and the kernel wrappers take their plain
+versions on CPU tensors without counting a launch."""
 
 import os
 import subprocess
@@ -9,8 +10,11 @@ import sys
 import torch
 
 from panic3d_tpu_torch.kernels import KERNELS, launch_counts
+from panic3d_tpu_torch.models.triplane import paste_composite
+from panic3d_tpu_torch.models.volumetric import lattice as vlat
 from panic3d_tpu_torch.models.volumetric import renderer as vr
 from panic3d_tpu_torch.ops import setup_filter, upfirdn2d
+from panic3d_tpu_torch.ops.gather_dot import gather_dot
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -28,9 +32,11 @@ def test_imports_with_jax_blocked():
         "    sys.modules[m] = None\n"
         "import panic3d_tpu_torch, panic3d_tpu_torch.configs, panic3d_tpu_torch.ops\n"
         "import panic3d_tpu_torch.kernels.build, panic3d_tpu_torch.runtime.checkpoint\n"
-        "from panic3d_tpu_torch.models.volumetric import renderer\n"
+        "from panic3d_tpu_torch.models.volumetric import lattice, renderer\n"
+        "import panic3d_tpu_torch.eval.generate, panic3d_tpu_torch.utils.imageops\n"
+        "import panic3d_tpu_torch.ops.gather_dot, panic3d_tpu_torch.cameras\n"
         "import panic3d_tpu_torch.configs as c\n"
-        "c.tiny()\n"
+        "c.tiny(device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'panic3d_tpu')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
@@ -39,6 +45,20 @@ def test_imports_with_jax_blocked():
     proc = run(["-c", code])
     assert proc.returncode == 0, proc.stderr
     assert "isolated" in proc.stdout
+
+
+def test_constructors_need_cuda_unless_asked_for_the_cpu():
+    code = (
+        "import panic3d_tpu_torch.configs as c\n"
+        "try:\n"
+        "    c.tiny()\n"
+        "except RuntimeError as e:\n"
+        "    print('refused:', e)\n"
+        "c.tiny(device='cpu')\n"
+    )
+    proc = run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
+    assert "refused: no CUDA device" in proc.stdout
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -67,4 +87,26 @@ def test_wrappers_count_no_launch_on_cpu():
     assert [tuple(o.shape) for o in out] == [(1, 4, 5), (1, 4, 1), (1, 4, 1), (1, 4, 3)]
     assert upfirdn2d(torch.randn(1, 2, 5, 5), setup_filter([1, 3, 3, 1]), up=2,
                      padding=[2, 1, 2, 1]).shape == (1, 2, 10, 10)
+    # K6: occupancy from lattice terms, then the narrowing
+    planes = torch.randn(1, 3, C, 8, 8)
+    opts = dict(ess=dict(grid=4, taps=8))
+    occ, occ_out = vr.ess_occupancy(vr.generate_plane_axes(True), planes, dec, 0.7, opts)
+    assert occ.shape == (1, 4, 4, 4) and occ_out.shape == ()
+    t0, t1, depths = vr.ess_narrow(occ, occ_out, torch.zeros(1, 4, 3) + 0.1,
+                                   torch.tensor([0.0, 0.0, -1.0]).expand(1, 4, 3), 0.5, 1.5,
+                                   0.7, opts, 6)
+    assert t0.shape == t1.shape == (1, 4, 1) and depths.shape == (1, 4, 6, 1)
+    # K7: the occlusion volume and its sampler
+    vol = vlat.front_occlusion_volume(planes, dec, 0.7, {}, grid=(4, 4, 8))
+    assert vol["A"].shape == (1, 4, 4, 8)
+    assert vlat.sample_front_occlusion(vol, torch.rand(1, 5, 3) - 0.5, 0.01,
+                                       1.0).shape == (1, 5, 1)
+    # K8: the paste masks and blend
+    out = paste_composite(torch.rand(1, 3, 16, 16), torch.rand(1, 3, 16, 16),
+                          torch.rand(1, 1, 4, 4), torch.rand(1, 3, 4, 4) - 0.5,
+                          torch.ones(1, 1, 4, 4), torch.zeros(1, 1, 4, 4), 0.7, 0.5, 0.02, 5e-6)
+    assert out["image"].shape == (1, 3, 16, 16) and out["mask"].shape == (1, 1, 16, 16)
+    # K12: gather + dot
+    assert gather_dot(torch.tensor([0, 2, 1], dtype=torch.int32), torch.randn(3, 8),
+                      torch.randn(8, 4)).shape == (3, 4)
     assert launch_counts() == before == {name: 0 for name in KERNELS}

@@ -161,8 +161,8 @@ def test_render_rejects_unported_options():
     dec = torch_decoder(decoder_params(8), True)
     ro = torch.zeros(1, 4, 3)
     with pytest.raises(NotImplementedError):
-        tvr.render(planes, dec, ro, ro, dict(ess=dict(grid=32), box_warp=BW, ray_start=0.5,
-                                             ray_end=1.5, depth_resolution=4))
+        tvr.render(planes, dec, ro, ro, dict(disparity_space_sampling=True, box_warp=BW,
+                                             ray_start=0.5, ray_end=1.5, depth_resolution=4))
     with pytest.raises(NotImplementedError):
         tvr.render(planes, dec, ro, ro, dict(box_warp=BW, ray_start="auto", ray_end="auto",
                                              depth_resolution=4))

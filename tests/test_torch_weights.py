@@ -23,8 +23,8 @@ from panic3d_tpu_torch.runtime.checkpoint import (
 )
 
 CONFIGS = {
-    "tiny": (lambda m: m.tiny(), 64, 16),
-    "flagship": (lambda m: m.flagship(eval_mode=True), 512, 512),
+    "tiny": (lambda m, **kw: m.tiny(**kw), 64, 16),
+    "flagship": (lambda m, **kw: m.flagship(eval_mode=True, **kw), 512, 512),
 }
 
 
@@ -47,7 +47,7 @@ def leaves(tree):
 @pytest.mark.parametrize("name", ["tiny", "flagship"])
 def test_every_flax_leaf_maps_to_one_port_tensor(name):
     flat = leaves(flax_shapes(name))
-    sd = CONFIGS[name][0](tcfg).state_dict()
+    sd = CONFIGS[name][0](tcfg, device="cpu").state_dict()
     names = [torch_name_from_flax(path) for path in flat]
     assert len(set(names)) == len(names)                 # one to one
     assert set(names) == set(sd)                         # nothing left over either side
@@ -63,7 +63,7 @@ def test_state_dict_from_flax_loads_strict():
     r = np.random.RandomState(0)
     variables = jax.tree_util.tree_map(
         lambda s: np.asarray(r.randn(*s.shape), np.float32), shapes)
-    G = tcfg.tiny()
+    G = tcfg.tiny(device="cpu")
     result = G.load_state_dict(state_dict_from_flax(variables), strict=True)
     assert not result.missing_keys and not result.unexpected_keys
     got = G.state_dict()
