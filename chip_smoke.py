@@ -10,11 +10,16 @@
    nvcc's resource report.
 3. Checks each kernel against its plain PyTorch version on the card, at the
    flagship paths' shapes and working dtypes (the ESS and occlusion kernels
-   on planes of the seeded flagship), and times both (median of CUDA-event
-   timings), with the single PyTorch call that computes the same function
-   where there is one (library_ms) and the least time the card could take
-   (bound_ms, from the bytes and operations of these inputs).
-   --kernels-only stops here.
+   on planes of the seeded flagship; K5 at the SR call, a backbone f32
+   call and the mapping layers; K1v on the full 256^3 grid of the seeded
+   portrait, its plain version on a slab of 2^20 points, the f32 and f16
+   grids with and without filters; K1 also in the geometry path's form, f32
+   planes at the unfiltered surface's vertices; K9 with 10,000 points
+   against that portrait's unfiltered surface), and times both
+   (median of CUDA-event timings), with the single PyTorch call that
+   computes the same function where there is one (library_ms) and the
+   least time the card could take (bound_ms, from the bytes and operations
+   of these inputs). --kernels-only stops here.
 4. Checks the whole forward of the tiny config on the card (kernels) against
    the same forward on the CPU (plain versions), in f32: ESS and paste off,
    then ESS and paste on.
@@ -28,14 +33,21 @@
    - per-portrait turntable: one planes bundle (planes, ESS occupancy,
      occlusion volume), then the 16 eval views (4 ortho + spin12) in view
      batches of 2;
-   and K12's own path, the gather-decode probe. It prints views/s, peak
-   memory, launches per request of every kernel and the host's waits for
-   the card (which must be 0) for each, and checks the bf16 default
-   against the same weights pinned to f32.
+   K12's own path, the gather-decode probe; and the geometry path of eval:
+   Reconstructor.mesh of one portrait (planes, K1v, one copy of the grid,
+   marching tetrahedra on the host, K1 vertex colours) with eval generate's
+   filters and without them, then geometry_metrics (K9) between the
+   unfiltered mesh and a synthetic reference. It prints views/s (s per
+   portrait and its stages on the geometry path), peak memory, launches per
+   run of every kernel and the host's waits for the card (0 on the render
+   paths; on the geometry path the grid's copy and the colours' copy, and
+   the metrics' two copies of distances) for each, and checks the bf16
+   default against the same weights pinned to f32.
 6. Prints a JSON line of the paths, the script's wall time, a JSON line of
    the kernels (one entry per entry point, with its launches on the ESS +
-   paste path, K12's on the probe), the card line, and last the
-   {"ok": true, ...} line. Any failure raises before that line.
+   paste path, else on the geometry path, else on the probe), the card
+   line, and last the {"ok": true, ...} line. Any failure raises before
+   that line.
 """
 
 from __future__ import annotations
@@ -57,6 +69,14 @@ AZIMUTHS = (0.0, 330.0)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 PASTE_KEYS = ("mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
+MESH_RES = 256     # eval generate's mesh resolution
+LEVEL = 0.5        # eval generate's iso level
+LEVEL2 = 0.6       # the synthetic reference mesh's iso level
+LEVEL_QUANTILES = (0.99, 0.98)   # the levels when the grid has no surface at those
+EVAL_FILTERS = dict(triplane_crop=0.1, cull_clouds=0.5)
+MESH_RUNS = 2      # timed portraits of the geometry path, after one warm-up
+FULL_FRAME = ((0, 0), (512, 512))   # an ROI covering the whole 512^2 frame
+SIGMA_RAISE = 14.5  # K1v's check: puts the cull's threshold inside the seeded sigmas
 
 
 def card_line() -> str:
@@ -137,6 +157,13 @@ def flagship_inputs(G, device):
     }
 
 
+def portrait_input(G, device):
+    """One portrait of bench.py's inputs (batch 1, SEED) as eval generate
+    gives it to the geometry path: seeds + cond."""
+    x = flagship_inputs(G, device)
+    return {"seeds": [SEED], "cond": {k: v[:1] for k, v in x["cond"].items()}}
+
+
 def flagship_rays(x, device, res=64):
     """The pinhole rays G.f builds for the flagship inputs (fov 30):
     -> (origins [N,R,3], directions [N,R,3], the same as [N,3,res,res])."""
@@ -153,11 +180,13 @@ def flagship_rays(x, device, res=64):
     return ro.contiguous(), rd.contiguous(), img
 
 
-def record(err, fn, plain_fn, n_bytes, flops, library_fn=None):
+def record(err, fn, plain_fn, n_bytes, flops, library_fn=None, plain_iters=10):
     """One kernel's summary: its error vs the plain version, the kernel's,
-    the plain version's and the library call's times, and its bound."""
+    the plain version's and the library call's times, and its bound (a plain
+    version that takes seconds is timed over fewer runs)."""
     bound_ms, bound_by = bound(n_bytes, flops)
-    return {"max_abs_err": err, "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain_fn),
+    return {"max_abs_err": err, "ms": cuda_ms(fn),
+            "plain_ms": cuda_ms(plain_fn, iters=plain_iters, warmup=1 if plain_iters < 10 else 2),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": cuda_ms(library_fn) if library_fn else None}
 
@@ -438,6 +467,234 @@ def ess_paste_kernel_checks(G, x, device):
     return out
 
 
+def epilogue_kernel_checks(device):
+    """K5 vs its plain version on the card, exact: at its largest call (SR
+    block0's up=2 conv, bf16 [2,256,256,256]: demodulation, bias, lrelu,
+    gain, clamp 256; SR takes no noise), at a backbone f32 call (b16 conv1
+    [2,512,16,16] with const noise, times its strength and premultiplied),
+    and at the mapping layers' [2,512] f32 bias + lrelu. -> {name: summary}."""
+    import torch
+
+    from panic3d_tpu_torch.ops.bias_act import modconv_epilogue_kernel, modconv_epilogue_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    def lrelu_args(x, clamp, noise=None):
+        N, C = x.shape[:2]
+        dcoef = torch.rand((N, C), generator=gen, device=device) * 0.1 + 0.05 \
+            if x.ndim == 4 else None
+        return dict(x=x, dcoef=dcoef, noise=noise, bias=randn(C, scale=0.1), act="lrelu",
+                    gain=2 ** 0.5, clamp=clamp,
+                    noise_strength=randn(scale=0.1) if noise is not None else None)
+
+    # the SR call: values that reach the clamp (|x * dcoef| up to ~300)
+    sr = lrelu_args(randn(BATCH, 256, 256, 256, scale=3000.0).to(torch.bfloat16), 256.0)
+    calls = [("SR block0 conv0 bf16 [2,256,256,256]", sr),
+             ("b16 conv1 f32 [2,512,16,16], const noise",
+              lrelu_args(randn(BATCH, 512, 16, 16, scale=3000.0), 256.0, randn(16, 16))),
+             ("b16 conv1 f32 [2,512,16,16], premultiplied noise",
+              dict(lrelu_args(randn(BATCH, 512, 16, 16, scale=3000.0), 256.0, randn(16, 16)),
+                   noise_strength=None)),
+             ("mapping fc f32 [2,512]", lrelu_args(randn(BATCH, 512), None))]
+    err = 0.0
+    for label, kw in calls:
+        e = max_err(modconv_epilogue_kernel(**kw), modconv_epilogue_plain(**kw))
+        check(f"K5 modconv_epilogue {label} (the same rounded operations)", e, 0.0)
+        err = max(err, e)
+    clamped = float((modconv_epilogue_plain(**sr).float().abs() == 256).float().mean())
+    print(f"  SR call: {100 * clamped:.2f} % of the outputs at the clamp")
+    y = modconv_epilogue_kernel(**sr)
+    # per element: demod, bias, the lrelu test and multiply, gain, clamp
+    return {"modconv_epilogue": record(
+        err, lambda: modconv_epilogue_kernel(**sr), lambda: modconv_epilogue_plain(**sr),
+        nbytes(sr["x"], y, sr["dcoef"], sr["bias"]), y.numel() * 7)}
+
+
+def mesh_levels(grid):
+    """The iso levels of the unfiltered mesh and of its synthetic reference:
+    eval generate's LEVEL and LEVEL2 when both lie inside the grid's
+    densities (between its 1st and 99th percentiles), else the
+    LEVEL_QUANTILES percentiles of the grid (the seeded weights' densities
+    may lie above 0.5 everywhere, leaving no surface). -> (level, level2)."""
+    import torch
+
+    d = grid.float().flatten()[::8]
+    q = torch.quantile(d, torch.tensor([0.01, 0.99, *LEVEL_QUANTILES], device=d.device))
+    lo, hi, a, b = (float(v) for v in q)
+    if lo < min(LEVEL, LEVEL2) and max(LEVEL, LEVEL2) < hi:
+        return LEVEL, LEVEL2
+    print(f"  the unfiltered densities span [{lo:.4f}, {hi:.4f}] (1st-99th percentile), "
+          f"outside {LEVEL} or {LEVEL2}: levels from the {LEVEL_QUANTILES} percentiles, "
+          f"{a:.6f} and {b:.6f}")
+    return a, b
+
+
+def grid_mesh(grid, level):
+    """Marching tetrahedra on a density grid on the card -> (verts, faces)
+    in index units."""
+    from panic3d_tpu_torch.runtime.native_ops import marching_tetrahedra
+
+    return marching_tetrahedra(grid.float().cpu().numpy(), level)
+
+
+def volume_kernel_checks(G, device):
+    """K1v and K9 vs their plain versions on the card, on the planes of the
+    seeded ESS flagship portrait (batch 1, SEED). K1v on the full 256^3
+    grid; its plain version on a slab of 2^20 lattice points (16 x-slices
+    through the middle of the box: they cross the crop box and the
+    surface). K1 in the geometry path's vertex-colour form, on the f32
+    planes at the unfiltered surface's vertex world positions. K9 with
+    10,000 points sampled on the unfiltered surface at the reference level
+    against the triangles of the unfiltered surface (mesh_levels).
+    -> ({name: summary, plus triplane_decode_vertex_colours}, the mesh
+    levels)."""
+    import torch
+
+    from panic3d_tpu_torch.eval import mesh_metrics as mm
+    from panic3d_tpu_torch.eval import volume as vol
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    out = {}
+    rk, bw, N = G.rk, G.rk["box_warp"], MESH_RES
+    _, planes = vol.portrait_planes(G, portrait_input(G, device))
+    dec, axes = G._decoder(), vr.generate_plane_axes(rk["use_triplane"])
+    filt = vr.DensityFilters(**EVAL_FILTERS)
+    start = (N // 2 - 8) * N * N
+    stop = min(start + 2**20, N**3)
+    print(f"K1v volume_density: planes {tuple(planes.shape)} f32, {N}^3 lattice; plain on "
+          f"flat indices [{start}, {stop})")
+
+    def slab(grid):
+        return grid.flip(0).reshape(-1)[start:stop].float()
+
+    coords = vol.lattice_kernel(N, bw, device)
+    e = max_err(coords, vol.create_samples_device(N, bw, 0, N**3, device))
+    check(f"K1v lattice coordinates, all {N}^3 (f32 divisions and fmod, exact)", e, 0.0)
+    del coords
+    # eval generate's filters on the seeded decoder, and on the same decoder
+    # with net2's sigma bias raised by SIGMA_RAISE so that voxels survive the
+    # cull (it keeps only densities within an ulp or so of 1.0, sigma >~ 17;
+    # the seeded sigmas lie around 2-4)
+    b1 = dec.b1.clone()
+    b1[0] += SIGMA_RAISE
+    errs = []
+    for label, d in (("seeded", dec), (f"sigma bias +{SIGMA_RAISE}", dec._replace(b1=b1))):
+        g32 = vol.density_grid_kernel(planes, d, N, bw, axes, filt, torch.float32)
+        p32 = vol.density_grid_plain(planes, d, N, bw, axes, filt, torch.float32,
+                                     start=start, stop=stop)
+        kept_k, kept_p = slab(g32) > -1e3, p32 > -1e3
+        flips = int((kept_k != kept_p).sum())
+        agree = kept_k == kept_p
+        print(f"  filtered, {label}: {int(kept_k.sum())} of {p32.numel()} slab voxels survive "
+              f"the crop and the cull ({int((g32 > -1e3).sum())} of {N**3} in the grid); cull "
+              f"decisions that differ: {flips} (counted apart; tol {p32.numel() // 10000})")
+        require(flips <= p32.numel() // 10000, f"K1v: {flips} cull decisions differ")
+        errs.append(float((slab(g32) - p32).abs()[agree].max()))
+        check(f"K1v density, filtered, {label}, f32, where the decisions agree", errs[-1],
+              1e-6)
+        g16 = vol.density_grid_kernel(planes, d, N, bw, axes, filt, torch.float16)
+        p16 = vol.density_grid_plain(planes, d, N, bw, axes, filt, torch.float16,
+                                     start=start, stop=stop)
+        errs.append(float((slab(g16) - p16.float()).abs()[agree].max()))
+        check(f"K1v density, filtered, {label}, f16 grid, where the decisions agree",
+              errs[-1], 0.0)
+    # without filters the densities span (0, 1); sigma carries the MLP's
+    # summation order (K1's tolerance 1e-4) and d density / d sigma <= 1/4
+    gu = vol.density_grid_kernel(planes, dec, N, bw, axes, vr.DensityFilters(),
+                                 torch.float32)
+    pu = vol.density_grid_plain(planes, dec, N, bw, axes, vr.DensityFilters(), torch.float32,
+                                start=start, stop=stop)
+    eu = max_err(slab(gu), pu)
+    check("K1v density, unfiltered, f32 (1e-4 sigma x 1/4)", eu, 2.5e-5)
+    # the unfiltered f16 grid, the one the no-filters geometry path meshes:
+    # the kernel's f32 densities rounded once to f16, everywhere; against the
+    # plain f16 slab, equal where the two f32 densities round to the same
+    # f16, else one f16 ulp apart (2^-11 in [0.5, 1)), counted apart
+    g16u = vol.density_grid_kernel(planes, dec, N, bw, axes, vr.DensityFilters(),
+                                   torch.float16)
+    errs.append(max_err(g16u, gu.to(torch.float16)))
+    check("K1v density, unfiltered, f16 grid = its f32 grid rounded to f16", errs[-1], 0.0)
+    p16u = vol.density_grid_plain(planes, dec, N, bw, axes, vr.DensityFilters(),
+                                  torch.float16, start=start, stop=stop)
+    same = slab(gu).half() == pu.half()
+    d16 = (slab(g16u) - p16u.float()).abs()
+    print(f"  unfiltered f16 slab: {int((~same).sum())} of {d16.numel()} voxels whose f32 "
+          f"densities round to different f16 values (counted apart)")
+    errs.append(float(d16[same].max()))
+    check("K1v density, unfiltered, f16 grid vs plain where the f16 roundings agree",
+          errs[-1], 0.0)
+    check("K1v density, unfiltered, f16 grid vs plain elsewhere (1 f16 ulp below 1.0)",
+          float(d16.max()), 2.0**-11)
+    del g16u, p16u
+    levels = mesh_levels(gu)
+    print(f"  unfiltered: {int((pu > levels[0]).sum())} of {pu.numel()} slab voxels above the "
+          f"mesh level {levels[0]:.6f}")
+    C = planes.shape[2]
+    # per point, counted from the code (a transcendental as one operation):
+    # 3 planes x (C lerps of 10 + 30 for the uv and corners), the plane mean,
+    # FC C->64, 64 x (bias + softplus), net2's sigma row, density + cull
+    flops = N**3 * (3 * (C * 10 + 30) + C + 2 * C * 64 + 64 * 6 + 2 * 64 + 30)
+    out["volume_density"] = record(
+        max(*errs, eu),
+        lambda: vol.density_grid_kernel(planes, dec, N, bw, axes, filt, torch.float16),
+        lambda: vol.density_grid_plain(planes, dec, N, bw, axes, filt, torch.float16),
+        nbytes(planes, g16), flops, plain_iters=3)
+    del g32, g16, p32, p16
+
+    # K9 on the unfiltered surfaces (the filtered one may be empty)
+    verts, faces = grid_mesh(gu, levels[0])
+    v2, f2 = grid_mesh(gu, levels[1])
+    require(len(faces) > 0 and len(f2) > 0, "the unfiltered grid has no surface")
+
+    # K1 as the geometry path runs it for the vertex colours: one portrait's
+    # f32 planes, the unfiltered mesh's vertex world positions
+    # (vol.vertex_world, as extract_mesh), no density filters
+    planes_cl = planes.permute(0, 1, 3, 4, 2).contiguous()
+    world = torch.from_numpy(vol.vertex_world(verts, N, bw)[None]).to(device)
+    nofilt = vr.DensityFilters()
+    print(f"K1 triplane_decode, vertex colours: planes {tuple(planes_cl.shape)} f32, "
+          f"coords {tuple(world.shape)}")
+    rgb_k, sig_k = vr.triplane_decode_kernel(planes_cl, world, dec, bw, axes, nofilt)
+    rgb_p, sig_p = vr.triplane_decode_plain(planes_cl, world, dec, bw, axes, nofilt)
+    e_rgb, e_sig = max_err(rgb_k, rgb_p), max_err(sig_k, sig_p)
+    check("K1 rgb at the vertices (f32, MLP summation order)", e_rgb, 1e-4)
+    check("K1 sigma at the vertices (f32, MLP summation order)", e_sig, 1e-4)
+    out["triplane_decode_vertex_colours"] = dict(coords=list(world.shape), **record(
+        max(e_rgb, e_sig),
+        lambda: vr.triplane_decode_kernel(planes_cl, world, dec, bw, axes, nofilt),
+        lambda: vr.triplane_decode_plain(planes_cl, world, dec, bw, axes, nofilt),
+        nbytes(planes_cl, world, rgb_k, sig_k),
+        world.shape[1] * (3 * C * 6 + 2 * (C * 64 + 64 * 33)), plain_iters=3))
+    print("  " + ", ".join(f"{k} {v}" for k, v in out["triplane_decode_vertex_colours"].items()))
+    del planes_cl, world, rgb_k, sig_k, rgb_p, sig_p
+
+    print(f"K9 point_mesh_distance: unfiltered surface at {levels[0]:.6f}: {len(verts)} verts, "
+          f"{len(faces)} faces; at {levels[1]:.6f}: {len(v2)} verts, {len(f2)} faces")
+    pts = torch.from_numpy(mm.sample_points_on_mesh(v2 / N * bw - bw / 2, f2, 10000,
+                                                    seed=SEED)).to(device)
+    vt = torch.from_numpy(verts / N * bw - bw / 2).to(device)
+    ft = torch.from_numpy(faces).to(device)
+    dk = mm.point_mesh_distance_sq_kernel(pts, vt, ft)
+    dp = mm.point_mesh_distance_sq_plain(pts, vt, ft)
+    rel = float(((dk - dp).abs() / dp.clamp_min(1e-30)).max())
+    exact = int((dk == dp).sum())
+    print(f"  {exact} of {dk.numel()} squared distances exactly equal")
+    check("K9 squared distances, relative (the same rounded operations)", rel, 1e-5)
+    for t in (0.005, 0.01):
+        nk, np_ = int((dk.sqrt() < t).sum()), int((dp.sqrt() < t).sum())
+        print(f"  points within {t}: kernel {nk}, plain {np_}")
+        require(nk == np_, f"K9: F1 counts at {t} differ")
+    # ~118 operations per (point, triangle) pair, counted from the kernel
+    out["point_mesh_distance"] = record(
+        max_err(dk, dp), lambda: mm.point_mesh_distance_sq_kernel(pts, vt, ft),
+        lambda: mm.point_mesh_distance_sq_plain(pts, vt, ft), nbytes(pts, vt, ft, dk),
+        pts.shape[0] * ft.shape[0] * 118, plain_iters=2)
+    return out, levels
+
+
 def tiny_end_to_end(device, ess_paste: bool):
     """Tiny config in f32: the card (kernels) against the CPU (plain); with
     ess_paste, ESS (grid 8, 16 taps) and eval generate's paste_params on a
@@ -549,10 +806,11 @@ def count_syncs(fn) -> int:
     return sum("synchronizing" in str(w.message) for w in caught)
 
 
-def drive(label, fn, n_views, n_runs, card, unit="views"):
+def drive(label, fn, n_views, n_runs, card, unit="views", waits=lambda out: 0):
     """Runs fn once to warm up, then n_runs times with the launch counts
-    zeroed before and read after, then once more counting its host waits;
-    prints views/s, peak memory, launches and host waits per run.
+    zeroed before and read after, then once more counting its host waits,
+    which must be waits(output) (0 on the render paths); prints views/s,
+    peak memory, launches and host waits per run.
     -> (last output, launch counts of the n_runs, summary dict)."""
     import torch
 
@@ -578,10 +836,78 @@ def drive(label, fn, n_views, n_runs, card, unit="views"):
           f"per run {syncs}; launches per run "
           + ", ".join(f"{k}={n:g}" for k, n in per_run.items()) + f"  [{card}]")
     print("  run ms: " + ", ".join(f"{t * 1e3:.3f}" for t in times))
-    require(syncs == 0, f"{label}: the host waited for the card {syncs} times in a run")
+    want = waits(out)
+    require(syncs == want, f"{label}: the host waited for the card {syncs} times in a run, "
+                           f"expected {want}")
     return out, counts, {f"{unit}_per_s": n_views / med, "ms_per_run": med * 1e3,
                          "peak_gib": peak / 2**30, "host_waits_per_run": syncs,
                          "launches_per_run": per_run}
+
+
+def geometry_path(G, device, card, levels):
+    """The geometry path of eval (generate.py:309-318, measure.py:178-215)
+    on one portrait of the ESS flagship (batch 1, SEED), through the
+    library entry point: Reconstructor.mesh -> planes -> K1v 256^3 -> one
+    copy -> marching tetrahedra -> vertex colours (K1). Once with eval
+    generate's filters (the user's path), once without (the random-init
+    smoke of generate.py --no-filters) at levels[0]; then geometry_metrics
+    (K9) between the unfiltered mesh and a synthetic reference, the same
+    portrait's surface at levels[1] placed in the GT heads' cv frame, with
+    a full-frame ROI. -> (summaries by path, launch counts of the
+    unfiltered mesh and the metrics runs)."""
+    import numpy as np
+
+    from panic3d_tpu_torch.api import Reconstructor
+    from panic3d_tpu_torch.eval.measure import CV2WORLD, geometry_metrics
+
+    cond1 = portrait_input(G, device)["cond"]
+    bw = G.rk["box_warp"]
+
+    def waits(mesh):   # the grid's copy, and the colours' when there are vertices
+        return 1 + int(len(mesh["verts"]) > 0)
+
+    out, meshes = {}, {}
+    for key, opts, level in (("geometry_eval_filters", EVAL_FILTERS, LEVEL),
+                             ("geometry_no_filters", {}, levels[0])):
+        rec = Reconstructor(model=G, opts=opts)
+        mesh, counts, summ = drive(
+            f"geometry path, {'eval filters' if opts else 'no filters'} ({MESH_RES}^3, level "
+            f"{level:.6f})", lambda: rec.mesh(cond1, resolution=MESH_RES, level=level), 1,
+            MESH_RUNS, card, unit="portraits", waits=waits)
+        stages = {}
+        rec.mesh(cond1, resolution=MESH_RES, level=level, stages=stages)
+        v, f, c = mesh["verts"], mesh["faces"], mesh["colors"]
+        require(np.isfinite(v).all() and (f.size == 0 or (f.min() >= 0 and f.max() < len(v)))
+                and (c.size == 0 or (c.min() >= 0 and c.max() <= 1)), f"{key}: bad mesh")
+        print(f"  {summ['ms_per_run'] / 1e3:.4f} s/portrait; one staged run: "
+              + ", ".join(f"{k} {t * 1e3:.3f} ms" for k, t in stages.items())
+              + f"; {len(v)} verts, {len(f)} faces")
+        if not len(f):
+            print("  the mesh is empty: the seeded weights leave no voxel above the cull")
+        names = ("modconv_epilogue", "upfirdn2d", "volume_density")
+        require_launched(counts, names + (("triplane_decode",) if len(v) else ()), key)
+        summ.update(stages_ms={k: t * 1e3 for k, t in stages.items()}, verts=len(v),
+                    faces=len(f), level=level)
+        out[key], meshes[key] = summ, (mesh, counts)
+
+    mesh, counts_mesh = meshes["geometry_no_filters"]
+    ref = Reconstructor(model=G, opts={}).mesh(cond1, resolution=MESH_RES, level=levels[1])
+    ref_cv = {"verts": (CV2WORLD[:3, :3] @ (ref["verts"] * np.asarray([-1, 1, 1])).T).T,
+              "faces": ref["faces"]}
+    timings = {}
+    metrics, counts_metrics, summ = drive(
+        f"geometry metrics (10,000 samples a side, reference at level {levels[1]:.6f})",
+        lambda: geometry_metrics(mesh, ref_cv, FULL_FRAME, bw, device=device, timings=timings),
+        1, MESH_RUNS, card, unit="portraits", waits=lambda out: 2)
+    require_launched(counts_metrics, ("point_mesh_distance",), "geometry metrics")
+    require(all(np.isfinite(v) for v in metrics.values()), "non-finite geometry metrics")
+    print(f"  K9 (host clock, with the copies) p2s {timings['p2s'] * 1e3:.3f} ms, s2p "
+          f"{timings['s2p'] * 1e3:.3f} ms; reference {len(ref['verts'])} verts, "
+          f"{len(ref['faces'])} faces; " + ", ".join(f"{k} {v:.6f}" for k, v in metrics.items()))
+    summ.update(metrics=metrics, k9_ms={k: t * 1e3 for k, t in timings.items()})
+    out["geometry_metrics"] = summ
+    counts = {k: counts_mesh[k] + counts_metrics[k] for k in counts_mesh}
+    return out, counts
 
 
 def require_launched(counts, names, label):
@@ -621,7 +947,26 @@ def device_busy(trace: dict) -> str:
             f"{len(ops)} host-side ops")
 
 
-RENDER_KERNELS = ("triplane_decode", "ray_composite", "importance_sample", "upfirdn2d")
+def device_time_by_kind(trace: dict) -> str:
+    """Device kernel time in a profiled run by kind: K5, PyTorch's
+    elementwise kernels (the epilogue's unfused ops and other glue), the
+    other kernels."""
+    kinds = {"K5 modconv_epilogue": 0.0, "PyTorch elementwise": 0.0, "other": 0.0}
+    counts = dict.fromkeys(kinds, 0)
+    for e in trace["traceEvents"]:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        name = e.get("name", "")
+        kind = ("K5 modconv_epilogue" if "modconv_epilogue" in name
+                else "PyTorch elementwise" if "elementwise_kernel" in name else "other")
+        kinds[kind] += e["dur"]
+        counts[kind] += 1
+    return "device kernel time by kind: " + ", ".join(
+        f"{k} {t / 1e3:.3f} ms ({counts[k]} launches)" for k, t in kinds.items())
+
+
+RENDER_KERNELS = ("triplane_decode", "ray_composite", "importance_sample", "upfirdn2d",
+                  "modconv_epilogue")
 ESS_PASTE_KERNELS = RENDER_KERNELS + ("ess_occupancy", "ess_narrow", "occlusion_volume",
                                       "occlusion_sample", "paste_front")
 
@@ -674,6 +1019,12 @@ def main(argv=None) -> int:
         x = flagship_inputs(G, device)
         checks = kernel_checks(G, device)
         checks.update(ess_paste_kernel_checks(Ge, x, device))
+        checks.update(epilogue_kernel_checks(device))
+        volume_checks, levels = volume_kernel_checks(Ge, device)
+        # K1's second form on a path (the geometry path's vertex colours)
+        checks["triplane_decode"]["vertex_colours"] = volume_checks.pop(
+            "triplane_decode_vertex_colours")
+        checks.update(volume_checks)
         if args.kernels_only:
             print(json.dumps({"kernels": [dict(name=n, **checks[n]) for n in KERNELS]}))
             print(card)
@@ -740,6 +1091,8 @@ def main(argv=None) -> int:
                                        unit="calls")
         require_launched(counts_probe, ("gather_dot",), "probe")
 
+        geometry, counts_geom = geometry_path(Ge, device, card, levels)
+
         if args.profile:
             from pathlib import Path
 
@@ -754,16 +1107,22 @@ def main(argv=None) -> int:
             trace = Path(args.profile) / "ess_paste_trace.json"
             prof.export_chrome_trace(str(trace))
             print("\n".join(table_txt.splitlines()[:40]))
-            print(device_busy(json.loads(trace.read_text())) + f"  [{card}]")
+            trace_json = json.loads(trace.read_text())
+            print(device_busy(trace_json) + f"  [{card}]")
+            print(device_time_by_kind(trace_json) + f"  [{card}]")
 
     reset_launch_counts()
     paths = {"settings_parity": parity, "ess_paste_per_call": per_call, "turntable": turn,
-             "probe": probe}
+             "probe": probe, **geometry}
     print(json.dumps({"paths": paths, "card": card}))
+    # each kernel's launches on the path that launches it: the ESS + paste
+    # request, else the geometry path, else the probe
+    sources = (counts_main, counts_geom, counts_probe)
+    launches = {name: next((c[name] for c in sources if c[name]), 0) for name in KERNELS}
+    require_launched(launches, KERNELS, "all paths")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-         "launches": (counts_probe if name == "gather_dot" else counts_main)[name],
-         **checks[name]}
+         "launches": launches[name], **checks[name]}
         for name, k in KERNELS.items()]}
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

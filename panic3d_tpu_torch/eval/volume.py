@@ -1,0 +1,324 @@
+"""Density / RGB volumes and the coloured iso-surface mesh of a portrait
+(panic3d_tpu/eval/volume.py).
+
+The reference decodes a 256^3 coordinate lattice through G.sample_mixed,
+filters the density (triplane crop, cloud cull), flips axis 0 and extracts
+the level-0.5 surface (``_util/eg3d_metrics3d.py:65-210``). Here the
+backbone runs once per portrait, and:
+
+- ``extract_mesh`` (the eval geometry path) decodes the lattice sigma-only
+  through kernel K1v (``volume_density`` in csrc/triplane_decode.cu), which
+  makes each lattice point from its flat index, applies sigma2density, the
+  crop and the cull, and writes the fp16 grid already flipped; one copy
+  brings the grid to the host, the repository's C++ marching tetrahedra
+  (runtime/native_ops.py) extracts the surface, and K1 decodes the vertex
+  colours at the exact vertex world positions;
+- ``get_volume`` (the full rgb + sigma volume a viewer reads) decodes the
+  lattice in chunks through K1.
+
+``density_grid_plain`` is K1v's plain PyTorch version: the CPU path and the
+kernel's oracle.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..cameras import camera_label
+from ..kernels import KERNELS
+from ..kernels import build as kb
+from ..models.triplane import seeds_to_z
+from ..models.volumetric import renderer as vr
+from ..runtime.native_ops import marching_tetrahedra
+from ..utils.device import constant, to_device
+
+
+def sigma2density(sigma):
+    return 1 - torch.exp(-vr.softplus(sigma - 1))
+
+
+def create_samples(N: int, cube_length: float) -> np.ndarray:
+    """The reference's voxel lattice (eg3d_metrics3d.py:70-92) on the host,
+    including its float-division quirk: columns 0 and 1 use f32 division of
+    the flat index, so x and y drift by a fraction of a voxel with the z
+    index (the lattice is slightly sheared, as the reference meshes are)."""
+    origin = np.float32(-cube_length / 2)
+    voxel_size = np.float32(cube_length / (N - 1))
+    idx = np.arange(N**3, dtype=np.float32)
+    s = np.zeros((N**3, 3), dtype=np.float32)
+    s[:, 2] = np.arange(N**3, dtype=np.int64) % N
+    s[:, 1] = np.mod(idx / np.float32(N), np.float32(N))
+    s[:, 0] = np.mod(idx / np.float32(N) / np.float32(N), np.float32(N))
+    return s * voxel_size + origin
+
+
+def _lattice_constants(N: int, cube_length: float):
+    """(voxel size, origin) as the f32 values the lattice is built with."""
+    return float(np.float32(cube_length / (N - 1))), float(np.float32(-cube_length / 2))
+
+
+def create_samples_device(N: int, cube_length: float, start: int = 0,
+                          stop: Optional[int] = None, device="cuda") -> torch.Tensor:
+    """Points [start, stop) of create_samples' lattice (flat order), made on
+    ``device`` from their flat indices in f32 (the same values as the host
+    lattice; N <= 256 keeps every index exact in f32). -> [stop-start, 3]."""
+    voxel, origin = _lattice_constants(N, cube_length)
+    stop = N**3 if stop is None else stop
+    idx_i = torch.arange(start, stop, dtype=torch.int64, device=device)
+    idx = idx_i.to(torch.float32)
+    fN = float(N)
+    s0 = torch.fmod(idx / fN / fN, fN)
+    s1 = torch.fmod(idx / fN, fN)
+    s2 = (idx_i % N).to(torch.float32)
+    return torch.stack([s0, s1, s2], -1) * voxel + origin
+
+
+def _on(v, n: int, dev) -> torch.Tensor:
+    """A per-portrait scalar input (list, array or tensor) as f32 on dev."""
+    if torch.is_tensor(v):
+        return v.to(dev, torch.float32)
+    return constant(np.broadcast_to(np.asarray(v, np.float32), (n,)), dev)
+
+
+def portrait_planes(G, xin: dict, noise_mode: str = "const"):
+    """(ws, planes [N,3,C,H,W] f32) of the portraits in ``xin`` (ws | z |
+    seeds, cond, optional elevations/azimuths for the camera label the
+    mapping zeroes under c_gen_conditioning_zero): volume.py:260-277."""
+    dev = G.device
+    with torch.no_grad():
+        ws = xin.get("ws")
+        if ws is None:
+            z = xin.get("z")
+            if z is None:
+                z = seeds_to_z(xin["seeds"], G.z_dim)
+            z = z.to(dev, torch.float32) if torch.is_tensor(z) else to_device(z, dev)
+            n = z.shape[0]
+            cam = camera_label(_on(xin.get("elevations", 0.0), n, dev),
+                               _on(xin.get("azimuths", 0.0), n, dev),
+                               _on(1.0, n, dev), _on(30.0, n, dev))
+            ws = G.mapping(z, cam)
+        return ws, G._planes_from_ws(ws, xin.get("cond"), noise_mode=noise_mode)
+
+
+# ---------------------------------------------------------------------------
+# K1v volume_density
+
+@torch.no_grad()
+def density_grid_plain(planes, dec: vr.Decoder, N: int, box_warp: float, plane_axes,
+                       filters: vr.DensityFilters, dtype=torch.float16, chunk: int = 2**17,
+                       start: int = 0, stop: Optional[int] = None) -> torch.Tensor:
+    """Densities of lattice points [start, stop) (flat order, not flipped)
+    of one portrait's planes [1,3,C,H,W] f32: the sigma-only decode,
+    sigma2density, the crop on the lattice coordinates and the cloud cull
+    on the density (volume.py:285-297), in ``dtype``, ``chunk`` points at a
+    time. -> [stop-start]."""
+    stop = N**3 if stop is None else stop
+    crop, cull, _ = filters
+    out = []
+    for a in range(start, stop, chunk):
+        coords = create_samples_device(N, box_warp, a, min(a + chunk, stop), planes.device)
+        feats = vr.sample_from_planes(plane_axes, planes, coords[None], box_warp)
+        _, sigma = vr.osg_decode(feats, dec, sigma_only=True)
+        d = sigma2density(sigma[0, :, 0])
+        if crop:
+            d = torch.where(vr.triplane_crop_mask(coords, crop, box_warp)[:, 0], -1e3, d)
+        if cull:
+            d = torch.where(vr.cull_clouds_mask(d, cull), -1e3, d)
+        out.append(d.to(dtype))
+    return torch.cat(out)
+
+
+def flip_grid(flat: torch.Tensor, N: int) -> torch.Tensor:
+    """Flat-order lattice values -> the [N,N,N] grid with axis 0 flipped
+    (volume.py:307), the layout marching tetrahedra reads."""
+    return flat.reshape(N, N, N).flip(0)
+
+
+_K1V_ARGS = ((kb.PTR,) * 6 + (kb.INT,) * 5 + (kb.PTR,) + (kb.FLOAT,) * 6
+             + (kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
+_GRID_DTYPES = {torch.float16: 1, torch.float32: 0}
+
+
+def density_grid_kernel(planes, dec: vr.Decoder, N: int, box_warp: float, plane_axes,
+                        filters: vr.DensityFilters, dtype=torch.float16) -> torch.Tensor:
+    """Launch K1v on CUDA planes: the whole flipped [N,N,N] grid in one
+    launch (same values as flip_grid(density_grid_plain(...)))."""
+    vr._require(planes.dtype == torch.float32 and planes.ndim == 5
+                and tuple(planes.shape[:2]) == (1, 3),
+                "K1v takes one portrait's f32 planes [1,3,C,H,W]")
+    C, H, W = planes.shape[2:]
+    vr._require(C in (8, 16, 32), f"K1v supports 8, 16 or 32 plane channels, got {C}")
+    vr._require(dtype in _GRID_DTYPES, f"K1v writes float16 or float32, not {dtype}")
+    vr._require(2 <= N <= 256, f"K1v takes 2 <= N <= 256, got {N}")
+    dev = planes.device
+    planes_cl = planes[0].permute(0, 2, 3, 1).contiguous()        # [3,H,W,C]
+    w0, b0, w1, b1 = vr._decoder_f32(dec, dev)
+    vr._require(tuple(w0.shape) == (64, C) and tuple(w1.shape) == (33, 64),
+                "K1v takes a 64-wide hidden layer and 33 outputs")
+    grid = torch.empty((N, N, N), dtype=dtype, device=dev)
+    voxel, origin = _lattice_constants(N, box_warp)
+    crop, cull, _ = filters
+    proj = np.linalg.inv(plane_axes)[:, :, :2]                  # [plane][xyz][uv]
+    kb.launch(
+        "volume_density", _K1V_ARGS, planes_cl.data_ptr(), w0.data_ptr(), b0.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), grid.data_ptr(), _GRID_DTYPES[dtype], N, H, W, C,
+        kb.f32_array(proj.reshape(-1)), 2.0 / box_warp, dec.lr_mul / math.sqrt(C),
+        dec.lr_mul / math.sqrt(64), dec.lr_mul, voxel, origin, int(bool(crop)),
+        (box_warp / 2 - crop) if crop else 0.0, int(bool(cull)), float(cull or 0.0),
+        vr._stream(planes))
+    KERNELS["volume_density"].launches += 1
+    return grid
+
+
+def lattice_kernel(N: int, box_warp: float, device) -> torch.Tensor:
+    """The lattice K1v decodes, [N^3,3] f32 in flat order, made on the card
+    by K1v's own device function (volume_lattice in triplane_decode.cu): a
+    check of K1v's points against create_samples_device, on no path, so not
+    counted as a launch."""
+    vr._require(2 <= N <= 256, f"K1v takes 2 <= N <= 256, got {N}")
+    coords = torch.empty((N**3, 3), dtype=torch.float32, device=device)
+    kb.launch("volume_lattice", (kb.PTR, kb.INT, kb.FLOAT, kb.FLOAT, kb.PTR),
+              coords.data_ptr(), N, *_lattice_constants(N, box_warp), vr._stream(coords))
+    return coords
+
+
+@torch.no_grad()
+def density_grid(planes, dec: vr.Decoder, N: int, box_warp: float, plane_axes,
+                 filters: vr.DensityFilters, dtype=torch.float16, chunk: int = 2**17):
+    """The filtered density grid [N,N,N] of one portrait, axis 0 flipped:
+    the plain version (in chunks) on CPU planes, K1v on CUDA planes."""
+    if planes.device.type == "cpu":
+        return flip_grid(density_grid_plain(planes, dec, N, box_warp, plane_axes, filters,
+                                            dtype, chunk), N)
+    if planes.device.type == "cuda":
+        return density_grid_kernel(planes, dec, N, box_warp, plane_axes, filters, dtype)
+    raise RuntimeError(f"density_grid: no path for device {planes.device}")
+
+
+# ---------------------------------------------------------------------------
+# entry points
+
+def get_volume(G, xin: dict, resolution: int = 256, chunk: int = 2**17,
+               triplane_crop: Optional[float] = None,
+               cull_clouds: Optional[float] = None) -> dict:
+    """The full volume of one portrait (volume.py:161, get_eg3d_volume):
+    coordinates [1,3,N,N,N], sigmas [1,1,...], rgbs [1,32,...] and filtered
+    densities [1,1,...] as numpy arrays, axis 0 of the lattice flipped. The
+    lattice is decoded through K1, ``chunk`` points per launch."""
+    bw = G.rk["box_warp"]
+    tc = xin.get("triplane_crop", triplane_crop)
+    cc = xin.get("cull_clouds", cull_clouds)
+    _, planes = portrait_planes(G, xin)
+    N = resolution
+    samples = create_samples(N, bw)
+    sig, rgb = [], []
+    with torch.no_grad():
+        for a in range(0, N**3, chunk):
+            coords = create_samples_device(N, bw, a, min(a + chunk, N**3), G.device)
+            out = G.sample_mixed_planes(planes, coords[None])
+            sig.append(out["sigma"][0])
+            rgb.append(out["rgb"][0])
+        sigmas, rgbs = torch.cat(sig)[None], torch.cat(rgb)[None]
+        densities = sigma2density(sigmas)
+        samples_t = to_device(samples, G.device)[None]
+        if tc:
+            densities = torch.where(vr.triplane_crop_mask(samples_t, tc, bw), -1e3, densities)
+        if cc:
+            densities = torch.where(vr.cull_clouds_mask(densities, cc), -1e3, densities)
+
+    def fmt(x):
+        x = x.reshape(1, N, N, N, -1).flip(1).permute(0, 4, 1, 2, 3)
+        return x.float().cpu().numpy()
+
+    return dict(coordinates=fmt(samples_t), sigmas=fmt(sigmas), rgbs=fmt(rgbs),
+                densities=fmt(densities))
+
+
+def _stage_clock(device, stages: Optional[dict]):
+    """mark(name) records the seconds since the last mark under ``name`` in
+    ``stages``, after waiting for the device; a no-op without ``stages``."""
+    last = [time.perf_counter()]
+
+    def mark(name):
+        if stages is None:
+            return
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        stages[name] = now - last[0]
+        last[0] = now
+
+    return mark
+
+
+def vertex_world(verts: np.ndarray, N: int, box_warp: float) -> np.ndarray:
+    """World coordinates [V,3] f32 of mesh vertices given in the flipped
+    grid's index units, with the lattice's fractional x/y drift (see
+    create_samples): the points extract_mesh decodes the colours at
+    (volume.py:313-349)."""
+    vi = verts.astype(np.float32)
+    voxel = box_warp / (N - 1)
+    x_idx = N - 1 - vi[:, 0]
+    y_idx = vi[:, 1]
+    z_idx = vi[:, 2]
+    return np.stack([(x_idx + y_idx / N + z_idx / (N * N)) * voxel - box_warp / 2,
+                     (y_idx + z_idx / N) * voxel - box_warp / 2,
+                     z_idx * voxel - box_warp / 2], axis=1)
+
+
+def extract_mesh(G, xin: dict, resolution: int = 256, chunk: int = 2**17, level: float = 0.5,
+                 density_dtype=torch.float16, stages: Optional[dict] = None) -> dict:
+    """Portrait -> coloured mesh (volume.py:234): the planes, the filtered
+    density grid (K1v; ``xin`` may hold triplane_crop and cull_clouds), one
+    copy of it to the host, marching tetrahedra at ``level``, then the
+    vertex colours decoded (K1) at the exact vertex world positions,
+    including the lattice's fractional x/y drift. With ``stages`` (a dict),
+    the device is waited for after each stage and its seconds recorded
+    under planes, decode, copy, tetrahedra and colours.
+    -> {verts [V,3] f32 world units, faces [T,3] int32, colors [V,3] in
+    [0,1], normals None, values None}."""
+    rk = G.rk
+    bw = rk["box_warp"]
+    N = resolution
+    mark = _stage_clock(G.device, stages)
+    _, planes = portrait_planes(G, xin)
+    mark("planes")
+    with torch.no_grad():
+        grid = density_grid(planes, G._decoder(), N, bw,
+                            vr.generate_plane_axes(rk.get("use_triplane", False)),
+                            vr.DensityFilters(xin.get("triplane_crop"), xin.get("cull_clouds")),
+                            density_dtype, chunk)
+        mark("decode")
+        vol = grid.cpu().float().numpy()      # one copy of the grid; f16 -> f32 on the host
+        mark("copy")
+        verts, faces = marching_tetrahedra(vol, level)
+        mark("tetrahedra")
+        colors = np.zeros((len(verts), 3), np.float32)
+        if len(verts):
+            world = vertex_world(verts, N, bw)
+            rgb = G.sample_mixed_planes(planes, to_device(world[None], G.device))["rgb"]
+            colors = rgb[0, :, :3].float().cpu().numpy()
+        mark("colours")
+    verts_w = verts / N * bw - 0.5 * bw
+    return dict(verts=verts_w.astype(np.float32), faces=faces, normals=None, values=None,
+                colors=np.clip(colors, 0, 1))
+
+
+def marching_cubes(vol: np.ndarray, rgbs: np.ndarray, boxwarp: float,
+                   level: float = 0.5) -> dict:
+    """Surface at ``level`` with vertex colours read at the integer vertex
+    indices (eg3d_metrics3d.py:186-210). vol [N,N,N] density, rgbs
+    [3,N,N,N]; verts scaled into box_warp units as the reference does,
+    v / N * bw - bw / 2."""
+    shape_res = vol.shape[-1]
+    verts, faces = marching_tetrahedra(np.asarray(vol, np.float32), level)
+    vi = verts.astype(int)
+    colors = rgbs[:3, vi[:, 0], vi[:, 1], vi[:, 2]].T
+    verts_w = verts / shape_res * boxwarp - 0.5 * boxwarp
+    return dict(verts=verts_w.astype(np.float32), faces=faces, normals=None, values=None,
+                colors=colors.astype(np.float32))

@@ -28,6 +28,11 @@ KERNELS = {
             "panic3d_tpu/models/volumetric/renderer.py:778",
         ),
         Kernel(
+            "volume_density",
+            "panic3d_tpu_torch/csrc/triplane_decode.cu",
+            "panic3d_tpu/eval/volume.py:285",
+        ),
+        Kernel(
             "ray_composite",
             "panic3d_tpu_torch/csrc/ray_composite.cu",
             "panic3d_tpu/models/volumetric/renderer.py:567",
@@ -41,6 +46,11 @@ KERNELS = {
             "upfirdn2d",
             "panic3d_tpu_torch/csrc/upfirdn2d.cu",
             "panic3d_tpu/ops/upfirdn2d.py:238",
+        ),
+        Kernel(
+            "modconv_epilogue",
+            "panic3d_tpu_torch/csrc/modconv_epilogue.cu",
+            "panic3d_tpu/ops/bias_act.py:40",
         ),
         Kernel(
             "ess_occupancy",
@@ -68,12 +78,21 @@ KERNELS = {
             "panic3d_tpu/models/triplane.py:730",
         ),
         Kernel(
+            "point_mesh_distance",
+            "panic3d_tpu_torch/csrc/mesh_distance.cu",
+            "panic3d_tpu/eval/mesh_metrics.py:61",
+        ),
+        Kernel(
             "gather_dot",
             "panic3d_tpu_torch/csrc/gather_dot.cu",
             "scripts/bench_pallas_gather.py:43",
         ),
     )
 }
+
+# C entry points that only check a kernel (chip_smoke.py), on no path and not
+# counted: entry point -> the kernel whose source holds it
+CHECK_ENTRIES = {"volume_lattice": "volume_density"}
 
 
 def sources() -> list:

@@ -22,7 +22,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from . import KERNELS, sources
+from . import CHECK_ENTRIES, KERNELS, sources
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -80,7 +80,7 @@ def build_all() -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _entry(name: str, argtypes: tuple):
-    lib = ctypes.CDLL(str(build(Path(KERNELS[name].source).stem)))
+    lib = ctypes.CDLL(str(build(Path(KERNELS[CHECK_ENTRIES.get(name, name)].source).stem)))
     lib.panic3d_error_string.restype = ctypes.c_char_p
     lib.panic3d_error_string.argtypes = [ctypes.c_int]
     fn = getattr(lib, name)

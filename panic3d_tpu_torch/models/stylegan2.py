@@ -4,7 +4,9 @@ Module and attribute names follow the reference state_dict (b{res}, conv0,
 conv1, torgb, affine, fc{i}, embed, noise_const, w_avg), so
 runtime/checkpoint.py maps the flax tree onto ``state_dict()`` 1:1.
 ``use_fp16`` means bfloat16, as in the JAX package. The FIR resampling runs
-through upfirdn2d (kernel K4 on the card); the weight convs are cuDNN.
+through upfirdn2d (kernel K4 on the card); the weight convs are cuDNN, and
+the epilogue after each (demodulation, noise, bias, leaky relu, gain,
+clamp) is one launch of kernel K5, as is the mapping layers' bias + lrelu.
 
 Ported cond modes: ``ortho_front.add_shuffle2_4.reschonk_add_<N>`` (the
 flagship and tiny configs). Others raise NotImplementedError, as do
@@ -21,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.bias_act import activation_funcs, bias_act
+from ..ops.bias_act import activation_funcs, modconv_epilogue
 from ..ops.conv import modulated_conv2d
 from ..ops.upfirdn2d import setup_filter, upsample2d
 
@@ -88,8 +90,10 @@ class FullyConnectedLayer(nn.Module):
         x = x @ w.T
         if self.activation == "linear":
             return x + b.to(x.dtype) if b is not None else x
-        return bias_act(x, b.to(x.dtype) if b is not None else None, dim=x.ndim - 1,
-                        act=self.activation)
+        if x.ndim != 2:
+            raise NotImplementedError("FullyConnectedLayer with an activation takes [N, F]")
+        return modconv_epilogue(x, bias=b.to(x.dtype) if b is not None else None,
+                                act=self.activation)
 
 
 class MappingNetwork(nn.Module):
@@ -169,16 +173,16 @@ class SynthesisLayer(nn.Module):
         if noise_mode not in ("const", "none"):
             raise NotImplementedError(f"noise_mode={noise_mode!r} is not ported yet")
         styles = self.affine(w)
-        noise = None
+        noise = strength = None
         if self.use_noise and noise_mode == "const":
-            noise = self.noise_const * self.noise_strength
-        x = modulated_conv2d(x, self.weight, styles, noise=noise, up=self.up,
-                             padding=self.padding, resample_filter=self.resample_filter,
-                             flip_weight=(self.up == 1))
+            noise, strength = self.noise_const, self.noise_strength
         act_gain = activation_funcs[self.activation].def_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
-        return bias_act(x, self.bias.to(x.dtype), act=self.activation, gain=act_gain,
-                        clamp=act_clamp)
+        return modulated_conv2d(x, self.weight, styles, noise=noise, noise_strength=strength,
+                                up=self.up, padding=self.padding,
+                                resample_filter=self.resample_filter,
+                                flip_weight=(self.up == 1), bias=self.bias,
+                                act=self.activation, gain=act_gain, clamp=act_clamp)
 
 
 class ToRGBLayer(nn.Module):
@@ -200,8 +204,8 @@ class ToRGBLayer(nn.Module):
 
     def forward(self, x, w):
         styles = self.affine(w) * self.weight_gain
-        x = modulated_conv2d(x, self.weight, styles, demodulate=False, padding=self.padding)
-        return bias_act(x, self.bias.to(x.dtype), clamp=self.conv_clamp)
+        return modulated_conv2d(x, self.weight, styles, demodulate=False, padding=self.padding,
+                                bias=self.bias, clamp=self.conv_clamp)
 
 
 class SynthesisBlock(nn.Module):

@@ -177,6 +177,26 @@ class TriPlaneGenerator(nn.Module):
             cull_clouds=cull_clouds, binarize_clouds=binarize_clouds,
             grid=tuple(rk.get("occ_grid", (128, 128, 256))))
 
+    # -- shape sampling ------------------------------------------------------
+
+    def sample_mixed_planes(self, planes, coordinates):
+        """Decode (rgb, sigma) at arbitrary world coordinates [N,M,3] from
+        precomputed planes [N,3,C,H,W] (triplane.py:452) through K1, in the
+        planes' dtype and with no density filters (the volume and mesh
+        paths). -> {'rgb' [N,M,32], 'sigma' [N,M,1], 'xyz'}."""
+        rk = self.rk
+        planes_cl = planes.permute(0, 1, 3, 4, 2).contiguous()
+        rgb, sigma = vr.triplane_decode(planes_cl, coordinates.to(torch.float32).contiguous(),
+                                        self._decoder(), rk["box_warp"],
+                                        vr.generate_plane_axes(rk.get("use_triplane", False)))
+        return {"rgb": rgb, "sigma": sigma, "xyz": coordinates}
+
+    def sample_mixed(self, coordinates, directions, ws, cond=None, noise_mode="const"):
+        """Decode (rgb, sigma) at arbitrary coordinates from ws
+        (triplane.py:439): the backbone planes, then sample_mixed_planes."""
+        return self.sample_mixed_planes(self._planes_from_ws(ws, cond, noise_mode=noise_mode),
+                                        coordinates)
+
     def synthesis(self, ws, c, cond=None, neural_rendering_resolution: Optional[int] = None,
                   force_rays=None, triplane_crop=None, cull_clouds=None,
                   binarize_clouds=None, normalize_images=True, noise_mode="const",

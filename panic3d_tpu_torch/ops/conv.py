@@ -3,7 +3,8 @@
 
 The weight convolution itself is ``F.conv2d`` (cuDNN on the card), as the
 JAX package leaves it to ``lax.conv_general_dilated``; the FIR resampling
-around it is upfirdn2d (kernel K4 on the card).
+around it is upfirdn2d (kernel K4 on the card), and the epilogue after it
+(demodulation, noise, bias_act) is kernel K5 (``bias_act.modconv_epilogue``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .bias_act import modconv_epilogue
 from .upfirdn2d import _get_filter_size, _parse_padding, upfirdn2d
 
 
@@ -64,10 +66,15 @@ def conv2d_resample(x, w, f=None, up: int = 1, down: int = 1, padding=0,
 def modulated_conv2d(x, weight, styles, noise: Optional[torch.Tensor] = None,
                      up: int = 1, down: int = 1, padding: int = 0,
                      resample_filter=None, demodulate: bool = True,
-                     flip_weight: bool = True):
+                     flip_weight: bool = True, noise_strength: Optional[torch.Tensor] = None,
+                     bias: Optional[torch.Tensor] = None, act: str = "linear",
+                     gain: Optional[float] = None, clamp: Optional[float] = None):
     """StyleGAN2 modulated convolution, non-fused form: scale the input by
     the styles, convolve with the shared weight, scale the output by the
-    demodulation coefficients 1/sqrt(sum((w*s)^2) + 1e-8), computed in f32."""
+    demodulation coefficients 1/sqrt(sum((w*s)^2) + 1e-8), computed in f32,
+    and add ``noise`` (times ``noise_strength`` when given). With ``bias``,
+    ``act``, ``gain`` or ``clamp`` the layer's bias_act follows in the same
+    epilogue (K5 on the card)."""
     batch_size = x.shape[0]
     out_channels, in_channels, kh, kw = weight.shape
     if tuple(styles.shape) != (batch_size, in_channels):
@@ -80,8 +87,5 @@ def modulated_conv2d(x, weight, styles, noise: Optional[torch.Tensor] = None,
     x = x * styles.to(x.dtype)[:, :, None, None]
     x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up,
                         down=down, padding=padding, flip_weight=flip_weight)
-    if demodulate:
-        x = x * dcoefs.to(x.dtype)[:, :, None, None]
-    if noise is not None:
-        x = x + noise.to(x.dtype)
-    return x
+    return modconv_epilogue(x, dcoefs, noise, noise_strength, bias, act, gain=gain,
+                            clamp=clamp)

@@ -9,11 +9,13 @@ import sys
 
 import torch
 
+from panic3d_tpu_torch.eval import mesh_metrics, volume
 from panic3d_tpu_torch.kernels import KERNELS, launch_counts
 from panic3d_tpu_torch.models.triplane import paste_composite
 from panic3d_tpu_torch.models.volumetric import lattice as vlat
 from panic3d_tpu_torch.models.volumetric import renderer as vr
 from panic3d_tpu_torch.ops import setup_filter, upfirdn2d
+from panic3d_tpu_torch.ops.bias_act import modconv_epilogue
 from panic3d_tpu_torch.ops.gather_dot import gather_dot
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,6 +37,9 @@ def test_imports_with_jax_blocked():
         "from panic3d_tpu_torch.models.volumetric import lattice, renderer\n"
         "import panic3d_tpu_torch.eval.generate, panic3d_tpu_torch.utils.imageops\n"
         "import panic3d_tpu_torch.ops.gather_dot, panic3d_tpu_torch.cameras\n"
+        "import panic3d_tpu_torch.api, panic3d_tpu_torch.eval.volume\n"
+        "import panic3d_tpu_torch.eval.mesh_metrics, panic3d_tpu_torch.eval.measure\n"
+        "import panic3d_tpu_torch.runtime.native_ops, panic3d_tpu_torch.ops.bias_act\n"
         "import panic3d_tpu_torch.configs as c\n"
         "c.tiny(device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'panic3d_tpu')\n"
@@ -109,4 +114,18 @@ def test_wrappers_count_no_launch_on_cpu():
     # K12: gather + dot
     assert gather_dot(torch.tensor([0, 2, 1], dtype=torch.int32), torch.randn(3, 8),
                       torch.randn(8, 4)).shape == (3, 4)
+    # K5: the modulated conv's epilogue, and a dense layer's bias + lrelu
+    y = modconv_epilogue(torch.randn(2, 3, 4, 4), torch.rand(2, 3), torch.randn(4, 4),
+                         torch.tensor(0.5), torch.randn(3), act="lrelu", gain=2 ** 0.5,
+                         clamp=1.0)
+    assert y.shape == (2, 3, 4, 4) and float(y.abs().max()) <= 1.0
+    assert modconv_epilogue(torch.randn(2, 5), bias=torch.randn(5), act="lrelu").shape == (2, 5)
+    # K1v: the density grid of one portrait's planes
+    grid = volume.density_grid(torch.randn(1, 3, C, 8, 8), dec, 6, 0.7,
+                               vr.generate_plane_axes(True), vr.DensityFilters(0.1, 0.5))
+    assert grid.shape == (6, 6, 6) and grid.dtype == torch.float16
+    # K9: point -> mesh distances
+    d2 = mesh_metrics.point_mesh_distance_sq(torch.rand(7, 3), torch.rand(4, 3),
+                                             torch.tensor([[0, 1, 2], [1, 2, 3]]))
+    assert d2.shape == (7,) and bool((d2 >= 0).all())
     assert launch_counts() == before == {name: 0 for name in KERNELS}
