@@ -7,9 +7,12 @@
    without a CUDA device.
 2. Builds the CUDA kernels from panic3d_tpu_torch/csrc/ into build/kernels/
    (one nvcc per source, all started together) and prints the build time and
-   nvcc's resource report.
+   nvcc's registers and spills per kernel (K1's render entry must not spill).
 3. Checks each kernel against its plain PyTorch version on the card, at the
-   flagship paths' shapes and working dtypes (the ESS and occlusion kernels
+   flagship paths' shapes and working dtypes (K1 at the coarse and the fine
+   pass; K4 at every distinct call of one flagship request, found by a spy
+   on its wrapper, each timed, and a down=2 call on its generic kernel;
+   the ESS and occlusion kernels
    on planes of the seeded flagship; K5 at the SR call, a backbone f32
    call and the mapping layers; K1v on the full 256^3 grid of the seeded
    portrait, its plain version on a slab of 2^20 points, the f32 and f16
@@ -17,9 +20,10 @@
    planes at the unfiltered surface's vertices; K9 with 10,000 points
    against that portrait's unfiltered surface), and times both
    (median of CUDA-event timings), with the single PyTorch call that
-   computes the same function where there is one (library_ms) and the
-   least time the card could take (bound_ms, from the bytes and operations
-   of these inputs). --kernels-only stops here.
+   computes the same function where there is one (library_ms; K4 must beat
+   it) and the least time the card could take (bound_ms, from the bytes,
+   the f32 operations and the TF32 tensor-core operations of these inputs).
+   --kernels-only stops here.
 4. Checks the whole forward of the tiny config on the card (kernels) against
    the same forward on the CPU (plain versions), in f32: ESS and paste off,
    then ESS and paste on.
@@ -39,9 +43,11 @@
    filters and without them, then geometry_metrics (K9) between the
    unfiltered mesh and a synthetic reference. It prints views/s (s per
    portrait and its stages on the geometry path), peak memory, launches per
-   run of every kernel and the host's waits for the card (0 on the render
-   paths; on the geometry path the grid's copy and the colours' copy, and
-   the metrics' two copies of distances) for each, and checks the bf16
+   run of every kernel (K4's by variant: on the three view paths all of
+   them must be the polyphase kernel) and the host's waits for the card
+   (0 on the render paths; on the geometry path the grid's copy and the
+   colours' copy, and the metrics' two copies of distances) for each, and
+   checks the bf16
    default against the same weights pinned to f32.
 6. Prints a JSON line of the paths, the script's wall time, a JSON line of
    the kernels (one entry per entry point, with its launches on the ESS +
@@ -68,6 +74,7 @@ PORTRAITS = 3      # timed turntable portraits, after one warm-up portrait
 AZIMUTHS = (0.0, 330.0)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM TF32 on the tensor cores, dense
 PASTE_KEYS = ("mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
 MESH_RES = 256     # eval generate's mesh resolution
 LEVEL = 0.5        # eval generate's iso level
@@ -117,10 +124,12 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def bound(n_bytes: float, flops: float):
-    """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the f32 peak -> (ms, bound_by)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound(n_bytes: float, flops: float, tf32_flops: float = 0.0):
+    """The least time the card could take: the largest of the bytes over the
+    memory rate, the f32 operations over the f32 peak and the TF32 tensor-core
+    operations over the TF32 peak -> (ms, bound_by)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / F32_FLOPS, tf32_flops / TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -180,11 +189,11 @@ def flagship_rays(x, device, res=64):
     return ro.contiguous(), rd.contiguous(), img
 
 
-def record(err, fn, plain_fn, n_bytes, flops, library_fn=None, plain_iters=10):
+def record(err, fn, plain_fn, n_bytes, flops, library_fn=None, plain_iters=10, tf32_flops=0.0):
     """One kernel's summary: its error vs the plain version, the kernel's,
     the plain version's and the library call's times, and its bound (a plain
     version that takes seconds is timed over fewer runs)."""
-    bound_ms, bound_by = bound(n_bytes, flops)
+    bound_ms, bound_by = bound(n_bytes, flops, tf32_flops)
     return {"max_abs_err": err, "ms": cuda_ms(fn),
             "plain_ms": cuda_ms(plain_fn, iters=plain_iters, warmup=1 if plain_iters < 10 else 2),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -192,13 +201,12 @@ def record(err, fn, plain_fn, n_bytes, flops, library_fn=None, plain_iters=10):
 
 
 def kernel_checks(G, device):
-    """K1-K4 vs their plain versions on the card at the settings-parity
-    path's shapes. -> {name: summary}."""
+    """K1-K3 vs their plain versions on the card at the settings-parity
+    path's shapes (K1 at the coarse and the fine pass). -> {name: summary}."""
     import torch
 
     from panic3d_tpu_torch.cameras import camera_label, sample_rays
     from panic3d_tpu_torch.models.volumetric import renderer as vr
-    from panic3d_tpu_torch.ops.upfirdn2d import setup_filter, upfirdn2d_kernel, upfirdn2d_plain
 
     out = {}
     rk = G.rk
@@ -223,29 +231,15 @@ def kernel_checks(G, device):
     # K1 at the coarse pass: planes bf16 [2,3,256,256,32], coords [2, 4096*96, 3]
     d_c = vr.sample_stratified(ro, rk["ray_start"], rk["ray_end"], S).contiguous()
     x_c = coords_of(d_c)
-    print(f"K1 triplane_decode: planes {tuple(planes_cl.shape)} bf16, coords {tuple(x_c.shape)}")
-    rgb_k, sig_k = vr.triplane_decode_kernel(planes_cl, x_c, dec, rk["box_warp"], axes, filt)
-    rgb_p, sig_p = vr.triplane_decode_plain(planes_cl, x_c, dec, rk["box_warp"], axes, filt)
-    torch.cuda.synchronize()
-    # the cull threshold is a discontinuity: a sample whose alpha sits within
-    # f32 rounding of it may be culled on one side only; count those apart
-    culled_k, culled_p = sig_k == -1e3, sig_p == -1e3
-    flips = int((culled_k != culled_p).sum())
-    agree = culled_k == culled_p
-    max_flips = sig_k.numel() // 100000
-    print(f"  cull decisions that differ: {flips} of {sig_k.numel()} (tol {max_flips})")
-    require(flips <= max_flips, f"K1: {flips} cull decisions differ")
-    e_rgb = max_err(rgb_k, rgb_p)
-    e_sig = float((sig_k - sig_p).abs()[agree].max())
-    check("rgb (bf16; 1 bf16 ulp below 1.0 = 2^-8)", e_rgb, 2.0 ** -8)
-    check("sigma (f32, MLP summation order)", e_sig, 1e-4)
-    # per point: 3 planes x 4 corners x 32 channel lerps, FC 32->64, FC 64->33
+    print(f"K1 triplane_decode, coarse pass: planes {tuple(planes_cl.shape)} bf16, coords "
+          f"{tuple(x_c.shape)}")
+    rgb_k, sig_k, e1 = check_k1(planes_cl, x_c, dec, rk["box_warp"], axes, filt)
+    flops, tf32 = k1_ops(x_c.shape[0] * x_c.shape[1], 32)
     out["triplane_decode"] = record(
-        max(e_rgb, e_sig),
+        e1,
         lambda: vr.triplane_decode_kernel(planes_cl, x_c, dec, rk["box_warp"], axes, filt),
         lambda: vr.triplane_decode_plain(planes_cl, x_c, dec, rk["box_warp"], axes, filt),
-        nbytes(planes_cl, x_c, rgb_k, sig_k),
-        x_c.shape[0] * x_c.shape[1] * (3 * 32 * 6 + 2 * (32 * 64 + 64 * 33)))
+        nbytes(planes_cl, x_c, rgb_k, sig_k), flops, tf32_flops=tf32)
 
     # K3 on the coarse pass's real sigmas: [2,4096,96,1] -> 96 fine depths
     s_c = sig_k.reshape(BATCH, R, S, 1)
@@ -259,9 +253,13 @@ def kernel_checks(G, device):
         lambda: vr.importance_sample_plain(d_c, s_c, K), nbytes(d_c, s_c, d_fk),
         BATCH * R * (S * 20 + K * 10))
 
-    # K2 on the real coarse + fine samples (bf16 colors)
+    # K1 at the fine pass (the importance depths), then K2 on the real coarse
+    # + fine samples (bf16 colors)
     x_f = coords_of(d_fk)
-    rgb_f, sig_f = vr.triplane_decode_kernel(planes_cl, x_f, dec, rk["box_warp"], axes, filt)
+    print(f"K1 triplane_decode, fine pass: coords {tuple(x_f.shape)}")
+    rgb_f, sig_f, e1f = check_k1(planes_cl, x_f, dec, rk["box_warp"], axes, filt)
+    out["triplane_decode"]["fine_pass"] = {"max_abs_err": e1f, "ms": cuda_ms(
+        lambda: vr.triplane_decode_kernel(planes_cl, x_f, dec, rk["box_warp"], axes, filt))}
     args = (d_c, rgb_k.reshape(BATCH, R, S, 32), s_c, x_c.reshape(BATCH, R, S, 3),
             d_fk, rgb_f.reshape(BATCH, R, K, 32), sig_f.reshape(BATCH, R, K, 1),
             x_f.reshape(BATCH, R, K, 3), rk["white_back"])
@@ -276,34 +274,134 @@ def kernel_checks(G, device):
         nbytes(*[a for a in args if torch.is_tensor(a)], *ck),
         BATCH * R * (S + K) * (2 * 35 + 20))
 
-    # K4 at its largest call (SR block1 conv0: bf16 [2,256,256,256], up=2)
-    # and at the backbone's f32 skip-image upsample
-    f = setup_filter([1, 3, 3, 1]).flip([0, 1]) * 4
-    x = torch.randn((BATCH, 256, 256, 256), generator=gen, device=device).to(torch.bfloat16)
+    return out
+
+
+def k1_ops(points: int, C: int):
+    """K1's operations per call -> (f32 operations, TF32 tensor-core
+    operations): per point 3 planes x 4 corners x C channel lerps on the CUDA
+    cores; FC C->64 and FC 64->33 on the tensor cores, each product three
+    times (3xTF32)."""
+    return points * 3 * C * 6, points * 3 * 2 * (C * 64 + 64 * 33)
+
+
+def check_k1(planes_cl, coords, dec, box_warp, axes, filt):
+    """K1 against its plain version on one input: cull decisions that differ
+    counted apart (at most 1 in 100,000), rgb within 1 bf16 ulp below 1.0
+    (2^-8; 1e-4 for f32 planes), sigma within 1e-4 where the decisions agree.
+    -> (rgb, sigma, max error)."""
+    import torch
+
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    rgb_k, sig_k = vr.triplane_decode_kernel(planes_cl, coords, dec, box_warp, axes, filt)
+    rgb_p, sig_p = vr.triplane_decode_plain(planes_cl, coords, dec, box_warp, axes, filt)
+    torch.cuda.synchronize()
+    # the cull threshold is a discontinuity: a sample whose alpha sits within
+    # f32 rounding of it may be culled on one side only; count those apart
+    culled_k, culled_p = sig_k == -1e3, sig_p == -1e3
+    flips = int((culled_k != culled_p).sum())
+    agree = culled_k == culled_p
+    max_flips = sig_k.numel() // 100000
+    print(f"  cull decisions that differ: {flips} of {sig_k.numel()} (tol {max_flips})")
+    require(flips <= max_flips, f"K1: {flips} cull decisions differ")
+    e_rgb = max_err(rgb_k, rgb_p)
+    e_sig = float((sig_k - sig_p).abs()[agree].max())
+    if planes_cl.dtype == torch.bfloat16:
+        check("rgb (bf16; 1 bf16 ulp below 1.0 = 2^-8)", e_rgb, 2.0 ** -8)
+    else:
+        check("rgb (f32, 3xTF32 MLP)", e_rgb, 1e-4)
+    check("sigma (f32, 3xTF32 MLP)", e_sig, 1e-4)
+    return rgb_k, sig_k, max(e_rgb, e_sig)
+
+
+def k4_checks(G, x, device):
+    """K4 vs its plain version on the card at every distinct call of one
+    flagship request (found by a spy on ops/upfirdn2d.py:_fir: the backbone's
+    up-convs and 96-channel skip upsamples, f32 and bf16, and SR's four
+    calls), each timed; the SR block-1 call (bf16 [2,256,256,256] -> 514^2)
+    also with its plain version and the library call. One down=2 call checks
+    the generic kernel. bf16 within 1 bf16 ulp of the largest value, f32
+    within 1e-5 (summation order). -> {"upfirdn2d": summary}."""
+    import importlib
+
+    import torch
+
+    from panic3d_tpu_torch.kernels import KERNELS
+    from panic3d_tpu_torch.ops.upfirdn2d import k4_plan, upfirdn2d_kernel, upfirdn2d_plain
+
+    mod = importlib.import_module("panic3d_tpu_torch.ops.upfirdn2d")
+    calls, fir = {}, mod._fir
+
+    def spy(xx, f2d, up, down, pad):
+        key = (tuple(xx.shape), xx.dtype, tuple(up), tuple(down), tuple(pad))
+        calls.setdefault(key, [0, f2d.detach().clone()])[0] += 1
+        return fir(xx, f2d, up, down, pad)
+
+    mod._fir = spy
+    try:
+        G.f(x)
+    finally:
+        mod._fir = fir
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    print(f"K4 upfirdn2d: {sum(n for n, _ in calls.values())} calls per request, "
+          f"{len(calls)} distinct")
+
+    def one(shape, dtype, f2d, up, down, pad, label):
+        xx = torch.randn(shape, generator=gen, device=device).to(dtype)
+        spec = (f2d, up, down, pad)
+        yk, yp = upfirdn2d_kernel(xx, *spec), upfirdn2d_plain(xx, *spec)
+        e = max_err(yk, yp)
+        tol = 2.0 ** -7 * float(yp.abs().max()) if dtype == torch.bfloat16 else 1e-5
+        check(f"{label} {list(shape)} {str(dtype)[6:]} up={up[0]} down={down[0]} pad={pad} -> "
+              f"{yk.shape[-2]}x{yk.shape[-1]} ({k4_plan(*spec).variant})", e, tol)
+        ms = cuda_ms(lambda: upfirdn2d_kernel(xx, *spec))
+        bms, _ = bound(nbytes(xx, yk), yk.numel() * 4 * 2)
+        print(f"    ms {ms:.6f}  bound_ms {bms:.6f}")
+        return xx, yk, yp, e, {"shape": list(shape), "dtype": str(dtype)[6:], "up": up[0],
+                               "down": down[0], "pad": list(pad),
+                               "variant": k4_plan(*spec).variant, "max_abs_err": e,
+                               "ms": ms, "bound_ms": bms}
+
+    shapes, err = [], 0.0
+    for (shape, dtype, up, down, pad), (count, f2d) in sorted(
+            calls.items(), key=lambda kv: (kv[0][0][1], kv[0][0][2], str(kv[0][1]))):
+        *_, e, summ = one(shape, dtype, f2d, up, down, pad, f"{count} call(s)")
+        shapes.append(dict(summ, calls_per_request=count))
+        err = max(err, e)
+    require(all(s_["variant"] == "up2" for s_ in shapes),
+            "K4: a call of the request is outside the polyphase kernel's family")
+
+    # the generic kernel that stays: a 2x downsample (bf16 [2,256,256,256])
+    f = next(iter(calls.values()))[1]
+    n_gen = KERNELS["upfirdn2d"].variants.get("generic", 0)
+    *_, e_gen, generic = one((BATCH, 256, 256, 256), torch.bfloat16, f / 4, (1, 1), (2, 2),
+                             (1, 1, 1, 1), "generic kernel")
+    require(KERNELS["upfirdn2d"].variants.get("generic", 0) > n_gen,
+            "K4: the down=2 call did not take the generic kernel")
+
+    # the SR block-1 call, with its plain version and the single library
+    # call for this upsample: a depthwise transposed convolution (stride 2)
+    # with the flipped 4x4 filter; check it first
     spec = (f, (2, 2), (1, 1), (3, 2, 3, 2))
-    print(f"K4 upfirdn2d: {tuple(x.shape)} bf16 up=2 pad (3,2,3,2) -> 514^2")
-    yk, yp = upfirdn2d_kernel(x, *spec), upfirdn2d_plain(x, *spec)
-    e = max_err(yk, yp)
-    check("bf16 out (1 bf16 ulp of the largest value)", e, 2.0 ** -7 * float(yp.abs().max()))
-    x32 = torch.randn((BATCH, 96, 128, 128), generator=gen, device=device)
-    e32 = max_err(upfirdn2d_kernel(x32, f, (2, 2), (1, 1), (2, 1, 2, 1)),
-                  upfirdn2d_plain(x32, f, (2, 2), (1, 1), (2, 1, 2, 1)))
-    check("f32 skip-image upsample [2,96,128,128] (summation order)", e32, 1e-5)
-    # the single library call for this upsample: a depthwise transposed
-    # convolution (stride 2) with the flipped 4x4 filter; check it first
-    w_t = f.flip([0, 1]).to(x.device, x.dtype)[None, None].expand(x.shape[1], 1, 4, 4).contiguous()
+    xx, yk, yp, e, _ = one((BATCH, 256, 256, 256), torch.bfloat16, *spec, "SR block1 conv0")
+    w_t = f.flip([0, 1]).to(xx.device, xx.dtype)[None, None].expand(xx.shape[1], 1, 4, 4)
+    w_t = w_t.contiguous()
 
     def library():
-        return torch.nn.functional.conv_transpose2d(x, w_t, stride=2, groups=x.shape[1])
+        return torch.nn.functional.conv_transpose2d(xx, w_t, stride=2, groups=xx.shape[1])
 
     e_lib = max_err(library(), yp)
     check("library conv_transpose2d vs plain (1 bf16 ulp)", e_lib,
           2.0 ** -7 * float(yp.abs().max()))
     # each output takes 4 of the 16 taps (the others hit inserted zeros)
-    out["upfirdn2d"] = record(e, lambda: upfirdn2d_kernel(x, *spec),
-                              lambda: upfirdn2d_plain(x, *spec), nbytes(x, yk),
-                              yk.numel() * 4 * 2, library)
-    return out
+    summary = record(max(e, err, e_gen), lambda: upfirdn2d_kernel(xx, *spec),
+                     lambda: upfirdn2d_plain(xx, *spec), nbytes(xx, yk), yk.numel() * 4 * 2,
+                     library)
+    require(summary["ms"] < summary["library_ms"],
+            f"K4: {summary['ms']} ms, not faster than the library call's "
+            f"{summary['library_ms']} ms")
+    return {"upfirdn2d": dict(summary, shapes=shapes, generic_down2=generic)}
 
 
 def ess_paste_kernel_checks(G, x, device):
@@ -657,19 +755,15 @@ def volume_kernel_checks(G, device):
     nofilt = vr.DensityFilters()
     print(f"K1 triplane_decode, vertex colours: planes {tuple(planes_cl.shape)} f32, "
           f"coords {tuple(world.shape)}")
-    rgb_k, sig_k = vr.triplane_decode_kernel(planes_cl, world, dec, bw, axes, nofilt)
-    rgb_p, sig_p = vr.triplane_decode_plain(planes_cl, world, dec, bw, axes, nofilt)
-    e_rgb, e_sig = max_err(rgb_k, rgb_p), max_err(sig_k, sig_p)
-    check("K1 rgb at the vertices (f32, MLP summation order)", e_rgb, 1e-4)
-    check("K1 sigma at the vertices (f32, MLP summation order)", e_sig, 1e-4)
+    rgb_k, sig_k, e1 = check_k1(planes_cl, world, dec, bw, axes, nofilt)
+    flops, tf32 = k1_ops(world.shape[1], C)
     out["triplane_decode_vertex_colours"] = dict(coords=list(world.shape), **record(
-        max(e_rgb, e_sig),
+        e1,
         lambda: vr.triplane_decode_kernel(planes_cl, world, dec, bw, axes, nofilt),
         lambda: vr.triplane_decode_plain(planes_cl, world, dec, bw, axes, nofilt),
-        nbytes(planes_cl, world, rgb_k, sig_k),
-        world.shape[1] * (3 * C * 6 + 2 * (C * 64 + 64 * 33)), plain_iters=3))
+        nbytes(planes_cl, world, rgb_k, sig_k), flops, plain_iters=3, tf32_flops=tf32))
     print("  " + ", ".join(f"{k} {v}" for k, v in out["triplane_decode_vertex_colours"].items()))
-    del planes_cl, world, rgb_k, sig_k, rgb_p, sig_p
+    del planes_cl, world, rgb_k, sig_k
 
     print(f"K9 point_mesh_distance: unfiltered surface at {levels[0]:.6f}: {len(verts)} verts, "
           f"{len(faces)} faces; at {levels[1]:.6f}: {len(v2)} verts, {len(f2)} faces")
@@ -810,11 +904,11 @@ def drive(label, fn, n_views, n_runs, card, unit="views", waits=lambda out: 0):
     """Runs fn once to warm up, then n_runs times with the launch counts
     zeroed before and read after, then once more counting its host waits,
     which must be waits(output) (0 on the render paths); prints views/s,
-    peak memory, launches and host waits per run.
+    peak memory, launches (and K4's by variant) and host waits per run.
     -> (last output, launch counts of the n_runs, summary dict)."""
     import torch
 
-    from panic3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from panic3d_tpu_torch.kernels import launch_counts, reset_launch_counts, variant_counts
 
     fn()
     torch.cuda.synchronize()
@@ -828,6 +922,7 @@ def drive(label, fn, n_views, n_runs, card, unit="views", waits=lambda out: 0):
         times.append(time.perf_counter() - t)
     counts = launch_counts()
     per_run = {k: n / n_runs for k, n in counts.items() if n}
+    variants = {k: {v: n / n_runs for v, n in d.items()} for k, d in variant_counts().items()}
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times)
     syncs = count_syncs(fn)
@@ -835,13 +930,16 @@ def drive(label, fn, n_views, n_runs, card, unit="views", waits=lambda out: 0):
           f"{n_views / med:.3f} {unit}/s; peak memory {peak / 2**30:.3f} GiB; host waits "
           f"per run {syncs}; launches per run "
           + ", ".join(f"{k}={n:g}" for k, n in per_run.items()) + f"  [{card}]")
+    if variants:
+        print("  launches per run by variant: " + ", ".join(
+            f"{k}.{v}={n:g}" for k, d in variants.items() for v, n in d.items()))
     print("  run ms: " + ", ".join(f"{t * 1e3:.3f}" for t in times))
     want = waits(out)
     require(syncs == want, f"{label}: the host waited for the card {syncs} times in a run, "
                            f"expected {want}")
     return out, counts, {f"{unit}_per_s": n_views / med, "ms_per_run": med * 1e3,
                          "peak_gib": peak / 2**30, "host_waits_per_run": syncs,
-                         "launches_per_run": per_run}
+                         "launches_per_run": per_run, "variants_per_run": variants}
 
 
 def geometry_path(G, device, card, levels):
@@ -910,6 +1008,54 @@ def geometry_path(G, device, card, levels):
     return out, counts
 
 
+def _entry_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol:
+    the last <length><name> component, then bf16/f32 and the integer
+    arguments (e.g. triplane_decode_kernel<bf16,32>)."""
+    import re
+
+    i, name = 2, mangled
+    nested = mangled[i:i + 1] == "N"
+    i += nested
+    while (m := re.match(r"\d+", mangled[i:])):
+        n, j = int(m.group()), i + m.end()
+        name, i = mangled[j:j + n], j + n
+        if not nested:
+            break
+    args = mangled[i:].split("Ev")[0] if mangled[i:i + 1] == "I" else ""
+    dtype = ["bf16"] if "bfloat16" in args else ["f32"] if args.startswith("If") else []
+    ints = re.findall(r"Li(-?\d+)E", args)
+    return name + (f"<{','.join(dtype + ints)}>" if dtype or ints else "")
+
+
+def ptxas_report(text: str):
+    """nvcc -Xptxas -v's report -> [(kernel<template args>, registers,
+    spill store bytes, spill load bytes)] per entry function."""
+    import re
+
+    out, fn, spills = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spills = _entry_name(m.group(1)), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append((fn, int(m.group(1)), *spills))
+            fn = None
+    return out
+
+
+def require_k4_polyphase(summary, label):
+    """Every K4 launch of a path ran the polyphase (up2) kernel."""
+    k4 = summary["launches_per_run"].get("upfirdn2d", 0)
+    up2 = summary["variants_per_run"].get("upfirdn2d", {}).get("up2", 0)
+    print(f"  K4 launches per run {k4:g}, of them polyphase (up2) {up2:g}")
+    require(k4 > 0 and up2 == k4, f"{label}: K4 ran {k4} launches, {up2} polyphase")
+
+
 def require_launched(counts, names, label):
     missing = [k for k in names if counts[k] == 0]
     require(not missing, f"{label}: kernels not launched: {missing}")
@@ -948,21 +1094,22 @@ def device_busy(trace: dict) -> str:
 
 
 def device_time_by_kind(trace: dict) -> str:
-    """Device kernel time in a profiled run by kind: K5, PyTorch's
+    """Device kernel time in a profiled run by kind: K4, K1, K5, PyTorch's
     elementwise kernels (the epilogue's unfused ops and other glue), the
     other kernels."""
-    kinds = {"K5 modconv_epilogue": 0.0, "PyTorch elementwise": 0.0, "other": 0.0}
-    counts = dict.fromkeys(kinds, 0)
+    kinds = {"K4 upfirdn2d": "upfirdn2d", "K1 triplane_decode": "triplane_decode_kernel",
+             "K5 modconv_epilogue": "modconv_epilogue", "PyTorch elementwise": "elementwise_kernel"}
+    times = dict.fromkeys([*kinds, "other"], 0.0)
+    counts = dict.fromkeys(times, 0)
     for e in trace["traceEvents"]:
         if e.get("ph") != "X" or e.get("cat") != "kernel":
             continue
         name = e.get("name", "")
-        kind = ("K5 modconv_epilogue" if "modconv_epilogue" in name
-                else "PyTorch elementwise" if "elementwise_kernel" in name else "other")
-        kinds[kind] += e["dur"]
+        kind = next((k for k, part in kinds.items() if part in name), "other")
+        times[kind] += e["dur"]
         counts[kind] += 1
     return "device kernel time by kind: " + ", ".join(
-        f"{k} {t / 1e3:.3f} ms ({counts[k]} launches)" for k, t in kinds.items())
+        f"{k} {t / 1e3:.3f} ms ({counts[k]} launches)" for k, t in times.items())
 
 
 RENDER_KERNELS = ("triplane_decode", "ray_composite", "importance_sample", "upfirdn2d",
@@ -1003,10 +1150,12 @@ def main(argv=None) -> int:
     per = build.build_all()
     print(f"built {len(per)} sources in {time.perf_counter() - t0:.1f} s "
           + " ".join(f"{k}={v:.1f}s" for k, v in per.items()))
-    for log in sorted(build.BUILD_DIR.glob("*.log")):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {log.stem.rsplit('-', 1)[0]}: {line.strip()}")
+    for stem in per:
+        for fn, regs, spill_st, spill_ld in ptxas_report(
+                build.build(stem).with_suffix(".log").read_text()):
+            print(f"  {stem}: {fn} {regs} registers, spill stores/loads {spill_st}/{spill_ld}")
+            if fn.startswith("triplane_decode_kernel"):
+                require(spill_st == spill_ld == 0, f"{fn} spills registers")
 
     G = configs.flagship(eval_mode=True).init_weights(SEED).eval()
     with torch.no_grad():
@@ -1018,6 +1167,7 @@ def main(argv=None) -> int:
     with torch.no_grad():
         x = flagship_inputs(G, device)
         checks = kernel_checks(G, device)
+        checks.update(k4_checks(G, x, device))
         checks.update(ess_paste_kernel_checks(Ge, x, device))
         checks.update(epilogue_kernel_checks(device))
         volume_checks, levels = volume_kernel_checks(Ge, device)
@@ -1038,6 +1188,7 @@ def main(argv=None) -> int:
             BATCH, REQUESTS, card)
         check_outputs(out, (BATCH, 3, 512, 512))
         require_launched(counts_parity, RENDER_KERNELS, "settings-parity")
+        require_k4_polyphase(parity, "settings-parity")
         bf16_closeness(G, x, out, lambda **kw: configs.flagship(eval_mode=True, **kw))
         del out
 
@@ -1048,6 +1199,7 @@ def main(argv=None) -> int:
             card)
         check_outputs(out, (BATCH, 3, 512, 512))
         require_launched(counts_main, ESS_PASTE_KERNELS, "ESS + paste per call")
+        require_k4_polyphase(per_call, "ESS + paste per call")
         for k in PASTE_KEYS:
             print(f"  {k} passes {float(out['paste'][k].mean()):.4f}")
         bf16_closeness(Ge, xp, out, lambda **kw: configs.flagship(eval_mode=True, ess=True,
@@ -1077,6 +1229,7 @@ def main(argv=None) -> int:
             len(views), PORTRAITS, card)
         check_outputs(out, (BATCH, 3, 512, 512))
         require_launched(counts_turn, ESS_PASTE_KERNELS, "turntable")
+        require_k4_polyphase(turn, "turntable")
         print(f"  {turn['ms_per_run'] / 1e3:.4f} s/portrait")
         del out
 

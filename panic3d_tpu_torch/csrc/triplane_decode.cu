@@ -15,30 +15,45 @@
 // the cloud cull applied to the density (:294-296), and the fp16 cast, with
 // the grid written already flipped on axis 0 (:307).
 //
-// What bounds K1 on the H100: the random 4-corner reads. Per point it reads
-// 3 planes x 4 corners x C channels (768 B in bf16 at C=32) and does
-// C*64 + 64*33 multiply-adds (4,160 at C=32), about 5 FLOP per byte read, so
-// at 96+96 samples x 64^2 rays x 2 views it is bound by cache bandwidth,
-// not by arithmetic. Both portraits' bf16 planes (2 x 12.6 MB) fit in the
-// 50 MB L2, so the corner reads are L2 hits after first touch.
-// K1v reads nothing per point but the planes (one portrait's f32 planes,
-// 25 MB, stay in L2) and writes 2 bytes, so it is bound by operations:
-// ~4.7 kFLOP per point (the lerps, the 32x64 layer and 64 softplus, two
-// more softplus and exp) x 16.8 M points.
+// What bounds K1 on the H100: with the MLP on the CUDA cores, operations
+// (C*64 + 64*33 = 4,160 multiply-adds per point at C = 32, ~90 % of them the
+// two layers' matrix products); with the MLP on the tensor cores, the
+// instructions per point (the gather's address and lerp arithmetic, 64
+// softplus and 32 sigmoids) and the latency of the random 4-corner reads
+// (3 planes x 4 corners x C channels: 768 B per point in bf16 at C = 32),
+// not the tensor cores or shared memory (PERF.md). Both portraits' bf16 planes
+// (2 x 12.6 MB) fit in the 50 MB L2, so the corner reads are L2 hits after
+// first touch. K1v reads nothing per point but the planes (one portrait's
+// f32 planes, 25 MB, stay in L2) and writes 2 bytes, so it is bound by
+// operations: ~4.7 kFLOP per point (the lerps, the 32x64 layer and 64
+// softplus, two more softplus and exp) x 16.8 M points.
 //
-// Design: one thread per sample point; planes are channels-last
-// [N,3,H,W,C], so each corner is one contiguous C-vector read as 16-byte
-// loads. The decoder weights (scaled by their equalized-lr gains) sit in
-// shared memory and are read as broadcasts. The [M,3,C] feature block and
-// the 64-wide hidden layer never leave registers; only rgb [N,M,32] (in the
-// planes' dtype) and the filtered sigma [N,M] (f32) are written. All
-// arithmetic is f32; bf16 planes are upcast as they are loaded. A grid-stride
-// loop over a bounded grid amortizes the per-block weight load. K1v makes
-// each point's coordinate from its flat index with the JAX package's f32
-// divisions and fmod, explicitly rounded (IEEE division, no contracted
-// multiply-add), so the lattice is bit-identical to its plain version's;
-// it decodes net2's sigma row alone and stores the density in the flipped
-// layout marching tetrahedra reads.
+// K1's design: each warp decodes tiles of 16 points (the mma's M) in a
+// grid-stride loop, 8 warps a block, 2 blocks an SM (128 registers a
+// thread); planes are channels-last [N,3,H,W,C]. (1) Gather: C/8 (bf16) or
+// C/4 (f32) neighbouring lanes share a point, each reading one 16-byte
+// channel chunk of every corner, so a corner is one coalesced request; the
+// next plane's chunks are in flight while a plane's lerps run; the lerps and
+// the plane mean are f32 and land in the warp's shared tile. (2) The MLP on
+// the tensor cores: mma.sync m16n8k8 in TF32 with the 3xTF32 split (v = hi +
+// lo, hi = cvt.rna(v)), a_lo*w_hi + a_hi*w_lo + a_hi*w_hi with f32
+// accumulation, which keeps the result within f32 rounding of the plain
+// version. The weights (gained) sit in shared memory already split, in
+// fragment order, one 16-byte read per fragment; the bias and softplus run
+// on layer 1's accumulators, and the hidden layer goes back to the warp's
+// tile as layer 2's A operand (N padded from 33 to 40, sigma's row moved
+// after the 32 rgb rows so that rgb channels pair up). softplus and the
+// sigmoid use the SFU (ex2/lg2.approx, ~2e-7). (3) The epilogue keeps the
+// density filters and the sigmoid / MipNeRF clamp; rgb is staged in the
+// warp's tile in output order and leaves as contiguous 16-byte stores. bf16
+// planes are upcast as they are read; all arithmetic is f32, SFU f32 or
+// 3xTF32. K1v is one thread per point: its decoder weights (scaled by their
+// equalized-lr gains) sit in shared memory and are read as broadcasts, and
+// it makes each point's coordinate from its flat index with the JAX
+// package's f32 divisions and fmod, explicitly rounded (IEEE division, no
+// contracted multiply-add), so the lattice is bit-identical to its plain
+// version's; it decodes net2's sigma row alone and stores the density in the
+// flipped layout marching tetrahedra reads.
 #include <cuda_fp16.h>
 
 #include "common.cuh"
@@ -59,22 +74,11 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
 // grid_sample (align_corners=False, zeros padding) of the three planes of
 // one portrait [3,H,W,C] at plane-space point (sx, sy, sz), summed over the
 // planes and divided by 3: the plane mean
-template <typename T, int C>
-__device__ __forceinline__ void sample_planes(const T* __restrict__ planes, int H, int W,
+template <int C>
+__device__ __forceinline__ void sample_planes(const float* __restrict__ planes, int H, int W,
                                               const Proj& pj, float sx, float sy, float sz,
                                               float feat[C]) {
 #pragma unroll
@@ -91,8 +95,8 @@ __device__ __forceinline__ void sample_planes(const T* __restrict__ planes, int 
     const int x0 = (int)fx0, y0 = (int)fy0;
     const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
     const bool vy0 = y0 >= 0 && y0 < H, vy1 = y0 + 1 >= 0 && y0 + 1 < H;
-    const T* base = planes + (size_t)p * H * W * C;
-    const T* r00 = base + ((long long)y0 * W + x0) * C;
+    const float* base = planes + (size_t)p * H * W * C;
+    const float* r00 = base + ((long long)y0 * W + x0) * C;
 #pragma unroll
     for (int c0 = 0; c0 < C; c0 += 8) {
       float v00[8] = {0}, v01[8] = {0}, v10[8] = {0}, v11[8] = {0};
@@ -112,8 +116,215 @@ __device__ __forceinline__ void sample_planes(const T* __restrict__ planes, int 
   for (int c = 0; c < C; ++c) feat[c] = feat[c] / 3.f;
 }
 
+// ---- K1: gather, then the MLP on the tensor cores ----
+
+constexpr int K1_WARPS = 8;     // warps per block; each warp runs its own tiles
+constexpr int K1_BLOCKS = 2;    // resident blocks per SM: 128 registers a thread
+constexpr int PTS = 16;         // points per warp tile: the mma's M
+constexpr int N2 = 40;          // net2's 33 outputs padded to 5 n-tiles of 8
+constexpr int SIGMA_COL = 32;   // net2's sigma row sits after its 32 rgb rows
+constexpr int HS = HIDDEN + 4;  // hidden row stride (+ 4: conflict-free A reads)
+constexpr int RS_BYTES = 32 * 4 + 32;   // staged rgb row stride, f32 (+ 32 B: fewer conflicts)
+// a warp's floats: its features [PTS][C + 4], in their place its hidden
+// layer [PTS][HS], in its place its staged rgb; then the sigmas
+constexpr int REGION = PTS * HS + PTS;
+
+// TF32 rounding of v as cvt.rna does it (nearest, ties away from zero)
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// softplus and the sigmoid on the SFU (ex2/lg2.approx): within ~2e-7 of the
+// libm forms, far inside K1's tolerances (sigma 1e-4)
+__device__ __forceinline__ float softplus_fast(float x) {
+  return fmaxf(x, 0.f) + __logf(1.f + __expf(-fabsf(x)));
+}
+
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+
+// 3xTF32 split: v = hi + lo, both TF32; lo carries the bits hi drops
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// a B fragment pair, split: (b0 hi, b1 hi, b0 lo, b1 lo)
+__device__ __forceinline__ uint4 split_pair(float b0, float b1) {
+  uint4 r;
+  split_tf32(b0, r.x, r.z);
+  split_tf32(b1, r.y, r.w);
+  return r;
+}
+
+// d += a (16x8, row-major) * b (8x8, col-major); TF32 in, f32 accumulation
+__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in 3xTF32: a_lo*b_hi + a_hi*b_lo, then a_hi*b_hi (the small
+// products first); a_lo*b_lo (~2^-22 relative) is dropped
+__device__ __forceinline__ void mma_3xtf32(float d[4], const uint32_t hi[4],
+                                           const uint32_t lo[4], const uint4& b) {
+  mma_tf32(d, lo, b.x, b.y);
+  mma_tf32(d, hi, b.z, b.w);
+  mma_tf32(d, hi, b.x, b.y);
+}
+
+// net2's row in padded output column c: rgb channel c (row c + 1) for
+// c < 32, sigma (row 0) in column SIGMA_COL, -1 (zero) in the padding
+__device__ __forceinline__ int net2_row(int c) {
+  return c < SIGMA_COL ? c + 1 : c == SIGMA_COL ? 0 : -1;
+}
+
+// an A fragment (rows g, g+8; columns t, t+4 of the 8-wide k-step at f),
+// split into TF32 hi and lo
+__device__ __forceinline__ void load_a(const float* f, int g, int stride, uint32_t hi[4],
+                                       uint32_t lo[4]) {
+  split_tf32(f[g * stride], hi[0], lo[0]);
+  split_tf32(f[(g + 8) * stride], hi[1], lo[1]);
+  split_tf32(f[g * stride + 4], hi[2], lo[2]);
+  split_tf32(f[(g + 8) * stride + 4], hi[3], lo[3]);
+}
+
+// two neighbouring channels, rounded to T, as one store
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// the decoder in shared memory as mma B fragments (gains applied, split).
+// Fragment [k-step][n-tile][lane] holds, for lane = 4g + t, B[t][g] and
+// B[t+4][g] of the 8x8 block: B[k][n] = w0[8nt+n][8ks+k] (layer 1) and
+// w1[net2_row(8nt+n)][8ks+k] (layer 2).
+template <int C>
+struct K1Smem {
+  uint4 w0f[C / 8][HIDDEN / 8][32];
+  uint4 w1f[HIDDEN / 8][N2 / 8][32];
+  float b0[HIDDEN];
+  float b1[N2];
+  float tile[K1_WARPS][REGION];
+};
+
+__device__ __forceinline__ void unpack(const uint4& r, float* v, const float*) {
+  v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
+  v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
+}
+
+__device__ __forceinline__ void unpack(const uint4& r, float* v, const __nv_bfloat16*) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// one plane's bilinear corners for a point: the 16-byte chunk at channel c0
+// of each corner (zeros outside the plane) and the lerp weights
+struct Corners {
+  uint4 v[4];   // (y0, x0), (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1)
+  float wx, wy;
+};
+
 template <typename T, int C>
-__global__ void __launch_bounds__(THREADS) triplane_decode_kernel(
+__device__ __forceinline__ Corners plane_corners(const T* __restrict__ planes, int n, int p,
+                                                 int H, int W, const Proj& pj, float sx,
+                                                 float sy, float sz, int c0) {
+  Corners k;
+  const float gx = sx * pj.a[p][0][0] + sy * pj.a[p][1][0] + sz * pj.a[p][2][0];
+  const float gy = sx * pj.a[p][0][1] + sy * pj.a[p][1][1] + sz * pj.a[p][2][1];
+  const float ix = ((gx + 1.f) * (float)W - 1.f) / 2.f;
+  const float iy = ((gy + 1.f) * (float)H - 1.f) / 2.f;
+  const float fx0 = floorf(ix), fy0 = floorf(iy);
+  k.wx = ix - fx0;
+  k.wy = iy - fy0;
+  const int x0 = (int)fx0, y0 = (int)fy0;
+  const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
+  const bool vy0 = y0 >= 0 && y0 < H, vy1 = y0 + 1 >= 0 && y0 + 1 < H;
+  const T* r00 = planes + ((long long)(n * 3 + p) * H * W + (long long)y0 * W + x0) * C + c0;
+  const T* r10 = r00 + (long long)W * C;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  k.v[0] = vy0 && vx0 ? __ldg(reinterpret_cast<const uint4*>(r00)) : zero;
+  k.v[1] = vy0 && vx1 ? __ldg(reinterpret_cast<const uint4*>(r00 + C)) : zero;
+  k.v[2] = vy1 && vx0 ? __ldg(reinterpret_cast<const uint4*>(r10)) : zero;
+  k.v[3] = vy1 && vx1 ? __ldg(reinterpret_cast<const uint4*>(r10 + C)) : zero;
+  return k;
+}
+
+// the plane-mean features of the warp's PTS points [t0, t0 + PTS) into
+// tile[point][C + 4] (zeros past the end). A point is served by C / CH
+// neighbouring lanes, each reading one 16-byte chunk of CH channels of every
+// corner, so a corner's C channels are one coalesced request; the next
+// plane's four chunks are in flight while a plane's lerps run. The lerps and
+// their order are sample_planes' (grid_sample, align_corners=False, zeros
+// padding).
+template <typename T, int C>
+__device__ __forceinline__ void gather_tile(const T* __restrict__ planes,
+                                            const float* __restrict__ coords, long long t0,
+                                            long long total, int M, int H, int W,
+                                            const Proj& pj, float coord_scale, int lane,
+                                            float* tile) {
+  constexpr int CH = 16 / (int)sizeof(T);    // channels per chunk
+  constexpr int TPP = C / CH;                // lanes per point
+  constexpr int PPP = 32 / TPP;              // points per pass
+  constexpr int PASSES = (PTS + PPP - 1) / PPP;
+  constexpr int FS = C + 4;
+  const int cc = lane % TPP;
+#pragma unroll 1   // one point per lane at a time: registers stay <= 128
+  for (int pass = 0; pass < PASSES; ++pass) {
+    const int lp = pass * PPP + lane / TPP;
+    if (lp >= PTS) continue;
+    const long long pt = t0 + lp;
+    float feat[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) feat[c] = 0.f;
+    if (pt < total) {
+      const int n = (int)(pt / M);
+      const float sx = coord_scale * coords[pt * 3 + 0];
+      const float sy = coord_scale * coords[pt * 3 + 1];
+      const float sz = coord_scale * coords[pt * 3 + 2];
+      Corners cur = plane_corners<T, C>(planes, n, 0, H, W, pj, sx, sy, sz, cc * CH);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        Corners nxt;
+        if (p < 2) nxt = plane_corners<T, C>(planes, n, p + 1, H, W, pj, sx, sy, sz, cc * CH);
+        float v00[CH], v01[CH], v10[CH], v11[CH];
+        unpack(cur.v[0], v00, planes);
+        unpack(cur.v[1], v01, planes);
+        unpack(cur.v[2], v10, planes);
+        unpack(cur.v[3], v11, planes);
+#pragma unroll
+        for (int k = 0; k < CH; ++k) {
+          const float top = v00[k] + (v01[k] - v00[k]) * cur.wx;
+          const float bot = v10[k] + (v11[k] - v10[k]) * cur.wx;
+          feat[k] += top + (bot - top) * cur.wy;
+        }
+        if (p < 2) cur = nxt;
+      }
+#pragma unroll
+      for (int c = 0; c < CH; ++c) feat[c] = feat[c] / 3.f;
+    }
+    float4* dst = reinterpret_cast<float4*>(tile + lp * FS + cc * CH);
+#pragma unroll
+    for (int q = 0; q < CH / 4; ++q)
+      dst[q] = make_float4(feat[4 * q], feat[4 * q + 1], feat[4 * q + 2], feat[4 * q + 3]);
+  }
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(32 * K1_WARPS, K1_BLOCKS) triplane_decode_kernel(
     const T* __restrict__ planes, const float* __restrict__ coords,
     const float* __restrict__ w0, const float* __restrict__ b0,
     const float* __restrict__ w1, const float* __restrict__ b1,
@@ -121,58 +332,111 @@ __global__ void __launch_bounds__(THREADS) triplane_decode_kernel(
     int N, int M, int H, int W, Proj pj, float coord_scale, float g0, float g1,
     float bias_scale, int force_sigmoid, int use_crop, float crop_lim,
     int cull_mode, float cull_thresh) {
-  __shared__ float sw0[HIDDEN * C];
-  __shared__ float sb0[HIDDEN];
-  __shared__ float sw1[OUT * HIDDEN];
-  __shared__ float sb1[OUT];
-  for (int i = threadIdx.x; i < HIDDEN * C; i += blockDim.x) sw0[i] = w0[i] * g0;
-  for (int i = threadIdx.x; i < OUT * HIDDEN; i += blockDim.x) sw1[i] = w1[i] * g1;
-  for (int i = threadIdx.x; i < HIDDEN; i += blockDim.x) sb0[i] = b0[i] * bias_scale;
-  for (int i = threadIdx.x; i < OUT; i += blockDim.x) sb1[i] = b1[i] * bias_scale;
+  constexpr int FS = C + 4;
+  constexpr int KS1 = C / 8, NT1 = HIDDEN / 8, KS2 = HIDDEN / 8, NT2 = N2 / 8;
+  extern __shared__ uint4 smem_raw[];
+  K1Smem<C>& s = *reinterpret_cast<K1Smem<C>*>(smem_raw);
+  for (int i = threadIdx.x; i < KS1 * NT1 * 32; i += blockDim.x) {
+    const int lane = i & 31, nt = (i >> 5) % NT1, ks = i / (32 * NT1);
+    const float* row = w0 + (nt * 8 + (lane >> 2)) * C + ks * 8 + (lane & 3);
+    s.w0f[ks][nt][lane] = split_pair(row[0] * g0, row[4] * g0);
+  }
+  for (int i = threadIdx.x; i < KS2 * NT2 * 32; i += blockDim.x) {
+    const int lane = i & 31, nt = (i >> 5) % NT2, ks = i / (32 * NT2);
+    const int o = net2_row(nt * 8 + (lane >> 2));
+    const float* row = w1 + o * HIDDEN + ks * 8 + (lane & 3);
+    s.w1f[ks][nt][lane] = o >= 0 ? split_pair(row[0] * g1, row[4] * g1)
+                                 : make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int i = threadIdx.x; i < HIDDEN; i += blockDim.x) s.b0[i] = b0[i] * bias_scale;
+  for (int i = threadIdx.x; i < N2; i += blockDim.x)
+    s.b1[i] = net2_row(i) >= 0 ? b1[net2_row(i)] * bias_scale : 0.f;
   __syncthreads();
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* tile = s.tile[warp];
   const long long total = (long long)N * M;
-  for (long long pt = blockIdx.x * (long long)blockDim.x + threadIdx.x; pt < total;
-       pt += (long long)gridDim.x * blockDim.x) {
-    const int n = (int)(pt / M);
-    const float x = coords[pt * 3 + 0], y = coords[pt * 3 + 1], z = coords[pt * 3 + 2];
-    const float sx = coord_scale * x, sy = coord_scale * y, sz = coord_scale * z;
+  for (long long t0 = ((long long)blockIdx.x * K1_WARPS + warp) * PTS; t0 < total;
+       t0 += (long long)gridDim.x * K1_WARPS * PTS) {
+    gather_tile<T, C>(planes, coords, t0, total, M, H, W, pj, coord_scale, lane, tile);
+    __syncwarp();
 
-    float feat[C];
-    sample_planes<T, C>(planes + (size_t)n * 3 * H * W * C, H, W, pj, sx, sy, sz, feat);
-    // FC(C->64) -> softplus -> FC(64->33), f32 accumulation
-    float out[OUT];
+    // FC(C->64): hidden [16 x 64] in 8 n-tiles; the lane holds rows g, g+8
+    // and columns 8nt+2t, 8nt+2t+1
+    {
+      float h[NT1][4];
 #pragma unroll
-    for (int k = 0; k < OUT; ++k) out[k] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < HIDDEN; ++j) {
-      float h = 0.f;
+      for (int nt = 0; nt < NT1; ++nt) h[nt][0] = h[nt][1] = h[nt][2] = h[nt][3] = 0.f;
 #pragma unroll
-      for (int c = 0; c < C; ++c) h = fmaf(sw0[j * C + c], feat[c], h);
-      h = softplus_f(h + sb0[j]);
+      for (int ks = 0; ks < KS1; ++ks) {
+        uint32_t hi[4], lo[4];
+        load_a(tile + ks * 8 + t, g, FS, hi, lo);
 #pragma unroll
-      for (int k = 0; k < OUT; ++k) out[k] = fmaf(sw1[k * HIDDEN + j], h, out[k]);
+        for (int nt = 0; nt < NT1; ++nt) mma_3xtf32(h[nt], hi, lo, s.w0f[ks][nt][lane]);
+      }
+      __syncwarp();   // the features are read: the hidden layer takes their place
+      // bias and softplus, then the hidden layer to the warp's region as
+      // layer 2's A operand
+#pragma unroll
+      for (int nt = 0; nt < NT1; ++nt) {
+        const float2 bb = *reinterpret_cast<const float2*>(&s.b0[nt * 8 + 2 * t]);
+        float* r = tile + g * HS + nt * 8 + 2 * t;
+        *reinterpret_cast<float2*>(r) =
+            make_float2(softplus_fast(h[nt][0] + bb.x), softplus_fast(h[nt][1] + bb.y));
+        *reinterpret_cast<float2*>(r + 8 * HS) =
+            make_float2(softplus_fast(h[nt][2] + bb.x), softplus_fast(h[nt][3] + bb.y));
+      }
     }
+    __syncwarp();
 
-    float sigma = out[0] + sb1[0];
-    if (use_crop && !(fabsf(x) <= crop_lim && fabsf(z) <= crop_lim)) sigma = -1e3f;
-    if (cull_mode != 0) {
-      const float alpha = 1.f - expf(-softplus_f(sigma - 1.f));
-      if (cull_mode == 2) sigma = alpha < cull_thresh ? -1e3f : 1e3f;   // binarize
-      else if (alpha < cull_thresh) sigma = -1e3f;                       // cull
+    // FC(64->33, padded to 40; rgb in columns 0-31, sigma in column 32)
+    float o[NT2][4];
+#pragma unroll
+    for (int nt = 0; nt < NT2; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS2; ++ks) {
+      uint32_t hi[4], lo[4];
+      load_a(tile + ks * 8 + t, g, HS, hi, lo);
+#pragma unroll
+      for (int nt = 0; nt < NT2; ++nt) mma_3xtf32(o[nt], hi, lo, s.w1f[ks][nt][lane]);
     }
-    sigma_out[pt] = sigma;
+    __syncwarp();   // the hidden layer is read: the region takes the outputs next
 
-    __align__(16) T o[OUT - 1];
+    // epilogue: rgb's sigmoid (or the MipNeRF clamp), staged in the points'
+    // order as pairs of channels, then written as 16-byte stores; sigma's
+    // filters
+    char* rgb_s = reinterpret_cast<char*>(tile);
+    constexpr int RS = RS_BYTES / 4 * (int)sizeof(T);   // staged row stride, bytes
+    float* sig_s = tile + PTS * HS;
 #pragma unroll
-    for (int k = 1; k < OUT; ++k) {
-      const float s = 1.f / (1.f + expf(-(out[k] + sb1[k])));
-      o[k - 1] = from_f<T>(force_sigmoid ? s : s * 1.002f - 0.001f);
+    for (int half = 0; half < 2; ++half) {
+      const int row = g + 8 * half;
+#pragma unroll
+      for (int nt = 0; nt < NT2 - 1; ++nt) {
+        const int col = nt * 8 + 2 * t;
+        float a = sigmoid_fast(o[nt][2 * half] + s.b1[col]);
+        float b = sigmoid_fast(o[nt][2 * half + 1] + s.b1[col + 1]);
+        if (!force_sigmoid) {
+          a = a * 1.002f - 0.001f;
+          b = b * 1.002f - 0.001f;
+        }
+        store2(reinterpret_cast<T*>(rgb_s + row * RS) + col, a, b);
+      }
+      const long long pt = t0 + row;
+      if (t == 0 && pt < total)
+        sig_s[row] = density_filters(o[NT2 - 1][2 * half] + s.b1[SIGMA_COL], coords[pt * 3],
+                                     coords[pt * 3 + 2], use_crop, crop_lim, cull_mode,
+                                     cull_thresh);
     }
-    uint4* dst = reinterpret_cast<uint4*>(rgb + pt * (OUT - 1));
-#pragma unroll
-    for (int i = 0; i < (int)(sizeof(o) / sizeof(uint4)); ++i)
-      dst[i] = reinterpret_cast<const uint4*>(o)[i];
+    __syncwarp();
+    const int valid = (int)min((long long)PTS, total - t0);
+    constexpr int U = (OUT - 1) * (int)sizeof(T) / 16;   // 16-byte chunks per point
+    uint4* dst = reinterpret_cast<uint4*>(rgb + t0 * (OUT - 1));
+    for (int i = lane; i < valid * U; i += 32)
+      dst[i] = reinterpret_cast<const uint4*>(rgb_s + (i / U) * RS)[i % U];
+    if (lane < valid) sigma_out[t0 + lane] = sig_s[lane];
+    __syncwarp();   // the outputs are read before the next tile's features land
   }
 }
 
@@ -183,14 +447,20 @@ cudaError_t launch(const void* planes, const float* coords, const float* w0,
                    float coord_scale, float g0, float g1, float bias_scale,
                    int force_sigmoid, int use_crop, float crop_lim, int cull_mode,
                    float cull_thresh, cudaStream_t stream) {
+  // above 48 KB of shared memory a block must ask for it (once per kernel)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      triplane_decode_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(K1Smem<C>));
+  if (attr != cudaSuccess) return attr;
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long total = (long long)N * M;
-  long long blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > 16LL * sms) blocks = 16LL * sms;
+  const long long tiles = (total + PTS - 1) / PTS;
+  long long blocks = (tiles + K1_WARPS - 1) / K1_WARPS;
+  if (blocks > (long long)K1_BLOCKS * sms) blocks = (long long)K1_BLOCKS * sms;
   if (blocks < 1) blocks = 1;
-  triplane_decode_kernel<T, C><<<(unsigned)blocks, THREADS, 0, stream>>>(
+  triplane_decode_kernel<T, C><<<(unsigned)blocks, 32 * K1_WARPS, sizeof(K1Smem<C>), stream>>>(
       static_cast<const T*>(planes), coords, w0, b0, w1, b1, static_cast<T*>(rgb),
       sigma, N, M, H, W, pj, coord_scale, g0, g1, bias_scale, force_sigmoid,
       use_crop, crop_lim, cull_mode, cull_thresh);
@@ -230,7 +500,7 @@ __global__ void __launch_bounds__(THREADS) volume_density_kernel(
     float x, y, z;
     lattice_point(i, N, voxel, origin, x, y, z);
     float feat[C];
-    sample_planes<float, C>(planes, H, W, pj, coord_scale * x, coord_scale * y,
+    sample_planes<C>(planes, H, W, pj, coord_scale * x, coord_scale * y,
                             coord_scale * z, feat);
     const float sigma = sigma_decode<C>(m, feat);
     // sigma2density, then the crop, then the cloud cull on the density

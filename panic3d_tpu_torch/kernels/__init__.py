@@ -2,13 +2,16 @@
 
 Each wrapper adds one to its kernel's ``launches`` where it launches the
 kernel, and nowhere else (the plain PyTorch path on CPU tensors does not
-count). ``chip_smoke.py`` zeroes the counts before it drives the main path
-and reads them after, to show the path went through every kernel.
+count). A source with more than one kernel behind one entry point (K4's
+polyphase and generic kernels) also counts each launch under the variant it
+ran, in ``variants``. ``chip_smoke.py`` zeroes the counts before it drives
+the main path and reads them after, to show the path went through every
+kernel.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass
@@ -17,6 +20,7 @@ class Kernel:
     source: str      # CUDA source, relative to the repository root
     replaces: str    # the JAX op it stands in for, file:line
     launches: int = 0
+    variants: dict = field(default_factory=dict)   # launches by kernel variant
 
 
 KERNELS = {
@@ -103,7 +107,13 @@ def sources() -> list:
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.variants.clear()
 
 
 def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def variant_counts() -> dict:
+    """Launches by variant, for the entry points that have variants."""
+    return {name: dict(k.variants) for name, k in KERNELS.items() if k.variants}

@@ -4,9 +4,16 @@
 replaces the JAX op's three per-case TPU lowerings. ``upfirdn2d_plain`` is
 the same function in plain PyTorch (the reference formula: zero-insert, pad,
 grouped correlation, decimate): the CPU path and the kernel's oracle.
+``k4_plan`` is what the wrapper hands the kernel for one (filter, padding),
+cached: for up=2, down=1 and a 4x4 filter (every call of the flagship) the
+polyphase table of the specialised kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -89,8 +96,53 @@ def upfirdn2d_plain(x, f2d, up, down, pad):
     return y[:, :, ::downy, ::downx].to(x.dtype)
 
 
-_K4_ARGS = (kb.PTR, kb.PTR) + (kb.INT,) * 12 + (kb.PTR, kb.INT, kb.INT, kb.PTR)
+_K4_ARGS = (kb.PTR, kb.PTR) + (kb.INT,) * 12 + (kb.PTR, kb.INT, kb.INT, kb.PTR, kb.PTR, kb.PTR)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class K4Plan(NamedTuple):
+    """What K4's entry point takes for one (filter, up, down, padding), made
+    once and cached: the filter (flipped and gained) and, for the family
+    every call of the flagship makes (up=2, down=1, 4x4 filter), its
+    polyphase table. ``variant`` names the kernel the entry point runs:
+    "up2" (the polyphase kernel) or "generic"."""
+    variant: str
+    taps: ctypes.Array
+    phase_taps: Optional[tuple]   # [ry][rx][j][i]: the tap of x[m+sy[ry]+j, n+sx[rx]+i]
+    phase_src: Optional[tuple]    # (sy[0], sy[1], sx[0], sx[1])
+    c_phase_taps: Optional[ctypes.Array]
+    c_phase_src: Optional[ctypes.Array]
+
+
+def _phase(r, p0):
+    """Output phase r of an up=2 axis with leading pad p0 (_fir_poly_up's
+    phase_info): its first tap k0 (then k0 + 2) and its source offset s, so
+    output 2m + r reads input m + s and m + s + 1."""
+    k0 = (p0 - r) % 2
+    return k0, (r + k0 - p0) // 2
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(taps: tuple, fh: int, fw: int, up: tuple, down: tuple, pad: tuple) -> K4Plan:
+    c_taps = kb.f32_array(taps)
+    if not (up == (2, 2) and down == (1, 1) and (fh, fw) == (4, 4)):
+        return K4Plan("generic", c_taps, None, None, None, None)
+    f = [taps[a * fw:(a + 1) * fw] for a in range(fh)]
+    ys = [_phase(r, pad[2]) for r in (0, 1)]
+    xs = [_phase(r, pad[0]) for r in (0, 1)]
+    table = tuple(tuple(tuple(tuple(f[ys[ry][0] + 2 * j][xs[rx][0] + 2 * i] for i in (0, 1))
+                              for j in (0, 1)) for rx in (0, 1)) for ry in (0, 1))
+    src = (ys[0][1], ys[1][1], xs[0][1], xs[1][1])
+    flat = [v for a in table for b in a for c in b for v in c]
+    return K4Plan("up2", c_taps, table, src, kb.f32_array(flat), (ctypes.c_int * 4)(*src))
+
+
+def k4_plan(f2d, up, down, pad) -> K4Plan:
+    """The cached plan of a call (f2d [fh, fw] flipped and gained, up/down
+    (x, y) pairs, pad (px0, px1, py0, py1))."""
+    fh, fw = int(f2d.shape[0]), int(f2d.shape[1])
+    taps = tuple(f2d.detach().to("cpu", torch.float32).reshape(-1).tolist())
+    return _plan(taps, fh, fw, tuple(up), tuple(down), tuple(pad))
 
 
 def upfirdn2d_kernel(x, f2d, up, down, pad):
@@ -104,14 +156,17 @@ def upfirdn2d_kernel(x, f2d, up, down, pad):
     oh, ow = _out_size(h, w, fh, fw, up, down, pad)
     if oh < 1 or ow < 1:
         raise ValueError(f"upfirdn2d: empty output {oh}x{ow}")
+    plan = k4_plan(f2d, up, down, pad)
     y = torch.empty((n, c, oh, ow), device=x.device, dtype=x.dtype)
-    taps = kb.f32_array(f2d.detach().to("cpu", torch.float32).reshape(-1).tolist())
     kb.launch(
         "upfirdn2d", _K4_ARGS, x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype],
         n * c, h, w, oh, ow, up[0], up[1], down[0], down[1], pad[0], pad[2],
-        taps, fw, fh, torch.cuda.current_stream(x.device).cuda_stream,
+        plan.taps, fw, fh, plan.c_phase_taps, plan.c_phase_src,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
-    KERNELS["upfirdn2d"].launches += 1
+    k = KERNELS["upfirdn2d"]
+    k.launches += 1
+    k.variants[plan.variant] = k.variants.get(plan.variant, 0) + 1
     return y
 
 
