@@ -22,8 +22,11 @@
    (median of CUDA-event timings), with the single PyTorch call that
    computes the same function where there is one (library_ms; K4 must beat
    it) and the least time the card could take (bound_ms, from the bytes,
-   the f32 operations and the TF32 tensor-core operations of these inputs).
-   --kernels-only stops here.
+   the f32 operations, the TF32 tensor-core operations and the SFU
+   operations of these inputs). K2 is checked at 96+96 and 48+48 samples,
+   with exact cross-half ties and with rays out of order, timed at both
+   shapes, and must make one device launch a call; K7a's cropped cells are
+   checked exactly. --kernels-only stops here.
 4. Checks the whole forward of the tiny config on the card (kernels) against
    the same forward on the CPU (plain versions), in f32: ESS and paste off,
    then ESS and paste on.
@@ -49,6 +52,8 @@
    colours' copy, and the metrics' two copies of distances) for each, and
    checks the bf16
    default against the same weights pinned to f32.
+   --profile DIR adds a torch.profiler table and trace of one ESS + paste
+   request and of one turntable portrait, with the device's busy share.
 6. Prints a JSON line of the paths, the script's wall time, a JSON line of
    the kernels (one entry per entry point, with its launches on the ESS +
    paste path, else on the geometry path, else on the probe), the card
@@ -75,6 +80,10 @@ AZIMUTHS = (0.0, 330.0)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM TF32 on the tensor cores, dense
+SFU_PER_CLOCK_PER_SM = 16   # ex2/lg2 results a clock per SM, compute capability 9.0
+SFU_OPS_PER_S = None        # set in main(): x SMs x the card's maximum SM clock
+NO_SPILL = ("triplane_decode_kernel", "factor_terms_kernel", "occlusion_volume_kernel",
+            "ray_composite_kernel")   # kernels that must not spill registers
 PASTE_KEYS = ("mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
 MESH_RES = 256     # eval generate's mesh resolution
 LEVEL = 0.5        # eval generate's iso level
@@ -124,13 +133,30 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def bound(n_bytes: float, flops: float, tf32_flops: float = 0.0):
+def bound(n_bytes: float, flops: float, tf32_flops: float = 0.0, sfu_ops: float = 0.0):
     """The least time the card could take: the largest of the bytes over the
-    memory rate, the f32 operations over the f32 peak and the TF32 tensor-core
-    operations over the TF32 peak -> (ms, bound_by)."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / F32_FLOPS, tf32_flops / TF32_FLOPS) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    memory rate, the f32 operations over the f32 peak, the TF32 tensor-core
+    operations over the TF32 peak and the SFU operations (ex2, lg2) over the
+    SFU rate -> (ms, bound_by)."""
+    times = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(flops / F32_FLOPS, tf32_flops / TF32_FLOPS) * 1e3,
+             "sfu": sfu_ops / SFU_OPS_PER_S * 1e3 if sfu_ops else 0.0}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def sfu_rate() -> float:
+    """SFU operations a second: 16 a clock per SM x the SMs x the card's
+    maximum SM clock (nvidia-smi clocks.max.sm)."""
+    import torch
+
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(proc.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"SFU rate: {SFU_PER_CLOCK_PER_SM} x {sms} SMs x {mhz:.0f} MHz")
+    return SFU_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
 
 def nbytes(*tensors) -> int:
@@ -189,11 +215,12 @@ def flagship_rays(x, device, res=64):
     return ro.contiguous(), rd.contiguous(), img
 
 
-def record(err, fn, plain_fn, n_bytes, flops, library_fn=None, plain_iters=10, tf32_flops=0.0):
+def record(err, fn, plain_fn, n_bytes, flops, library_fn=None, plain_iters=10, tf32_flops=0.0,
+           sfu_ops=0.0):
     """One kernel's summary: its error vs the plain version, the kernel's,
     the plain version's and the library call's times, and its bound (a plain
     version that takes seconds is timed over fewer runs)."""
-    bound_ms, bound_by = bound(n_bytes, flops, tf32_flops)
+    bound_ms, bound_by = bound(n_bytes, flops, tf32_flops, sfu_ops)
     return {"max_abs_err": err, "ms": cuda_ms(fn),
             "plain_ms": cuda_ms(plain_fn, iters=plain_iters, warmup=1 if plain_iters < 10 else 2),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -263,18 +290,65 @@ def kernel_checks(G, device):
     args = (d_c, rgb_k.reshape(BATCH, R, S, 32), s_c, x_c.reshape(BATCH, R, S, 3),
             d_fk, rgb_f.reshape(BATCH, R, K, 32), sig_f.reshape(BATCH, R, K, 1),
             x_f.reshape(BATCH, R, K, 3), rk["white_back"])
-    print(f"K2 ray_composite: {S}+{K} samples x {R} rays x {BATCH}, colors bf16")
-    ck = vr.ray_composite_kernel(*args)
-    cp = vr.ray_composite_plain(*args)
-    errs = [max_err(a, b) for a, b in zip(ck, cp)]
-    for label, e in zip(("rgb", "depth", "weight total", "xyz"), errs):
-        check(f"{label} (f32, summation order)", e, 1e-4)
-    out["ray_composite"] = record(
-        max(errs), lambda: vr.ray_composite_kernel(*args), lambda: vr.ray_composite_plain(*args),
-        nbytes(*[a for a in args if torch.is_tensor(a)], *ck),
-        BATCH * R * (S + K) * (2 * 35 + 20))
-
+    out.update(k2_checks(*args))
     return out
+
+
+def k2_checks(d_c, rgb_c, s_c, x_c, d_f, rgb_f, s_f, x_f, white_back):
+    """K2 vs its plain version on the card: at 96+96 (the settings-parity
+    render's coarse and fine samples, bf16 colors), at 48+48 (every other
+    sample of each half: the ESS paths' shape), on the 96+96 input with exact
+    cross-half ties (fine sample 3 of every ray moved onto coarse sample 4),
+    and with one ray's fine half reversed and another's coarse half out of
+    order (the kernel's rank-count branch); rgb, depth, weight total and xyz
+    within 1e-4 (f32, summation order). Both shapes timed. One call must make
+    one device launch (torch.profiler). -> {"ray_composite": summary}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    full = (d_c, rgb_c, s_c, x_c, d_f, rgb_f, s_f, x_f, white_back)
+    half = tuple(a[:, :, ::2].contiguous() if torch.is_tensor(a) else a for a in full)
+    d_t = d_f.clone()
+    d_t[:, :, 3] = d_c[:, :, 4]
+    d_t = d_t.sort(dim=2).values.contiguous()
+    d_cu, d_fu = d_c.clone(), d_f.clone()
+    d_fu[0, 0] = d_fu[0, 0].flip(0)
+    d_cu[0, 1, [2, 7]] = d_cu[0, 1, [7, 2]]
+    B, R, S = d_c.shape[:3]
+    K = d_f.shape[2]
+    ties = int((d_c[..., None, 0] == d_t[:, :, None, :, 0]).sum())
+    err = 0.0
+    unsorted = (d_cu,) + full[1:4] + (d_fu,) + full[5:]
+    for label, args in ((f"{S}+{K} samples", full), (f"{S // 2}+{K // 2} samples", half),
+                        (f"{S}+{K} samples, {ties} cross-half ties", full[:4] + (d_t,) + full[5:]),
+                        (f"{S}+{K} samples, 2 rays out of order", unsorted)):
+        print(f"K2 ray_composite: {label}, {R} rays x {B}, colors bf16")
+        ck, cp = vr.ray_composite_kernel(*args), vr.ray_composite_plain(*args)
+        for name, a, b in zip(("rgb", "depth", "weight total", "xyz"), ck, cp):
+            err = max(err, max_err(a, b))
+            check(f"{name} (f32, summation order)", max_err(a, b), 1e-4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        vr.ray_composite_kernel(*full)
+        torch.cuda.synchronize()
+    launched = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    print(f"  device launches of one call: {len(launched)} {launched}")
+    require(len(launched) == 1, f"K2: {len(launched)} device launches per composite")
+
+    def summary(args):
+        out = vr.ray_composite_kernel(*args)
+        n = B * R * (args[0].shape[2] + args[4].shape[2])
+        return record(err, lambda: vr.ray_composite_kernel(*args),
+                      lambda: vr.ray_composite_plain(*args),
+                      nbytes(*[a for a in args if torch.is_tensor(a)], *out), n * (2 * 35 + 20))
+
+    main, small = summary(full), summary(half)
+    print(f"  ms {main['ms']:.6f} at {S}+{K}, {small['ms']:.6f} at {S // 2}+{K // 2}")
+    return {"ray_composite": dict(main, device_launches_per_call=len(launched),
+                                  shapes={f"{S}+{K}": main, f"{S // 2}+{K // 2}": small})}
 
 
 def k1_ops(points: int, C: int):
@@ -463,9 +537,10 @@ def ess_paste_kernel_checks(G, x, device):
         max(errs), lambda: vr.ess_narrow_kernel(*args6b), lambda: vr.ess_narrow_plain(*args6b),
         nbytes(occ_k, ro, rd, *nk), ro.shape[0] * ro.shape[1] * (ess["taps"] * 20 + S * 5))
 
-    # K7 volume: a 256-long f32 suffix sum in another order; and a cull
-    # decision that flips changes a whole column below it, so columns that
-    # differ beyond the tolerance are counted apart
+    # K7 volume: the 256-long f32 suffix sum in another order, the first
+    # layer factored through the plane sum; a cull decision that flips
+    # changes a whole column below it, so columns that differ beyond the
+    # tolerance are counted apart
     grid = tuple(rk.get("occ_grid", (128, 128, 256)))
     terms7 = vlat.lattice_features(planes, axes, grid, bw)
     args7 = (terms7, dec, bw, grid, filt)
@@ -478,10 +553,32 @@ def ess_paste_kernel_checks(G, x, device):
     require(bad <= col_err.numel() // 10000, f"K7: {bad} columns differ")
     e7 = float(col_err[col_err <= tol7].max())
     check("A (f32; 1e-5 x max|A|, scan order)", e7, tol7)
+    # the crop's cells are not decoded: where no kept cell lies at or above
+    # a cell (a cropped column, or above the box) A is exactly the plain
+    # version's; below the box the density is exactly 0, so A stays constant
+    kept = ~vr.triplane_crop_mask(vlat.lattice_world_coords(grid, bw, device),
+                                  x["triplane_crop"], bw)[..., 0]
+    above = torch.flip(torch.cumsum(torch.flip(kept.int(), (2,)), 2), (2,))
+    exact = (above == 0).expand_as(A_k)
+    below = (~kept & (above > 0)).expand_as(A_k)
+    pairs = below[..., :-1] & below[..., 1:]
+    n_exact = int((A_k != A_p)[exact].sum())
+    n_step = int((A_k[..., :-1] != A_k[..., 1:])[pairs].sum())
+    n_kept = N * int(kept.sum())
+    print(f"  kept by the crop: {n_kept} of {A_k.numel()} cells; cropped cells with no kept cell "
+          f"above: {int(exact.sum())}, of them differing from the plain version: {n_exact}; "
+          f"cells below the box whose A differs from the cell above: {n_step} of "
+          f"{int(pairs.sum())}")
+    require(n_exact == 0 and n_step == 0, "K7: a cropped cell was not exact")
+    rows = sum(t[0].shape[0] * t[0].shape[1] * t[0].shape[2] for t in terms7)
+    # per kept point, counted from the kernel: 64 x (3 adds and the 1/3
+    # FMA, softplus's 5 f32 operations and 2 SFU ones, net2's FMA), the
+    # density and the cull; per cell the scan; the factored layer's rows
     out["occlusion_volume"] = record(
         e7, lambda: vlat.occlusion_volume_kernel(*args7),
         lambda: vlat.occlusion_volume_plain(*args7), nbytes(*(t[0] for t in terms7), A_k),
-        A_k.numel() * (mlp_flops + 4))
+        n_kept * (64 * 11 + 40) + A_k.numel() * 4 + rows * C * 64 * 2,
+        sfu_ops=n_kept * 64 * 2)
 
     # K7 sampler on the render's surface points, fed the same volume
     vol = G.front_occlusion_volume(ref["triplane"], x["triplane_crop"], x["cull_clouds"])
@@ -1098,7 +1195,9 @@ def device_time_by_kind(trace: dict) -> str:
     elementwise kernels (the epilogue's unfused ops and other glue), the
     other kernels."""
     kinds = {"K4 upfirdn2d": "upfirdn2d", "K1 triplane_decode": "triplane_decode_kernel",
-             "K5 modconv_epilogue": "modconv_epilogue", "PyTorch elementwise": "elementwise_kernel"}
+             "K5 modconv_epilogue": "modconv_epilogue", "K2 ray_composite": "ray_composite",
+             "K7a occlusion_volume": "occlusion_volume_kernel",
+             "K7a factor_terms": "factor_terms_kernel", "PyTorch elementwise": "elementwise_kernel"}
     times = dict.fromkeys([*kinds, "other"], 0.0)
     counts = dict.fromkeys(times, 0)
     for e in trace["traceEvents"]:
@@ -1135,6 +1234,8 @@ def main(argv=None) -> int:
         return 2
     card = card_line()
     print(f"card: {card}  ({torch.cuda.get_device_name(0)})")
+    global SFU_OPS_PER_S
+    SFU_OPS_PER_S = sfu_rate()
     device = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1154,7 +1255,7 @@ def main(argv=None) -> int:
         for fn, regs, spill_st, spill_ld in ptxas_report(
                 build.build(stem).with_suffix(".log").read_text()):
             print(f"  {stem}: {fn} {regs} registers, spill stores/loads {spill_st}/{spill_ld}")
-            if fn.startswith("triplane_decode_kernel"):
+            if fn.startswith(NO_SPILL):
                 require(spill_st == spill_ld == 0, f"{fn} spills registers")
 
     G = configs.flagship(eval_mode=True).init_weights(SEED).eval()
@@ -1251,18 +1352,21 @@ def main(argv=None) -> int:
 
             from torch.profiler import ProfilerActivity, profile
 
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                Ge.f(xp)
-                torch.cuda.synchronize()
-            table_txt = prof.key_averages().table(sort_by="cuda_time_total", row_limit=50)
             Path(args.profile).mkdir(parents=True, exist_ok=True)
-            (Path(args.profile) / "ess_paste_profile.txt").write_text(table_txt)
-            trace = Path(args.profile) / "ess_paste_trace.json"
-            prof.export_chrome_trace(str(trace))
-            print("\n".join(table_txt.splitlines()[:40]))
-            trace_json = json.loads(trace.read_text())
-            print(device_busy(trace_json) + f"  [{card}]")
-            print(device_time_by_kind(trace_json) + f"  [{card}]")
+            for name, fn in (("ess_paste", lambda: Ge.f(xp)), ("turntable", portrait)):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                table_txt = prof.key_averages().table(sort_by="cuda_time_total", row_limit=50)
+                (Path(args.profile) / f"{name}_profile.txt").write_text(table_txt)
+                trace = Path(args.profile) / f"{name}_trace.json"
+                prof.export_chrome_trace(str(trace))
+                what = "ESS + paste request" if name == "ess_paste" else "turntable portrait"
+                print(f"profile of one {what}:")
+                print("\n".join(table_txt.splitlines()[:40]))
+                trace_json = json.loads(trace.read_text())
+                print(device_busy(trace_json) + f"  [{card}]")
+                print(device_time_by_kind(trace_json) + f"  [{card}]")
 
     reset_launch_counts()
     paths = {"settings_parity": parity, "ess_paste_per_call": per_call, "turntable": turn,

@@ -27,6 +27,19 @@ __device__ __forceinline__ float softplus_f(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
 }
 
+// softplus on the SFU: max(x, 0) + ln2 lg2(1 + ex2(-|x| log2e)) with the
+// flush-to-zero forms of ex2/lg2.approx (one MUFU instruction each, no
+// denormal fix-ups: an ex2 result that would be denormal leaves 1 + e = 1
+// all the same, and 1 + e lies in [1, 2]). Within ~2e-7 of softplus_f, far
+// inside the tolerances of K1 (sigma 1e-4) and K7a (1e-5 x max|A|); for the
+// decoders' 64 hidden units, where libm's expf and log1pf cost the most.
+__device__ __forceinline__ float softplus_fast(float x) {
+  float e, l;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(-fabsf(x) * 1.4426950408889634f));
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l) : "f"(1.f + e));
+  return fmaf(l, 0.6931471805599453f, fmaxf(x, 0.f));
+}
+
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;

@@ -7,70 +7,237 @@
 // sample_front_occlusion (:303, grid_sample_3d_points with border padding
 // plus the out-of-box zero-feature terms).
 //
-// What bounds it on the H100: the volume decodes 128 x 128 x 256 lattice
-// points per portrait -- 8.4 M for bs=2 -- at about 2.1k multiply-adds
-// each, ~35 GFLOP: arithmetic, ~0.5 ms at 67 TFLOP/s f32. Its output A
-// ([2,128,128,256] f32) is 33.5 MB, ~0.01 ms of writes. The sampler reads
-// 8 values of A per surface point for 2 x 4096 points: latency.
+// K7a, the volume. What bounds it on the H100: 128 x 128 x 256 lattice
+// points per portrait, 8.4 M for bs=2, of which the triplane crop keeps
+// 51 % (|x|, |z| <= 0.25 at crop 0.1, box 0.7). Each kept point needs 64
+// softplus of its hidden layer, two SFU operations each (ex2, lg2): ~0.55 G
+// SFU operations at 16 a clock per SM, ~0.13 ms, above the f32 work
+// (~0.03 ms) and the 33.5 MB of A (~0.01 ms).
 //
-// Design, volume: one block per (n, x, y) column of Gz cells (a grid-stride
-// loop over columns, so the decoder weights are loaded into shared memory
-// once per block); thread z decodes sigma at (x, y, z) from
-// F_xy[x,y] + F_xz[x,z] + F_yz[y,z] -- the [M,32] feature block never
-// reaches device memory, where the JAX package writes it chunk by chunk --
-// applies the filters at the cell centre and takes density =
-// softplus(sigma - 1). The block then forms the reverse inclusive sum along
-// z (warp shuffles, then the warp totals through shared memory) and writes
-// A = (suffix - density / 2) * dz. The scan adds in another order than
-// torch.cumsum's sequential sum, so A agrees to ~1e-5 of its maximum.
-// Design, sampler: one thread per point; the border-clamped trilinear read
-// of A at (z0, y, x) in the JAX op's association, then the below- and
-// above-box lengths at the zero-feature density and 1 - exp(-A_total).
+// Design. The first layer is linear and a lattice point's feature is the
+// broadcast sum ((F_0 + F_1) + F_2) / 3 of three planar terms, so
+// W0 feat = ((W0 F_0 + W0 F_1) + W0 F_2) / 3. A first launch computes
+// P_t = g0 W0 F_t / 3 for the three terms ([N,G_a,G_b,64] f32, one row per
+// term cell: 0.67 GFLOP at N=2), with the bias b0 added to the (x, y)
+// term's rows. The volume launch then needs two adds per hidden unit, not
+// 32 FMAs. A block owns 4 x-columns (one warp each) by 32 y-columns (one
+// lane each) and walks z from the top of the box down in slabs of 4 cells:
+// the two z-dependent terms' rows of a slab (P_xz at its 4 x, P_yz at its
+// 32 y) go to shared memory by cp.async, one slab ahead into the other of
+// two buffers, and every column of the tile reads them there. Each thread
+// keeps its column's P_xy row in registers and carries the suffix sum from
+// cell to cell (a sequential sum from the top, the order of a CPU cumsum of
+// the flipped column). Cells the crop removes are not decoded: their sigma
+// is -1e3 whatever the decoder gives, so their density is the constant the
+// cull makes of -1e3 (0), the value the plain version computes. The hidden
+// softplus runs on the SFU (softplus_fast); the density and the cull keep
+// the libm forms, once per point. A slab's A values go through a
+// per-thread row of shared memory into one 16-byte store.
 #include "lattice_decode.cuh"
 
 namespace {
 
+constexpr int TZ = 4;        // z cells per slab
+constexpr int TX = 4;        // x-columns per block (one warp each)
+constexpr int RS = LAT_HIDDEN + 4;   // staged row stride (+ 4: conflict-free float4 reads)
+constexpr float THIRD = 1.f / 3.f;
+
+// 16 bytes global -> shared without the registers (cp.async, L2 only)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// P_t = g0 W0 F_t / 3 for every row of the three terms, one after another
+// in P, plus the bias b0 on the rows of the (x, y) term (col): a lattice
+// point's hidden layer is then (P_col + P_a) + P_b. A block stages 64 rows
+// of F in shared memory (all of their loads in flight at once); thread j of
+// a row keeps W0's row j in registers and computes hidden unit j of 16 rows.
+constexpr int FROWS = 64;
+
 template <int C>
-__global__ void occlusion_volume_kernel(LatticeTerms terms, const float* __restrict__ w0,
-                                        const float* __restrict__ b0,
-                                        const float* __restrict__ w1,
-                                        const float* __restrict__ b1, float* __restrict__ A,
-                                        int N, int Gx, int Gy, int Gz, double bw, float dz,
-                                        float g0, float g1, float bias_scale, int use_crop,
-                                        float crop_lim, int cull_mode, float cull_thresh) {
-  __shared__ SigmaMLP<C> mlp;
-  __shared__ float warp_sum[32];
-  load_sigma_mlp<C>(mlp, w0, b0, w1, b1, g0, g1, bias_scale);
+__global__ void __launch_bounds__(256) factor_terms_kernel(
+    LatticeTerms terms, int col, long long end0, long long end1, long long rows,
+    const float* __restrict__ w0, const float* __restrict__ b0, float g0, float bias_scale,
+    float* __restrict__ P) {
+  __shared__ __align__(16) float f[FROWS * C];
+  __shared__ float ws[LAT_HIDDEN * (C + 1)];   // W0, rows padded: conflict-free reads
+  for (int i = threadIdx.x; i < LAT_HIDDEN * C; i += blockDim.x)
+    ws[(i / C) * (C + 1) + i % C] = w0[i] * g0;
   __syncthreads();
-
-  const int z = threadIdx.x, lane = z & 31, warp = z >> 5, n_warps = Gz >> 5;
-  const int size[3] = {Gx, Gy, Gz};
-  const float zc = cell_center(z, Gz, bw);
-  const long long columns = (long long)N * Gx * Gy;
-  for (long long col = blockIdx.x; col < columns; col += gridDim.x) {
-    const int y = (int)(col % Gy), x = (int)((col / Gy) % Gx), n = (int)(col / Gy / Gx);
-    const int idx[3] = {x, y, z};
-    float feat[C];
-    lattice_feature<C>(terms, n, idx, size, feat);
-    float sigma = sigma_decode<C>(mlp, feat);
-    sigma = density_filters(sigma, cell_center(x, Gx, bw), zc, use_crop, crop_lim, cull_mode,
-                            cull_thresh);
-    const float density = softplus_f(sigma - 1.f);
-
-    // suffix (z' >= z) sum: within the warp, then over the later warps
-    float v = density;
+  const int j = threadIdx.x % LAT_HIDDEN, group = threadIdx.x / LAT_HIDDEN;
+  float w[C];
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_down_sync(0xffffffffu, v, off);
-      if (lane + off < 32) v += o;
+  for (int c = 0; c < C; ++c) w[c] = ws[j * (C + 1) + c];
+  const float bias = b0[j] * bias_scale;
+  for (long long r0 = (long long)blockIdx.x * FROWS; r0 < rows;
+       r0 += (long long)gridDim.x * FROWS) {
+    __syncthreads();   // the previous rows are read
+    for (int i = threadIdx.x; i < FROWS * C / 4; i += blockDim.x) {
+      const long long row = r0 + i / (C / 4);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < rows) {
+        const float* F = row < end0 ? terms.t[0].F + row * C
+                       : row < end1 ? terms.t[1].F + (row - end0) * C
+                                    : terms.t[2].F + (row - end1) * C;
+        v = __ldg(reinterpret_cast<const float4*>(F) + i % (C / 4));
+      }
+      reinterpret_cast<float4*>(f)[i] = v;
     }
-    if (lane == 0) warp_sum[warp] = v;
     __syncthreads();
-    float later = 0.f;
-    for (int w = n_warps - 1; w > warp; --w) later += warp_sum[w];
-    const float suffix = v + later;
-    A[col * Gz + z] = (suffix - 0.5f * density) * dz;
-    __syncthreads();   // warp_sum is rewritten by the next column
+#pragma unroll 4
+    for (int k = 0; k < FROWS / 4; ++k) {
+      const int rl = group * (FROWS / 4) + k;
+      const long long row = r0 + rl;
+      if (row >= rows) break;
+      float acc = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc = fmaf(w[c], f[rl * C + c], acc);
+      const int t = row < end0 ? 0 : row < end1 ? 1 : 2;
+      P[row * LAT_HIDDEN + j] = fmaf(acc, THIRD, t == col ? bias : 0.f);
+    }
+  }
+}
+
+// the factored terms: P of the (x, y) term, and of the two z-dependent
+// terms (axes (axis[k], z)) in plane order
+struct FactoredTerms {
+  const float* col;
+  const float* slab[2];
+  int axis[2];
+};
+
+__global__ void __launch_bounds__(TX * 32) occlusion_volume_kernel(
+    FactoredTerms ft, const float* __restrict__ w1, const float* __restrict__ b1,
+    float* __restrict__ A, int Gx, int Gy, int Gz, double bw,
+    float dz, float g1, float bias_scale, int use_crop, float crop_lim, int cull_mode,
+    float cull_thresh) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ __align__(16) float s_w1[LAT_HIDDEN];
+  __shared__ float s_b1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // per z-dependent term k: its staged rows (TX x-rows or 32 y-rows of TZ
+  // cells), the lattice size and tile origin on its axis, this thread's row
+  const int ax0 = ft.axis[0], ax1 = ft.axis[1];
+  // two buffers of each term's rows, one slab apart
+  const int stage_floats = ((ax0 ? 32 : TX) + (ax1 ? 32 : TX)) * TZ * RS;
+  float* const stage0 = sm;
+  float* const stage1 = sm + (ax0 ? 32 : TX) * TZ * RS;
+  float* const a_row = sm + 2 * stage_floats + threadIdx.x * (TZ + 1);
+
+  const int ytiles = (Gy + 31) / 32, xtiles = (Gx + TX - 1) / TX;
+  const int yt = blockIdx.x % ytiles, xt = (blockIdx.x / ytiles) % xtiles;
+  const int n = blockIdx.x / ytiles / xtiles;
+  const int x = xt * TX + warp, y = yt * 32 + lane;
+  const bool valid = x < Gx && y < Gy;
+  const bool x_kept = valid && (!use_crop || fabsf(cell_center(x, Gx, bw)) <= crop_lim);
+  const bool any_kept = __syncthreads_or(x_kept);
+
+  for (int j = threadIdx.x; j < LAT_HIDDEN; j += blockDim.x) s_w1[j] = w1[j] * g1;   // net2's row 0
+  if (threadIdx.x == 0) s_b1 = b1[0] * bias_scale;
+  // a cropped cell: sigma -1e3, then the cull, then softplus(sigma - 1)
+  const float d_crop = softplus_f(density_filters(-1e3f, 0.f, 0.f, 0, 0.f, cull_mode,
+                                                  cull_thresh) - 1.f);
+  float pc[LAT_HIDDEN];
+  if (x_kept) {
+    const float4* row = reinterpret_cast<const float4*>(
+        ft.col + (((long long)n * Gx + x) * Gy + y) * LAT_HIDDEN);
+#pragma unroll
+    for (int j4 = 0; j4 < LAT_HIDDEN / 4; ++j4) {
+      const float4 v = row[j4];
+      pc[4 * j4] = v.x; pc[4 * j4 + 1] = v.y; pc[4 * j4 + 2] = v.z; pc[4 * j4 + 3] = v.w;
+    }
+  }
+  const float* q0 = stage0 + (ax0 ? lane : warp) * TZ * RS;
+  const float* q1 = stage1 + (ax1 ? lane : warp) * TZ * RS;
+  float* out = A + (((long long)n * Gx + x) * Gy + y) * Gz;
+
+  // slab s covers z in [Gz - TZ (s + 1), Gz - TZ s); its rows go to buffer
+  // s % 2 by cp.async, issued one slab ahead
+  const int n_slabs = Gz / TZ;
+  auto decode_slab = [&](int sl) {
+    if (!any_kept || sl >= n_slabs) return false;
+    bool kept = !use_crop;
+    for (int zz = 0; zz < TZ; ++zz)
+      kept |= fabsf(cell_center(Gz - TZ * (sl + 1) + zz, Gz, bw)) <= crop_lim;
+    return kept;   // uniform over the block
+  };
+  auto stage_slab = [&](int sl) {
+    const int z0 = Gz - TZ * (sl + 1);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int a = k ? ax1 : ax0, e = a ? 32 : TX, G = a ? Gy : Gx;
+      const int t0 = a ? yt * 32 : xt * TX, lim = G - t0;
+      float* const dst = (k ? stage1 : stage0) + (sl & 1) * stage_floats;
+      const float* src = ft.slab[k] + ((long long)n * G + t0) * Gz * LAT_HIDDEN;
+      for (int i = threadIdx.x; i < e * TZ * (LAT_HIDDEN / 4); i += blockDim.x) {
+        const int r = i / (TZ * LAT_HIDDEN / 4), rem = i % (TZ * LAT_HIDDEN / 4);
+        const int zz = rem / (LAT_HIDDEN / 4), j4 = rem % (LAT_HIDDEN / 4);
+        float* d = dst + (r * TZ + zz) * RS + 4 * j4;
+        if (r < lim)
+          cp_async16(d, src + ((long long)r * Gz + z0 + zz) * LAT_HIDDEN + 4 * j4);
+        else
+          *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float run = 0.f;
+  bool decode = decode_slab(0);
+  if (decode) stage_slab(0);
+  for (int sl = 0; sl < n_slabs; ++sl) {
+    const int z0 = Gz - TZ * (sl + 1);
+    const bool decode_next = decode_slab(sl + 1);
+    if (decode_next) stage_slab(sl + 1);
+    if (decode) {
+      if (decode_next) cp_async_wait<1>();
+      else cp_async_wait<0>();
+      __syncthreads();   // slab sl's rows are in
+    }
+    const float* q0s = q0 + (sl & 1) * stage_floats;
+    const float* q1s = q1 + (sl & 1) * stage_floats;
+#pragma unroll 1
+    for (int zz = TZ - 1; zz >= 0; --zz) {
+      const int z = z0 + zz;
+      const float zc = cell_center(z, Gz, bw);
+      float dens = d_crop;
+      if (decode && x_kept && (!use_crop || fabsf(zc) <= crop_lim)) {
+        const float* u = q0s + zz * RS;
+        const float* v = q1s + zz * RS;
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j4 = 0; j4 < LAT_HIDDEN / 4; ++j4) {
+          const float4 uu = *reinterpret_cast<const float4*>(u + 4 * j4);
+          const float4 vv = *reinterpret_cast<const float4*>(v + 4 * j4);
+          const float4 ww = *reinterpret_cast<const float4*>(s_w1 + 4 * j4);
+          const float uj[4] = {uu.x, uu.y, uu.z, uu.w}, vj[4] = {vv.x, vv.y, vv.z, vv.w};
+          const float wj[4] = {ww.x, ww.y, ww.z, ww.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            s[k] = fmaf(wj[k], softplus_fast((pc[4 * j4 + k] + uj[k]) + vj[k]), s[k]);
+        }
+        const float sigma = ((s[0] + s[1]) + (s[2] + s[3])) + s_b1;
+        // the crop holds here; the cull (or binarize) on sigma
+        dens = softplus_f(density_filters(sigma, 0.f, 0.f, 0, 0.f, cull_mode, cull_thresh)
+                          - 1.f);
+      }
+      run += dens;
+      a_row[zz] = (run - 0.5f * dens) * dz;
+    }
+    if (valid) {
+      float4* dst = reinterpret_cast<float4*>(out + z0);
+#pragma unroll
+      for (int h = 0; h < TZ / 4; ++h)
+        dst[h] = make_float4(a_row[4 * h], a_row[4 * h + 1], a_row[4 * h + 2], a_row[4 * h + 3]);
+    }
+    if (decode) __syncthreads();   // buffer sl % 2 is refilled for slab sl + 2
+    decode = decode_next;
   }
 }
 
@@ -127,32 +294,65 @@ __global__ void occlusion_sample_kernel(const float* __restrict__ A,
 }  // namespace
 
 // terms: three (F [N,G_a,G_b,C] f32, axis_a, axis_b) on the lattice
-// (Gx, Gy, Gz); decoder raw f32 parameters (w1 is [33,64]: row 0 is read);
-// A [N,Gx,Gy,Gz] f32 out. Gz must be a multiple of 32 up to 1024 (one
-// thread per z cell) and C one of {8,16,32}, else cudaErrorInvalidValue.
+// (Gx, Gy, Gz), one of them on axes (x, y) and among the first two, the
+// others on (x or y, z); decoder raw f32 parameters (w0 [64,C], w1 [33,64]:
+// row 0 is read); P scratch of sum_t N G_a G_b 64 f32; A [N,Gx,Gy,Gz] f32
+// out. Gz must be a multiple of 4 and C one of {8,16,32}, else
+// cudaErrorInvalidValue. Two launches: the factored first layer, the volume.
 PANIC3D_EXPORT int occlusion_volume(
     const float* F0, int a0, int b0_, const float* F1, int a1, int b1_, const float* F2, int a2,
-    int b2_, const float* w0, const float* b0, const float* w1, const float* b1, float* A, int N,
-    int Gx, int Gy, int Gz, int C, double bw, float dz, float g0, float g1, float bias_scale,
-    int use_crop, float crop_lim, int cull_mode, float cull_thresh, void* stream) {
-  if (Gz % 32 != 0 || Gz > 1024) return (int)cudaErrorInvalidValue;
+    int b2_, const float* w0, const float* b0, const float* w1, const float* b1, float* P,
+    float* A, int N, int Gx, int Gy, int Gz, int C, double bw, float dz, float g0, float g1,
+    float bias_scale, int use_crop, float crop_lim, int cull_mode, float cull_thresh,
+    void* stream) {
+  if (Gz % TZ != 0 || (C != 8 && C != 16 && C != 32)) return (int)cudaErrorInvalidValue;
   LatticeTerms terms{{{F0, a0, b0_}, {F1, a1, b1_}, {F2, a2, b2_}}};
+  const int size[3] = {Gx, Gy, Gz};
+  long long end[3], rows = 0;
+  FactoredTerms ft{};
+  int n_slab = 0, n_col = 0, col = -1;
+  for (int t = 0; t < 3; ++t) {
+    const LatticeTerm& tm = terms.t[t];
+    const float* Pt = P + rows * LAT_HIDDEN;
+    rows += (long long)N * size[tm.a] * size[tm.b];
+    end[t] = rows;
+    if (tm.a == 0 && tm.b == 1 && t < 2 && n_col == 0) {
+      ft.col = Pt;
+      col = t;
+      ++n_col;
+    } else if ((tm.a == 0 || tm.a == 1) && tm.b == 2 && n_slab < 2) {
+      ft.slab[n_slab] = Pt;
+      ft.axis[n_slab++] = tm.a;
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long blocks = (long long)N * Gx * Gy;
-  const long long cap = (long long)sms * (2048 / Gz);
-  if (blocks > cap) blocks = cap;
-#define P3D_K7(CC)                                                                           \
-  occlusion_volume_kernel<CC><<<(unsigned)blocks, Gz, 0, s>>>(                               \
-      terms, w0, b0, w1, b1, A, N, Gx, Gy, Gz, bw, dz, g0, g1, bias_scale, use_crop, crop_lim, \
-      cull_mode, cull_thresh)
-  if (C == 32) P3D_K7(32);
-  else if (C == 16) P3D_K7(16);
-  else if (C == 8) P3D_K7(8);
-  else return (int)cudaErrorInvalidValue;
-#undef P3D_K7
+  long long fblocks = (rows + FROWS - 1) / FROWS;
+  if (fblocks > 8LL * sms) fblocks = 8LL * sms;
+#define P3D_FACTOR(CC)                                                                   \
+  factor_terms_kernel<CC><<<(unsigned)fblocks, 256, 0, s>>>(terms, col, end[0], end[1], rows, \
+                                                            w0, b0, g0, bias_scale, P)
+  if (C == 32) P3D_FACTOR(32);
+  else if (C == 16) P3D_FACTOR(16);
+  else P3D_FACTOR(8);
+#undef P3D_FACTOR
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  const size_t smem = sizeof(float) * (2 * (size_t)((ft.axis[0] ? 32 : TX) + (ft.axis[1] ? 32 : TX))
+                                       * TZ * RS
+                                       + (size_t)TX * 32 * (TZ + 1));
+  e = cudaFuncSetAttribute(occlusion_volume_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)N * ((Gx + TX - 1) / TX) * ((Gy + 31) / 32);
+  occlusion_volume_kernel<<<(unsigned)blocks, TX * 32, smem, s>>>(
+      ft, w1, b1, A, Gx, Gy, Gz, bw, dz, g1, bias_scale, use_crop, crop_lim, cull_mode,
+      cull_thresh);
   return (int)cudaGetLastError();
 }
 

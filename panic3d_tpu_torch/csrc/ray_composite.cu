@@ -7,173 +7,309 @@
 //
 // What bounds it on the H100: per ray it reads S = S1 + S2 samples of
 // (depth, sigma, C colors, xyz) -- 192 x (8 + 2*32 + 12) bytes = 16 KB with
-// bf16 colors at the flagship slice -- and writes C + 5 floats. The sort is
-// O(S^2) compares in shared memory and the two scans are sequential, so at
-// 2 x 64^2 rays it is bound by per-ray latency more than by the ~134 MB it
-// streams.
+// bf16 colors at the flagship slice -- and writes C + 5 floats: ~134 MB for
+// 2 x 64^2 rays, ~0.04 ms of memory traffic. The work per sample is a few
+// operations, so the kernel is bound by bytes once the per-ray steps are
+// parallel.
 //
-// Design: one block per ray. The block stages the ray's samples in shared
-// memory as f32 (coalesced: each half of a ray is one contiguous run), ranks
-// every sample by counting smaller depths (ties go to the lower index, i.e.
-// coarse first: the order of a stable argsort), and computes the alphas in
-// the sorted domain in parallel. Thread 0 runs the transmittance cumprod and
-// the weight total; then one thread per output channel accumulates
-// sum_j w_j (c_j + c_j+1) / 2 over the sorted samples. The composite depth
-// is clipped to the global [min, max] of all depths (as the reference's
-// jnp.clip(depth, min(depths), max(depths)) does): each block folds its
-// ray's depth range into a global pair by float atomics, and a second
-// launch applies the clip once every block is done.
+// Design: one warp per ray, several rays per block. The warp stages the
+// ray's depths and sigmas in shared memory and votes whether each half is
+// non-decreasing (on every eval path it is: midpoint linspace coarse
+// samples, inverse-CDF fine samples at a linspace u). If so, coarse sample i
+// goes to slot i + #{fine < d_i} and fine sample j to j + #{coarse <= d_j},
+// both by binary search: the stable argsort's order with ties coarse first
+// (merge_composite's gathers_only merge). A ray that is not sorted takes the
+// full stable rank count. The alphas run lane-parallel over the sorted
+// intervals; the transmittance cumprod(1 - alpha + 1e-10) is a warp prefix
+// product by shuffles, carried from one 32-interval chunk to the next; the
+// weight total and the depth sum are warp reductions. The colors are not
+// gathered: sample i at sorted slot s(i) gets the coefficient
+// v_i = (w_{s(i)-1} + w_{s(i)}) / 2 (w_{-1} = w_{S-1} = 0), and the
+// composite is sum_i v_i c_i in stored order: each lane reads 16 bytes of a
+// sample's color row, so a warp reads several whole rows per load, and the
+// partial sums meet by shuffles at the end. xyz goes the same way as a flat
+// run of 3 S floats. The composite depth is clipped to the global [min, max]
+// of all depths (the reference's jnp.clip(depth, min(depths), max(depths))):
+// each block folds its rays' depth range into a global pair by float
+// atomics, and the last block to finish (a counter after __threadfence)
+// clips every ray's depth and resets the pair and the counter for the next
+// call. One launch.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int ARRAYS = 6;   // per warp: d, sg | v, sorted d, sorted sg, w, slot
 
-__global__ void init_minmax(float* minmax) {
-  minmax[0] = INFINITY;
-  minmax[1] = -INFINITY;
+// 16 bytes of a color row as floats
+__device__ __forceinline__ void load16(const float* p, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&o)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(h[k]);
+    o[2 * k] = f.x;
+    o[2 * k + 1] = f.y;
+  }
+}
+
+// #{k < n: a[k] < x} (strict) or #{k < n: a[k] <= x}, a non-decreasing
+template <bool STRICT>
+__device__ __forceinline__ int count_below(const float* a, int n, float x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (STRICT ? a[mid] < x : a[mid] <= x) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float finish(float acc, float wsum, int white_back) {
+  if (white_back) acc = (acc + 1.f) - wsum;
+  return acc * 2.f - 1.f;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) ray_composite_kernel(
+__global__ void ray_composite_kernel(
     const float* __restrict__ d1, const T* __restrict__ c1, const float* __restrict__ s1,
     const float* __restrict__ x1, const float* __restrict__ d2, const T* __restrict__ c2,
     const float* __restrict__ s2, const float* __restrict__ x2, float* __restrict__ comp,
-    float* __restrict__ depth_out, float* __restrict__ wsum_out, float* minmax,
+    float* __restrict__ depth_out, float* __restrict__ wsum_out, float* scratch, int rays,
     int S1, int S2, int C, int white_back) {
   extern __shared__ float sm[];
-  const int S = S1 + S2, Cc = C + 3, tid = threadIdx.x;
-  float* d = sm;                                  // [S] depths
-  float* sg = d + S;                              // [S] sigmas
-  float* w = sg + S;                              // [S-1] alpha, then weights
-  int* order = reinterpret_cast<int*>(w + S);     // [S] sorted slot -> sample
-  float* col = reinterpret_cast<float*>(order + S);   // [S, C+3] colors | xyz
-  __shared__ float red[2][THREADS / 32];
-  __shared__ float s_wsum;
-  const long long r = blockIdx.x;
+  __shared__ float red[2][32];
+  __shared__ bool s_last;
+  constexpr int VEC = 16 / sizeof(T);
+  const int S = S1 + S2, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5, Cc = C + 3;
+  float* d = sm + (size_t)warp * ARRAYS * S;
+  float* sg = d + S;          // sigmas in stored order, then the coefficients v
+  float* ds = sg + S;         // depths by sorted slot
+  float* ss = ds + S;         // sigmas by sorted slot
+  float* w = ss + S;          // weights by sorted slot, w[S-1] = 0
+  int* slot = reinterpret_cast<int*>(w + S);   // sorted slot of each sample
+  const long long r = (long long)blockIdx.x * n_warps + warp;
 
-  for (int i = tid; i < S; i += blockDim.x) {
-    d[i] = i < S1 ? d1[r * S1 + i] : d2[r * S2 + (i - S1)];
-    sg[i] = i < S1 ? s1[r * S1 + i] : s2[r * S2 + (i - S1)];
-  }
-  for (int e = tid; e < S1 * C; e += blockDim.x) col[(e / C) * Cc + e % C] = to_f(c1[r * S1 * C + e]);
-  for (int e = tid; e < S2 * C; e += blockDim.x) col[(S1 + e / C) * Cc + e % C] = to_f(c2[r * S2 * C + e]);
-  for (int e = tid; e < S1 * 3; e += blockDim.x) col[(e / 3) * Cc + C + e % 3] = x1[r * S1 * 3 + e];
-  for (int e = tid; e < S2 * 3; e += blockDim.x) col[(S1 + e / 3) * Cc + C + e % 3] = x2[r * S2 * 3 + e];
-  __syncthreads();
-
-  // stable rank of every sample; the ray's depth range on the side
   float lo = INFINITY, hi = -INFINITY;
-  for (int i = tid; i < S; i += blockDim.x) {
-    const float di = d[i];
-    int rank = 0;
-    for (int j = 0; j < S; ++j) {
-      const float dj = d[j];
-      rank += (dj < di) || (dj == di && j < i);
+  if (r < rays) {
+    for (int i = lane; i < S; i += 32) {
+      const float di = i < S1 ? d1[r * S1 + i] : d2[r * S2 + (i - S1)];
+      d[i] = di;
+      sg[i] = i < S1 ? s1[r * S1 + i] : s2[r * S2 + (i - S1)];
+      lo = fminf(lo, di);
+      hi = fmaxf(hi, di);
     }
-    order[rank] = i;
-    lo = fminf(lo, di);
-    hi = fmaxf(hi, di);
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-  }
-  if (tid % 32 == 0) {
-    red[0][tid / 32] = lo;
-    red[1][tid / 32] = hi;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int k = 1; k < THREADS / 32; ++k) {
-      lo = fminf(lo, red[0][k]);
-      hi = fmaxf(hi, red[1][k]);
+    __syncwarp();
+    bool sorted = true;
+    for (int i = lane; i < S - 1; i += 32)
+      if (i != S1 - 1) sorted &= d[i] <= d[i + 1];
+    sorted = __all_sync(FULL, sorted);
+    for (int i = lane; i < S; i += 32) {
+      const float di = d[i];
+      int k = 0;
+      if (sorted) {
+        k = i < S1 ? i + count_below<true>(d + S1, S2, di)
+                   : (i - S1) + count_below<false>(d, S1, di);
+      } else {   // the stable rank: smaller depths, then equal ones stored before
+        for (int j = 0; j < S; ++j) {
+          const float dj = d[j];
+          k += (dj < di) || (dj == di && j < i);
+        }
+      }
+      slot[i] = k;
+      ds[k] = di;
+      ss[k] = sg[i];
     }
-    atomic_min_f(&minmax[0], lo);
-    atomic_max_f(&minmax[1], hi);
-  }
+    __syncwarp();
 
-  // alpha per sorted interval
-  for (int j = tid; j < S - 1; j += blockDim.x) {
-    const int a = order[j], b = order[j + 1];
-    const float delta = d[b] - d[a];
-    const float dens = softplus_f((sg[a] + sg[b]) / 2.f - 1.f);
-    w[j] = 1.f - expf(-(dens * delta));
-  }
-  __syncthreads();
-  if (tid == 0) {   // weights = alpha * exclusive cumprod(1 - alpha + 1e-10)
-    float T = 1.f, total = 0.f;
-    for (int j = 0; j < S - 1; ++j) {
-      const float wj = w[j] * T;
-      T *= (1.f - w[j] + 1e-10f);
-      w[j] = wj;
-      total += wj;
+    // weights = alpha * exclusive cumprod(1 - alpha + 1e-10), by chunks of 32
+    float carry = 1.f, wsum = 0.f, dsum = 0.f;
+    for (int base = 0; base < S - 1; base += 32) {
+      const int k = base + lane;
+      float alpha = 0.f, f = 1.f;
+      if (k < S - 1) {
+        const float delta = ds[k + 1] - ds[k];
+        const float dens = softplus_f((ss[k] + ss[k + 1]) / 2.f - 1.f);
+        alpha = 1.f - expf(-(dens * delta));
+        f = (1.f - alpha) + 1e-10f;
+      }
+      float p = f;   // inclusive prefix product within the chunk
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_up_sync(FULL, p, off);
+        if (lane >= off) p *= o;
+      }
+      float excl = __shfl_up_sync(FULL, p, 1);
+      if (lane == 0) excl = 1.f;
+      if (k < S - 1) {
+        const float wk = alpha * (carry * excl);
+        w[k] = wk;
+        wsum += wk;
+        dsum += wk * ((ds[k] + ds[k + 1]) / 2.f);
+      }
+      carry *= __shfl_sync(FULL, p, 31);
     }
-    s_wsum = total;
-  }
-  __syncthreads();
+    if (lane == 0) w[S - 1] = 0.f;
+    wsum = warp_sum(wsum);
+    dsum = warp_sum(dsum);
+    __syncwarp();
+    float* v = sg;
+    for (int i = lane; i < S; i += 32) {
+      const int k = slot[i];
+      v[i] = ((k > 0 ? w[k - 1] : 0.f) + w[k]) / 2.f;
+    }
+    __syncwarp();
 
-  const float wsum = s_wsum;
-  for (int t = tid; t <= Cc; t += blockDim.x) {
-    float acc = 0.f;
-    if (t < Cc) {
-      for (int j = 0; j < S - 1; ++j)
-        acc += w[j] * ((col[order[j] * Cc + t] + col[order[j + 1] * Cc + t]) / 2.f);
-      if (white_back) acc = acc + 1.f - wsum;
-      comp[r * Cc + t] = acc * 2.f - 1.f;
-    } else {
-      for (int j = 0; j < S - 1; ++j) acc += w[j] * ((d[order[j]] + d[order[j + 1]]) / 2.f);
-      float dep = acc / wsum;
+    // colors: G lanes cover a sample's row, 32 / G samples a step
+    const int G = C / VEC, q = lane % G, g = lane / G, step = 32 / G;
+    float acc[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+#pragma unroll 4
+    for (int i = g; i < S1; i += step) {
+      float c[VEC];
+      load16(c1 + (r * S1 + i) * C + q * VEC, c);
+      const float vi = v[i];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] = fmaf(vi, c[k], acc[k]);
+    }
+#pragma unroll 4
+    for (int i = g; i < S2; i += step) {
+      float c[VEC];
+      load16(c2 + (r * S2 + i) * C + q * VEC, c);
+      const float vi = v[S1 + i];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] = fmaf(vi, c[k], acc[k]);
+    }
+    for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] += __shfl_xor_sync(FULL, acc[k], off);
+    }
+    if (lane < G) {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k)
+        comp[r * Cc + q * VEC + k] = finish(acc[k], wsum, white_back);
+    }
+
+    // xyz as a flat run of 3 S floats per half
+    float xa[3] = {0.f, 0.f, 0.f};
+    for (int e = lane; e < 3 * S1; e += 32) {
+      const int i = e / 3, k = e - 3 * i;
+      const float val = v[i] * x1[r * S1 * 3 + e];
+      if (k == 0) xa[0] += val;
+      else if (k == 1) xa[1] += val;
+      else xa[2] += val;
+    }
+    for (int e = lane; e < 3 * S2; e += 32) {
+      const int i = e / 3, k = e - 3 * i;
+      const float val = v[S1 + i] * x2[r * S2 * 3 + e];
+      if (k == 0) xa[0] += val;
+      else if (k == 1) xa[1] += val;
+      else xa[2] += val;
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) xa[k] = warp_sum(xa[k]);
+    if (lane < 3)
+      comp[r * Cc + C + lane] = finish(lane == 0 ? xa[0] : lane == 1 ? xa[1] : xa[2], wsum,
+                                       white_back);
+    if (lane == 0) {
+      float dep = dsum / wsum;
       if (isnan(dep)) dep = INFINITY;
-      depth_out[r] = dep;   // clipped by clip_depth once all rays are done
+      depth_out[r] = dep;   // clipped by the last block
       wsum_out[r] = wsum;
     }
   }
-}
 
-__global__ void clip_depth(float* depth, const float* minmax, long long rays) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < rays) depth[i] = fminf(fmaxf(depth[i], minmax[0]), minmax[1]);
+  // the depth range: warp, block, then the global pair
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(FULL, lo, off));
+    hi = fmaxf(hi, __shfl_xor_sync(FULL, hi, off));
+  }
+  if (lane == 0) {
+    red[0][warp] = lo;
+    red[1][warp] = hi;
+  }
+  __threadfence();   // this block's depths, before its ticket
+  __syncthreads();
+  unsigned int* done = reinterpret_cast<unsigned int*>(scratch + 2);
+  if (threadIdx.x == 0) {
+    for (int k = 1; k < n_warps; ++k) {
+      lo = fminf(lo, red[0][k]);
+      hi = fmaxf(hi, red[1][k]);
+    }
+    atomic_min_f(&scratch[0], lo);
+    atomic_max_f(&scratch[1], hi);
+    __threadfence();
+    s_last = atomicAdd(done, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float lo_g = __ldcg(&scratch[0]), hi_g = __ldcg(&scratch[1]);
+  for (long long i = threadIdx.x; i < rays; i += blockDim.x)
+    depth_out[i] = fminf(fmaxf(__ldcg(depth_out + i), lo_g), hi_g);
+  if (threadIdx.x == 0) {   // ready for the next call
+    scratch[0] = INFINITY;
+    scratch[1] = -INFINITY;
+    *done = 0u;
+  }
 }
 
 template <typename T>
 cudaError_t launch(const float* d1, const void* c1, const float* s1, const float* x1,
                    const float* d2, const void* c2, const float* s2, const float* x2,
-                   float* comp, float* depth, float* wsum, float* minmax, int rays,
+                   float* comp, float* depth, float* wsum, float* scratch, int rays,
                    int S1, int S2, int C, int white_back, cudaStream_t stream) {
   const int S = S1 + S2;
-  const size_t smem = (size_t)S * 4 * sizeof(float) + (size_t)S * (C + 3) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(ray_composite_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  init_minmax<<<1, 1, 0, stream>>>(minmax);
-  ray_composite_kernel<T><<<rays, THREADS, smem, stream>>>(
+  const size_t per_warp = (size_t)ARRAYS * S * sizeof(float);
+  int n_warps = (int)((96 * 1024) / per_warp);
+  n_warps = n_warps < 1 ? 1 : (n_warps > 8 ? 8 : n_warps);
+  const size_t smem = per_warp * n_warps;
+  cudaError_t e = cudaFuncSetAttribute(ray_composite_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const unsigned blocks = (unsigned)((rays + n_warps - 1) / n_warps);
+  ray_composite_kernel<T><<<blocks, 32 * n_warps, smem, stream>>>(
       d1, static_cast<const T*>(c1), s1, x1, d2, static_cast<const T*>(c2), s2, x2,
-      comp, depth, wsum, minmax, S1, S2, C, white_back);
-  clip_depth<<<(unsigned)((rays + 255) / 256), 256, 0, stream>>>(depth, minmax, rays);
+      comp, depth, wsum, scratch, rays, S1, S2, C, white_back);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Per ray r: d*[r, S*] depths, s*[r, S*] sigmas, x*[r, S*, 3] xyz (f32),
-// c*[r, S*, C] colors (f32 or bf16). S2 may be 0 (no importance pass).
+// c*[r, S*, C] colors (f32 or bf16, 16-byte aligned; C * itemsize / 16 lanes
+// per row, a power of two up to 32). S2 may be 0 (no importance pass).
 // Outputs: comp [rays, C+3] (composited colors | xyz after white_back and
-// *2-1), depth [rays], wsum [rays], all f32; minmax: 2 f32 of scratch.
+// *2-1), depth [rays], wsum [rays], all f32. scratch: 2 f32 (+inf, -inf)
+// and a u32 counter (0), as every call leaves them.
 PANIC3D_EXPORT int ray_composite(const float* d1, const void* c1, const float* s1,
                                  const float* x1, const float* d2, const void* c2,
                                  const float* s2, const float* x2, int dtype,
-                                 float* comp, float* depth, float* wsum, float* minmax,
+                                 float* comp, float* depth, float* wsum, float* scratch,
                                  int rays, int S1, int S2, int C, int white_back,
                                  void* stream) {
-  if (rays < 1 || S1 + S2 < 2) return (int)cudaErrorInvalidValue;
+  const int vec = dtype == DT_BF16 ? 8 : 4, G = C / vec;
+  if (rays < 1 || S1 < 1 || S1 + S2 < 2 || S1 + S2 > 1024 || C % vec != 0 || G < 1 || G > 32
+      || (G & (G - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
     return (int)launch<__nv_bfloat16>(d1, c1, s1, x1, d2, c2, s2, x2, comp, depth, wsum,
-                                      minmax, rays, S1, S2, C, white_back, s);
-  return (int)launch<float>(d1, c1, s1, x1, d2, c2, s2, x2, comp, depth, wsum, minmax,
+                                      scratch, rays, S1, S2, C, white_back, s);
+  return (int)launch<float>(d1, c1, s1, x1, d2, c2, s2, x2, comp, depth, wsum, scratch,
                             rays, S1, S2, C, white_back, s);
 }

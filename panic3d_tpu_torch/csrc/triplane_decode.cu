@@ -136,12 +136,7 @@ __device__ __forceinline__ uint32_t tf32_rna(float v) {
   return r;
 }
 
-// softplus and the sigmoid on the SFU (ex2/lg2.approx): within ~2e-7 of the
-// libm forms, far inside K1's tolerances (sigma 1e-4)
-__device__ __forceinline__ float softplus_fast(float x) {
-  return fmaxf(x, 0.f) + __logf(1.f + __expf(-fabsf(x)));
-}
-
+// the sigmoid on the SFU (ex2.approx and a fast divide), as softplus_fast
 __device__ __forceinline__ float sigmoid_fast(float x) {
   return __fdividef(1.f, 1.f + __expf(-x));
 }

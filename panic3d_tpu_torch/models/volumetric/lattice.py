@@ -9,10 +9,10 @@ plain matmuls), and the per-point triplane feature is the broadcast sum
 
 (the plane mean of OSGDecoder, in the JAX package's summation order). The
 ESS occupancy (renderer.ess_occupancy, kernel K6) and paste-front's
-per-portrait occlusion volume (kernel K7, csrc/front_occlusion.cu: one
-block per (x, y) column decodes sigma along z and scans it) consume these
-terms; the [M,C] feature block never reaches device memory in either
-kernel.
+per-portrait occlusion volume (kernel K7, csrc/front_occlusion.cu) consume
+these terms; the [M,C] feature block never reaches device memory in either
+kernel. K7's volume factors the first layer through the sum: it computes
+P_t = W0 F_t per term once, and each lattice point adds three rows of P.
 
 K7's two wrappers (``occlusion_volume``, ``occlusion_sample``) sit here
 beside their plain versions; each takes its plain version only for CPU
@@ -187,32 +187,39 @@ def occlusion_volume_plain(terms, dec, box_warp: float, grid, filters):
     return (suffix - 0.5 * density) * (bw / Gz)
 
 
-_K7A_ARGS = ((kb.PTR, kb.INT, kb.INT) * 3 + (kb.PTR,) * 5 + (kb.INT,) * 5
+_K7A_ARGS = ((kb.PTR, kb.INT, kb.INT) * 3 + (kb.PTR,) * 6 + (kb.INT,) * 5
              + (kb.DOUBLE,) + (kb.FLOAT,) * 4 + (kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
 
 
 def occlusion_volume_kernel(terms, dec, box_warp: float, grid, filters):
     """Launch K7's volume on CUDA tensors: same contract as
-    occlusion_volume_plain."""
+    occlusion_volume_plain. The factored first layer P (64 f32 a term cell)
+    is scratch of this call."""
     from . import renderer as vr
 
     dev = terms[0][0].device
     N, C = terms[0][0].shape[0], terms[0][0].shape[-1]
     Gx, Gy, Gz = grid
     vr._require(C in (8, 16, 32), f"K7 supports 8, 16 or 32 plane channels, got {C}")
-    vr._require(Gz <= 1024 and Gz % 32 == 0, f"K7 takes Gz a multiple of 32 up to 1024, got {Gz}")
+    vr._require(Gz % 4 == 0, f"K7 takes Gz a multiple of 4, got {Gz}")
     sizes = (Gx, Gy, Gz)
     for F_, aa, ab in terms:
         vr._require(tuple(F_.shape) == (N, sizes[aa], sizes[ab], C),
                     "K7 terms must match the lattice")
+    axes = [(aa, ab) for _, aa, ab in terms]
+    vr._require((0, 1) in axes[:2] and sorted(axes)[1:] in ([(0, 2), (0, 2)], [(0, 2), (1, 2)]),
+                "K7 takes an (x, y) term among the first two and two terms on (x or y, z)")
     targs, keep = vr.lattice_term_args(terms, dev)
     w0, b0, w1, b1 = vr._decoder_f32(dec, dev)
     vr._require(tuple(w0.shape) == (64, C) and tuple(w1.shape) == (33, 64),
                 "K7 takes a 64-wide hidden layer")
     A = torch.empty((N, Gx, Gy, Gz), dtype=torch.float32, device=dev)
+    P = torch.empty((sum(F_.shape[0] * F_.shape[1] * F_.shape[2] for F_, _, _ in terms), 64),
+                    dtype=torch.float32, device=dev)
     kb.launch(
         "occlusion_volume", _K7A_ARGS, *targs, w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), A.data_ptr(), N, Gx, Gy, Gz, C, float(box_warp), float(box_warp) / Gz,
+        b1.data_ptr(), P.data_ptr(), A.data_ptr(), N, Gx, Gy, Gz, C, float(box_warp),
+        float(box_warp) / Gz,
         dec.lr_mul / math.sqrt(C), dec.lr_mul / math.sqrt(64), dec.lr_mul,
         *vr._filter_args(filters, box_warp), vr._stream(A))
     KERNELS["occlusion_volume"].launches += 1

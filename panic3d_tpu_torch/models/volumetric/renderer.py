@@ -23,6 +23,7 @@ the TPU-only ray chunking and corner packing (ROADMAP "Do not port").
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -354,6 +355,17 @@ def ray_composite_plain(d1, c1, s1, x1, d2, c2, s2, x2, white_back: bool):
 _K2_ARGS = (kb.PTR,) * 8 + (kb.INT,) + (kb.PTR,) * 4 + (kb.INT,) * 5 + (kb.PTR,)
 
 
+@functools.lru_cache(maxsize=None)
+def _k2_scratch(dev):
+    """K2's global depth range and block counter on ``dev``, made once:
+    (+inf, -inf) and a zero counter, as every launch leaves them (the last
+    block of a launch resets them)."""
+    buf = torch.zeros((4,), dtype=torch.float32, device=dev)
+    buf[0] = math.inf
+    buf[1] = -math.inf
+    return buf
+
+
 def ray_composite_kernel(d1, c1, s1, x1, d2, c2, s2, x2, white_back: bool):
     """Launch K2 on CUDA tensors: same contract as ray_composite_plain."""
     B, R, S1, C = c1.shape
@@ -365,19 +377,22 @@ def ray_composite_kernel(d1, c1, s1, x1, d2, c2, s2, x2, white_back: bool):
                  and t.device == c1.device, f"K2 input of shape {tuple(t.shape)}")
         _require(t is c1 or t is c2 or t.dtype == torch.float32,
                  "K2 depths, sigmas and xyz must be f32")
-    _require(S1 + S2 <= 1024, "K2 takes at most 1024 samples per ray")
+    _require(S1 >= 1 and S1 + S2 <= 1024, "K2 takes 1 to 1024 samples per ray, coarse first")
+    lanes = C * c1.element_size() // 16       # lanes per 16-byte row chunk
+    _require(C * c1.element_size() % 16 == 0 and lanes in (1, 2, 4, 8, 16, 32)
+             and c1.data_ptr() % 16 == 0 and c2.data_ptr() % 16 == 0,
+             f"K2 takes 16-byte aligned color rows of 16 to 512 bytes (a power of two), got C={C}")
     dev = c1.device
     comp = torch.empty((B, R, C + 3), dtype=torch.float32, device=dev)
     depth = torch.empty((B, R, 1), dtype=torch.float32, device=dev)
     wsum = torch.empty((B, R, 1), dtype=torch.float32, device=dev)
-    minmax = torch.empty((2,), dtype=torch.float32, device=dev)
     if S2 == 0:     # no importance pass: the second half is never read
         d2, c2, s2, x2 = d1, c1, s1, x1
     kb.launch(
         "ray_composite", _K2_ARGS, d1.data_ptr(), c1.data_ptr(), s1.data_ptr(),
         x1.data_ptr(), d2.data_ptr(), c2.data_ptr(), s2.data_ptr(), x2.data_ptr(),
         _DTYPES[c1.dtype], comp.data_ptr(), depth.data_ptr(), wsum.data_ptr(),
-        minmax.data_ptr(), B * R, S1, S2, C, int(white_back), _stream(c1),
+        _k2_scratch(dev).data_ptr(), B * R, S1, S2, C, int(white_back), _stream(c1),
     )
     KERNELS["ray_composite"].launches += 1
     return comp[..., :-3], depth, wsum, comp[..., -3:]

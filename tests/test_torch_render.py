@@ -6,6 +6,8 @@ K3 importance_sample vs ray_march -> sample_importance
 plus the port's render() against the JAX render at f32.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -103,20 +105,35 @@ def ray_samples(seed, B=2, R=24, S1=12, S2=10, C=32):
     return d1, c1, s1, x1, d2, c2, s2, x2
 
 
+@functools.lru_cache(maxsize=None)
+def jax_composites(white_back):
+    """K2's function in the JAX package, jitted once per white_back (eager
+    dispatch would compile every primitive on its first use, seconds per
+    test): ray_march(unify_samples(...)) over colors | xyz -> (composite,
+    depth, weight total), and merge_composite, its re-associated form."""
+    def reference(*a):
+        d, c, s, x = jvr.unify_samples(*a)
+        comp, depth, w = jvr.ray_march(jnp.concatenate([c, x], -1), s, d, white_back)
+        return comp, depth, jnp.sum(w, axis=2)
+
+    return (jax.jit(reference),
+            jax.jit(functools.partial(jvr.merge_composite, white_back=white_back)))
+
+
 @pytest.mark.parametrize("white_back", [True, False])
 def test_k2_ray_composite_plain_vs_jax(white_back):
     d1, c1, s1, x1, d2, c2, s2, x2 = ray_samples(2)
     rgb, depth, wsum, xyz = tvr.ray_composite(*map(t, (d1, c1, s1, x1, d2, c2, s2, x2)),
                                               white_back)
     J = [jnp.asarray(a) for a in (d1, c1, s1, x1, d2, c2, s2, x2)]
-    d, c, s, x = jvr.unify_samples(*J)
-    comp, depth_j, w_j = jvr.ray_march(jnp.concatenate([c, x], -1), s, d, white_back)
+    reference, merged = jax_composites(white_back)
+    comp, depth_j, wsum_j = reference(*J)
     close(rgb, comp[..., :-3], **TOL)
     close(xyz, comp[..., -3:], **TOL)
     close(depth, depth_j, **TOL)
-    close(wsum, jnp.sum(w_j, axis=2), **TOL)
+    close(wsum, wsum_j, **TOL)
     # the JAX eval path's re-associated form of the same composite
-    comp_m, depth_m, wsum_m = jvr.merge_composite(*J, white_back=white_back)
+    comp_m, depth_m, wsum_m = merged(*J)
     close(rgb, comp_m[..., :-3], **TOL)
     close(xyz, comp_m[..., -3:], **TOL)
     close(depth, depth_m, **TOL)
