@@ -42,17 +42,6 @@ constexpr int TX = 4;        // x-columns per block (one warp each)
 constexpr int RS = LAT_HIDDEN + 4;   // staged row stride (+ 4: conflict-free float4 reads)
 constexpr float THIRD = 1.f / 3.f;
 
-// 16 bytes global -> shared without the registers (cp.async, L2 only)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // P_t = g0 W0 F_t / 3 for every row of the three terms, one after another
 // in P, plus the bias b0 on the rows of the (x, y) term (col): a lattice
 // point's hidden layer is then (P_col + P_a) + P_b. A block stages 64 rows

@@ -24,9 +24,9 @@
 // not the tensor cores or shared memory (PERF.md). Both portraits' bf16 planes
 // (2 x 12.6 MB) fit in the 50 MB L2, so the corner reads are L2 hits after
 // first touch. K1v reads nothing per point but the planes (one portrait's
-// f32 planes, 25 MB, stay in L2) and writes 2 bytes, so it is bound by
-// operations: ~4.7 kFLOP per point (the lerps, the 32x64 layer and 64
-// softplus, two more softplus and exp) x 16.8 M points.
+// f32 planes, 25 MB, stay in L2) and writes 2 bytes; with the crop skip and
+// the MLP on the tensor cores, its per-point work is the gather's lerps, the
+// 64 hidden softplus on the SFU and the tail's libm exp and log1p.
 //
 // K1's design: each warp decodes tiles of 16 points (the mma's M) in a
 // grid-stride loop, 8 warps a block, 2 blocks an SM (128 registers a
@@ -47,13 +47,16 @@
 // density filters and the sigmoid / MipNeRF clamp; rgb is staged in the
 // warp's tile in output order and leaves as contiguous 16-byte stores. bf16
 // planes are upcast as they are read; all arithmetic is f32, SFU f32 or
-// 3xTF32. K1v is one thread per point: its decoder weights (scaled by their
-// equalized-lr gains) sit in shared memory and are read as broadcasts, and
+// 3xTF32. K1v is described at its kernel (volume_density_kernel): bricks of
+// 4 x 4 columns of 16 lattice points, their plane windows staged in shared
+// memory, the crop skipped per brick and per column, and K1's layer 1 and
+// SFU softplus with net2's sigma row as a reduction of the hidden fragments;
 // it makes each point's coordinate from its flat index with the JAX
-// package's f32 divisions and fmod, explicitly rounded (IEEE division, no
-// contracted multiply-add), so the lattice is bit-identical to its plain
-// version's; it decodes net2's sigma row alone and stores the density in the
+// package's f32 divisions and fmod, explicitly rounded, so the lattice is
+// bit-identical to its plain version's, and stores the density in the
 // flipped layout marching tetrahedra reads.
+#include <climits>
+
 #include <cuda_fp16.h>
 
 #include "common.cuh"
@@ -66,55 +69,6 @@ constexpr int OUT = 33;     // sigma + 32 feature channels
 constexpr int THREADS = 128;
 
 struct Proj { float a[3][3][2]; };   // plane p: uv[d] = sum_c xyz[c] * a[p][c][d]
-
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  float4 a = reinterpret_cast<const float4*>(p)[0];
-  float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// grid_sample (align_corners=False, zeros padding) of the three planes of
-// one portrait [3,H,W,C] at plane-space point (sx, sy, sz), summed over the
-// planes and divided by 3: the plane mean
-template <int C>
-__device__ __forceinline__ void sample_planes(const float* __restrict__ planes, int H, int W,
-                                              const Proj& pj, float sx, float sy, float sz,
-                                              float feat[C]) {
-#pragma unroll
-  for (int c = 0; c < C; ++c) feat[c] = 0.f;
-#pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    const float gx = sx * pj.a[p][0][0] + sy * pj.a[p][1][0] + sz * pj.a[p][2][0];
-    const float gy = sx * pj.a[p][0][1] + sy * pj.a[p][1][1] + sz * pj.a[p][2][1];
-    // grid_sample, align_corners=False
-    const float ix = ((gx + 1.f) * (float)W - 1.f) / 2.f;
-    const float iy = ((gy + 1.f) * (float)H - 1.f) / 2.f;
-    const float fx0 = floorf(ix), fy0 = floorf(iy);
-    const float wx = ix - fx0, wy = iy - fy0;
-    const int x0 = (int)fx0, y0 = (int)fy0;
-    const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
-    const bool vy0 = y0 >= 0 && y0 < H, vy1 = y0 + 1 >= 0 && y0 + 1 < H;
-    const float* base = planes + (size_t)p * H * W * C;
-    const float* r00 = base + ((long long)y0 * W + x0) * C;
-#pragma unroll
-    for (int c0 = 0; c0 < C; c0 += 8) {
-      float v00[8] = {0}, v01[8] = {0}, v10[8] = {0}, v11[8] = {0};
-      if (vy0 && vx0) load8(r00 + c0, v00);
-      if (vy0 && vx1) load8(r00 + C + c0, v01);
-      if (vy1 && vx0) load8(r00 + (long long)W * C + c0, v10);
-      if (vy1 && vx1) load8(r00 + (long long)W * C + C + c0, v11);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const float top = v00[k] + (v01[k] - v00[k]) * wx;
-        const float bot = v10[k] + (v11[k] - v10[k]) * wx;
-        feat[c0 + k] += top + (bot - top) * wy;
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < C; ++c) feat[c] = feat[c] / 3.f;
-}
 
 // ---- K1: gather, then the MLP on the tensor cores ----
 
@@ -187,6 +141,38 @@ __device__ __forceinline__ void load_a(const float* f, int g, int stride, uint32
   split_tf32(f[(g + 8) * stride], hi[1], lo[1]);
   split_tf32(f[g * stride + 4], hi[2], lo[2]);
   split_tf32(f[(g + 8) * stride + 4], hi[3], lo[3]);
+}
+
+// layer 1's B fragments (gains applied, split) into w0f: fragment
+// [k-step][n-tile][lane] holds, for lane = 4g + t, B[t][g] and B[t+4][g] of
+// the 8x8 block, B[k][n] = w0[8nt+n][8ks+k]; the block's threads share the
+// work (K1 and K1v)
+template <int C>
+__device__ __forceinline__ void load_w0_fragments(uint4 (*w0f)[HIDDEN / 8][32],
+                                                  const float* __restrict__ w0, float g0) {
+  constexpr int KS1 = C / 8, NT1 = HIDDEN / 8;
+  for (int i = threadIdx.x; i < KS1 * NT1 * 32; i += blockDim.x) {
+    const int lane = i & 31, nt = (i >> 5) % NT1, ks = i / (32 * NT1);
+    const float* row = w0 + (nt * 8 + (lane >> 2)) * C + ks * 8 + (lane & 3);
+    w0f[ks][nt][lane] = split_pair(row[0] * g0, row[4] * g0);
+  }
+}
+
+// FC(C->64) of a warp's 16 points, features tile[point][FS], in 3xTF32:
+// h[nt] holds rows g, g+8 and columns 8nt+2t, 8nt+2t+1 (K1 and K1v)
+template <int C, int FS>
+__device__ __forceinline__ void layer1(const float* tile, const uint4 (*w0f)[HIDDEN / 8][32],
+                                       int lane, float h[HIDDEN / 8][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < HIDDEN / 8; ++nt) h[nt][0] = h[nt][1] = h[nt][2] = h[nt][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < C / 8; ++ks) {
+    uint32_t hi[4], lo[4];
+    load_a(tile + ks * 8 + t, g, FS, hi, lo);
+#pragma unroll
+    for (int nt = 0; nt < HIDDEN / 8; ++nt) mma_3xtf32(h[nt], hi, lo, w0f[ks][nt][lane]);
+  }
 }
 
 // two neighbouring channels, rounded to T, as one store
@@ -263,8 +249,8 @@ __device__ __forceinline__ Corners plane_corners(const T* __restrict__ planes, i
 // neighbouring lanes, each reading one 16-byte chunk of CH channels of every
 // corner, so a corner's C channels are one coalesced request; the next
 // plane's four chunks are in flight while a plane's lerps run. The lerps and
-// their order are sample_planes' (grid_sample, align_corners=False, zeros
-// padding).
+// their order are ops/grid_sample.py:grid_sample_2d_points' (align_corners=
+// False, zeros padding), then the plane mean, ((p0 + p1) + p2) / 3.
 template <typename T, int C>
 __device__ __forceinline__ void gather_tile(const T* __restrict__ planes,
                                             const float* __restrict__ coords, long long t0,
@@ -328,14 +314,10 @@ __global__ void __launch_bounds__(32 * K1_WARPS, K1_BLOCKS) triplane_decode_kern
     float bias_scale, int force_sigmoid, int use_crop, float crop_lim,
     int cull_mode, float cull_thresh) {
   constexpr int FS = C + 4;
-  constexpr int KS1 = C / 8, NT1 = HIDDEN / 8, KS2 = HIDDEN / 8, NT2 = N2 / 8;
+  constexpr int NT1 = HIDDEN / 8, KS2 = HIDDEN / 8, NT2 = N2 / 8;
   extern __shared__ uint4 smem_raw[];
   K1Smem<C>& s = *reinterpret_cast<K1Smem<C>*>(smem_raw);
-  for (int i = threadIdx.x; i < KS1 * NT1 * 32; i += blockDim.x) {
-    const int lane = i & 31, nt = (i >> 5) % NT1, ks = i / (32 * NT1);
-    const float* row = w0 + (nt * 8 + (lane >> 2)) * C + ks * 8 + (lane & 3);
-    s.w0f[ks][nt][lane] = split_pair(row[0] * g0, row[4] * g0);
-  }
+  load_w0_fragments<C>(s.w0f, w0, g0);
   for (int i = threadIdx.x; i < KS2 * NT2 * 32; i += blockDim.x) {
     const int lane = i & 31, nt = (i >> 5) % NT2, ks = i / (32 * NT2);
     const int o = net2_row(nt * 8 + (lane >> 2));
@@ -361,15 +343,7 @@ __global__ void __launch_bounds__(32 * K1_WARPS, K1_BLOCKS) triplane_decode_kern
     // and columns 8nt+2t, 8nt+2t+1
     {
       float h[NT1][4];
-#pragma unroll
-      for (int nt = 0; nt < NT1; ++nt) h[nt][0] = h[nt][1] = h[nt][2] = h[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS1; ++ks) {
-        uint32_t hi[4], lo[4];
-        load_a(tile + ks * 8 + t, g, FS, hi, lo);
-#pragma unroll
-        for (int nt = 0; nt < NT1; ++nt) mma_3xtf32(h[nt], hi, lo, s.w0f[ks][nt][lane]);
-      }
+      layer1<C, FS>(tile, s.w0f, lane, h);
       __syncwarp();   // the features are read: the hidden layer takes their place
       // bias and softplus, then the hidden layer to the warp's region as
       // layer 2's A operand
@@ -476,37 +450,318 @@ __device__ __forceinline__ void lattice_point(long long i, int N, float voxel, f
   z = __fadd_rn(__fmul_rn(s2, voxel), origin);
 }
 
-// K1v: one thread per point of the N^3 lattice (flat index i, x slowest),
-// written to out[(N-1-i/N^2)*N^2 + i%N^2] (axis 0 flipped)
+// ---- K1v: bricks of the lattice, plane windows in shared memory ----
+
+constexpr int V_BZ = 16;   // z points of a column: one warp tile (PTS)
+constexpr int V_BY = 8;    // columns of a brick in y
+constexpr int V_BX = 4;    // and in x
+constexpr int V_PTS = V_BZ * V_BY * V_BX;   // points of a brick
+constexpr int V_THREADS = 256;
+constexpr int V_WARPS = V_THREADS / 32;
+constexpr int V_COLS = V_BX * V_BY / V_WARPS;   // columns a warp decodes, two at a time
+static_assert(V_COLS % 2 == 0, "K1v decodes its columns in pairs");
+constexpr int V_BLOCKS = 2;                     // resident blocks per SM
+// texels of the three plane windows together (6 x 10 + 6 x 18 + 10 x 18
+// = 348 at N = H = W = 256)
+constexpr int V_POOL = 384;
+
+// align_corners=False texel coordinate of plane coordinate g on an axis of
+// `size` texels, rounded op by op as the plain version computes it
+__device__ __forceinline__ float texel_coord(float g, int size) {
+  return __fdiv_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.f), (float)size), 1.f), 2.f);
+}
+
+// one channel's bilinear lerp, in gather_tile's order
+__device__ __forceinline__ float bilerp(float v00, float v01, float v10, float v11, float wx,
+                                        float wy) {
+  const float top = v00 + (v01 - v00) * wx;
+  const float bot = v10 + (v11 - v10) * wx;
+  return top + (bot - top) * wy;
+}
+
 template <int C>
-__global__ void __launch_bounds__(THREADS) volume_density_kernel(
+struct K1vSmem {
+  uint4 w0f[C / 8][HIDDEN / 8][32];   // layer 1, gains and the plane mean's 1/3 applied
+  float b0[HIDDEN];
+  float w1[HIDDEN];        // net2's sigma row, gained
+  float b1;
+  alignas(16) int win[3][4];   // per plane: min x0, min y0, max x0, max y0 over the brick
+  int woff[3];             // per plane: its window's first texel in the pool, -1 if not staged
+  int4 info[3][V_PTS];     // per plane and point: x0, y0, and the bits of wx, wy
+  unsigned char flags[V_PTS];   // bit 0: in the lattice; bit 1: kept by the crop
+  alignas(16) float tile[V_WARPS][PTS * (C + 4)];
+  float sigma[V_WARPS][2 * V_BZ];   // a warp's sigmas of two columns
+  // then the plane windows, V_POOL texels of C floats
+};
+
+// the plane sums of one column's 16 points (brick points base .. base + 15)
+// into tile[point][C + 4], zeros for points outside the lattice; the
+// corners come from the plane windows in the pool (window p's texel (y, x)
+// at woff[p] + (y - y_lo) * width + x - x_lo), or from the planes for a
+// plane whose window was not staged. The mapping, the lerps and their
+// order are K1's gather_tile; the mean's 1/3 is in layer 1's weights.
+template <int C>
+__device__ __forceinline__ void gather_column(const K1vSmem<C>& s, const float* pool,
+                                              const float* __restrict__ planes, int H, int W,
+                                              int base, int lane, float* tile) {
+  constexpr int TPP = C / 4;          // lanes per point, one 16-byte chunk each
+  constexpr int PPP = 32 / TPP;       // points per pass
+  constexpr int FS = C + 4;
+  const int cc = lane % TPP;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // each window's width, and the pool offset of the texel (0, 0) in its
+  // frame (-1 width: read from the planes)
+  int ww[3], org[3];
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    ww[p] = s.woff[p] >= 0 ? s.win[p][2] - s.win[p][0] + 2 : -1;
+    org[p] = (s.woff[p] - s.win[p][1] * ww[p] - s.win[p][0]) * C + cc * 4;
+  }
+  // plane 0 (x, y) barely moves along a column (the lattice's shear): a
+  // lane keeps its last four plane-0 corners and reads them again only
+  // where the corner changes
+  int k0x = INT_MIN, k0y = INT_MIN;
+  float4 k00 = zero, k01 = zero, k10 = zero, k11 = zero;
+#pragma unroll 1
+  for (int pass = 0; pass < PTS / PPP; ++pass) {
+    const int lp = pass * PPP + lane / TPP;
+    const int pt = base + lp;
+    float4 feat = zero;
+    if (s.flags[pt] & 1) {
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        const int4 in = s.info[p][pt];
+        const float wx = __int_as_float(in.z), wy = __int_as_float(in.w);
+        float4 v00, v01, v10, v11;
+        if (p == 0 && in.x == k0x && in.y == k0y) {
+          v00 = k00;
+          v01 = k01;
+          v10 = k10;
+          v11 = k11;
+        } else if (ww[p] > 0) {
+          const float* r = pool + org[p] + (in.y * ww[p] + in.x) * C;
+          v00 = *reinterpret_cast<const float4*>(r);
+          v01 = *reinterpret_cast<const float4*>(r + C);
+          v10 = *reinterpret_cast<const float4*>(r + ww[p] * C);
+          v11 = *reinterpret_cast<const float4*>(r + ww[p] * C + C);
+        } else {
+          const bool vx0 = in.x >= 0 && in.x < W, vx1 = in.x + 1 >= 0 && in.x + 1 < W;
+          const bool vy0 = in.y >= 0 && in.y < H, vy1 = in.y + 1 >= 0 && in.y + 1 < H;
+          const float* r00 = planes + (((long long)p * H + in.y) * W + in.x) * C + cc * 4;
+          const float* r10 = r00 + (long long)W * C;
+          v00 = vy0 && vx0 ? __ldg(reinterpret_cast<const float4*>(r00)) : zero;
+          v01 = vy0 && vx1 ? __ldg(reinterpret_cast<const float4*>(r00 + C)) : zero;
+          v10 = vy1 && vx0 ? __ldg(reinterpret_cast<const float4*>(r10)) : zero;
+          v11 = vy1 && vx1 ? __ldg(reinterpret_cast<const float4*>(r10 + C)) : zero;
+        }
+        if (p == 0) {
+          k0x = in.x;
+          k0y = in.y;
+          k00 = v00;
+          k01 = v01;
+          k10 = v10;
+          k11 = v11;
+        }
+        feat.x += bilerp(v00.x, v01.x, v10.x, v11.x, wx, wy);
+        feat.y += bilerp(v00.y, v01.y, v10.y, v11.y, wx, wy);
+        feat.z += bilerp(v00.z, v01.z, v10.z, v11.z, wx, wy);
+        feat.w += bilerp(v00.w, v01.w, v10.w, v11.w, wx, wy);
+      }
+    }
+    *reinterpret_cast<float4*>(tile + lp * FS + cc * 4) = feat;
+  }
+}
+
+// K1v. A block walks bricks of V_BX x V_BY columns of 16 z-points (the flat
+// index's fastest axis). Per brick: (1) the threads make each point's
+// lattice point (lattice_point, bit for bit), its crop decision and, per
+// plane, its corner (x0, y0) and weights, into shared memory; the block
+// reduces the corners to each plane's window, [min x0, max x0 + 1] x
+// [min y0, max y0 + 1]. (2) A brick with no point kept by the crop writes
+// -1e3 and decodes nothing. (3) The windows go to shared memory by cp.async
+// (zeros outside the plane: the zeros padding), into one pool; a window
+// that no longer fits is read from the planes. (4) Each warp decodes its
+// columns as K1 does (a column with no kept point is skipped): the gather
+// of the plane sums from the windows, layer 1 in 3xTF32 on the tensor
+// cores with the mean's 1/3 folded into its weights, softplus on the SFU on
+// the accumulators, and net2's sigma row as a 64-wide dot of the hidden
+// fragments reduced across each quad; then, for two columns at once, a
+// lane a point, sigma2density and the cull (libm: the cull decides on the
+// last ulps of expf) and the store into the flipped grid. The cropped
+// points are written -1e3 in (1), as the crop would leave them. stats (may
+// be null): bricks skipped by the crop, columns skipped in the bricks
+// decoded, planes of decoded bricks read from the planes because their
+// window did not fit.
+template <int C>
+__global__ void __launch_bounds__(V_THREADS, V_BLOCKS) volume_density_kernel(
     const float* __restrict__ planes, const float* __restrict__ w0,
     const float* __restrict__ b0, const float* __restrict__ w1,
     const float* __restrict__ b1, void* __restrict__ out, int out_f16, int N, int H, int W,
     Proj pj, float coord_scale, float g0, float g1, float bias_scale, float voxel,
-    float origin, int use_crop, float crop_lim, int use_cull, float cull_thresh) {
-  __shared__ SigmaMLP<C> m;
-  load_sigma_mlp<C>(m, w0, b0, w1, b1, g0, g1, bias_scale);
-  __syncthreads();
+    float origin, int use_crop, float crop_lim, int use_cull, float cull_thresh,
+    int* __restrict__ stats) {
+  constexpr int FS = C + 4;
+  constexpr int NT1 = HIDDEN / 8;
+  extern __shared__ uint4 smem_raw[];
+  K1vSmem<C>& s = *reinterpret_cast<K1vSmem<C>*>(smem_raw);
+  float* pool = reinterpret_cast<float*>(reinterpret_cast<char*>(smem_raw) + sizeof(K1vSmem<C>));
+  load_w0_fragments<C>(s.w0f, w0, g0 / 3.f);
+  for (int i = threadIdx.x; i < HIDDEN; i += blockDim.x) {
+    s.b0[i] = b0[i] * bias_scale;
+    s.w1[i] = w1[i] * g1;
+  }
+  if (threadIdx.x == 0) s.b1 = b1[0] * bias_scale;
 
-  const long long NN = (long long)N * N, total = NN * N;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    float x, y, z;
-    lattice_point(i, N, voxel, origin, x, y, z);
-    float feat[C];
-    sample_planes<C>(planes, H, W, pj, coord_scale * x, coord_scale * y,
-                            coord_scale * z, feat);
-    const float sigma = sigma_decode<C>(m, feat);
-    // sigma2density, then the crop, then the cloud cull on the density
-    float d = __fsub_rn(1.f, expf(-softplus_f(__fsub_rn(sigma, 1.f))));
-    if (use_crop && !(fabsf(x) <= crop_lim && fabsf(z) <= crop_lim)) d = -1e3f;
-    if (use_cull && __fsub_rn(1.f, expf(-softplus_f(__fsub_rn(d, 1.f)))) < cull_thresh)
-      d = -1e3f;
-    const long long a = i / NN;
-    const long long o = (N - 1 - a) * NN + (i - a * NN);
-    if (out_f16) static_cast<__half*>(out)[o] = __float2half_rn(d);
-    else static_cast<float*>(out)[o] = d;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int nbz = (N + V_BZ - 1) / V_BZ, nby = (N + V_BY - 1) / V_BY;
+  const int nbx = (N + V_BX - 1) / V_BX;
+  const long long NN = (long long)N * N, bricks = (long long)nbz * nby * nbx;
+  for (long long brick = blockIdx.x; brick < bricks; brick += gridDim.x) {
+    const int bz = (int)(brick % nbz), by = (int)(brick / nbz % nby);
+    const int bx = (int)(brick / ((long long)nbz * nby));
+    __syncthreads();   // the previous brick is decoded (its windows and bounds read)
+    if (tid < 12) s.win[tid >> 2][tid & 3] = (tid & 3) < 2 ? INT_MAX : INT_MIN;
+    __syncthreads();   // the bounds are reset
+
+    // (1) the brick's points, V_PTS / V_THREADS a thread
+    int lo[3][2], hi[3][2];
+#pragma unroll
+    for (int p = 0; p < 3; ++p) lo[p][0] = lo[p][1] = INT_MAX, hi[p][0] = hi[p][1] = INT_MIN;
+    bool any_kept = false;
+#pragma unroll 1
+    for (int pt = tid; pt < V_PTS; pt += V_THREADS) {
+      const int xi = bx * V_BX + pt / (V_BZ * V_BY), yi = by * V_BY + pt / V_BZ % V_BY;
+      const int zi = bz * V_BZ + pt % V_BZ;
+      const bool valid = xi < N && yi < N && zi < N;
+      bool kept = false;
+      if (valid) {
+        float x, y, z;
+        lattice_point(((long long)xi * N + yi) * N + zi, N, voxel, origin, x, y, z);
+        kept = !use_crop || (fabsf(x) <= crop_lim && fabsf(z) <= crop_lim);
+        const float sx = coord_scale * x, sy = coord_scale * y, sz = coord_scale * z;
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          const float gx = sx * pj.a[p][0][0] + sy * pj.a[p][1][0] + sz * pj.a[p][2][0];
+          const float gy = sx * pj.a[p][0][1] + sy * pj.a[p][1][1] + sz * pj.a[p][2][1];
+          const float ix = texel_coord(gx, W), iy = texel_coord(gy, H);
+          const float fx0 = floorf(ix), fy0 = floorf(iy);
+          const int x0 = (int)fx0, y0 = (int)fy0;
+          s.info[p][pt] = make_int4(x0, y0, __float_as_int(ix - fx0), __float_as_int(iy - fy0));
+          lo[p][0] = min(lo[p][0], x0);
+          lo[p][1] = min(lo[p][1], y0);
+          hi[p][0] = max(hi[p][0], x0);
+          hi[p][1] = max(hi[p][1], y0);
+        }
+        if (!kept) {
+          const long long o = (long long)(N - 1 - xi) * NN + (long long)yi * N + zi;
+          if (out_f16) static_cast<__half*>(out)[o] = __float2half_rn(-1e3f);
+          else static_cast<float*>(out)[o] = -1e3f;
+        }
+      }
+      s.flags[pt] = (unsigned char)(valid | (kept << 1));
+      any_kept |= kept;
+    }
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const int lx = __reduce_min_sync(0xffffffffu, lo[p][0]);
+      const int ly = __reduce_min_sync(0xffffffffu, lo[p][1]);
+      const int hx = __reduce_max_sync(0xffffffffu, hi[p][0]);
+      const int hy = __reduce_max_sync(0xffffffffu, hi[p][1]);
+      if (lane == 0) {
+        atomicMin(&s.win[p][0], lx);
+        atomicMin(&s.win[p][1], ly);
+        atomicMax(&s.win[p][2], hx);
+        atomicMax(&s.win[p][3], hy);
+      }
+    }
+
+    // (2) the crop skip: every point of the brick is cropped (and written)
+    if (!__syncthreads_or(any_kept)) {
+      if (stats && tid == 0) atomicAdd(&stats[0], 1);
+      continue;
+    }
+
+    // (3) the plane windows into the pool, one after another; a window
+    // that does not fit in what is left is not staged, and gather_column
+    // reads that plane from memory
+    int off = 0;
+#pragma unroll 1
+    for (int p = 0; p < 3; ++p) {
+      const int4 w = *reinterpret_cast<const int4*>(s.win[p]);
+      const int ww = w.z - w.x + 2, texels = ww * (w.w - w.y + 2);
+      const bool fits = off + texels <= V_POOL;
+      if (tid == 0) {
+        s.woff[p] = fits ? off : -1;
+        if (stats && !fits) atomicAdd(&stats[2], 1);
+      }
+      if (!fits) continue;
+      for (int q = tid; q < texels * (C / 4); q += V_THREADS) {
+        const int texel = q / (C / 4), c4 = q % (C / 4);
+        const int ty = w.y + texel / ww, tx = w.x + texel % ww;
+        const bool inside = tx >= 0 && tx < W && ty >= 0 && ty < H;
+        const float* src = inside ? planes + (((long long)p * H + ty) * W + tx) * C + c4 * 4
+                                  : planes;
+        cp_async16_zfill(pool + (off + texel) * C + c4 * 4, src, inside);
+      }
+      off += texels;
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // (4) V_COLS columns a warp, two at a time: the decode of each, then
+    // the tails of both, a lane a point
+    float* tile = s.tile[warp];
+#pragma unroll 1
+    for (int cw = 0; cw < V_COLS; cw += 2) {
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        const int base = (warp * V_COLS + cw + half) * V_BZ;
+        const unsigned fl = lane < V_BZ ? s.flags[base + lane] : 0u;
+        if (!__ballot_sync(0xffffffffu, fl & 2u)) {   // every point cropped (and written)
+          if (stats && lane == 0) atomicAdd(&stats[1], 1);
+          continue;
+        }
+        gather_column<C>(s, pool, planes, H, W, base, lane, tile);
+        __syncwarp();
+        float h[NT1][4];
+        layer1<C, FS>(tile, s.w0f, lane, h);
+        // net2's sigma row: rows g (lo) and g + 8 (hi), this lane's 16
+        // columns, then the sum over the quad's four lanes
+        float s_lo = 0.f, s_hi = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < NT1; ++nt) {
+          const float2 bb = *reinterpret_cast<const float2*>(&s.b0[nt * 8 + 2 * t]);
+          const float2 wv = *reinterpret_cast<const float2*>(&s.w1[nt * 8 + 2 * t]);
+          s_lo = fmaf(softplus_fast(h[nt][0] + bb.x), wv.x, s_lo);
+          s_lo = fmaf(softplus_fast(h[nt][1] + bb.y), wv.y, s_lo);
+          s_hi = fmaf(softplus_fast(h[nt][2] + bb.x), wv.x, s_hi);
+          s_hi = fmaf(softplus_fast(h[nt][3] + bb.y), wv.y, s_hi);
+        }
+        s_lo += __shfl_xor_sync(0xffffffffu, s_lo, 1);
+        s_hi += __shfl_xor_sync(0xffffffffu, s_hi, 1);
+        s_lo += __shfl_xor_sync(0xffffffffu, s_lo, 2);
+        s_hi += __shfl_xor_sync(0xffffffffu, s_hi, 2);
+        if (t < 2) s.sigma[warp][half * V_BZ + g + 8 * t] = (t == 0 ? s_lo : s_hi) + s.b1;
+        __syncwarp();   // the tile is read before the next column's features land
+      }
+      // the tails of the kept points (the cropped ones were written in (1))
+      const int base = (warp * V_COLS + cw + (lane >> 4)) * V_BZ, row = lane & 15;
+      if ((s.flags[base + row] & 3u) == 3u) {
+        const float sigma = s.sigma[warp][lane];
+        // sigma2density, then the cloud cull on the density
+        float d = __fsub_rn(1.f, expf(-softplus_f(__fsub_rn(sigma, 1.f))));
+        if (use_cull && __fsub_rn(1.f, expf(-softplus_f(__fsub_rn(d, 1.f)))) < cull_thresh)
+          d = -1e3f;
+        const int col_x = bx * V_BX + base / (V_BZ * V_BY);
+        const int col_y = by * V_BY + base / V_BZ % V_BY;
+        const long long o = (long long)(N - 1 - col_x) * NN + (long long)col_y * N +
+                            bz * V_BZ + row;
+        if (out_f16) static_cast<__half*>(out)[o] = __float2half_rn(d);
+        else static_cast<float*>(out)[o] = d;
+      }
+      __syncwarp();   // the sigmas are read before the next pair's land
+    }
   }
 }
 
@@ -534,11 +789,21 @@ cudaError_t launch_volume(const float* planes, const float* w0, const float* b0,
                           const float* w1, const float* b1, void* out, int out_f16, int N,
                           int H, int W, const Proj& pj, float coord_scale, float g0, float g1,
                           float bias_scale, float voxel, float origin, int use_crop,
-                          float crop_lim, int use_cull, float cull_thresh,
+                          float crop_lim, int use_cull, float cull_thresh, int* stats,
                           cudaStream_t stream) {
-  volume_density_kernel<C><<<(unsigned)volume_blocks(N), THREADS, 0, stream>>>(
+  const int smem = (int)sizeof(K1vSmem<C>) + V_POOL * C * (int)sizeof(float);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      volume_density_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long bricks = (long long)((N + V_BZ - 1) / V_BZ) * ((N + V_BY - 1) / V_BY) *
+                           ((N + V_BX - 1) / V_BX);
+  const long long blocks = bricks < (long long)V_BLOCKS * sms ? bricks : (long long)V_BLOCKS * sms;
+  volume_density_kernel<C><<<(unsigned)blocks, V_THREADS, smem, stream>>>(
       planes, w0, b0, w1, b1, out, out_f16, N, H, W, pj, coord_scale, g0, g1, bias_scale,
-      voxel, origin, use_crop, crop_lim, use_cull, cull_thresh);
+      voxel, origin, use_crop, crop_lim, use_cull, cull_thresh, stats);
   return cudaGetLastError();
 }
 
@@ -575,15 +840,16 @@ PANIC3D_EXPORT int triplane_decode(
   return (int)cudaErrorInvalidValue;
 }
 
-// K1v. planes: one portrait's [3,H,W,C] channels-last f32; w0..b1 as K1;
-// out [N,N,N] f16 (out_f16) or f32, axis 0 flipped. use_cull applies the
-// cloud cull to the density. N must be at most 256 (the flat index is exact
-// in f32).
+// K1v. planes: one portrait's [3,H,W,C] channels-last f32, 16-byte aligned;
+// w0..b1 as K1; out [N,N,N] f16 (out_f16) or f32, axis 0 flipped. use_cull
+// applies the cloud cull to the density. N must be at most 256 (the flat
+// index is exact in f32). stats: null, or 3 ints the kernel adds to (bricks
+// skipped by the crop, columns skipped, planes read outside a window).
 PANIC3D_EXPORT int volume_density(
     const float* planes, const float* w0, const float* b0, const float* w1,
     const float* b1, void* out, int out_f16, int N, int H, int W, int C, const float* proj,
     float coord_scale, float g0, float g1, float bias_scale, float voxel, float origin,
-    int use_crop, float crop_lim, int use_cull, float cull_thresh, void* stream) {
+    int use_crop, float crop_lim, int use_cull, float cull_thresh, int* stats, void* stream) {
   if (N < 2 || N > 256) return (int)cudaErrorInvalidValue;
   Proj pj;
   for (int i = 0; i < 18; ++i) (&pj.a[0][0][0])[i] = proj[i];
@@ -591,7 +857,7 @@ PANIC3D_EXPORT int volume_density(
 #define P3D_K1V(CC)                                                                  \
   return (int)launch_volume<CC>(planes, w0, b0, w1, b1, out, out_f16, N, H, W, pj,    \
                                 coord_scale, g0, g1, bias_scale, voxel, origin,       \
-                                use_crop, crop_lim, use_cull, cull_thresh, s)
+                                use_crop, crop_lim, use_cull, cull_thresh, stats, s)
   if (C == 32) P3D_K1V(32);
   if (C == 16) P3D_K1V(16);
   if (C == 8) P3D_K1V(8);

@@ -7,6 +7,9 @@ triangle. ``point_mesh_distance_sq`` is the wrapper of CUDA kernel K9
 (csrc/mesh_distance.cu); ``point_mesh_distance_sq_plain`` is the same
 function in PyTorch, one op per multiply, add and divide (the kernel repeats
 each rounding): the CPU path and the kernel's oracle.
+``point_triangle_distance_sq_branches`` makes K9's decisions (which pairs
+divide, which evaluate the edges) in PyTorch, for the CPU proof that they
+change no rounding (tests/test_torch_mesh_distance_branches.py).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels import KERNELS
+from ..kernels import KERNELS, require_no_grad
 from ..kernels import build as kb
 
 
@@ -56,6 +59,86 @@ def point_triangle_distance_sq(p, a, b, c):
     return torch.where(inside, d_plane, d_edges)
 
 
+def inside_threshold(safe):
+    """The least numerator of beta or gamma that K9 takes to a division:
+    -(safe * 2^-100). A quotient num / safe is >= 0 exactly when num >= 0,
+    or when num < 0 and the quotient underflows to -0.0, which needs
+    |num| <= safe * 2^-150; every such num is >= this threshold."""
+    return -(safe * 2.0 ** -100)
+
+
+def _fma(x, y, z):
+    """fmaf(x, y, z) in f32, through f64 (x * y is exact there)."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+def _fma_dot(u, m):
+    """K9's filter value fma(u.x, m.x, fma(u.y, m.y, u.z * m.z))."""
+    return _fma(u[..., 0], m[..., 0], _fma(u[..., 1], m[..., 1], u[..., 2] * m[..., 2]))
+
+
+def point_triangle_distance_sq_branches(p, a, b, c):
+    """point_triangle_distance_sq as K9 decides it (csrc/mesh_distance.cu,
+    tri_d): each edge's t exactly 0 where dot <= 0 and exactly 1 where
+    dot >= len2 (len2 replaced by 1 where it is 0), the quotient only in
+    between; at t = 0 an edge's distance is the squared distance to its
+    start vertex, and at t = 1 to its end vertex where s + (e - s) rounds
+    back to e, each vertex's computed once; the inside test only for the
+    pairs that a fused multiply-add filter of the barycentric numerators
+    puts in or near the prism ("near", fma emulated in f64), then from the
+    exact numerators: a candidate has n2 > 0, both numerators at least
+    inside_threshold and their sum at most safe (1 + 2^-20), and only a
+    candidate's quotients and d_plane are used. Every value it keeps is
+    rounded as the plain version rounds it, so the result is bit-identical
+    to point_triangle_distance_sq.
+    -> (d [P,T], near [P,T] bool, candidates [P,T] bool)."""
+
+    def vertex_d(v):
+        d = p[:, None] - v[None]
+        return _dot3(d, d)
+
+    dd = {"a": vertex_d(a), "b": vertex_d(b), "c": vertex_d(c)}
+
+    def seg_d(s, e, ks, ke):
+        se = e - s
+        len2 = _dot3(se, se)
+        den = torch.where(len2 == 0, 1.0, len2)
+        sp = p[:, None] - s[None]
+        dt = _dot3(sp, se[None])
+        t = torch.where(dt >= den, 1.0, dt / den)
+        d = p[:, None] - (s[None] + t[..., None] * se[None])
+        general = _dot3(d, d)
+        eq = ((s + se) == e).all(-1)[None]
+        return torch.where(dt <= 0, dd[ks], torch.where((dt >= den) & eq, dd[ke], general))
+
+    ab, ac = b - a, c - a
+    n = _cross(ab, ac)
+    n2 = _dot3(n, n)
+    safe = torch.where(n2 == 0, 1.0, n2)
+    ap = p[:, None] - a[None]
+    # the filter: k_e = 2^-17 |n|_inf |e|_inf, d_tri = safe 2^-99 + 2^-100
+    l1 = ap.abs()[..., 0] + ap.abs()[..., 1] + ap.abs()[..., 2]
+    n_inf = n.abs().amax(-1)
+    dtri = _fma(safe, torch.full_like(safe, 2.0 ** -99), torch.full_like(safe, 2.0 ** -100))
+    eg = _fma(l1, (n_inf * ab.abs().amax(-1) * 2.0 ** -17)[None], dtri[None])
+    eb = _fma(l1, (n_inf * ac.abs().amax(-1) * 2.0 ** -17)[None], dtri[None])
+    ug, ub = _fma_dot(ap, _cross(n, ab)[None]), _fma_dot(ap, _cross(ac, n)[None])
+    safe_hi = safe * (1 + 2.0 ** -20)
+    s_hi = _fma(torch.full_like(dtri, 2.0), dtri, safe_hi)
+    near = ((n2 > 0)[None] & (ug >= -eg) & (ub >= -eb)
+            & (ug + ub <= eg + eb + s_hi[None]))
+    num_g = _dot3(_cross(ab[None].expand_as(ap), ap), n[None])
+    num_b = _dot3(_cross(ap, ac[None].expand_as(ap)), n[None])
+    thr = inside_threshold(safe)[None]
+    cand = near & (num_g >= thr) & (num_b >= thr) & (num_g + num_b <= safe_hi[None])
+    gamma, beta = num_g / safe, num_b / safe
+    inside = cand & (beta >= 0) & (gamma >= 0) & (beta + gamma <= 1)
+    dot_n = _dot3(ap, n[None])
+    d_edges = torch.minimum(torch.minimum(seg_d(a, b, "a", "b"), seg_d(a, c, "a", "c")),
+                            seg_d(b, c, "b", "c"))
+    return torch.where(inside, dot_n * dot_n / safe, d_edges), near, cand
+
+
 def point_mesh_distance_sq_plain(points, verts, faces, tri_chunk: int = 2048):
     """Min squared distance from each point [P,3] to the mesh (verts [V,3],
     faces [T,3]), ``tri_chunk`` triangles at a time -> [P] (+inf without
@@ -70,12 +153,37 @@ def point_mesh_distance_sq_plain(points, verts, faces, tri_chunk: int = 2048):
     return out
 
 
-_K9_ARGS = (kb.PTR,) * 4 + (kb.INT, kb.INT, kb.PTR)
+def _spread10(v):
+    """The low 10 bits of each int64 in v, moved to every third bit."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+def morton_order(points) -> torch.Tensor:
+    """A permutation of points [P,3] along the Morton (z-order) curve of
+    their bounding box at 1024 cells a side: neighbours in the order are
+    neighbours in space. K9 takes its points in this order, so that a
+    warp's points see a triangle from nearly one direction and take the
+    same branches; on the device, without a host wait."""
+    lo, hi = points.amin(0), points.amax(0)
+    q = ((points - lo) / (hi - lo).clamp_min(1e-30) * 1023).to(torch.int64).clamp(0, 1023)
+    code = _spread10(q[:, 0]) | (_spread10(q[:, 1]) << 1) | (_spread10(q[:, 2]) << 2)
+    return torch.argsort(code)
+
+
+_K9_ARGS = (kb.PTR,) * 5 + (kb.INT, kb.INT, kb.PTR)
+K9_RECORD_FLOATS = 40    # csrc/mesh_distance.cu: one triangle's constants
 
 
 def point_mesh_distance_sq_kernel(points, verts, faces):
     """Launch K9 on CUDA tensors: same contract as
-    :func:`point_mesh_distance_sq_plain`."""
+    :func:`point_mesh_distance_sq_plain`. The points go to the kernel in
+    Morton order (each point's distance does not depend on the order) and
+    come back in theirs; two device launches: the triangle records (scratch
+    of this call, 160 bytes a triangle), then the distances."""
+    require_no_grad("point_mesh_distance", points, verts, faces)
     dev = points.device
     if not (points.ndim == verts.ndim == faces.ndim == 2 and points.shape[1] == verts.shape[1]
             == faces.shape[1] == 3):
@@ -88,11 +196,14 @@ def point_mesh_distance_sq_kernel(points, verts, faces):
     out = torch.full((points.shape[0],), float("inf"), dtype=torch.float32, device=dev)
     if points.shape[0] == 0 or faces.shape[0] == 0:
         return out
+    order = morton_order(points)
+    points = points[order]
+    rec = torch.empty((faces.shape[0], K9_RECORD_FLOATS), dtype=torch.float32, device=dev)
     kb.launch("point_mesh_distance", _K9_ARGS, points.data_ptr(), verts.data_ptr(),
-              faces.data_ptr(), out.data_ptr(), points.shape[0], faces.shape[0],
+              faces.data_ptr(), rec.data_ptr(), out.data_ptr(), points.shape[0], faces.shape[0],
               torch.cuda.current_stream(dev).cuda_stream)
     KERNELS["point_mesh_distance"].launches += 1
-    return out
+    return torch.empty_like(out).index_copy_(0, order, out)
 
 
 def point_mesh_distance_sq(points, verts, faces):

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..cameras import camera_label
-from ..kernels import KERNELS
+from ..kernels import KERNELS, require_no_grad
 from ..kernels import build as kb
 from ..models.triplane import seeds_to_z
 from ..models.volumetric import renderer as vr
@@ -67,9 +67,15 @@ def create_samples_device(N: int, cube_length: float, start: int = 0,
     """Points [start, stop) of create_samples' lattice (flat order), made on
     ``device`` from their flat indices in f32 (the same values as the host
     lattice; N <= 256 keeps every index exact in f32). -> [stop-start, 3]."""
-    voxel, origin = _lattice_constants(N, cube_length)
     stop = N**3 if stop is None else stop
-    idx_i = torch.arange(start, stop, dtype=torch.int64, device=device)
+    return lattice_coords(torch.arange(start, stop, dtype=torch.int64, device=device), N,
+                          cube_length)
+
+
+def lattice_coords(idx_i: torch.Tensor, N: int, cube_length: float) -> torch.Tensor:
+    """The points of create_samples' lattice at flat indices idx_i (int64,
+    any shape) -> [..., 3] f32, computed as create_samples_device does."""
+    voxel, origin = _lattice_constants(N, cube_length)
     idx = idx_i.to(torch.float32)
     fN = float(N)
     s0 = torch.fmod(idx / fN / fN, fN)
@@ -139,15 +145,115 @@ def flip_grid(flat: torch.Tensor, N: int) -> torch.Tensor:
     return flat.reshape(N, N, N).flip(0)
 
 
+# K1v's brick decomposition (csrc/triplane_decode.cu:volume_density_kernel),
+# mirrored on the CPU by the helpers below for tests/test_torch_volume_bricks.py
+K1V_BRICK = (4, 8, 16)       # lattice points of a brick in x, y and z
+K1V_POOL_TEXELS = 384        # texels of the three plane windows together (V_POOL)
+
+
+def k1v_bricks(N: int, bricks) -> tuple:
+    """Lattice indices (xi, yi, zi) [B, 512] of the bricks (bx, by, bz)
+    [B, 3] (an int64 tensor), points in the kernel's thread order (z
+    fastest, then y, then x); N must be a multiple of 16 here."""
+    BX, BY, BZ = K1V_BRICK
+    vr._require(N % BZ == 0, f"the brick helpers take N a multiple of {BZ}, got {N}")
+    t = torch.arange(BX * BY * BZ)
+    b = torch.as_tensor(bricks, dtype=torch.int64)
+    return (b[:, :1] * BX + t // (BY * BZ), b[:, 1:2] * BY + t // BZ % BY,
+            b[:, 2:] * BZ + t % BZ)
+
+
+def k1v_corners(coords, box_warp: float, H: int, W: int, plane_axes) -> tuple:
+    """Each point's bilinear corner (x0, y0) and weights (wx, wy) on each
+    plane, [..., 3] each, as K1v computes them from its lattice point: the
+    plane coordinate (2 / box_warp) x, projected, then ((g + 1) * size - 1)
+    / 2 rounded op by op, and its floor."""
+    g = vr.project_onto_planes(plane_axes, (2.0 / box_warp) * coords.reshape(1, -1, 3))
+    g = g.reshape(3, *coords.shape[:-1], 3).movedim(0, -1)     # [..., uv(w), plane]
+    ix = ((g[..., 0, :] + 1) * W - 1) / 2
+    iy = ((g[..., 1, :] + 1) * H - 1) / 2
+    fx, fy = torch.floor(ix), torch.floor(iy)
+    return fx.to(torch.int64), fy.to(torch.int64), ix - fx, iy - fy
+
+
+def k1v_windows(x0, y0) -> torch.Tensor:
+    """Each brick's plane windows from its points' corners [B, 512, 3]:
+    [B, 3, 4] of (x_lo, y_lo, x_hi, y_hi), the texels [x_lo, x_hi] x
+    [y_lo, y_hi] that the kernel stages (the largest corner + 1 for the
+    bilinear neighbour)."""
+    return torch.stack([x0.amin(1), y0.amin(1), x0.amax(1) + 1, y0.amax(1) + 1], -1)
+
+
+def k1v_crop_class(kept) -> torch.Tensor:
+    """Each brick's crop class from its points' crop decisions [B, 512]: 0
+    when every point is cropped (the kernel writes -1e3 and decodes
+    nothing), 2 when every point is kept, 1 when it straddles the box."""
+    return kept.any(1).long() + kept.all(1).long()
+
+
+@torch.no_grad()
+def density_bricks_plain(planes, dec: vr.Decoder, N: int, box_warp: float, plane_axes,
+                         filters: vr.DensityFilters, bricks) -> tuple:
+    """K1v's decode of the bricks (bx, by, bz) [B, 3] as the kernel reads
+    the planes: each plane window cut out of one portrait's planes
+    [1,3,C,H,W] (zeros outside the plane), each point's four corners read
+    from its brick's window at (y0 - y_lo, x0 - x_lo), the lerps and plane
+    mean of grid_sample_2d_points and sample_from_planes, the sigma-only
+    decode, sigma2density, the crop and the cull, in f32.
+    -> (densities [B, 512], features [B, 512, C], windows [B, 3, 4])."""
+    C, H, W = planes.shape[2:]
+    xi, yi, zi = k1v_bricks(N, bricks)
+    coords = lattice_coords((xi * N + yi) * N + zi, N, box_warp)
+    x0, y0, wx, wy = k1v_corners(coords, box_warp, H, W, plane_axes)
+    win = k1v_windows(x0, y0)
+    ww, wh = win[..., 2] - win[..., 0] + 1, win[..., 3] - win[..., 1] + 1
+    # the windows [B, 3, WH, WW, C], cut from the planes padded with zeros
+    pad = int(max(ww.max(), wh.max()))
+    padded = torch.nn.functional.pad(planes[0], (pad, pad, pad, pad)).permute(0, 2, 3, 1)
+    r = torch.arange(int(wh.max()))
+    c = torch.arange(int(ww.max()))
+    ty = (win[..., 1, None, None] + r[:, None]).clamp(-pad, H + pad - 1) + pad
+    tx = (win[..., 0, None, None] + c[None, :]).clamp(-pad, W + pad - 1) + pad
+    p_idx = torch.arange(3)[None, :, None, None]
+    windows = padded[p_idx, ty, tx]
+    feats = 0
+    for p in range(3):
+        ry, rx = y0[..., p] - win[:, None, p, 1], x0[..., p] - win[:, None, p, 0]
+        vr._require(bool((ry >= 0).all() and (ry + 1 < wh[:, None, p]).all() and (rx >= 0).all()
+                         and (rx + 1 < ww[:, None, p]).all()), "a corner outside its window")
+        wp = windows[:, p]
+        b = torch.arange(wp.shape[0])[:, None]
+        v00, v01 = wp[b, ry, rx], wp[b, ry, rx + 1]
+        v10, v11 = wp[b, ry + 1, rx], wp[b, ry + 1, rx + 1]
+        fx, fy = wx[..., p, None], wy[..., p, None]
+        top = v00 + (v01 - v00) * fx
+        bot = v10 + (v11 - v10) * fx
+        feats = feats + (top + (bot - top) * fy)
+    feats = feats / 3
+    _, sigma = vr.osg_decode(feats.reshape(1, 1, -1, C), dec, sigma_only=True)
+    d = sigma2density(sigma.reshape(feats.shape[:2]))
+    crop, cull, _ = filters
+    if crop:
+        d = torch.where(vr.triplane_crop_mask(coords, crop, box_warp)[..., 0], -1e3, d)
+    if cull:
+        d = torch.where(vr.cull_clouds_mask(d, cull), -1e3, d)
+    return d, feats, win
+
+
 _K1V_ARGS = ((kb.PTR,) * 6 + (kb.INT,) * 5 + (kb.PTR,) + (kb.FLOAT,) * 6
-             + (kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
+             + (kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR, kb.PTR))
 _GRID_DTYPES = {torch.float16: 1, torch.float32: 0}
 
 
 def density_grid_kernel(planes, dec: vr.Decoder, N: int, box_warp: float, plane_axes,
-                        filters: vr.DensityFilters, dtype=torch.float16) -> torch.Tensor:
+                        filters: vr.DensityFilters, dtype=torch.float16,
+                        stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K1v on CUDA planes: the whole flipped [N,N,N] grid in one
-    launch (same values as flip_grid(density_grid_plain(...)))."""
+    launch (same values as flip_grid(density_grid_plain(...))). ``stats``,
+    an int32 tensor of 3 on the planes' device, is added to: bricks skipped
+    by the crop, columns skipped in the bricks decoded, and planes read
+    outside a window (the windows together larger than K1V_POOL_TEXELS)."""
+    require_no_grad("volume_density", planes, dec)
     vr._require(planes.dtype == torch.float32 and planes.ndim == 5
                 and tuple(planes.shape[:2]) == (1, 3),
                 "K1v takes one portrait's f32 planes [1,3,C,H,W]")
@@ -170,7 +276,7 @@ def density_grid_kernel(planes, dec: vr.Decoder, N: int, box_warp: float, plane_
         kb.f32_array(proj.reshape(-1)), 2.0 / box_warp, dec.lr_mul / math.sqrt(C),
         dec.lr_mul / math.sqrt(64), dec.lr_mul, voxel, origin, int(bool(crop)),
         (box_warp / 2 - crop) if crop else 0.0, int(bool(cull)), float(cull or 0.0),
-        vr._stream(planes))
+        stats.data_ptr() if stats is not None else None, vr._stream(planes))
     KERNELS["volume_density"].launches += 1
     return grid
 

@@ -7,11 +7,17 @@ polyphase and generic kernels) also counts each launch under the variant it
 ran, in ``variants``. ``chip_smoke.py`` zeroes the counts before it drives
 the main path and reads them after, to show the path went through every
 kernel.
+
+The kernels have no backward pass. ``require_no_grad`` is called by every
+wrapper before it launches: under grad mode an input that requires grad
+would otherwise leave the outputs cut off from it without an error.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+import torch
 
 
 @dataclass
@@ -97,6 +103,30 @@ KERNELS = {
 # C entry points that only check a kernel (chip_smoke.py), on no path and not
 # counted: entry point -> the kernel whose source holds it
 CHECK_ENTRIES = {"volume_lattice": "volume_density"}
+
+
+def _tensors(obj):
+    """The tensors in ``obj``: a tensor, or tuples (named ones included),
+    lists and dicts of them, at any depth."""
+    if torch.is_tensor(obj):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from _tensors(o)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            yield from _tensors(o)
+
+
+def require_no_grad(name: str, *inputs) -> None:
+    """Raise if grad mode is on and a tensor among ``inputs`` requires grad:
+    kernel ``name`` has no backward, so autograd would lose the path from
+    its outputs to that input. Run the call under ``torch.no_grad()``, or
+    on the CPU, whose plain versions differentiate."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(inputs)):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward, and an input requires "
+                           "grad under grad mode; call it under torch.no_grad(), or on the "
+                           "CPU for gradients")
 
 
 def sources() -> list:

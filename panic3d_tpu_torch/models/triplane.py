@@ -26,7 +26,7 @@ import torch.nn as nn
 
 from ..cameras.conventions import camera_label, get_rays_ortho
 from ..cameras.rays import sample_rays
-from ..kernels import KERNELS
+from ..kernels import KERNELS, require_no_grad
 from ..kernels import build as kb
 from ..ops.grid_sample import grid_sample_2d_points
 from ..utils.device import constant
@@ -494,6 +494,7 @@ def paste_composite_kernel(image, front, weights, xyz, occ_bin, dxyz, bw: float,
                            thresh_weight: float, thresh_edges: float, thresh_dxyz: float,
                            fwmask=None):
     """Launch K8 on CUDA tensors: same contract as paste_composite_plain."""
+    require_no_grad("paste_front", image, front, weights, xyz, occ_bin, dxyz, fwmask)
     dev = image.device
     image = image.to(torch.float32).contiguous()
     N, _, S, S2 = image.shape

@@ -28,7 +28,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from ...kernels import KERNELS
+from ...kernels import KERNELS, require_no_grad
 from ...kernels import build as kb
 from ...ops.grid_sample import grid_sample_3d_points
 
@@ -195,6 +195,7 @@ def occlusion_volume_kernel(terms, dec, box_warp: float, grid, filters):
     """Launch K7's volume on CUDA tensors: same contract as
     occlusion_volume_plain. The factored first layer P (64 f32 a term cell)
     is scratch of this call."""
+    require_no_grad("occlusion_volume", terms, dec)
     from . import renderer as vr
 
     dev = terms[0][0].device
@@ -288,6 +289,7 @@ def occlusion_sample_kernel(A, density0, points, box_warp: float, offset: float,
                             seg_len: float):
     """Launch K7's sampler on CUDA tensors: same contract as
     occlusion_sample_plain."""
+    require_no_grad("occlusion_sample", A, density0, points)
     from . import renderer as vr
 
     N, Gx, Gy, Gz = A.shape

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...kernels import KERNELS
+from ...kernels import KERNELS, require_no_grad
 from ...kernels import build as kb
 from ...ops.grid_sample import grid_sample_2d_points
 
@@ -297,6 +297,7 @@ def triplane_decode_kernel(planes_cl, coords, dec: Decoder, box_warp: float,
                            plane_axes, filters: DensityFilters):
     """Launch K1 on CUDA tensors: same contract as triplane_decode_plain;
     rgb comes back in the planes' dtype, sigma in f32."""
+    require_no_grad("triplane_decode", planes_cl, coords, dec)
     _require(planes_cl.dtype in _DTYPES, f"K1 planes must be f32 or bf16, got {planes_cl.dtype}")
     _require(planes_cl.ndim == 5 and planes_cl.shape[1] == 3, "K1 planes must be [N,3,H,W,C]")
     N, _, H, W, C = planes_cl.shape
@@ -356,10 +357,12 @@ _K2_ARGS = (kb.PTR,) * 8 + (kb.INT,) + (kb.PTR,) * 4 + (kb.INT,) * 5 + (kb.PTR,)
 
 
 @functools.lru_cache(maxsize=None)
-def _k2_scratch(dev):
-    """K2's global depth range and block counter on ``dev``, made once:
-    (+inf, -inf) and a zero counter, as every launch leaves them (the last
-    block of a launch resets them)."""
+def _k2_scratch(dev, stream: int):
+    """K2's global depth range and block counter for launches on ``stream``
+    (a CUDA stream handle) of ``dev``, made once: (+inf, -inf) and a zero
+    counter, as every launch leaves them (the last block of a launch resets
+    them). Launches on one stream run in order, so they may share it; each
+    stream, and so each CUDA graph captured on its own stream, has its own."""
     buf = torch.zeros((4,), dtype=torch.float32, device=dev)
     buf[0] = math.inf
     buf[1] = -math.inf
@@ -368,6 +371,7 @@ def _k2_scratch(dev):
 
 def ray_composite_kernel(d1, c1, s1, x1, d2, c2, s2, x2, white_back: bool):
     """Launch K2 on CUDA tensors: same contract as ray_composite_plain."""
+    require_no_grad("ray_composite", d1, c1, s1, x1, d2, c2, s2, x2)
     B, R, S1, C = c1.shape
     S2 = c2.shape[2]
     _require(c1.dtype in _DTYPES and c2.dtype == c1.dtype, "K2 colors must be f32 or bf16")
@@ -392,7 +396,7 @@ def ray_composite_kernel(d1, c1, s1, x1, d2, c2, s2, x2, white_back: bool):
         "ray_composite", _K2_ARGS, d1.data_ptr(), c1.data_ptr(), s1.data_ptr(),
         x1.data_ptr(), d2.data_ptr(), c2.data_ptr(), s2.data_ptr(), x2.data_ptr(),
         _DTYPES[c1.dtype], comp.data_ptr(), depth.data_ptr(), wsum.data_ptr(),
-        _k2_scratch(dev).data_ptr(), B * R, S1, S2, C, int(white_back), _stream(c1),
+        _k2_scratch(dev, _stream(c1)).data_ptr(), B * R, S1, S2, C, int(white_back), _stream(c1),
     )
     KERNELS["ray_composite"].launches += 1
     return comp[..., :-3], depth, wsum, comp[..., -3:]
@@ -419,6 +423,7 @@ _K3_ARGS = (kb.PTR, kb.PTR, kb.PTR, kb.INT, kb.INT, kb.INT, kb.PTR)
 
 def importance_sample_kernel(depths, sigmas, n_importance: int):
     """Launch K3 on CUDA tensors: same contract as importance_sample_plain."""
+    require_no_grad("importance_sample", depths, sigmas)
     B, R, S, _ = depths.shape
     for t in (depths, sigmas):
         _require(t.dtype == torch.float32 and t.is_contiguous()
@@ -509,6 +514,7 @@ def ess_occupancy_kernel(terms, dec: Decoder, box_warp: float, grid: int, supers
                          thresh: float, filters: DensityFilters):
     """Launch K6's occupancy on CUDA tensors: same contract as
     ess_occupancy_plain."""
+    require_no_grad("ess_occupancy", terms, dec)
     dev = terms[0][0].device
     N, C = terms[0][0].shape[0], terms[0][0].shape[-1]
     Gs = grid * supersample
@@ -627,6 +633,7 @@ def ess_narrow_kernel(occ, occ_outside, ray_origins, ray_directions, ray_start: 
                       ray_end: float, box_warp: float, options: dict, depth_resolution: int):
     """Launch K6's narrowing on CUDA tensors: same contract as
     ess_narrow_plain."""
+    require_no_grad("ess_narrow", occ, occ_outside, ray_origins, ray_directions)
     ess = options["ess"]
     K, margin = int(ess.get("taps", 64)), float(ess.get("margin", 1))
     N, R, _ = ray_origins.shape

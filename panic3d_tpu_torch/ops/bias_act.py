@@ -17,7 +17,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels import KERNELS
+from ..kernels import KERNELS, require_no_grad
 from ..kernels import build as kb
 
 
@@ -100,6 +100,7 @@ def modconv_epilogue_kernel(x, dcoef=None, noise=None, noise_strength=None, bias
                             gain: Optional[float] = None, clamp: Optional[float] = None):
     """Launch K5 on a CUDA tensor: same contract as
     :func:`modconv_epilogue_plain` (f32 or bf16; linear or lrelu)."""
+    require_no_grad("modconv_epilogue", x, dcoef, noise, noise_strength, bias)
     if x.dtype not in _DTYPES:
         raise TypeError(f"K5 takes float32 or bfloat16, got {x.dtype}")
     if act not in _KERNEL_ACTS:

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import KERNELS
+from ..kernels import KERNELS, require_no_grad
 from ..kernels import build as kb
 
 _K12_ARGS = (kb.PTR,) * 5 + (kb.INT,) * 4 + (kb.PTR,)
@@ -27,6 +27,7 @@ def gather_dot_plain(idx, table, w):
 
 def gather_dot_kernel(idx, table, w):
     """Launch K12 on CUDA tensors: same contract as gather_dot_plain."""
+    require_no_grad("gather_dot", table, w)
     dev = table.device
     P, (R, K), D = idx.shape[0], table.shape, w.shape[1]
     if not (idx.dtype == torch.int32 and idx.ndim == 1 and idx.is_contiguous()

@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels import KERNELS
+from ..kernels import KERNELS, require_no_grad
 from ..kernels import build as kb
 
 
@@ -147,6 +147,7 @@ def k4_plan(f2d, up, down, pad) -> K4Plan:
 
 def upfirdn2d_kernel(x, f2d, up, down, pad):
     """Launch K4 on a CUDA tensor: same contract as :func:`upfirdn2d_plain`."""
+    require_no_grad("upfirdn2d", x, f2d)
     if x.dtype not in _DTYPES:
         raise TypeError(f"upfirdn2d kernel takes float32 or bfloat16, got {x.dtype}")
     if x.ndim != 4 or not x.is_contiguous():
