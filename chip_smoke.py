@@ -21,7 +21,11 @@
    crop; K1 also in the geometry path's form, f32 planes at the unfiltered
    surface's vertices; K9 with 10,000 points against that portrait's
    unfiltered surface, and exactly on edge cases: degenerate triangles,
-   points on vertices, edges and hypotenuses), and times both
+   points on vertices, edges and hypotenuses; K13 on the synthetic GT head,
+   51,204 queries x 102,400 triangles, kernel and plain f32 each against an
+   f64 evaluation, with the atan2 branch flips and the keep/drop decisions
+   at 1.3 counted apart, and exactly, signs of zero included, on single
+   triangles seen from their own vertices), and times both
    (median of CUDA-event timings), with the single PyTorch call that
    computes the same function where there is one (library_ms; K4 must beat
    it) and the least time the card could take (bound_ms, from the bytes,
@@ -51,7 +55,14 @@
    Reconstructor.mesh of one portrait (planes, K1v, one copy of the grid,
    marching tetrahedra on the host, K1 vertex colours) with eval generate's
    filters and without them, then geometry_metrics (K9) between the
-   unfiltered mesh and a synthetic reference. It prints views/s (s per
+   unfiltered mesh and a synthetic reference; and the eval CLIs on a
+   synthetic daredemoE tree at full size written into build/eval_cli (512^2
+   portrait and GT renders, alignment pickle, a .vrm head of two shells):
+   generate_portrait with the ESS flagship and the random-feature ResNet
+   (16 views + 16 xyza PNGs and the mesh pickle; s/portrait and stages),
+   measure.main on its output (random CLIP / LPIPS; s/portrait, stages,
+   host waits, the table's rows; remove_innards must drop the inner shell),
+   and generate.main --tiny through argparse. It prints views/s (s per
    portrait and its stages on the geometry path), peak memory, launches per
    run of every kernel (K4's by variant: on the three view paths all of
    them must be the polyphase kernel) and the host's waits for the card
@@ -63,7 +74,8 @@
    request and of one turntable portrait, with the device's busy share.
 6. Prints a JSON line of the paths, the script's wall time, a JSON line of
    the kernels (one entry per entry point, with its launches on the ESS +
-   paste path, else on the geometry path, else on the probe), the card
+   paste path, else on the geometry path, else on eval measure, else on the
+   probe), the card
    line, and last the {"ok": true, ...} line. Any failure raises before
    that line.
 """
@@ -91,7 +103,7 @@ SFU_PER_CLOCK_PER_SM = 16   # ex2/lg2 results a clock per SM, compute capability
 SFU_OPS_PER_S = None        # set in main(): x SMs x the card's maximum SM clock
 NO_SPILL = ("triplane_decode_kernel", "factor_terms_kernel", "occlusion_volume_kernel",
             "ray_composite_kernel", "volume_density_kernel", "triangle_records_kernel",
-            "point_mesh_distance_kernel")   # kernels that must not spill registers
+            "point_mesh_distance_kernel", "winding_number_kernel")   # must not spill
 PASTE_KEYS = ("mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
 MESH_RES = 256     # eval generate's mesh resolution
 LEVEL = 0.5        # eval generate's iso level
@@ -101,6 +113,11 @@ EVAL_FILTERS = dict(triplane_crop=0.1, cull_clouds=0.5)
 MESH_RUNS = 2      # timed portraits of the geometry path, after one warm-up
 FULL_FRAME = ((0, 0), (512, 512))   # an ROI covering the whole 512^2 frame
 SIGMA_RAISE = 14.5  # K1v's check: puts the cull's threshold inside the seeded sigmas
+EVAL_PORTRAITS = 2  # timed portraits of the eval CLIs, after one warm-up
+EVAL_SIZE = 512     # the synthetic portrait's and GT renders' size
+EVAL_ROI = ((128, 128), (256, 256))   # the synthetic portrait's alignment ROI (512 space)
+HEAD = (0.0, 1.3, 0.0)   # the synthetic GT head's bone
+HEAD_LEVELS = (6, 5)     # its outer and inner shells' icosphere levels
 
 
 def card_line() -> str:
@@ -1011,6 +1028,7 @@ def grad_guard_checks(device):
     import torch
 
     from panic3d_tpu_torch import configs
+    from panic3d_tpu_torch.eval import gltf
     from panic3d_tpu_torch.eval import mesh_metrics as mm
     from panic3d_tpu_torch.eval import volume as vol
     from panic3d_tpu_torch.kernels import KERNELS, launch_counts, reset_launch_counts
@@ -1056,6 +1074,8 @@ def grad_guard_checks(device):
             t(1, 1, 8, 8), t(1, 1, 8, 8), 0.7, 0.5, 0.5, 0.5),
         "point_mesh_distance": lambda: mm.point_mesh_distance_sq_kernel(
             t(8, 3, grad=True), t(3, 3), t(1, 3, **i32)),
+        "winding_number": lambda: gltf.winding_numbers_kernel(
+            t(4, 3, grad=True), t(1, 3, dtype=torch.int64), t(2, 3)),
         "gather_dot": lambda: gather_dot_kernel(t(8, **i32), t(8, 16), t(16, 8, grad=True)),
     }
     require(set(calls) == set(KERNELS), "F8: a kernel without a grad-mode check")
@@ -1332,6 +1352,355 @@ def metrics_k9_ms(mesh_pred, mesh_gt, bw, device):
     return out
 
 
+def icosphere(level: int, radius: float, center):
+    """An icosphere with outward faces -> (verts [V,3] f32, faces [T,3]
+    int64): 10 * 4^level + 2 vertices, 20 * 4^level faces."""
+    t = (1 + 5 ** 0.5) / 2
+    v = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t), (0, 1, t), (0, -1, -t),
+         (0, 1, -t), (t, 0, -1), (t, 0, 1), (-t, 0, -1), (-t, 0, 1)]
+    f = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11), (1, 5, 9), (5, 11, 4),
+         (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8),
+         (3, 8, 9), (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    v = [np.asarray(p, np.float64) / np.linalg.norm(p) for p in v]
+    for _ in range(level):
+        mids, nf = {}, []
+        for a, b, c in f:
+            m = []
+            for i, j in ((a, b), (b, c), (c, a)):
+                key = (min(i, j), max(i, j))
+                if key not in mids:
+                    p = v[i] + v[j]
+                    v.append(p / np.linalg.norm(p))
+                    mids[key] = len(v) - 1
+                m.append(mids[key])
+            ab, bc, ca = m
+            nf += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        f = nf
+    return ((np.asarray(v) * radius + np.asarray(center)).astype(np.float32),
+            np.asarray(f, np.int64))
+
+
+def gt_head():
+    """The synthetic GT head: an outer shell (icosphere level 6, radius 0.15)
+    and an inner "innards" shell (level 5, radius 0.09) about the
+    decapitation centre, the head bone + (0, 0.1, 0): 51,204 vertices and
+    102,400 triangles, the order of a VRoid avatar (no GT .vrm is in the
+    repository). The inner shell's vertices wind to ~1.5, the outer's to
+    ~0.5. -> (verts, faces, number of outer vertices, number of outer faces)."""
+    c = (HEAD[0], HEAD[1] + 0.1, HEAD[2])
+    vo, fo = icosphere(HEAD_LEVELS[0], 0.15, c)
+    vi, fi = icosphere(HEAD_LEVELS[1], 0.09, c)
+    return np.concatenate([vo, vi]), np.concatenate([fo, fi + len(vo)]), len(vo), len(fo)
+
+
+def write_vrm(path, verts, faces):
+    """A binary glTF (.vrm) with one triangle primitive (uint32 indices) and
+    a VRM head bone at HEAD."""
+    import struct
+
+    ibm = np.eye(4, dtype=np.float32)
+    ibm[:3, 3] = -np.asarray(HEAD, np.float32)
+    parts = [verts.astype(np.float32).tobytes(), faces.astype(np.uint32).tobytes(),
+             ibm.T.tobytes()]
+    offs = np.cumsum([0] + [len(p) for p in parts[:-1]]).tolist()
+    blob = b"".join(parts)
+    gltf = {
+        "asset": {"version": "2.0"}, "buffers": [{"byteLength": len(blob)}],
+        "bufferViews": [{"buffer": 0, "byteOffset": o, "byteLength": len(p)}
+                        for o, p in zip(offs, parts)],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": len(verts), "type": "VEC3"},
+            {"bufferView": 1, "componentType": 5125, "count": faces.size, "type": "SCALAR"},
+            {"bufferView": 2, "componentType": 5126, "count": 1, "type": "MAT4"}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0}, "indices": 1, "mode": 4}]}],
+        "nodes": [{"name": "head"}], "skins": [{"joints": [0], "inverseBindMatrices": 2}],
+        "extensions": {"VRM": {"humanoid": {"humanBones": [{"bone": "head", "node": 0}]}}},
+    }
+    js = json.dumps(gltf).encode()
+    js += b" " * ((-len(js)) % 4)
+    blob += b"\0" * ((-len(blob)) % 4)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 12 + 8 + len(js) + 8 + len(blob)))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        f.write(struct.pack("<II", len(blob), 0x004E4942) + blob)
+
+
+def daredemo_tree(root: str, size: int) -> str:
+    """A synthetic daredemoE tree under root (laid out as
+    tests/test_eval_cli.py builds it): a size^2 RGBA portrait, the GT ortho
+    and rgb60 renders at size^2, the metadata JSON, the alignment pickle
+    with a 512-space ROI, a one-line subset and the GT head's .vrm. -> the
+    portrait's basename."""
+    import os
+    import pickle
+
+    from panic3d_tpu_torch.cameras import camsubs
+    from panic3d_tpu_torch.utils.imglib import Img
+
+    rng = np.random.RandomState(SEED)
+    base = os.path.join(root, "_data", "lustrous")
+    meta = {}
+    franch, idx = "synthetic", "0000"
+    yy, xx = np.mgrid[0:size, 0:size] / (size - 1.0)
+
+    def put_png(dtype, view, fov):
+        # smooth colour ramps with noise, and an opaque disc
+        rgb = (np.stack([xx, yy, 1 - xx]) * rng.rand(3, 1, 1)
+               + 0.1 * rng.rand(3, size, size)).clip(0, 1)
+        alpha = (((xx - 0.5) ** 2 + (yy - 0.5) ** 2) < 0.16)[None].astype(np.float32)
+        d = os.path.join(base, "renders", "daredemoE", dtype, franch, idx)
+        Img(np.concatenate([rgb, alpha]).astype(np.float32)).save(os.path.join(d, f"{view}.png"))
+        meta[f"daredemoE/{dtype}/{franch}/{idx}/{view}"] = {
+            "render_params": dict(elev=0.0, azim=0.0, dist=1.0, fov=fov)}
+
+    put_png("fandom_align", "front", -1)
+    for view in ("front", "left", "right", "back"):
+        put_png("ortho", view, -1)
+    for v in camsubs["spin12"]:
+        put_png("rgb60", f"{v:04d}", 30)
+    with open(os.path.join(base, "renders", "daredemoE", "daredemoE_meta.json"), "w") as f:
+        json.dump(meta, f)
+    bn = f"daredemoE/fandom_align/{franch}/{idx}/front"
+    kpts = np.concatenate([rng.rand(28, 2) * (size - 1), np.ones((28, 1))],
+                          axis=1).astype(np.float32)
+    align = {bn: {"area_of_interest": EVAL_ROI, "transformation": np.eye(3, dtype=np.float32),
+                  "_alignment": {"source": {"keypoints": kpts[None], "_detection_used": 0}}}}
+    with open(os.path.join(base, "renders", "daredemoE", "fandom_align_alignment.pkl"),
+              "wb") as f:
+        pickle.dump(align, f)
+    os.makedirs(os.path.join(base, "subsets"), exist_ok=True)
+    with open(os.path.join(base, "subsets", "daredemoE_test.csv"), "w") as f:
+        f.write(f"{franch}/{idx}\n")
+    vrm = os.path.join(base, "raw", "dssc", franch, f"{idx}.vrm")
+    os.makedirs(os.path.dirname(vrm), exist_ok=True)
+    verts, faces, _, _ = gt_head()
+    write_vrm(vrm, verts, faces)
+    print(f"synthetic daredemoE tree: 17 renders of {size}^2 RGBA, ROI {EVAL_ROI}; GT head "
+          f"{len(verts)} vertices, {len(faces)} triangles (two shells; an assumption: no GT "
+          f".vrm is in the repository)")
+    return bn
+
+
+def winding_edge_cases(device, n=64):
+    """K13 where every term is a signed zero: single triangles seen from
+    their own vertices (a, b or c exactly 0). -> (calls, outputs equal with
+    their signs)."""
+    import torch
+
+    from panic3d_tpu_torch.eval import gltf
+
+    rng = np.random.RandomState(SEED + 3)
+    same = 0
+    for _ in range(n):
+        v = torch.from_numpy(rng.randn(3, 3).astype(np.float32)).to(device)
+        f = torch.tensor([[0, 1, 2]], device=device)
+        k = gltf.winding_numbers_kernel(v, f, v)
+        p = gltf.winding_numbers_plain(v, f, v)
+        same += bool(torch.equal(k, p) and torch.equal(torch.signbit(k), torch.signbit(p)))
+    return n, same
+
+
+def k13_checks(device):
+    """K13 on the synthetic GT head (every vertex a query, as remove_innards
+    runs it): the kernel and its plain version (f32, chunked as the JAX
+    package) each against an f64 evaluation of the plain version. A query
+    whose winding number is off the f64 one by >= 0.25 took another atan2
+    branch somewhere (a flip); the kernel's largest error elsewhere must be
+    at most twice the plain version's, its flips at most 0.1 % of the
+    queries, and its keep/drop decisions at 1.3 those of the plain version
+    wherever the f64 winding number is not within 1e-3 of 1.3.
+    -> {"winding_number": summary}."""
+    import torch
+
+    from panic3d_tpu_torch.eval import gltf
+
+    verts, faces, _, _ = gt_head()
+    v = torch.from_numpy(verts).to(device)
+    f = torch.from_numpy(faces).to(device)
+    Q, T = len(verts), len(faces)
+    wk = gltf.winding_numbers_kernel(v, f, v)
+    wp = gltf.winding_numbers_plain(v, f, v)
+    w64 = gltf.winding_numbers_plain(v, f, v, chunk=512, dtype=torch.float64)
+    torch.cuda.synchronize()
+    flip_k = (wk.double() - w64).abs() >= 0.25
+    flip_p = (wp.double() - w64).abs() >= 0.25
+    flip_kp = (wk - wp).abs() >= 0.25
+    ok = ~(flip_k | flip_p)
+    err_k = float((wk.double() - w64).abs()[ok].max())
+    err_p = float((wp.double() - w64).abs()[ok].max())
+    band = (w64 - 1.3).abs() < 1e-3
+    differ = (wk < 1.3) != (wp < 1.3)
+    n_edge, same_edge = winding_edge_cases(device)
+    print(f"K13 winding_number: {Q} queries x {T} triangles; max |w - w_f64| kernel "
+          f"{err_k:.3e}, plain f32 {err_p:.3e}; branch flips (|w - w_f64| >= 0.25) kernel "
+          f"{int(flip_k.sum())}, plain {int(flip_p.sum())}, kernel vs plain {int(flip_kp.sum())};"
+          f" decisions at 1.3 that differ: {int((differ & ~band).sum())} outside the band, "
+          f"{int((differ & band).sum())} of {int(band.sum())} inside |w - 1.3| < 1e-3; kept "
+          f"{int((wk < 1.3).sum())}; signed-zero cases equal {same_edge} of {n_edge}")
+    require(err_k <= 2 * err_p, f"K13: error vs f64 {err_k} > 2 x the plain version's {err_p}")
+    require(int(flip_kp.sum()) <= Q // 1000, f"K13: {int(flip_kp.sum())} branch flips")
+    require(int((differ & ~band).sum()) == 0, "K13: keep/drop decisions differ outside the band")
+    require(same_edge == n_edge, "K13: a signed-zero case differs from the plain version")
+    # ~60 f32 operations a pair (3 differences of 3, 3 squared norms and 4 dot
+    # products of 5, a cross product of 9, den's 7, the doubling, the Kahan
+    # sum's 4 less the 3 differences the triangle gather saves) and 4 SFU
+    # operations (3 square roots and atan2's reciprocal)
+    pairs = float(Q) * T
+    n_bytes = nbytes(v, f.to(torch.int32), v) + 4 * Q
+    summary = record(float((wk - wp).abs()[~flip_kp].max()),
+                     lambda: gltf.winding_numbers_kernel(v, f, v),
+                     lambda: gltf.winding_numbers_plain(v, f, v), n_bytes, 60 * pairs,
+                     plain_iters=2, sfu_ops=4 * pairs)
+    summary.update(queries=Q, triangles=T, ops_per_pair=60, sfu_per_pair=4,
+                   err_vs_f64=err_k, plain_err_vs_f64=err_p, flips=int(flip_k.sum()),
+                   plain_flips=int(flip_p.sum()), flips_vs_plain=int(flip_kp.sum()),
+                   decisions_differ_in_band=int((differ & band).sum()))
+    print(f"  K13 {summary['ms']:.6f} ms (plain {summary['plain_ms']:.6f}), bound "
+          f"{summary['bound_ms']:.6f} ms by {summary['bound_by']}")
+    del wk, wp, w64
+    torch.cuda.empty_cache()   # the f64 evaluation's ~20 GB, out of the later paths' pool
+    return {"winding_number": summary}
+
+
+def eval_cli_path(G, device, card):
+    """The eval CLIs on a synthetic daredemoE tree at full size (build/eval_cli):
+    generate_portrait with the seeded ESS flagship and the random-feature
+    ResNet (one warm-up portrait, EVAL_PORTRAITS timed; eval generate's
+    --no-filters form at the 99th-percentile level of the portrait's grid,
+    because the seeded weights leave no surface under the filters, F7),
+    then measure.main on its output (random CLIP/LPIPS; one warm-up run,
+    EVAL_PORTRAITS timed), each with the launch counts zeroed before and
+    read after, then generate.main --tiny through argparse on a 64^2 tree
+    beside it.
+    -> (summary, launch counts of the timed measure runs)."""
+    import os
+    import pickle
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from panic3d_tpu_torch.data.databack import DatabackendMinna
+    from panic3d_tpu_torch.eval import generate, measure
+    from panic3d_tpu_torch.eval.gltf import LustrousGLTF
+    from panic3d_tpu_torch.eval.volume import density_grid, portrait_planes
+    from panic3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from panic3d_tpu_torch.models.resnet import random_feature_extractor
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    root = Path(__file__).resolve().parent / "build" / "eval_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    bn = daredemo_tree(str(root), EVAL_SIZE)
+    print(f"  tree written in {time.perf_counter() - t0:.3f} s")
+    out = str(root / "evalout")
+    dk = DatabackendMinna(str(root))
+    with open(root / "_data/lustrous/renders/daredemoE/fandom_align_alignment.pkl", "rb") as f:
+        aligndata = pickle.load(f)
+    resnet = random_feature_extractor(SEED, device=device)
+    opts = {k: v for k, v in generate.INFERENCE_OPTS.items()
+            if k not in ("triplane_crop", "cull_clouds")}
+
+    def portrait(level, stages=None):
+        return generate.generate_portrait(G, resnet, dk[bn], aligndata[bn], opts, SEED, BATCH,
+                                          out, level=level, mesh_res=MESH_RES, stages=stages)
+
+    cond = portrait(LEVEL)   # warm-up
+    with torch.no_grad():
+        _, planes = portrait_planes(G, {"cond": cond, "seeds": [SEED]})
+        grid = density_grid(planes, G._decoder(), MESH_RES, G.rk["box_warp"],
+                            vr.generate_plane_axes(True), vr.DensityFilters())
+    level = mesh_levels(grid)[0]
+    del planes, grid
+    reset_launch_counts()
+    times, stages = [], {}
+    for _ in range(EVAL_PORTRAITS):
+        t, one = time.perf_counter(), {}
+        portrait(level, one)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        for k, v in one.items():
+            stages[k] = stages.get(k, 0.0) + v
+    counts_gen = launch_counts()
+    require_launched(counts_gen, ESS_PASTE_KERNELS + ("volume_density",), "eval generate")
+    waits_gen = count_syncs(lambda: portrait(level))
+    with open(os.path.join(out, bn.replace("fandom_align", "marching_cubes") + ".pkl"),
+              "rb") as f:
+        mc = pickle.load(f)
+    pngs = {sub: len(os.listdir(os.path.join(out, os.path.dirname(
+        bn.replace("fandom_align", sub))))) for sub in ("ortho", "ortho_xyza", "rgb60", "xyza60")}
+    require(pngs == {"ortho": 4, "ortho_xyza": 4, "rgb60": 12, "xyza60": 12},
+            f"eval generate wrote {pngs}")
+    require(set(mc) == {"verts", "faces", "normals", "values", "colors"} and len(mc["faces"]),
+            f"eval generate: mesh pickle {sorted(mc)} with {len(mc['faces'])} faces")
+    gen_s = statistics.median(times)
+    print(f"eval generate (ESS flagship, --no-filters at level {level:.6f}, view batch {BATCH}):"
+          f" {EVAL_PORTRAITS} portraits, median {gen_s:.4f} s/portrait (runs "
+          + ", ".join(f"{t:.4f}" for t in times) + "); stages per portrait: "
+          + ", ".join(f"{k} {t / EVAL_PORTRAITS * 1e3:.3f} ms" for k, t in stages.items())
+          + f"; {len(mc['verts'])} verts, {len(mc['faces'])} faces, PNGs {pngs}; host waits "
+          f"per portrait {waits_gen}; launches per portrait "
+          + ", ".join(f"{k}={n / EVAL_PORTRAITS:g}" for k, n in counts_gen.items() if n)
+          + f"  [{card}]")
+
+    gl = LustrousGLTF(str(root / "_data/lustrous/raw/dssc/synthetic/0000.vrm"))
+    _, _, n_outer, f_outer = gt_head()
+    n_all, f_all = len(gl.verts), len(gl.faces)
+    gl.remove_innards(device=device)
+    require(len(gl.verts) == n_outer and len(gl.faces) == f_outer,
+            f"remove_innards kept {len(gl.verts)} of {n_all} vertices, expected the outer "
+            f"shell's {n_outer}")
+    print(f"  remove_innards (K13): kept {len(gl.verts)} of {n_all} vertices and "
+          f"{len(gl.faces)} faces: the inner shell removed")
+
+    argv = ["--data", str(root), "--out", out, "--allow-random-metrics", "--device", str(device)]
+    measure.main(argv)   # warm-up
+    reset_launch_counts()
+    times, mstages, results = [], {}, None
+    for _ in range(EVAL_PORTRAITS):
+        t = time.perf_counter()
+        results = measure.main(argv, stages=mstages)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    counts_meas = launch_counts()
+    require_launched(counts_meas, ("winding_number", "point_mesh_distance"), "eval measure")
+    ans2d, ans3d = results
+    table = {f"{s}/{m}": float(np.mean(v)) for s in ans2d for m, v in ans2d[s].items()}
+    table.update({f"geom/{k}": float(np.mean(v)) for k, v in ans3d.items()})
+    require(all(np.isfinite(v) for v in table.values()), f"eval measure: non-finite {table}")
+    waits_meas = count_syncs(lambda: measure.main(argv))
+    meas_s = statistics.median(times)
+    print(f"eval measure: {EVAL_PORTRAITS} runs of 1 portrait, median {meas_s:.4f} s/portrait "
+          "(runs " + ", ".join(f"{t:.4f}" for t in times) + "); stages per portrait: "
+          + ", ".join(f"{k} {t / EVAL_PORTRAITS * 1e3:.3f} ms" for k, t in mstages.items())
+          + f"; host waits per portrait {waits_meas}; launches per portrait "
+          + ", ".join(f"{k}={n / EVAL_PORTRAITS:g}" for k, n in counts_meas.items() if n)
+          + f"  [{card}]")
+    print("  rows: " + ", ".join(f"{k} {v:.6f}" for k, v in table.items()))
+
+    t = time.perf_counter()
+    daredemo_tree(str(root / "tiny"), 64)   # the tiny model takes 64^2 portraits
+    generate.main(["--tiny", "--data", str(root / "tiny"), "--out", str(root / "tiny_out"),
+                   "--skip-rmline", "--no-filters", "--mesh-res", "64", "--level", "0.17",
+                   "--device", str(device)])
+    torch.cuda.synchronize()
+    tiny_pngs = sum(len(files) for _, _, files in os.walk(root / "tiny_out"))
+    require(tiny_pngs == 33, f"generate --tiny wrote {tiny_pngs} files, expected 32 PNGs + 1")
+    print(f"generate.main --tiny through argparse: {time.perf_counter() - t:.3f} s, "
+          f"{tiny_pngs} files  [{card}]")
+    summary = {
+        "generate_s_per_portrait": gen_s, "generate_stages_ms": {
+            k: t / EVAL_PORTRAITS * 1e3 for k, t in stages.items()},
+        "generate_host_waits": waits_gen, "mesh_level": level,
+        "mesh_verts": len(mc["verts"]), "mesh_faces": len(mc["faces"]),
+        "measure_s_per_portrait": meas_s, "measure_stages_ms": {
+            k: t / EVAL_PORTRAITS * 1e3 for k, t in mstages.items()},
+        "measure_host_waits": waits_meas, "table": table,
+        "gt_head": {"verts": n_all, "faces": f_all, "kept_verts": n_outer},
+    }
+    return summary, counts_meas
+
+
 def _entry_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled symbol:
     the last <length><name> component, then bf16/f32 and the integer
@@ -1468,9 +1837,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from panic3d_tpu_torch import configs
-    from panic3d_tpu_torch.cameras import cam60, camsubs
     from panic3d_tpu_torch.eval.generate import (
-        EVAL_VIEWS, INFERENCE_OPTS, plane_cache_ok, planes_bundle, render_from_planes)
+        INFERENCE_OPTS, eval_views, plane_cache_ok, planes_bundle, render_from_planes)
     from panic3d_tpu_torch.kernels import KERNELS, build, reset_launch_counts
     from panic3d_tpu_torch.ops.gather_dot import gather_dot
 
@@ -1505,6 +1873,7 @@ def main(argv=None) -> int:
         checks["triplane_decode"]["vertex_colours"] = volume_checks.pop(
             "triplane_decode_vertex_colours")
         checks.update(volume_checks)
+        checks.update(k13_checks(device))
         grad_guard_checks(device)
         if args.kernels_only:
             print(json.dumps({"kernels": [dict(name=n, **checks[n]) for n in KERNELS]}))
@@ -1541,9 +1910,7 @@ def main(argv=None) -> int:
         require(plane_cache_ok(Ge), "flagship eval mapping must be camera-free")
         opts = dict(triplane_crop=0.1, cull_clouds=0.5, paste_params=paste)
         cond1 = {k: v[:1] for k, v in x["cond"].items()}
-        spin = [("camP", f"{v:04d}", float(cam60[v][0]), float(cam60[v][1]), 30)
-                for v in camsubs["spin12"]]
-        views = EVAL_VIEWS + spin
+        views = eval_views()
 
         def portrait():
             bundle = planes_bundle(Ge, SEED, cond1, opts)
@@ -1585,6 +1952,7 @@ def main(argv=None) -> int:
         require_launched(counts_probe, ("gather_dot",), "probe")
 
         geometry, counts_geom = geometry_path(Ge, device, card, levels)
+        eval_cli, counts_eval = eval_cli_path(Ge, device, card)
 
         if args.profile:
             from pathlib import Path
@@ -1609,11 +1977,11 @@ def main(argv=None) -> int:
 
     reset_launch_counts()
     paths = {"settings_parity": parity, "ess_paste_per_call": per_call, "turntable": turn,
-             "probe": probe, **geometry}
+             "probe": probe, **geometry, "eval_cli": eval_cli}
     print(json.dumps({"paths": paths, "card": card}))
     # each kernel's launches on the path that launches it: the ESS + paste
-    # request, else the geometry path, else the probe
-    sources = (counts_main, counts_geom, counts_probe)
+    # request, else the geometry path, else eval measure, else the probe
+    sources = (counts_main, counts_geom, counts_eval, counts_probe)
     launches = {name: next((c[name] for c in sources if c[name]), 0) for name in KERNELS}
     require_launched(launches, KERNELS, "all paths")
     summary = {"kernels": [

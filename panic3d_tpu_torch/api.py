@@ -10,7 +10,8 @@ One object owns the generator. Views render from one planes bundle per
 portrait (eval/generate.py), the mesh through eval/volume.py:extract_mesh.
 Not ported yet (they raise NotImplementedError): checkpoint loading
 (``ckpt=``), the multi-device ``mesh=`` sharding, and the conditioning
-preprocess's line filler and ResNet-PCA features (``rmline=``, ``resnet=``).
+preprocess's line filler and ResNet-PCA features (``rmline=``, ``resnet=``;
+the extractor itself is models/resnet.py, which eval generate uses).
 """
 
 from __future__ import annotations
@@ -49,8 +50,8 @@ class Reconstructor:
 
     def preprocess(self, image_rgb: np.ndarray, keypoints=None) -> dict:
         """[3,H,W] RGB in [0,1] -> the G.f ``cond`` dict: the image itself
-        and zero ResNet features (the line filler and the ResNet-PCA
-        extractor are not ported yet)."""
+        and zero ResNet features (the line filler is not ported yet, and
+        ``resnet=`` is not taken yet)."""
         dev = self.g.device
         img = torch.as_tensor(np.asarray(image_rgb, np.float32))[None].to(dev)
         ch = 16 if "reschonk_add_16" in self.g.backbone.synthesis.cond_mode else 512

@@ -93,6 +93,11 @@ KERNELS = {
             "panic3d_tpu/eval/mesh_metrics.py:61",
         ),
         Kernel(
+            "winding_number",
+            "panic3d_tpu_torch/csrc/winding_number.cu",
+            "panic3d_tpu/eval/gltf.py:77",
+        ),
+        Kernel(
             "gather_dot",
             "panic3d_tpu_torch/csrc/gather_dot.cu",
             "scripts/bench_pallas_gather.py:43",

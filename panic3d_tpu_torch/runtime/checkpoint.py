@@ -5,6 +5,11 @@ The flax variables keep the reference's torch shapes, so a mapping is a pure
 rename: ``decoder.net.{0,2}.x`` <-> ``decoder/net{0,2}/x``, ``noise_const``
 and ``w_avg`` live in the 'buffers' collection, everything else in
 'params'. ``resample_filter`` buffers are recomputed and have no entry.
+
+The ResNet and the metric nets (LPIPS, CLIP) keep the flax tree's own
+names in the port (``module_state_from_flax``), so their variables, and
+the ``.npz`` files of flax paths that carry converted weights
+(``load_flax_npz``), load without a mapping.
 """
 
 from __future__ import annotations
@@ -53,3 +58,34 @@ def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
         for path, leaf in _leaves(variables.get(collection, {}), (collection,)):
             out[torch_name_from_flax(path)] = torch.from_numpy(np.array(leaf, copy=True))
     return out
+
+
+def module_state_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """A flax variable tree of the ResNet or the metric nets (nested
+    mappings of arrays; every collection: 'params', 'batch_stats') -> the
+    state_dict of the port's module of the same structure, whose names are
+    the flax paths joined by '.' and whose shapes are flax's (a Dense
+    kernel stays [in, out])."""
+    out = {}
+    for collection, tree in variables.items():
+        for path, leaf in _leaves(tree):
+            name = ".".join(path)
+            if name in out:
+                raise ValueError(f"{name} is in two collections")
+            out[name] = torch.from_numpy(np.array(leaf, dtype=np.float32, copy=True))
+    return out
+
+
+def load_flax_npz(path: str) -> dict:
+    """An .npz keyed by flax paths ('alex/conv1_w', 'block0/ln_1/scale') ->
+    the variables tree {'params': {...}} of numpy arrays, as the JAX
+    package's load_lpips_params and load_clip_params build it."""
+    data = np.load(path)
+    params: dict = {}
+    for k in data.files:
+        node = params
+        parts = k.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.asarray(data[k])
+    return {"params": params}

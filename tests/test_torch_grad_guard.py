@@ -4,7 +4,7 @@ refuses an input that requires grad under grad mode
 
 - the helper raises only with grad mode on and a tensor that requires grad,
   found in nested tuples (the decoder's NamedTuple), lists and dicts;
-- each of the 13 kernel wrappers raises at its first statement when one of
+- each of the 14 kernel wrappers raises at its first statement when one of
   its tensor inputs requires grad, before it checks the device or launches;
 - the plain CPU forward of the tiny config (G.f) still back-propagates to
   the mapping, the backbone and the decoder.
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from panic3d_tpu_torch import configs as tcfg
+from panic3d_tpu_torch.eval import gltf
 from panic3d_tpu_torch.eval import mesh_metrics as mm
 from panic3d_tpu_torch.eval import volume as vol
 from panic3d_tpu_torch.kernels import KERNELS, launch_counts, require_no_grad
@@ -80,6 +81,8 @@ WRAPPERS = {
         leaf(1, 1, 8, 8), leaf(1, 1, 8, 8), 0.7, 0.5, 0.5, 0.5),
     "point_mesh_distance": lambda: mm.point_mesh_distance_sq_kernel(
         leaf(5, 3, grad=True), leaf(3, 3), torch.zeros((1, 3), dtype=torch.int32)),
+    "winding_number": lambda: gltf.winding_numbers_kernel(
+        leaf(4, 3, grad=True), torch.zeros((1, 3), dtype=torch.int64), leaf(2, 3)),
     "gather_dot": lambda: gather_dot_kernel(torch.zeros(4, dtype=torch.int32), leaf(4, 8),
                                             leaf(8, 4, grad=True)),
 }

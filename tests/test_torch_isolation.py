@@ -9,7 +9,7 @@ import sys
 
 import torch
 
-from panic3d_tpu_torch.eval import mesh_metrics, volume
+from panic3d_tpu_torch.eval import gltf, mesh_metrics, volume
 from panic3d_tpu_torch.kernels import KERNELS, launch_counts
 from panic3d_tpu_torch.models.triplane import paste_composite
 from panic3d_tpu_torch.models.volumetric import lattice as vlat
@@ -40,6 +40,11 @@ def test_imports_with_jax_blocked():
         "import panic3d_tpu_torch.api, panic3d_tpu_torch.eval.volume\n"
         "import panic3d_tpu_torch.eval.mesh_metrics, panic3d_tpu_torch.eval.measure\n"
         "import panic3d_tpu_torch.runtime.native_ops, panic3d_tpu_torch.ops.bias_act\n"
+        "import panic3d_tpu_torch.eval.gltf, panic3d_tpu_torch.eval.lpips\n"
+        "import panic3d_tpu_torch.eval.metrics2d, panic3d_tpu_torch.models.resnet\n"
+        "import panic3d_tpu_torch.ops.resize, panic3d_tpu_torch.data.databack\n"
+        "import panic3d_tpu_torch.utils.imglib, panic3d_tpu_torch.utils.table\n"
+        "import panic3d_tpu_torch.utils.config\n"
         "import panic3d_tpu_torch.configs as c\n"
         "c.tiny(device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'panic3d_tpu')\n"
@@ -124,6 +129,9 @@ def test_wrappers_count_no_launch_on_cpu():
     grid = volume.density_grid(torch.randn(1, 3, C, 8, 8), dec, 6, 0.7,
                                vr.generate_plane_axes(True), vr.DensityFilters(0.1, 0.5))
     assert grid.shape == (6, 6, 6) and grid.dtype == torch.float16
+    # K13: winding numbers of points with respect to one triangle
+    w = gltf.winding_numbers(torch.rand(3, 3), torch.tensor([[0, 1, 2]]), torch.rand(5, 3))
+    assert w.shape == (5,) and w.dtype == torch.float32
     # K9: point -> mesh distances
     d2 = mesh_metrics.point_mesh_distance_sq(torch.rand(7, 3), torch.rand(4, 3),
                                              torch.tensor([[0, 1, 2], [1, 2, 3]]))
