@@ -24,8 +24,13 @@
    points on vertices, edges and hypotenuses; K13 on the synthetic GT head,
    51,204 queries x 102,400 triangles, kernel and plain f32 each against an
    f64 evaluation, with the atan2 branch flips and the keep/drop decisions
-   at 1.3 counted apart, and exactly, signs of zero included, on single
-   triangles seen from their own vertices), and times both
+   at 1.3 counted apart, exactly, signs of zero included, on single
+   triangles seen from their own vertices, two launches equal bit for bit,
+   and its inner loop's SASS instructions a pair with the issue ceiling
+   they give, printed beside the bound; K3 at 96+96 on the coarse pass's
+   sigmas and at 48+48 on the ESS path's narrowed depths and their K1
+   sigmas, the u's in another cdf bracket than the plain version's
+   counted), and times both
    (median of CUDA-event timings), with the single PyTorch call that
    computes the same function where there is one (library_ms; K4 must beat
    it) and the least time the card could take (bound_ms, from the bytes,
@@ -101,9 +106,11 @@ F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM TF32 on the tensor cores, dense
 SFU_PER_CLOCK_PER_SM = 16   # ex2/lg2 results a clock per SM, compute capability 9.0
 SFU_OPS_PER_S = None        # set in main(): x SMs x the card's maximum SM clock
+ISSUE_PER_S = None          # set in main(): 128 lanes a clock per SM x SMs x that clock
 NO_SPILL = ("triplane_decode_kernel", "factor_terms_kernel", "occlusion_volume_kernel",
             "ray_composite_kernel", "volume_density_kernel", "triangle_records_kernel",
-            "point_mesh_distance_kernel", "winding_number_kernel")   # must not spill
+            "point_mesh_distance_kernel", "winding_number_kernel",
+            "importance_sample_kernel")   # must not spill
 PASTE_KEYS = ("mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
 MESH_RES = 256     # eval generate's mesh resolution
 LEVEL = 0.5        # eval generate's iso level
@@ -170,9 +177,11 @@ def bound(n_bytes: float, flops: float, tf32_flops: float = 0.0, sfu_ops: float 
     return times[by], by
 
 
-def sfu_rate() -> float:
+def sfu_rate():
     """SFU operations a second: 16 a clock per SM x the SMs x the card's
-    maximum SM clock (nvidia-smi clocks.max.sm)."""
+    maximum SM clock (nvidia-smi clocks.max.sm); and the instructions a
+    second the SMs can issue, one warp instruction a clock on each of an
+    SM's 4 schedulers (128 lanes) x the SMs x that clock. -> (SFU, issue)."""
     import torch
 
     proc = subprocess.run(
@@ -181,7 +190,7 @@ def sfu_rate() -> float:
     mhz = float(proc.stdout.strip().splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"SFU rate: {SFU_PER_CLOCK_PER_SM} x {sms} SMs x {mhz:.0f} MHz")
-    return SFU_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    return SFU_PER_CLOCK_PER_SM * sms * mhz * 1e6, 128 * sms * mhz * 1e6
 
 
 def nbytes(*tensors) -> int:
@@ -295,15 +304,7 @@ def kernel_checks(G, device):
 
     # K3 on the coarse pass's real sigmas: [2,4096,96,1] -> 96 fine depths
     s_c = sig_k.reshape(BATCH, R, S, 1)
-    print(f"K3 importance_sample: depths/sigmas {tuple(d_c.shape)} -> {K}")
-    d_fk = vr.importance_sample_kernel(d_c, s_c, K)
-    d_fp = vr.importance_sample_plain(d_c, s_c, K)
-    e = max_err(d_fk, d_fp)
-    check("fine depths (f32; cdf summation order at the bracket edges)", e, 1e-4)
-    out["importance_sample"] = record(
-        e, lambda: vr.importance_sample_kernel(d_c, s_c, K),
-        lambda: vr.importance_sample_plain(d_c, s_c, K), nbytes(d_c, s_c, d_fk),
-        BATCH * R * (S * 20 + K * 10))
+    d_fk, out["importance_sample"] = k3_check(d_c, s_c, K)
 
     # K1 at the fine pass (the importance depths), then K2 on the real coarse
     # + fine samples (bf16 colors)
@@ -317,6 +318,35 @@ def kernel_checks(G, device):
             x_f.reshape(BATCH, R, K, 3), rk["white_back"])
     out.update(k2_checks(*args))
     return out
+
+
+def k3_check(d_c, s_c, K):
+    """K3 vs its plain version on coarse depths and sigmas [B,R,S,1] -> K
+    fine depths, within 1e-4 (f32: the warp scans' order of rounding against
+    torch.cumprod / cumsum); the u's whose fine depth lies between other bin
+    midpoints than the plain version's (another cdf bracket) are counted.
+    -> (the kernel's fine depths, summary)."""
+    import torch
+
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    B, R, S, _ = d_c.shape
+    print(f"K3 importance_sample: depths/sigmas {tuple(d_c.shape)} -> {K}")
+    d_fk = vr.importance_sample_kernel(d_c, s_c, K)
+    d_fp = vr.importance_sample_plain(d_c, s_c, K)
+    e = max_err(d_fk, d_fp)
+    check(f"fine depths at {S}+{K} (f32; scan order at the bracket edges)", e, 1e-4)
+    mids = (0.5 * (d_c[:, :, :-1, 0] + d_c[:, :, 1:, 0])).reshape(B * R, S - 1).contiguous()
+    brackets = int((torch.searchsorted(mids, d_fk.reshape(B * R, K).contiguous())
+                    != torch.searchsorted(mids, d_fp.reshape(B * R, K).contiguous())).sum())
+    print(f"  u's in another cdf bracket than the plain version's: {brackets} of {B * R * K}")
+    summary = record(e, lambda: vr.importance_sample_kernel(d_c, s_c, K),
+                     lambda: vr.importance_sample_plain(d_c, s_c, K), nbytes(d_c, s_c, d_fk),
+                     B * R * (S * 20 + K * 10))
+    summary.update(samples=f"{S}+{K}", other_bracket=brackets)
+    print(f"  ms {summary['ms']:.6f} (plain {summary['plain_ms']:.6f}), bound "
+          f"{summary['bound_ms']:.6f} ms by {summary['bound_by']}")
+    return d_fk, summary
 
 
 def k2_checks(d_c, rgb_c, s_c, x_c, d_f, rgb_f, s_f, x_f, white_back):
@@ -581,6 +611,16 @@ def ess_paste_kernel_checks(G, x, device):
     out["ess_narrow"] = record(
         max(errs), lambda: vr.ess_narrow_kernel(*args6b), lambda: vr.ess_narrow_plain(*args6b),
         nbytes(occ_k, ro, rd, *nk), ro.shape[0] * ro.shape[1] * (ess["taps"] * 20 + S * 5))
+
+    # K3 at the ESS paths' 48+48: the narrowed coarse depths, and the
+    # coarse sigmas K1 decodes there (the render's planes and dtype)
+    planes_cl = ref["triplane"].to(vr.RENDER_DTYPES[rk.get("render_dtype", "bfloat16")])
+    planes_cl = planes_cl.permute(0, 1, 3, 4, 2).contiguous()
+    d_c = nk[2].contiguous()
+    x_c = (ro[:, :, None] + d_c * rd[:, :, None]).reshape(N, -1, 3).contiguous()
+    _, sig_c = vr.triplane_decode_kernel(planes_cl, x_c, dec, bw, axes, filt)
+    out["importance_sample_ess"] = k3_check(d_c, sig_c.reshape(d_c.shape).contiguous(),
+                                            rk["depth_resolution_importance"])[1]
 
     # K7 volume: the 256-long f32 suffix sum in another order, the first
     # layer factored through the plane sum; a cull decision that flips
@@ -1531,19 +1571,23 @@ def k13_checks(device):
     band = (w64 - 1.3).abs() < 1e-3
     differ = (wk < 1.3) != (wp < 1.3)
     n_edge, same_edge = winding_edge_cases(device)
+    # two launches on the same inputs: the splits are added in a fixed order
+    same_bits = torch.equal(wk.view(torch.int32), gltf.winding_numbers_kernel(v, f, v)
+                            .view(torch.int32))
     print(f"K13 winding_number: {Q} queries x {T} triangles; max |w - w_f64| kernel "
           f"{err_k:.3e}, plain f32 {err_p:.3e}; branch flips (|w - w_f64| >= 0.25) kernel "
           f"{int(flip_k.sum())}, plain {int(flip_p.sum())}, kernel vs plain {int(flip_kp.sum())};"
           f" decisions at 1.3 that differ: {int((differ & ~band).sum())} outside the band, "
           f"{int((differ & band).sum())} of {int(band.sum())} inside |w - 1.3| < 1e-3; kept "
-          f"{int((wk < 1.3).sum())}; signed-zero cases equal {same_edge} of {n_edge}")
+          f"{int((wk < 1.3).sum())}; signed-zero cases equal {same_edge} of {n_edge}; two "
+          f"launches equal bit for bit: {same_bits}")
     require(err_k <= 2 * err_p, f"K13: error vs f64 {err_k} > 2 x the plain version's {err_p}")
     require(int(flip_kp.sum()) <= Q // 1000, f"K13: {int(flip_kp.sum())} branch flips")
     require(int((differ & ~band).sum()) == 0, "K13: keep/drop decisions differ outside the band")
     require(same_edge == n_edge, "K13: a signed-zero case differs from the plain version")
+    require(same_bits, "K13: two launches on the same inputs differ")
     # ~60 f32 operations a pair (3 differences of 3, 3 squared norms and 4 dot
-    # products of 5, a cross product of 9, den's 7, the doubling, the Kahan
-    # sum's 4 less the 3 differences the triangle gather saves) and 4 SFU
+    # products of 5, a cross product of 9, den's 7, the sum's add) and 4 SFU
     # operations (3 square roots and atan2's reciprocal)
     pairs = float(Q) * T
     n_bytes = nbytes(v, f.to(torch.int32), v) + 4 * Q
@@ -1554,9 +1598,23 @@ def k13_checks(device):
     summary.update(queries=Q, triangles=T, ops_per_pair=60, sfu_per_pair=4,
                    err_vs_f64=err_k, plain_err_vs_f64=err_p, flips=int(flip_k.sum()),
                    plain_flips=int(flip_p.sum()), flips_vs_plain=int(flip_kp.sum()),
-                   decisions_differ_in_band=int((differ & band).sum()))
+                   decisions_differ_in_band=int((differ & band).sum()), deterministic=same_bits)
+    # the issue ceiling: the inner loop's SASS instructions a pair, issued
+    # at one warp instruction a clock per scheduler (beside the bound, not
+    # instead of it)
+    sass = sass_per_pair("winding_number", "winding_number_kernel", r"MUFU\.(SQRT|RSQ)", 3)
+    if sass:
+        sass["ceiling_ms"] = pairs * sass["per_pair"] / ISSUE_PER_S * 1e3
+        print(f"  inner loop: {sass['loop_instructions']} SASS instructions, {sass['loop_mufu']} "
+              f"MUFU, {sass['pairs_per_iteration']:g} pairs an iteration: "
+              f"{sass['per_pair']:.2f} instructions a pair; issue ceiling "
+              f"{sass['ceiling_ms']:.6f} ms")
+    else:
+        print("  inner loop's SASS: not measured (no cuobjdump, or no loop with MUFU found)")
+    summary["sass"] = sass
     print(f"  K13 {summary['ms']:.6f} ms (plain {summary['plain_ms']:.6f}), bound "
-          f"{summary['bound_ms']:.6f} ms by {summary['bound_by']}")
+          f"{summary['bound_ms']:.6f} ms by {summary['bound_by']}, issue ceiling "
+          + (f"{sass['ceiling_ms']:.6f} ms" if sass else "not measured"))
     del wk, wp, w64
     torch.cuda.empty_cache()   # the f64 evaluation's ~20 GB, out of the later paths' pool
     return {"winding_number": summary}
@@ -1701,6 +1759,48 @@ def eval_cli_path(G, device, card):
     return summary, counts_meas
 
 
+def sass_per_pair(stem: str, kernel: str, op: str, per_pair: int):
+    """The static SASS instructions a pair in ``kernel``'s innermost loop that
+    holds MUFU instructions, from cuobjdump -sass of csrc/<stem>.cu's build:
+    the loop is the shortest span from a backward branch's target to the
+    branch, and its pairs an iteration are its instructions matching the
+    regular expression ``op`` over ``per_pair`` (K13: its square roots,
+    MUFU.SQRT or MUFU.RSQ, 3 a pair). Slow paths called from outside the
+    span are not counted. -> dict, or None without cuobjdump or such a
+    loop."""
+    import os
+    import re
+    import shutil
+
+    from panic3d_tpu_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(build.build(stem))], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    body = next((f for f in re.split(r"\n\s*Function : ", text)[1:]
+                 if kernel in f.split("\n", 1)[0]), None)
+    if body is None:
+        return None
+    ins = [(int(m.group(1), 16), m.group(2)) for m in
+           re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    loops = []
+    for addr, text_ in ins:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text_)
+        if m and int(m.group(1), 16) <= addr:
+            span = [o for a, o in ins if int(m.group(1), 16) <= a <= addr]
+            marks = sum(bool(re.search(op, o)) for o in span)
+            if marks:
+                loops.append((len(span), sum("MUFU" in o for o in span), marks))
+    if not loops:
+        return None
+    n, mufu, marks = min(loops)
+    return {"loop_instructions": n, "loop_mufu": mufu,
+            "pairs_per_iteration": marks / per_pair, "per_pair": n * per_pair / marks}
+
+
 def _entry_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled symbol:
     the last <length><name> component, then bf16/f32 and the integer
@@ -1830,8 +1930,8 @@ def main(argv=None) -> int:
         return 2
     card = card_line()
     print(f"card: {card}  ({torch.cuda.get_device_name(0)})")
-    global SFU_OPS_PER_S
-    SFU_OPS_PER_S = sfu_rate()
+    global SFU_OPS_PER_S, ISSUE_PER_S
+    SFU_OPS_PER_S, ISSUE_PER_S = sfu_rate()
     device = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1867,6 +1967,9 @@ def main(argv=None) -> int:
         checks = kernel_checks(G, device)
         checks.update(k4_checks(G, x, device))
         checks.update(ess_paste_kernel_checks(Ge, x, device))
+        k3 = checks["importance_sample"]
+        k3_ess = checks.pop("importance_sample_ess")
+        k3["shapes"] = {k3["samples"]: dict(k3), k3_ess["samples"]: k3_ess}
         checks.update(epilogue_kernel_checks(device))
         volume_checks, levels = volume_kernel_checks(Ge, device)
         # K1's second form on a path (the geometry path's vertex colours)

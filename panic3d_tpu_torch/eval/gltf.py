@@ -6,12 +6,15 @@ bone and the head-box crop are numpy code, as in the JAX package. The
 winding numbers that ``remove_innards`` thresholds are CUDA kernel K13
 (csrc/winding_number.cu) on the card; ``winding_numbers_plain`` is the same
 sum in PyTorch, chunked over the queries as the JAX package's: the CPU path
-and the kernel's oracle (in f64 too, for chip_smoke.py). The distances of
+and the kernel's oracle (in f64 too, for chip_smoke.py);
+``winding_numbers_tiled`` repeats the kernel's order of summation for the
+tests. The distances of
 ``get_point_distance`` go through K9 (eval/mesh_metrics.py).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import struct
@@ -104,14 +107,63 @@ def winding_numbers_plain(verts, faces, queries, chunk: int = 1024,
     return torch.cat(out) / (4 * math.pi)
 
 
-_K13_ARGS = (kb.PTR,) * 5 + (kb.INT, kb.INT, kb.INT, kb.PTR)
+def winding_numbers_tiled(verts, faces, queries, tile: int = 32,
+                          splits: int = 1) -> torch.Tensor:
+    """K13's order of summation (csrc/winding_number.cu) in PyTorch, for the
+    tests: the terms of :func:`winding_numbers_plain`, summed as atan2 (the
+    doubling once at the end). Split s takes the tiles of ``tile`` triangles
+    s, s + splits, ...; each tile's terms go into an f32 partial one by one,
+    in order, and the partial into the split's running sum with Kahan's
+    compensation; the splits' sums are added in order, compensated again.
+    f32 -> [Q]."""
+    tris = verts.float()[faces.long()]
+    q = queries.float()[:, None]
+    a, b, c = tris[None, :, 0] - q, tris[None, :, 1] - q, tris[None, :, 2] - q
+    la = torch.sqrt((a * a).sum(-1))
+    lb = torch.sqrt((b * b).sum(-1))
+    lc = torch.sqrt((c * c).sum(-1))
+    num = (a * torch.linalg.cross(b, c, dim=-1)).sum(-1)
+    den = la * lb * lc + (a * b).sum(-1) * lc + (b * c).sum(-1) * la + (c * a).sum(-1) * lb
+    terms = torch.atan2(num, den)                                           # [Q, T]
+    Q, T = terms.shape
+
+    def kahan_add(s, comp, y):
+        d = y - comp
+        t = s + d
+        return t, (t - s) - d
+
+    n_tiles = -(-T // tile)
+    zero = torch.zeros(Q, device=terms.device)
+    total, total_c = zero, zero
+    for sp in range(min(splits, max(n_tiles, 1))):
+        s_, c_ = zero, zero
+        for ti in range(sp, n_tiles, splits):
+            part = zero
+            for j in range(ti * tile, min(T, ti * tile + tile)):
+                part = part + terms[:, j]
+            s_, c_ = kahan_add(s_, c_, part)
+        total, total_c = kahan_add(total, total_c, s_)
+        total, total_c = kahan_add(total, total_c, -c_)
+    return 2 * (total - total_c) / (4 * math.pi)
+
+
+_K13_ARGS = (kb.PTR,) * 5 + (kb.INT,) * 4 + (kb.PTR,)
+
+
+@functools.lru_cache(maxsize=None)
+def _k13_splits(device_index: int, Q: int, T: int) -> int:
+    """K13's split of the triangles on this card (csrc/winding_number.cu:
+    one wave of blocks)."""
+    with torch.cuda.device(device_index):
+        return kb.call("winding_number_splits", (kb.INT, kb.INT), Q, T)
 
 
 def winding_numbers_kernel(verts, faces, queries) -> torch.Tensor:
     """Launch K13 on CUDA tensors: same contract as
-    :func:`winding_numbers_plain` in f32. Two device launches: the
-    triangles' corners gathered into scratch of this call, then the sums.
-    The faces go to the kernel as int32 (V must be below 2^31)."""
+    :func:`winding_numbers_plain` in f32. Three device launches: the
+    triangles' corners gathered into scratch of this call, the splits' sums,
+    and their sum in a fixed order (two calls give the same bits). The
+    faces go to the kernel as int32 (V must be below 2^31)."""
     require_no_grad("winding_number", verts, faces, queries)
     dev = queries.device
     if not (verts.ndim == faces.ndim == queries.ndim == 2
@@ -128,9 +180,11 @@ def winding_numbers_kernel(verts, faces, queries) -> torch.Tensor:
     verts = verts.to(torch.float32).contiguous()
     faces = faces.to(torch.int32).contiguous()
     queries = queries.to(torch.float32).contiguous()
-    tris = torch.empty(((9 * T + 3) // 4 * 4,), dtype=torch.float32, device=dev)
+    splits = _k13_splits(dev.index if dev.index is not None else torch.cuda.current_device(),
+                         Q, T)
+    scratch = torch.empty((12 * T + 2 * splits * Q,), dtype=torch.float32, device=dev)
     kb.launch("winding_number", _K13_ARGS, verts.data_ptr(), faces.data_ptr(),
-              queries.data_ptr(), tris.data_ptr(), out.data_ptr(), V, T, Q,
+              queries.data_ptr(), scratch.data_ptr(), out.data_ptr(), V, T, Q, splits,
               torch.cuda.current_stream(dev).cuda_stream)
     KERNELS["winding_number"].launches += 1
     return out

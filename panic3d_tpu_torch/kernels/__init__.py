@@ -105,9 +105,10 @@ KERNELS = {
     )
 }
 
-# C entry points that only check a kernel (chip_smoke.py), on no path and not
-# counted: entry point -> the kernel whose source holds it
-CHECK_ENTRIES = {"volume_lattice": "volume_density"}
+# C entry points that launch no kernel of a path and are not counted (a
+# check for chip_smoke.py, or a launch parameter a wrapper asks for):
+# entry point -> the kernel whose source holds it
+CHECK_ENTRIES = {"volume_lattice": "volume_density", "winding_number_splits": "winding_number"}
 
 
 def _tensors(obj):

@@ -100,6 +100,12 @@ def launch(name: str, argtypes: tuple, *args) -> None:
             f"{name}: CUDA error {rc}: {lib.panic3d_error_string(rc).decode()}")
 
 
+def call(name: str, argtypes: tuple, *args) -> int:
+    """Call the C entry point ``name`` that returns a plain int (a launch
+    parameter, such as K13's split of the triangles), not a CUDA status."""
+    return _entry(name, argtypes)[1](*args)
+
+
 def f32_array(values) -> ctypes.Array:
     """Host float array for small by-value kernel parameters."""
     values = [float(v) for v in values]

@@ -418,6 +418,96 @@ def importance_sample_plain(depths, sigmas, n_importance: int):
     return sample_importance(depths, _march_weights(sigmas, depths), n_importance)
 
 
+def importance_sample_warp_order(depths, sigmas, n_importance: int):
+    """K3's order of operations (csrc/importance_sample.cu) in PyTorch, for
+    the tests. A ray has L lanes (16 at S = 48, else 32), lane l holding
+    samples l npl .. l npl + npl - 1 (npl = ceil(S / L)); the transmittance
+    and the cdf are Kogge-Stone scans of the lanes' products and sums
+    (log2 L shuffles up), continued in order through each lane's own terms;
+    the pdf's sum is each lane's sum, then a butterfly; each u is resolved
+    by a binary search of fixed steps. depths/sigmas [B,R,S,1] -> (fine
+    depths [B,R,K,1], the search's cdf index [B*R,K], the count of cdf
+    entries <= u [B*R,K])."""
+    B, R, S, _ = depths.shape
+    K, eps = n_importance, 1e-5
+    L = 16 if S == 48 else 32
+    N, npl = B * R, -(-S // L)
+    W = L * npl
+    dev = depths.device
+    z = F.pad(depths.reshape(N, S).float(), (0, W - S)).reshape(N, L, npl)
+    sg = F.pad(sigmas.reshape(N, S).float(), (0, W - S)).reshape(N, L, npl)
+    idx = torch.arange(W, device=dev).reshape(L, npl)
+    lane = torch.arange(L, device=dev)
+
+    def shfl_down(x, d):   # lane l takes lane l + d's value, its own past the last
+        return torch.cat([x[:, d:], x[:, L - d:]], 1)
+
+    def shfl_up(x, d):     # lane l takes lane l - d's value, its own below lane d
+        return torch.cat([x[:, :d], x[:, :L - d]], 1)
+
+    def scan(x, mul):      # inclusive Kogge-Stone scan over the lanes
+        d = 1
+        while d < L:
+            o = shfl_up(x, d)
+            x = torch.where(lane >= d, x * o if mul else x + o, x)
+            d *= 2
+        return x
+
+    def in_order(x, init, mul):   # x [N,L,npl] folded in order from init [N,L]
+        out, acc = [], init
+        for j in range(npl):
+            acc = acc * x[..., j] if mul else acc + x[..., j]
+            out.append(acc)
+        return torch.stack(out, -1)
+
+    z1 = torch.cat([z[..., 1:], shfl_down(z[..., 0], 1)[..., None]], -1)
+    s1 = torch.cat([sg[..., 1:], shfl_down(sg[..., 0], 1)[..., None]], -1)
+    live = idx < S - 1
+    dens = softplus((sg + s1) / 2 - 1)
+    alpha = torch.where(live, 1 - torch.exp(-(dens * (z1 - z))), torch.zeros_like(z))
+    f = torch.where(live, 1 - alpha + 1e-10, torch.ones_like(z))
+    prod = in_order(f, torch.ones_like(z[..., 0]), True)[..., -1]
+    t_excl = shfl_up(scan(prod, True), 1)
+    t_excl[:, 0] = 1.0
+    trans = torch.cat([t_excl[..., None], in_order(f, t_excl, True)[..., :-1]], -1)
+    w = alpha * trans
+
+    Sw = S - 3
+    w_n1 = shfl_down(w[..., 1], 1) if npl >= 2 else shfl_down(w[..., 0], 2)
+    wext = torch.cat([w, shfl_down(w[..., 0], 1)[..., None], w_n1[..., None]], -1)
+    wa, wb, wc = wext[..., :npl], wext[..., 1:npl + 1], wext[..., 2:npl + 2]
+    p = ((torch.maximum(wa, wb) + torch.maximum(wb, wc)) / 2 + 0.01) + eps
+    p = torch.where(idx < Sw, p, torch.zeros_like(p))
+    total = in_order(p, torch.zeros_like(z[..., 0]), False)[..., -1]
+    m = L // 2
+    while m > 0:
+        total = total + total[:, lane ^ m]
+        m //= 2
+    q = p / total[..., None]
+    c_excl = shfl_up(scan(in_order(q, torch.zeros_like(total), False)[..., -1], False), 1)
+    c_excl[:, 0] = 0.0
+    cdf = in_order(q, c_excl, False).reshape(N, W)[:, :Sw]
+    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], 1)                # [N, Sw+1]
+    bins = (0.5 * (z + z1)).reshape(N, W)[:, :S - 1]
+
+    u = torch.linspace(0, 1, K, device=dev).expand(N, K).contiguous()
+    n = torch.zeros((N, K), dtype=torch.long, device=dev)   # cdf[:n] <= u < cdf[n]
+    h = 1                     # the largest power of 2 <= Sw + 1, halved each step
+    while h * 2 <= Sw + 1:
+        h *= 2
+    while h > 0:
+        le = cdf.gather(1, (n + h - 1).clamp_max(Sw)) <= u
+        n = torch.where((n + h <= Sw + 1) & le, n + h, n)
+        h //= 2
+    below, above = (n - 1).clamp_min(0), n.clamp_max(Sw)
+    c_lo, c_hi = cdf.gather(1, below), cdf.gather(1, above)
+    b_lo, b_hi = bins.gather(1, below), bins.gather(1, above)
+    denom = c_hi - c_lo
+    denom = torch.where(denom < eps, torch.ones_like(denom), denom)
+    out = (b_lo + (u - c_lo) / denom * (b_hi - b_lo)).reshape(B, R, K, 1)
+    return out, n, (cdf[:, None, :] <= u[:, :, None]).sum(-1)
+
+
 _K3_ARGS = (kb.PTR, kb.PTR, kb.PTR, kb.INT, kb.INT, kb.INT, kb.PTR)
 
 
