@@ -30,7 +30,10 @@
    they give, printed beside the bound; K3 at 96+96 on the coarse pass's
    sigmas and at 48+48 on the ESS path's narrowed depths and their K1
    sigmas, the u's in another cdf bracket than the plain version's
-   counted), and times both
+   counted; K10, the trilinear K1 form, at the deep-plane render pass's
+   bf16 shapes with K1's tolerances, in f32 at 2^17 points, and its
+   lattice form on the whole 256^3 grid with K1v's),
+   and times both
    (median of CUDA-event timings), with the single PyTorch call that
    computes the same function where there is one (library_ms; K4 must beat
    it) and the least time the card could take (bound_ms, from the bytes,
@@ -45,7 +48,7 @@
    --kernels-only stops here.
 4. Checks the whole forward of the tiny config on the card (kernels) against
    the same forward on the CPU (plain versions), in f32: ESS and paste off,
-   then ESS and paste on.
+   then ESS and paste on, then triplane_depth 2 with the render paste.
 5. Drives three paths of the flagship eval forward (seeded weights, bench.py's
    inputs, triplane_crop=0.1, cull_clouds=0.5), each with the kernel launch
    counts zeroed before and read after:
@@ -56,7 +59,14 @@
    - per-portrait turntable: one planes bundle (planes, ESS occupancy,
      occlusion volume), then the 16 eval views (4 ortho + spin12) in view
      batches of 2;
-   K12's own path, the gather-decode probe; and the geometry path of eval:
+   K12's own path, the gather-decode probe; the deep-plane generator
+   (configs.flagship(eval_mode=True, rendering_kwargs=dict(triplane_depth=2)),
+   ESS off, eval generate's paste with occ_impl='render'): G.f per call
+   (bs 2, with bf16 against f32), the turntable (a planes bundle of planes
+   alone, 16 views) and Reconstructor.mesh at 256^3 with and without the
+   filters, each requiring K10 launched (its render form on the views and
+   the vertex colours, its lattice form on the grid) and K1, K1v, K6 and K7
+   launched no time; and the geometry path of eval:
    Reconstructor.mesh of one portrait (planes, K1v, one copy of the grid,
    marching tetrahedra on the host, K1 vertex colours) with eval generate's
    filters and without them, then geometry_metrics (K9) between the
@@ -76,11 +86,12 @@
    checks the bf16
    default against the same weights pinned to f32.
    --profile DIR adds a torch.profiler table and trace of one ESS + paste
-   request and of one turntable portrait, with the device's busy share.
+   request, one turntable portrait and one deep-plane request, with the
+   device's busy share.
 6. Prints a JSON line of the paths, the script's wall time, a JSON line of
    the kernels (one entry per entry point, with its launches on the ESS +
    paste path, else on the geometry path, else on eval measure, else on the
-   probe), the card
+   probe, else on the deep-plane request), the card
    line, and last the {"ok": true, ...} line. Any failure raises before
    that line.
 """
@@ -89,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -123,6 +135,8 @@ SIGMA_RAISE = 14.5  # K1v's check: puts the cull's threshold inside the seeded s
 EVAL_PORTRAITS = 2  # timed portraits of the eval CLIs, after one warm-up
 EVAL_SIZE = 512     # the synthetic portrait's and GT renders' size
 EVAL_ROI = ((128, 128), (256, 256))   # the synthetic portrait's alignment ROI (512 space)
+DEEP_DEPTH = 2     # the deep-plane path's triplane_depth (tests/test_round3_fixes.py:126)
+DEEP_PORTRAITS = 2  # timed deep-plane turntable portraits, after one warm-up portrait
 HEAD = (0.0, 1.3, 0.0)   # the synthetic GT head's bone
 HEAD_LEVELS = (6, 5)     # its outer and inner shells' icosphere levels
 
@@ -434,8 +448,9 @@ def k1_ops(points: int, C: int):
     return points * 3 * C * 6, points * 3 * 2 * (C * 64 + 64 * 33)
 
 
-def check_k1(planes_cl, coords, dec, box_warp, axes, filt):
-    """K1 against its plain version on one input: cull decisions that differ
+def check_k1(planes_cl, coords, dec, box_warp, axes, filt, kernel=None, plain=None):
+    """K1 (or ``kernel``, K10's render form, with its ``plain`` version)
+    against its plain version on one input: cull decisions that differ
     counted apart (at most 1 in 100,000), rgb within 1 bf16 ulp below 1.0
     (2^-8; 1e-4 for f32 planes), sigma within 1e-4 where the decisions agree.
     -> (rgb, sigma, max error)."""
@@ -443,8 +458,10 @@ def check_k1(planes_cl, coords, dec, box_warp, axes, filt):
 
     from panic3d_tpu_torch.models.volumetric import renderer as vr
 
-    rgb_k, sig_k = vr.triplane_decode_kernel(planes_cl, coords, dec, box_warp, axes, filt)
-    rgb_p, sig_p = vr.triplane_decode_plain(planes_cl, coords, dec, box_warp, axes, filt)
+    kernel = kernel or vr.triplane_decode_kernel
+    plain = plain or vr.triplane_decode_plain
+    rgb_k, sig_k = kernel(planes_cl, coords, dec, box_warp, axes, filt)
+    rgb_p, sig_p = plain(planes_cl, coords, dec, box_warp, axes, filt)
     torch.cuda.synchronize()
     # the cull threshold is a discontinuity: a sample whose alpha sits within
     # f32 rounding of it may be culled on one side only; count those apart
@@ -453,7 +470,7 @@ def check_k1(planes_cl, coords, dec, box_warp, axes, filt):
     agree = culled_k == culled_p
     max_flips = sig_k.numel() // 100000
     print(f"  cull decisions that differ: {flips} of {sig_k.numel()} (tol {max_flips})")
-    require(flips <= max_flips, f"K1: {flips} cull decisions differ")
+    require(flips <= max_flips, f"{kernel.__name__}: {flips} cull decisions differ")
     e_rgb = max_err(rgb_k, rgb_p)
     e_sig = float((sig_k - sig_p).abs()[agree].max())
     if planes_cl.dtype == torch.bfloat16:
@@ -1117,6 +1134,12 @@ def grad_guard_checks(device):
         "winding_number": lambda: gltf.winding_numbers_kernel(
             t(4, 3, grad=True), t(1, 3, dtype=torch.int64), t(2, 3)),
         "gather_dot": lambda: gather_dot_kernel(t(8, **i32), t(8, 16), t(16, 8, grad=True)),
+        "triplane_decode_deep": lambda: vr.triplane_decode_deep_kernel(
+            t(3, 2, 4, 4, 32, grad=True), t(1, 8, 3), dec(), 0.7, vr.generate_plane_axes(True),
+            vr.DensityFilters()),
+        "volume_density_deep": lambda: vol.density_grid_deep_kernel(
+            t(1, 3, 64, 8, 8, grad=True), dec(), 16, 0.7, vr.generate_plane_axes(True),
+            vr.DensityFilters(), 2),
     }
     require(set(calls) == set(KERNELS), "F8: a kernel without a grad-mode check")
     G = configs.tiny(device=device).init_weights(SEED)
@@ -1143,10 +1166,11 @@ def grad_guard_checks(device):
     require(sum(launch_counts().values()) == 0, "F8: a kernel launched under grad mode")
 
 
-def tiny_end_to_end(device, ess_paste: bool):
+def tiny_end_to_end(device, ess_paste: bool, deep: bool = False):
     """Tiny config in f32: the card (kernels) against the CPU (plain); with
     ess_paste, ESS (grid 8, 16 taps) and eval generate's paste_params on a
-    small occlusion lattice."""
+    small occlusion lattice; with deep, triplane_depth DEEP_DEPTH (K10) and
+    eval generate's paste_params with the render occlusion, ESS off."""
     import torch
 
     from panic3d_tpu_torch import configs
@@ -1158,6 +1182,8 @@ def tiny_end_to_end(device, ess_paste: bool):
               render_dtype="float32")
     if ess_paste:
         rk.update(ess=dict(grid=8, taps=16, thresh=0.01, margin=1.0), occ_grid=(32, 32, 64))
+    if deep:
+        rk.update(triplane_depth=DEEP_DEPTH)
     G = configs.tiny(synthesis_kwargs=dict(channel_base=2048, channel_max=64, num_fp16_res=0),
                      rendering_kwargs=rk, device="cpu").init_weights(SEED).eval()
     with torch.no_grad():
@@ -1170,14 +1196,23 @@ def tiny_end_to_end(device, ess_paste: bool):
          "triplane_crop": 0.1, "cull_clouds": 0.5}
     if ess_paste:
         x["paste_params"] = INFERENCE_OPTS["paste_params"]
+    if deep:
+        x["paste_params"] = dict(INFERENCE_OPTS["paste_params"], occ_impl="render")
     with torch.no_grad():
         ref = G.f(x)
         G.to(device)
         xd = dict(x, z=x["z"].to(device), cond={k: v.to(device) for k, v in x["cond"].items()})
         got = G.f(xd)
-    print(f"tiny config, f32, ESS and paste {'on' if ess_paste else 'off'}: card (kernels) vs "
-          "CPU (plain), tol 2e-3 (importance resampling amplifies f32 rounding)")
+    what = (f"triplane_depth {DEEP_DEPTH}, render paste" if deep
+            else f"ESS and paste {'on' if ess_paste else 'off'}")
+    print(f"tiny config, f32, {what}: card (kernels) vs CPU (plain), tol 2e-3 (importance "
+          "resampling amplifies f32 rounding)")
     keys = ["triplane", "image_raw", "image_depth", "image_weights", "image_xyz"]
+    if deep:
+        for k in keys + ["image_prepaste"]:
+            check(k, max_err(got[k].cpu(), ref[k]), 2e-3)
+        compare_paste(got["paste"], ref["paste"], 2e-3)
+        return
     if not ess_paste:
         keys.append("image")
         for k in keys:
@@ -1841,6 +1876,295 @@ def ptxas_report(text: str):
     return out
 
 
+def touched_bytes(vols_cl, coords, axes, box_warp) -> int:
+    """The bytes of the deep volumes [N*3,D,H,W,C] whose texels the
+    trilinear corners of coords [N,M,3] touch inside the volumes, each
+    texel counted once: what a decode of those points must read."""
+    import itertools
+
+    import torch
+
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    NP, D, H, W, C = vols_cl.shape
+    dev = vols_cl.device
+    proj = vr.project_onto_planes(axes, (2.0 / box_warp) * coords.float()).reshape(NP, -1, 3)
+    size = torch.tensor([W, H, D], dtype=torch.float32, device=dev)
+    i0 = torch.floor(((proj + 1) * size - 1) / 2).long()
+    base = torch.arange(NP, device=dev)[:, None] * (D * H * W)
+    seen = torch.zeros(NP * D * H * W, dtype=torch.bool, device=dev)
+    for dx, dy, dz in itertools.product((0, 1), repeat=3):
+        x, y, z = i0[..., 0] + dx, i0[..., 1] + dy, i0[..., 2] + dz
+        ok = (x >= 0) & (x < W) & (y >= 0) & (y < H) & (z >= 0) & (z < D)
+        seen[(base + (z * H + y) * W + x)[ok]] = True
+    return int(seen.sum()) * C * vols_cl.element_size()
+
+
+def k10_ops(points: int, C: int):
+    """K10's render form per call -> (f32 operations, TF32 tensor-core
+    operations): per point 3 planes x 2 z slices x C channels of 6 lerp
+    operations and 2 for the blend on the CUDA cores; K1's two layers on
+    the tensor cores, each product three times (3xTF32)."""
+    return points * 3 * C * (2 * 6 + 2), points * 3 * 2 * (C * 64 + 64 * 33)
+
+
+def k10_checks(Gd, device):
+    """K10, the trilinear K1 form, vs its plain version on the card. The
+    render form (triplane_decode_deep) at the deep-plane render pass's
+    shapes: 6 bf16 volumes [2,256,256,32] of random depth-2 flagship planes
+    at the coarse pass's 393,216 points a portrait, eval generate's crop and
+    cull, K1's tolerances (check_k1); and on f32 volumes of one portrait at
+    2^17 points through the box (the vertex colours' form). The lattice
+    form (volume_density_deep) on the seeded deep flagship portrait's f32
+    planes over the whole 256^3 lattice, against the plain version on a slab
+    of 2^20 points, with K1v's tolerances (k10_grid_checks). Each is timed
+    with its plain version; the render form also beside F.grid_sample (5-D,
+    bilinear, zeros, align_corners=False) on the same bf16 volumes and
+    points, the sample alone (no PyTorch call computes the decode). The
+    bounds count the texels the points touch (touched_bytes).
+    -> {"triplane_decode_deep": summary, "volume_density_deep": summary}."""
+    import torch
+    import torch.nn.functional as F
+
+    from panic3d_tpu_torch.eval import volume as vol
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    D, bw, S = DEEP_DEPTH, Gd.rk["box_warp"], Gd.rk["depth_resolution"]
+    dec = Gd._decoder()
+    axes = vr.generate_plane_axes(Gd.rk["use_triplane"])
+    filt = vr.DensityFilters(**EVAL_FILTERS)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    planes = torch.randn((BATCH, 3, 32 * D, 256, 256), generator=gen, device=device) * 0.5
+
+    # the render form at the coarse pass of bench.py's two views
+    ro, rd, _ = flagship_rays({"elevations": torch.zeros(BATCH, device=device),
+                               "azimuths": torch.tensor(AZIMUTHS, device=device)}, device)
+    depths = vr.sample_stratified(ro, Gd.rk["ray_start"], Gd.rk["ray_end"], S)
+    coords = (ro[:, :, None] + depths * rd[:, :, None]).reshape(BATCH, -1, 3).contiguous()
+    vols = vr.deep_volumes_cl(planes, D, torch.bfloat16)
+    print(f"K10 triplane_decode_deep, coarse pass: volumes {tuple(vols.shape)} bf16, coords "
+          f"{tuple(coords.shape)}")
+    fns = dict(kernel=vr.triplane_decode_deep_kernel, plain=vr.triplane_decode_deep_plain)
+    rgb, sig, err = check_k1(vols, coords, dec, bw, axes, filt, **fns)
+    flops, tf32 = k10_ops(coords.shape[0] * coords.shape[1], 32)
+    touched = touched_bytes(vols, coords, axes, bw)
+    print(f"  texels the corners touch: {touched} of {nbytes(vols)} volume bytes")
+    summary = record(err, lambda: vr.triplane_decode_deep_kernel(vols, coords, dec, bw, axes,
+                                                                 filt),
+                     lambda: vr.triplane_decode_deep_plain(vols, coords, dec, bw, axes, filt),
+                     touched + nbytes(coords, rgb, sig), flops, tf32_flops=tf32)
+    M = coords.shape[1]
+    pts = vr.project_onto_planes(axes, (2.0 / bw) * coords).to(torch.bfloat16)
+    lib_in = planes.to(torch.bfloat16).reshape(BATCH * 3, 32, D, 256, 256)
+    lib_grid = pts.reshape(BATCH * 3, 1, 1, M, 3)
+    summary["grid_sample_ms"] = cuda_ms(lambda: F.grid_sample(
+        lib_in, lib_grid, mode="bilinear", padding_mode="zeros", align_corners=False))
+    summary["volume_bytes_touched"] = touched
+    del rgb, sig, lib_in, lib_grid, pts
+
+    # the f32 form (the vertex colours) on one portrait at 2^17 points
+    vols32 = vr.deep_volumes_cl(planes[:1], D)
+    pts32 = ((torch.rand((1, 2**17, 3), generator=gen, device=device) - 0.5) * bw).contiguous()
+    print(f"K10 triplane_decode_deep, f32: volumes {tuple(vols32.shape)}, coords "
+          f"{tuple(pts32.shape)}")
+    _, _, err32 = check_k1(vols32, pts32, dec, bw, axes, vr.DensityFilters(), **fns)
+    summary["f32_2e17_points"] = {"max_abs_err": err32, "ms": cuda_ms(
+        lambda: vr.triplane_decode_deep_kernel(vols32, pts32, dec, bw, axes))}
+    print(f"  ms {summary['ms']:.6f} (plain {summary['plain_ms']:.6f}, F.grid_sample alone "
+          f"{summary['grid_sample_ms']:.6f}, bound {summary['bound_ms']:.6f} "
+          f"{summary['bound_by']}); f32 at 2^17 points {summary['f32_2e17_points']['ms']:.6f}")
+    del vols, vols32, planes
+    return {"triplane_decode_deep": summary,
+            "volume_density_deep": k10_grid_checks(Gd, device, vol, vr)}
+
+
+def k10_grid_checks(Gd, device, vol, vr):
+    """K10's lattice form (volume_density_deep) vs density_grid_plain at
+    D = 2 on the seeded deep flagship portrait's f32 planes, K1v's checks
+    and tolerances: the whole 256^3 grid by the kernel, a slab of 2^20
+    points (16 x-slices through the middle of the box) by the plain
+    version; filtered (eval generate's crop and cull) on the seeded decoder
+    and on the decoder with sigma's bias raised by SIGMA_RAISE, f32 and f16
+    grids, cull decisions that differ counted apart; unfiltered in f32. The
+    bound counts the points the crop keeps. -> summary."""
+    import torch
+
+    N, bw, D = MESH_RES, Gd.rk["box_warp"], DEEP_DEPTH
+    _, planes = vol.portrait_planes(Gd, portrait_input(Gd, device))
+    dec, axes = Gd._decoder(), vr.generate_plane_axes(Gd.rk["use_triplane"])
+    filt = vr.DensityFilters(**EVAL_FILTERS)
+    start = (N // 2 - 8) * N * N
+    stop = start + 2**20
+    print(f"K10 volume_density_deep: planes {tuple(planes.shape)} f32, {N}^3 lattice; plain "
+          f"on flat indices [{start}, {stop})")
+
+    def kernel(d, f, dtype):
+        return vol.density_grid_deep_kernel(planes, d, N, bw, axes, f, D, dtype)
+
+    def plain(d, f, dtype):
+        return vol.density_grid_plain(planes, d, N, bw, axes, f, dtype, start=start, stop=stop,
+                                      triplane_depth=D)
+
+    def slab(grid):
+        return grid.flip(0).reshape(-1)[start:stop].float()
+
+    b1 = dec.b1.clone()
+    b1[0] += SIGMA_RAISE
+    errs = []
+    for label, d in (("seeded", dec), (f"sigma bias +{SIGMA_RAISE}", dec._replace(b1=b1))):
+        g32, p32 = kernel(d, filt, torch.float32), plain(d, filt, torch.float32)
+        kept_k, kept_p = slab(g32) > -1e3, p32 > -1e3
+        flips = int((kept_k != kept_p).sum())
+        agree = kept_k == kept_p
+        print(f"  filtered, {label}: {int(kept_k.sum())} of {p32.numel()} slab voxels survive "
+              f"the crop and the cull ({int((g32 > -1e3).sum())} of {N**3} in the grid); cull "
+              f"decisions that differ: {flips} (counted apart; tol {p32.numel() // 10000})")
+        require(flips <= p32.numel() // 10000, f"K10 lattice: {flips} cull decisions differ")
+        errs.append(float((slab(g32) - p32).abs()[agree].max()))
+        check(f"K10 density, filtered, {label}, f32, where the decisions agree", errs[-1], 1e-6)
+        g16, p16 = kernel(d, filt, torch.float16), plain(d, filt, torch.float16)
+        errs.append(float((slab(g16) - p16.float()).abs()[agree].max()))
+        check(f"K10 density, filtered, {label}, f16 grid, where the decisions agree",
+              errs[-1], 0.0)
+    # without filters: sigma carries the MLP's summation order (K1's 1e-4)
+    # and d density / d sigma <= 1/4
+    gu = kernel(dec, vr.DensityFilters(), torch.float32)
+    errs.append(max_err(slab(gu), plain(dec, vr.DensityFilters(), torch.float32)))
+    check("K10 density, unfiltered, f32 (1e-4 sigma x 1/4)", errs[-1], 2.5e-5)
+    errs.append(max_err(kernel(dec, vr.DensityFilters(), torch.float16), gu.to(torch.float16)))
+    check("K10 density, unfiltered, f16 grid = its f32 grid rounded to f16", errs[-1], 0.0)
+    C = planes.shape[2] // D
+    del gu
+    coords = vol.create_samples_device(N, bw, 0, N**3, device)
+    kept = coords[~vr.triplane_crop_mask(coords, filt.triplane_crop, bw)[:, 0]]
+    n_kept = kept.shape[0]
+    touched = touched_bytes(vr.deep_volumes_cl(planes, D), kept[None], axes, bw)
+    del coords, kept
+    print(f"  points kept by the crop: {n_kept} of {N**3}; texels their corners touch: "
+          f"{touched} of {nbytes(planes)} plane bytes")
+    # per kept point: 3 planes x 2 slices x C lerps and the blend, the mean,
+    # 64 x (bias, softplus, ...) and the tail on the CUDA cores; layer 1 and
+    # net2's sigma n-tile (8 columns) in 3xTF32; 64 softplus x 2 and the
+    # tail's 4 exp/log on the SFU. Bytes: the texels the kept points' corners
+    # touch, read once, and the f16 grid written once.
+    out = record(
+        max(errs), lambda: kernel(dec, filt, torch.float16),
+        lambda: vol.density_grid_plain(planes, dec, N, bw, axes, filt, torch.float16,
+                                       triplane_depth=D),
+        touched + N**3 * 2, n_kept * (3 * C * 14 + C + 64 * 8 + 40), plain_iters=3,
+        tf32_flops=n_kept * 3 * 2 * (C * 64 + 64 * 8), sfu_ops=n_kept * (64 * 2 + 4))
+    out.update(points_kept=n_kept, volume_bytes_touched=touched)
+    print(f"  ms {out['ms']:.6f}: {N**3 / out['ms'] / 1e6:.3f} G lattice points/s; plain "
+          f"{out['plain_ms']:.3f}; bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
+    return out
+
+
+DEEP_KERNELS = ("triplane_decode_deep", "ray_composite", "importance_sample", "upfirdn2d",
+                "modconv_epilogue", "paste_front")
+DEEP_ABSENT = ("triplane_decode", "volume_density", "ess_occupancy", "ess_narrow",
+               "occlusion_volume", "occlusion_sample")
+
+
+def deep_plane_paths(Gd, x, device, card):
+    """The deep-plane generator (flagship eval, triplane_depth DEEP_DEPTH,
+    ESS off, 96+96) on its three entry points, with eval generate's paste
+    and the render occlusion (the JAX package's ESS and grid occlusion fail
+    at D > 1, ROADMAP F12): G.f per call (bench.py's inputs, bs 2), with
+    the bf16 default against the same weights pinned to f32; the
+    per-portrait turntable (a planes bundle of planes alone, then the 16
+    eval views in view batches of 2); Reconstructor.mesh at 256^3 with eval
+    generate's filters and without them (at the grid's own levels,
+    mesh_levels). Each requires K10, K4, K5 and, on the view paths, K2, K3
+    and K8 launched (K10's render form on the views and the mesh's vertex
+    colours, its lattice form on the mesh's grid), and K1, K1v, K6 and K7
+    launched no time. -> (summaries by path, the launch counts of the
+    per-call path and of the no-filters mesh)."""
+    import numpy as np
+
+    from panic3d_tpu_torch import configs
+    from panic3d_tpu_torch.api import Reconstructor
+    from panic3d_tpu_torch.eval import volume as vol
+    from panic3d_tpu_torch.eval.generate import (
+        INFERENCE_OPTS, eval_views, planes_bundle, render_from_planes)
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    paste = dict(INFERENCE_OPTS["paste_params"], occ_impl="render")
+    xp = dict(x, paste_params=paste)
+    summaries = {}
+    out, counts, summ = drive(
+        f"deep planes per call (triplane_depth {DEEP_DEPTH}, ESS off, 96+96, render paste, "
+        f"bs={BATCH})", lambda: Gd.f(xp), BATCH, REQUESTS, card)
+    check_outputs(out, (BATCH, 3, 512, 512))
+    require_launched(counts, DEEP_KERNELS, "deep per call")
+    require_absent(counts, DEEP_ABSENT, "deep per call")
+    require_k4_polyphase(summ, "deep per call")
+    for k in PASTE_KEYS:
+        print(f"  {k} passes {float(out['paste'][k].mean()):.4f}")
+    summaries["deep_per_call"], counts_call = summ, counts
+
+    def make_f32(rendering_kwargs, **kw):
+        return configs.flagship(eval_mode=True, rendering_kwargs=dict(
+            rendering_kwargs, triplane_depth=DEEP_DEPTH), **kw)
+
+    bf16_closeness(Gd, xp, out, make_f32)
+    del out
+
+    opts = dict(EVAL_FILTERS, paste_params=paste)
+    cond1 = {k: v[:1] for k, v in x["cond"].items()}
+    views = eval_views()
+    bundle = planes_bundle(Gd, SEED, cond1, opts)
+    require(set(bundle) == {"ws", "planes"}, f"deep planes bundle holds {set(bundle)}")
+
+    def portrait():
+        bundle = planes_bundle(Gd, SEED, cond1, opts)
+        last = None
+        for i in range(0, len(views), BATCH):
+            cc = views[i:i + BATCH]
+            cc = cc + [cc[-1]] * (BATCH - len(cc))
+            last = render_from_planes(Gd, opts, bundle, [c[2] for c in cc], [c[3] for c in cc],
+                                      [c[4] for c in cc], cond1)
+        return last
+
+    out, counts, summ = drive(
+        f"deep planes turntable ({len(views)} views, view batch {BATCH})", portrait,
+        len(views), DEEP_PORTRAITS, card)
+    check_outputs(out, (BATCH, 3, 512, 512))
+    require_launched(counts, DEEP_KERNELS, "deep turntable")
+    require_absent(counts, DEEP_ABSENT, "deep turntable")
+    print(f"  {summ['ms_per_run'] / 1e3:.4f} s/portrait  [{card}]")
+    summaries["deep_turntable"] = summ
+    del out
+
+    _, planes = vol.portrait_planes(Gd, portrait_input(Gd, device))
+    grid = vol.density_grid(planes, Gd._decoder(), MESH_RES, Gd.rk["box_warp"],
+                            vr.generate_plane_axes(Gd.rk["use_triplane"]), vr.DensityFilters(),
+                            triplane_depth=DEEP_DEPTH)
+    level0 = mesh_levels(grid)[0]
+    del grid
+    for key, mopts, level in (("deep_mesh_eval_filters", EVAL_FILTERS, LEVEL),
+                              ("deep_mesh_no_filters", {}, level0)):
+        rec = Reconstructor(model=Gd, opts=mopts)
+        mesh, counts, summ = drive(
+            f"deep planes mesh, {'eval filters' if mopts else 'no filters'} ({MESH_RES}^3, "
+            f"level {level:.6f})", lambda: rec.mesh(cond1, resolution=MESH_RES, level=level), 1,
+            MESH_RUNS, card, unit="portraits", waits=lambda m: 1 + int(len(m["verts"]) > 0))
+        stages = {}
+        rec.mesh(cond1, resolution=MESH_RES, level=level, stages=stages)
+        v, f, c = mesh["verts"], mesh["faces"], mesh["colors"]
+        require(np.isfinite(v).all() and (f.size == 0 or (f.min() >= 0 and f.max() < len(v)))
+                and (c.size == 0 or (c.min() >= 0 and c.max() <= 1)), f"{key}: bad mesh")
+        print(f"  {summ['ms_per_run'] / 1e3:.4f} s/portrait; one staged run: "
+              + ", ".join(f"{k} {t * 1e3:.3f} ms" for k, t in stages.items())
+              + f"; {len(v)} verts, {len(f)} faces  [{card}]")
+        require_launched(counts, ("volume_density_deep", "upfirdn2d", "modconv_epilogue")
+                         + (("triplane_decode_deep",) if len(v) else ()), key)
+        require_absent(counts, DEEP_ABSENT, key)
+        summ.update(stages_ms={k: t * 1e3 for k, t in stages.items()}, verts=len(v),
+                    faces=len(f), level=level)
+        summaries[key] = summ
+    return summaries, (counts_call, counts)
+
+
 def require_k4_polyphase(summary, label):
     """Every K4 launch of a path ran the polyphase (up2) kernel."""
     k4 = summary["launches_per_run"].get("upfirdn2d", 0)
@@ -1852,6 +2176,12 @@ def require_k4_polyphase(summary, label):
 def require_launched(counts, names, label):
     missing = [k for k in names if counts[k] == 0]
     require(not missing, f"{label}: kernels not launched: {missing}")
+
+
+def require_absent(counts, names, label):
+    launched = {k: counts[k] for k in names if counts[k]}
+    print(f"  launched no time: {', '.join(names)}")
+    require(not launched, f"{label}: kernels launched off their path: {launched}")
 
 
 def check_outputs(out, shape):
@@ -1887,10 +2217,11 @@ def device_busy(trace: dict) -> str:
 
 
 def device_time_by_kind(trace: dict) -> str:
-    """Device kernel time in a profiled run by kind: K4, K1, K5, PyTorch's
-    elementwise kernels (the epilogue's unfused ops and other glue), the
-    other kernels."""
-    kinds = {"K4 upfirdn2d": "upfirdn2d", "K1 triplane_decode": "triplane_decode_kernel",
+    """Device kernel time in a profiled run by kind: K10, K4, K1, K5, K2,
+    K7a, PyTorch's elementwise kernels (the epilogue's unfused ops and
+    other glue), the other kernels."""
+    kinds = {"K10 triplane_decode_deep": r"triplane_decode_kernel<[^>]*, [12]>",
+             "K4 upfirdn2d": "upfirdn2d", "K1 triplane_decode": "triplane_decode_kernel",
              "K5 modconv_epilogue": "modconv_epilogue", "K2 ray_composite": "ray_composite",
              "K7a occlusion_volume": "occlusion_volume_kernel",
              "K7a factor_terms": "factor_terms_kernel", "PyTorch elementwise": "elementwise_kernel"}
@@ -1900,7 +2231,7 @@ def device_time_by_kind(trace: dict) -> str:
         if e.get("ph") != "X" or e.get("cat") != "kernel":
             continue
         name = e.get("name", "")
-        kind = next((k for k, part in kinds.items() if part in name), "other")
+        kind = next((k for k, part in kinds.items() if re.search(part, name)), "other")
         times[kind] += e["dur"]
         counts[kind] += 1
     return "device kernel time by kind: " + ", ".join(
@@ -1916,7 +2247,8 @@ ESS_PASTE_KERNELS = RENDER_KERNELS + ("ess_occupancy", "ess_narrow", "occlusion_
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one ESS + paste request into DIR")
+                    help="also profile one ESS + paste request, one turntable portrait "
+                         "and one deep-plane request into DIR")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels, then stop")
     args = ap.parse_args(argv)
@@ -1960,6 +2292,10 @@ def main(argv=None) -> int:
         G.decoder.net[2].bias[0] += 2.5   # so that something renders (as test_flagship_parity)
     Ge = configs.flagship(eval_mode=True, ess=True).eval()
     Ge.load_state_dict(G.state_dict())
+    Gd = configs.flagship(eval_mode=True, rendering_kwargs=dict(triplane_depth=DEEP_DEPTH))
+    Gd = Gd.init_weights(SEED).eval()
+    with torch.no_grad():
+        Gd.decoder.net[2].bias[0] += 2.5
     paste = INFERENCE_OPTS["paste_params"]
 
     with torch.no_grad():
@@ -1977,6 +2313,7 @@ def main(argv=None) -> int:
             "triplane_decode_vertex_colours")
         checks.update(volume_checks)
         checks.update(k13_checks(device))
+        checks.update(k10_checks(Gd, device))
         grad_guard_checks(device)
         if args.kernels_only:
             print(json.dumps({"kernels": [dict(name=n, **checks[n]) for n in KERNELS]}))
@@ -1984,6 +2321,7 @@ def main(argv=None) -> int:
             return 0
         tiny_end_to_end(device, ess_paste=False)
         tiny_end_to_end(device, ess_paste=True)
+        tiny_end_to_end(device, ess_paste=False, deep=True)
 
         # path 1: settings parity (ESS off, 96+96, paste off)
         out, counts_parity, parity = drive(
@@ -2054,6 +2392,15 @@ def main(argv=None) -> int:
                                        unit="calls")
         require_launched(counts_probe, ("gather_dot",), "probe")
 
+        # path 4: the deep-plane generator (triplane_depth 2) per call, per
+        # portrait and through the mesh
+        deep, counts_deep = deep_plane_paths(Gd, x, device, card)
+        for name in ("triplane_decode_deep", "volume_density_deep"):
+            checks[name]["launches_per_path"] = {
+                k: v["launches_per_run"].get(name, 0) for k, v in deep.items()}
+            print(f"K10 {name} launches per run: " + ", ".join(
+                f"{k} {n:g}" for k, n in checks[name]["launches_per_path"].items()))
+
         geometry, counts_geom = geometry_path(Ge, device, card, levels)
         eval_cli, counts_eval = eval_cli_path(Ge, device, card)
 
@@ -2063,7 +2410,9 @@ def main(argv=None) -> int:
             from torch.profiler import ProfilerActivity, profile
 
             Path(args.profile).mkdir(parents=True, exist_ok=True)
-            for name, fn in (("ess_paste", lambda: Ge.f(xp)), ("turntable", portrait)):
+            xpd = dict(xp, paste_params=dict(paste, occ_impl="render"))
+            for name, fn in (("ess_paste", lambda: Ge.f(xp)), ("turntable", portrait),
+                             ("deep_per_call", lambda: Gd.f(xpd))):
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     fn()
                     torch.cuda.synchronize()
@@ -2071,7 +2420,8 @@ def main(argv=None) -> int:
                 (Path(args.profile) / f"{name}_profile.txt").write_text(table_txt)
                 trace = Path(args.profile) / f"{name}_trace.json"
                 prof.export_chrome_trace(str(trace))
-                what = "ESS + paste request" if name == "ess_paste" else "turntable portrait"
+                what = {"ess_paste": "ESS + paste request", "turntable": "turntable portrait",
+                        "deep_per_call": "deep-plane request (render paste)"}[name]
                 print(f"profile of one {what}:")
                 print("\n".join(table_txt.splitlines()[:40]))
                 trace_json = json.loads(trace.read_text())
@@ -2080,11 +2430,12 @@ def main(argv=None) -> int:
 
     reset_launch_counts()
     paths = {"settings_parity": parity, "ess_paste_per_call": per_call, "turntable": turn,
-             "probe": probe, **geometry, "eval_cli": eval_cli}
+             "probe": probe, **deep, **geometry, "eval_cli": eval_cli}
     print(json.dumps({"paths": paths, "card": card}))
     # each kernel's launches on the path that launches it: the ESS + paste
-    # request, else the geometry path, else eval measure, else the probe
-    sources = (counts_main, counts_geom, counts_eval, counts_probe)
+    # request, else the geometry path, else eval measure, else the probe,
+    # else the deep-plane request, else the deep-plane mesh
+    sources = (counts_main, counts_geom, counts_eval, counts_probe, *counts_deep)
     launches = {name: next((c[name] for c in sources if c[name]), 0) for name in KERNELS}
     require_launched(launches, KERNELS, "all paths")
     summary = {"kernels": [

@@ -7,7 +7,9 @@
     mesh = rec.mesh(cond)                   # verts / faces / colors
 
 One object owns the generator. Views render from one planes bundle per
-portrait (eval/generate.py), the mesh through eval/volume.py:extract_mesh.
+portrait (eval/generate.py), the mesh through eval/volume.py:extract_mesh;
+a deep-plane generator (triplane_depth > 1) takes opts without ESS and
+with paste_params' occ_impl='render' (ROADMAP F12).
 Not ported yet (they raise NotImplementedError): checkpoint loading
 (``ckpt=``), the multi-device ``mesh=`` sharding, and the conditioning
 preprocess's line filler and ResNet-PCA features (``rmline=``, ``resnet=``;

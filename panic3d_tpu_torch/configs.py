@@ -1,5 +1,6 @@
 """Model configurations (panic3d_tpu/configs.py): ``flagship`` is the
-ecrutileE_eclustrousC 512^2 generator, ``tiny`` the CPU-sized test config.
+ecrutileE_eclustrousC 512^2 generator, ``tiny`` the CPU-sized test config,
+``from_snapshot_config`` the generator a trainer snapshot's config names.
 
 Both build on the CUDA device unless the caller passes ``device="cpu"``
 (or another device); without a CUDA device and without that argument they
@@ -85,6 +86,37 @@ def flagship(eval_mode: bool = False, ess: bool = False, device=None,
     )
     kwargs.update(overrides)
     return TriPlaneGenerator(**kwargs).to(dev)
+
+
+def from_snapshot_config(config, eval_mode: bool = False, ess: bool = False,
+                         device=None) -> TriPlaneGenerator:
+    """The generator a trainer snapshot was trained with
+    (panic3d_tpu/configs.py:92-126): the snapshot config's ``model_kwargs``
+    dict (family 'tiny' or 'flagship'), else the flat trainer args of older
+    snapshots (``tiny``, or ``cond_mode`` with triplane_width,
+    triplane_depth, backbone_resolution and resolution), else the default
+    flagship; on ``device`` (CUDA by default)."""
+    config = dict(config or {})
+    mk = dict(config.get("model_kwargs") or {})
+    family = mk.pop("family", "flagship")
+    if config.get("model_kwargs") is not None:
+        if family == "tiny":
+            mk.setdefault("force_sigmoid", eval_mode)
+            return tiny(device=device, **mk)
+        return flagship(eval_mode=eval_mode, ess=ess, device=device, **mk)
+    if config.get("tiny"):
+        return tiny(cond_mode="ortho_front.add_4.reschonk_add_16", force_sigmoid=eval_mode,
+                    device=device)
+    if "cond_mode" in config:
+        return flagship(
+            eval_mode=eval_mode, ess=ess, device=device,
+            cond_mode=config["cond_mode"],
+            triplane_width=config.get("triplane_width", 32),
+            backbone_resolution=config.get("backbone_resolution", 256),
+            img_resolution=config.get("resolution", 512),
+            rendering_kwargs=dict(triplane_depth=config.get("triplane_depth", 1)),
+        )
+    return flagship(eval_mode=eval_mode, ess=ess, device=device)
 
 
 def tiny(device=None, **overrides) -> TriPlaneGenerator:

@@ -55,6 +55,24 @@
 // package's f32 divisions and fmod, explicitly rounded, so the lattice is
 // bit-identical to its plain version's, and stores the density in the
 // flipped layout marching tetrahedra reads.
+//
+// K10's trilinear K1 form (triplane_decode_deep, volume_density_deep)
+// replaces panic3d_tpu/ops/grid_sample.py:grid_sample_3d_points (:266) where
+// the JAX package's deep-plane decode runs it (triplane_depth D > 1:
+// renderer.py:run_model -> sample_from_planes' 3-D branch, :86-92, then
+// OSGDecoder and the filters; eval/volume.py's density grid likewise). It
+// is K1's kernel with a trilinear gather: the planes come as N*3
+// channels-last volumes [N*3, D, H, W, C], each plane's point has a third
+// projected coordinate that indexes D, and a lane reads its 16-byte chunk
+// of the 8 corners (zeros outside the volume), lerps each z slice in x and
+// y, then blends the slices, 0 + s(z0) * (1 - wz) + s(z1) * wz, in f32, as
+// grid_sample_3d_points orders it. The plane mean, the 3xTF32 MLP and the
+// filters are K1's, so the [N*3, M, C] feature block never reaches device
+// memory. triplane_decode_deep has K1's contract (rgb and filtered sigma
+// at given points); volume_density_deep decodes the mesh lattice, making
+// each point from its flat index as K1v does, skips a warp tile whose 16
+// points the crop removes, runs net2's sigma n-tile alone, and writes
+// K1v's density (sigma2density, the crop, the cull) into the flipped grid.
 #include <climits>
 
 #include <cuda_fp16.h>
@@ -68,7 +86,39 @@ constexpr int HIDDEN = 64;
 constexpr int OUT = 33;     // sigma + 32 feature channels
 constexpr int THREADS = 128;
 
-struct Proj { float a[3][3][2]; };   // plane p: uv[d] = sum_c xyz[c] * a[p][c][d]
+// plane p: uv[d] = sum_c xyz[c] * a[p][c][d]; the deep planes' third
+// coordinate (the volume's depth) w = sum_c xyz[c] * z[p][c]
+struct Proj {
+  float a[3][3][2];
+  float z[3][3];
+};
+
+// proj: 18 floats [plane][xyz][uv], or with deep 27 floats [plane][xyz][uvw]
+Proj make_proj(const float* proj, bool deep) {
+  Proj pj{};
+  const int k = deep ? 3 : 2;
+  for (int p = 0; p < 3; ++p)
+    for (int c = 0; c < 3; ++c) {
+      for (int d = 0; d < 2; ++d) pj.a[p][c][d] = proj[(p * 3 + c) * k + d];
+      if (deep) pj.z[p][c] = proj[(p * 3 + c) * k + 2];
+    }
+  return pj;
+}
+
+// the forms of K1's kernel: K1 (bilinear planes [N,3,H,W,C] at given
+// points); K10's trilinear form on deep volumes [N*3,D,H,W,C] at given
+// points (TRILINEAR) or at the points of the mesh lattice, written as the
+// density grid (TRILINEAR_GRID)
+enum Form { BILINEAR = 0, TRILINEAR = 1, TRILINEAR_GRID = 2 };
+
+// what the trilinear forms take beyond K1's arguments
+struct Deep {
+  int D;               // the volumes' depth
+  int lat_n;           // TRILINEAR_GRID: the lattice's N, its spacing and origin
+  float voxel, origin;
+  void* grid;          // TRILINEAR_GRID: the density grid [N,N,N], axis 0 flipped
+  int grid_f16;        // f16, else f32
+};
 
 // ---- K1: gather, then the MLP on the tensor cores ----
 
@@ -244,19 +294,104 @@ __device__ __forceinline__ Corners plane_corners(const T* __restrict__ planes, i
   return k;
 }
 
+// the point of flat index i of the N^3 lattice (create_samples_device): f32
+// divisions of the flat index (the sheared lattice the reference meshes
+// bake in), then * voxel + origin
+__device__ __forceinline__ void lattice_point(long long i, int N, float voxel, float origin,
+                                              float& x, float& y, float& z) {
+  const float fi = (float)i, fN = (float)N;
+  const float s1 = fmodf(__fdiv_rn(fi, fN), fN);
+  const float s0 = fmodf(__fdiv_rn(__fdiv_rn(fi, fN), fN), fN);
+  const float s2 = (float)(i % N);
+  x = __fadd_rn(__fmul_rn(s0, voxel), origin);
+  y = __fadd_rn(__fmul_rn(s1, voxel), origin);
+  z = __fadd_rn(__fmul_rn(s2, voxel), origin);
+}
+
+// one deep plane's trilinear sample for a point, added to feat: the CH
+// channels at c0 of plane p's volume [D,H,W,C] (zeros padding). The order is
+// ops/grid_sample.py:grid_sample_3d_points': per z slice the xy lerps of
+// grid_sample_2d_points, then 0 + s(z0) * (1 - wz) + s(z1) * wz.
+template <typename T, int C>
+__device__ __forceinline__ void deep_plane_sample(const T* __restrict__ vols, int n, int p,
+                                                  int D, int H, int W, const Proj& pj,
+                                                  float sx, float sy, float sz, int c0,
+                                                  float* feat) {
+  constexpr int CH = 16 / (int)sizeof(T);
+  const float gx = sx * pj.a[p][0][0] + sy * pj.a[p][1][0] + sz * pj.a[p][2][0];
+  const float gy = sx * pj.a[p][0][1] + sy * pj.a[p][1][1] + sz * pj.a[p][2][1];
+  const float gz = sx * pj.z[p][0] + sy * pj.z[p][1] + sz * pj.z[p][2];
+  const float ix = ((gx + 1.f) * (float)W - 1.f) / 2.f;
+  const float iy = ((gy + 1.f) * (float)H - 1.f) / 2.f;
+  const float iz = ((gz + 1.f) * (float)D - 1.f) / 2.f;
+  const float fx0 = floorf(ix), fy0 = floorf(iy), fz0 = floorf(iz);
+  const float wx = ix - fx0, wy = iy - fy0, wz = iz - fz0;
+  // clamped before the conversion, so that far-out points convert safely
+  // (a lower corner below -1 or past the last texel is outside either way)
+  const int x0 = (int)fminf(fmaxf(fx0, -2.f), (float)W);
+  const int y0 = (int)fminf(fmaxf(fy0, -2.f), (float)H);
+  const int z0 = (int)fminf(fmaxf(fz0, -2.f), (float)D);
+  const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
+  const bool vy0 = y0 >= 0 && y0 < H, vy1 = y0 + 1 >= 0 && y0 + 1 < H;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  uint4 r[2][4];
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz) {
+    const int z = z0 + dz;
+    const bool vz = z >= 0 && z < D;
+    const T* r00 = vols + ((((long long)(n * 3 + p) * D + z) * H + y0) * W + x0) * C + c0;
+    const T* r10 = r00 + (long long)W * C;
+    r[dz][0] = vz && vy0 && vx0 ? __ldg(reinterpret_cast<const uint4*>(r00)) : zero;
+    r[dz][1] = vz && vy0 && vx1 ? __ldg(reinterpret_cast<const uint4*>(r00 + C)) : zero;
+    r[dz][2] = vz && vy1 && vx0 ? __ldg(reinterpret_cast<const uint4*>(r10)) : zero;
+    r[dz][3] = vz && vy1 && vx1 ? __ldg(reinterpret_cast<const uint4*>(r10 + C)) : zero;
+  }
+  float v[CH];
+#pragma unroll
+  for (int k = 0; k < CH; ++k) v[k] = 0.f;
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz) {
+    const float wzz = dz ? wz : 1.f - wz;
+    float v00[CH], v01[CH], v10[CH], v11[CH];
+    unpack(r[dz][0], v00, vols);
+    unpack(r[dz][1], v01, vols);
+    unpack(r[dz][2], v10, vols);
+    unpack(r[dz][3], v11, vols);
+#pragma unroll
+    for (int k = 0; k < CH; ++k) {
+      const float top = v00[k] + (v01[k] - v00[k]) * wx;
+      const float bot = v10[k] + (v11[k] - v10[k]) * wx;
+      v[k] += (top + (bot - top) * wy) * wzz;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < CH; ++k) feat[k] += v[k];
+}
+
+// density d of lattice point i (flat order) into the grid, axis 0 flipped
+__device__ __forceinline__ void store_density(const Deep& dp, long long i, float d) {
+  const long long nn = (long long)dp.lat_n * dp.lat_n;
+  const long long o = (dp.lat_n - 1 - i / nn) * nn + i % nn;
+  if (dp.grid_f16) static_cast<__half*>(dp.grid)[o] = __float2half_rn(d);
+  else static_cast<float*>(dp.grid)[o] = d;
+}
+
 // the plane-mean features of the warp's PTS points [t0, t0 + PTS) into
 // tile[point][C + 4] (zeros past the end). A point is served by C / CH
 // neighbouring lanes, each reading one 16-byte chunk of CH channels of every
 // corner, so a corner's C channels are one coalesced request; the next
 // plane's four chunks are in flight while a plane's lerps run. The lerps and
 // their order are ops/grid_sample.py:grid_sample_2d_points' (align_corners=
-// False, zeros padding), then the plane mean, ((p0 + p1) + p2) / 3.
-template <typename T, int C>
+// False, zeros padding), then the plane mean, ((p0 + p1) + p2) / 3. The
+// trilinear forms read the deep volumes instead (deep_plane_sample, one
+// plane at a time: its 8 chunks are in flight together), at the given
+// points or, in TRILINEAR_GRID, at the lattice points of the flat indices.
+template <typename T, int C, int FORM>
 __device__ __forceinline__ void gather_tile(const T* __restrict__ planes,
                                             const float* __restrict__ coords, long long t0,
                                             long long total, int M, int H, int W,
-                                            const Proj& pj, float coord_scale, int lane,
-                                            float* tile) {
+                                            const Deep& dp, const Proj& pj,
+                                            float coord_scale, int lane, float* tile) {
   constexpr int CH = 16 / (int)sizeof(T);    // channels per chunk
   constexpr int TPP = C / CH;                // lanes per point
   constexpr int PPP = 32 / TPP;              // points per pass
@@ -271,7 +406,25 @@ __device__ __forceinline__ void gather_tile(const T* __restrict__ planes,
     float feat[CH];
 #pragma unroll
     for (int c = 0; c < CH; ++c) feat[c] = 0.f;
-    if (pt < total) {
+    if constexpr (FORM != BILINEAR) {
+      if (pt < total) {
+        const int n = (int)(pt / M);
+        float x, y, z;
+        if constexpr (FORM == TRILINEAR_GRID) {
+          lattice_point(pt, dp.lat_n, dp.voxel, dp.origin, x, y, z);
+        } else {
+          x = coords[pt * 3 + 0];
+          y = coords[pt * 3 + 1];
+          z = coords[pt * 3 + 2];
+        }
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          deep_plane_sample<T, C>(planes, n, p, dp.D, H, W, pj, coord_scale * x,
+                                  coord_scale * y, coord_scale * z, cc * CH, feat);
+#pragma unroll
+        for (int c = 0; c < CH; ++c) feat[c] = feat[c] / 3.f;
+      }
+    } else if (pt < total) {
       const int n = (int)(pt / M);
       const float sx = coord_scale * coords[pt * 3 + 0];
       const float sy = coord_scale * coords[pt * 3 + 1];
@@ -304,7 +457,7 @@ __device__ __forceinline__ void gather_tile(const T* __restrict__ planes,
   }
 }
 
-template <typename T, int C>
+template <typename T, int C, int FORM>
 __global__ void __launch_bounds__(32 * K1_WARPS, K1_BLOCKS) triplane_decode_kernel(
     const T* __restrict__ planes, const float* __restrict__ coords,
     const float* __restrict__ w0, const float* __restrict__ b0,
@@ -312,7 +465,7 @@ __global__ void __launch_bounds__(32 * K1_WARPS, K1_BLOCKS) triplane_decode_kern
     T* __restrict__ rgb, float* __restrict__ sigma_out,
     int N, int M, int H, int W, Proj pj, float coord_scale, float g0, float g1,
     float bias_scale, int force_sigmoid, int use_crop, float crop_lim,
-    int cull_mode, float cull_thresh) {
+    int cull_mode, float cull_thresh, Deep dp) {
   constexpr int FS = C + 4;
   constexpr int NT1 = HIDDEN / 8, KS2 = HIDDEN / 8, NT2 = N2 / 8;
   extern __shared__ uint4 smem_raw[];
@@ -336,7 +489,19 @@ __global__ void __launch_bounds__(32 * K1_WARPS, K1_BLOCKS) triplane_decode_kern
   const long long total = (long long)N * M;
   for (long long t0 = ((long long)blockIdx.x * K1_WARPS + warp) * PTS; t0 < total;
        t0 += (long long)gridDim.x * K1_WARPS * PTS) {
-    gather_tile<T, C>(planes, coords, t0, total, M, H, W, pj, coord_scale, lane, tile);
+    if constexpr (FORM == TRILINEAR_GRID) {
+      // a tile whose points the crop removes all is -1e3 and is not decoded
+      bool cropped = true;
+      if (lane < PTS && t0 + lane < total) {
+        float x, y, z;
+        lattice_point(t0 + lane, dp.lat_n, dp.voxel, dp.origin, x, y, z);
+        cropped = use_crop && !(fabsf(x) <= crop_lim && fabsf(z) <= crop_lim);
+        if (cropped) store_density(dp, t0 + lane, -1e3f);
+      }
+      if (__all_sync(0xffffffffu, cropped)) continue;
+    }
+    gather_tile<T, C, FORM>(planes, coords, t0, total, M, H, W, dp, pj, coord_scale, lane,
+                            tile);
     __syncwarp();
 
     // FC(C->64): hidden [16 x 64] in 8 n-tiles; the lane holds rows g, g+8
@@ -358,6 +523,37 @@ __global__ void __launch_bounds__(32 * K1_WARPS, K1_BLOCKS) triplane_decode_kern
       }
     }
     __syncwarp();
+
+    if constexpr (FORM == TRILINEAR_GRID) {
+      // net2's sigma n-tile alone (column SIGMA_COL: lanes t = 0 hold it
+      // for rows g and g + 8), then the density of the points the crop
+      // keeps (the others were written above)
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < KS2; ++ks) {
+        uint32_t hi[4], lo[4];
+        load_a(tile + ks * 8 + t, g, HS, hi, lo);
+        mma_3xtf32(o, hi, lo, s.w1f[ks][NT2 - 1][lane]);
+      }
+      if (t == 0) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const long long pt = t0 + g + 8 * half;
+          if (pt >= total) continue;
+          float x, y, z;
+          lattice_point(pt, dp.lat_n, dp.voxel, dp.origin, x, y, z);
+          if (use_crop && !(fabsf(x) <= crop_lim && fabsf(z) <= crop_lim)) continue;
+          // sigma2density, then the cloud cull on the density (K1v's tail)
+          const float sigma = o[2 * half] + s.b1[SIGMA_COL];
+          float d = __fsub_rn(1.f, expf(-softplus_f(__fsub_rn(sigma, 1.f))));
+          if (cull_mode && __fsub_rn(1.f, expf(-softplus_f(__fsub_rn(d, 1.f)))) < cull_thresh)
+            d = -1e3f;
+          store_density(dp, pt, d);
+        }
+      }
+      __syncwarp();   // the hidden layer is read before the next tile's features land
+      continue;
+    }
 
     // FC(64->33, padded to 40; rgb in columns 0-31, sigma in column 32)
     float o[NT2][4];
@@ -409,16 +605,16 @@ __global__ void __launch_bounds__(32 * K1_WARPS, K1_BLOCKS) triplane_decode_kern
   }
 }
 
-template <typename T, int C>
+template <typename T, int C, int FORM = BILINEAR>
 cudaError_t launch(const void* planes, const float* coords, const float* w0,
                    const float* b0, const float* w1, const float* b1, void* rgb,
                    float* sigma, int N, int M, int H, int W, const Proj& pj,
                    float coord_scale, float g0, float g1, float bias_scale,
                    int force_sigmoid, int use_crop, float crop_lim, int cull_mode,
-                   float cull_thresh, cudaStream_t stream) {
+                   float cull_thresh, cudaStream_t stream, const Deep& dp = Deep{}) {
   // above 48 KB of shared memory a block must ask for it (once per kernel)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      triplane_decode_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      triplane_decode_kernel<T, C, FORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)sizeof(K1Smem<C>));
   if (attr != cudaSuccess) return attr;
   int dev = 0, sms = 132;
@@ -429,25 +625,12 @@ cudaError_t launch(const void* planes, const float* coords, const float* w0,
   long long blocks = (tiles + K1_WARPS - 1) / K1_WARPS;
   if (blocks > (long long)K1_BLOCKS * sms) blocks = (long long)K1_BLOCKS * sms;
   if (blocks < 1) blocks = 1;
-  triplane_decode_kernel<T, C><<<(unsigned)blocks, 32 * K1_WARPS, sizeof(K1Smem<C>), stream>>>(
-      static_cast<const T*>(planes), coords, w0, b0, w1, b1, static_cast<T*>(rgb),
-      sigma, N, M, H, W, pj, coord_scale, g0, g1, bias_scale, force_sigmoid,
-      use_crop, crop_lim, cull_mode, cull_thresh);
+  triplane_decode_kernel<T, C, FORM>
+      <<<(unsigned)blocks, 32 * K1_WARPS, sizeof(K1Smem<C>), stream>>>(
+          static_cast<const T*>(planes), coords, w0, b0, w1, b1, static_cast<T*>(rgb),
+          sigma, N, M, H, W, pj, coord_scale, g0, g1, bias_scale, force_sigmoid,
+          use_crop, crop_lim, cull_mode, cull_thresh, dp);
   return cudaGetLastError();
-}
-
-// the point of flat index i of the N^3 lattice (create_samples_device): f32
-// divisions of the flat index (the sheared lattice the reference meshes
-// bake in), then * voxel + origin
-__device__ __forceinline__ void lattice_point(long long i, int N, float voxel, float origin,
-                                              float& x, float& y, float& z) {
-  const float fi = (float)i, fN = (float)N;
-  const float s1 = fmodf(__fdiv_rn(fi, fN), fN);
-  const float s0 = fmodf(__fdiv_rn(__fdiv_rn(fi, fN), fN), fN);
-  const float s2 = (float)(i % N);
-  x = __fadd_rn(__fmul_rn(s0, voxel), origin);
-  y = __fadd_rn(__fmul_rn(s1, voxel), origin);
-  z = __fadd_rn(__fmul_rn(s2, voxel), origin);
 }
 
 // ---- K1v: bricks of the lattice, plane windows in shared memory ----
@@ -820,8 +1003,7 @@ PANIC3D_EXPORT int triplane_decode(
     int N, int M, int H, int W, int C, const float* proj, float coord_scale,
     float g0, float g1, float bias_scale, int force_sigmoid, int use_crop,
     float crop_lim, int cull_mode, float cull_thresh, void* stream) {
-  Proj pj;
-  for (int i = 0; i < 18; ++i) (&pj.a[0][0][0])[i] = proj[i];
+  const Proj pj = make_proj(proj, false);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define P3D_K1(T, CC)                                                              \
   return (int)launch<T, CC>(planes, coords, w0, b0, w1, b1, rgb, sigma, N, M, H, W, \
@@ -840,6 +1022,66 @@ PANIC3D_EXPORT int triplane_decode(
   return (int)cudaErrorInvalidValue;
 }
 
+// K10's trilinear K1 form. vols: the deep planes as N*3 volumes
+// [N*3,D,H,W,C] channels-last, f32 or bf16, 16-byte aligned; proj: 27
+// floats, [plane][xyz][uvw] (w indexes D); the rest as K1.
+PANIC3D_EXPORT int triplane_decode_deep(
+    const void* vols, int dtype, const float* coords, const float* w0,
+    const float* b0, const float* w1, const float* b1, void* rgb, float* sigma,
+    int N, int M, int D, int H, int W, int C, const float* proj, float coord_scale,
+    float g0, float g1, float bias_scale, int force_sigmoid, int use_crop,
+    float crop_lim, int cull_mode, float cull_thresh, void* stream) {
+  if (D < 1) return (int)cudaErrorInvalidValue;
+  const Proj pj = make_proj(proj, true);
+  Deep dp{};
+  dp.D = D;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define P3D_K10(T, CC)                                                                 \
+  return (int)launch<T, CC, TRILINEAR>(vols, coords, w0, b0, w1, b1, rgb, sigma, N, M, \
+                                       H, W, pj, coord_scale, g0, g1, bias_scale,      \
+                                       force_sigmoid, use_crop, crop_lim, cull_mode,   \
+                                       cull_thresh, s, dp)
+  if (dtype == DT_BF16) {
+    if (C == 32) P3D_K10(__nv_bfloat16, 32);
+    if (C == 16) P3D_K10(__nv_bfloat16, 16);
+    if (C == 8) P3D_K10(__nv_bfloat16, 8);
+  } else {
+    if (C == 32) P3D_K10(float, 32);
+    if (C == 16) P3D_K10(float, 16);
+    if (C == 8) P3D_K10(float, 8);
+  }
+#undef P3D_K10
+  return (int)cudaErrorInvalidValue;
+}
+
+// K10's trilinear K1 form on the mesh lattice. vols: one portrait's deep
+// planes as [3,D,H,W,C] channels-last f32; proj as triplane_decode_deep;
+// out [N,N,N] f16 (out_f16) or f32, axis 0 flipped, K1v's densities
+// (sigma2density, the crop on the lattice point, the cull on the density
+// when use_cull); N at most 256 (the flat index is exact in f32).
+PANIC3D_EXPORT int volume_density_deep(
+    const float* vols, const float* w0, const float* b0, const float* w1,
+    const float* b1, void* out, int out_f16, int N, int D, int H, int W, int C,
+    const float* proj, float coord_scale, float g0, float g1, float bias_scale,
+    float voxel, float origin, int use_crop, float crop_lim, int use_cull,
+    float cull_thresh, void* stream) {
+  if (N < 2 || N > 256 || D < 1) return (int)cudaErrorInvalidValue;
+  const Proj pj = make_proj(proj, true);
+  const Deep dp{D, N, voxel, origin, out, out_f16};
+  const int M = N * N * N;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define P3D_K10V(CC)                                                                   \
+  return (int)launch<float, CC, TRILINEAR_GRID>(vols, nullptr, w0, b0, w1, b1, nullptr, \
+                                                nullptr, 1, M, H, W, pj, coord_scale,   \
+                                                g0, g1, bias_scale, 0, use_crop,        \
+                                                crop_lim, use_cull, cull_thresh, s, dp)
+  if (C == 32) P3D_K10V(32);
+  if (C == 16) P3D_K10V(16);
+  if (C == 8) P3D_K10V(8);
+#undef P3D_K10V
+  return (int)cudaErrorInvalidValue;
+}
+
 // K1v. planes: one portrait's [3,H,W,C] channels-last f32, 16-byte aligned;
 // w0..b1 as K1; out [N,N,N] f16 (out_f16) or f32, axis 0 flipped. use_cull
 // applies the cloud cull to the density. N must be at most 256 (the flat
@@ -851,8 +1093,7 @@ PANIC3D_EXPORT int volume_density(
     float coord_scale, float g0, float g1, float bias_scale, float voxel, float origin,
     int use_crop, float crop_lim, int use_cull, float cull_thresh, int* stats, void* stream) {
   if (N < 2 || N > 256) return (int)cudaErrorInvalidValue;
-  Proj pj;
-  for (int i = 0; i < 18; ++i) (&pj.a[0][0][0])[i] = proj[i];
+  const Proj pj = make_proj(proj, false);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define P3D_K1V(CC)                                                                  \
   return (int)launch_volume<CC>(planes, w0, b0, w1, b1, out, out_f16, N, H, W, pj,    \

@@ -66,7 +66,10 @@ def planes_bundle(G, seed: int, cond: dict, opts: dict | None = None,
     computed once instead of once per view batch, output-identically -- the
     ESS occupancy ('occ', 'occ_out') when ESS is on and the paste-front
     occlusion volume ('occ_A', 'occ_d0') when paste_params use the grid
-    occlusion. ``cond`` holds one portrait's conditioning (batch 1)."""
+    occlusion. A deep-plane generator (triplane_depth > 1) has neither:
+    it renders without ESS and pastes with occ_impl='render' (the others
+    raise, ROADMAP F12), so its bundle is ws and planes alone. ``cond``
+    holds one portrait's conditioning (batch 1)."""
     opts = opts or {}
     pp = opts.get("paste_params") or {}
     z = to_device(seeds_to_z([seed], G.z_dim), G.device)

@@ -16,6 +16,13 @@ backbone runs once per portrait, and:
 - ``get_volume`` (the full rgb + sigma volume a viewer reads) decodes the
   lattice in chunks through K1.
 
+Deep planes (triplane_depth > 1) take neither K1v nor K1 but K10, the
+trilinear K1 form (csrc/triplane_decode.cu): ``density_grid_deep_kernel``
+decodes the whole lattice in one launch as K1v does (its points from their
+flat indices, the same densities and filters, the grid written flipped),
+and renderer.triplane_decode_deep decodes the volume and the vertex
+colours.
+
 ``density_grid_plain`` is K1v's plain PyTorch version: the CPU path and the
 kernel's oracle.
 """
@@ -117,9 +124,11 @@ def portrait_planes(G, xin: dict, noise_mode: str = "const"):
 @torch.no_grad()
 def density_grid_plain(planes, dec: vr.Decoder, N: int, box_warp: float, plane_axes,
                        filters: vr.DensityFilters, dtype=torch.float16, chunk: int = 2**17,
-                       start: int = 0, stop: Optional[int] = None) -> torch.Tensor:
+                       start: int = 0, stop: Optional[int] = None,
+                       triplane_depth: int = 1) -> torch.Tensor:
     """Densities of lattice points [start, stop) (flat order, not flipped)
-    of one portrait's planes [1,3,C,H,W] f32: the sigma-only decode,
+    of one portrait's planes [1,3,C*D,H,W] f32 (D = triplane_depth): the
+    sigma-only decode,
     sigma2density, the crop on the lattice coordinates and the cloud cull
     on the density (volume.py:285-297), in ``dtype``, ``chunk`` points at a
     time. -> [stop-start]."""
@@ -128,7 +137,8 @@ def density_grid_plain(planes, dec: vr.Decoder, N: int, box_warp: float, plane_a
     out = []
     for a in range(start, stop, chunk):
         coords = create_samples_device(N, box_warp, a, min(a + chunk, stop), planes.device)
-        feats = vr.sample_from_planes(plane_axes, planes, coords[None], box_warp)
+        feats = vr.sample_from_planes(plane_axes, planes, coords[None], box_warp,
+                                      triplane_depth)
         _, sigma = vr.osg_decode(feats, dec, sigma_only=True)
         d = sigma2density(sigma[0, :, 0])
         if crop:
@@ -258,6 +268,9 @@ def density_grid_kernel(planes, dec: vr.Decoder, N: int, box_warp: float, plane_
                 and tuple(planes.shape[:2]) == (1, 3),
                 "K1v takes one portrait's f32 planes [1,3,C,H,W]")
     C, H, W = planes.shape[2:]
+    vr._require(C == dec.w0.shape[1], f"K1v takes bilinear planes (triplane_depth 1): {C} "
+                f"plane channels for a decoder of {dec.w0.shape[1]}; deep planes take "
+                "density_grid_deep_kernel")
     vr._require(C in (8, 16, 32), f"K1v supports 8, 16 or 32 plane channels, got {C}")
     vr._require(dtype in _GRID_DTYPES, f"K1v writes float16 or float32, not {dtype}")
     vr._require(2 <= N <= 256, f"K1v takes 2 <= N <= 256, got {N}")
@@ -293,14 +306,55 @@ def lattice_kernel(N: int, box_warp: float, device) -> torch.Tensor:
     return coords
 
 
+_K10V_ARGS = ((kb.PTR,) * 6 + (kb.INT,) * 6 + (kb.PTR,) + (kb.FLOAT,) * 6
+              + (kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
+
+
+def density_grid_deep_kernel(planes, dec: vr.Decoder, N: int, box_warp: float, plane_axes,
+                             filters: vr.DensityFilters, triplane_depth: int,
+                             dtype=torch.float16) -> torch.Tensor:
+    """Launch K10's lattice form on one portrait's deep CUDA planes
+    [1,3,C*D,H,W] f32: the whole flipped [N,N,N] grid in one launch (same
+    values as flip_grid(density_grid_plain(..., triplane_depth=D)))."""
+    require_no_grad("volume_density_deep", planes, dec)
+    vr._require(planes.dtype == torch.float32 and planes.ndim == 5
+                and tuple(planes.shape[:2]) == (1, 3),
+                "K10's lattice form takes one portrait's f32 planes [1,3,C*D,H,W]")
+    vr._require(dtype in _GRID_DTYPES, f"K10 writes float16 or float32, not {dtype}")
+    vr._require(2 <= N <= 256, f"K10's lattice form takes 2 <= N <= 256, got {N}")
+    vols = vr.deep_volumes_cl(planes, triplane_depth)             # [3,D,H,W,C]
+    _, D, H, W, C = vols.shape
+    vr._require(C in (8, 16, 32), f"K10 supports 8, 16 or 32 plane channels, got {C}")
+    dev = planes.device
+    w0, b0, w1, b1 = vr._decoder_f32(dec, dev)
+    vr._require(tuple(w0.shape) == (64, C) and tuple(w1.shape) == (33, 64),
+                "K10 takes a 64-wide hidden layer and 33 outputs")
+    grid = torch.empty((N, N, N), dtype=dtype, device=dev)
+    crop, cull, _ = filters
+    kb.launch(
+        "volume_density_deep", _K10V_ARGS, vols.data_ptr(), w0.data_ptr(), b0.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), grid.data_ptr(), _GRID_DTYPES[dtype], N, D, H, W, C,
+        kb.f32_array(vr.deep_proj(plane_axes)), 2.0 / box_warp, dec.lr_mul / math.sqrt(C),
+        dec.lr_mul / math.sqrt(64), dec.lr_mul, *_lattice_constants(N, box_warp),
+        int(bool(crop)), (box_warp / 2 - crop) if crop else 0.0, int(bool(cull)),
+        float(cull or 0.0), vr._stream(planes))
+    KERNELS["volume_density_deep"].launches += 1
+    return grid
+
+
 @torch.no_grad()
 def density_grid(planes, dec: vr.Decoder, N: int, box_warp: float, plane_axes,
-                 filters: vr.DensityFilters, dtype=torch.float16, chunk: int = 2**17):
+                 filters: vr.DensityFilters, dtype=torch.float16, chunk: int = 2**17,
+                 triplane_depth: int = 1):
     """The filtered density grid [N,N,N] of one portrait, axis 0 flipped:
-    the plain version (in chunks) on CPU planes, K1v on CUDA planes."""
+    the plain version (in chunks) on CPU planes; on CUDA planes K1v, or
+    K10's lattice form for deep planes (triplane_depth > 1)."""
     if planes.device.type == "cpu":
         return flip_grid(density_grid_plain(planes, dec, N, box_warp, plane_axes, filters,
-                                            dtype, chunk), N)
+                                            dtype, chunk, triplane_depth=triplane_depth), N)
+    if planes.device.type == "cuda" and triplane_depth != 1:
+        return density_grid_deep_kernel(planes, dec, N, box_warp, plane_axes, filters,
+                                        triplane_depth, dtype)
     if planes.device.type == "cuda":
         return density_grid_kernel(planes, dec, N, box_warp, plane_axes, filters, dtype)
     raise RuntimeError(f"density_grid: no path for device {planes.device}")
@@ -315,7 +369,8 @@ def get_volume(G, xin: dict, resolution: int = 256, chunk: int = 2**17,
     """The full volume of one portrait (volume.py:161, get_eg3d_volume):
     coordinates [1,3,N,N,N], sigmas [1,1,...], rgbs [1,32,...] and filtered
     densities [1,1,...] as numpy arrays, axis 0 of the lattice flipped. The
-    lattice is decoded through K1, ``chunk`` points per launch."""
+    lattice is decoded through K1 (K10 for deep planes), ``chunk`` points
+    per launch."""
     bw = G.rk["box_warp"]
     tc = xin.get("triplane_crop", triplane_crop)
     cc = xin.get("cull_clouds", cull_clouds)
@@ -380,9 +435,10 @@ def vertex_world(verts: np.ndarray, N: int, box_warp: float) -> np.ndarray:
 def extract_mesh(G, xin: dict, resolution: int = 256, chunk: int = 2**17, level: float = 0.5,
                  density_dtype=torch.float16, stages: Optional[dict] = None) -> dict:
     """Portrait -> coloured mesh (volume.py:234): the planes, the filtered
-    density grid (K1v; ``xin`` may hold triplane_crop and cull_clouds), one
-    copy of it to the host, marching tetrahedra at ``level``, then the
-    vertex colours decoded (K1) at the exact vertex world positions,
+    density grid (K1v, or K10's lattice form for deep planes; ``xin`` may
+    hold triplane_crop and cull_clouds), one copy of it to the host,
+    marching tetrahedra at ``level``, then the vertex colours decoded (K1,
+    or K10 for deep planes) at the exact vertex world positions,
     including the lattice's fractional x/y drift. With ``stages`` (a dict),
     the device is waited for after each stage and its seconds recorded
     under planes, decode, copy, tetrahedra and colours.
@@ -398,7 +454,7 @@ def extract_mesh(G, xin: dict, resolution: int = 256, chunk: int = 2**17, level:
         grid = density_grid(planes, G._decoder(), N, bw,
                             vr.generate_plane_axes(rk.get("use_triplane", False)),
                             vr.DensityFilters(xin.get("triplane_crop"), xin.get("cull_clouds")),
-                            density_dtype, chunk)
+                            density_dtype, chunk, G.triplane_depth)
         mark("decode")
         vol = grid.cpu().float().numpy()      # one copy of the grid; f16 -> f32 on the host
         mark("copy")

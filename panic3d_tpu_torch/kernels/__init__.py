@@ -98,6 +98,16 @@ KERNELS = {
             "panic3d_tpu/eval/gltf.py:77",
         ),
         Kernel(
+            "triplane_decode_deep",
+            "panic3d_tpu_torch/csrc/triplane_decode.cu",
+            "panic3d_tpu/ops/grid_sample.py:266",
+        ),
+        Kernel(
+            "volume_density_deep",
+            "panic3d_tpu_torch/csrc/triplane_decode.cu",
+            "panic3d_tpu/ops/grid_sample.py:266",
+        ),
+        Kernel(
             "gather_dot",
             "panic3d_tpu_torch/csrc/gather_dot.cu",
             "scripts/bench_pallas_gather.py:43",

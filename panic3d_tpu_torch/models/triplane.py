@@ -6,7 +6,10 @@ JAX package. Ported: z / seeds / ws latents, camera labels from
 elevations/azimuths[/distances/fovs] or camera_params, the ortho/pinhole ray
 select, mapping, synthesis, triplane_crop / cull_clouds / binarize_clouds,
 empty-space skipping (rendering_kwargs['ess']), paste-front compositing
-(``paste_params``, grid and render occlusion) and the precomputed inputs
+(``paste_params``, grid and render occlusion), deep planes
+(rendering_kwargs['triplane_depth'] D > 1: the backbone makes 3*C*D
+channels, decoded through kernel K10; ESS and the grid occlusion refuse
+D > 1, as the JAX package fails there, ROADMAP F12) and the precomputed inputs
 ``_planes``, ``_skip_sr``, ``_ess_occ``, ``_occ_vol`` (``_rays_z_aligned``
 is accepted and changes nothing: the JAX package's z-aligned gather is a
 TPU row trick, bit-equal to the plain render). Kernel K8
@@ -50,7 +53,8 @@ class OSGDecoder(nn.Module):
     FC(C->64) -> softplus -> FC(64->33); sigma = channel 0, rgb = sigmoid of
     the rest. ``net`` mirrors the reference's Sequential for its state_dict
     names (net.0, net.2); the decode itself runs in kernel K1
-    (renderer.triplane_decode), which takes :meth:`weights`."""
+    (renderer.triplane_decode), or for deep planes in
+    renderer.triplane_decode_deep, which take :meth:`weights`."""
 
     def __init__(self, n_features, decoder_lr_mul=1.0, decoder_output_dim=32,
                  hidden_dim=64):
@@ -106,15 +110,16 @@ class TriPlaneGenerator(nn.Module):
                  force_sigmoid=False):
         super().__init__()
         self.z_dim = z_dim
+        self.img_resolution = img_resolution
+        self.backbone_resolution = backbone_resolution
+        self.cond_mode = cond_mode
         self.triplane_width = triplane_width
         self.neural_rendering_resolution = neural_rendering_resolution
         self.force_sigmoid = force_sigmoid
         self.rk = dict(DEFAULT_RENDERING_KWARGS, **(rendering_kwargs or {}))
-        if self.rk.get("triplane_depth", 1) != 1:
-            raise NotImplementedError("triplane_depth > 1 is not ported yet")
         self.backbone = Generator(
             z_dim=z_dim, c_dim=c_dim, w_dim=w_dim, img_resolution=backbone_resolution,
-            img_channels=triplane_width * 3, cond_mode=cond_mode,
+            img_channels=triplane_width * 3 * self.triplane_depth, cond_mode=cond_mode,
             mapping_kwargs=mapping_kwargs, synthesis_kwargs=synthesis_kwargs)
         self.superresolution = SR_MODULES[self.rk["superresolution_module"]](
             channels=32, img_resolution=img_resolution, sr_num_fp16_res=sr_num_fp16_res,
@@ -128,6 +133,10 @@ class TriPlaneGenerator(nn.Module):
         """Seeded random weights (no checkpoint is loaded)."""
         init_weights(self, seed)
         return self
+
+    @property
+    def triplane_depth(self) -> int:
+        return self.rk.get("triplane_depth", 1)
 
     @property
     def num_ws(self) -> int:
@@ -149,10 +158,10 @@ class TriPlaneGenerator(nn.Module):
                                      truncation_cutoff=truncation_cutoff)
 
     def _planes_from_ws(self, ws, cond, noise_mode="const"):
-        """Backbone synthesis -> planes [N,3,C,H,W] (triplane.py:264)."""
+        """Backbone synthesis -> planes [N,3,C*D,H,W] (triplane.py:264)."""
         planes = self.backbone.synthesis(ws, cond, noise_mode=noise_mode)
-        return planes.reshape(planes.shape[0], 3, self.triplane_width, planes.shape[-2],
-                              planes.shape[-1])
+        return planes.reshape(planes.shape[0], 3, self.triplane_width * self.triplane_depth,
+                              planes.shape[-2], planes.shape[-1])
 
     def _decoder(self) -> vr.Decoder:
         return self.decoder.weights(self.force_sigmoid)
@@ -181,14 +190,20 @@ class TriPlaneGenerator(nn.Module):
 
     def sample_mixed_planes(self, planes, coordinates):
         """Decode (rgb, sigma) at arbitrary world coordinates [N,M,3] from
-        precomputed planes [N,3,C,H,W] (triplane.py:452) through K1, in the
-        planes' dtype and with no density filters (the volume and mesh
-        paths). -> {'rgb' [N,M,32], 'sigma' [N,M,1], 'xyz'}."""
+        precomputed planes [N,3,C*D,H,W] (triplane.py:452) through K1 (K10,
+        its trilinear form, at D > 1), in the planes' dtype and with no density
+        filters (the volume and mesh paths). -> {'rgb' [N,M,32], 'sigma'
+        [N,M,1], 'xyz'}."""
         rk = self.rk
-        planes_cl = planes.permute(0, 1, 3, 4, 2).contiguous()
-        rgb, sigma = vr.triplane_decode(planes_cl, coordinates.to(torch.float32).contiguous(),
-                                        self._decoder(), rk["box_warp"],
-                                        vr.generate_plane_axes(rk.get("use_triplane", False)))
+        coords = coordinates.to(torch.float32).contiguous()
+        axes = vr.generate_plane_axes(rk.get("use_triplane", False))
+        if self.triplane_depth == 1:
+            rgb, sigma = vr.triplane_decode(planes.permute(0, 1, 3, 4, 2).contiguous(), coords,
+                                            self._decoder(), rk["box_warp"], axes)
+        else:
+            rgb, sigma = vr.triplane_decode_deep(
+                vr.deep_volumes_cl(planes, self.triplane_depth), coords, self._decoder(),
+                rk["box_warp"], axes)
         return {"rgb": rgb, "sigma": sigma, "xyz": coordinates}
 
     def sample_mixed(self, coordinates, directions, ws, cond=None, noise_mode="const"):
@@ -402,6 +417,7 @@ class TriPlaneGenerator(nn.Module):
             front_rgb = resize_bilinear(front_rgb, size)
         with torch.no_grad():
             if occ_impl == "grid" and isinstance(self.rk["ray_start"], (int, float)):
+                vr.refuse_deep("paste_front with occ_impl='grid'", self.triplane_depth)
                 occ = self._get_front_occlusion_grid(x, out, offset=offset_occ)
             else:
                 occ = self._get_front_occlusion(x, out, offset=offset_occ,

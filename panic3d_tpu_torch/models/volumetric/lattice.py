@@ -99,7 +99,8 @@ def _plane_lattice_features(planes, plane_axes, grid, box_warp):
 def lattice_features(planes, plane_axes, grid, box_warp: float):
     """The three factorised terms of ``planes`` [N,3,C,H,W] on the
     cell-centre lattice ``grid`` (Gx, Gy, Gz): [(F, axis_a, axis_b)] in
-    plane order, each F [N,G_a,G_b,C] f32."""
+    plane order, each F [N,G_a,G_b,C] f32. Bilinear planes only (the
+    callers refuse deep planes, ROADMAP F12)."""
     return _plane_lattice_features(planes, plane_axes, tuple(grid), box_warp)
 
 
@@ -146,7 +147,8 @@ def decode_lattice(planes, decode_fn: Callable, box_warp: float, grid: Tuple[int
     it the three per-plane features; 'mean' takes the plane mean here, in
     the broadcast add, and hands it [N,1,M,C] (valid only for decoders that
     mean over the planes, as OSGDecoder does). Chunked over z so a feature
-    block stays under ``chunk_points`` rows."""
+    block stays under ``chunk_points`` rows. Bilinear planes only, as
+    lattice_features."""
     from .renderer import generate_plane_axes
 
     assert planes.ndim == 5, "decode_lattice needs raw [N,3,C,H,W] planes"
@@ -247,6 +249,7 @@ def front_occlusion_volume(planes, dec, box_warp: float, options: dict, triplane
     zero-feature density outside the box), 'grid', 'box_warp'}."""
     from . import renderer as vr
 
+    vr.refuse_deep("front_occlusion_volume", options.get("triplane_depth", 1))
     bw = float(box_warp)
     filters = vr.DensityFilters(triplane_crop, cull_clouds, binarize_clouds)
     with torch.no_grad():

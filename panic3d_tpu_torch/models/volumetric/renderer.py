@@ -16,9 +16,19 @@ its plain PyTorch version:
   (lattice.py), and each ray's narrowed interval with its coarse depths.
 
 A wrapper takes its plain version only for CPU tensors; on a CUDA tensor it
-launches its kernel or raises. Not ported yet: ``ray_start='auto'``,
-disparity-space sampling, triplane_depth > 1, random (keyed) sampling, and
-the TPU-only ray chunking and corner packing (ROADMAP "Do not port").
+launches its kernel or raises.
+
+Deep planes (triplane_depth D > 1: planes [N,3,C*D,H,W], channel c*D + d
+is feature c at depth d) take ``triplane_decode_deep`` in place of K1: K10,
+the trilinear K1 form (csrc/triplane_decode.cu), samples the N*3
+channels-last volumes [D,H,W,C] and runs K1's plane mean, decoder MLP and
+density filters in the same kernel. The JAX package's ESS and grid paste
+occlusion fail at D > 1 (ROADMAP F12); the port refuses them there with a
+NotImplementedError that names F12.
+
+Not ported yet: ``ray_start='auto'``, disparity-space sampling, random
+(keyed) sampling, and the TPU-only ray chunking and corner packing (ROADMAP
+"Do not port").
 """
 
 from __future__ import annotations
@@ -33,7 +43,8 @@ import torch.nn.functional as F
 
 from ...kernels import KERNELS, require_no_grad
 from ...kernels import build as kb
-from ...ops.grid_sample import grid_sample_2d_points
+from ...ops.grid_sample import grid_sample_2d_points, grid_sample_3d_points
+from ...utils.device import constant
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 RENDER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -59,6 +70,17 @@ def _require(cond, msg):
         raise ValueError(msg)
 
 
+def refuse_deep(what: str, triplane_depth: int) -> None:
+    """Raise at triplane_depth > 1 for the paths the JAX package cannot run
+    there (ROADMAP F12): its ESS occupancy and grid occlusion size their
+    features from the planes' C*D channels, where the decoder takes C."""
+    if triplane_depth != 1:
+        raise NotImplementedError(
+            f"{what} at triplane_depth={triplane_depth}: the JAX package fails there "
+            "(ROADMAP F12: it decodes the planes' C*D channels as C), so the port refuses it; "
+            "render without ESS and paste with occ_impl='render'")
+
+
 # ---------------------------------------------------------------------------
 # plane geometry
 
@@ -72,19 +94,28 @@ def generate_plane_axes(use_triplane: bool = False) -> np.ndarray:
 
 
 def project_onto_planes(plane_axes: np.ndarray, coordinates):
-    """[N,M,3] -> [N,3,M,3] plane-local coordinates."""
-    inv = torch.as_tensor(np.linalg.inv(plane_axes), dtype=coordinates.dtype,
-                          device=coordinates.device)
-    return torch.einsum("nmc,pcd->npmd", coordinates, inv)
+    """[N,M,3] -> [N,3,M,3] plane-local coordinates (the inverse bases are a
+    cached device constant: a copy from the host would wait for the card)."""
+    inv = constant(np.linalg.inv(plane_axes).reshape(-1), coordinates.device)
+    return torch.einsum("nmc,pcd->npmd", coordinates, inv.reshape(3, 3, 3).to(coordinates.dtype))
 
 
-def sample_from_planes(plane_axes, plane_features, coordinates, box_warp: float):
-    """Bilinear triplane lookup, planes [N,3,C,H,W] -> [N,3,M,C]."""
-    N, n_planes, C, H, W = plane_features.shape
+def sample_from_planes(plane_axes, plane_features, coordinates, box_warp: float,
+                       triplane_depth: int = 1):
+    """Triplane lookup, planes [N,3,C*D,H,W] -> [N,3,M,C] (renderer.py:68-93),
+    the plain sampler of K1 and K10: bilinear at D = 1; at D > 1 trilinear
+    in the volumes [C,D,H,W] at all three projected coordinates (the third
+    indexes D), zeros padding."""
+    N, n_planes, CD, H, W = plane_features.shape
     M = coordinates.shape[1]
     proj = project_onto_planes(plane_axes, (2.0 / box_warp) * coordinates)
-    out = grid_sample_2d_points(plane_features.reshape(N * n_planes, C, H, W),
-                                proj[..., :2].reshape(N * n_planes, M, 2))
+    if triplane_depth == 1:
+        out = grid_sample_2d_points(plane_features.reshape(N * n_planes, CD, H, W),
+                                    proj[..., :2].reshape(N * n_planes, M, 2))
+        return out.reshape(N, n_planes, M, CD)
+    C, D = CD // triplane_depth, triplane_depth
+    out = grid_sample_3d_points(plane_features.reshape(N * n_planes, C, D, H, W),
+                                proj.reshape(N * n_planes, M, 3))
     return out.reshape(N, n_planes, M, C)
 
 
@@ -339,6 +370,94 @@ def triplane_decode(planes_cl, coords, dec: Decoder, box_warp: float, plane_axes
 
 
 # ---------------------------------------------------------------------------
+# K10 triplane_decode_deep: deep planes, the trilinear K1 form
+
+def deep_volumes_cl(planes, triplane_depth: int, dtype=None):
+    """Planes [N,3,C*D,H,W] -> the N*3 channels-last volumes [N*3,D,H,W,C]
+    K10 reads (channel c*D + d is feature c at depth d), in ``dtype``
+    (the planes' by default); made once per set of planes."""
+    N, n_planes, CD, H, W = planes.shape
+    D = triplane_depth
+    _require(CD % D == 0, f"{CD} plane channels do not split into depth {D}")
+    vol = planes.to(dtype or planes.dtype).reshape(N * n_planes, CD // D, D, H, W)
+    return vol.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def deep_proj(plane_axes) -> np.ndarray:
+    """The inverse plane bases as K10 takes them: 27 floats [plane][xyz][uvw]."""
+    return np.linalg.inv(plane_axes).reshape(-1)
+
+
+def triplane_decode_deep_plain(volumes_cl, coords, dec: Decoder, box_warp: float,
+                               plane_axes, filters: DensityFilters = DensityFilters()):
+    """volumes_cl [N*3,D,H,W,C] (deep_volumes_cl), coords [N,M,3] -> (rgb
+    [N,M,32] in the volumes' dtype, filtered sigma [N,M,1]): the trilinear
+    sample_from_planes, osg_decode and the filters. Math in at least f32
+    (bf16 volumes are upcast as they are read), as K1's plain version."""
+    acc = _acc(volumes_cl.dtype)
+    NP, D, H, W, C = volumes_cl.shape
+    N = coords.shape[0]
+    planes = volumes_cl.to(acc).permute(0, 4, 1, 2, 3).reshape(N, NP // N, C * D, H, W)
+    rgb, sigma = osg_decode(sample_from_planes(plane_axes, planes, coords.to(acc), box_warp, D),
+                            dec)
+    sigma = _apply_density_filters(sigma, coords.to(acc), box_warp, *filters)
+    return rgb.to(volumes_cl.dtype), sigma
+
+
+_K10_ARGS = ((kb.PTR, kb.INT) + (kb.PTR,) * 7 + (kb.INT,) * 6 + (kb.PTR,) + (kb.FLOAT,) * 4
+             + (kb.INT, kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
+
+
+def triplane_decode_deep_kernel(volumes_cl, coords, dec: Decoder, box_warp: float,
+                                plane_axes, filters: DensityFilters = DensityFilters()):
+    """Launch K10 on CUDA tensors: same contract as
+    triplane_decode_deep_plain; rgb in the volumes' dtype, sigma in f32."""
+    require_no_grad("triplane_decode_deep", volumes_cl, coords, dec)
+    _require(volumes_cl.dtype in _DTYPES,
+             f"K10 volumes must be f32 or bf16, got {volumes_cl.dtype}")
+    _require(coords.dtype == torch.float32 and coords.is_contiguous() and coords.ndim == 3
+             and coords.shape[2] == 3, "K10 coords must be contiguous f32 [N,M,3]")
+    N, M = coords.shape[:2]
+    _require(volumes_cl.ndim == 5 and volumes_cl.shape[0] == 3 * N,
+             "K10 volumes must be [N*3,D,H,W,C] for coords [N,M,3]")
+    _, D, H, W, C = volumes_cl.shape
+    _require(C in (8, 16, 32), f"K10 supports 8, 16 or 32 plane channels, got {C}")
+    _require(volumes_cl.is_contiguous() and volumes_cl.data_ptr() % 16 == 0,
+             "K10 volumes must be contiguous and 16-byte aligned")
+    dev = volumes_cl.device
+    _require(coords.device == dev, "K10 inputs must share a device")
+    w0, b0, w1, b1 = _decoder_f32(dec, dev)
+    _require(tuple(w0.shape) == (64, C) and tuple(b0.shape) == (64,)
+             and tuple(w1.shape) == (33, 64) and tuple(b1.shape) == (33,),
+             "K10 takes a 64-wide hidden layer and 33 outputs")
+    rgb = torch.empty((N, M, 32), dtype=volumes_cl.dtype, device=dev)
+    sigma = torch.empty((N, M, 1), dtype=torch.float32, device=dev)
+    kb.launch(
+        "triplane_decode_deep", _K10_ARGS, volumes_cl.data_ptr(), _DTYPES[volumes_cl.dtype],
+        coords.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        rgb.data_ptr(), sigma.data_ptr(), N, M, D, H, W, C,
+        kb.f32_array(deep_proj(plane_axes)), 2.0 / box_warp,
+        dec.lr_mul / math.sqrt(C), dec.lr_mul / math.sqrt(64), dec.lr_mul,
+        int(dec.force_sigmoid), *_filter_args(filters, box_warp), _stream(volumes_cl),
+    )
+    KERNELS["triplane_decode_deep"].launches += 1
+    return rgb, sigma
+
+
+def triplane_decode_deep(volumes_cl, coords, dec: Decoder, box_warp: float, plane_axes,
+                         filters: DensityFilters = DensityFilters()):
+    """The decode of deep planes, with triplane_decode's contract: the plain
+    version on CPU tensors, K10 on CUDA tensors."""
+    if volumes_cl.device.type == "cpu":
+        return triplane_decode_deep_plain(volumes_cl, coords, dec, box_warp, plane_axes,
+                                          filters)
+    if volumes_cl.device.type == "cuda":
+        return triplane_decode_deep_kernel(volumes_cl, coords, dec, box_warp, plane_axes,
+                                           filters)
+    raise RuntimeError(f"triplane_decode_deep: no path for device {volumes_cl.device}")
+
+
+# ---------------------------------------------------------------------------
 # K2 ray_composite
 
 def ray_composite_plain(d1, c1, s1, x1, d2, c2, s2, x2, white_back: bool):
@@ -544,8 +663,10 @@ def zero_feature_density(planes, dec: Decoder, cull_clouds, binarize_clouds):
     """Filtered density of the zero-feature decode (what a point outside
     the box sees), a 0-d f32 tensor (renderer.py:275). triplane_crop is not
     applied (it needs a position): conservative. ``planes`` [N,3,C,H,W]
-    gives only the device and the channel count."""
+    gives only the device and the channel count, which must be the
+    decoder's (at triplane_depth > 1 it is C*D: F12)."""
     C, n_planes = planes.shape[2], planes.shape[1]
+    refuse_deep("zero_feature_density", C // dec.w0.shape[1])
     _, sigma0 = osg_decode(torch.zeros((1, n_planes, 1, C), device=planes.device), dec,
                            sigma_only=True)
     sigma0 = sigma0.float()
@@ -648,6 +769,7 @@ def ess_occupancy(plane_axes, planes, dec: Decoder, box_warp: float, options: di
     occupancy. -> (occ [N,G,G,G] f32 0/1, occ_outside 0-d f32 0/1)."""
     from . import lattice as vlat
 
+    refuse_deep("ess_occupancy", options.get("triplane_depth", 1))
     ess = options["ess"]
     G, ss = int(ess.get("grid", 32)), int(ess.get("supersample", 2))
     thresh = float(ess.get("thresh", 0.01))
@@ -773,16 +895,17 @@ class RenderOutput(NamedTuple):
 def render(planes, decoder: Decoder, ray_origins, ray_directions, options: dict,
            triplane_crop=None, cull_clouds=None, binarize_clouds=None) -> RenderOutput:
     """Two-pass hierarchical render: stratified coarse pass (K1), importance
-    depths (K3), fine pass (K1), merged composite (K2). planes [N,3,C,H,W];
-    rays [N,R,3]; ``options`` are the reference rendering_kwargs. With
-    ``options['ess']`` the coarse depths come from K6's narrowed intervals;
-    the occupancy is ``options['_ess_occ']`` when the caller pre-seeds it
-    (paste-front's auxiliary renders, turntables), else it is computed here
-    from the planes (renderer.py:899-907, :992-997)."""
+    depths (K3), fine pass (K1), merged composite (K2). planes [N,3,C*D,H,W];
+    rays [N,R,3]; ``options`` are the reference rendering_kwargs. At
+    triplane_depth D > 1 each pass decodes through triplane_decode_deep (K10,
+    the trilinear K1 form) in place of K1. With ``options['ess']`` the coarse
+    depths come from K6's narrowed intervals; the occupancy is
+    ``options['_ess_occ']`` when the caller pre-seeds it (paste-front's
+    auxiliary renders, turntables), else it is computed here from the
+    planes (renderer.py:899-907, :992-997; D = 1 only, F12)."""
     if options.get("disparity_space_sampling"):
         raise NotImplementedError("render: disparity-space sampling is not ported yet")
-    if options.get("triplane_depth", 1) != 1:
-        raise NotImplementedError("render: triplane_depth > 1 is not ported yet")
+    depth = options.get("triplane_depth", 1)
     ray_start, ray_end = options["ray_start"], options["ray_end"]
     if not isinstance(ray_start, (int, float)) or not isinstance(ray_end, (int, float)):
         raise NotImplementedError("render: ray_start/ray_end='auto' is not ported yet")
@@ -790,7 +913,12 @@ def render(planes, decoder: Decoder, ray_origins, ray_directions, options: dict,
     box_warp = options["box_warp"]
     render_dtype = RENDER_DTYPES[options.get("render_dtype", "bfloat16")]
     # channels-last planes in the render dtype, shared by both passes
-    planes_cl = planes.to(render_dtype).permute(0, 1, 3, 4, 2).contiguous()
+    if depth == 1:
+        planes_cl = planes.to(render_dtype).permute(0, 1, 3, 4, 2).contiguous()
+        decode = triplane_decode
+    else:
+        planes_cl = deep_volumes_cl(planes, depth, render_dtype)
+        decode = triplane_decode_deep
     plane_axes = generate_plane_axes(options.get("use_triplane", False))
     filters = DensityFilters(triplane_crop, cull_clouds, binarize_clouds)
     white_back = options.get("white_back", False)
@@ -802,8 +930,7 @@ def render(planes, decoder: Decoder, ray_origins, ray_directions, options: dict,
         n = depths.shape[2]
         coords = (ray_origins[:, :, None, :] + depths * ray_directions[:, :, None, :])
         coords = coords.reshape(N, R * n, 3).contiguous()
-        rgb, sigma = triplane_decode(planes_cl, coords, decoder, box_warp, plane_axes,
-                                     filters)
+        rgb, sigma = decode(planes_cl, coords, decoder, box_warp, plane_axes, filters)
         return (rgb.reshape(N, R, n, -1), sigma.reshape(N, R, n, 1),
                 coords.reshape(N, R, n, 3))
 

@@ -4,7 +4,9 @@
 lookup of models/volumetric/renderer.py:triplane_decode_plain, zeros
 padding) and of K8 (paste-front's border-padded front projection).
 ``grid_sample_3d_points`` is the plain version of K7's trilinear read of the
-occlusion volume. The JAX package's corner packing (pack_bilinear_2d and its
+occlusion volume and of K10's, the deep planes' trilinear sample that
+kernel runs fused with the decoder (renderer.py:triplane_decode_deep,
+csrc/triplane_decode.cu). The JAX package's corner packing (pack_bilinear_2d and its
 border form) is a TPU row-width trick and is not ported; its border form is
 bit-equal to the unpacked border path here.
 """

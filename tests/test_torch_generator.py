@@ -136,7 +136,6 @@ def test_camera_labels_and_ortho_rays_match_jax():
 
 
 UNPORTED_RENDERING = {"ray_start_auto": dict(ray_start="auto", ray_end="auto"),
-                      "triplane_depth": dict(triplane_depth=2),
                       "disparity_space_sampling": dict(disparity_space_sampling=True)}
 
 

@@ -4,7 +4,7 @@ refuses an input that requires grad under grad mode
 
 - the helper raises only with grad mode on and a tensor that requires grad,
   found in nested tuples (the decoder's NamedTuple), lists and dicts;
-- each of the 14 kernel wrappers raises at its first statement when one of
+- each of the 16 kernel wrappers raises at its first statement when one of
   its tensor inputs requires grad, before it checks the device or launches;
 - the plain CPU forward of the tiny config (G.f) still back-propagates to
   the mapping, the backbone and the decoder.
@@ -83,6 +83,12 @@ WRAPPERS = {
         leaf(5, 3, grad=True), leaf(3, 3), torch.zeros((1, 3), dtype=torch.int32)),
     "winding_number": lambda: gltf.winding_numbers_kernel(
         leaf(4, 3, grad=True), torch.zeros((1, 3), dtype=torch.int64), leaf(2, 3)),
+    "triplane_decode_deep": lambda: vr.triplane_decode_deep_kernel(
+        leaf(3, 2, 4, 4, 8, grad=True), leaf(1, 5, 3), _decoder(False), 0.7,
+        vr.generate_plane_axes(True), vr.DensityFilters()),
+    "volume_density_deep": lambda: vol.density_grid_deep_kernel(
+        leaf(1, 3, 16, 4, 4), _decoder(True), 16, 0.7, vr.generate_plane_axes(True),
+        vr.DensityFilters(), 2),
     "gather_dot": lambda: gather_dot_kernel(torch.zeros(4, dtype=torch.int32), leaf(4, 8),
                                             leaf(8, 4, grad=True)),
 }

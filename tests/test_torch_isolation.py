@@ -129,6 +129,14 @@ def test_wrappers_count_no_launch_on_cpu():
     grid = volume.density_grid(torch.randn(1, 3, C, 8, 8), dec, 6, 0.7,
                                vr.generate_plane_axes(True), vr.DensityFilters(0.1, 0.5))
     assert grid.shape == (6, 6, 6) and grid.dtype == torch.float16
+    # K10: the deep planes' decode, and their density grid
+    vols = vr.deep_volumes_cl(torch.randn(1, 3, C * 2, 6, 6), 2)
+    rgb, sigma = vr.triplane_decode_deep(vols, coords, dec, 0.7, vr.generate_plane_axes(True))
+    assert rgb.shape == (1, 20, 32) and sigma.shape == (1, 20, 1)
+    grid = volume.density_grid(torch.randn(1, 3, C * 2, 8, 8), dec, 6, 0.7,
+                               vr.generate_plane_axes(True), vr.DensityFilters(0.1, 0.5),
+                               triplane_depth=2)
+    assert grid.shape == (6, 6, 6) and grid.dtype == torch.float16
     # K13: winding numbers of points with respect to one triangle
     w = gltf.winding_numbers(torch.rand(3, 3), torch.tensor([[0, 1, 2]]), torch.rand(5, 3))
     assert w.shape == (5,) and w.dtype == torch.float32
