@@ -32,7 +32,15 @@
    sigmas, the u's in another cdf bracket than the plain version's
    counted; K10, the trilinear K1 form, at the deep-plane render pass's
    bf16 shapes with K1's tolerances, in f32 at 2^17 points, and its
-   lattice form on the whole 256^3 grid with K1v's),
+   lattice form on the whole 256^3 grid with K1v's; K11 at the 15
+   StyleGAN3-T layer geometries and StyleGAN3-R's 12 radial ones at batch
+   4 in the layer's dtype, kernel and plain each against an f64
+   evaluation, and in its general form at two other geometries, timed
+   beside the unfused composition (K4 + PyTorch's elementwise ops) and
+   the whole layer forward, whose K5 call is held exact on the layer's
+   conv output and whose output is held to f64 against the plain layer's;
+   K4 at the equivariance metrics' calls: the large-filter kernel at the
+   47x47 up-4 and 11x11, the generic kernel at EQ-T_frac's 1x6 and 6x1),
    and times both
    (median of CUDA-event timings), with the single PyTorch call that
    computes the same function where there is one (library_ms; K4 must beat
@@ -77,7 +85,11 @@
    (16 views + 16 xyza PNGs and the mesh pickle; s/portrait and stages),
    measure.main on its output (random CLIP / LPIPS; s/portrait, stages,
    host waits, the table's rows; remove_innards must drop the inner shell),
-   and generate.main --tiny through argparse. It prints views/s (s per
+   and generate.main --tiny through argparse; then the 15 StyleGAN3-T
+   alias-free layers' forwards at batch 4 (K5, K11), and the equivariance
+   metrics EQ-T, EQ-T_frac and EQ-R at 512^2 (64 samples of the toy
+   generator in batches of 4, one host wait a batch), each against the same
+   metric on the CPU within 0.01 dB. It prints views/s (s per
    portrait and its stages on the geometry path), peak memory, launches per
    run of every kernel (K4's by variant: on the three view paths all of
    them must be the polyphase kernel) and the host's waits for the card
@@ -91,7 +103,8 @@
 6. Prints a JSON line of the paths, the script's wall time, a JSON line of
    the kernels (one entry per entry point, with its launches on the ESS +
    paste path, else on the geometry path, else on eval measure, else on the
-   probe, else on the deep-plane request), the card
+   probe, else on the deep-plane request, else on the StyleGAN3-T layers,
+   else on EQ-R), the card
    line, and last the {"ok": true, ...} line. Any failure raises before
    that line.
 """
@@ -100,6 +113,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -139,6 +153,58 @@ DEEP_DEPTH = 2     # the deep-plane path's triplane_depth (tests/test_round3_fix
 DEEP_PORTRAITS = 2  # timed deep-plane turntable portraits, after one warm-up portrait
 HEAD = (0.0, 1.3, 0.0)   # the synthetic GT head's bone
 HEAD_LEVELS = (6, 5)     # its outer and inner shells' icosphere levels
+
+
+# StyleGAN3's two public 512^2 configurations (NVlabs/stylegan3 train.py:
+# --cfg stylegan3-t, and stylegan3-r with channel_base and channel_max
+# doubled, 1x1 convs and radial down filters)
+SG3_CONFIGS = {
+    "stylegan3-t": dict(channel_base=32768, channel_max=512, conv_kernel=3,
+                        use_radial_filters=False),
+    "stylegan3-r": dict(channel_base=65536, channel_max=1024, conv_kernel=1,
+                        use_radial_filters=True),
+}
+SG3_BATCH = 4
+EQ_RES = 512        # the equivariance path's image size
+EQ_SAMPLES = 64     # its samples a metric, in batches of SG3_BATCH
+
+
+def sg3_layer_geometries(cfg: str, img_resolution: int = 512, w_dim: int = 512) -> list:
+    """The AFSynthesisLayer arguments of the 14 layers + toRGB of a 512^2
+    StyleGAN3 synthesis network: the arithmetic of NVlabs/stylegan3
+    training/networks_stylegan3.py SynthesisNetwork.__init__ (cutoffs and
+    stopbands in geometric progression from 2 and 2^2.1 to the last layer's
+    img_resolution / 2 and x 2^0.3, 2 critically sampled layers before the
+    toRGB, margin 10, the 4 highest resolutions in fp16; filter size 6 and
+    lrelu upsampling 2 are the layer's defaults)."""
+    c = SG3_CONFIGS[cfg]
+    num_layers, num_critical, margin, num_fp16_res = 14, 2, 10, 4
+    first_cutoff, first_stopband, last_stopband_rel = 2, 2 ** 2.1, 2 ** 0.3
+    last_cutoff = img_resolution / 2
+    last_stopband = last_cutoff * last_stopband_rel
+    exponents = np.minimum(np.arange(num_layers + 1) / (num_layers - num_critical), 1)
+    cutoffs = first_cutoff * (last_cutoff / first_cutoff) ** exponents
+    stopbands = first_stopband * (last_stopband / first_stopband) ** exponents
+    rates = np.exp2(np.ceil(np.log2(np.minimum(stopbands * 2, img_resolution))))
+    half_widths = np.maximum(stopbands, rates / 2) - cutoffs
+    sizes = rates + margin * 2
+    sizes[-2:] = img_resolution
+    channels = np.rint(np.minimum((c["channel_base"] / 2) / cutoffs, c["channel_max"]))
+    channels[-1] = 3
+    layers = []
+    for idx in range(num_layers + 1):
+        prev = max(idx - 1, 0)
+        layers.append(dict(
+            w_dim=w_dim, is_torgb=idx == num_layers,
+            is_critically_sampled=idx >= num_layers - num_critical,
+            use_fp16=bool(rates[idx] * 2 ** num_fp16_res > img_resolution),
+            in_channels=int(channels[prev]), out_channels=int(channels[idx]),
+            in_size=int(sizes[prev]), out_size=int(sizes[idx]),
+            in_sampling_rate=int(rates[prev]), out_sampling_rate=int(rates[idx]),
+            in_cutoff=float(cutoffs[prev]), out_cutoff=float(cutoffs[idx]),
+            in_half_width=float(half_widths[prev]), out_half_width=float(half_widths[idx]),
+            conv_kernel=c["conv_kernel"], use_radial_filters=c["use_radial_filters"]))
+    return layers
 
 
 def card_line() -> str:
@@ -567,7 +633,93 @@ def k4_checks(G, x, device):
     require(summary["ms"] < summary["library_ms"],
             f"K4: {summary['ms']} ms, not faster than the library call's "
             f"{summary['library_ms']} ms")
-    return {"upfirdn2d": dict(summary, shapes=shapes, generic_down2=generic)}
+    return {"upfirdn2d": dict(summary, shapes=shapes, generic_down2=generic,
+                              equivariance=k4_equivariance_checks(device))}
+
+
+def k4_equivariance_checks(device):
+    """K4 at the equivariance path's calls on 512^2 f32 images (batch 4, 3
+    channels). The large-filter kernel (more than 64 taps, from a device
+    buffer): EQ-R's 47x47 resampling filter at up 4 (upsample2d) and the
+    pseudo-rotation's 11x11 (filter2d), for a rotation of 0.3 rad. The
+    generic kernel: EQ-T_frac's 1x6 and 6x1 windowed sincs (filter2d), as
+    apply_fractional_translation makes them for a shift of (0.3, 0.7)
+    pixels (a spy on ops/upfirdn2d.py:_fir). Each against its plain version
+    within 1e-5 x max|out| (up to ~140 f32 products an output, which cuDNN
+    may sum in another order), timed, with its bound (the taps of each
+    output's phase only) -> [summary per call]."""
+    import importlib
+
+    import torch
+
+    from panic3d_tpu_torch.eval.equivariance import (
+        apply_fractional_translation, construct_affine_bandlimit_filter, rotation_matrix)
+    from panic3d_tpu_torch.kernels import KERNELS
+    from panic3d_tpu_torch.ops.upfirdn2d import (
+        fir_passes, k4_plan, upfirdn2d_kernel, upfirdn2d_plain)
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    mod = importlib.import_module("panic3d_tpu_torch.ops.upfirdn2d")
+    fir, calls = mod._fir, []
+
+    def spy(xx, f2d, up, down, pad):
+        calls.append((xx.clone(), f2d.detach().clone(), up, down, pad))
+        return fir(xx, f2d, up, down, pad)
+
+    img = torch.randn((SG3_BATCH, 3, EQ_RES, EQ_RES), generator=gen, device=device)
+    mod._fir = spy
+    try:
+        apply_fractional_translation(img, 0.3 / EQ_RES, 0.7 / EQ_RES)
+    finally:
+        mod._fir = fir
+    mat = rotation_matrix(0.3).to(device)
+    out = []
+    for up, what in ((4, "EQ-R upsample2d, 47x47 at up 4"), (1, "pseudo-rotation filter2d, 11x11")):
+        f = construct_affine_bandlimit_filter(mat, a=3, amax=6, up=up)
+        fh, fw = f.shape
+        p = fh // 2
+        pads = ([p + (fw + up - 1) // 2, p + (fw - up) // 2] * 2 if up > 1
+                else [fw // 2, (fw - 1) // 2] * 2)
+        (f2d, upp, down, pad), = fir_passes(f, up=up, padding=pads, gain=up * up)
+        xx = torch.randn((SG3_BATCH, 3, EQ_RES, EQ_RES), generator=gen, device=device)
+        n_large = KERNELS["upfirdn2d"].variants.get("large", 0)
+        yk = upfirdn2d_kernel(xx, f2d, upp, down, pad)
+        require(KERNELS["upfirdn2d"].variants.get("large", 0) == n_large + 1,
+                f"K4 {what}: not the large-filter kernel")
+        yp = upfirdn2d_plain(xx, f2d, upp, down, pad)
+        e = max_err(yk, yp)
+        check(f"K4 large filter, {what}: {list(xx.shape)} f32 -> {yk.shape[-2]}x{yk.shape[-1]}",
+              e, 1e-5 * float(yp.abs().max()))
+        summ = record(e, lambda: upfirdn2d_kernel(xx, f2d, upp, down, pad),
+                      lambda: upfirdn2d_plain(xx, f2d, upp, down, pad), nbytes(xx, yk, f2d),
+                      yk.numel() * (fh * fw / up ** 2) * 2, plain_iters=3)
+        summ.update(call=what, shape=list(xx.shape), filter=[fh, fw], up=up, pad=list(pad))
+        print(f"    ms {summ['ms']:.6f}  plain_ms {summ['plain_ms']:.6f}  bound_ms "
+              f"{summ['bound_ms']:.6f} ({summ['bound_by']})")
+        out.append(summ)
+        del yk, yp
+    require(len(calls) == 2, f"EQ-T_frac made {len(calls)} K4 calls, not 2")
+    for xx, f2d, upp, down, pad in calls:
+        fh, fw = f2d.shape
+        what = f"EQ-T_frac filter2d, {fh}x{fw}"
+        n_gen = KERNELS["upfirdn2d"].variants.get("generic", 0)
+        yk = upfirdn2d_kernel(xx, f2d, upp, down, pad)
+        require(k4_plan(f2d, upp, down, pad).variant == "generic"
+                and KERNELS["upfirdn2d"].variants.get("generic", 0) == n_gen + 1,
+                f"K4 {what}: not the generic kernel")
+        yp = upfirdn2d_plain(xx, f2d, upp, down, pad)
+        e = max_err(yk, yp)
+        check(f"K4 generic, {what}: {list(xx.shape)} f32 -> {yk.shape[-2]}x{yk.shape[-1]}",
+              e, 1e-5 * float(yp.abs().max()))
+        summ = record(e, lambda: upfirdn2d_kernel(xx, f2d, upp, down, pad),
+                      lambda: upfirdn2d_plain(xx, f2d, upp, down, pad), nbytes(xx, yk, f2d),
+                      yk.numel() * fh * fw * 2, plain_iters=3)
+        summ.update(call=what, shape=list(xx.shape), filter=[fh, fw], up=1, pad=list(pad))
+        print(f"    ms {summ['ms']:.6f}  plain_ms {summ['plain_ms']:.6f}  bound_ms "
+              f"{summ['bound_ms']:.6f} ({summ['bound_by']})")
+        out.append(summ)
+        del yk, yp
+    return out
 
 
 def ess_paste_kernel_checks(G, x, device):
@@ -1093,6 +1245,7 @@ def grad_guard_checks(device):
     from panic3d_tpu_torch.models.volumetric import lattice as vlat
     from panic3d_tpu_torch.models.volumetric import renderer as vr
     from panic3d_tpu_torch.ops.bias_act import modconv_epilogue_kernel
+    from panic3d_tpu_torch.ops.filtered_lrelu import filtered_lrelu_kernel
     from panic3d_tpu_torch.ops.gather_dot import gather_dot_kernel
     from panic3d_tpu_torch.ops.upfirdn2d import upfirdn2d_kernel
 
@@ -1134,6 +1287,8 @@ def grad_guard_checks(device):
         "winding_number": lambda: gltf.winding_numbers_kernel(
             t(4, 3, grad=True), t(1, 3, dtype=torch.int64), t(2, 3)),
         "gather_dot": lambda: gather_dot_kernel(t(8, **i32), t(8, 16), t(16, 8, grad=True)),
+        "filtered_lrelu": lambda: filtered_lrelu_kernel(
+            t(1, 2, 8, 8), t(12), t(12), t(2, grad=True), up=2, down=2, padding=[5, 6, 5, 6]),
         "triplane_decode_deep": lambda: vr.triplane_decode_deep_kernel(
             t(3, 2, 4, 4, 32, grad=True), t(1, 8, 3), dec(), 0.7, vr.generate_plane_axes(True),
             vr.DensityFilters()),
@@ -2059,6 +2214,349 @@ def k10_grid_checks(Gd, device, vol, vr):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the alias-free layer (K11) and the equivariance metrics (K4's large and generic filters)
+
+K11_SCALE = 80.0    # K11 checks' input scale: x sqrt(2) after the act, so the clamp (256) is hit
+
+
+def k11_ops(plan, n, c, h_in):
+    """K11's f32 operations for one call: the FIR's multiply-adds (2 each),
+    the taps that meet inserted zeros skipped; the up pass runs along the
+    input's h_in rows, then along the intermediate's columns."""
+    th, tw = plan.mid
+    oh, ow = plan.out
+    fuh = len(plan.fu)
+
+    def taps(axis, size):   # position i's phase starts at k0(i) = (k0(0) - i) mod up
+        return sum(len(range((plan.k0[axis][0] - i) % plan.up, fuh, plan.up))
+                   for i in range(size))
+
+    fdn = math.isqrt(len(plan.fd)) if plan.fd2d else len(plan.fd)
+    up_macs = h_in * taps(1, tw) + tw * taps(0, th)
+    down_macs = oh * ow * fdn * fdn if plan.fd2d else (th * ow + oh * ow) * fdn
+    return 2.0 * n * c * (up_macs + down_macs)
+
+
+def k11_one(layer, label, device, gen):
+    """K11 at one layer's geometry, batch SG3_BATCH, in the layer's dtype:
+    the kernel and its plain version each against an f64 evaluation of the
+    plain version (the kernel's error at most the plain version's in bf16,
+    where it rounds once and the plain version after every step; at most
+    twice it in f32, as K13 is held: f32 sums whose order may differ), |out|
+    <= clamp x the down filter's sum of |taps| (exactly <= clamp at the
+    toRGB); timed with its bound, the plain version and the unfused
+    composition (K4 + PyTorch's elementwise bias, act and clamp); then the
+    whole layer forward (cuDNN + K5 + K11) against the same layer with the
+    plain K5 and K11: K5 exact against its plain version on the layer's own
+    conv output (demodulation only, or nothing at the toRGB), and each
+    layer's output against the f64 evaluation of the plain K11 on its own
+    K11 input, held as the kernel alone is. -> summary."""
+    import importlib
+
+    import torch
+
+    from panic3d_tpu_torch.ops.bias_act import (
+        bias_act, modconv_epilogue_kernel, modconv_epilogue_plain)
+    from panic3d_tpu_torch.ops.filtered_lrelu import (
+        filtered_lrelu_kernel, filtered_lrelu_plain, k11_plan)
+    from panic3d_tpu_torch.ops.upfirdn2d import upfirdn2d
+
+    sg3 = importlib.import_module("panic3d_tpu_torch.models.stylegan3")
+    conv = importlib.import_module("panic3d_tpu_torch.ops.conv")
+    dtype = torch.bfloat16 if layer.use_fp16 else torch.float32
+    n_in = layer.in_size + layer.kernel - 1   # the conv's output, K11's input
+    c = layer.out_channels
+    x = (torch.randn((SG3_BATCH, c, n_in, n_in), generator=gen, device=device)
+         * K11_SCALE).to(dtype)
+    b = (torch.randn((c,), generator=gen, device=device) * 0.3).to(dtype)
+    kw = dict(fu=layer.up_filter, fd=layer.down_filter, b=b, up=layer.up_factor,
+              down=layer.down_factor, padding=layer.padding,
+              gain=1.0 if layer.is_torgb else math.sqrt(2),
+              slope=1.0 if layer.is_torgb else 0.2, clamp=layer.conv_clamp)
+    def f64_errs(x_in, k11_kw, *ys):   # the f64 evaluation, an image at a time
+        kw64, errs = dict(k11_kw, b=k11_kw["b"].double()), [0.0] * len(ys)
+        for i in range(x_in.shape[0]):
+            y64 = filtered_lrelu_plain(x_in[i:i + 1].double(), **kw64)
+            errs = [max(e_, float((y[i:i + 1].double() - y64).abs().max()))
+                    for e_, y in zip(errs, ys)]
+            del y64
+        return errs
+
+    yk = filtered_lrelu_kernel(x, **kw)
+    yp = filtered_lrelu_plain(x, **kw)
+    err_k, err_p = f64_errs(x, kw, yk, yp)
+    factor = 1.0 if dtype == torch.bfloat16 else 2.0
+    e = max_err(yk, yp)
+    fd_abs = (float(layer.down_filter.abs().sum()) if layer.down_filter is not None else 1.0)
+    if layer.down_filter is not None and layer.down_filter.ndim == 1:
+        fd_abs = fd_abs ** 2
+    peak = float(yk.float().abs().max())
+    print(f"  K11 {label}: x {list(x.shape)} {str(dtype)[6:]} up {layer.up_factor} down "
+          f"{layer.down_factor} pad {layer.padding} -> {list(yk.shape[2:])}; max |k - plain| "
+          f"{e:.3e}; vs f64: kernel {err_k:.3e}, plain {err_p:.3e} (limit {factor:g}x); max "
+          f"|out| {peak:.3f} (limit {layer.conv_clamp * fd_abs:.3f})")
+    require(err_k <= factor * err_p,
+            f"K11 {label}: error vs f64 {err_k} > {factor} x the plain version's {err_p}")
+    require(peak <= layer.conv_clamp * fd_abs, f"K11 {label}: |out| {peak} beyond the clamp")
+    if layer.is_torgb:
+        require(peak <= layer.conv_clamp, f"K11 {label}: |out| {peak} > clamp")
+
+    def composition():
+        y = bias_act(x, b)
+        y = upfirdn2d(y, kw["fu"], up=kw["up"], padding=kw["padding"], gain=kw["up"] ** 2)
+        y = bias_act(y, act="lrelu", alpha=kw["slope"], gain=kw["gain"], clamp=kw["clamp"])
+        return upfirdn2d(y, kw["fd"], down=kw["down"])
+
+    e_comp = max_err(composition(), yp)
+    plan = k11_plan(x.shape, kw["fu"], kw["fd"], kw["up"], kw["down"], kw["padding"],
+                    kw["gain"], kw["slope"], kw["clamp"])
+    n_bytes, flops = nbytes(x, yk) + 4 * c, k11_ops(plan, SG3_BATCH, c, n_in)
+    summ = record(e, lambda: filtered_lrelu_kernel(x, **kw),
+                  lambda: filtered_lrelu_plain(x, **kw), n_bytes, flops, plain_iters=3)
+    summ.update(composition_ms=cuda_ms(composition), bytes=n_bytes, flops=flops)
+    del yk, yp
+
+    # the whole layer: cuDNN conv + K5 + K11, against the layer with the
+    # plain K5 and K11; spies keep each run's K5 arguments and K11 input
+    xin = torch.randn((SG3_BATCH, layer.in_channels, layer.in_size, layer.in_size),
+                      generator=gen, device=device)
+    w = torch.randn((SG3_BATCH, 512), generator=gen, device=device)
+    k5, k11 = conv.modconv_epilogue, sg3.filtered_lrelu
+
+    def forward(k5_fn, k11_fn):
+        seen = {}
+
+        def k5_spy(*a, **k):
+            seen["k5"] = (a, k)
+            return k5_fn(*a, **k)
+
+        def k11_spy(x_, **k):
+            seen["k11"] = (x_, k)
+            return k11_fn(x_, **k)
+
+        conv.modconv_epilogue, sg3.filtered_lrelu = k5_spy, k11_spy
+        try:
+            return layer(xin, w), seen
+        finally:
+            conv.modconv_epilogue, sg3.filtered_lrelu = k5, k11
+
+    out, seen = forward(k5, k11)
+    out_plain, seen_plain = forward(modconv_epilogue_plain, filtered_lrelu_plain)
+    a5, k5_kw = seen["k5"]
+    e5 = max_err(modconv_epilogue_kernel(*a5, **k5_kw), modconv_epilogue_plain(*a5, **k5_kw))
+    check(f"    K5 at {label}: {list(a5[0].shape)} {str(a5[0].dtype)[6:]}, "
+          f"{'demodulation' if a5[1] is not None else 'no demodulation'} (exact)", e5, 0.0)
+    e_layer = max_err(out, out_plain)
+    err_layer, = f64_errs(*seen["k11"], out)
+    err_layer_plain, = f64_errs(*seen_plain["k11"], out_plain)
+    layer_ms = cuda_ms(lambda: layer(xin, w))
+    print(f"    ms {summ['ms']:.6f}  bound_ms {summ['bound_ms']:.6f} ({summ['bound_by']})  "
+          f"plain_ms {summ['plain_ms']:.6f}  composition_ms {summ['composition_ms']:.6f} "
+          f"(vs plain {e_comp:.3e}); layer forward {layer_ms:.6f} ms, vs the plain layer's "
+          f"{e_layer:.3e}; vs f64: layer {err_layer:.3e}, plain layer {err_layer_plain:.3e} "
+          f"(limit {factor:g}x)")
+    require(err_layer <= factor * err_layer_plain,
+            f"K11 {label}: the layer's error vs f64 {err_layer} > {factor} x the plain "
+            f"layer's {err_layer_plain}")
+    summ.update(layer=label, x=list(x.shape), dtype=str(dtype)[6:], up=layer.up_factor,
+                down=layer.down_factor, padding=list(layer.padding), out=list(out.shape[2:]),
+                err_vs_f64=err_k, plain_err_vs_f64=err_p, layer_ms=layer_ms,
+                layer_err_vs_plain=e_layer, layer_err_vs_f64=err_layer,
+                plain_layer_err_vs_f64=err_layer_plain, k5_err=e5)
+    del out, out_plain, xin, x, seen, seen_plain
+    return summ
+
+
+def k11_general_checks(device, gen):
+    """K11's general form (the geometries outside StyleGAN3's compiled ones)
+    at two: up 2 with 24 up taps (12 a phase) and 12 down taps, f32, and up
+    4 with 12 up taps (3 a phase) and the 12x12 radial filter, bf16, each on
+    [4,64,60,60], held to f64 as k11_one holds the layers. -> max error vs
+    the plain version."""
+    import torch
+
+    from panic3d_tpu_torch.models.stylegan3 import design_lowpass_filter
+    from panic3d_tpu_torch.ops.filtered_lrelu import filtered_lrelu_kernel, filtered_lrelu_plain
+
+    err = 0.0
+    for up, ut, dtype, radial in ((2, 24, torch.float32, False), (4, 12, torch.bfloat16, True)):
+        fu = torch.from_numpy(design_lowpass_filter(ut, cutoff=10.0, width=6.0, fs=64.0))
+        fd = torch.from_numpy(design_lowpass_filter(12, cutoff=9.0, width=7.0, fs=64.0,
+                                                    radial=radial))
+        x = (torch.randn((SG3_BATCH, 64, 60, 60), generator=gen, device=device)
+             * K11_SCALE).to(dtype)
+        b = (torch.randn((64,), generator=gen, device=device) * 0.3).to(dtype)
+        kw = dict(fu=fu, fd=fd, b=b, up=up, down=2, padding=[ut // 2, ut // 2 - 1] * 2,
+                  clamp=256.0)
+        yk, yp = filtered_lrelu_kernel(x, **kw), filtered_lrelu_plain(x, **kw)
+        y64 = filtered_lrelu_plain(x.double(), **dict(kw, b=b.double()))
+        err_k, err_p = max_err(yk.double(), y64), max_err(yp.double(), y64)
+        factor = 1.0 if dtype == torch.bfloat16 else 2.0
+        e = max_err(yk, yp)
+        print(f"  K11 general form: up {up}, {ut} up taps, {'12x12' if radial else '12'} down "
+              f"taps, {str(dtype)[6:]} {list(x.shape)} -> {list(yk.shape[2:])}; max |k - plain| "
+              f"{e:.3e}; vs f64: kernel {err_k:.3e}, plain {err_p:.3e} (limit {factor:g}x)")
+        require(err_k <= factor * err_p, f"K11 general form: error vs f64 {err_k} > {factor} x "
+                                         f"the plain version's {err_p}")
+        err = max(err, e)
+    return err
+
+
+def sg3_layers(cfg, device, radial_only=False):
+    """The AF layers of a StyleGAN3 configuration on the card, seeded
+    weights -> [(label, layer)]."""
+    from panic3d_tpu_torch.models.stylegan2 import init_weights
+    from panic3d_tpu_torch.models.stylegan3 import AFSynthesisLayer
+
+    out = []
+    for i, g in enumerate(sg3_layer_geometries(cfg)):
+        if radial_only and (g["is_critically_sampled"] or g["is_torgb"]):
+            continue
+        layer = AFSynthesisLayer(**g, device=device)
+        init_weights(layer, SEED + i)
+        out.append((f"{cfg} L{i} {'toRGB ' if g['is_torgb'] else ''}"
+                    f"{g['in_size']}->{g['out_size']} C{g['out_channels']}", layer.eval()))
+    return out
+
+
+def k11_checks(device):
+    """K11 at every stylegan3-t geometry and the 12 radial stylegan3-r ones
+    (k11_one), and in its general form (k11_general_checks); the sums over
+    the 15 T layers on a line of their own.
+    -> {"filtered_lrelu": summary}: its top-level numbers are the 15 T
+    layers' sums (the bound from their summed bytes and operations)."""
+    import torch
+
+    from panic3d_tpu_torch.kernels import KERNELS
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    n0 = KERNELS["filtered_lrelu"].launches
+    per = {}
+    for cfg, radial in (("stylegan3-t", False), ("stylegan3-r", True)):
+        print(f"K11 filtered_lrelu, {cfg}{' radial layers' if radial else ''} (batch {SG3_BATCH})")
+        per[cfg] = [k11_one(layer, label, device, gen)
+                    for label, layer in sg3_layers(cfg, device, radial_only=radial)]
+        torch.cuda.empty_cache()
+    e_general = k11_general_checks(device, gen)
+    require(KERNELS["filtered_lrelu"].launches > n0, "K11 did not launch")
+    t = per["stylegan3-t"]
+    sums = {k: sum(g[k] for g in t) for k in ("ms", "plain_ms", "composition_ms", "layer_ms")}
+    n_bytes = sum(g["bytes"] for g in t)
+    flops = sum(g["flops"] for g in t)
+    bound_ms, bound_by = bound(n_bytes, flops)
+    print(f"K11 over the 15 stylegan3-t layers at batch {SG3_BATCH}: {sums['ms']:.6f} ms (bound "
+          f"{bound_ms:.6f} ms by {bound_by}; the layers' bounds summed "
+          f"{sum(g['bound_ms'] for g in t):.6f}), plain {sums['plain_ms']:.6f} ms, unfused "
+          f"composition {sums['composition_ms']:.6f} ms; the layers' forwards "
+          f"{sums['layer_ms']:.6f} ms")
+    return {"filtered_lrelu": {
+        "max_abs_err": max([e_general] + [g["max_abs_err"] for cfg in per for g in per[cfg]]),
+        "ms": sums["ms"], "plain_ms": sums["plain_ms"], "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None, "composition_ms": sums["composition_ms"],
+        "layers_forward_ms": sums["layer_ms"], "batch": SG3_BATCH,
+        "geometries": {cfg: per[cfg] for cfg in per}}}
+
+
+def sg3_layers_path(device, card):
+    """The 15 stylegan3-t layers' forwards at batch 4 in sequence (each on
+    its own seeded input, as a synthesis network's layers run), driven with
+    the launch counts zeroed before and read after: K11 15 a run, K5 15.
+    -> (launch counts, summary)."""
+    import torch
+
+    layers = sg3_layers("stylegan3-t", device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    ins = [(torch.randn((SG3_BATCH, m.in_channels, m.in_size, m.in_size), generator=gen,
+                        device=device), torch.randn((SG3_BATCH, 512), generator=gen,
+                                                    device=device)) for _, m in layers]
+
+    def run():
+        return [m(x, w) for (_, m), (x, w) in zip(layers, ins)]
+
+    outs, counts, summ = drive(f"stylegan3-t layers (15 AF layers, batch {SG3_BATCH})", run,
+                               len(layers), REQUESTS, card, unit="layers")
+    for (label, m), y in zip(layers, outs):
+        require(tuple(y.shape) == (SG3_BATCH, m.out_channels, m.out_size, m.out_size)
+                and bool(torch.isfinite(y).all()), f"{label}: bad output")
+    require_launched(counts, ("filtered_lrelu", "modconv_epilogue"), "stylegan3-t layers")
+    require(summ["launches_per_run"]["filtered_lrelu"] == len(layers),
+            f"K11 launched {summ['launches_per_run']['filtered_lrelu']} times a run")
+    print(f"  {summ['ms_per_run']:.3f} ms for the 15 layers  [{card}]")
+    return counts, summ
+
+
+def blob_synthesis(res):
+    """The toy generator of tests/test_equivariance.py:95-113 in torch, at
+    ``res``: Gaussian blobs whose coordinates ride the input transform,
+    equivariant by construction."""
+    import torch
+
+    def synthesis(ws, transform):
+        xs = -0.5 + (torch.arange(res, dtype=torch.float32, device=ws.device) + 0.5) / res
+        gy, gx = torch.meshgrid(xs, xs, indexing="ij")
+        pts = torch.stack([gx, gy, torch.ones_like(gx)], -1) @ transform.T
+        cx, cy = ws[:, 0, None, None] * 0.2, ws[:, 1, None, None] * 0.2
+        sg = 0.06 + 0.025 * torch.sigmoid(ws[:, 2, None, None])
+        d2 = (pts[..., 0] - cx) ** 2 + (pts[..., 1] - cy) ** 2
+        img = torch.exp(-d2 / (2 * sg ** 2))
+        return torch.stack([img, 0.5 * img, img * img], 1)
+
+    return synthesis
+
+
+EQ_METRICS = ("eqt50k_int", "eqt50k_frac", "eqr50k")
+
+
+def equivariance_path(device, card):
+    """calc_metric("eqt50k_int" | "eqt50k_frac" | "eqr50k") at 512^2, 64
+    samples in batches of 4, on the toy generator, on the card through
+    drive() (a warm-up run, REQUESTS timed runs with the launch counts
+    zeroed before and read after, then one run counting host waits: one a
+    batch, the sums' copy), then on the CPU with the same latents and the
+    same generator draws: the PSNRs within 0.01 dB; K4's large-filter
+    kernel launched on EQ-R. -> (launch counts of EQ-R's runs, summary)."""
+    import torch
+
+    from panic3d_tpu_torch.eval.gan_metrics import calc_metric
+    from panic3d_tpu_torch.utils.device import to_device
+
+    batches = EQ_SAMPLES // SG3_BATCH
+    ws_host = torch.randn((EQ_SAMPLES, 3), generator=torch.Generator().manual_seed(SEED))
+    ws_dev = to_device(ws_host.numpy(), device)
+    synthesis = blob_synthesis(EQ_RES)
+
+    def metric(name, ws):
+        return calc_metric(name, synthesis_fn=synthesis,
+                           ws_iter=iter(ws.split(SG3_BATCH)), num_samples=EQ_SAMPLES,
+                           img_resolution=EQ_RES,
+                           generator=torch.Generator().manual_seed(SEED))["results"][name]
+
+    out, counts_r = {}, None
+    for name in EQ_METRICS:
+        psnr, counts, summ = drive(
+            f"{name} at {EQ_RES}^2 ({EQ_SAMPLES} samples in batches of {SG3_BATCH})",
+            lambda: metric(name, ws_dev), EQ_SAMPLES, REQUESTS, card, unit="samples",
+            waits=lambda _: batches)
+        t = time.perf_counter()
+        psnr_cpu = metric(name, ws_host)
+        cpu_s = time.perf_counter() - t
+        diff = 0.0 if psnr == psnr_cpu else abs(psnr - psnr_cpu)
+        k4 = summ["variants_per_run"].get("upfirdn2d", {})
+        print(f"  card {psnr:.6f} dB, CPU {psnr_cpu:.6f} dB (|diff| {diff:.3e}); "
+              f"{summ['ms_per_run'] / batches:.3f} ms a batch; CPU run {cpu_s:.1f} s  [{card}]")
+        require(diff <= 0.01, f"{name}: card {psnr} dB vs CPU {psnr_cpu} dB")
+        require(math.isfinite(psnr) or psnr == math.inf, f"{name}: PSNR {psnr}")
+        if name == "eqr50k":
+            require(k4.get("large", 0) >= 2 * batches,
+                    f"eqr50k: K4's large-filter kernel launched {k4.get('large', 0)} times a run")
+            counts_r = counts
+        finite = {v: (v if math.isfinite(v) else str(v)) for v in (psnr, psnr_cpu)}
+        out[name] = dict(summ, psnr_db=finite[psnr], cpu_psnr_db=finite[psnr_cpu],
+                         ms_per_batch=summ["ms_per_run"] / batches, cpu_s=cpu_s)
+    return counts_r, out
+
+
 DEEP_KERNELS = ("triplane_decode_deep", "ray_composite", "importance_sample", "upfirdn2d",
                 "modconv_epilogue", "paste_front")
 DEEP_ABSENT = ("triplane_decode", "volume_density", "ess_occupancy", "ess_narrow",
@@ -2314,6 +2812,7 @@ def main(argv=None) -> int:
         checks.update(volume_checks)
         checks.update(k13_checks(device))
         checks.update(k10_checks(Gd, device))
+        checks.update(k11_checks(device))
         grad_guard_checks(device)
         if args.kernels_only:
             print(json.dumps({"kernels": [dict(name=n, **checks[n]) for n in KERNELS]}))
@@ -2404,6 +2903,11 @@ def main(argv=None) -> int:
         geometry, counts_geom = geometry_path(Ge, device, card, levels)
         eval_cli, counts_eval = eval_cli_path(Ge, device, card)
 
+        # the alias-free layers (K11), then the equivariance metrics (K4's
+        # large-filter form)
+        counts_sg3, sg3_path = sg3_layers_path(device, card)
+        counts_eq, equivariance = equivariance_path(device, card)
+
         if args.profile:
             from pathlib import Path
 
@@ -2430,12 +2934,15 @@ def main(argv=None) -> int:
 
     reset_launch_counts()
     paths = {"settings_parity": parity, "ess_paste_per_call": per_call, "turntable": turn,
-             "probe": probe, **deep, **geometry, "eval_cli": eval_cli}
+             "probe": probe, **deep, **geometry, "eval_cli": eval_cli,
+             "stylegan3_t_layers": sg3_path, "equivariance": equivariance}
     print(json.dumps({"paths": paths, "card": card}))
     # each kernel's launches on the path that launches it: the ESS + paste
     # request, else the geometry path, else eval measure, else the probe,
-    # else the deep-plane request, else the deep-plane mesh
-    sources = (counts_main, counts_geom, counts_eval, counts_probe, *counts_deep)
+    # else the deep-plane request, else the deep-plane mesh, else the
+    # stylegan3-t layers, else EQ-R
+    sources = (counts_main, counts_geom, counts_eval, counts_probe, *counts_deep, counts_sg3,
+               counts_eq)
     launches = {name: next((c[name] for c in sources if c[name]), 0) for name in KERNELS}
     require_launched(launches, KERNELS, "all paths")
     summary = {"kernels": [

@@ -37,7 +37,16 @@
 // each thread computes 4 outputs of a column, skipping the taps that land on
 // inserted zeros.
 //
-// Both accumulate in f32 and round once to the input's dtype.
+// upfirdn2d_large_kernel, a filter of more than MAX_TAPS taps (the
+// equivariance metrics' 47x47 resampling filter at up=4 and their 11x11
+// pseudo-rotation filter, eval/equivariance.py): the generic kernel's tiles,
+// with the taps read from a device buffer that the block stages in shared
+// memory (a new filter for every random angle, so nothing is cached on the
+// host), and each output visiting only the taps of its phase (for 47x47 at
+// up=4, 144 of the 2,209: a tap meets an inserted zero unless its row and
+// column are the output's phase). Bound: operations, ~144 FMAs an output.
+//
+// All accumulate in f32 and round once to the input's dtype.
 #include "common.cuh"
 
 namespace {
@@ -106,6 +115,70 @@ cudaError_t launch(const void* x, void* y, int NC, int H, int W, int OH, int OW,
   upfirdn2d_kernel<T><<<grid, dim3(TILE, ROWS), smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), H, W, OH, OW, upx, upy, downx, downy,
       px0, py0, fw, fh, taps, tw, th);
+  return cudaGetLastError();
+}
+
+// ---- more than MAX_TAPS taps: the large-filter kernel ----
+
+template <typename T>
+__global__ void __launch_bounds__(TILE * ROWS) upfirdn2d_large_kernel(
+    const T* __restrict__ x, T* __restrict__ y, int H, int W, int OH, int OW,
+    int upx, int upy, int downx, int downy, int px0, int py0, int fw, int fh,
+    const float* __restrict__ f, int tw, int th) {
+  extern __shared__ float smem[];
+  float* taps = smem;              // [fh][fw]
+  float* tile = smem + fw * fh;    // [th][tw]
+  const long long nc = blockIdx.z;
+  const int ox0 = blockIdx.x * TILE, oy0 = blockIdx.y * TILE;
+  const int ix0 = floor_div(ox0 * downx - px0, upx);
+  const int iy0 = floor_div(oy0 * downy - py0, upy);
+  const T* src = x + nc * H * W;
+  const int tid = threadIdx.y * TILE + threadIdx.x;
+  for (int i = tid; i < fw * fh; i += TILE * ROWS) taps[i] = f[i];
+  for (int i = tid; i < tw * th; i += TILE * ROWS) {
+    const int iy = iy0 + i / tw, ix = ix0 + i % tw;
+    tile[i] = (iy >= 0 && iy < H && ix >= 0 && ix < W) ? to_f(src[(long long)iy * W + ix]) : 0.f;
+  }
+  __syncthreads();
+
+  const int ox = ox0 + threadIdx.x;
+  if (ox >= OW) return;
+  // the first column tap of this output's phase: X = ox*downx + b - px0 is
+  // a multiple of upx
+  const int b0 = floor_mod(px0 - ox * downx, upx);
+  const int tx0 = floor_div(ox * downx + b0 - px0, upx) - ix0;
+  T* dst = y + nc * OH * OW;
+  for (int oy = oy0 + threadIdx.y; oy < oy0 + TILE && oy < OH; oy += ROWS) {
+    const int a0 = floor_mod(py0 - oy * downy, upy);
+    const int ty0 = floor_div(oy * downy + a0 - py0, upy) - iy0;
+    float acc = 0.f;
+    for (int a = a0, ty = ty0; a < fh; a += upy, ++ty) {
+      const float* frow = taps + a * fw;
+      const float* trow = tile + ty * tw + tx0;
+      for (int b = b0, j = 0; b < fw; b += upx, ++j) acc = fmaf(frow[b], trow[j], acc);
+    }
+    dst[(long long)oy * OW + ox] = from_f<T>(acc);
+  }
+}
+
+template <typename T>
+cudaError_t launch_large(const void* x, void* y, int NC, int H, int W, int OH, int OW, int upx,
+                         int upy, int downx, int downy, int px0, int py0, int fw, int fh,
+                         const float* f, cudaStream_t stream) {
+  const int tw = ((TILE - 1) * downx + fw - 1) / upx + 2;
+  const int th = ((TILE - 1) * downy + fh - 1) / upy + 2;
+  const size_t smem = ((size_t)tw * th + (size_t)fw * fh) * sizeof(float);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(upfirdn2d_large_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid((OW + TILE - 1) / TILE, (OH + TILE - 1) / TILE, NC);
+  upfirdn2d_large_kernel<T><<<grid, dim3(TILE, ROWS), smem, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), H, W, OH, OW, upx, upy, downx, downy,
+      px0, py0, fw, fh, f, tw, th);
   return cudaGetLastError();
 }
 
@@ -251,7 +324,8 @@ cudaError_t dispatch_up2(const void* x, void* y, int NC, int H, int W, int OH, i
 
 // x: [NC, H, W] (f32 or bf16), y: [NC, OH, OW] in the same dtype; f: fh*fw
 // host floats (<= 64 taps), already flipped and gained (the kernel
-// correlates). Padding px0/py0 is relative to the zero-inserted image and
+// correlates); a filter of more than 64 taps comes instead as f_dev, fh*fw
+// floats on the device (f is then null) and runs the large-filter kernel. Padding px0/py0 is relative to the zero-inserted image and
 // may be negative (a crop); px1/py1 enter only through OH/OW. NC <= 65535.
 // phase_taps / phase_src: the polyphase table of an up=2, down=1, 4x4 call
 // (ops/upfirdn2d.py:k4_plan): 16 taps [ry][rx][j][i] and the source offsets
@@ -261,10 +335,19 @@ cudaError_t dispatch_up2(const void* x, void* y, int NC, int H, int W, int OH, i
 PANIC3D_EXPORT int upfirdn2d(const void* x, void* y, int dtype, int NC, int H, int W,
                              int OH, int OW, int upx, int upy, int downx, int downy,
                              int px0, int py0, const float* f, int fw, int fh,
-                             const float* phase_taps, const int* phase_src, void* stream) {
-  if (fw * fh > MAX_TAPS || fw < 1 || fh < 1 || NC < 1 || NC > 65535 || OH < 1 || OW < 1)
+                             const float* phase_taps, const int* phase_src,
+                             const float* f_dev, void* stream) {
+  if (fw < 1 || fh < 1 || NC < 1 || NC > 65535 || OH < 1 || OW < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fw * fh > MAX_TAPS) {
+    if (f_dev == nullptr) return (int)cudaErrorInvalidValue;
+    if (dtype == DT_BF16)
+      return (int)launch_large<__nv_bfloat16>(x, y, NC, H, W, OH, OW, upx, upy, downx, downy,
+                                              px0, py0, fw, fh, f_dev, s);
+    return (int)launch_large<float>(x, y, NC, H, W, OH, OW, upx, upy, downx, downy, px0, py0,
+                                    fw, fh, f_dev, s);
+  }
   const bool up2 = upx == 2 && upy == 2 && downx == 1 && downy == 1 && fw == 4 && fh == 4;
   if (up2) {
     if (phase_taps == nullptr || phase_src == nullptr) return (int)cudaErrorInvalidValue;

@@ -108,6 +108,11 @@ KERNELS = {
             "panic3d_tpu/ops/grid_sample.py:266",
         ),
         Kernel(
+            "filtered_lrelu",
+            "panic3d_tpu_torch/csrc/filtered_lrelu.cu",
+            "panic3d_tpu/ops/filtered_lrelu.py:22",
+        ),
+        Kernel(
             "gather_dot",
             "panic3d_tpu_torch/csrc/gather_dot.cu",
             "scripts/bench_pallas_gather.py:43",

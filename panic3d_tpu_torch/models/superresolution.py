@@ -9,6 +9,17 @@ import torch.nn as nn
 from .stylegan2 import SynthesisBlock, resize_bilinear
 
 
+def __getattr__(name):
+    # the reference's `from ... networks_stylegan3 import SynthesisLayer as
+    # AFSynthesisLayer` (superresolution.py:22); lazy, so scipy (its filter
+    # design) is imported only when it is used
+    if name == "AFSynthesisLayer":
+        from .stylegan3 import AFSynthesisLayer
+
+        return AFSynthesisLayer
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 class SuperresolutionHybrid8XDC(nn.Module):
     """512^2 output, hidden width channels_hidden (superresolution.py:80)."""
 

@@ -1,5 +1,8 @@
 """Bilinear 2-D and trilinear 3-D point sampling (panic3d_tpu/ops/grid_sample.py).
 
+``grid_sample_2d`` is the image-grid form of the 2-D sample, which the
+equivariance metrics resample with (eval/equivariance.py).
+
 ``grid_sample_2d_points`` is the plain half of kernel K1 (the triplane
 lookup of models/volumetric/renderer.py:triplane_decode_plain, zeros
 padding) and of K8 (paste-front's border-padded front projection).
@@ -64,6 +67,16 @@ def grid_sample_2d_points(input, points, padding_mode="zeros"):
     top = v00 + (v01 - v00) * wx1
     bot = v10 + (v11 - v10) * wx1
     return top + (bot - top) * wy1
+
+
+def grid_sample_2d(input, grid, padding_mode="zeros"):
+    """The image-grid form (panic3d_tpu/ops/grid_sample.py:256): ``input``
+    [N,C,H,W] sampled at ``grid`` [N,Hg,Wg,2] (x, y in [-1, 1]) ->
+    [N,C,Hg,Wg], bilinear, align_corners=False."""
+    N, C = input.shape[:2]
+    gshape = tuple(grid.shape[1:-1])
+    out = grid_sample_2d_points(input, grid.reshape(N, -1, 2), padding_mode)
+    return out.transpose(1, 2).reshape(N, C, *gshape)
 
 
 def grid_sample_3d_points(input, points, padding_mode="zeros"):

@@ -6,7 +6,9 @@ the same function in plain PyTorch (the reference formula: zero-insert, pad,
 grouped correlation, decimate): the CPU path and the kernel's oracle.
 ``k4_plan`` is what the wrapper hands the kernel for one (filter, padding),
 cached: for up=2, down=1 and a 4x4 filter (every call of the flagship) the
-polyphase table of the specialised kernel.
+polyphase table of the specialised kernel. A filter of more than 64 taps (the
+equivariance metrics' 47x47 and 11x11 resampling filters, new for every
+random angle) is not cached: it goes to the kernel as a device buffer.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 from ..kernels import KERNELS, require_no_grad
 from ..kernels import build as kb
+from ..utils.device import to_device
 
 
 def _parse_scaling(scaling):
@@ -96,7 +99,9 @@ def upfirdn2d_plain(x, f2d, up, down, pad):
     return y[:, :, ::downy, ::downx].to(x.dtype)
 
 
-_K4_ARGS = (kb.PTR, kb.PTR) + (kb.INT,) * 12 + (kb.PTR, kb.INT, kb.INT, kb.PTR, kb.PTR, kb.PTR)
+_K4_ARGS = ((kb.PTR, kb.PTR) + (kb.INT,) * 12
+            + (kb.PTR, kb.INT, kb.INT, kb.PTR, kb.PTR, kb.PTR, kb.PTR))
+MAX_TAPS = 64   # the most taps the kernel takes by value (csrc/upfirdn2d.cu:MAX_TAPS)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -105,9 +110,10 @@ class K4Plan(NamedTuple):
     once and cached: the filter (flipped and gained) and, for the family
     every call of the flagship makes (up=2, down=1, 4x4 filter), its
     polyphase table. ``variant`` names the kernel the entry point runs:
-    "up2" (the polyphase kernel) or "generic"."""
+    "up2" (the polyphase kernel), "generic", or "large" (a filter of more
+    than MAX_TAPS taps, read from a device buffer: no taps here)."""
     variant: str
-    taps: ctypes.Array
+    taps: Optional[ctypes.Array]
     phase_taps: Optional[tuple]   # [ry][rx][j][i]: the tap of x[m+sy[ry]+j, n+sx[rx]+i]
     phase_src: Optional[tuple]    # (sy[0], sy[1], sx[0], sx[1])
     c_phase_taps: Optional[ctypes.Array]
@@ -137,10 +143,17 @@ def _plan(taps: tuple, fh: int, fw: int, up: tuple, down: tuple, pad: tuple) -> 
     return K4Plan("up2", c_taps, table, src, kb.f32_array(flat), (ctypes.c_int * 4)(*src))
 
 
+_LARGE = K4Plan("large", None, None, None, None, None)
+
+
 def k4_plan(f2d, up, down, pad) -> K4Plan:
     """The cached plan of a call (f2d [fh, fw] flipped and gained, up/down
-    (x, y) pairs, pad (px0, px1, py0, py1))."""
+    (x, y) pairs, pad (px0, px1, py0, py1)); a filter of more than MAX_TAPS
+    taps takes the large kernel, with neither a cache entry nor a copy of
+    its taps to the host."""
     fh, fw = int(f2d.shape[0]), int(f2d.shape[1])
+    if fh * fw > MAX_TAPS:
+        return _LARGE
     taps = tuple(f2d.detach().to("cpu", torch.float32).reshape(-1).tolist())
     return _plan(taps, fh, fw, tuple(up), tuple(down), tuple(pad))
 
@@ -158,11 +171,16 @@ def upfirdn2d_kernel(x, f2d, up, down, pad):
     if oh < 1 or ow < 1:
         raise ValueError(f"upfirdn2d: empty output {oh}x{ow}")
     plan = k4_plan(f2d, up, down, pad)
+    f_dev = None
+    if plan.variant == "large":   # the taps as a device buffer, copied without a wait
+        f_dev = (to_device(f2d.detach().numpy(), x.device) if f2d.device.type == "cpu"
+                 else f2d.detach().to(x.device, torch.float32).contiguous())
     y = torch.empty((n, c, oh, ow), device=x.device, dtype=x.dtype)
     kb.launch(
         "upfirdn2d", _K4_ARGS, x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype],
         n * c, h, w, oh, ow, up[0], up[1], down[0], down[1], pad[0], pad[2],
         plan.taps, fw, fh, plan.c_phase_taps, plan.c_phase_src,
+        f_dev.data_ptr() if f_dev is not None else None,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     k = KERNELS["upfirdn2d"]
@@ -179,15 +197,11 @@ def _fir(x, f2d, up, down, pad):
     raise RuntimeError(f"upfirdn2d: no path for device {x.device}")
 
 
-def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
-    """Pad, upsample, FIR-filter and downsample a batch of NCHW images.
-
-    Zero-insert upsample by ``up``, zero-pad/crop by ``padding`` (relative to
-    the upsampled image), correlate with ``f`` (flipped unless
-    ``flip_filter``), keep every ``down``-th pixel. A 1-D (separable) filter
-    runs as a horizontal then a vertical pass."""
-    if x.ndim != 4:
-        raise ValueError("upfirdn2d takes NCHW images")
+def fir_passes(f, up=1, down=1, padding=0, flip_filter=False, gain=1) -> list:
+    """The passes of one upfirdn2d call: [(f2d, up, down, pad)], the
+    arguments of :func:`upfirdn2d_plain` (and of the kernel) for each. The
+    filter is gained and flipped unless ``flip_filter``; a 1-D (separable)
+    filter makes a horizontal and then a vertical pass."""
     if f is None:
         f = torch.ones((1, 1), dtype=torch.float32)
     upx, upy = _parse_scaling(up)
@@ -197,9 +211,23 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
     if not flip_filter:
         f = f.flip(list(range(f.ndim)))
     if f.ndim == 1:
-        x = _fir(x, f[None, :], (upx, 1), (downx, 1), (px0, px1, 0, 0))
-        return _fir(x, f[:, None], (1, upy), (1, downy), (0, 0, py0, py1))
-    return _fir(x, f, (upx, upy), (downx, downy), (px0, px1, py0, py1))
+        return [(f[None, :], (upx, 1), (downx, 1), (px0, px1, 0, 0)),
+                (f[:, None], (1, upy), (1, downy), (0, 0, py0, py1))]
+    return [(f, (upx, upy), (downx, downy), (px0, px1, py0, py1))]
+
+
+def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
+    """Pad, upsample, FIR-filter and downsample a batch of NCHW images.
+
+    Zero-insert upsample by ``up``, zero-pad/crop by ``padding`` (relative to
+    the upsampled image), correlate with ``f`` (flipped unless
+    ``flip_filter``), keep every ``down``-th pixel. A 1-D (separable) filter
+    runs as a horizontal then a vertical pass."""
+    if x.ndim != 4:
+        raise ValueError("upfirdn2d takes NCHW images")
+    for spec in fir_passes(f, up, down, padding, flip_filter, gain):
+        x = _fir(x, *spec)
+    return x
 
 
 def filter2d(x, f, padding=0, flip_filter=False, gain=1):

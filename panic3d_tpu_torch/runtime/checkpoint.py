@@ -2,9 +2,11 @@
 (panic3d_tpu/runtime/checkpoint.py:226-291).
 
 The flax variables keep the reference's torch shapes, so a mapping is a pure
-rename: ``decoder.net.{0,2}.x`` <-> ``decoder/net{0,2}/x``, ``noise_const``
-and ``w_avg`` live in the 'buffers' collection, everything else in
-'params'. ``resample_filter`` buffers are recomputed and have no entry.
+rename: ``decoder.net.{0,2}.x`` <-> ``decoder/net{0,2}/x``, ``noise_const``,
+``w_avg`` and the alias-free layer's ``magnitude_ema`` live in the 'buffers'
+collection, everything else in 'params'. The ``resample_filter`` buffers
+and the alias-free layer's ``up_filter`` and ``down_filter`` are recomputed
+and have no entry.
 
 The ResNet and the metric nets (LPIPS, CLIP) keep the flax tree's own
 names in the port (``module_state_from_flax``), so their variables, and
@@ -21,13 +23,17 @@ import numpy as np
 import torch
 
 
+_BUFFERS = ("noise_const", "w_avg", "magnitude_ema")
+_RECOMPUTED = ("resample_filter", "up_filter", "down_filter")
+
+
 def flax_path_from_torch(name: str) -> Optional[Tuple[str, ...]]:
     """Reference state_dict name -> (collection, *path), or None for the
-    recomputed resample_filter constants."""
+    recomputed filter constants."""
     parts = name.split(".")
-    if parts[-1] == "resample_filter":
+    if parts[-1] in _RECOMPUTED:
         return None
-    collection = "buffers" if parts[-1] in ("noise_const", "w_avg") else "params"
+    collection = "buffers" if parts[-1] in _BUFFERS else "params"
     if len(parts) >= 4 and parts[0] == "decoder" and parts[1] == "net":
         return (collection, "decoder", f"net{parts[2]}", parts[3])
     return (collection, *parts)

@@ -4,7 +4,7 @@ refuses an input that requires grad under grad mode
 
 - the helper raises only with grad mode on and a tensor that requires grad,
   found in nested tuples (the decoder's NamedTuple), lists and dicts;
-- each of the 16 kernel wrappers raises at its first statement when one of
+- each of the 17 kernel wrappers raises at its first statement when one of
   its tensor inputs requires grad, before it checks the device or launches;
 - the plain CPU forward of the tiny config (G.f) still back-propagates to
   the mapping, the backbone and the decoder.
@@ -23,6 +23,7 @@ from panic3d_tpu_torch.models import triplane as tp
 from panic3d_tpu_torch.models.volumetric import lattice as vlat
 from panic3d_tpu_torch.models.volumetric import renderer as vr
 from panic3d_tpu_torch.ops.bias_act import modconv_epilogue_kernel
+from panic3d_tpu_torch.ops.filtered_lrelu import filtered_lrelu_kernel
 from panic3d_tpu_torch.ops.gather_dot import gather_dot_kernel
 from panic3d_tpu_torch.ops.upfirdn2d import upfirdn2d_kernel
 
@@ -89,6 +90,9 @@ WRAPPERS = {
     "volume_density_deep": lambda: vol.density_grid_deep_kernel(
         leaf(1, 3, 16, 4, 4), _decoder(True), 16, 0.7, vr.generate_plane_axes(True),
         vr.DensityFilters(), 2),
+    "filtered_lrelu": lambda: filtered_lrelu_kernel(leaf(1, 2, 8, 8), leaf(12), leaf(12),
+                                                    leaf(2, grad=True), up=2, down=2,
+                                                    padding=[5, 6, 5, 6]),
     "gather_dot": lambda: gather_dot_kernel(torch.zeros(4, dtype=torch.int32), leaf(4, 8),
                                             leaf(8, 4, grad=True)),
 }

@@ -9,13 +9,15 @@ import sys
 
 import torch
 
-from panic3d_tpu_torch.eval import gltf, mesh_metrics, volume
+from panic3d_tpu_torch.eval import equivariance, gltf, mesh_metrics, volume
 from panic3d_tpu_torch.kernels import KERNELS, launch_counts
+from panic3d_tpu_torch.models.stylegan3 import AFSynthesisLayer
 from panic3d_tpu_torch.models.triplane import paste_composite
 from panic3d_tpu_torch.models.volumetric import lattice as vlat
 from panic3d_tpu_torch.models.volumetric import renderer as vr
 from panic3d_tpu_torch.ops import setup_filter, upfirdn2d
 from panic3d_tpu_torch.ops.bias_act import modconv_epilogue
+from panic3d_tpu_torch.ops.filtered_lrelu import filtered_lrelu
 from panic3d_tpu_torch.ops.gather_dot import gather_dot
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,6 +47,9 @@ def test_imports_with_jax_blocked():
         "import panic3d_tpu_torch.ops.resize, panic3d_tpu_torch.data.databack\n"
         "import panic3d_tpu_torch.utils.imglib, panic3d_tpu_torch.utils.table\n"
         "import panic3d_tpu_torch.utils.config\n"
+        "import panic3d_tpu_torch.ops.filtered_lrelu, panic3d_tpu_torch.models.stylegan3\n"
+        "import panic3d_tpu_torch.eval.equivariance, panic3d_tpu_torch.eval.gan_metrics\n"
+        "from panic3d_tpu_torch.models.superresolution import AFSynthesisLayer\n"
         "import panic3d_tpu_torch.configs as c\n"
         "c.tiny(device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'panic3d_tpu')\n"
@@ -140,6 +145,18 @@ def test_wrappers_count_no_launch_on_cpu():
     # K13: winding numbers of points with respect to one triangle
     w = gltf.winding_numbers(torch.rand(3, 3), torch.tensor([[0, 1, 2]]), torch.rand(5, 3))
     assert w.shape == (5,) and w.dtype == torch.float32
+    # K11: the filtered leaky relu, through the alias-free layer; K4's
+    # large-filter form, through the equivariance operators
+    layer = AFSynthesisLayer(w_dim=4, is_torgb=False, is_critically_sampled=False,
+                             use_fp16=False, in_channels=2, out_channels=3, in_size=8,
+                             out_size=8, in_sampling_rate=8, out_sampling_rate=8, in_cutoff=2.0,
+                             out_cutoff=2.0, in_half_width=2.0, out_half_width=2.0,
+                             use_radial_filters=True, device="cpu")
+    assert layer(torch.randn(1, 2, 8, 8), torch.randn(1, 4)).shape == (1, 3, 8, 8)
+    assert filtered_lrelu(torch.randn(1, 2, 5, 5), b=torch.randn(2), slope=1.0, gain=1.0,
+                          clamp=1.0).shape == (1, 2, 5, 5)
+    z, m = equivariance.apply_fractional_rotation(torch.randn(1, 3, 16, 16), 0.3)
+    assert z.shape == m.shape == (1, 3, 16, 16)
     # K9: point -> mesh distances
     d2 = mesh_metrics.point_mesh_distance_sq(torch.rand(7, 3), torch.rand(4, 3),
                                              torch.tensor([[0, 1, 2], [1, 2, 3]]))
