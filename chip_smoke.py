@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (panic3d_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile DIR] [--kernels-only]
+    python3 chip_smoke.py [--profile DIR] [--kernels-only] [--parent DIR]
 
 1. Prints the setup (torch, CUDA, card name and power limit); exits non-zero
    without a CUDA device.
@@ -40,7 +40,15 @@
    the whole layer forward, whose K5 call is held exact on the layer's
    conv output and whose output is held to f64 against the plain layer's;
    K4 at the equivariance metrics' calls: the large-filter kernel at the
-   47x47 up-4 and 11x11, the generic kernel at EQ-T_frac's 1x6 and 6x1),
+   47x47 up-4 and 11x11, the generic kernel at EQ-T_frac's 1x6 and 6x1,
+   each beside its one library call; K6b also at K = 37 with S = 2 on
+   the occupancy max-pooled to 16^3, and on one grid shared by both views
+   (batch stride 0); K8 also at 72^2, whose tiles are partial, and at
+   70^2, whose side is not a multiple of 4 (no float4 stores); K6b's and
+   K8's SASS instructions a ray and a pixel (cuobjdump) with the issue
+   ceiling they give, and with --parent DIR (the parent commit's ess.cu
+   and paste_front.cu) their outputs against the parent's kernels' and
+   their times in the order parent / this / this / parent),
    and times both
    (median of CUDA-event timings), with the single PyTorch call that
    computes the same function where there is one (library_ms; K4 must beat
@@ -99,7 +107,9 @@
    default against the same weights pinned to f32.
    --profile DIR adds a torch.profiler table and trace of one ESS + paste
    request, one turntable portrait and one deep-plane request, with the
-   device's busy share.
+   device's busy share; with --parent also a turntable portrait's device
+   busy time with the parent's K6b and K8 and with this tree's, in the
+   order parent / this / this / parent.
 6. Prints a JSON line of the paths, the script's wall time, a JSON line of
    the kernels (one entry per entry point, with its launches on the ESS +
    paste path, else on the geometry path, else on eval measure, else on the
@@ -136,7 +146,8 @@ ISSUE_PER_S = None          # set in main(): 128 lanes a clock per SM x SMs x th
 NO_SPILL = ("triplane_decode_kernel", "factor_terms_kernel", "occlusion_volume_kernel",
             "ray_composite_kernel", "volume_density_kernel", "triangle_records_kernel",
             "point_mesh_distance_kernel", "winding_number_kernel",
-            "importance_sample_kernel")   # must not spill
+            "importance_sample_kernel", "ess_narrow_kernel",
+            "paste_front_kernel")   # must not spill
 PASTE_KEYS = ("mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
 MESH_RES = 256     # eval generate's mesh resolution
 LEVEL = 0.5        # eval generate's iso level
@@ -637,6 +648,40 @@ def k4_checks(G, x, device):
                               equivariance=k4_equivariance_checks(device))}
 
 
+def k4_library(xx, f2d, up, pad, out_hw):
+    """The single PyTorch call that computes upfirdn2d_plain(xx, f2d, up,
+    1, pad) (f2d already flipped, correlated), or None where there is none:
+    at up 1 a depthwise F.conv2d with the symmetric padding; at up > 1 a
+    depthwise F.conv_transpose2d of stride up, whose left padding is
+    k - 1 - padding, so a padding beyond k - 1 (EQ-R's 48 at k = 47) is
+    reached by extending the filter with leading zero taps, and the right
+    edge by output_padding (< up)."""
+    import torch
+    import torch.nn.functional as F
+
+    C = xx.shape[1]
+    fh, fw = f2d.shape
+    px0, px1, py0, py1 = pad
+    if up == (1, 1):
+        if px0 != px1 or py0 != py1 or min(pad) < 0:
+            return None
+        w = f2d.to(xx.device, xx.dtype)[None, None].expand(C, 1, fh, fw).contiguous()
+        return lambda: F.conv2d(xx, w, padding=(py0, px0), groups=C)
+    u = up[0]
+    if up[1] != u or fh != fw or px0 != py0:
+        return None
+    ext = max(px0 - (fw - 1), 0)           # leading zero taps
+    P = ext - (px0 - (fw - 1))             # conv_transpose2d's padding
+    k = fw + ext
+    op = out_hw[0] - ((xx.shape[2] - 1) * u - 2 * P + k)
+    if not 0 <= op < u or out_hw[1] - ((xx.shape[3] - 1) * u - 2 * P + k) != op:
+        return None
+    w = torch.zeros((k, k), dtype=xx.dtype, device=xx.device)
+    w[ext:, ext:] = f2d.flip([0, 1]).to(xx.device, xx.dtype)
+    w = w[None, None].expand(C, 1, k, k).contiguous()
+    return lambda: F.conv_transpose2d(xx, w, stride=u, padding=P, output_padding=op, groups=C)
+
+
 def k4_equivariance_checks(device):
     """K4 at the equivariance path's calls on 512^2 f32 images (batch 4, 3
     channels). The large-filter kernel (more than 64 taps, from a device
@@ -690,12 +735,15 @@ def k4_equivariance_checks(device):
         e = max_err(yk, yp)
         check(f"K4 large filter, {what}: {list(xx.shape)} f32 -> {yk.shape[-2]}x{yk.shape[-1]}",
               e, 1e-5 * float(yp.abs().max()))
+        library = k4_library(xx, f2d, upp, pad, yk.shape[-2:])
+        require(library is not None, f"K4 {what}: no library call")
+        check("  library call vs plain", max_err(library(), yp), 1e-5 * float(yp.abs().max()))
         summ = record(e, lambda: upfirdn2d_kernel(xx, f2d, upp, down, pad),
                       lambda: upfirdn2d_plain(xx, f2d, upp, down, pad), nbytes(xx, yk, f2d),
-                      yk.numel() * (fh * fw / up ** 2) * 2, plain_iters=3)
+                      yk.numel() * (fh * fw / up ** 2) * 2, library, plain_iters=3)
         summ.update(call=what, shape=list(xx.shape), filter=[fh, fw], up=up, pad=list(pad))
-        print(f"    ms {summ['ms']:.6f}  plain_ms {summ['plain_ms']:.6f}  bound_ms "
-              f"{summ['bound_ms']:.6f} ({summ['bound_by']})")
+        print(f"    ms {summ['ms']:.6f}  plain_ms {summ['plain_ms']:.6f}  library_ms "
+              f"{summ['library_ms']:.6f}  bound_ms {summ['bound_ms']:.6f} ({summ['bound_by']})")
         out.append(summ)
         del yk, yp
     require(len(calls) == 2, f"EQ-T_frac made {len(calls)} K4 calls, not 2")
@@ -711,18 +759,266 @@ def k4_equivariance_checks(device):
         e = max_err(yk, yp)
         check(f"K4 generic, {what}: {list(xx.shape)} f32 -> {yk.shape[-2]}x{yk.shape[-1]}",
               e, 1e-5 * float(yp.abs().max()))
+        library = k4_library(xx, f2d, upp, pad, yk.shape[-2:])
+        require(library is not None, f"K4 {what}: no library call")
+        check("  library call vs plain", max_err(library(), yp), 1e-5 * float(yp.abs().max()))
         summ = record(e, lambda: upfirdn2d_kernel(xx, f2d, upp, down, pad),
                       lambda: upfirdn2d_plain(xx, f2d, upp, down, pad), nbytes(xx, yk, f2d),
-                      yk.numel() * fh * fw * 2, plain_iters=3)
+                      yk.numel() * fh * fw * 2, library, plain_iters=3)
         summ.update(call=what, shape=list(xx.shape), filter=[fh, fw], up=1, pad=list(pad))
-        print(f"    ms {summ['ms']:.6f}  plain_ms {summ['plain_ms']:.6f}  bound_ms "
-              f"{summ['bound_ms']:.6f} ({summ['bound_by']})")
+        print(f"    ms {summ['ms']:.6f}  plain_ms {summ['plain_ms']:.6f}  library_ms "
+              f"{summ['library_ms']:.6f}  bound_ms {summ['bound_ms']:.6f} ({summ['bound_by']})")
         out.append(summ)
         del yk, yp
     return out
 
 
-def ess_paste_kernel_checks(G, x, device):
+def k8_compare(label, args8):
+    """K8 vs its plain version on one input: each binary mask may differ on
+    at most 0.1 % of the pixels (a value within rounding of its threshold),
+    mask_occ within 1e-5, and mask, paste and image within 1e-5 where the
+    binary masks agree. -> (the kernel's outputs, the largest error)."""
+    import torch
+
+    from panic3d_tpu_torch.models import triplane as tp
+
+    k8, p8 = tp.paste_composite_kernel(*args8), tp.paste_composite_plain(*args8)
+    agree = torch.ones_like(k8["mask"], dtype=torch.bool)
+    n_pix = k8["mask"].numel()
+    for key in ("mask_weights", "mask_edges", "mask_dxyz"):
+        flips = int((k8[key] != p8[key]).sum())
+        print(f"K8 paste_front ({label}) {key}: {flips} of {n_pix} pixels differ, passes "
+              f"{float(k8[key].mean()):.4f} (tol {n_pix // 1000})")
+        require(flips <= n_pix // 1000, f"K8: {flips} {key} pixels differ")
+        agree &= k8[key] == p8[key]
+    e8 = max_err(k8["mask_occ"], p8["mask_occ"])
+    check("K8 mask_occ (bilinear upsample, f32)", e8, 1e-5)
+    print(f"  mask passes {float(k8['mask'].mean()):.4f}")
+
+    def where_agree(key):
+        return float((k8[key] - p8[key]).abs()[agree.expand_as(k8[key])].max())
+
+    e8 = max(e8, where_agree("mask"))
+    check("K8 mask where the binary masks agree (f32)", where_agree("mask"), 1e-5)
+    # the upsampled xyz and the front uv are the plain version's rounded
+    # operations, so the projection reads the same texels with the same
+    # weights
+    for key in ("paste", "image"):
+        e8 = max(e8, where_agree(key))
+        check(f"K8 {key} where the masks agree (f32, the same rounded operations)",
+              where_agree(key), 1e-5)
+    return k8, e8
+
+
+def build_parent(parent_dir):
+    """The parent commit's sources of the kernels this tree redesigned
+    (``--parent DIR``: DIR/<stem>.cu, e.g. written by ``git show
+    <parent>:panic3d_tpu_torch/csrc/ess.cu``), built with the tree's nvcc
+    flags and headers into build/parent/ -> {stem: (ctypes library, .so
+    path)}; {} without DIR."""
+    import ctypes
+    from pathlib import Path
+
+    from panic3d_tpu_torch.kernels import build
+
+    if not parent_dir:
+        return {}
+    out_dir = Path(__file__).resolve().parent / "build" / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = {}
+    for src in sorted(Path(parent_dir).glob("*.cu")):
+        so = out_dir / f"{src.stem}.so"
+        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC}", str(src),
+                               "-o", str(so)], capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0, f"parent {src.name} failed to build:\n{proc.stderr}")
+        libs[src.stem] = (ctypes.CDLL(str(so)), so)
+    print(f"parent kernels built from {parent_dir}: {sorted(libs)}")
+    return libs
+
+
+class parent_entries:
+    """Within the block, the kernel wrappers launch the entry points named
+    in ``libs`` ({entry point: the parent's ctypes library}, the same
+    arguments) from the parent's libraries in place of this tree's."""
+
+    def __init__(self, libs: dict):
+        self.libs = libs
+
+    def __enter__(self):
+        import ctypes
+
+        from panic3d_tpu_torch.kernels import build
+
+        self.launch = launch = build.launch
+
+        def parent_launch(name, argtypes, *args):
+            if name not in self.libs:
+                return launch(name, argtypes, *args)
+            fn = getattr(self.libs[name], name)
+            fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+            rc = fn(*args)
+            require(rc == 0, f"parent {name}: CUDA error {rc}")
+
+        build.launch = parent_launch
+
+    def __exit__(self, *exc):
+        from panic3d_tpu_torch.kernels import build
+
+        build.launch = self.launch
+
+
+def sass_listing(so, kernel: str):
+    """[(address, instruction)] of ``kernel``'s SASS in the library ``so``
+    (cuobjdump -sass), NOPs left out; None without cuobjdump or the kernel."""
+    import os
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    body = next((f for f in re.split(r"\n\s*Function : ", text)[1:]
+                 if kernel in f.split("\n", 1)[0]), None)
+    if body is None:
+        return None
+    return [(int(m.group(1), 16), m.group(2).strip()) for m in
+            re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
+            if not m.group(2).strip().startswith("NOP")]
+
+
+def sass_loops(ins):
+    """The loops of a SASS listing: spans from a backward branch's target
+    to the branch -> [(first address, last address, instructions)]."""
+    import re
+
+    loops = []
+    for addr, text_ in ins:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text_)
+        if m and int(m.group(1), 16) < addr:
+            lo = int(m.group(1), 16)
+            loops.append((lo, addr, [o for a, o in ins if lo <= a <= addr]))
+    return loops
+
+
+def sass_per_thread(so, kernel: str, work: dict):
+    """A thread's SASS instructions, estimated from the static listing of
+    the kernel's body (up to its first subroutine: slow paths called out
+    of line, such as an IEEE division's, are not counted): the
+    instructions outside loops once each (remainder loops and untaken
+    branches included), and the loop that holds the most of the marker
+    instruction ``op`` of ``work`` (the main, unrolled one) run
+    work[op] / (markers in it) times, work[op] being how often the thread
+    executes ``op`` in loops. -> dict, or None without cuobjdump."""
+    import re
+
+    ins = sass_listing(so, kernel)
+    if ins is None:
+        return None
+    calls = [int(m.group(1), 16) for _, o in ins
+             if (m := re.search(r"\bCALL\.REL\S*\s+(0x[0-9a-f]+)", o))]
+    body = [(a, o) for a, o in ins if not calls or a < min(calls)]
+    loops, dyn, used = sass_loops(body), float(len(body)), []
+    for op, n in work.items():
+        cands = [(sum(bool(re.search(rf"(^|\s){op}\b", o)) for o in span), -len(span), lo,
+                  hi, span)
+                 for lo, hi, span in loops if (lo, hi) not in used]
+        cands = [c for c in cands if c[0]]
+        if not cands:
+            continue
+        marks, _, lo, hi, span = max(cands)
+        used.append((lo, hi))
+        dyn += len(span) * (n / marks - 1)
+    return {"static": len(body), "out_of_line": len(ins) - len(body), "loops": len(loops),
+            "per_thread": dyn}
+
+
+def kernel_device_us(fn, kernel: str, runs: int = 20):
+    """The mean device time of ``kernel``'s launches in ``runs`` calls of fn,
+    from torch.profiler's CUDA activity (the kernel alone: no events, no
+    other launch of fn), in microseconds; None where the profiler records
+    no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    total = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+                for e in hits)
+    count = sum(e.count for e in hits)
+    return total / count if count else None
+
+
+def parent_and_sass(parent, stem, name, kernel, fn, items, unit, new_work, new_scale,
+                    parent_work, new_kernel=None):
+    """This tree's kernel against the parent's (``--parent``): the outputs
+    compared bit for bit, then device times in the order parent / this /
+    this / parent in one process; and each one's SASS instructions a
+    ``unit`` (a ray or a pixel) with the issue ceiling they give: a
+    thread's instructions x ``new_scale`` (the lanes an item takes over
+    the items a thread takes) for this tree's kernel (``new_kernel``, the
+    instantiation the path runs, else ``kernel``), x 1 for the parent's
+    one thread an item. -> {"sass": ..., "parent": ...}."""
+    from panic3d_tpu_torch.kernels import build
+
+    out = {}
+    mine = sass_per_thread(build.build(stem), new_kernel or kernel, new_work)
+    if mine:
+        mine["per_" + unit] = mine["per_thread"] * new_scale
+        mine["ceiling_ms"] = items * mine["per_" + unit] / ISSUE_PER_S * 1e3
+    theirs = None
+    if stem in parent:
+        lib, so = parent[stem]
+        theirs = sass_per_thread(so, kernel, parent_work)
+        if theirs:
+            theirs["per_" + unit] = theirs["per_thread"]
+            theirs["ceiling_ms"] = items * theirs["per_" + unit] / ISSUE_PER_S * 1e3
+        got = fn()
+        with parent_entries({name: lib}):
+            want = fn()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [
+            (got[k], want[k]) for k in got]
+        differ = sum(int((a != b).sum()) for a, b in pairs)
+        with parent_entries({name: lib}):
+            p1 = cuda_ms(fn)
+        n1, n2 = cuda_ms(fn), cuda_ms(fn)
+        with parent_entries({name: lib}):
+            p2 = cuda_ms(fn)
+        with parent_entries({name: lib}):
+            us_parent = kernel_device_us(fn, kernel)
+        out["parent"] = {"ms_parent_this_this_parent": [p1, n1, n2, p2],
+                         "kernel_us_profiler": us_parent,
+                         "values_not_bit_equal": differ,
+                         "values": sum(a.numel() for a, _ in pairs)}
+        print(f"  {kernel}: parent / this / this / parent {p1:.6f} / {n1:.6f} / {n2:.6f} / "
+              f"{p2:.6f} ms; outputs not equal bit for bit to the parent's: {differ} of "
+              f"{out['parent']['values']}; the parent's kernel alone (torch.profiler) "
+              f"{us_parent} us")
+    else:
+        print(f"  {kernel}: parent not given (--parent), not timed against it")
+    for who, sm in (("this tree", mine), ("parent", theirs)):
+        if sm:
+            print(f"  {kernel} SASS ({who}): {sm['static']} static instructions "
+                  f"(+{sm['out_of_line']} out of line), {sm['loops']} loops; "
+                  f"~{sm['per_' + unit]:.1f} lane instructions a {unit}; "
+                  f"issue ceiling {sm['ceiling_ms']:.6f} ms")
+        elif who == "this tree":
+            print(f"  {kernel} SASS: not measured (no cuobjdump, or the kernel not found)")
+    out["sass"] = {"this": mine, "parent": theirs}
+    out["kernel_us_profiler"] = kernel_device_us(fn, kernel)
+    print(f"  {kernel} alone (torch.profiler, mean of 20 launches): "
+          f"{out['kernel_us_profiler']} us")
+    return out
+
+
+def ess_paste_kernel_checks(G, x, device, parent):
     """K6, K7, K8 and K12 vs their plain versions on the card: K6 and K7 on
     the planes of the seeded flagship (bench.py's inputs), K7's sampler and
     K8 on its ESS render, K12 at the Pallas probe's shapes.
@@ -774,12 +1070,35 @@ def ess_paste_kernel_checks(G, x, device):
     errs = [max_err(a, b) for a, b in zip(nk, npl)]
     for label, e in zip(("t0", "t1", "coarse depths"), errs):
         check(f"K6 ess_narrow {label} (f32, the same rounded operations)", e, 1e-6)
+    print(f"  values not equal bit for bit to the plain version's: "
+          f"{sum(int((a != b).sum()) for a, b in zip(nk, npl))} of "
+          f"{sum(a.numel() for a in nk)}")
     span = float((nk[1] - nk[0]).mean())
     print(f"  {ro.shape[0]} x {ro.shape[1]} rays, {ess['taps']} taps; mean narrowed span "
           f"{span:.4f} of {rk['ray_end'] - rk['ray_start']}")
     out["ess_narrow"] = record(
         max(errs), lambda: vr.ess_narrow_kernel(*args6b), lambda: vr.ess_narrow_plain(*args6b),
         nbytes(occ_k, ro, rd, *nk), ro.shape[0] * ro.shape[1] * (ess["taps"] * 20 + S * 5))
+    # the edge cases: a partial chunk of taps (K = 37) with S = 2, on the
+    # occupancy max-pooled to 16^3 (37 taps cover the interval at that
+    # grid), and one grid shared by both views (batch stride 0, the
+    # turntable's form)
+    occ16 = torch.nn.functional.max_pool3d(occ_k, 2).contiguous()
+    cases = {"K=37, S=2, 16^3 grid": (occ16, dict(rk, ess=dict(ess, taps=37)), 2),
+             "stride-0 occupancy": (occ_k[:1].expand_as(occ_k), rk, S)}
+    edge = {}
+    for label, (occ_c, rk_c, S_c) in cases.items():
+        args_c = (occ_c, occ_out, ro, rd, rk["ray_start"], rk["ray_end"], bw, rk_c, S_c)
+        kc, pc = vr.ess_narrow_kernel(*args_c), vr.ess_narrow_plain(*args_c)
+        e = max(max_err(a, b) for a, b in zip(kc, pc))
+        check(f"K6 ess_narrow, {label}: t0, t1, depths {tuple(kc[2].shape)}", e, 1e-6)
+        edge[label] = e
+    out["ess_narrow"]["edge_cases"] = edge
+    out["ess_narrow"].update(parent_and_sass(
+        parent, "ess", "ess_narrow", "ess_narrow_kernel", lambda: vr.ess_narrow_kernel(*args6b),
+        ro.shape[0] * ro.shape[1], "ray",
+        new_work={"LDG": -(-ess["taps"] // 32), "STG": -(-S // 32)}, new_scale=32,
+        parent_work={"LDG": ess["taps"], "STG": S}))
 
     # K3 at the ESS paths' 48+48: the narrowed coarse depths, and the
     # coarse sigmas K1 decodes there (the render's planes and dtype)
@@ -864,40 +1183,34 @@ def ess_paste_kernel_checks(G, x, device):
         dxyz = G._get_xyz_discrepancy(xyz, rays_img)
         args8 = (ref["image"], front, wts, xyz, occ_bin, dxyz, bw, pp["thresh_weight"],
                  pp["thresh_edges"], pp["thresh_dxyz"])
-        k8, p8 = tp.paste_composite_kernel(*args8), tp.paste_composite_plain(*args8)
-        agree = torch.ones_like(k8["mask"], dtype=torch.bool)
-        n_pix = k8["mask"].numel()
-        for key in ("mask_weights", "mask_edges", "mask_dxyz"):
-            flips = int((k8[key] != p8[key]).sum())
-            print(f"K8 paste_front ({label}) {key}: {flips} of {n_pix} pixels differ, passes "
-                  f"{float(k8[key].mean()):.4f} (tol {n_pix // 1000})")
-            require(flips <= n_pix // 1000, f"K8: {flips} {key} pixels differ")
-            agree &= k8[key] == p8[key]
-        e8 = max(e8, max_err(k8["mask_occ"], p8["mask_occ"]))
-        check("K8 mask_occ (bilinear upsample, f32)", max_err(k8["mask_occ"], p8["mask_occ"]),
-              1e-5)
-        print(f"  mask passes {float(k8['mask'].mean()):.4f}")
-
-        def where_agree(key):
-            return float((k8[key] - p8[key]).abs()[agree.expand_as(k8[key])].max())
-
-        e8 = max(e8, where_agree("mask"))
-        check("K8 mask where the binary masks agree (f32)", where_agree("mask"), 1e-5)
-        # the upsampled xyz and the front uv are the plain version's rounded
-        # operations, so the projection reads the same texels with the same
-        # weights
-        for key in ("paste", "image"):
-            e8 = max(e8, where_agree(key))
-            check(f"K8 {key} where the masks agree (f32, the same rounded operations)",
-                  where_agree(key), 1e-5)
+        k8, e = k8_compare(label, args8)
+        e8 = max(e8, e)
         if label == "render":
             args_main, out_main = args8, k8
+        else:
+            args_opaque = args8
+    # partial tiles: the opaque variant pasted at 72^2 (K8's tiles are 8 x 32)
+    small = [torch.nn.functional.interpolate(a, size=(72, 72), mode="bilinear",
+                                             align_corners=False) for a in args_opaque[:2]]
+    e8 = max(e8, k8_compare("opaque variant at 72^2, partial tiles",
+                            (*small, *args_opaque[2:]))[1])
+    # a side that is not a multiple of 4: the pixel-by-pixel stores
+    small = [torch.nn.functional.interpolate(a, size=(70, 70), mode="bilinear",
+                                             align_corners=False) for a in args_opaque[:2]]
+    e8 = max(e8, k8_compare("opaque variant at 70^2, scalar stores",
+                            (*small, *args_opaque[2:]))[1])
+    n_pix = out_main["mask"].numel()
     out["paste_front"] = record(
         e8, lambda: tp.paste_composite_kernel(*args_main),
         lambda: tp.paste_composite_plain(*args_main),
         nbytes(*(a for a in args_main if torch.is_tensor(a)))
         + nbytes(*(v for k_, v in out_main.items() if k_ != "mask_frontweight")),
         n_pix * 400)
+    out["paste_front"].update(parent_and_sass(
+        parent, "paste_front", "paste_front", "paste_front_kernel",
+        lambda: tp.paste_composite_kernel(*args_main), n_pix, "pixel",
+        new_work={"STG": 2 * front.shape[1]}, new_scale=1 / 4,
+        parent_work={"STG": 2 * front.shape[1]}, new_kernel="paste_front_kernelILb1E"))
 
     # K12 at the Pallas probe's shapes (scripts/bench_pallas_gather.py)
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -1958,32 +2271,16 @@ def sass_per_pair(stem: str, kernel: str, op: str, per_pair: int):
     MUFU.SQRT or MUFU.RSQ, 3 a pair). Slow paths called from outside the
     span are not counted. -> dict, or None without cuobjdump or such a
     loop."""
-    import os
     import re
-    import shutil
 
     from panic3d_tpu_torch.kernels import build
 
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.isfile(tool):
+    ins = sass_listing(build.build(stem), kernel)
+    if ins is None:
         return None
-    text = subprocess.run([tool, "-sass", str(build.build(stem))], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
-    body = next((f for f in re.split(r"\n\s*Function : ", text)[1:]
-                 if kernel in f.split("\n", 1)[0]), None)
-    if body is None:
-        return None
-    ins = [(int(m.group(1), 16), m.group(2)) for m in
-           re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
-    loops = []
-    for addr, text_ in ins:
-        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text_)
-        if m and int(m.group(1), 16) <= addr:
-            span = [o for a, o in ins if int(m.group(1), 16) <= a <= addr]
-            marks = sum(bool(re.search(op, o)) for o in span)
-            if marks:
-                loops.append((len(span), sum("MUFU" in o for o in span), marks))
+    loops = [(len(span), sum("MUFU" in o for o in span), marks)
+             for _, _, span in sass_loops(ins)
+             if (marks := sum(bool(re.search(op, o)) for o in span))]
     if not loops:
         return None
     n, mufu, marks = min(loops)
@@ -2695,10 +2992,11 @@ def check_outputs(out, shape):
           f"mean weight {float(out['image_weights'].mean()):.4f}")
 
 
-def device_busy(trace: dict) -> str:
-    """The card's busy share in a profiled run, from its chrome trace: the
-    union of kernel, copy and memset intervals against the span from the
-    first host-side op to the last device interval."""
+def busy_span(trace: dict):
+    """The card's busy time in a profiled run, from its chrome trace: the
+    union of kernel, copy and memset intervals, and the span from the
+    first host-side op to the last device interval. -> (busy ms, span ms,
+    device intervals, host-side ops)."""
     ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in ev
                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
@@ -2709,9 +3007,14 @@ def device_busy(trace: dict) -> str:
             busy += t1 - max(t0, end)
             end = t1
     span = end - min(e["ts"] for e in ops + [{"ts": dev[0][0]}])
-    return (f"profiled request: device busy {busy / 1e3:.3f} ms of a {span / 1e3:.3f} ms span "
-            f"({100 * busy / span:.1f} %); {len(dev)} device kernels and copies from "
-            f"{len(ops)} host-side ops")
+    return busy / 1e3, span / 1e3, len(dev), len(ops)
+
+
+def device_busy(trace: dict) -> str:
+    busy, span, n_dev, n_ops = busy_span(trace)
+    return (f"profiled request: device busy {busy:.3f} ms of a {span:.3f} ms span "
+            f"({100 * busy / span:.1f} %); {n_dev} device kernels and copies from "
+            f"{n_ops} host-side ops")
 
 
 def device_time_by_kind(trace: dict) -> str:
@@ -2749,6 +3052,9 @@ def main(argv=None) -> int:
                          "and one deep-plane request into DIR")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels, then stop")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a directory of the parent commit's ess.cu and paste_front.cu: "
+                         "time K6b and K8 against them (parent / this / this / parent)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2784,6 +3090,7 @@ def main(argv=None) -> int:
             if fn.startswith(NO_SPILL) and (spill_st or spill_ld):
                 spilled.append(fn)
     require(not spilled, f"kernels that spill registers: {spilled}")
+    parent = build_parent(args.parent)
 
     G = configs.flagship(eval_mode=True).init_weights(SEED).eval()
     with torch.no_grad():
@@ -2800,7 +3107,7 @@ def main(argv=None) -> int:
         x = flagship_inputs(G, device)
         checks = kernel_checks(G, device)
         checks.update(k4_checks(G, x, device))
-        checks.update(ess_paste_kernel_checks(Ge, x, device))
+        checks.update(ess_paste_kernel_checks(Ge, x, device, parent))
         k3 = checks["importance_sample"]
         k3_ess = checks.pop("importance_sample_ess")
         k3["shapes"] = {k3["samples"]: dict(k3), k3_ess["samples"]: k3_ess}
@@ -2931,6 +3238,29 @@ def main(argv=None) -> int:
                 trace_json = json.loads(trace.read_text())
                 print(device_busy(trace_json) + f"  [{card}]")
                 print(device_time_by_kind(trace_json) + f"  [{card}]")
+            if {"ess", "paste_front"} <= set(parent):
+                # a turntable portrait's device busy time with the parent's
+                # K6b and K8 and with this tree's, parent / this / this / parent
+                import contextlib
+
+                libs = {"ess_narrow": parent["ess"][0], "paste_front": parent["paste_front"][0]}
+                tmp = Path(args.profile) / "busy_trace.json"
+                busy = []
+                for tag in ("parent", "this", "this", "parent"):
+                    with contextlib.ExitStack() as stack:
+                        if tag == "parent":
+                            stack.enter_context(parent_entries(libs))
+                        with profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
+                            portrait()
+                            torch.cuda.synchronize()
+                    prof.export_chrome_trace(str(tmp))
+                    busy.append(busy_span(json.loads(tmp.read_text()))[0])
+                tmp.unlink()
+                turn["busy_ms_parent_this_this_parent"] = busy
+                print("turntable portrait, device busy ms with the parent's K6b and K8 / this "
+                      "tree's / this tree's / the parent's: "
+                      + " / ".join(f"{b:.3f}" for b in busy) + f"  [{card}]")
 
     reset_launch_counts()
     paths = {"settings_parity": parity, "ess_paste_per_call": per_call, "turntable": turn,

@@ -21,10 +21,15 @@
 // memory; the [M,32] feature block never leaves registers. A second launch
 // dilates the pooled grid by one cell (3^3 max; the SAME padding adds 0,
 // which never wins over the centre).
-// Design, narrowing: one thread per ray walks its taps, keeps the first and
-// last occupied one, and writes [t0, t1] and the S stratified depths of the
-// narrowed interval, so the coarse sampling costs no launch of its own. The
-// tap, grid-index and depth arithmetic uses explicitly rounded operations in
+// Design, narrowing: one warp per ray (8,192 rays are 8,192 warps, one wave
+// on 132 SMs at 32 registers a thread). The 32 lanes share the ray's K
+// taps, ceil(K/32) a lane, each lane's hits a bit mask; each chunk of 32
+// taps is then one ballot, and the first and last occupied taps are the
+// lowest and highest set bits of the first and last non-zero ballots.
+// The lanes then write [t0, t1] (lane 0) and the S stratified depths of the
+// narrowed interval together (lane l: depths l, l + 32, ...), so the stores
+// coalesce and the coarse sampling costs no launch of its own. The tap,
+// grid-index and depth arithmetic uses explicitly rounded operations in
 // the JAX package's order, so a grid index or depth never differs from the
 // plain version by a contracted multiply-add.
 #include "lattice_decode.cuh"
@@ -90,37 +95,62 @@ __global__ void dilate3_kernel(const float* __restrict__ pooled, float* __restri
   }
 }
 
-__global__ void ess_narrow_kernel(const float* __restrict__ occ,
-                                  const float* __restrict__ occ_outside,
-                                  const float* __restrict__ ro, const float* __restrict__ rd,
-                                  float* __restrict__ t0_out, float* __restrict__ t1_out,
-                                  float* __restrict__ depths, int n_rays, int R, int G, int K,
-                                  long long occ_stride, float ray_start, float ray_end,
-                                  float bw, float margin, int S) {
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ray >= n_rays) return;
+constexpr int NARROW_WARPS = 8;   // rays a block: one warp each
+constexpr int MAX_TAPS = 32 * 32; // a lane's hits are one 32-bit mask
+
+// Whether tap k of the ray (o, d) lands in an occupied cell (or, outside
+// the grid, whether occ_outside is set): the JAX package's operations in
+// its order, each rounded on its own, so no tap can land in another cell
+__device__ __forceinline__ bool tap_hit(const float* __restrict__ grid, bool outside,
+                                        const float (&o)[3], const float (&d)[3], float rs,
+                                        float L, int k, int K, float bw, int G) {
+  const float frac = __fdiv_rn(__fadd_rn((float)k, 0.5f), (float)K);
+  const float tk = __fadd_rn(rs, __fmul_rn(frac, L));
+  bool inside = true;
+  int gi[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float p = __fadd_rn(o[a], __fmul_rn(tk, d[a]));
+    const float q = floorf(__fmul_rn(__fadd_rn(__fdiv_rn(p, bw), 0.5f), (float)G));
+    inside = inside && q >= 0.f && q < (float)G;
+    gi[a] = (int)fminf(fmaxf(q, 0.f), (float)(G - 1));
+  }
+  return inside ? grid[(gi[0] * G + gi[1]) * G + gi[2]] > 0.f : outside;
+}
+
+// 8 blocks of 8 warps an SM (at most 32 registers a thread): 8,192 rays
+// are 8,192 warps, one wave on 132 SMs
+__global__ void __launch_bounds__(NARROW_WARPS * 32, 8) ess_narrow_kernel(
+    const float* __restrict__ occ, const float* __restrict__ occ_outside,
+    const float* __restrict__ ro, const float* __restrict__ rd, float* __restrict__ t0_out,
+    float* __restrict__ t1_out, float* __restrict__ depths, int n_rays, int R, int G, int K,
+    long long occ_stride, float ray_start, float ray_end, float bw, float margin, int S) {
+  const int lane = threadIdx.x & 31;
+  const int ray = blockIdx.x * NARROW_WARPS + (threadIdx.x >> 5);
+  if (ray >= n_rays) return;             // the whole warp: one ray a warp
   const float* grid = occ + (long long)(ray / R) * occ_stride;
   const bool outside = occ_outside[0] > 0.f;
   const float o[3] = {ro[ray * 3], ro[ray * 3 + 1], ro[ray * 3 + 2]};
   const float d[3] = {rd[ray * 3], rd[ray * 3 + 1], rd[ray * 3 + 2]};
   const float rs = ray_start, L = __fsub_rn(ray_end, ray_start);
+  // lane l holds taps l, l + 32, ...: its hits first, as bit c of one mask
+  // (no exchange between the taps, so their loads are in flight together),
+  // then chunk c's hits are one ballot, and the first and last occupied
+  // taps are the lowest and highest set bits of the first and last
+  // non-zero ballots
+  const int chunks = (K + 31) >> 5;
+  unsigned mine = 0;
+#pragma unroll 2
+  for (int c = 0; c < chunks; ++c) {
+    const int k = c * 32 + lane;
+    if (k < K && tap_hit(grid, outside, o, d, rs, L, k, K, bw, G)) mine |= 1u << c;
+  }
   int first = -1, last = -1;
-  for (int k = 0; k < K; ++k) {
-    const float frac = __fdiv_rn(__fadd_rn((float)k, 0.5f), (float)K);
-    const float tk = __fadd_rn(rs, __fmul_rn(frac, L));
-    bool inside = true;
-    int gi[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float p = __fadd_rn(o[a], __fmul_rn(tk, d[a]));
-      const float q = floorf(__fmul_rn(__fadd_rn(__fdiv_rn(p, bw), 0.5f), (float)G));
-      inside = inside && q >= 0.f && q < (float)G;
-      gi[a] = (int)fminf(fmaxf(q, 0.f), (float)(G - 1));
-    }
-    const bool hit = inside ? grid[((long long)gi[0] * G + gi[1]) * G + gi[2]] > 0.f : outside;
-    if (hit) {
-      if (first < 0) first = k;
-      last = k;
+  for (int c = 0; c < chunks; ++c) {
+    const unsigned bits = __ballot_sync(0xffffffffu, (mine >> c) & 1u);
+    if (bits) {
+      if (first < 0) first = c * 32 + __ffs(bits) - 1;
+      last = c * 32 + 31 - __clz(bits);
     }
   }
   float t0 = rs, t1 = ray_end;
@@ -130,13 +160,17 @@ __global__ void ess_narrow_kernel(const float* __restrict__ occ,
     t1 = __fadd_rn(rs, __fmul_rn(fminf(__fadd_rn(__fadd_rn((float)last, 1.f), margin), (float)K),
                                  step));
   }
-  t0_out[ray] = t0;
-  t1_out[ray] = t1;
-  // batched_linspace(t0, t1, S) + 0.5 * (t1 - t0) / (S - 1)
+  if (lane == 0) {
+    t0_out[ray] = t0;
+    t1_out[ray] = t1;
+  }
+  // batched_linspace(t0, t1, S) + 0.5 * (t1 - t0) / (S - 1); lane l writes
+  // depths l, l + 32, ...: a warp's stores are one contiguous run
   const float diff = __fsub_rn(t1, t0);
   const float half_delta = __fmul_rn(0.5f, __fdiv_rn(diff, (float)(S - 1)));
   float* out = depths + (long long)ray * S;
-  for (int s = 0; s < S; ++s) {
+#pragma unroll 1
+  for (int s = lane; s < S; s += 32) {
     const float step = __fdiv_rn((float)s, (float)(S - 1));
     out[s] = __fadd_rn(__fadd_rn(t0, __fmul_rn(step, diff)), half_delta);
   }
@@ -180,14 +214,15 @@ PANIC3D_EXPORT int ess_occupancy(
 
 // occ [N,G,G,G] f32 with batch stride occ_stride (0: one grid for every
 // view); occ_outside one f32; rays [n_rays,3] f32 (R rays per batch
-// element); t0/t1 [n_rays] and depths [n_rays,S] f32 out.
+// element); t0/t1 [n_rays] and depths [n_rays,S] f32 out. K taps in
+// 1..1024 and S >= 2, else cudaErrorInvalidValue.
 PANIC3D_EXPORT int ess_narrow(const float* occ, const float* occ_outside, const float* ro,
                               const float* rd, float* t0, float* t1, float* depths, int n_rays,
                               int R, int G, int K, long long occ_stride, float ray_start,
                               float ray_end, float bw, float margin, int S, void* stream) {
-  const int threads = 128;
-  ess_narrow_kernel<<<(n_rays + threads - 1) / threads, threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  if (K < 1 || K > MAX_TAPS || S < 2) return (int)cudaErrorInvalidValue;
+  const int blocks = (n_rays + NARROW_WARPS - 1) / NARROW_WARPS;
+  ess_narrow_kernel<<<blocks, NARROW_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       occ, occ_outside, ro, rd, t0, t1, depths, n_rays, R, G, K, occ_stride, ray_start, ray_end,
       bw, margin, S);
   return (int)cudaGetLastError();

@@ -502,6 +502,103 @@ def paste_composite_plain(image, front, weights, xyz, occ_bin, dxyz, bw: float,
             "mask_dxyz": dmask, "mask_frontweight": fw}
 
 
+K8_TILE = (8, 64)   # K8's tile of output pixels, rows x columns (csrc/paste_front.cu)
+
+
+def _upsample_at(m, rows, cols, size: int):
+    """upsample_bilinear(m, size) at output rows ``rows`` and columns
+    ``cols`` (1-D index tensors) -> [N,C,len(rows),len(cols)], with the same
+    rounded operations."""
+    r = m.shape[-1]
+
+    def coeffs(idx):
+        src = ((idx.to(torch.float32) + 0.5) * (r / size) - 0.5).clamp_min(0.0)
+        i0 = src.to(torch.int64)
+        l1 = src - i0
+        return i0, (i0 + 1).clamp_max(r - 1), 1 - l1, l1
+
+    h0, h1, lh0, lh1 = coeffs(rows)
+    w0, w1, lw0, lw1 = coeffs(cols)
+    m = m.to(torch.float32)
+
+    def lerp_w(rows_):
+        return rows_[..., w0] * lw0 + rows_[..., w1] * lw1
+
+    return lerp_w(m[:, :, h0]) * lh0[:, None] + lerp_w(m[:, :, h1]) * lh1[:, None]
+
+
+def paste_composite_tiled(image, front, weights, xyz, occ_bin, dxyz, bw: float,
+                          thresh_weight: float, thresh_edges: float, thresh_dxyz: float,
+                          fwmask=None):
+    """K8's order of operations (csrc/paste_front.cu) in PyTorch, for the
+    tests: each tile of K8_TILE output pixels stages the upsampled xyz of
+    the tile plus a one-pixel halo (reflect padding at the image border,
+    clamped into the image past a partial tile's edge), takes the sobel of
+    each pixel from the staged values in the kernel's rounded order, and
+    projects the front image through the staged centre with a multiply by
+    0.5 in place of each division by 2; pixels past the image's edge are
+    cropped. Same contract as paste_composite_plain."""
+    image = image.to(torch.float32)
+    N, _, S, _ = image.shape
+    TH, TW = K8_TILE
+    dev = image.device
+    nty, ntx = -(-S // TH), -(-S // TW)
+
+    def halo(n_tiles, t):   # [n_tiles * (t + 2)] reflected, clamped indices
+        idx = (torch.arange(n_tiles, device=dev)[:, None] * t
+               + torch.arange(t + 2, device=dev)[None, :] - 1).reshape(-1)
+        idx = torch.where(idx < 0, -idx, torch.where(idx >= S, 2 * S - 2 - idx, idx))
+        return idx.clamp(0, S - 1)
+
+    staged = _upsample_at(xyz, halo(nty, TH), halo(ntx, TW), S)
+    staged = staged.reshape(N, 3, nty, TH + 2, ntx, TW + 2)
+
+    def at(y, x):   # the stencil's (y, x) neighbour of every tile pixel
+        v = staged[:, :, :, y:y + TH, :, x:x + TW]
+        return v.reshape(N, 3, nty * TH, ntx * TW)[:, :, :S, :S]
+
+    v = [[at(y, x) for x in range(3)] for y in range(3)]
+    gx = (v[0][0] - v[0][2]) + 2 * (v[1][0] - v[1][2])
+    gx = ((gx + v[2][0]) - v[2][2]) * 0.125
+    gy = (v[0][0] + 2 * v[0][1]) + v[0][2]
+    gy = (((gy - v[2][0]) - 2 * v[2][1]) - v[2][2]) * 0.125
+    g2 = gx * gx + gy * gy
+    mag2 = torch.zeros_like(g2[:, :1])
+    for c in range(3):
+        mag2 = mag2 + g2[:, c:c + 1]
+    smask = (torch.sqrt(mag2 + 1e-12) < thresh_edges).to(torch.float32)
+    centre = v[1][1]
+
+    wmask = (upsample_bilinear(weights, S) > thresh_weight).to(torch.float32)
+    fmask = upsample_bilinear(occ_bin, S)
+    dmask = (resize_nearest(dxyz, S) < thresh_dxyz).to(torch.float32)
+    fw = torch.ones_like(dmask) if fwmask is None else fwmask
+    mask = wmask * smask * fmask * dmask * fw
+
+    C, Hf, Wf = front.shape[1:]
+    u = (1 - (centre[:, 1] + bw / 2) / bw) * 2 - 1
+    w_ = (1 - (centre[:, 0] + bw / 2) / bw) * 2 - 1
+    ix = ((u + 1) * Hf - 1) * 0.5
+    iy = ((w_ + 1) * Wf - 1) * 0.5
+    fx, fy = torch.floor(ix), torch.floor(iy)
+    wx, wy = (ix - fx)[:, None], (iy - fy)[:, None]
+    x0, y0 = fx.to(torch.int64), fy.to(torch.int64)
+    f = front.to(torch.float32).reshape(N, C, Hf * Wf)
+
+    def texel(xx, yy):
+        lin = (xx.clamp(0, Hf - 1) * Wf + yy.clamp(0, Wf - 1)).reshape(N, 1, S * S)
+        return f.gather(2, lin.expand(N, C, S * S)).reshape(N, C, S, S)
+
+    v00, v01 = texel(x0, y0), texel(x0 + 1, y0)
+    v10, v11 = texel(x0, y0 + 1), texel(x0 + 1, y0 + 1)
+    top = v00 + (v01 - v00) * wx
+    bot = v10 + (v11 - v10) * wx
+    paste = top + (bot - top) * wy
+    return {"image": image + (paste - image) * mask, "paste": paste, "mask": mask,
+            "mask_weights": wmask, "mask_edges": smask, "mask_occ": fmask,
+            "mask_dxyz": dmask, "mask_frontweight": fw}
+
+
 _K8_ARGS = ((kb.PTR,) * 2 + (kb.INT,) * 3 + (kb.PTR,) * 5 + (kb.PTR,) * 7 + (kb.INT,) * 3
             + (kb.FLOAT,) * 6 + (kb.PTR,))
 

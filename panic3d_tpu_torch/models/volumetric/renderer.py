@@ -838,6 +838,64 @@ def ess_narrow_plain(occ, occ_outside, ray_origins, ray_directions, ray_start: f
     return t0, t1, sample_stratified(ray_origins, t0, t1, depth_resolution)
 
 
+def ess_narrow_warp_order(occ, occ_outside, ray_origins, ray_directions, ray_start: float,
+                          ray_end: float, box_warp: float, options: dict,
+                          depth_resolution: int):
+    """K6b's order of operations (csrc/ess.cu:ess_narrow_kernel) in PyTorch,
+    for the tests. A ray is a warp of 32 lanes, lane l holding taps l,
+    l + 32, ...; each chunk of 32 taps is a ballot (an integer bitmask of
+    the lanes' hits), the first and last occupied taps are the lowest and
+    highest set bits of the first and last non-zero ballots, and lane l
+    writes depths l, l + 32, .... The occupancy is read at batch stride
+    ``occ.stride(0)`` (0: one grid for every view). Same contract as
+    ess_narrow_plain."""
+    ess = options["ess"]
+    K, margin = int(ess.get("taps", 64)), float(ess.get("margin", 1))
+    N, R, _ = ray_origins.shape
+    G, S = occ.shape[-1], depth_resolution
+    _narrow_check(ray_start, ray_end, box_warp, G, K)
+    dev = ray_origins.device
+    n_rays, lanes = N * R, torch.arange(32, device=dev)
+    o = ray_origins.reshape(n_rays, 1, 3)
+    d = ray_directions.reshape(n_rays, 1, 3)
+    rs = torch.full((n_rays,), float(ray_start), dtype=torch.float32, device=dev)
+    L = torch.full_like(rs, float(ray_end)) - rs
+    cells = torch.as_strided(occ, ((N - 1) * occ.stride(0) + G ** 3,), (1,))
+    base = (torch.arange(n_rays, device=dev) // R) * occ.stride(0)
+    first = torch.full((n_rays,), -1, dtype=torch.int64, device=dev)
+    last = torch.full_like(first, -1)
+    for k0 in range(0, K, 32):
+        k = k0 + lanes                                                  # the lanes' taps
+        frac = (k.to(torch.float32) + 0.5) / K
+        tk = rs[:, None] + frac[None, :] * L[:, None]                   # [n_rays, 32]
+        pts = o + tk[..., None] * d
+        gidx = torch.floor((pts / box_warp + 0.5) * G).to(torch.int64)
+        inside = ((gidx >= 0) & (gidx < G)).all(-1)
+        gc = gidx.clamp(0, G - 1)
+        flat = (gc[..., 0] * G + gc[..., 1]) * G + gc[..., 2]
+        hit = torch.where(inside, cells[base[:, None] + flat] > 0, occ_outside > 0)
+        hit &= (k < K)[None, :]
+        bits = (hit.to(torch.int64) << lanes).sum(-1)                   # the ballot
+        low = (bits & -bits).clamp_min(1).to(torch.float64).log2().to(torch.int64)
+        high = bits.clamp_min(1).to(torch.float64).log2().floor().to(torch.int64)
+        first = torch.where((bits != 0) & (first < 0), k0 + low, first)
+        last = torch.where(bits != 0, k0 + high, last)
+    hit_any = first >= 0
+    step = L / K
+    t0 = rs + torch.clamp_min(first.to(torch.float32) - margin, 0.0) * step
+    t1 = rs + torch.clamp_max(last.to(torch.float32) + 1 + margin, float(K)) * step
+    t0 = torch.where(hit_any, t0, rs)
+    t1 = torch.where(hit_any, t1, torch.full_like(rs, float(ray_end)))
+    diff = t1 - t0
+    half_delta = 0.5 * (diff / (S - 1))
+    depths = torch.empty((n_rays, S), dtype=torch.float32, device=dev)
+    for s0 in range(0, S, 32):                                          # lane l: s0 + l
+        s = torch.arange(s0, min(s0 + 32, S), device=dev)
+        frac = s.to(torch.float32) / (S - 1)
+        depths[:, s] = (t0[:, None] + frac[None, :] * diff[:, None]) + half_delta[:, None]
+    return (t0.reshape(N, R, 1), t1.reshape(N, R, 1), depths.reshape(N, R, S, 1))
+
+
 _K6B_ARGS = ((kb.PTR,) * 7 + (kb.INT,) * 4 + (kb.LONG,) + (kb.FLOAT,) * 4 + (kb.INT, kb.PTR))
 
 
@@ -859,6 +917,7 @@ def ess_narrow_kernel(occ, occ_outside, ray_origins, ray_directions, ray_start: 
     _require(occ.dtype == torch.float32 and occ[0].is_contiguous()
              and tuple(occ.shape) == (N, G, G, G), "K6 occupancy must be f32 [N,G,G,G]")
     _require(S >= 2, "K6 takes at least 2 coarse samples")
+    _require(K <= 1024, "K6 takes at most 1024 taps (a lane's hits are one 32-bit mask)")
     occ_out = occ_outside.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
     t0 = torch.empty((N, R, 1), dtype=torch.float32, device=dev)
     t1 = torch.empty_like(t0)
