@@ -40,15 +40,18 @@
    the whole layer forward, whose K5 call is held exact on the layer's
    conv output and whose output is held to f64 against the plain layer's;
    K4 at the equivariance metrics' calls: the large-filter kernel at the
-   47x47 up-4 and 11x11, the generic kernel at EQ-T_frac's 1x6 and 6x1,
-   each beside its one library call; K6b also at K = 37 with S = 2 on
+   47x47 up-4 and 11x11, the row and column forms at EQ-T_frac's 1x6 and
+   6x1 (each faster than its library call), each beside its one library
+   call; K6b also at K = 37 with S = 2 on
    the occupancy max-pooled to 16^3, and on one grid shared by both views
    (batch stride 0); K8 also at 72^2, whose tiles are partial, and at
    70^2, whose side is not a multiple of 4 (no float4 stores); K6b's and
    K8's SASS instructions a ray and a pixel (cuobjdump) with the issue
-   ceiling they give, and with --parent DIR (the parent commit's ess.cu
-   and paste_front.cu) their outputs against the parent's kernels' and
-   their times in the order parent / this / this / parent),
+   ceiling they give; with --parent DIR (the parent commit's sources of
+   the kernels this tree redesigned, and their headers) the outputs
+   against the parent's kernels' and the times in the order parent / this
+   / this / parent: K4's row and column forms at EQ-T_frac (bit for bit)
+   and its down=2 call, K6a and K7a (bit for bit)),
    and times both
    (median of CUDA-event timings), with the single PyTorch call that
    computes the same function where there is one (library_ms; K4 must beat
@@ -108,8 +111,8 @@
    --profile DIR adds a torch.profiler table and trace of one ESS + paste
    request, one turntable portrait and one deep-plane request, with the
    device's busy share; with --parent also a turntable portrait's device
-   busy time with the parent's K6b and K8 and with this tree's, in the
-   order parent / this / this / parent.
+   busy time with the parent's K6a and with this tree's, in the order
+   parent / this / this / parent.
 6. Prints a JSON line of the paths, the script's wall time, a JSON line of
    the kernels (one entry per entry point, with its launches on the ESS +
    paste path, else on the geometry path, else on eval measure, else on the
@@ -147,7 +150,8 @@ NO_SPILL = ("triplane_decode_kernel", "factor_terms_kernel", "occlusion_volume_k
             "ray_composite_kernel", "volume_density_kernel", "triangle_records_kernel",
             "point_mesh_distance_kernel", "winding_number_kernel",
             "importance_sample_kernel", "ess_narrow_kernel",
-            "paste_front_kernel")   # must not spill
+            "paste_front_kernel", "ess_occupancy_kernel", "upfirdn2d_rows_kernel",
+            "upfirdn2d_cols_kernel")   # must not spill
 PASTE_KEYS = ("mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
 MESH_RES = 256     # eval generate's mesh resolution
 LEVEL = 0.5        # eval generate's iso level
@@ -558,13 +562,15 @@ def check_k1(planes_cl, coords, dec, box_warp, axes, filt, kernel=None, plain=No
     return rgb_k, sig_k, max(e_rgb, e_sig)
 
 
-def k4_checks(G, x, device):
+def k4_checks(G, x, device, parent):
     """K4 vs its plain version on the card at every distinct call of one
     flagship request (found by a spy on ops/upfirdn2d.py:_fir: the backbone's
     up-convs and 96-channel skip upsamples, f32 and bf16, and SR's four
     calls), each timed; the SR block-1 call (bf16 [2,256,256,256] -> 514^2)
     also with its plain version and the library call. One down=2 call checks
-    the generic kernel. bf16 within 1 bf16 ulp of the largest value, f32
+    the generic kernel, beside its plain version and its library call (a
+    depthwise F.conv2d of stride 2), and with ``parent`` (--parent) against
+    the parent's kernel. bf16 within 1 bf16 ulp of the largest value, f32
     within 1e-5 (summation order). -> {"upfirdn2d": summary}."""
     import importlib
 
@@ -615,13 +621,32 @@ def k4_checks(G, x, device):
     require(all(s_["variant"] == "up2" for s_ in shapes),
             "K4: a call of the request is outside the polyphase kernel's family")
 
-    # the generic kernel that stays: a 2x downsample (bf16 [2,256,256,256])
+    # the generic kernel that stays: a 2x downsample (bf16 [2,256,256,256]),
+    # beside its plain version and its library call, a depthwise conv2d of
+    # stride 2 with the (correlated) filter and padding 1
     f = next(iter(calls.values()))[1]
     n_gen = KERNELS["upfirdn2d"].variants.get("generic", 0)
-    *_, e_gen, generic = one((BATCH, 256, 256, 256), torch.bfloat16, f / 4, (1, 1), (2, 2),
-                             (1, 1, 1, 1), "generic kernel")
+    spec_d = (f / 4, (1, 1), (2, 2), (1, 1, 1, 1))
+    xd, yd, ypd, e_gen, generic = one((BATCH, 256, 256, 256), torch.bfloat16, *spec_d,
+                                      "generic kernel")
     require(KERNELS["upfirdn2d"].variants.get("generic", 0) > n_gen,
             "K4: the down=2 call did not take the generic kernel")
+    w_d = spec_d[0].to(xd.device, xd.dtype)[None, None].expand(xd.shape[1], 1, 4, 4).contiguous()
+
+    def library_down2():
+        return torch.nn.functional.conv2d(xd, w_d, stride=2, padding=1, groups=xd.shape[1])
+
+    check("library conv2d (stride 2) vs plain (1 bf16 ulp)", max_err(library_down2(), ypd),
+          2.0 ** -7 * float(ypd.abs().max()))
+    bms_d, by_d = bound(nbytes(xd, yd), yd.numel() * 16 * 2)
+    generic.update(plain_ms=cuda_ms(lambda: upfirdn2d_plain(xd, *spec_d), iters=3, warmup=1),
+                   library_ms=cuda_ms(library_down2), bound_ms=bms_d, bound_by=by_d)
+    print(f"    plain_ms {generic['plain_ms']:.6f}  library_ms {generic['library_ms']:.6f}  "
+          f"bound_ms {generic['bound_ms']:.6f}")
+    generic.update(parent_and_sass(
+        parent, "upfirdn2d", "upfirdn2d", "upfirdn2d_kernel",
+        lambda: upfirdn2d_kernel(xd, *spec_d), yd.numel(), "output", None, 1, None))
+    del xd, yd, ypd
 
     # the SR block-1 call, with its plain version and the single library
     # call for this upsample: a depthwise transposed convolution (stride 2)
@@ -645,7 +670,7 @@ def k4_checks(G, x, device):
             f"K4: {summary['ms']} ms, not faster than the library call's "
             f"{summary['library_ms']} ms")
     return {"upfirdn2d": dict(summary, shapes=shapes, generic_down2=generic,
-                              equivariance=k4_equivariance_checks(device))}
+                              equivariance=k4_equivariance_checks(device, parent))}
 
 
 def k4_library(xx, f2d, up, pad, out_hw):
@@ -682,17 +707,20 @@ def k4_library(xx, f2d, up, pad, out_hw):
     return lambda: F.conv_transpose2d(xx, w, stride=u, padding=P, output_padding=op, groups=C)
 
 
-def k4_equivariance_checks(device):
+def k4_equivariance_checks(device, parent):
     """K4 at the equivariance path's calls on 512^2 f32 images (batch 4, 3
     channels). The large-filter kernel (more than 64 taps, from a device
     buffer): EQ-R's 47x47 resampling filter at up 4 (upsample2d) and the
-    pseudo-rotation's 11x11 (filter2d), for a rotation of 0.3 rad. The
-    generic kernel: EQ-T_frac's 1x6 and 6x1 windowed sincs (filter2d), as
-    apply_fractional_translation makes them for a shift of (0.3, 0.7)
-    pixels (a spy on ops/upfirdn2d.py:_fir). Each against its plain version
-    within 1e-5 x max|out| (up to ~140 f32 products an output, which cuDNN
-    may sum in another order), timed, with its bound (the taps of each
-    output's phase only) -> [summary per call]."""
+    pseudo-rotation's 11x11 (filter2d), for a rotation of 0.3 rad. The row
+    and the column form: EQ-T_frac's 1x6 and 6x1 windowed sincs (filter2d),
+    as apply_fractional_translation makes them for a shift of (0.3, 0.7)
+    pixels (a spy on ops/upfirdn2d.py:_fir), each faster than its library
+    call, with its SASS instructions an output, and with ``parent``
+    (--parent) equal bit for bit to the parent's generic kernel and timed
+    against it. Each against its plain version within 1e-5 x max|out| (up
+    to ~140 f32 products an output, which cuDNN may sum in another order),
+    timed, with its bound (the taps of each output's phase only) ->
+    [summary per call]."""
     import importlib
 
     import torch
@@ -747,17 +775,17 @@ def k4_equivariance_checks(device):
         out.append(summ)
         del yk, yp
     require(len(calls) == 2, f"EQ-T_frac made {len(calls)} K4 calls, not 2")
-    for xx, f2d, upp, down, pad in calls:
+    for (xx, f2d, upp, down, pad), form in zip(calls, ("row", "column")):
         fh, fw = f2d.shape
         what = f"EQ-T_frac filter2d, {fh}x{fw}"
-        n_gen = KERNELS["upfirdn2d"].variants.get("generic", 0)
+        n_form = KERNELS["upfirdn2d"].variants.get(form, 0)
         yk = upfirdn2d_kernel(xx, f2d, upp, down, pad)
-        require(k4_plan(f2d, upp, down, pad).variant == "generic"
-                and KERNELS["upfirdn2d"].variants.get("generic", 0) == n_gen + 1,
-                f"K4 {what}: not the generic kernel")
+        require(k4_plan(f2d, upp, down, pad).variant == form
+                and KERNELS["upfirdn2d"].variants.get(form, 0) == n_form + 1,
+                f"K4 {what}: not the {form} form")
         yp = upfirdn2d_plain(xx, f2d, upp, down, pad)
         e = max_err(yk, yp)
-        check(f"K4 generic, {what}: {list(xx.shape)} f32 -> {yk.shape[-2]}x{yk.shape[-1]}",
+        check(f"K4 {form} form, {what}: {list(xx.shape)} f32 -> {yk.shape[-2]}x{yk.shape[-1]}",
               e, 1e-5 * float(yp.abs().max()))
         library = k4_library(xx, f2d, upp, pad, yk.shape[-2:])
         require(library is not None, f"K4 {what}: no library call")
@@ -765,9 +793,29 @@ def k4_equivariance_checks(device):
         summ = record(e, lambda: upfirdn2d_kernel(xx, f2d, upp, down, pad),
                       lambda: upfirdn2d_plain(xx, f2d, upp, down, pad), nbytes(xx, yk, f2d),
                       yk.numel() * fh * fw * 2, library, plain_iters=3)
-        summ.update(call=what, shape=list(xx.shape), filter=[fh, fw], up=1, pad=list(pad))
+        summ.update(call=what, variant=form, shape=list(xx.shape), filter=[fh, fw], up=1,
+                    pad=list(pad))
         print(f"    ms {summ['ms']:.6f}  plain_ms {summ['plain_ms']:.6f}  library_ms "
               f"{summ['library_ms']:.6f}  bound_ms {summ['bound_ms']:.6f} ({summ['bound_by']})")
+        require(summ["ms"] < summ["library_ms"],
+                f"K4 {what}: {summ['ms']} ms, not faster than the library call's "
+                f"{summ['library_ms']} ms")
+        # the instantiation this call runs (f32, taps unrolled to 8): the row
+        # form with 4-wide loads (the input rows are 512 wide) and the
+        # staged scalar stores (the output rows 517), 4 outputs a lane; the
+        # column form with scalar accesses (517-wide rows), 16 a lane
+        kernel, inst, scale = (("upfirdn2d_rows_kernel", "upfirdn2d_rows_kernelIfLi8ELb1ELb0E",
+                                1 / 4) if form == "row" else
+                               ("upfirdn2d_cols_kernel", "upfirdn2d_cols_kernelIfLi1ELi8ELi16E",
+                                1 / 16))
+        summ.update(parent_and_sass(
+            parent, "upfirdn2d", "upfirdn2d", kernel,
+            lambda: upfirdn2d_kernel(xx, f2d, upp, down, pad), yk.numel(), "output",
+            {}, scale, None, new_kernel=inst, parent_kernel="upfirdn2d_kernel"))
+        if "parent" in summ:
+            require(summ["parent"]["values_not_bit_equal"] == 0,
+                    f"K4 {what}: the {form} form's outputs differ from the parent's generic "
+                    "kernel's (the same taps in the same order)")
         out.append(summ)
         del yk, yp
     return out
@@ -814,8 +862,10 @@ def build_parent(parent_dir):
     """The parent commit's sources of the kernels this tree redesigned
     (``--parent DIR``: DIR/<stem>.cu, e.g. written by ``git show
     <parent>:panic3d_tpu_torch/csrc/ess.cu``), built with the tree's nvcc
-    flags and headers into build/parent/ -> {stem: (ctypes library, .so
-    path)}; {} without DIR."""
+    flags into build/parent/ -> {stem: (ctypes library, .so path)}; {}
+    without DIR. A header the parent's sources include is taken from DIR
+    where DIR holds it (a quoted include looks beside the source first),
+    else from this tree's csrc/."""
     import ctypes
     from pathlib import Path
 
@@ -838,23 +888,36 @@ def build_parent(parent_dir):
 
 class parent_entries:
     """Within the block, the kernel wrappers launch the entry points named
-    in ``libs`` ({entry point: the parent's ctypes library}, the same
-    arguments) from the parent's libraries in place of this tree's."""
+    in ``libs`` ({entry point: the parent's ctypes library, or (library,
+    adapt)}) from the parent's libraries in place of this tree's, with the
+    same arguments, or with ``adapt(argtypes, args)`` where the parent's
+    entry point took other ones; with ``contiguous_terms`` the lattice
+    terms go to the kernels contiguous, as the parent's K6a and K7a read
+    them (its wrapper copied them)."""
 
-    def __init__(self, libs: dict):
-        self.libs = libs
+    def __init__(self, libs: dict, contiguous_terms: bool = False):
+        self.libs, self.contiguous_terms = libs, contiguous_terms
 
     def __enter__(self):
         import ctypes
 
         from panic3d_tpu_torch.kernels import build
+        from panic3d_tpu_torch.models.volumetric import renderer as vr
 
         self.launch = launch = build.launch
+        self.term_args = term_args = vr.lattice_term_args
+        if self.contiguous_terms:
+            vr.lattice_term_args = lambda terms, dev: term_args(
+                [(F_.contiguous(), a, b) for F_, a, b in terms], dev)
 
         def parent_launch(name, argtypes, *args):
             if name not in self.libs:
                 return launch(name, argtypes, *args)
-            fn = getattr(self.libs[name], name)
+            lib, adapt = (self.libs[name] if isinstance(self.libs[name], tuple)
+                          else (self.libs[name], None))
+            if adapt:
+                argtypes, args = adapt(argtypes, args)
+            fn = getattr(lib, name)
             fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
             rc = fn(*args)
             require(rc == 0, f"parent {name}: CUDA error {rc}")
@@ -863,8 +926,26 @@ class parent_entries:
 
     def __exit__(self, *exc):
         from panic3d_tpu_torch.kernels import build
+        from panic3d_tpu_torch.models.volumetric import renderer as vr
 
         build.launch = self.launch
+        vr.lattice_term_args = self.term_args
+
+
+# the lattice terms' strides among K6a's and K7a's arguments (renderer.py:
+# lattice_term_args), and K6a's scratch P: arguments the parent's entry
+# points (PR 11) did not take
+TERM_STRIDES = (3, 4, 5, 9, 10, 11, 15, 16, 17)
+K6A_SCRATCH = 24
+
+
+def drop_args(*idx):
+    """An ``adapt`` for parent_entries: the parent's entry point lacked the
+    arguments at ``idx``."""
+    def adapt(argtypes, args):
+        keep = [i for i in range(len(args)) if i not in idx]
+        return tuple(argtypes[i] for i in keep), tuple(args[i] for i in keep)
+    return adapt
 
 
 def sass_listing(so, kernel: str):
@@ -935,64 +1016,79 @@ def sass_per_thread(so, kernel: str, work: dict):
             "per_thread": dyn}
 
 
-def kernel_device_us(fn, kernel: str, runs: int = 20):
-    """The mean device time of ``kernel``'s launches in ``runs`` calls of fn,
-    from torch.profiler's CUDA activity (the kernel alone: no events, no
-    other launch of fn), in microseconds; None where the profiler records
-    no such kernel."""
+def kernel_device_us(fn, kernels, runs: int = 20):
+    """The device time of the launches of ``kernels`` (a name, or a tuple of
+    names: those of one entry point) in a call of fn, from torch.profiler's
+    CUDA activity (the kernels alone: no events, no other launch of fn),
+    summed over a call and averaged over ``runs`` calls, in microseconds;
+    None where the profiler records no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernels,) if isinstance(kernels, str) else tuple(kernels)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
+    hits = [e for e in prof.key_averages() if any(k in e.key for k in names)]
     total = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
                 for e in hits)
-    count = sum(e.count for e in hits)
-    return total / count if count else None
+    return total / runs if hits else None
 
 
 def parent_and_sass(parent, stem, name, kernel, fn, items, unit, new_work, new_scale,
-                    parent_work, new_kernel=None):
+                    parent_work, new_kernel=None, parent_kernel=None, profiled=None,
+                    parent_profiled=None, adapt=None, contiguous_terms=False):
     """This tree's kernel against the parent's (``--parent``): the outputs
     compared bit for bit, then device times in the order parent / this /
     this / parent in one process; and each one's SASS instructions a
-    ``unit`` (a ray or a pixel) with the issue ceiling they give: a
+    ``unit`` (a ray, a pixel, an output) with the issue ceiling they give: a
     thread's instructions x ``new_scale`` (the lanes an item takes over
     the items a thread takes) for this tree's kernel (``new_kernel``, the
     instantiation the path runs, else ``kernel``), x 1 for the parent's
-    one thread an item. -> {"sass": ..., "parent": ...}."""
+    one thread an item (``parent_kernel``, else ``kernel``; ``parent_work``
+    None: not counted). ``profiled`` / ``parent_profiled``: the kernels
+    of the entry point that torch.profiler times alone (default the
+    kernel's name); ``adapt`` and ``contiguous_terms``: the parent entry
+    point's arguments, where they differ (parent_entries). -> {"sass": ...,
+    "parent": ...}."""
+    import torch
+
     from panic3d_tpu_torch.kernels import build
 
+    parent_kernel = parent_kernel or kernel
     out = {}
-    mine = sass_per_thread(build.build(stem), new_kernel or kernel, new_work)
+    mine = (sass_per_thread(build.build(stem), new_kernel or kernel, new_work)
+            if new_work is not None else None)
     if mine:
         mine["per_" + unit] = mine["per_thread"] * new_scale
         mine["ceiling_ms"] = items * mine["per_" + unit] / ISSUE_PER_S * 1e3
     theirs = None
     if stem in parent:
         lib, so = parent[stem]
-        theirs = sass_per_thread(so, kernel, parent_work)
+        swap = {name: (lib, adapt) if adapt else lib}
+        if parent_work is not None:
+            theirs = sass_per_thread(so, parent_kernel, parent_work)
         if theirs:
             theirs["per_" + unit] = theirs["per_thread"]
             theirs["ceiling_ms"] = items * theirs["per_" + unit] / ISSUE_PER_S * 1e3
         got = fn()
-        with parent_entries({name: lib}):
+        with parent_entries(swap, contiguous_terms):
             want = fn()
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [
             (got[k], want[k]) for k in got]
         differ = sum(int((a != b).sum()) for a, b in pairs)
-        with parent_entries({name: lib}):
+        with parent_entries(swap, contiguous_terms):
             p1 = cuda_ms(fn)
         n1, n2 = cuda_ms(fn), cuda_ms(fn)
-        with parent_entries({name: lib}):
+        with parent_entries(swap, contiguous_terms):
             p2 = cuda_ms(fn)
-        with parent_entries({name: lib}):
-            us_parent = kernel_device_us(fn, kernel)
+        with parent_entries(swap, contiguous_terms):
+            us_parent = kernel_device_us(fn, parent_profiled or parent_kernel)
         out["parent"] = {"ms_parent_this_this_parent": [p1, n1, n2, p2],
                          "kernel_us_profiler": us_parent,
                          "values_not_bit_equal": differ,
@@ -1009,11 +1105,11 @@ def parent_and_sass(parent, stem, name, kernel, fn, items, unit, new_work, new_s
                   f"(+{sm['out_of_line']} out of line), {sm['loops']} loops; "
                   f"~{sm['per_' + unit]:.1f} lane instructions a {unit}; "
                   f"issue ceiling {sm['ceiling_ms']:.6f} ms")
-        elif who == "this tree":
+        elif who == "this tree" and new_work is not None:
             print(f"  {kernel} SASS: not measured (no cuobjdump, or the kernel not found)")
     out["sass"] = {"this": mine, "parent": theirs}
-    out["kernel_us_profiler"] = kernel_device_us(fn, kernel)
-    print(f"  {kernel} alone (torch.profiler, mean of 20 launches): "
+    out["kernel_us_profiler"] = kernel_device_us(fn, profiled or kernel)
+    print(f"  {kernel} alone (torch.profiler, mean of 20 calls): "
           f"{out['kernel_us_profiler']} us")
     return out
 
@@ -1055,10 +1151,34 @@ def ess_paste_kernel_checks(G, x, device, parent):
           f"{float(occ_k.mean()):.4f}; cells that differ: {differ} of {occ_k.numel()} "
           f"(tol {occ_k.numel() // 10000})")
     require(differ <= occ_k.numel() // 10000, f"K6: {differ} occupancy cells differ")
+    # the work of the factored decode (csrc/ess.cu): the factor launch's
+    # rows (C FMAs a hidden unit); per point the crop keeps, 2 adds, 64
+    # softplus (4 f32 operations and 2 SFU ones: ex2, lg2) and net2's FMA a
+    # hidden unit, the filters and the threshold (~40); the cropped points
+    # are not decoded. (The bound before PR 12: every point decoded in full,
+    # C x 64 + 64 FMAs and the plane mean.)
+    Gs = G_ * ss
+    kept6 = int((~vr.triplane_crop_mask(vlat.lattice_world_coords((Gs,) * 3, bw, device),
+                                        x["triplane_crop"], bw)).sum()) * N
+    rows6 = sum(t[0].shape[0] * t[0].shape[1] * t[0].shape[2] for t in terms)
     out["ess_occupancy"] = record(
         float(differ), lambda: vr.ess_occupancy_kernel(*args6),
-        lambda: vr.ess_occupancy_plain(*args6), nbytes(*(t[0] for t in terms), occ_k),
-        N * (G_ * ss) ** 3 * mlp_flops)
+        lambda: vr.ess_occupancy_plain(*args6),
+        nbytes(*(t[0] for t in terms), occ_k),
+        rows6 * C * 64 * 2 + kept6 * (64 * (2 + 4 + 2) + 40), sfu_ops=kept6 * 64 * 2)
+    out["ess_occupancy"].update(
+        points=N * Gs ** 3, points_decoded=kept6,
+        bound_ms_before=bound(nbytes(*(t[0] for t in terms), occ_k),
+                              N * Gs ** 3 * mlp_flops)[0])
+    print(f"  {kept6} of {N * Gs ** 3} points kept by the crop and decoded; bound "
+          f"{out['ess_occupancy']['bound_ms']:.6f} ms ({out['ess_occupancy']['bound_by']}; "
+          f"before PR 12's recount {out['ess_occupancy']['bound_ms_before']:.6f}, ops)")
+    out["ess_occupancy"].update(parent_and_sass(
+        parent, "ess", "ess_occupancy", "ess_occupancy_kernel",
+        lambda: vr.ess_occupancy_kernel(*args6), N * Gs ** 3, "point", None, 1, None,
+        profiled=("factor_terms_kernel", "ess_occupancy_kernel", "dilate3_kernel"),
+        parent_profiled=("ess_occupancy_kernel", "dilate3_kernel"),
+        adapt=drop_args(*TERM_STRIDES, K6A_SCRATCH), contiguous_terms=True))
 
     # K6 narrowing, fed the same occupancy
     occ_out = (vr.zero_feature_density(planes, dec, filt.cull_clouds, None)
@@ -1152,6 +1272,17 @@ def ess_paste_kernel_checks(G, x, device, parent):
         lambda: vlat.occlusion_volume_plain(*args7), nbytes(*(t[0] for t in terms7), A_k),
         n_kept * (64 * 11 + 40) + A_k.numel() * 4 + rows * C * 64 * 2,
         sfu_ops=n_kept * 64 * 2)
+    # its factored first layer moved to lattice_decode.cuh (shared with K6a):
+    # the volume must equal the parent's bit for bit
+    out["occlusion_volume"].update(parent_and_sass(
+        parent, "front_occlusion", "occlusion_volume", "occlusion_volume_kernel",
+        lambda: vlat.occlusion_volume_kernel(*args7), A_k.numel(), "cell", None, 1, None,
+        profiled=("factor_terms_kernel", "occlusion_volume_kernel"),
+        parent_profiled=("factor_terms_kernel", "occlusion_volume_kernel"),
+        adapt=drop_args(*TERM_STRIDES), contiguous_terms=True))
+    if "parent" in out["occlusion_volume"]:
+        require(out["occlusion_volume"]["parent"]["values_not_bit_equal"] == 0,
+                "K7a: the volume differs from the parent's")
 
     # K7 sampler on the render's surface points, fed the same volume
     vol = G.front_occlusion_volume(ref["triplane"], x["triplane_crop"], x["cull_clouds"])
@@ -3019,13 +3150,16 @@ def device_busy(trace: dict) -> str:
 
 def device_time_by_kind(trace: dict) -> str:
     """Device kernel time in a profiled run by kind: K10, K4, K1, K5, K2,
+    K6a's decode and dilation, K7a, the factored first layer of K6a and
     K7a, PyTorch's elementwise kernels (the epilogue's unfused ops and
     other glue), the other kernels."""
     kinds = {"K10 triplane_decode_deep": r"triplane_decode_kernel<[^>]*, [12]>",
              "K4 upfirdn2d": "upfirdn2d", "K1 triplane_decode": "triplane_decode_kernel",
              "K5 modconv_epilogue": "modconv_epilogue", "K2 ray_composite": "ray_composite",
+             "K6a ess_occupancy": "ess_occupancy_kernel|dilate3_kernel",
              "K7a occlusion_volume": "occlusion_volume_kernel",
-             "K7a factor_terms": "factor_terms_kernel", "PyTorch elementwise": "elementwise_kernel"}
+             "K6a/K7a factor_terms": "factor_terms_kernel",
+             "PyTorch elementwise": "elementwise_kernel"}
     times = dict.fromkeys([*kinds, "other"], 0.0)
     counts = dict.fromkeys(times, 0)
     for e in trace["traceEvents"]:
@@ -3053,8 +3187,10 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels, then stop")
     ap.add_argument("--parent", metavar="DIR",
-                    help="a directory of the parent commit's ess.cu and paste_front.cu: "
-                         "time K6b and K8 against them (parent / this / this / parent)")
+                    help="a directory of the parent commit's upfirdn2d.cu, ess.cu, "
+                         "front_occlusion.cu and lattice_decode.cuh: time K4's EQ-T_frac "
+                         "and down=2 calls, K6a and K7a against them (parent / this / this "
+                         "/ parent)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3106,7 +3242,7 @@ def main(argv=None) -> int:
     with torch.no_grad():
         x = flagship_inputs(G, device)
         checks = kernel_checks(G, device)
-        checks.update(k4_checks(G, x, device))
+        checks.update(k4_checks(G, x, device, parent))
         checks.update(ess_paste_kernel_checks(Ge, x, device, parent))
         k3 = checks["importance_sample"]
         k3_ess = checks.pop("importance_sample_ess")
@@ -3238,18 +3374,19 @@ def main(argv=None) -> int:
                 trace_json = json.loads(trace.read_text())
                 print(device_busy(trace_json) + f"  [{card}]")
                 print(device_time_by_kind(trace_json) + f"  [{card}]")
-            if {"ess", "paste_front"} <= set(parent):
+            if "ess" in parent:
                 # a turntable portrait's device busy time with the parent's
-                # K6b and K8 and with this tree's, parent / this / this / parent
+                # K6a and with this tree's, parent / this / this / parent
                 import contextlib
 
-                libs = {"ess_narrow": parent["ess"][0], "paste_front": parent["paste_front"][0]}
+                libs = {"ess_occupancy": (parent["ess"][0],
+                                          drop_args(*TERM_STRIDES, K6A_SCRATCH))}
                 tmp = Path(args.profile) / "busy_trace.json"
                 busy = []
                 for tag in ("parent", "this", "this", "parent"):
                     with contextlib.ExitStack() as stack:
                         if tag == "parent":
-                            stack.enter_context(parent_entries(libs))
+                            stack.enter_context(parent_entries(libs, contiguous_terms=True))
                         with profile(activities=[ProfilerActivity.CPU,
                                                  ProfilerActivity.CUDA]) as prof:
                             portrait()
@@ -3258,7 +3395,7 @@ def main(argv=None) -> int:
                     busy.append(busy_span(json.loads(tmp.read_text()))[0])
                 tmp.unlink()
                 turn["busy_ms_parent_this_this_parent"] = busy
-                print("turntable portrait, device busy ms with the parent's K6b and K8 / this "
+                print("turntable portrait, device busy ms with the parent's K6a / this "
                       "tree's / this tree's / the parent's: "
                       + " / ".join(f"{b:.3f}" for b in busy) + f"  [{card}]")
 

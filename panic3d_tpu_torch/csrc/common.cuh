@@ -23,7 +23,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 // softplus(x) = log(1 + e^x) in the overflow-safe form jax.nn.softplus uses
-__device__ __forceinline__ float softplus_f(float x) {
+__host__ __device__ __forceinline__ float softplus_f(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
 }
 

@@ -16,7 +16,8 @@
 //
 // Design. The first layer is linear and a lattice point's feature is the
 // broadcast sum ((F_0 + F_1) + F_2) / 3 of three planar terms, so
-// W0 feat = ((W0 F_0 + W0 F_1) + W0 F_2) / 3. A first launch computes
+// W0 feat = ((W0 F_0 + W0 F_1) + W0 F_2) / 3. A first launch
+// (lattice_decode.cuh:factor_terms_kernel, shared with K6a) computes
 // P_t = g0 W0 F_t / 3 for the three terms ([N,G_a,G_b,64] f32, one row per
 // term cell: 0.67 GFLOP at N=2), with the bias b0 added to the (x, y)
 // term's rows. The volume launch then needs two adds per hidden unit, not
@@ -40,66 +41,6 @@ namespace {
 constexpr int TZ = 4;        // z cells per slab
 constexpr int TX = 4;        // x-columns per block (one warp each)
 constexpr int RS = LAT_HIDDEN + 4;   // staged row stride (+ 4: conflict-free float4 reads)
-constexpr float THIRD = 1.f / 3.f;
-
-// P_t = g0 W0 F_t / 3 for every row of the three terms, one after another
-// in P, plus the bias b0 on the rows of the (x, y) term (col): a lattice
-// point's hidden layer is then (P_col + P_a) + P_b. A block stages 64 rows
-// of F in shared memory (all of their loads in flight at once); thread j of
-// a row keeps W0's row j in registers and computes hidden unit j of 16 rows.
-constexpr int FROWS = 64;
-
-template <int C>
-__global__ void __launch_bounds__(256) factor_terms_kernel(
-    LatticeTerms terms, int col, long long end0, long long end1, long long rows,
-    const float* __restrict__ w0, const float* __restrict__ b0, float g0, float bias_scale,
-    float* __restrict__ P) {
-  __shared__ __align__(16) float f[FROWS * C];
-  __shared__ float ws[LAT_HIDDEN * (C + 1)];   // W0, rows padded: conflict-free reads
-  for (int i = threadIdx.x; i < LAT_HIDDEN * C; i += blockDim.x)
-    ws[(i / C) * (C + 1) + i % C] = w0[i] * g0;
-  __syncthreads();
-  const int j = threadIdx.x % LAT_HIDDEN, group = threadIdx.x / LAT_HIDDEN;
-  float w[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) w[c] = ws[j * (C + 1) + c];
-  const float bias = b0[j] * bias_scale;
-  for (long long r0 = (long long)blockIdx.x * FROWS; r0 < rows;
-       r0 += (long long)gridDim.x * FROWS) {
-    __syncthreads();   // the previous rows are read
-    for (int i = threadIdx.x; i < FROWS * C / 4; i += blockDim.x) {
-      const long long row = r0 + i / (C / 4);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row < rows) {
-        const float* F = row < end0 ? terms.t[0].F + row * C
-                       : row < end1 ? terms.t[1].F + (row - end0) * C
-                                    : terms.t[2].F + (row - end1) * C;
-        v = __ldg(reinterpret_cast<const float4*>(F) + i % (C / 4));
-      }
-      reinterpret_cast<float4*>(f)[i] = v;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < FROWS / 4; ++k) {
-      const int rl = group * (FROWS / 4) + k;
-      const long long row = r0 + rl;
-      if (row >= rows) break;
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc = fmaf(w[c], f[rl * C + c], acc);
-      const int t = row < end0 ? 0 : row < end1 ? 1 : 2;
-      P[row * LAT_HIDDEN + j] = fmaf(acc, THIRD, t == col ? bias : 0.f);
-    }
-  }
-}
-
-// the factored terms: P of the (x, y) term, and of the two z-dependent
-// terms (axes (axis[k], z)) in plane order
-struct FactoredTerms {
-  const float* col;
-  const float* slab[2];
-  int axis[2];
-};
 
 __global__ void __launch_bounds__(TX * 32) occlusion_volume_kernel(
     FactoredTerms ft, const float* __restrict__ w1, const float* __restrict__ b1,
@@ -282,54 +223,30 @@ __global__ void occlusion_sample_kernel(const float* __restrict__ A,
 
 }  // namespace
 
-// terms: three (F [N,G_a,G_b,C] f32, axis_a, axis_b) on the lattice
+// terms: three (F [N,G_a,G_b,C] f32 with its channels contiguous and its
+// rows 16-byte aligned, axis_a, axis_b, F's strides in elements over n, the
+// a index and the b index) on the lattice
 // (Gx, Gy, Gz), one of them on axes (x, y) and among the first two, the
 // others on (x or y, z); decoder raw f32 parameters (w0 [64,C], w1 [33,64]:
 // row 0 is read); P scratch of sum_t N G_a G_b 64 f32; A [N,Gx,Gy,Gz] f32
 // out. Gz must be a multiple of 4 and C one of {8,16,32}, else
 // cudaErrorInvalidValue. Two launches: the factored first layer, the volume.
 PANIC3D_EXPORT int occlusion_volume(
-    const float* F0, int a0, int b0_, const float* F1, int a1, int b1_, const float* F2, int a2,
-    int b2_, const float* w0, const float* b0, const float* w1, const float* b1, float* P,
-    float* A, int N, int Gx, int Gy, int Gz, int C, double bw, float dz, float g0, float g1,
-    float bias_scale, int use_crop, float crop_lim, int cull_mode, float cull_thresh,
-    void* stream) {
+    const float* F0, int a0, int b0_, long long n0, long long s0a, long long s0b, const float* F1,
+    int a1, int b1_, long long n1, long long s1a, long long s1b, const float* F2, int a2, int b2_,
+    long long n2, long long s2a, long long s2b, const float* w0, const float* b0,
+    const float* w1, const float* b1, float* P, float* A, int N, int Gx, int Gy, int Gz, int C,
+    double bw, float dz, float g0, float g1, float bias_scale, int use_crop, float crop_lim,
+    int cull_mode, float cull_thresh, void* stream) {
   if (Gz % TZ != 0 || (C != 8 && C != 16 && C != 32)) return (int)cudaErrorInvalidValue;
-  LatticeTerms terms{{{F0, a0, b0_}, {F1, a1, b1_}, {F2, a2, b2_}}};
+  LatticeTerms terms{{{F0, a0, b0_, n0, s0a, s0b, 0, 0}, {F1, a1, b1_, n1, s1a, s1b, 0, 0},
+                      {F2, a2, b2_, n2, s2a, s2b, 0, 0}}};
   const int size[3] = {Gx, Gy, Gz};
-  long long end[3], rows = 0;
-  FactoredTerms ft{};
-  int n_slab = 0, n_col = 0, col = -1;
-  for (int t = 0; t < 3; ++t) {
-    const LatticeTerm& tm = terms.t[t];
-    const float* Pt = P + rows * LAT_HIDDEN;
-    rows += (long long)N * size[tm.a] * size[tm.b];
-    end[t] = rows;
-    if (tm.a == 0 && tm.b == 1 && t < 2 && n_col == 0) {
-      ft.col = Pt;
-      col = t;
-      ++n_col;
-    } else if ((tm.a == 0 || tm.a == 1) && tm.b == 2 && n_slab < 2) {
-      ft.slab[n_slab] = Pt;
-      ft.axis[n_slab++] = tm.a;
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-  }
+  FactoredTerms ft;
+  FactorLayout lay;
+  if (!factored_layout(terms, size, N, P, ft, lay)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long fblocks = (rows + FROWS - 1) / FROWS;
-  if (fblocks > 8LL * sms) fblocks = 8LL * sms;
-#define P3D_FACTOR(CC)                                                                   \
-  factor_terms_kernel<CC><<<(unsigned)fblocks, 256, 0, s>>>(terms, col, end[0], end[1], rows, \
-                                                            w0, b0, g0, bias_scale, P)
-  if (C == 32) P3D_FACTOR(32);
-  else if (C == 16) P3D_FACTOR(16);
-  else P3D_FACTOR(8);
-#undef P3D_FACTOR
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_factor_terms(terms, lay, C, w0, b0, g0, bias_scale, P, s);
   if (e != cudaSuccess) return (int)e;
 
   const size_t smem = sizeof(float) * (2 * (size_t)((ft.axis[0] ? 32 : TX) + (ft.axis[1] ? 32 : TX))

@@ -31,6 +31,33 @@
 // store, so a warp writes 128 or 256 contiguous bytes per output row. Enough
 // warps stay resident (small blocks, few registers) to hide the loads.
 //
+// upfirdn2d_cols_kernel and upfirdn2d_rows_kernel, a 1-D pass at up = down
+// = 1 (a filter of one column or one row: the equivariance metrics' EQ-T_frac
+// windowed sincs, 6x1 and 1x6 on [4,3,512,512] f32, eval/equivariance.py).
+// Bound: bytes (each input read once, each output written once: ~25.5 MB a
+// pass there, ~7.6 us), at a few instructions an output (6 FMAs). The 2-D
+// tile of the generic kernel spent most of its instructions on index
+// arithmetic (a division a staged element, floor_div / floor_mod a tap).
+// - Column form (fw == 1): a lane owns one output column, or in f32 up to
+//   16 taps 4 adjacent columns read and written as one float4 where the
+//   rows are 16-byte aligned, and a strip of 16 (8) output rows. It loads
+//   each input row of the strip's window once (a coalesced warp-wide read;
+//   the loads do not depend on one another, so they are in flight
+//   together) into registers, and each output row slides its fh-row window
+//   down them: no shared memory and no division.
+// - Row form (fh == 1): a warp owns a run of ROW_RUN outputs of one row. Its
+//   lanes stage the run's inputs plus the fw - 1 halo in shared memory (16-
+//   or 8-byte loads where the input rows are aligned, f32 or bf16; scalar
+//   loads otherwise), each lane reads its
+//   window of 3 + fw inputs back as float4s and computes its 4 adjacent
+//   outputs from it; the outputs go out as one vector store a lane where the
+//   output rows are aligned, else through the staged row as coalesced
+//   scalar stores.
+// Both take the taps by value (K >= the taps, unrolled: the taps past the
+// filter's are predicated off), zero the padding where a row or a run
+// leaves the image, and sum each output's taps in order with fmaf from 0,
+// as the generic kernel does, so their outputs equal its bit for bit.
+//
 // upfirdn2d_kernel, any other call (down=2, other factors or filters): one
 // block per 32x32 output tile of one (n, c) image; the block stages the input
 // window the tile needs in shared memory as f32 (zero outside the image), and
@@ -116,6 +143,229 @@ cudaError_t launch(const void* x, void* y, int NC, int H, int W, int OH, int OW,
       static_cast<const T*>(x), static_cast<T*>(y), H, W, OH, OW, upx, upy, downx, downy,
       px0, py0, fw, fh, taps, tw, th);
   return cudaGetLastError();
+}
+
+// ---- a 1-D pass at up = down = 1: the column and row forms ----
+
+constexpr int COL_WARPS = 4;   // warps a block of the column form, stacked down the image
+constexpr int ROW_WARPS = 8;   // warps a block of the row form, one output row each
+constexpr int ROW_RUN = 128;   // outputs a warp of the row form, 4 a lane
+
+// four adjacent values of a row as floats, and back (16 bytes of f32, 8 of bf16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  // a bf16 is the top half of its f32: widening is a shift
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  auto bits = [](float f) { return (unsigned)__bfloat16_as_ushort(__float2bfloat16(f)); };
+  *reinterpret_cast<uint2*>(p) = make_uint2(bits(v.x) | bits(v.y) << 16,
+                                            bits(v.z) | bits(v.w) << 16);
+}
+
+template <typename T>
+inline bool aligned4(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
+}
+
+// V adjacent columns a lane (1, or 4 as one float4), R output rows a lane, K
+// >= fh taps unrolled. Output (oy, ox) = sum_a taps[a] x[oy + a - py0, ox - px0].
+template <typename T, int V, int K, int R>
+__global__ void __launch_bounds__(32 * COL_WARPS) upfirdn2d_cols_kernel(
+    const T* __restrict__ x, T* __restrict__ y, int H, int W, int OH, int OW, int px0, int py0,
+    int fh, Taps taps) {
+  const int oy0 = (blockIdx.y * COL_WARPS + threadIdx.y) * R;
+  if (oy0 >= OH) return;   // uniform across the warp
+  const long long nc = blockIdx.z;
+  const T* src = x + nc * H * W;
+  T* dst = y + nc * OH * OW;
+  const int ox = (blockIdx.x * 32 + threadIdx.x) * V;
+  const int ix = ox - px0;
+  // V = 4 runs only where W, OW and px0 are multiples of 4: a lane's four
+  // columns are all inside the image or all outside it
+  const bool col_in = ix >= 0 && ix + V <= W;
+  const int iy0 = oy0 - py0;
+  // the strip's R + fh - 1 input rows, zero outside the image: one
+  // coalesced warp-wide read each, all in flight together
+  float in[R + K - 1][V];
+#pragma unroll
+  for (int i = 0; i < R + K - 1; ++i) {
+    const int iy = iy0 + i;
+    const bool load = i < R + fh - 1 && col_in && iy >= 0 && iy < H;
+    if constexpr (V == 4) {
+      float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (load) q = load4(src + (long long)iy * W + ix);
+      in[i][0] = q.x; in[i][1] = q.y; in[i][2] = q.z; in[i][3] = q.w;
+    } else {
+      in[i][0] = load ? to_f(src[(long long)iy * W + ix]) : 0.f;
+    }
+  }
+  if (ox >= OW) return;
+  // output row oy0 + r: its window in[r .. r + fh - 1], the taps in order
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.f;
+#pragma unroll
+    for (int a = 0; a < K; ++a) {
+      if (a < fh) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] = fmaf(taps.f[a], in[r + a][v], acc[v]);
+      }
+    }
+    const int oy = oy0 + r;
+    T* out = dst + (long long)oy * OW + ox;
+    if (oy < OH) {
+      if constexpr (V == 4) store4(out, make_float4(acc[0], acc[1], acc[2], acc[3]));
+      else out[0] = from_f<T>(acc[0]);
+    }
+  }
+}
+
+// A warp: ROW_RUN outputs of one row, 4 adjacent a lane; K >= fw taps
+// unrolled. VIN / VOUT: the input / output rows are aligned for 4-wide
+// accesses. Output (oy, ox) = sum_b taps[b] x[oy - py0, ox + b - px0].
+template <typename T, int K, bool VIN, bool VOUT>
+__global__ void __launch_bounds__(32 * ROW_WARPS) upfirdn2d_rows_kernel(
+    const T* __restrict__ x, T* __restrict__ y, int H, int W, int OH, int OW, int px0, int py0,
+    int fw, Taps taps) {
+  // the run's inputs, then room for the last lane's aligned window reads
+  constexpr int SLEN = ROW_RUN + K + 4;
+  __shared__ __align__(16) float stage[ROW_WARPS][SLEN];
+  const int lane = threadIdx.x;
+  const int oy = blockIdx.y * ROW_WARPS + threadIdx.y;
+  if (oy >= OH) return;   // uniform across the warp; the warp syncs only itself
+  float* s = stage[threadIdx.y];
+  const long long nc = blockIdx.z;
+  const int iy = oy - py0;
+  const bool row_in = iy >= 0 && iy < H;
+  const T* row = x + (nc * H + (row_in ? iy : 0)) * W;
+  const int ox0 = blockIdx.x * ROW_RUN;
+  const int start = ox0 - px0;          // the input of output ox0's first tap
+  const int len = ROW_RUN + fw - 1;     // s[j] = x[iy, start + j], 0 outside the image
+  if (VIN) {
+    // aligned 4-wide chunks from the one holding `start`; W % 4 == 0, so a
+    // chunk is inside the row or outside it as a whole
+    const int base = start & ~3;
+    const int chunks = (start + len - base + 3) >> 2;
+    for (int c = lane; c < chunks; c += 32) {
+      const int g = base + 4 * c;
+      float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row_in && g >= 0 && g < W) q = load4(row + g);
+      const float e[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = g + k - start;
+        if (j >= 0 && j < len) s[j] = e[k];
+      }
+    }
+  } else {
+    const bool inside = start >= 0 && start + len <= W;
+    for (int j = lane; j < len; j += 32) {
+      const int g = start + j;
+      s[j] = row_in && (inside || (g >= 0 && g < W)) ? to_f(row[g]) : 0.f;
+    }
+  }
+  __syncwarp();
+  // lane l's window: s[4 l + i], i < K + 4 (4 outputs read up to 3 + fw)
+  float w[K + 4];
+#pragma unroll
+  for (int q = 0; q < K / 4 + 1; ++q) {
+    const float4 v = *reinterpret_cast<const float4*>(s + 4 * lane + 4 * q);
+    w[4 * q] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z; w[4 * q + 3] = v.w;
+  }
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int b = 0; b < K; ++b) {
+    if (b < fw) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[v] = fmaf(taps.f[b], w[v + b], acc[v]);
+    }
+  }
+  T* out = y + (nc * OH + oy) * OW + ox0;
+  if (VOUT) {
+    if (ox0 + 4 * lane < OW) store4(out + 4 * lane, make_float4(acc[0], acc[1], acc[2], acc[3]));
+  } else {
+    // through the staged row: lane l stores outputs l, l + 32, ... (coalesced)
+    __syncwarp();
+    *reinterpret_cast<float4*>(s + 4 * lane) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = lane + 32 * k;
+      if (ox0 + j < OW) out[j] = from_f<T>(s[j]);
+    }
+  }
+}
+
+template <typename T, int K>
+cudaError_t launch_cols(const void* x, void* y, int NC, int H, int W, int OH, int OW, int px0,
+                        int py0, int fh, const Taps& taps, cudaStream_t s) {
+  // 4 columns a lane (one float4) in f32 up to 16 taps: a lane holds
+  // (R + K - 1) x V inputs
+  constexpr bool wide = sizeof(T) == 4 && K <= 16;
+  const bool v4 = wide && W % 4 == 0 && OW % 4 == 0 && px0 % 4 == 0 && aligned4<T>(x) &&
+                  aligned4<T>(y);
+  const int V = v4 ? 4 : 1, R = v4 ? 8 : 16;
+  const int strips = (OH + R - 1) / R;
+  dim3 grid((OW + 32 * V - 1) / (32 * V), (strips + COL_WARPS - 1) / COL_WARPS, NC);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  if constexpr (wide) {
+    if (v4) {
+      upfirdn2d_cols_kernel<T, 4, K, 8><<<grid, dim3(32, COL_WARPS), 0, s>>>(
+          xt, yt, H, W, OH, OW, px0, py0, fh, taps);
+      return cudaGetLastError();
+    }
+  }
+  upfirdn2d_cols_kernel<T, 1, K, 16><<<grid, dim3(32, COL_WARPS), 0, s>>>(
+      xt, yt, H, W, OH, OW, px0, py0, fh, taps);
+  return cudaGetLastError();
+}
+
+template <typename T, int K>
+cudaError_t launch_rows(const void* x, void* y, int NC, int H, int W, int OH, int OW, int px0,
+                        int py0, int fw, const Taps& taps, cudaStream_t s) {
+  const bool vin = W % 4 == 0 && aligned4<T>(x), vout = OW % 4 == 0 && aligned4<T>(y);
+  dim3 grid((OW + ROW_RUN - 1) / ROW_RUN, (OH + ROW_WARPS - 1) / ROW_WARPS, NC);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const dim3 block(32, ROW_WARPS);
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+#define P3D_ROWS(VI, VO)                                                                  \
+  upfirdn2d_rows_kernel<T, K, VI, VO><<<grid, block, 0, s>>>(xt, yt, H, W, OH, OW, px0, py0, \
+                                                             fw, taps)
+  if (vin && vout) P3D_ROWS(true, true);
+  else if (vin) P3D_ROWS(true, false);
+  else if (vout) P3D_ROWS(false, true);
+  else P3D_ROWS(false, false);
+#undef P3D_ROWS
+  return cudaGetLastError();
+}
+
+// a 1-D pass (fh == 1: the row form, else fw == 1: the column form), its
+// taps unrolled to the next of 8, 16, 32, 64
+template <typename T>
+cudaError_t launch_1d(const void* x, void* y, int NC, int H, int W, int OH, int OW, int px0,
+                      int py0, int fw, int fh, const Taps& taps, cudaStream_t s) {
+  const int n = fh == 1 ? fw : fh;
+#define P3D_1D(KK)                                                                          \
+  return fh == 1 ? launch_rows<T, KK>(x, y, NC, H, W, OH, OW, px0, py0, fw, taps, s)        \
+                 : launch_cols<T, KK>(x, y, NC, H, W, OH, OW, px0, py0, fh, taps, s)
+  if (n <= 8) P3D_1D(8);
+  if (n <= 16) P3D_1D(16);
+  if (n <= 32) P3D_1D(32);
+  P3D_1D(64);
+#undef P3D_1D
 }
 
 // ---- more than MAX_TAPS taps: the large-filter kernel ----
@@ -330,8 +580,10 @@ cudaError_t dispatch_up2(const void* x, void* y, int NC, int H, int W, int OH, i
 // phase_taps / phase_src: the polyphase table of an up=2, down=1, 4x4 call
 // (ops/upfirdn2d.py:k4_plan): 16 taps [ry][rx][j][i] and the source offsets
 // (sy0, sy1, sx0, sx1), whose two phases are equal or one apart for 4 taps.
-// Such a call runs the polyphase kernel, any other call the generic kernel;
-// both tables may be null for a call outside that family.
+// Such a call runs the polyphase kernel; a filter of one row or one column at
+// up = down = 1 the row or the column form; any other call the generic
+// kernel (ops/upfirdn2d.py:k4_plan names the same variant). Both tables may
+// be null for a call outside the polyphase family.
 PANIC3D_EXPORT int upfirdn2d(const void* x, void* y, int dtype, int NC, int H, int W,
                              int OH, int OW, int upx, int upy, int downx, int downy,
                              int px0, int py0, const float* f, int fw, int fh,
@@ -363,6 +615,11 @@ PANIC3D_EXPORT int upfirdn2d(const void* x, void* y, int dtype, int NC, int H, i
   }
   Taps taps;
   for (int i = 0; i < fw * fh; ++i) taps.f[i] = f[i];
+  if (upx == 1 && upy == 1 && downx == 1 && downy == 1 && (fh == 1 || fw == 1)) {
+    if (dtype == DT_BF16)
+      return (int)launch_1d<__nv_bfloat16>(x, y, NC, H, W, OH, OW, px0, py0, fw, fh, taps, s);
+    return (int)launch_1d<float>(x, y, NC, H, W, OH, OW, px0, py0, fw, fh, taps, s);
+  }
   if (dtype == DT_BF16)
     return (int)launch<__nv_bfloat16>(x, y, NC, H, W, OH, OW, upx, upy, downx, downy, px0,
                                       py0, fw, fh, taps, s);

@@ -189,8 +189,10 @@ def occlusion_volume_plain(terms, dec, box_warp: float, grid, filters):
     return (suffix - 0.5 * density) * (bw / Gz)
 
 
-_K7A_ARGS = ((kb.PTR, kb.INT, kb.INT) * 3 + (kb.PTR,) * 6 + (kb.INT,) * 5
-             + (kb.DOUBLE,) + (kb.FLOAT,) * 4 + (kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
+# per term: renderer.lattice_term_args (pointer, two axes, three strides)
+_K7A_ARGS = ((kb.PTR, kb.INT, kb.INT, kb.LONG, kb.LONG, kb.LONG) * 3 + (kb.PTR,) * 6
+             + (kb.INT,) * 5 + (kb.DOUBLE,) + (kb.FLOAT,) * 4
+             + (kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
 
 
 def occlusion_volume_kernel(terms, dec, box_warp: float, grid, filters):

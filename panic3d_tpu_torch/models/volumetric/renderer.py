@@ -705,26 +705,33 @@ def ess_occupancy_plain(terms, dec: Decoder, box_warp: float, grid: int, supersa
 
 
 def lattice_term_args(terms, dev):
-    """Kernel arguments of the three factorised terms: per term a
-    contiguous f32 [N,Ga,Gb,C] pointer and its two world axes."""
+    """Kernel arguments of the three factorised terms: per term an f32
+    [N,Ga,Gb,C] pointer, its two world axes and its strides over N, Ga and
+    Gb. The kernels read a row's channels as float4s: a term whose channels
+    are not contiguous, or whose rows are not 16-byte aligned, is copied
+    (lattice_features' einsum gives permuted views that need no copy)."""
     out, keep = [], []
     for F_, aa, ab in terms:
         _require(F_.device == dev and F_.dtype == torch.float32 and F_.ndim == 4,
                  "lattice terms must be f32 [N,Ga,Gb,C] on the kernel's device")
-        F_ = F_.contiguous()
+        if not (F_.stride(3) == 1 and F_.data_ptr() % 16 == 0
+                and all(st % 4 == 0 for st in F_.stride()[:3])):
+            F_ = F_.contiguous()
         keep.append(F_)
-        out += [F_.data_ptr(), int(aa), int(ab)]
+        out += [F_.data_ptr(), int(aa), int(ab), *F_.stride()[:3]]
     return out, keep
 
 
-_K6A_ARGS = ((kb.PTR, kb.INT, kb.INT) * 3 + (kb.PTR,) * 6 + (kb.INT,) * 4 + (kb.DOUBLE,)
-             + (kb.FLOAT,) * 4 + (kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
+_K6A_ARGS = ((kb.PTR, kb.INT, kb.INT, kb.LONG, kb.LONG, kb.LONG) * 3 + (kb.PTR,) * 7
+             + (kb.INT,) * 4 + (kb.DOUBLE,) + (kb.FLOAT,) * 4
+             + (kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
 
 
 def ess_occupancy_kernel(terms, dec: Decoder, box_warp: float, grid: int, supersample: int,
                          thresh: float, filters: DensityFilters):
     """Launch K6's occupancy on CUDA tensors: same contract as
-    ess_occupancy_plain."""
+    ess_occupancy_plain. The factored first layer P (64 f32 a term cell,
+    lattice_decode.cuh) is scratch of this call's stream."""
     require_no_grad("ess_occupancy", terms, dec)
     dev = terms[0][0].device
     N, C = terms[0][0].shape[0], terms[0][0].shape[-1]
@@ -733,15 +740,20 @@ def ess_occupancy_kernel(terms, dec: Decoder, box_warp: float, grid: int, supers
     _require(C in (8, 16, 32), f"K6 supports 8, 16 or 32 plane channels, got {C}")
     for F_, aa, ab in terms:
         _require(tuple(F_.shape) == (N, Gs, Gs, C), "K6 terms must be [N,Gs,Gs,C]")
+    axes = [(int(aa), int(ab)) for _, aa, ab in terms]
+    _require((0, 1) in axes[:2] and sorted(axes)[1:] in ([(0, 2), (0, 2)], [(0, 2), (1, 2)]),
+             f"K6 takes an (x, y) term among the first two and two (x or y, z) terms, "
+             f"got axes {axes}")
     targs, keep = lattice_term_args(terms, dev)
     w0, b0, w1, b1 = _decoder_f32(dec, dev)
     _require(tuple(w0.shape) == (64, C) and tuple(w1.shape) == (33, 64),
              "K6 takes a 64-wide hidden layer")
     pooled = torch.empty((N, grid, grid, grid), dtype=torch.float32, device=dev)
     occ = torch.empty_like(pooled)
+    P = torch.empty((3, N, Gs, Gs, 64), dtype=torch.float32, device=dev)
     kb.launch(
         "ess_occupancy", _K6A_ARGS, *targs, w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), pooled.data_ptr(), occ.data_ptr(), N, grid, supersample, C,
+        b1.data_ptr(), pooled.data_ptr(), occ.data_ptr(), P.data_ptr(), N, grid, supersample, C,
         float(box_warp), float(thresh), dec.lr_mul / math.sqrt(C),
         dec.lr_mul / math.sqrt(64), dec.lr_mul, *_filter_args(filters, box_warp),
         _stream(occ))
