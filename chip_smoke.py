@@ -12,7 +12,8 @@
 3. Checks each kernel against its plain PyTorch version on the card, at the
    flagship paths' shapes and working dtypes (K1 at the coarse and the fine
    pass; K4 at every distinct call of one flagship request, found by a spy
-   on its wrapper, each timed, and a down=2 call on its generic kernel;
+   on its wrapper, each timed, and the discriminator's 4x4 calls on its
+   4x4 form: a down=2 call and the filter pass at up = down = 1;
    the ESS and occlusion kernels
    on planes of the seeded flagship; K5 at the SR call, a backbone f32
    call and the mapping layers; K1v on the full 256^3 grid of the seeded
@@ -151,7 +152,7 @@ NO_SPILL = ("triplane_decode_kernel", "factor_terms_kernel", "occlusion_volume_k
             "point_mesh_distance_kernel", "winding_number_kernel",
             "importance_sample_kernel", "ess_narrow_kernel",
             "paste_front_kernel", "ess_occupancy_kernel", "upfirdn2d_rows_kernel",
-            "upfirdn2d_cols_kernel")   # must not spill
+            "upfirdn2d_cols_kernel", "upfirdn2d_fir4_kernel")   # must not spill
 PASTE_KEYS = ("mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
 MESH_RES = 256     # eval generate's mesh resolution
 LEVEL = 0.5        # eval generate's iso level
@@ -567,11 +568,19 @@ def k4_checks(G, x, device, parent):
     flagship request (found by a spy on ops/upfirdn2d.py:_fir: the backbone's
     up-convs and 96-channel skip upsamples, f32 and bf16, and SR's four
     calls), each timed; the SR block-1 call (bf16 [2,256,256,256] -> 514^2)
-    also with its plain version and the library call. One down=2 call checks
-    the generic kernel, beside its plain version and its library call (a
-    depthwise F.conv2d of stride 2), and with ``parent`` (--parent) against
-    the parent's kernel. bf16 within 1 bf16 ulp of the largest value, f32
-    within 1e-5 (summation order). -> {"upfirdn2d": summary}."""
+    also with its plain version and the library call. The 4x4 form at the
+    discriminator's calls (bf16 [2,256,256,256]): a down=2 call ("down2")
+    and the filter pass of conv2d_resample at up = down = 1 ("fir4"), each
+    beside its plain version and its library call (a depthwise F.conv2d of
+    stride 2, or of stride 1; each must be faster than it), with its SASS
+    instructions an output, and with ``parent`` (--parent) equal bit for
+    bit to the parent's generic kernel and timed against it; its other
+    instantiations checked at f32, unaligned rows and padding 0. The
+    generic kernel at two calls that still take it (the unfused K11
+    composition's 1-D up=2 pass, a 3x3 filter), beside its plain version
+    and, with ``parent``, equal bit for bit to the parent's. bf16 within 1
+    bf16 ulp of the largest value, f32 within 1e-5 (summation order).
+    -> {"upfirdn2d": summary}."""
     import importlib
 
     import torch
@@ -621,32 +630,126 @@ def k4_checks(G, x, device, parent):
     require(all(s_["variant"] == "up2" for s_ in shapes),
             "K4: a call of the request is outside the polyphase kernel's family")
 
-    # the generic kernel that stays: a 2x downsample (bf16 [2,256,256,256]),
-    # beside its plain version and its library call, a depthwise conv2d of
-    # stride 2 with the (correlated) filter and padding 1
+    # the 4x4 form (the discriminator's calls): a 2x downsample (bf16
+    # [2,256,256,256], downsample2d's padding 1) and conv2d_resample's filter
+    # pass before a conv of stride 2 (padding 2, up = down = 1), each beside
+    # its plain version and its library call (a depthwise conv2d, of stride
+    # 2 and padding 1, or padding 2), and with ``parent`` (--parent) equal bit
+    # for bit to the parent's generic kernel and timed against it
     f = next(iter(calls.values()))[1]
-    n_gen = KERNELS["upfirdn2d"].variants.get("generic", 0)
-    spec_d = (f / 4, (1, 1), (2, 2), (1, 1, 1, 1))
-    xd, yd, ypd, e_gen, generic = one((BATCH, 256, 256, 256), torch.bfloat16, *spec_d,
-                                      "generic kernel")
-    require(KERNELS["upfirdn2d"].variants.get("generic", 0) > n_gen,
-            "K4: the down=2 call did not take the generic kernel")
-    w_d = spec_d[0].to(xd.device, xd.dtype)[None, None].expand(xd.shape[1], 1, 4, 4).contiguous()
+    forms = {}
+    for variant, down, pad in (("down2", 2, 1), ("fir4", 1, 2)):
+        n_form = KERNELS["upfirdn2d"].variants.get(variant, 0)
+        spec_d = (f / 4, (1, 1), (down, down), (pad,) * 4)
+        xd, yd, ypd, e_d, summ = one((BATCH, 256, 256, 256), torch.bfloat16, *spec_d,
+                                     f"{variant} form")
+        err = max(err, e_d)
+        require(KERNELS["upfirdn2d"].variants.get(variant, 0) > n_form,
+                f"K4: the 4x4 call at down={down} did not take the {variant} form")
+        w_d = spec_d[0].to(xd.device, xd.dtype)[None, None].expand(xd.shape[1], 1, 4, 4)
+        w_d = w_d.contiguous()
 
-    def library_down2():
-        return torch.nn.functional.conv2d(xd, w_d, stride=2, padding=1, groups=xd.shape[1])
+        def library_4x4():
+            return torch.nn.functional.conv2d(xd, w_d, stride=down, padding=pad,
+                                              groups=xd.shape[1])
 
-    check("library conv2d (stride 2) vs plain (1 bf16 ulp)", max_err(library_down2(), ypd),
-          2.0 ** -7 * float(ypd.abs().max()))
-    bms_d, by_d = bound(nbytes(xd, yd), yd.numel() * 16 * 2)
-    generic.update(plain_ms=cuda_ms(lambda: upfirdn2d_plain(xd, *spec_d), iters=3, warmup=1),
-                   library_ms=cuda_ms(library_down2), bound_ms=bms_d, bound_by=by_d)
-    print(f"    plain_ms {generic['plain_ms']:.6f}  library_ms {generic['library_ms']:.6f}  "
-          f"bound_ms {generic['bound_ms']:.6f}")
-    generic.update(parent_and_sass(
-        parent, "upfirdn2d", "upfirdn2d", "upfirdn2d_kernel",
-        lambda: upfirdn2d_kernel(xd, *spec_d), yd.numel(), "output", None, 1, None))
-    del xd, yd, ypd
+        check(f"library conv2d (stride {down}, padding {pad}) vs plain (1 bf16 ulp)",
+              max_err(library_4x4(), ypd), 2.0 ** -7 * float(ypd.abs().max()))
+        bms_d, by_d = bound(nbytes(xd, yd), yd.numel() * 16 * 2)
+        summ.update(plain_ms=cuda_ms(lambda: upfirdn2d_plain(xd, *spec_d), iters=3, warmup=1),
+                    library_ms=cuda_ms(library_4x4), bound_ms=bms_d, bound_by=by_d)
+        print(f"    plain_ms {summ['plain_ms']:.6f}  library_ms {summ['library_ms']:.6f}  "
+              f"bound_ms {summ['bound_ms']:.6f}")
+        require(summ["ms"] < summ["library_ms"],
+                f"K4 {variant}: {summ['ms']} ms, not faster than the library call's "
+                f"{summ['library_ms']} ms")
+        # the instantiation this call runs: bf16, 16-byte staging (256-wide
+        # rows), an odd first column at padding 1; no loop (the staging and
+        # the strip of 8 outputs a lane unrolled)
+        odd = int(down == 2 and pad % 2 == 1)
+        summ.update(parent_and_sass(
+            parent, "upfirdn2d", "upfirdn2d", "upfirdn2d_fir4_kernel",
+            lambda: upfirdn2d_kernel(xd, *spec_d), yd.numel(), "output", {}, 1 / 8, None,
+            new_kernel=f"upfirdn2d_fir4_kernelI13__nv_bfloat16Li{down}ELb1ELb{odd}E",
+            parent_kernel="upfirdn2d_kernel"))
+        if "parent" in summ:
+            require(summ["parent"]["values_not_bit_equal"] == 0,
+                    f"K4 {variant}: the outputs differ from the parent's generic kernel's "
+                    "(the same taps in the same order)")
+        forms[variant] = summ
+        del xd, yd, ypd
+    # the form's other instantiations (dtype, DOWN, 16-byte staging, an odd
+    # first column), each checked once: down=2 in f32 at padding 1 (aligned,
+    # odd) and 0 (aligned, even), in bf16 at padding 0 (aligned, even: the
+    # skip images' downsample2d), and the dual discriminator's resize
+    # (downsample2d at padding -1 of a 2 size + 2 image: padding 0, rows not
+    # 16-byte aligned) in bf16 and f32; the filter pass at up = down = 1
+    # with aligned rows in f32 (the resnet skip's, padding 1) and unaligned
+    # rows in bf16 and f32
+    for shape, dtype, down, pad in (((BATCH, 64, 256, 256), torch.float32, 2, 1),
+                                    ((BATCH, 64, 128, 128), torch.float32, 2, 0),
+                                    ((BATCH, 64, 256, 256), torch.bfloat16, 2, 0),
+                                    ((BATCH, 3, 258, 258), torch.bfloat16, 2, 0),
+                                    ((BATCH, 3, 258, 258), torch.float32, 2, 0),
+                                    ((BATCH, 64, 128, 128), torch.float32, 1, 1),
+                                    ((BATCH, 64, 100, 100), torch.bfloat16, 1, 1),
+                                    ((BATCH, 64, 102, 102), torch.float32, 1, 2)):
+        variant = "down2" if down == 2 else "fir4"
+        n_form = KERNELS["upfirdn2d"].variants.get(variant, 0)
+        spec_o = (f.flip([0, 1]) / 4, (1, 1), (down, down), (pad,) * 4)
+        _, yo, ypo, e_o, _ = one(shape, dtype, *spec_o, "4x4 form")
+        require(KERNELS["upfirdn2d"].variants.get(variant, 0) > n_form,
+                f"K4: the 4x4 call {list(shape)} at down={down} did not take the {variant} form")
+        tol_o = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * float(ypo.abs().max())
+        check("  within its tolerance x max|out|", e_o, tol_o)
+        err = max(err, e_o)
+        del yo, ypo
+
+    # the generic kernel, at calls that still take it, each required to take
+    # it and held to its plain version: the unfused K11 composition's up=2
+    # pass of a 12-tap filter (a StyleGAN3-T layer 10 input, bf16; 6 taps an
+    # output) and a 3x3 filter at up = down = 1 (f32), that one also beside
+    # its library call (a depthwise conv2d, padding 1); with ``parent``
+    # (--parent) each equal bit for bit to the parent's generic kernel
+    # (unchanged) and timed against it
+    k12 = np.kaiser(12, 8.0).astype(np.float32)
+    f12 = torch.from_numpy(k12 / k12.sum())
+    f3 = mod.setup_filter([1, 2, 1])
+    generic = []
+    for label, shape, dtype, spec_g, taps in (
+            ("K11 composition up=2 pass", (SG3_BATCH, 287, 276, 276), torch.bfloat16,
+             mod.fir_passes(f12, up=2, padding=[11, 10, 11, 10], gain=4)[0], 6),
+            ("3x3 filter", (BATCH, 64, 256, 256), torch.float32,
+             (f3, (1, 1), (1, 1), (1, 1, 1, 1)), 9)):
+        n_gen = KERNELS["upfirdn2d"].variants.get("generic", 0)
+        xg, yg, ypg, e_g, summ = one(shape, dtype, *spec_g, f"generic kernel, {label}")
+        require(KERNELS["upfirdn2d"].variants.get("generic", 0) > n_gen,
+                f"K4: the {label} call did not take the generic kernel")
+        err = max(err, e_g)
+        bms_g, by_g = bound(nbytes(xg, yg), yg.numel() * taps * 2)
+        summ.update(call=label, filter=list(spec_g[0].shape), bound_ms=bms_g, bound_by=by_g,
+                    plain_ms=cuda_ms(lambda: upfirdn2d_plain(xg, *spec_g), iters=3, warmup=1),
+                    library_ms=None)
+        if spec_g[0].shape == (3, 3):
+            w_g = spec_g[0].to(xg.device, xg.dtype)[None, None].expand(xg.shape[1], 1, 3, 3)
+            w_g = w_g.contiguous()
+
+            def library_3x3():
+                return torch.nn.functional.conv2d(xg, w_g, padding=1, groups=xg.shape[1])
+
+            check("library conv2d (padding 1) vs plain (f32)", max_err(library_3x3(), ypg),
+                  1e-5 * float(ypg.abs().max()))
+            summ["library_ms"] = cuda_ms(library_3x3)
+        print(f"    plain_ms {summ['plain_ms']:.6f}  library_ms {summ['library_ms']}  "
+              f"bound_ms {summ['bound_ms']:.6f} ({summ['bound_by']})")
+        summ.update(parent_and_sass(
+            parent, "upfirdn2d", "upfirdn2d", "upfirdn2d_kernel",
+            lambda: upfirdn2d_kernel(xg, *spec_g), yg.numel(), "output", None, 1, None))
+        if "parent" in summ:
+            require(summ["parent"]["values_not_bit_equal"] == 0,
+                    f"K4 generic kernel, {label}: the outputs differ from the parent's")
+        generic.append(summ)
+        del xg, yg, ypg
 
     # the SR block-1 call, with its plain version and the single library
     # call for this upsample: a depthwise transposed convolution (stride 2)
@@ -663,13 +766,13 @@ def k4_checks(G, x, device, parent):
     check("library conv_transpose2d vs plain (1 bf16 ulp)", e_lib,
           2.0 ** -7 * float(yp.abs().max()))
     # each output takes 4 of the 16 taps (the others hit inserted zeros)
-    summary = record(max(e, err, e_gen), lambda: upfirdn2d_kernel(xx, *spec),
+    summary = record(max(e, err), lambda: upfirdn2d_kernel(xx, *spec),
                      lambda: upfirdn2d_plain(xx, *spec), nbytes(xx, yk), yk.numel() * 4 * 2,
                      library)
     require(summary["ms"] < summary["library_ms"],
             f"K4: {summary['ms']} ms, not faster than the library call's "
             f"{summary['library_ms']} ms")
-    return {"upfirdn2d": dict(summary, shapes=shapes, generic_down2=generic,
+    return {"upfirdn2d": dict(summary, shapes=shapes, **forms, generic=generic,
                               equivariance=k4_equivariance_checks(device, parent))}
 
 
@@ -937,6 +1040,9 @@ class parent_entries:
 # points (PR 11) did not take
 TERM_STRIDES = (3, 4, 5, 9, 10, 11, 15, 16, 17)
 K6A_SCRATCH = 24
+# K10's lattice entry point (volume_density_deep): stats, which the
+# parent's (K1's kernel with a trilinear gather) did not take
+K10V_NEW_ARGS = (23,)
 
 
 def drop_args(*idx):
@@ -1487,7 +1593,7 @@ def k9_edge_cases(n=64):
             np.concatenate(pts).astype(np.float32))
 
 
-def volume_kernel_checks(G, device):
+def volume_kernel_checks(G, device, parent):
     """K1v and K9 vs their plain versions on the card, on the planes of the
     seeded ESS flagship portrait (batch 1, SEED). K1v on the full 256^3
     grid; its plain version on a slab of 2^20 lattice points (16 x-slices
@@ -1495,9 +1601,10 @@ def volume_kernel_checks(G, device):
     surface). K1 in the geometry path's vertex-colour form, on the f32
     planes at the unfiltered surface's vertex world positions. K9 with
     10,000 points sampled on the unfiltered surface at the reference level
-    against the triangles of the unfiltered surface (mesh_levels).
-    -> ({name: summary, plus triplane_decode_vertex_colours}, the mesh
-    levels)."""
+    against the triangles of the unfiltered surface (mesh_levels). With
+    ``parent`` (--parent), K1v against the parent's kernel: equal bits,
+    timed in turns. -> ({name: summary, plus
+    triplane_decode_vertex_colours}, the mesh levels)."""
     import torch
 
     from panic3d_tpu_torch.eval import mesh_metrics as mm
@@ -1606,6 +1713,15 @@ def volume_kernel_checks(G, device):
         tf32_flops=n_kept * 3 * 2 * C * 64, sfu_ops=n_kept * (64 * 2 + 4))
     out["volume_density"].update(points_kept=n_kept, bricks=bricks, bricks_skipped=skipped,
                                  columns_skipped=cols, planes_outside_window=outside)
+    # K1v's kernel is a form of the brick kernel K10's lattice form
+    # shares: its outputs equal the parent's bit for bit
+    out["volume_density"].update(parent_and_sass(
+        parent, "triplane_decode", "volume_density", "volume_density_kernel",
+        lambda: vol.density_grid_kernel(planes, dec, N, bw, axes, filt, torch.float16),
+        N**3, "point", None, 1, None))
+    if "parent" in out["volume_density"]:
+        require(out["volume_density"]["parent"]["values_not_bit_equal"] == 0,
+                "K1v: the grid differs from the parent's")
     ms = out["volume_density"]["ms"]
     print(f"  ms {ms:.6f}: {N**3 / ms / 1e6:.3f} G lattice points/s, {n_kept / ms / 1e6:.3f} G "
           f"kept points/s; bound {out['volume_density']['bound_ms']:.6f} ms "
@@ -2491,7 +2607,7 @@ def k10_ops(points: int, C: int):
     return points * 3 * C * (2 * 6 + 2), points * 3 * 2 * (C * 64 + 64 * 33)
 
 
-def k10_checks(Gd, device):
+def k10_checks(Gd, device, parent):
     """K10, the trilinear K1 form, vs its plain version on the card. The
     render form (triplane_decode_deep) at the deep-plane render pass's
     shapes: 6 bf16 volumes [2,256,256,32] of random depth-2 flagship planes
@@ -2558,10 +2674,10 @@ def k10_checks(Gd, device):
           f"{summary['bound_by']}); f32 at 2^17 points {summary['f32_2e17_points']['ms']:.6f}")
     del vols, vols32, planes
     return {"triplane_decode_deep": summary,
-            "volume_density_deep": k10_grid_checks(Gd, device, vol, vr)}
+            "volume_density_deep": k10_grid_checks(Gd, device, vol, vr, parent)}
 
 
-def k10_grid_checks(Gd, device, vol, vr):
+def k10_grid_checks(Gd, device, vol, vr, parent):
     """K10's lattice form (volume_density_deep) vs density_grid_plain at
     D = 2 on the seeded deep flagship portrait's f32 planes, K1v's checks
     and tolerances: the whole 256^3 grid by the kernel, a slab of 2^20
@@ -2569,7 +2685,12 @@ def k10_grid_checks(Gd, device, vol, vr):
     version; filtered (eval generate's crop and cull) on the seeded decoder
     and on the decoder with sigma's bias raised by SIGMA_RAISE, f32 and f16
     grids, cull decisions that differ counted apart; unfiltered in f32. The
-    bound counts the points the crop keeps. -> summary."""
+    bound counts the points the crop keeps. Then the kernel's stats (bricks
+    skipped by the crop, columns skipped, planes read outside a window);
+    and with ``parent`` (--parent) the parent's kernel (K1's kernel with a
+    trilinear gather) timed against it, parent / this / this / parent, its
+    bits compared, and the unfiltered grid's mesh (faces at the grid's own
+    level) beside the parent's. -> summary."""
     import torch
 
     N, bw, D = MESH_RES, Gd.rk["box_warp"], DEEP_DEPTH
@@ -2617,6 +2738,20 @@ def k10_grid_checks(Gd, device, vol, vr):
     errs.append(max_err(kernel(dec, vr.DensityFilters(), torch.float16), gu.to(torch.float16)))
     check("K10 density, unfiltered, f16 grid = its f32 grid rounded to f16", errs[-1], 0.0)
     C = planes.shape[2] // D
+    level = mesh_levels(gu)[0]
+    faces = len(grid_mesh(gu, level)[1])
+    if "triplane_decode" in parent:
+        with parent_entries({"volume_density_deep": (parent["triplane_decode"][0],
+                                                     drop_args(*K10V_NEW_ARGS))}):
+            gp = kernel(dec, vr.DensityFilters(), torch.float32)
+        faces_parent = len(grid_mesh(gp, level)[1])
+        print(f"  unfiltered mesh at the grid's level {level:.6f}: {faces} faces; from the "
+              f"parent's grid {faces_parent}; its densities within "
+              f"{max_err(gu, gp):.3e} of the parent's")
+        del gp
+    else:
+        faces_parent = None
+        print(f"  unfiltered mesh at the grid's level {level:.6f}: {faces} faces")
     del gu
     coords = vol.create_samples_device(N, bw, 0, N**3, device)
     kept = coords[~vr.triplane_crop_mask(coords, filt.triplane_crop, bw)[:, 0]]
@@ -2626,8 +2761,8 @@ def k10_grid_checks(Gd, device, vol, vr):
     print(f"  points kept by the crop: {n_kept} of {N**3}; texels their corners touch: "
           f"{touched} of {nbytes(planes)} plane bytes")
     # per kept point: 3 planes x 2 slices x C lerps and the blend, the mean,
-    # 64 x (bias, softplus, ...) and the tail on the CUDA cores; layer 1 and
-    # net2's sigma n-tile (8 columns) in 3xTF32; 64 softplus x 2 and the
+    # 64 x (bias, softplus, sigma's multiply-add, ...) and the tail on the
+    # CUDA cores; layer 1 in 3xTF32 (K1v's count); 64 softplus x 2 and the
     # tail's 4 exp/log on the SFU. Bytes: the texels the kept points' corners
     # touch, read once, and the f16 grid written once.
     out = record(
@@ -2635,10 +2770,25 @@ def k10_grid_checks(Gd, device, vol, vr):
         lambda: vol.density_grid_plain(planes, dec, N, bw, axes, filt, torch.float16,
                                        triplane_depth=D),
         touched + N**3 * 2, n_kept * (3 * C * 14 + C + 64 * 8 + 40), plain_iters=3,
-        tf32_flops=n_kept * 3 * 2 * (C * 64 + 64 * 8), sfu_ops=n_kept * (64 * 2 + 4))
-    out.update(points_kept=n_kept, volume_bytes_touched=touched)
+        tf32_flops=n_kept * 3 * 2 * C * 64, sfu_ops=n_kept * (64 * 2 + 4))
+    out.update(points_kept=n_kept, volume_bytes_touched=touched, mesh_faces=faces,
+               mesh_faces_parent=faces_parent)
     print(f"  ms {out['ms']:.6f}: {N**3 / out['ms'] / 1e6:.3f} G lattice points/s; plain "
           f"{out['plain_ms']:.3f}; bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
+    # the crop skip and the windows, counted by the kernel on the filtered grid
+    stats = torch.zeros(3, dtype=torch.int32, device=device)
+    vol.density_grid_deep_kernel(planes, dec, N, bw, axes, filt, D, torch.float16, stats=stats)
+    BX, BY, BZ = vol.K1V_BRICK
+    bricks = -(-N // BX) * -(-N // BY) * -(-N // BZ)
+    skipped, cols, outside = (int(v) for v in stats.tolist())
+    print(f"  bricks of {BX}x{BY}x{BZ}: {bricks}; skipped by the crop {skipped}; columns skipped "
+          f"in the bricks decoded {cols}; planes read outside a window {outside}")
+    out.update(bricks=bricks, bricks_skipped=skipped, columns_skipped=cols,
+               planes_outside_window=outside)
+    out.update(parent_and_sass(
+        parent, "triplane_decode", "volume_density_deep", "volume_density_kernel",
+        lambda: kernel(dec, filt, torch.float16), N**3, "point", None, 1, None,
+        parent_kernel="triplane_decode_kernel", adapt=drop_args(*K10V_NEW_ARGS)))
     return out
 
 
@@ -3187,10 +3337,10 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels, then stop")
     ap.add_argument("--parent", metavar="DIR",
-                    help="a directory of the parent commit's upfirdn2d.cu, ess.cu, "
-                         "front_occlusion.cu and lattice_decode.cuh: time K4's EQ-T_frac "
-                         "and down=2 calls, K6a and K7a against them (parent / this / this "
-                         "/ parent)")
+                    help="a directory of the parent commit's upfirdn2d.cu and "
+                         "triplane_decode.cu: time K4's 4x4 calls and K10's lattice form "
+                         "against them (parent / this / this / parent), and K4's "
+                         "EQ-T_frac calls, K6a and K7a where DIR holds their sources")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3248,13 +3398,13 @@ def main(argv=None) -> int:
         k3_ess = checks.pop("importance_sample_ess")
         k3["shapes"] = {k3["samples"]: dict(k3), k3_ess["samples"]: k3_ess}
         checks.update(epilogue_kernel_checks(device))
-        volume_checks, levels = volume_kernel_checks(Ge, device)
+        volume_checks, levels = volume_kernel_checks(Ge, device, parent)
         # K1's second form on a path (the geometry path's vertex colours)
         checks["triplane_decode"]["vertex_colours"] = volume_checks.pop(
             "triplane_decode_vertex_colours")
         checks.update(volume_checks)
         checks.update(k13_checks(device))
-        checks.update(k10_checks(Gd, device))
+        checks.update(k10_checks(Gd, device, parent))
         checks.update(k11_checks(device))
         grad_guard_checks(device)
         if args.kernels_only:

@@ -48,7 +48,7 @@
 // warp's tile in output order and leaves as contiguous 16-byte stores. bf16
 // planes are upcast as they are read; all arithmetic is f32, SFU f32 or
 // 3xTF32. K1v is described at its kernel (volume_density_kernel): bricks of
-// 4 x 4 columns of 16 lattice points, their plane windows staged in shared
+// 4 x 8 columns of 16 lattice points, their plane windows staged in shared
 // memory, the crop skipped per brick and per column, and K1's layer 1 and
 // SFU softplus with net2's sigma row as a reduction of the hidden fragments;
 // it makes each point's coordinate from its flat index with the JAX
@@ -69,10 +69,16 @@
 // grid_sample_3d_points orders it. The plane mean, the 3xTF32 MLP and the
 // filters are K1's, so the [N*3, M, C] feature block never reaches device
 // memory. triplane_decode_deep has K1's contract (rgb and filtered sigma
-// at given points); volume_density_deep decodes the mesh lattice, making
-// each point from its flat index as K1v does, skips a warp tile whose 16
-// points the crop removes, runs net2's sigma n-tile alone, and writes
-// K1v's density (sigma2density, the crop, the cull) into the flipped grid.
+// at given points). volume_density_deep, K10's lattice form, is K1v's brick
+// kernel on the deep volumes: each plane's window in shared memory holds
+// the depth slices its brick's corners touch (two at most at D = 2: with
+// align_corners=False a lattice point's z0 lies in {-1, 0, 1}), the lerps
+// read the window in grid_sample_3d_points' order, and the rest (the crop
+// skip, layer 1 in 3xTF32 with the mean's 1/3 folded in, the SFU
+// softplus, net2's sigma row as a reduction of the hidden fragments,
+// sigma2density, the crop and the cull, the flipped grid) is K1v's. Its
+// bricks are K1v's 4 x 8 columns, one block of 16 warps an SM: the
+// windows' slices take twice K1v's shared memory.
 #include <climits>
 
 #include <cuda_fp16.h>
@@ -106,19 +112,9 @@ Proj make_proj(const float* proj, bool deep) {
 }
 
 // the forms of K1's kernel: K1 (bilinear planes [N,3,H,W,C] at given
-// points); K10's trilinear form on deep volumes [N*3,D,H,W,C] at given
-// points (TRILINEAR) or at the points of the mesh lattice, written as the
-// density grid (TRILINEAR_GRID)
-enum Form { BILINEAR = 0, TRILINEAR = 1, TRILINEAR_GRID = 2 };
-
-// what the trilinear forms take beyond K1's arguments
-struct Deep {
-  int D;               // the volumes' depth
-  int lat_n;           // TRILINEAR_GRID: the lattice's N, its spacing and origin
-  float voxel, origin;
-  void* grid;          // TRILINEAR_GRID: the density grid [N,N,N], axis 0 flipped
-  int grid_f16;        // f16, else f32
-};
+// points) and K10's trilinear form on deep volumes [N*3,D,H,W,C] at given
+// points (TRILINEAR; its lattice form is the brick kernel's, below)
+enum Form { BILINEAR = 0, TRILINEAR = 1 };
 
 // ---- K1: gather, then the MLP on the tensor cores ----
 
@@ -368,14 +364,6 @@ __device__ __forceinline__ void deep_plane_sample(const T* __restrict__ vols, in
   for (int k = 0; k < CH; ++k) feat[k] += v[k];
 }
 
-// density d of lattice point i (flat order) into the grid, axis 0 flipped
-__device__ __forceinline__ void store_density(const Deep& dp, long long i, float d) {
-  const long long nn = (long long)dp.lat_n * dp.lat_n;
-  const long long o = (dp.lat_n - 1 - i / nn) * nn + i % nn;
-  if (dp.grid_f16) static_cast<__half*>(dp.grid)[o] = __float2half_rn(d);
-  else static_cast<float*>(dp.grid)[o] = d;
-}
-
 // the plane-mean features of the warp's PTS points [t0, t0 + PTS) into
 // tile[point][C + 4] (zeros past the end). A point is served by C / CH
 // neighbouring lanes, each reading one 16-byte chunk of CH channels of every
@@ -383,14 +371,13 @@ __device__ __forceinline__ void store_density(const Deep& dp, long long i, float
 // plane's four chunks are in flight while a plane's lerps run. The lerps and
 // their order are ops/grid_sample.py:grid_sample_2d_points' (align_corners=
 // False, zeros padding), then the plane mean, ((p0 + p1) + p2) / 3. The
-// trilinear forms read the deep volumes instead (deep_plane_sample, one
-// plane at a time: its 8 chunks are in flight together), at the given
-// points or, in TRILINEAR_GRID, at the lattice points of the flat indices.
+// trilinear form reads the deep volumes instead (deep_plane_sample, one
+// plane at a time: its 8 chunks are in flight together).
 template <typename T, int C, int FORM>
 __device__ __forceinline__ void gather_tile(const T* __restrict__ planes,
                                             const float* __restrict__ coords, long long t0,
-                                            long long total, int M, int H, int W,
-                                            const Deep& dp, const Proj& pj,
+                                            long long total, int M, int D, int H, int W,
+                                            const Proj& pj,
                                             float coord_scale, int lane, float* tile) {
   constexpr int CH = 16 / (int)sizeof(T);    // channels per chunk
   constexpr int TPP = C / CH;                // lanes per point
@@ -406,20 +393,13 @@ __device__ __forceinline__ void gather_tile(const T* __restrict__ planes,
     float feat[CH];
 #pragma unroll
     for (int c = 0; c < CH; ++c) feat[c] = 0.f;
-    if constexpr (FORM != BILINEAR) {
+    if constexpr (FORM == TRILINEAR) {
       if (pt < total) {
         const int n = (int)(pt / M);
-        float x, y, z;
-        if constexpr (FORM == TRILINEAR_GRID) {
-          lattice_point(pt, dp.lat_n, dp.voxel, dp.origin, x, y, z);
-        } else {
-          x = coords[pt * 3 + 0];
-          y = coords[pt * 3 + 1];
-          z = coords[pt * 3 + 2];
-        }
+        const float x = coords[pt * 3 + 0], y = coords[pt * 3 + 1], z = coords[pt * 3 + 2];
 #pragma unroll
         for (int p = 0; p < 3; ++p)
-          deep_plane_sample<T, C>(planes, n, p, dp.D, H, W, pj, coord_scale * x,
+          deep_plane_sample<T, C>(planes, n, p, D, H, W, pj, coord_scale * x,
                                   coord_scale * y, coord_scale * z, cc * CH, feat);
 #pragma unroll
         for (int c = 0; c < CH; ++c) feat[c] = feat[c] / 3.f;
@@ -465,7 +445,7 @@ __global__ void __launch_bounds__(32 * K1_WARPS, K1_BLOCKS) triplane_decode_kern
     T* __restrict__ rgb, float* __restrict__ sigma_out,
     int N, int M, int H, int W, Proj pj, float coord_scale, float g0, float g1,
     float bias_scale, int force_sigmoid, int use_crop, float crop_lim,
-    int cull_mode, float cull_thresh, Deep dp) {
+    int cull_mode, float cull_thresh, int D) {
   constexpr int FS = C + 4;
   constexpr int NT1 = HIDDEN / 8, KS2 = HIDDEN / 8, NT2 = N2 / 8;
   extern __shared__ uint4 smem_raw[];
@@ -489,18 +469,7 @@ __global__ void __launch_bounds__(32 * K1_WARPS, K1_BLOCKS) triplane_decode_kern
   const long long total = (long long)N * M;
   for (long long t0 = ((long long)blockIdx.x * K1_WARPS + warp) * PTS; t0 < total;
        t0 += (long long)gridDim.x * K1_WARPS * PTS) {
-    if constexpr (FORM == TRILINEAR_GRID) {
-      // a tile whose points the crop removes all is -1e3 and is not decoded
-      bool cropped = true;
-      if (lane < PTS && t0 + lane < total) {
-        float x, y, z;
-        lattice_point(t0 + lane, dp.lat_n, dp.voxel, dp.origin, x, y, z);
-        cropped = use_crop && !(fabsf(x) <= crop_lim && fabsf(z) <= crop_lim);
-        if (cropped) store_density(dp, t0 + lane, -1e3f);
-      }
-      if (__all_sync(0xffffffffu, cropped)) continue;
-    }
-    gather_tile<T, C, FORM>(planes, coords, t0, total, M, H, W, dp, pj, coord_scale, lane,
+    gather_tile<T, C, FORM>(planes, coords, t0, total, M, D, H, W, pj, coord_scale, lane,
                             tile);
     __syncwarp();
 
@@ -523,37 +492,6 @@ __global__ void __launch_bounds__(32 * K1_WARPS, K1_BLOCKS) triplane_decode_kern
       }
     }
     __syncwarp();
-
-    if constexpr (FORM == TRILINEAR_GRID) {
-      // net2's sigma n-tile alone (column SIGMA_COL: lanes t = 0 hold it
-      // for rows g and g + 8), then the density of the points the crop
-      // keeps (the others were written above)
-      float o[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int ks = 0; ks < KS2; ++ks) {
-        uint32_t hi[4], lo[4];
-        load_a(tile + ks * 8 + t, g, HS, hi, lo);
-        mma_3xtf32(o, hi, lo, s.w1f[ks][NT2 - 1][lane]);
-      }
-      if (t == 0) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const long long pt = t0 + g + 8 * half;
-          if (pt >= total) continue;
-          float x, y, z;
-          lattice_point(pt, dp.lat_n, dp.voxel, dp.origin, x, y, z);
-          if (use_crop && !(fabsf(x) <= crop_lim && fabsf(z) <= crop_lim)) continue;
-          // sigma2density, then the cloud cull on the density (K1v's tail)
-          const float sigma = o[2 * half] + s.b1[SIGMA_COL];
-          float d = __fsub_rn(1.f, expf(-softplus_f(__fsub_rn(sigma, 1.f))));
-          if (cull_mode && __fsub_rn(1.f, expf(-softplus_f(__fsub_rn(d, 1.f)))) < cull_thresh)
-            d = -1e3f;
-          store_density(dp, pt, d);
-        }
-      }
-      __syncwarp();   // the hidden layer is read before the next tile's features land
-      continue;
-    }
 
     // FC(64->33, padded to 40; rgb in columns 0-31, sigma in column 32)
     float o[NT2][4];
@@ -611,7 +549,7 @@ cudaError_t launch(const void* planes, const float* coords, const float* w0,
                    float* sigma, int N, int M, int H, int W, const Proj& pj,
                    float coord_scale, float g0, float g1, float bias_scale,
                    int force_sigmoid, int use_crop, float crop_lim, int cull_mode,
-                   float cull_thresh, cudaStream_t stream, const Deep& dp = Deep{}) {
+                   float cull_thresh, cudaStream_t stream, int D = 1) {
   // above 48 KB of shared memory a block must ask for it (once per kernel)
   static const cudaError_t attr = cudaFuncSetAttribute(
       triplane_decode_kernel<T, C, FORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -629,29 +567,41 @@ cudaError_t launch(const void* planes, const float* coords, const float* w0,
       <<<(unsigned)blocks, 32 * K1_WARPS, sizeof(K1Smem<C>), stream>>>(
           static_cast<const T*>(planes), coords, w0, b0, w1, b1, static_cast<T*>(rgb),
           sigma, N, M, H, W, pj, coord_scale, g0, g1, bias_scale, force_sigmoid,
-          use_crop, crop_lim, cull_mode, cull_thresh, dp);
+          use_crop, crop_lim, cull_mode, cull_thresh, D);
   return cudaGetLastError();
 }
 
-// ---- K1v: bricks of the lattice, plane windows in shared memory ----
+// ---- K1v and K10's lattice form: bricks of the lattice, plane windows in shared memory ----
 
 constexpr int V_BZ = 16;   // z points of a column: one warp tile (PTS)
+constexpr int V_BX = 4;    // columns of a brick in x
+
+// A brick: V_BX x V_BY columns of V_BZ points. K1v's (DEEP false) has 8
+// warps, two blocks an SM, and its three plane windows take at most POOL
+// texels together (6 x 10 + 6 x 18 + 10 x 18 = 348 at N = H = W = 256).
+// K10's lattice form (DEEP) stages each window's depth slices too, up to
+// twice the texels at D = 2 ((6 x 10 + 6 x 18 + 10 x 18) x 2 = 696 texel
+// slices at most): one block of 16 warps fills an SM. Bricks of 4 x 4
+// columns (504 texel slices, two blocks of 8 warps an SM) read 10-20 %
+// slower on an H100 (PERF.md): half the points share each brick's fixed
+// work (the corners, the windows' bounds, the staging, three barriers).
 constexpr int V_BY = 8;    // columns of a brick in y
-constexpr int V_BX = 4;    // and in x
-constexpr int V_PTS = V_BZ * V_BY * V_BX;   // points of a brick
-constexpr int V_THREADS = 256;
-constexpr int V_WARPS = V_THREADS / 32;
-constexpr int V_COLS = V_BX * V_BY / V_WARPS;   // columns a warp decodes, two at a time
-static_assert(V_COLS % 2 == 0, "K1v decodes its columns in pairs");
-constexpr int V_BLOCKS = 2;                     // resident blocks per SM
-// texels of the three plane windows together (6 x 10 + 6 x 18 + 10 x 18
-// = 348 at N = H = W = 256)
-constexpr int V_POOL = 384;
+template <bool DEEP>
+struct Brick {
+  static constexpr int POINTS = V_BZ * V_BY * V_BX;        // points of a brick
+  static constexpr int POOL = DEEP ? 768 : 384;           // texels (x slices)
+  static constexpr int BLOCKS = DEEP ? 1 : 2;              // resident blocks per SM
+  static constexpr int WARPS = 16 / BLOCKS;                // 16 warps an SM
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int COLS = V_BX * V_BY / WARPS;         // columns a warp, two at a time
+  static_assert(COLS % 2 == 0, "a warp decodes its columns in pairs");
+};
 
 // align_corners=False texel coordinate of plane coordinate g on an axis of
-// `size` texels, rounded op by op as the plain version computes it
+// `size` texels, rounded op by op as the plain version computes it (the
+// halving as a multiply by 0.5: the same correctly rounded value as / 2)
 __device__ __forceinline__ float texel_coord(float g, int size) {
-  return __fdiv_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.f), (float)size), 1.f), 2.f);
+  return __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.f), (float)size), 1.f), 0.5f);
 }
 
 // one channel's bilinear lerp, in gather_tile's order
@@ -662,19 +612,29 @@ __device__ __forceinline__ float bilerp(float v00, float v01, float v10, float v
   return top + (bot - top) * wy;
 }
 
-template <int C>
-struct K1vSmem {
+// a deep corner (x0, y0, z0), each in [-2, 1021], as one int
+__device__ __forceinline__ int pack_corner(int x0, int y0, int z0) {
+  return (x0 + 2) | (y0 + 2) << 10 | (z0 + 2) << 20;
+}
+
+template <int C, bool DEEP>
+struct VolSmem {
   uint4 w0f[C / 8][HIDDEN / 8][32];   // layer 1, gains and the plane mean's 1/3 applied
   float b0[HIDDEN];
   float w1[HIDDEN];        // net2's sigma row, gained
   float b1;
-  alignas(16) int win[3][4];   // per plane: min x0, min y0, max x0, max y0 over the brick
+  // per plane over the brick: min x0, y0 (and z0 at depth), then from [4]
+  // the max of each
+  int win[3][8];
   int woff[3];             // per plane: its window's first texel in the pool, -1 if not staged
-  int4 info[3][V_PTS];     // per plane and point: x0, y0, and the bits of wx, wy
-  unsigned char flags[V_PTS];   // bit 0: in the lattice; bit 1: kept by the crop
-  alignas(16) float tile[V_WARPS][PTS * (C + 4)];
-  float sigma[V_WARPS][2 * V_BZ];   // a warp's sigmas of two columns
-  // then the plane windows, V_POOL texels of C floats
+  int zs[3];               // DEEP: per plane, its window's first depth slice
+  // per plane and point: x0, y0 and the bits of wx, wy; DEEP: pack_corner
+  // (x0, y0, z0) and the bits of wx, wy, wz
+  int4 info[3][Brick<DEEP>::POINTS];
+  unsigned char flags[Brick<DEEP>::POINTS];   // bit 0: in the lattice; bit 1: kept by the crop
+  alignas(16) float tile[Brick<DEEP>::WARPS][PTS * (C + 4)];
+  float sigma[Brick<DEEP>::WARPS][2 * V_BZ];   // a warp's sigmas of two columns
+  // then the plane windows, Brick::POOL texels (texel slices) of C floats
 };
 
 // the plane sums of one column's 16 points (brick points base .. base + 15)
@@ -684,7 +644,8 @@ struct K1vSmem {
 // plane whose window was not staged. The mapping, the lerps and their
 // order are K1's gather_tile; the mean's 1/3 is in layer 1's weights.
 template <int C>
-__device__ __forceinline__ void gather_column(const K1vSmem<C>& s, const float* pool,
+__device__ __forceinline__ void gather_column(const VolSmem<C, false>& s,
+                                              const float* pool,
                                               const float* __restrict__ planes, int H, int W,
                                               int base, int lane, float* tile) {
   constexpr int TPP = C / 4;          // lanes per point, one 16-byte chunk each
@@ -697,7 +658,7 @@ __device__ __forceinline__ void gather_column(const K1vSmem<C>& s, const float* 
   int ww[3], org[3];
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
-    ww[p] = s.woff[p] >= 0 ? s.win[p][2] - s.win[p][0] + 2 : -1;
+    ww[p] = s.woff[p] >= 0 ? s.win[p][4] - s.win[p][0] + 2 : -1;
     org[p] = (s.woff[p] - s.win[p][1] * ww[p] - s.win[p][0]) * C + cc * 4;
   }
   // plane 0 (x, y) barely moves along a column (the lattice's shear): a
@@ -755,39 +716,165 @@ __device__ __forceinline__ void gather_column(const K1vSmem<C>& s, const float* 
   }
 }
 
-// K1v. A block walks bricks of V_BX x V_BY columns of 16 z-points (the flat
-// index's fastest axis). Per brick: (1) the threads make each point's
-// lattice point (lattice_point, bit for bit), its crop decision and, per
-// plane, its corner (x0, y0) and weights, into shared memory; the block
-// reduces the corners to each plane's window, [min x0, max x0 + 1] x
-// [min y0, max y0 + 1]. (2) A brick with no point kept by the crop writes
-// -1e3 and decodes nothing. (3) The windows go to shared memory by cp.async
-// (zeros outside the plane: the zeros padding), into one pool; a window
-// that no longer fits is read from the planes. (4) Each warp decodes its
-// columns as K1 does (a column with no kept point is skipped): the gather
-// of the plane sums from the windows, layer 1 in 3xTF32 on the tensor
+// one deep plane's 8 corner chunks for a point (in: its info): from the
+// plane's window (rs, ss: its row and slice strides in floats, 0 when the
+// window was not staged; org: the pool offset of the texel (0, 0, 0) in its
+// frame, this lane's chunk included) or else from the volume; a slice
+// outside the volume reads zeros (the zeros padding)
+template <int C>
+__device__ __forceinline__ void deep_corners(const float* pool,
+                                             const float* __restrict__ vols, int D, int H,
+                                             int W, int p, int cc, int rs, int ss, int org,
+                                             int corner, float4 v[2][4]) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int x0 = (corner & 1023) - 2, y0 = (corner >> 10 & 1023) - 2, z0 = (corner >> 20) - 2;
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz) {
+    const int z = z0 + dz;
+    if (z < 0 || z >= D) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[dz][c] = zero;
+    } else if (rs) {
+      const float* r = pool + org + z * ss + y0 * rs + x0 * C;
+      v[dz][0] = *reinterpret_cast<const float4*>(r);
+      v[dz][1] = *reinterpret_cast<const float4*>(r + C);
+      v[dz][2] = *reinterpret_cast<const float4*>(r + rs);
+      v[dz][3] = *reinterpret_cast<const float4*>(r + rs + C);
+    } else {
+      const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
+      const bool vy0 = y0 >= 0 && y0 < H, vy1 = y0 + 1 >= 0 && y0 + 1 < H;
+      const float* r00 = vols + ((((long long)p * D + z) * H + y0) * W + x0) * C + cc * 4;
+      const float* r10 = r00 + (long long)W * C;
+      v[dz][0] = vy0 && vx0 ? __ldg(reinterpret_cast<const float4*>(r00)) : zero;
+      v[dz][1] = vy0 && vx1 ? __ldg(reinterpret_cast<const float4*>(r00 + C)) : zero;
+      v[dz][2] = vy1 && vx0 ? __ldg(reinterpret_cast<const float4*>(r10)) : zero;
+      v[dz][3] = vy1 && vx1 ? __ldg(reinterpret_cast<const float4*>(r10 + C)) : zero;
+    }
+  }
+}
+
+// one deep plane's sample of a lane's 4 channels from its corners, added to
+// feat: per slice the xy lerps, then 0 + s(z0) (1 - wz) + s(z1) wz
+__device__ __forceinline__ void deep_lerp(const float4 v[2][4], float wx, float wy, float wz,
+                                          float4& feat) {
+  float4 smp = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz) {
+    const float wzz = dz ? wz : 1.f - wz;
+    smp.x += bilerp(v[dz][0].x, v[dz][1].x, v[dz][2].x, v[dz][3].x, wx, wy) * wzz;
+    smp.y += bilerp(v[dz][0].y, v[dz][1].y, v[dz][2].y, v[dz][3].y, wx, wy) * wzz;
+    smp.z += bilerp(v[dz][0].z, v[dz][1].z, v[dz][2].z, v[dz][3].z, wx, wy) * wzz;
+    smp.w += bilerp(v[dz][0].w, v[dz][1].w, v[dz][2].w, v[dz][3].w, wx, wy) * wzz;
+  }
+  feat.x += smp.x;
+  feat.y += smp.y;
+  feat.z += smp.z;
+  feat.w += smp.w;
+}
+
+// K10's form of gather_column: each plane's trilinear sample from its
+// window of depth slices (window p's texel (z, y, x) at woff[p] + ((z -
+// zs[p]) * height + y - y_lo) * width + x - x_lo), or from the volumes
+// [3,D,H,W,C] for a window that was not staged. The order is
+// deep_plane_sample's (grid_sample_3d_points'): per slice the xy lerps,
+// then 0 + s(z0) (1 - wz) + s(z1) wz; the plane sums, then the mean's 1/3
+// in layer 1's weights. Plane 0's (x0, y0) barely moves along a column and
+// its z0 changes at most once in 16 points: a lane keeps its last 8
+// plane-0 corners.
+template <int C>
+__device__ __forceinline__ void gather_column_deep(const VolSmem<C, true>& s,
+                                                   const float* pool,
+                                                   const float* __restrict__ vols, int D,
+                                                   int H, int W, int base, int lane,
+                                                   float* tile) {
+  constexpr int TPP = C / 4, PPP = 32 / TPP, FS = C + 4;
+  const int cc = lane % TPP;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  int rs[3], ss[3], org[3];
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const int ww = s.win[p][4] - s.win[p][0] + 2, wh = s.win[p][5] - s.win[p][1] + 2;
+    rs[p] = s.woff[p] >= 0 ? ww * C : 0;
+    ss[p] = rs[p] * wh;
+    org[p] = s.woff[p] * C - s.zs[p] * ss[p] - s.win[p][1] * rs[p] - s.win[p][0] * C + cc * 4;
+  }
+  int key0 = INT_MIN;
+  float4 k[2][4];
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) k[dz][c] = zero;
+#pragma unroll 1
+  for (int pass = 0; pass < PTS / PPP; ++pass) {
+    const int lp = pass * PPP + lane / TPP;
+    const int pt = base + lp;
+    float4 feat = zero;
+    if (s.flags[pt] & 1) {
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        const int4 in = s.info[p][pt];
+        float4 v[2][4];
+        if (p == 0 && in.x == key0) {
+#pragma unroll
+          for (int dz = 0; dz < 2; ++dz)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) v[dz][c] = k[dz][c];
+        } else {
+          deep_corners<C>(pool, vols, D, H, W, p, cc, rs[p], ss[p], org[p], in.x, v);
+          if (p == 0) {
+            key0 = in.x;
+#pragma unroll
+            for (int dz = 0; dz < 2; ++dz)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) k[dz][c] = v[dz][c];
+          }
+        }
+        deep_lerp(v, __int_as_float(in.y), __int_as_float(in.z), __int_as_float(in.w), feat);
+      }
+    }
+    *reinterpret_cast<float4*>(tile + lp * FS + cc * 4) = feat;
+  }
+}
+
+// K1v, and with DEEP K10's lattice form. A block walks bricks of V_BX x V_BY
+// columns of 16 z-points (the flat index's fastest axis). Per brick: (1)
+// the threads make each point's lattice point (lattice_point, bit for bit),
+// its crop decision and, per plane, its corner (x0, y0; at depth z0 too)
+// and weights, into shared memory; the block reduces the corners to each
+// plane's window, [min x0, max x0 + 1] x [min y0, max y0 + 1] (at depth
+// times the slices of [min z0, max z0 + 1] inside the volume). (2) A brick
+// with no point kept by the crop writes -1e3 and decodes nothing. (3) The
+// windows go to shared memory by cp.async (zeros outside the plane: the
+// zeros padding), into one pool; a window that no longer fits is read from
+// the planes. (4) Each warp decodes its columns as K1 does (a column with
+// no kept point is skipped): the gather of the plane sums from the windows
+// (gather_column, gather_column_deep), layer 1 in 3xTF32 on the tensor
 // cores with the mean's 1/3 folded into its weights, softplus on the SFU on
 // the accumulators, and net2's sigma row as a 64-wide dot of the hidden
 // fragments reduced across each quad; then, for two columns at once, a
 // lane a point, sigma2density and the cull (libm: the cull decides on the
 // last ulps of expf) and the store into the flipped grid. The cropped
-// points are written -1e3 in (1), as the crop would leave them. stats (may
-// be null): bricks skipped by the crop, columns skipped in the bricks
-// decoded, planes of decoded bricks read from the planes because their
-// window did not fit.
-template <int C>
-__global__ void __launch_bounds__(V_THREADS, V_BLOCKS) volume_density_kernel(
+// points are written -1e3 in (1), as the crop would leave them. planes:
+// [3,H,W,C], or at depth the volumes [3,D,H,W,C]. stats (may be null):
+// bricks skipped by the crop, columns skipped in the bricks decoded, planes
+// of decoded bricks read from the planes because their window did not fit.
+template <int C, bool DEEP>
+__global__ void __launch_bounds__((Brick<DEEP>::THREADS), (Brick<DEEP>::BLOCKS))
+volume_density_kernel(
     const float* __restrict__ planes, const float* __restrict__ w0,
     const float* __restrict__ b0, const float* __restrict__ w1,
-    const float* __restrict__ b1, void* __restrict__ out, int out_f16, int N, int H, int W,
-    Proj pj, float coord_scale, float g0, float g1, float bias_scale, float voxel,
+    const float* __restrict__ b1, void* __restrict__ out, int out_f16, int N, int D, int H,
+    int W, Proj pj, float coord_scale, float g0, float g1, float bias_scale, float voxel,
     float origin, int use_crop, float crop_lim, int use_cull, float cull_thresh,
     int* __restrict__ stats) {
+  using B = Brick<DEEP>;
   constexpr int FS = C + 4;
   constexpr int NT1 = HIDDEN / 8;
+  constexpr int NA = DEEP ? 3 : 2;   // corner axes: x0, y0 (and z0)
   extern __shared__ uint4 smem_raw[];
-  K1vSmem<C>& s = *reinterpret_cast<K1vSmem<C>*>(smem_raw);
-  float* pool = reinterpret_cast<float*>(reinterpret_cast<char*>(smem_raw) + sizeof(K1vSmem<C>));
+  VolSmem<C, DEEP>& s = *reinterpret_cast<VolSmem<C, DEEP>*>(smem_raw);
+  float* pool =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(smem_raw) + sizeof(VolSmem<C, DEEP>));
   load_w0_fragments<C>(s.w0f, w0, g0 / 3.f);
   for (int i = threadIdx.x; i < HIDDEN; i += blockDim.x) {
     s.b0[i] = b0[i] * bias_scale;
@@ -803,16 +890,18 @@ __global__ void __launch_bounds__(V_THREADS, V_BLOCKS) volume_density_kernel(
     const int bz = (int)(brick % nbz), by = (int)(brick / nbz % nby);
     const int bx = (int)(brick / ((long long)nbz * nby));
     __syncthreads();   // the previous brick is decoded (its windows and bounds read)
-    if (tid < 12) s.win[tid >> 2][tid & 3] = (tid & 3) < 2 ? INT_MAX : INT_MIN;
+    if (tid < 24) s.win[tid >> 3][tid & 7] = (tid & 4) ? INT_MIN : INT_MAX;
     __syncthreads();   // the bounds are reset
 
-    // (1) the brick's points, V_PTS / V_THREADS a thread
-    int lo[3][2], hi[3][2];
+    // (1) the brick's points, B::POINTS / B::THREADS a thread
+    int lo[3][NA], hi[3][NA];
 #pragma unroll
-    for (int p = 0; p < 3; ++p) lo[p][0] = lo[p][1] = INT_MAX, hi[p][0] = hi[p][1] = INT_MIN;
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int a = 0; a < NA; ++a) lo[p][a] = INT_MAX, hi[p][a] = INT_MIN;
     bool any_kept = false;
 #pragma unroll 1
-    for (int pt = tid; pt < V_PTS; pt += V_THREADS) {
+    for (int pt = tid; pt < B::POINTS; pt += B::THREADS) {
       const int xi = bx * V_BX + pt / (V_BZ * V_BY), yi = by * V_BY + pt / V_BZ % V_BY;
       const int zi = bz * V_BZ + pt % V_BZ;
       const bool valid = xi < N && yi < N && zi < N;
@@ -828,12 +917,29 @@ __global__ void __launch_bounds__(V_THREADS, V_BLOCKS) volume_density_kernel(
           const float gy = sx * pj.a[p][0][1] + sy * pj.a[p][1][1] + sz * pj.a[p][2][1];
           const float ix = texel_coord(gx, W), iy = texel_coord(gy, H);
           const float fx0 = floorf(ix), fy0 = floorf(iy);
-          const int x0 = (int)fx0, y0 = (int)fy0;
-          s.info[p][pt] = make_int4(x0, y0, __float_as_int(ix - fx0), __float_as_int(iy - fy0));
-          lo[p][0] = min(lo[p][0], x0);
-          lo[p][1] = min(lo[p][1], y0);
-          hi[p][0] = max(hi[p][0], x0);
-          hi[p][1] = max(hi[p][1], y0);
+          int c[NA];
+          if constexpr (DEEP) {
+            const float gz = sx * pj.z[p][0] + sy * pj.z[p][1] + sz * pj.z[p][2];
+            const float iz = texel_coord(gz, D);
+            const float fz0 = floorf(iz);
+            // clamped before the conversion: a corner below -1 or past the
+            // last texel is outside either way
+            c[0] = (int)fminf(fmaxf(fx0, -2.f), (float)W);
+            c[1] = (int)fminf(fmaxf(fy0, -2.f), (float)H);
+            c[2] = (int)fminf(fmaxf(fz0, -2.f), (float)D);
+            s.info[p][pt] = make_int4(pack_corner(c[0], c[1], c[2]), __float_as_int(ix - fx0),
+                                      __float_as_int(iy - fy0), __float_as_int(iz - fz0));
+          } else {
+            c[0] = (int)fx0;
+            c[1] = (int)fy0;
+            s.info[p][pt] = make_int4(c[0], c[1], __float_as_int(ix - fx0),
+                                      __float_as_int(iy - fy0));
+          }
+#pragma unroll
+          for (int a = 0; a < NA; ++a) {
+            lo[p][a] = min(lo[p][a], c[a]);
+            hi[p][a] = max(hi[p][a], c[a]);
+          }
         }
         if (!kept) {
           const long long o = (long long)(N - 1 - xi) * NN + (long long)yi * N + zi;
@@ -845,18 +951,16 @@ __global__ void __launch_bounds__(V_THREADS, V_BLOCKS) volume_density_kernel(
       any_kept |= kept;
     }
 #pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      const int lx = __reduce_min_sync(0xffffffffu, lo[p][0]);
-      const int ly = __reduce_min_sync(0xffffffffu, lo[p][1]);
-      const int hx = __reduce_max_sync(0xffffffffu, hi[p][0]);
-      const int hy = __reduce_max_sync(0xffffffffu, hi[p][1]);
-      if (lane == 0) {
-        atomicMin(&s.win[p][0], lx);
-        atomicMin(&s.win[p][1], ly);
-        atomicMax(&s.win[p][2], hx);
-        atomicMax(&s.win[p][3], hy);
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        const int l = __reduce_min_sync(0xffffffffu, lo[p][a]);
+        const int h = __reduce_max_sync(0xffffffffu, hi[p][a]);
+        if (lane == 0) {
+          atomicMin(&s.win[p][a], l);
+          atomicMax(&s.win[p][4 + a], h);
+        }
       }
-    }
 
     // (2) the crop skip: every point of the brick is cropped (and written)
     if (!__syncthreads_or(any_kept)) {
@@ -865,25 +969,38 @@ __global__ void __launch_bounds__(V_THREADS, V_BLOCKS) volume_density_kernel(
     }
 
     // (3) the plane windows into the pool, one after another; a window
-    // that does not fit in what is left is not staged, and gather_column
-    // reads that plane from memory
+    // that does not fit in what is left is not staged, and the gather
+    // reads that plane from memory. At depth a window holds the slices
+    // [zs, ze] of its corners' z0 .. z0 + 1 that lie inside the volume.
     int off = 0;
 #pragma unroll 1
     for (int p = 0; p < 3; ++p) {
-      const int4 w = *reinterpret_cast<const int4*>(s.win[p]);
-      const int ww = w.z - w.x + 2, texels = ww * (w.w - w.y + 2);
-      const bool fits = off + texels <= V_POOL;
+      const int lx = s.win[p][0], ly = s.win[p][1];
+      const int ww = s.win[p][4] - lx + 2, wh = s.win[p][5] - ly + 2;
+      int zs = 0, nz = 1;
+      if constexpr (DEEP) {
+        zs = max(s.win[p][2], 0);
+        nz = max(min(s.win[p][6] + 1, D - 1) - zs + 1, 0);
+      }
+      const int texels = ww * wh * nz;
+      const bool fits = off + texels <= B::POOL;
       if (tid == 0) {
         s.woff[p] = fits ? off : -1;
+        s.zs[p] = zs;
         if (stats && !fits) atomicAdd(&stats[2], 1);
       }
       if (!fits) continue;
-      for (int q = tid; q < texels * (C / 4); q += V_THREADS) {
+      for (int q = tid; q < texels * (C / 4); q += B::THREADS) {
         const int texel = q / (C / 4), c4 = q % (C / 4);
-        const int ty = w.y + texel / ww, tx = w.x + texel % ww;
+        int z = 0, r = texel;
+        if constexpr (DEEP) {
+          z = zs + texel / (ww * wh);
+          r = texel % (ww * wh);
+        }
+        const int ty = ly + r / ww, tx = lx + r % ww;
         const bool inside = tx >= 0 && tx < W && ty >= 0 && ty < H;
-        const float* src = inside ? planes + (((long long)p * H + ty) * W + tx) * C + c4 * 4
-                                  : planes;
+        const float* src =
+            inside ? planes + ((((long long)p * D + z) * H + ty) * W + tx) * C + c4 * 4 : planes;
         cp_async16_zfill(pool + (off + texel) * C + c4 * 4, src, inside);
       }
       off += texels;
@@ -892,20 +1009,22 @@ __global__ void __launch_bounds__(V_THREADS, V_BLOCKS) volume_density_kernel(
     cp_async_wait<0>();
     __syncthreads();
 
-    // (4) V_COLS columns a warp, two at a time: the decode of each, then
+    // (4) B::COLS columns a warp, two at a time: the decode of each, then
     // the tails of both, a lane a point
     float* tile = s.tile[warp];
 #pragma unroll 1
-    for (int cw = 0; cw < V_COLS; cw += 2) {
+    for (int cw = 0; cw < B::COLS; cw += 2) {
 #pragma unroll 1
       for (int half = 0; half < 2; ++half) {
-        const int base = (warp * V_COLS + cw + half) * V_BZ;
+        const int base = (warp * B::COLS + cw + half) * V_BZ;
         const unsigned fl = lane < V_BZ ? s.flags[base + lane] : 0u;
         if (!__ballot_sync(0xffffffffu, fl & 2u)) {   // every point cropped (and written)
           if (stats && lane == 0) atomicAdd(&stats[1], 1);
           continue;
         }
-        gather_column<C>(s, pool, planes, H, W, base, lane, tile);
+        if constexpr (DEEP)
+          gather_column_deep<C>(s, pool, planes, D, H, W, base, lane, tile);
+        else gather_column<C>(s, pool, planes, H, W, base, lane, tile);
         __syncwarp();
         float h[NT1][4];
         layer1<C, FS>(tile, s.w0f, lane, h);
@@ -929,7 +1048,7 @@ __global__ void __launch_bounds__(V_THREADS, V_BLOCKS) volume_density_kernel(
         __syncwarp();   // the tile is read before the next column's features land
       }
       // the tails of the kept points (the cropped ones were written in (1))
-      const int base = (warp * V_COLS + cw + (lane >> 4)) * V_BZ, row = lane & 15;
+      const int base = (warp * B::COLS + cw + (lane >> 4)) * V_BZ, row = lane & 15;
       if ((s.flags[base + row] & 3u) == 3u) {
         const float sigma = s.sigma[warp][lane];
         // sigma2density, then the cloud cull on the density
@@ -967,25 +1086,26 @@ long long volume_blocks(int N) {
   return blocks < 1 ? 1 : blocks;
 }
 
-template <int C>
+template <int C, bool DEEP>
 cudaError_t launch_volume(const float* planes, const float* w0, const float* b0,
                           const float* w1, const float* b1, void* out, int out_f16, int N,
-                          int H, int W, const Proj& pj, float coord_scale, float g0, float g1,
-                          float bias_scale, float voxel, float origin, int use_crop,
+                          int D, int H, int W, const Proj& pj, float coord_scale, float g0,
+                          float g1, float bias_scale, float voxel, float origin, int use_crop,
                           float crop_lim, int use_cull, float cull_thresh, int* stats,
                           cudaStream_t stream) {
-  const int smem = (int)sizeof(K1vSmem<C>) + V_POOL * C * (int)sizeof(float);
+  using B = Brick<DEEP>;
+  const int smem = (int)sizeof(VolSmem<C, DEEP>) + B::POOL * C * (int)sizeof(float);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      volume_density_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      volume_density_kernel<C, DEEP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long bricks = (long long)((N + V_BZ - 1) / V_BZ) * ((N + V_BY - 1) / V_BY) *
                            ((N + V_BX - 1) / V_BX);
-  const long long blocks = bricks < (long long)V_BLOCKS * sms ? bricks : (long long)V_BLOCKS * sms;
-  volume_density_kernel<C><<<(unsigned)blocks, V_THREADS, smem, stream>>>(
-      planes, w0, b0, w1, b1, out, out_f16, N, H, W, pj, coord_scale, g0, g1, bias_scale,
+  const long long blocks = bricks < (long long)B::BLOCKS * sms ? bricks : (long long)B::BLOCKS * sms;
+  volume_density_kernel<C, DEEP><<<(unsigned)blocks, B::THREADS, smem, stream>>>(
+      planes, w0, b0, w1, b1, out, out_f16, N, D, H, W, pj, coord_scale, g0, g1, bias_scale,
       voxel, origin, use_crop, crop_lim, use_cull, cull_thresh, stats);
   return cudaGetLastError();
 }
@@ -1033,14 +1153,12 @@ PANIC3D_EXPORT int triplane_decode_deep(
     float crop_lim, int cull_mode, float cull_thresh, void* stream) {
   if (D < 1) return (int)cudaErrorInvalidValue;
   const Proj pj = make_proj(proj, true);
-  Deep dp{};
-  dp.D = D;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define P3D_K10(T, CC)                                                                 \
   return (int)launch<T, CC, TRILINEAR>(vols, coords, w0, b0, w1, b1, rgb, sigma, N, M, \
                                        H, W, pj, coord_scale, g0, g1, bias_scale,      \
                                        force_sigmoid, use_crop, crop_lim, cull_mode,   \
-                                       cull_thresh, s, dp)
+                                       cull_thresh, s, D)
   if (dtype == DT_BF16) {
     if (C == 32) P3D_K10(__nv_bfloat16, 32);
     if (C == 16) P3D_K10(__nv_bfloat16, 16);
@@ -1054,27 +1172,26 @@ PANIC3D_EXPORT int triplane_decode_deep(
   return (int)cudaErrorInvalidValue;
 }
 
-// K10's trilinear K1 form on the mesh lattice. vols: one portrait's deep
-// planes as [3,D,H,W,C] channels-last f32; proj as triplane_decode_deep;
-// out [N,N,N] f16 (out_f16) or f32, axis 0 flipped, K1v's densities
-// (sigma2density, the crop on the lattice point, the cull on the density
-// when use_cull); N at most 256 (the flat index is exact in f32).
+// K10's lattice form: K1v's brick kernel on the deep planes. vols: one
+// portrait's deep planes as [3,D,H,W,C] channels-last f32, 16-byte aligned;
+// proj as triplane_decode_deep; out [N,N,N] f16 (out_f16) or f32, axis 0
+// flipped, K1v's densities (sigma2density, the crop on the lattice point,
+// the cull on the density when use_cull); N at most 256 (the flat index is
+// exact in f32), H, W and D at most 1000; stats as volume_density's.
 PANIC3D_EXPORT int volume_density_deep(
     const float* vols, const float* w0, const float* b0, const float* w1,
     const float* b1, void* out, int out_f16, int N, int D, int H, int W, int C,
     const float* proj, float coord_scale, float g0, float g1, float bias_scale,
     float voxel, float origin, int use_crop, float crop_lim, int use_cull,
-    float cull_thresh, void* stream) {
-  if (N < 2 || N > 256 || D < 1) return (int)cudaErrorInvalidValue;
+    float cull_thresh, int* stats, void* stream) {
+  if (N < 2 || N > 256 || D < 1 || D > 1000 || H > 1000 || W > 1000)
+    return (int)cudaErrorInvalidValue;
   const Proj pj = make_proj(proj, true);
-  const Deep dp{D, N, voxel, origin, out, out_f16};
-  const int M = N * N * N;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define P3D_K10V(CC)                                                                   \
-  return (int)launch<float, CC, TRILINEAR_GRID>(vols, nullptr, w0, b0, w1, b1, nullptr, \
-                                                nullptr, 1, M, H, W, pj, coord_scale,   \
-                                                g0, g1, bias_scale, 0, use_crop,        \
-                                                crop_lim, use_cull, cull_thresh, s, dp)
+#define P3D_K10V(CC)                                                                      \
+  return (int)launch_volume<CC, true>(vols, w0, b0, w1, b1, out, out_f16, N, D, H, W, pj, \
+                                      coord_scale, g0, g1, bias_scale, voxel, origin,     \
+                                      use_crop, crop_lim, use_cull, cull_thresh, stats, s)
   if (C == 32) P3D_K10V(32);
   if (C == 16) P3D_K10V(16);
   if (C == 8) P3D_K10V(8);
@@ -1096,9 +1213,10 @@ PANIC3D_EXPORT int volume_density(
   const Proj pj = make_proj(proj, false);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define P3D_K1V(CC)                                                                  \
-  return (int)launch_volume<CC>(planes, w0, b0, w1, b1, out, out_f16, N, H, W, pj,    \
-                                coord_scale, g0, g1, bias_scale, voxel, origin,       \
-                                use_crop, crop_lim, use_cull, cull_thresh, stats, s)
+  return (int)launch_volume<CC, false>(planes, w0, b0, w1, b1, out, out_f16, N, 1, \
+                                               H, W, pj, coord_scale, g0, g1, bias_scale,  \
+                                               voxel, origin, use_crop, crop_lim,          \
+                                               use_cull, cull_thresh, stats, s)
   if (C == 32) P3D_K1V(32);
   if (C == 16) P3D_K1V(16);
   if (C == 8) P3D_K1V(8);

@@ -58,7 +58,23 @@
 // leaves the image, and sum each output's taps in order with fmaf from 0,
 // as the generic kernel does, so their outputs equal its bit for bit.
 //
-// upfirdn2d_kernel, any other call (down=2, other factors or filters): one
+// upfirdn2d_fir4_kernel, a 4x4 filter at up = 1 and down = 2 on both axes
+// (the "down2" form: the discriminator's downsample2d, models/stylegan2.py's
+// skip images and the dual discriminator's image resize) or down = 1 (the
+// "fir4" form: conv2d_resample's filter pass before a conv of stride 2,
+// ops/conv.py). Bound: bytes (at down=2 each output reads 4 inputs' worth:
+// bf16 [2,256,256,256] -> 128^2 moves ~84 MB, ~25 us). The generic kernel
+// spent its instructions on index arithmetic (a division a staged element,
+// floor_div / floor_mod a tap) and read its window with 2-way bank
+// conflicts. Here a block stages a 32 x 64 output tile's input window once
+// (16-byte loads and stores of aligned chunks, bf16 widened as it is
+// staged), and each lane walks down 8 outputs of its column, keeping the 4
+// window rows of an output in registers and reading DOWN new rows a step
+// (8-byte shared reads at down=2); the 16 taps are constant operands,
+// summed in the generic kernel's order (a then b, fmaf from 0), so the
+// output equals the generic kernel's bit for bit; stores are coalesced.
+//
+// upfirdn2d_kernel, any other call (other factors or filters): one
 // block per 32x32 output tile of one (n, c) image; the block stages the input
 // window the tile needs in shared memory as f32 (zero outside the image), and
 // each thread computes 4 outputs of a column, skipping the taps that land on
@@ -368,6 +384,162 @@ cudaError_t launch_1d(const void* x, void* y, int NC, int H, int W, int OH, int 
 #undef P3D_1D
 }
 
+// ---- a 4x4 filter at up = 1, down = 2 (or 1) on both axes: the 4x4 form ----
+
+constexpr int F4_X = 64;      // output columns a block: one a lane, two warps across
+constexpr int F4_WARPS = 8;   // warps a block: 2 across, 4 down the tile
+constexpr int F4_R = 8;       // output rows a warp: its strip
+constexpr int F4_Y = F4_WARPS / 2 * F4_R;   // output rows a block
+
+struct Taps16 { float f[16]; };   // [a][b], flipped and gained: correlate
+
+// the window's values a lane reads from one staged row (p: the row at the
+// lane's first column): w[b] = input column DOWN * ox + b - px0. At DOWN = 2
+// a lane's columns are 2 lx + b: two 8-byte reads (a half-warp reads 128
+// contiguous bytes, no bank conflict), or, where the row's first needed
+// column is odd in the staged frame (ODD), one 8-byte read between two
+// scalar ones. At DOWN = 1 four scalar reads (consecutive lanes,
+// consecutive banks).
+template <int DOWN, bool ODD>
+__device__ __forceinline__ void fir4_row(const float* p, float w[4]) {
+  if constexpr (DOWN == 1) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) w[b] = p[b];
+  } else if constexpr (ODD) {
+    const float2 m = *reinterpret_cast<const float2*>(p + 1);
+    w[0] = p[0]; w[1] = m.x; w[2] = m.y; w[3] = p[3];
+  } else {
+    const float2 l = *reinterpret_cast<const float2*>(p);
+    const float2 h = *reinterpret_cast<const float2*>(p + 2);
+    w[0] = l.x; w[1] = l.y; w[2] = h.x; w[3] = h.y;
+  }
+}
+
+// A block: an F4_Y x F4_X output tile of one image. (1) It stages the
+// tile's input window, DOWN (F4_Y - 1) + 4 rows of DOWN (F4_X - 1) + 4
+// columns, once, as f32 in shared memory, zero outside the image: where
+// the rows are aligned (VEC), with 16-byte loads of aligned chunks, all of
+// a thread's loads in flight before its 16-byte stores (the staged row then
+// starts at the chunk holding the first column, `off` columns before it),
+// else with scalar accesses. (2) Each
+// warp walks down its strip of F4_R output rows, a lane an output column,
+// keeping the 4 window rows of its current output row in registers and
+// reading DOWN new rows a step. Each output sums its 16 taps (constant
+// operands) in the generic kernel's order, a then b, with fmaf from 0, so
+// it equals the generic kernel's output bit for bit. Stores are coalesced
+// (32 consecutive outputs a warp).
+template <typename T, int DOWN, bool VEC, bool ODD>
+__global__ void __launch_bounds__(32 * F4_WARPS) upfirdn2d_fir4_kernel(
+    const T* __restrict__ x, T* __restrict__ y, int H, int W, int OH, int OW, int px0,
+    int py0, Taps16 taps) {
+  constexpr int WIN_X = DOWN * (F4_X - 1) + 4, WIN_Y = DOWN * (F4_Y - 1) + 4;
+  constexpr int V = 16 / (int)sizeof(T);              // elements of a 16-byte chunk
+  constexpr int NCH = (WIN_X + 2 * (V - 1)) / V;      // chunks a staged row, at most
+  constexpr int SW = VEC ? V * NCH : (WIN_X + 1) & ~1;  // staged row stride, floats (even)
+  __shared__ __align__(16) float win[WIN_Y * SW];
+  constexpr int NT = 32 * F4_WARPS;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  const long long nc = blockIdx.z;
+  const int ox0 = blockIdx.x * F4_X, oy0 = blockIdx.y * F4_Y;
+  const int sx = DOWN * ox0 - px0, sy = DOWN * oy0 - py0;   // the window's first input
+  const T* src = x + nc * H * W;
+  int off = 0;
+  if constexpr (VEC) {
+    // W % V == 0: a chunk is inside the row or outside it as a whole
+    constexpr int ITER = (WIN_Y * NCH + NT - 1) / NT;
+    const int base = sx & ~(V - 1);
+    off = sx - base;
+    uint4 raw[ITER];
+#pragma unroll
+    for (int k = 0; k < ITER; ++k) {
+      const int i = tid + k * NT, r = i / NCH, c = i - r * NCH;
+      const int iy = sy + r, g = base + V * c;
+      raw[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < WIN_Y * NCH && iy >= 0 && iy < H && g >= 0 && g < W)
+        raw[k] = *reinterpret_cast<const uint4*>(src + (long long)iy * W + g);
+    }
+#pragma unroll
+    for (int k = 0; k < ITER; ++k) {
+      const int i = tid + k * NT;
+      if (i >= WIN_Y * NCH) break;
+      const int r = i / NCH, c = i - r * NCH;
+      float4* dst = reinterpret_cast<float4*>(win + r * SW + V * c);
+      const uint4 u = raw[k];
+      if constexpr (sizeof(T) == 4) {
+        dst[0] = make_float4(__uint_as_float(u.x), __uint_as_float(u.y), __uint_as_float(u.z),
+                             __uint_as_float(u.w));
+      } else {
+        // a bf16 is the top half of its f32: widening is a shift
+        dst[0] = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                             __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+        dst[1] = make_float4(__uint_as_float(u.z << 16), __uint_as_float(u.z & 0xffff0000u),
+                             __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xffff0000u));
+      }
+    }
+  } else {
+    for (int i = tid; i < WIN_Y * WIN_X; i += NT) {
+      const int r = i / WIN_X, c = i - r * WIN_X;
+      const int iy = sy + r, ix = sx + c;
+      win[r * SW + c] = iy >= 0 && iy < H && ix >= 0 && ix < W
+                            ? to_f(src[(long long)iy * W + ix]) : 0.f;
+    }
+  }
+  __syncthreads();
+
+  const int lx = (threadIdx.y & 1) * 32 + threadIdx.x, ox = ox0 + lx;
+  const int r0 = (threadIdx.y >> 1) * F4_R;        // the strip's first output row in the tile
+  if (oy0 + r0 >= OH) return;                      // uniform across the warp
+  const float* col = win + off + DOWN * lx;        // the lane's first window column
+  // the strip's outputs in this column: one pointer, moved a row at a time
+  T* dst = y + (nc * OH + oy0 + r0) * OW + ox;
+  const int rows = ox < OW ? min(F4_R, OH - oy0 - r0) : 0;
+  // w[k]: window row DOWN * (row - oy0) + k of the current output row
+  float w[4][4];
+#pragma unroll
+  for (int k = 0; k < 4 - DOWN; ++k) fir4_row<DOWN, ODD>(col + (DOWN * r0 + k) * SW, w[k]);
+#pragma unroll
+  for (int r = 0; r < F4_R; ++r) {
+    const int wr = DOWN * (r0 + r);
+#pragma unroll
+    for (int k = 4 - DOWN; k < 4; ++k) fir4_row<DOWN, ODD>(col + (wr + k) * SW, w[k]);
+    float acc = 0.f;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc = fmaf(taps.f[a * 4 + b], w[a][b], acc);
+    const T v = from_f<T>(acc);
+    if (r < rows) *dst = v;
+    dst += OW;
+#pragma unroll
+    for (int k = 0; k < 4 - DOWN; ++k)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) w[k][b] = w[k + DOWN][b];
+  }
+}
+
+template <typename T, int DOWN>
+cudaError_t launch_fir4(const void* x, void* y, int NC, int H, int W, int OH, int OW, int px0,
+                        int py0, const Taps16& taps, cudaStream_t s) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const bool vec = W % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  dim3 grid((OW + F4_X - 1) / F4_X, (OH + F4_Y - 1) / F4_Y, NC);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const dim3 block(32, F4_WARPS);
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+#define P3D_FIR4(VEC, ODD)                                                                \
+  upfirdn2d_fir4_kernel<T, DOWN, VEC, ODD><<<grid, block, 0, s>>>(xt, yt, H, W, OH, OW, px0, \
+                                                                  py0, taps)
+  if (!vec) P3D_FIR4(false, false);
+  else if constexpr (DOWN == 1) P3D_FIR4(true, false);
+  // ODD: with the aligned staging the lanes' first columns lie at odd
+  // offsets in the staged row when px0 is odd (the window starts at 2 ox0 - px0)
+  else if (px0 & 1) P3D_FIR4(true, true);
+  else P3D_FIR4(true, false);
+#undef P3D_FIR4
+  return cudaGetLastError();
+}
+
 // ---- more than MAX_TAPS taps: the large-filter kernel ----
 
 template <typename T>
@@ -580,7 +752,8 @@ cudaError_t dispatch_up2(const void* x, void* y, int NC, int H, int W, int OH, i
 // phase_taps / phase_src: the polyphase table of an up=2, down=1, 4x4 call
 // (ops/upfirdn2d.py:k4_plan): 16 taps [ry][rx][j][i] and the source offsets
 // (sy0, sy1, sx0, sx1), whose two phases are equal or one apart for 4 taps.
-// Such a call runs the polyphase kernel; a filter of one row or one column at
+// Such a call runs the polyphase kernel; a 4x4 filter at up = 1 and down = 2
+// (or 1) on both axes the 4x4 form; a filter of one row or one column at
 // up = down = 1 the row or the column form; any other call the generic
 // kernel (ops/upfirdn2d.py:k4_plan names the same variant). Both tables may
 // be null for a call outside the polyphase family.
@@ -612,6 +785,19 @@ PANIC3D_EXPORT int upfirdn2d(const void* x, void* y, int dtype, int NC, int H, i
                                               phase_src[2], dy, dx, ph, s);
     return (int)dispatch_up2<float>(x, y, NC, H, W, OH, OW, phase_src[0], phase_src[2], dy,
                                     dx, ph, s);
+  }
+  if (fw == 4 && fh == 4 && upx == 1 && upy == 1 && downx == downy &&
+      (downx == 1 || downx == 2)) {
+    Taps16 t16;
+    for (int i = 0; i < 16; ++i) t16.f[i] = f[i];
+#define P3D_F4(T, D) return (int)launch_fir4<T, D>(x, y, NC, H, W, OH, OW, px0, py0, t16, s)
+    if (dtype == DT_BF16) {
+      if (downx == 2) P3D_F4(__nv_bfloat16, 2);
+      P3D_F4(__nv_bfloat16, 1);
+    }
+    if (downx == 2) P3D_F4(float, 2);
+    P3D_F4(float, 1);
+#undef P3D_F4
   }
   Taps taps;
   for (int i = 0; i < fw * fh; ++i) taps.f[i] = f[i];

@@ -18,8 +18,9 @@ backbone runs once per portrait, and:
 
 Deep planes (triplane_depth > 1) take neither K1v nor K1 but K10, the
 trilinear K1 form (csrc/triplane_decode.cu): ``density_grid_deep_kernel``
-decodes the whole lattice in one launch as K1v does (its points from their
-flat indices, the same densities and filters, the grid written flipped),
+decodes the whole lattice in one launch with K1v's brick kernel on the deep
+volumes (its points from their flat indices, windows of depth slices in
+shared memory, the same densities and filters, the grid written flipped),
 and renderer.triplane_decode_deep decodes the volume and the vertex
 colours.
 
@@ -156,9 +157,12 @@ def flip_grid(flat: torch.Tensor, N: int) -> torch.Tensor:
 
 
 # K1v's brick decomposition (csrc/triplane_decode.cu:volume_density_kernel),
-# mirrored on the CPU by the helpers below for tests/test_torch_volume_bricks.py
+# mirrored on the CPU by the helpers below for tests/test_torch_volume_bricks.py;
+# K10's lattice form is the same kernel on the deep volumes, with the same
+# bricks and windows of depth slices (tests/test_torch_volume_deep_bricks.py)
 K1V_BRICK = (4, 8, 16)       # lattice points of a brick in x, y and z
-K1V_POOL_TEXELS = 384        # texels of the three plane windows together (V_POOL)
+K1V_POOL_TEXELS = 384        # texels of the three plane windows together (Brick::POOL)
+K10V_POOL_TEXELS = 768       # K10's lattice form: its windows' texel slices together
 
 
 def k1v_bricks(N: int, bricks) -> tuple:
@@ -173,25 +177,43 @@ def k1v_bricks(N: int, bricks) -> tuple:
             b[:, 2:] * BZ + t % BZ)
 
 
-def k1v_corners(coords, box_warp: float, H: int, W: int, plane_axes) -> tuple:
-    """Each point's bilinear corner (x0, y0) and weights (wx, wy) on each
-    plane, [..., 3] each, as K1v computes them from its lattice point: the
-    plane coordinate (2 / box_warp) x, projected, then ((g + 1) * size - 1)
-    / 2 rounded op by op, and its floor."""
+def k1v_corners(coords, box_warp: float, H: int, W: int, plane_axes, D: int = 1) -> tuple:
+    """Each point's corner and weights on each plane, [..., 3] each, as
+    K1v computes them from its lattice point: the plane coordinate
+    (2 / box_warp) x, projected, then ((g + 1) * size - 1) / 2 rounded op by
+    op, and its floor. -> (x0, y0, wx, wy); at depth D > 1 (K10's lattice
+    form, the third coordinate indexing D) (x0, y0, z0, wx, wy, wz), the
+    corners clamped to [-2, size] as the kernel converts them."""
     g = vr.project_onto_planes(plane_axes, (2.0 / box_warp) * coords.reshape(1, -1, 3))
-    g = g.reshape(3, *coords.shape[:-1], 3).movedim(0, -1)     # [..., uv(w), plane]
-    ix = ((g[..., 0, :] + 1) * W - 1) / 2
-    iy = ((g[..., 1, :] + 1) * H - 1) / 2
-    fx, fy = torch.floor(ix), torch.floor(iy)
-    return fx.to(torch.int64), fy.to(torch.int64), ix - fx, iy - fy
+    g = g.reshape(3, *coords.shape[:-1], 3).movedim(0, -1)     # [..., uvw, plane]
+    sizes = (W, H) if D == 1 else (W, H, D)
+    i = [((g[..., a, :] + 1) * n - 1) / 2 for a, n in enumerate(sizes)]
+    f = [torch.floor(v) for v in i]
+    c = [v.to(torch.int64) if D == 1 else v.clamp(-2, n).to(torch.int64)
+         for v, n in zip(f, sizes)]
+    return (*c, *(v - fv for v, fv in zip(i, f)))
 
 
-def k1v_windows(x0, y0) -> torch.Tensor:
-    """Each brick's plane windows from its points' corners [B, 512, 3]:
-    [B, 3, 4] of (x_lo, y_lo, x_hi, y_hi), the texels [x_lo, x_hi] x
-    [y_lo, y_hi] that the kernel stages (the largest corner + 1 for the
-    bilinear neighbour)."""
-    return torch.stack([x0.amin(1), y0.amin(1), x0.amax(1) + 1, y0.amax(1) + 1], -1)
+def k1v_windows(x0, y0, z0=None, D: int = 1) -> torch.Tensor:
+    """Each brick's plane windows from its points' corners [B, 512, 3]: [B,
+    3, 4] of (x_lo, y_lo, x_hi, y_hi), the texels [x_lo, x_hi] x [y_lo,
+    y_hi] that the kernel stages (the largest corner + 1 for the bilinear
+    neighbour); with z0 (depth D > 1) [B, 3, 6] of (x_lo, y_lo, z_lo, x_hi,
+    y_hi, z_hi), [z_lo, z_hi] the slices of z0 .. z0 + 1 inside the volume
+    (z_hi < z_lo when there is none)."""
+    lo = [x0.amin(1), y0.amin(1)]
+    hi = [x0.amax(1) + 1, y0.amax(1) + 1]
+    if z0 is not None:
+        lo.append(z0.amin(1).clamp_min(0))
+        hi.append((z0.amax(1) + 1).clamp_max(D - 1))
+    return torch.stack(lo + hi, -1)
+
+
+def k1v_window_texels(win) -> torch.Tensor:
+    """The texels (texel slices at depth) of each brick's three windows
+    together, [B], from k1v_windows."""
+    n = win.shape[-1] // 2
+    return (win[..., n:] - win[..., :n] + 1).clamp_min(0).prod(-1).sum(-1)
 
 
 def k1v_crop_class(kept) -> torch.Tensor:
@@ -203,29 +225,48 @@ def k1v_crop_class(kept) -> torch.Tensor:
 
 @torch.no_grad()
 def density_bricks_plain(planes, dec: vr.Decoder, N: int, box_warp: float, plane_axes,
-                         filters: vr.DensityFilters, bricks) -> tuple:
+                         filters: vr.DensityFilters, bricks, triplane_depth: int = 1) -> tuple:
     """K1v's decode of the bricks (bx, by, bz) [B, 3] as the kernel reads
     the planes: each plane window cut out of one portrait's planes
-    [1,3,C,H,W] (zeros outside the plane), each point's four corners read
+    [1,3,C*D,H,W] (zeros outside the plane), each point's corners read
     from its brick's window at (y0 - y_lo, x0 - x_lo), the lerps and plane
     mean of grid_sample_2d_points and sample_from_planes, the sigma-only
-    decode, sigma2density, the crop and the cull, in f32.
-    -> (densities [B, 512], features [B, 512, C], windows [B, 3, 4])."""
-    C, H, W = planes.shape[2:]
+    decode, sigma2density, the crop and the cull, in f32. At depth D =
+    triplane_depth > 1, K10's lattice form: windows of the slices
+    [z_lo, z_hi] cut from the volumes [C, D, H, W], each corner
+    slice read at z - z_lo (zeros outside the volume) and the slices
+    blended in grid_sample_3d_points' order, 0 + s(z0) (1 - wz) + s(z1) wz.
+    -> (densities [B, 512], features [B, 512, C], windows [B, 3, 4 or 6])."""
+    D = triplane_depth
+    CD, H, W = planes.shape[2:]
+    C = CD // D
     xi, yi, zi = k1v_bricks(N, bricks)
     coords = lattice_coords((xi * N + yi) * N + zi, N, box_warp)
-    x0, y0, wx, wy = k1v_corners(coords, box_warp, H, W, plane_axes)
-    win = k1v_windows(x0, y0)
-    ww, wh = win[..., 2] - win[..., 0] + 1, win[..., 3] - win[..., 1] + 1
-    # the windows [B, 3, WH, WW, C], cut from the planes padded with zeros
+    corners = k1v_corners(coords, box_warp, H, W, plane_axes, D)
+    if D == 1:
+        (x0, y0, wx, wy), z0, wz = corners, torch.zeros_like(corners[0]), None
+        win = k1v_windows(x0, y0)
+        z_lo = torch.zeros_like(win[..., 0])
+    else:
+        x0, y0, z0, wx, wy, wz = corners
+        win = k1v_windows(x0, y0, z0, D)
+        z_lo = win[..., 2]
+    n = win.shape[-1] // 2
+    ww, wh = win[..., n] - win[..., 0] + 1, win[..., n + 1] - win[..., 1] + 1
+    nz = (win[..., 2 * n - 1] - z_lo + 1).clamp_min(1) if D > 1 else torch.ones_like(ww)
+    # the windows [B, 3, NZ, WH, WW, C], cut from the volumes padded with
+    # zeros in x and y (a window's slices all lie inside the volume)
     pad = int(max(ww.max(), wh.max()))
-    padded = torch.nn.functional.pad(planes[0], (pad, pad, pad, pad)).permute(0, 2, 3, 1)
+    vol = planes[0].reshape(3, C, D, H, W)
+    padded = torch.nn.functional.pad(vol, (pad, pad, pad, pad)).permute(0, 2, 3, 4, 1)
+    s = torch.arange(int(nz.max()))
     r = torch.arange(int(wh.max()))
     c = torch.arange(int(ww.max()))
-    ty = (win[..., 1, None, None] + r[:, None]).clamp(-pad, H + pad - 1) + pad
-    tx = (win[..., 0, None, None] + c[None, :]).clamp(-pad, W + pad - 1) + pad
-    p_idx = torch.arange(3)[None, :, None, None]
-    windows = padded[p_idx, ty, tx]
+    tz = (z_lo[..., None, None, None] + s[:, None, None]).clamp(0, D - 1)
+    ty = (win[..., 1, None, None, None] + r[:, None]).clamp(-pad, H + pad - 1) + pad
+    tx = (win[..., 0, None, None, None] + c).clamp(-pad, W + pad - 1) + pad
+    p_idx = torch.arange(3)[None, :, None, None, None]
+    windows = padded[p_idx, tz, ty, tx]
     feats = 0
     for p in range(3):
         ry, rx = y0[..., p] - win[:, None, p, 1], x0[..., p] - win[:, None, p, 0]
@@ -233,12 +274,25 @@ def density_bricks_plain(planes, dec: vr.Decoder, N: int, box_warp: float, plane
                          and (rx + 1 < ww[:, None, p]).all()), "a corner outside its window")
         wp = windows[:, p]
         b = torch.arange(wp.shape[0])[:, None]
-        v00, v01 = wp[b, ry, rx], wp[b, ry, rx + 1]
-        v10, v11 = wp[b, ry + 1, rx], wp[b, ry + 1, rx + 1]
         fx, fy = wx[..., p, None], wy[..., p, None]
-        top = v00 + (v01 - v00) * fx
-        bot = v10 + (v11 - v10) * fx
-        feats = feats + (top + (bot - top) * fy)
+        smp = []
+        for dz in range(2 if D > 1 else 1):
+            z = z0[..., p] + dz
+            inside = (z >= 0) & (z < D)
+            rz = z - z_lo[:, None, p]
+            vr._require(bool(((rz >= 0) & (rz < nz[:, None, p]))[inside].all()),
+                        "a corner slice outside its window")
+            rz = rz.clamp(0, int(nz.max()) - 1)
+            v00, v01 = wp[b, rz, ry, rx], wp[b, rz, ry, rx + 1]
+            v10, v11 = wp[b, rz, ry + 1, rx], wp[b, rz, ry + 1, rx + 1]
+            top = v00 + (v01 - v00) * fx
+            bot = v10 + (v11 - v10) * fx
+            smp.append(torch.where(inside[..., None], top + (bot - top) * fy, 0.0))
+        if D == 1:
+            feats = feats + smp[0]
+        else:
+            w1 = wz[..., p, None]
+            feats = feats + (0 + smp[0] * (1 - w1) + smp[1] * w1)
     feats = feats / 3
     _, sigma = vr.osg_decode(feats.reshape(1, 1, -1, C), dec, sigma_only=True)
     d = sigma2density(sigma.reshape(feats.shape[:2]))
@@ -307,15 +361,19 @@ def lattice_kernel(N: int, box_warp: float, device) -> torch.Tensor:
 
 
 _K10V_ARGS = ((kb.PTR,) * 6 + (kb.INT,) * 6 + (kb.PTR,) + (kb.FLOAT,) * 6
-              + (kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
+              + (kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR, kb.PTR))
 
 
 def density_grid_deep_kernel(planes, dec: vr.Decoder, N: int, box_warp: float, plane_axes,
                              filters: vr.DensityFilters, triplane_depth: int,
-                             dtype=torch.float16) -> torch.Tensor:
-    """Launch K10's lattice form on one portrait's deep CUDA planes
-    [1,3,C*D,H,W] f32: the whole flipped [N,N,N] grid in one launch (same
-    values as flip_grid(density_grid_plain(..., triplane_depth=D)))."""
+                             dtype=torch.float16,
+                             stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K10's lattice form (K1v's brick kernel on the deep volumes)
+    on one portrait's deep CUDA planes [1,3,C*D,H,W] f32: the whole flipped
+    [N,N,N] grid in one launch (same values as
+    flip_grid(density_grid_plain(..., triplane_depth=D))). ``stats`` as
+    density_grid_kernel's (the windows' texel slices together larger than
+    K10V_POOL_TEXELS count as planes read outside a window)."""
     require_no_grad("volume_density_deep", planes, dec)
     vr._require(planes.dtype == torch.float32 and planes.ndim == 5
                 and tuple(planes.shape[:2]) == (1, 3),
@@ -325,6 +383,7 @@ def density_grid_deep_kernel(planes, dec: vr.Decoder, N: int, box_warp: float, p
     vols = vr.deep_volumes_cl(planes, triplane_depth)             # [3,D,H,W,C]
     _, D, H, W, C = vols.shape
     vr._require(C in (8, 16, 32), f"K10 supports 8, 16 or 32 plane channels, got {C}")
+    vr._require(max(D, H, W) <= 1000, "K10's lattice form takes D, H, W <= 1000")
     dev = planes.device
     w0, b0, w1, b1 = vr._decoder_f32(dec, dev)
     vr._require(tuple(w0.shape) == (64, C) and tuple(w1.shape) == (33, 64),
@@ -337,7 +396,8 @@ def density_grid_deep_kernel(planes, dec: vr.Decoder, N: int, box_warp: float, p
         kb.f32_array(vr.deep_proj(plane_axes)), 2.0 / box_warp, dec.lr_mul / math.sqrt(C),
         dec.lr_mul / math.sqrt(64), dec.lr_mul, *_lattice_constants(N, box_warp),
         int(bool(crop)), (box_warp / 2 - crop) if crop else 0.0, int(bool(cull)),
-        float(cull or 0.0), vr._stream(planes))
+        float(cull or 0.0), stats.data_ptr() if stats is not None else None,
+        vr._stream(planes))
     KERNELS["volume_density_deep"].launches += 1
     return grid
 

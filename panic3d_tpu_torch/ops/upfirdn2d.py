@@ -8,7 +8,10 @@ grouped correlation, decimate): the CPU path and the kernel's oracle.
 cached: for up=2, down=1 and a 4x4 filter (every call of the flagship) the
 polyphase table of the specialised kernel; a filter of one row or one column
 at up = down = 1 (the equivariance metrics' EQ-T_frac passes) runs the row
-or the column form. A filter of more than 64 taps (the
+or the column form; a 4x4 filter at up 1 and down 2 on both axes (the
+discriminator's downsample2d) the "down2" form, and at up = down = 1
+(conv2d_resample's filter pass before a strided conv) the "fir4" form, one
+kernel. A filter of more than 64 taps (the
 equivariance metrics' 47x47 and 11x11 resampling filters, new for every
 random angle) is not cached: it goes to the kernel as a device buffer.
 """
@@ -113,9 +116,11 @@ class K4Plan(NamedTuple):
     every call of the flagship makes (up=2, down=1, 4x4 filter), its
     polyphase table. ``variant`` names the kernel the entry point runs
     (csrc/upfirdn2d.cu decides alike, from the same arguments): "up2" (the
-    polyphase kernel), "row" or "column" (a filter of one row, else of one
-    column, at up = down = 1), "generic", or "large" (a filter of more than
-    MAX_TAPS taps, read from a device buffer: no taps here)."""
+    polyphase kernel), "down2" or "fir4" (the 4x4 form: a 4x4 filter at up
+    1 and down 2, or down 1, on both axes), "row" or "column" (a filter of
+    one row, else of one column, at up = down = 1), "generic", or "large" (a
+    filter of more than MAX_TAPS taps, read from a device buffer: no taps
+    here)."""
     variant: str
     taps: Optional[ctypes.Array]
     phase_taps: Optional[tuple]   # [ry][rx][j][i]: the tap of x[m+sy[ry]+j, n+sx[rx]+i]
@@ -135,6 +140,8 @@ def _phase(r, p0):
 @functools.lru_cache(maxsize=256)
 def _plan(taps: tuple, fh: int, fw: int, up: tuple, down: tuple, pad: tuple) -> K4Plan:
     c_taps = kb.f32_array(taps)
+    if up == (1, 1) and down in ((1, 1), (2, 2)) and (fh, fw) == (4, 4):
+        return K4Plan("down2" if down == (2, 2) else "fir4", c_taps, None, None, None, None)
     if up == (1, 1) and down == (1, 1) and 1 in (fh, fw):
         return K4Plan("row" if fh == 1 else "column", c_taps, None, None, None, None)
     if not (up == (2, 2) and down == (1, 1) and (fh, fw) == (4, 4)):

@@ -77,8 +77,9 @@ def test_phase_table_rebuilds_upfirdn2d(padding, size, flip_filter):
 
 def test_other_calls_take_the_generic_kernel():
     f = tup.setup_filter([1, 3, 3, 1])
-    assert tup.k4_plan(f, (1, 1), (2, 2), (1, 1, 1, 1)).variant == "generic"
-    assert tup.k4_plan(f, (1, 1), (1, 1), (1, 2, 1, 2)).variant == "generic"
+    # a 4x4 filter at up 1 (down 2, or 1) takes the 4x4 form
+    assert tup.k4_plan(f, (1, 1), (2, 2), (1, 1, 1, 1)).variant == "down2"
+    assert tup.k4_plan(f, (1, 1), (1, 1), (1, 2, 1, 2)).variant == "fir4"
     assert tup.k4_plan(f[1:3, 1:3], (2, 2), (1, 1), (1, 0, 1, 0)).variant == "generic"
 
 

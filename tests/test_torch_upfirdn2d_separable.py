@@ -14,7 +14,8 @@ filter (and its 8x1), and must match the port's upfirdn2d_plain and the JAX
 package's filter2d within 1e-6 x max|out| (six to eight products an output,
 summed in another order). And ops/upfirdn2d.py:k4_plan must send the
 EQ-T_frac passes to these forms, keep every call of a tiny-config forward
-on the polyphase kernel and a down=2 call on the generic kernel.
+(at triplane_depth 1 and 2) on the polyphase kernel, a 4x4 down=2 call on
+the 4x4 form and a 3x3 filter on the generic kernel.
 """
 
 import importlib
@@ -123,17 +124,23 @@ def test_eq_t_frac_passes_take_the_row_and_column_forms(monkeypatch):
 
 def test_other_calls_keep_their_kernels():
     f = tup.setup_filter([1, 3, 3, 1])
-    assert tup.k4_plan(f, (1, 1), (2, 2), (1, 1, 1, 1)).variant == "generic"   # down=2
+    assert tup.k4_plan(f, (1, 1), (2, 2), (1, 1, 1, 1)).variant == "down2"   # the 4x4 form
     assert tup.k4_plan(f, (2, 2), (1, 1), (2, 1, 2, 1)).variant == "up2"
     # a 1-D pass that up- or downsamples, and a 2-D filter at up = down = 1
     f8 = tup.setup_filter(np.ones(8))
     for spec in tup.fir_passes(f8, up=2, padding=4) + tup.fir_passes(f8, down=2, padding=3):
         assert tup.k4_plan(*spec).variant == "generic", spec[1:]
-    assert tup.k4_plan(f, (1, 1), (1, 1), (1, 2, 1, 2)).variant == "generic"
+    assert tup.k4_plan(f, (1, 1), (1, 1), (1, 2, 1, 2)).variant == "fir4"
+    assert tup.k4_plan(f[:3, :3], (1, 1), (1, 1), (1, 1, 1, 1)).variant == "generic"
 
 
-def test_every_tiny_forward_call_is_still_up2(monkeypatch):
-    G = configs.tiny(device="cpu").init_weights(0).eval()
+def tiny_forward_variants(monkeypatch, depth):
+    """The K4 variants of every call of a tiny-config forward at
+    triplane_depth ``depth``."""
+    G = configs.tiny(device="cpu")
+    if depth > 1:
+        G = configs.tiny(device="cpu", rendering_kwargs=dict(G.rk, triplane_depth=depth))
+    G = G.init_weights(0).eval()
     r = np.random.RandomState(0)
     x = {"z": torch.from_numpy(r.randn(1, G.z_dim).astype(np.float32)),
          "elevations": torch.zeros(1), "azimuths": torch.zeros(1),
@@ -142,7 +149,15 @@ def test_every_tiny_forward_call_is_still_up2(monkeypatch):
     with torch.no_grad():
         calls, _ = captured_passes(monkeypatch, lambda: G.f(x))
     assert len(calls) >= 8
-    assert {tup.k4_plan(f, up, down, pad).variant for _, f, up, down, pad in calls} == {"up2"}
+    return {tup.k4_plan(f, up, down, pad).variant for _, f, up, down, pad in calls}
+
+
+def test_every_tiny_forward_call_is_still_up2(monkeypatch):
+    assert tiny_forward_variants(monkeypatch, 1) == {"up2"}
+
+
+def test_every_tiny_deep_forward_call_is_still_up2(monkeypatch):
+    assert tiny_forward_variants(monkeypatch, 2) == {"up2"}
 
 
 F8 = np.random.RandomState(3).randn(8).astype(np.float32)

@@ -39,8 +39,18 @@ def all_bricks(N, bx):
     return torch.stack([torch.full_like(by, bx), by, bz], -1).reshape(-1, 3)
 
 
+@pytest.fixture
+def one_thread():
+    """torch on one thread for the whole-lattice loop: its many small ops
+    run no faster on more, and many-fold slower beside other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("box_warp", [0.7, 1.0])
-def test_windows_hold_every_corner(box_warp):
+def test_windows_hold_every_corner(box_warp, one_thread):
     N, H, W = 256, 256, 256
     BX = tv.K1V_BRICK[0]
     lim = box_warp / 2 - CROP
