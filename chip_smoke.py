@@ -40,10 +40,15 @@
    beside the unfused composition (K4 + PyTorch's elementwise ops) and
    the whole layer forward, whose K5 call is held exact on the layer's
    conv output and whose output is held to f64 against the plain layer's;
-   K4 at the equivariance metrics' calls: the large-filter kernel at the
-   47x47 up-4 and 11x11, the row and column forms at EQ-T_frac's 1x6 and
-   6x1 (each faster than its library call), each beside its one library
-   call; K6b also at K = 37 with S = 2 on
+   K4 at the equivariance metrics' calls: the phase-blocked large-filter
+   kernel at the 47x47 up-4 and 11x11 (with its SASS instructions an
+   output), the tiled one at a 12x12 down-2 call, the row and column forms
+   at EQ-T_frac's 1x6 and 6x1 (each faster than its library call), each
+   beside its one library call; K8's grid-occlusion entry (paste_front_occ:
+   the occlusion volume and the rays in place of the r^2 maps) against its
+   plain composition and against the K7b -> glue -> K8 chain it replaces
+   (mask_dxyz flips counted apart), timed chain / fused / fused / chain
+   with each one's device launches; K6b also at K = 37 with S = 2 on
    the occupancy max-pooled to 16^3, and on one grid shared by both views
    (batch stride 0); K8 also at 72^2, whose tiles are partial, and at
    70^2, whose side is not a multiple of 4 (no float4 stores); K6b's and
@@ -51,8 +56,9 @@
    ceiling they give; with --parent DIR (the parent commit's sources of
    the kernels this tree redesigned, and their headers) the outputs
    against the parent's kernels' and the times in the order parent / this
-   / this / parent: K4's row and column forms at EQ-T_frac (bit for bit)
-   and its down=2 call, K6a and K7a (bit for bit)),
+   / this / parent: K4's large filters, row and column forms and 4x4
+   calls, K7a and K8 (bit for bit), and K8's grid-occlusion entry against
+   the parent's chain),
    and times both
    (median of CUDA-event timings), with the single PyTorch call that
    computes the same function where there is one (library_ms; K4 must beat
@@ -75,7 +81,9 @@
    - settings-parity: configs.flagship(eval_mode=True), 96+96 samples, paste
      off, 2 views (azimuths 0 and 330) per request;
    - ESS + paste per call: configs.flagship(eval_mode=True, ess=True) with
-     eval generate's paste_params, 2 views per request;
+     eval generate's paste_params, 2 views per request (this path, the
+   turntable and eval generate require K8's grid-occlusion entry launched
+   and K7b's sampler and K8's map entry launched no time);
    - per-portrait turntable: one planes bundle (planes, ESS occupancy,
      occlusion volume), then the 16 eval views (4 ortho + spin12) in view
      batches of 2;
@@ -111,14 +119,18 @@
    default against the same weights pinned to f32.
    --profile DIR adds a torch.profiler table and trace of one ESS + paste
    request, one turntable portrait and one deep-plane request, with the
-   device's busy share; with --parent also a turntable portrait's device
+   device's busy share; the first two's device launches, host ops and busy
+   time with the grid occlusion's old chain and with K8's entry (chain /
+   fused / fused / chain); one EQ-R batch's device time split by kernel
+   (K4, the complex128 FFTs, the plain grid_sample_2d, the rest); with
+   --parent also a turntable portrait's device
    busy time with the parent's K6a and with this tree's, in the order
    parent / this / this / parent.
 6. Prints a JSON line of the paths, the script's wall time, a JSON line of
    the kernels (one entry per entry point, with its launches on the ESS +
    paste path, else on the geometry path, else on eval measure, else on the
    probe, else on the deep-plane request, else on the StyleGAN3-T layers,
-   else on EQ-R), the card
+   else on EQ-R; 0 for K7b's sampler, checked only), the card
    line, and last the {"ok": true, ...} line. Any failure raises before
    that line.
 """
@@ -128,6 +140,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -152,7 +165,8 @@ NO_SPILL = ("triplane_decode_kernel", "factor_terms_kernel", "occlusion_volume_k
             "point_mesh_distance_kernel", "winding_number_kernel",
             "importance_sample_kernel", "ess_narrow_kernel",
             "paste_front_kernel", "ess_occupancy_kernel", "upfirdn2d_rows_kernel",
-            "upfirdn2d_cols_kernel", "upfirdn2d_fir4_kernel")   # must not spill
+            "upfirdn2d_cols_kernel", "upfirdn2d_fir4_kernel",
+            "upfirdn2d_large_phase_kernel")   # must not spill
 PASTE_KEYS = ("mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
 MESH_RES = 256     # eval generate's mesh resolution
 LEVEL = 0.5        # eval generate's iso level
@@ -168,6 +182,8 @@ EVAL_ROI = ((128, 128), (256, 256))   # the synthetic portrait's alignment ROI (
 DEEP_DEPTH = 2     # the deep-plane path's triplane_depth (tests/test_round3_fixes.py:126)
 DEEP_PORTRAITS = 2  # timed deep-plane turntable portraits, after one warm-up portrait
 HEAD = (0.0, 1.3, 0.0)   # the synthetic GT head's bone
+# profiler traces written and read back: the git-ignored build directory
+BUILD_TMP = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 HEAD_LEVELS = (6, 5)     # its outer and inner shells' icosphere levels
 
 
@@ -730,16 +746,13 @@ def k4_checks(G, x, device, parent):
         summ.update(call=label, filter=list(spec_g[0].shape), bound_ms=bms_g, bound_by=by_g,
                     plain_ms=cuda_ms(lambda: upfirdn2d_plain(xg, *spec_g), iters=3, warmup=1),
                     library_ms=None)
-        if spec_g[0].shape == (3, 3):
-            w_g = spec_g[0].to(xg.device, xg.dtype)[None, None].expand(xg.shape[1], 1, 3, 3)
-            w_g = w_g.contiguous()
-
-            def library_3x3():
-                return torch.nn.functional.conv2d(xg, w_g, padding=1, groups=xg.shape[1])
-
-            check("library conv2d (padding 1) vs plain (f32)", max_err(library_3x3(), ypg),
-                  1e-5 * float(ypg.abs().max()))
-            summ["library_ms"] = cuda_ms(library_3x3)
+        # the library call: a depthwise conv2d (padding 1) for the 3x3, a
+        # depthwise conv_transpose2d of stride (1, 2) for the 1-D up=2 pass
+        library_g = k4_library(xg, *spec_g[0:2], spec_g[3], yg.shape[-2:])
+        require(library_g is not None, f"K4 generic kernel, {label}: no library call")
+        tol_g = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * float(ypg.abs().max())
+        check(f"library call vs plain ({str(dtype)[6:]})", max_err(library_g(), ypg), tol_g)
+        summ["library_ms"] = cuda_ms(library_g)
         print(f"    plain_ms {summ['plain_ms']:.6f}  library_ms {summ['library_ms']}  "
               f"bound_ms {summ['bound_ms']:.6f} ({summ['bound_by']})")
         summ.update(parent_and_sass(
@@ -778,43 +791,49 @@ def k4_checks(G, x, device, parent):
 
 def k4_library(xx, f2d, up, pad, out_hw):
     """The single PyTorch call that computes upfirdn2d_plain(xx, f2d, up,
-    1, pad) (f2d already flipped, correlated), or None where there is none:
-    at up 1 a depthwise F.conv2d with the symmetric padding; at up > 1 a
-    depthwise F.conv_transpose2d of stride up, whose left padding is
-    k - 1 - padding, so a padding beyond k - 1 (EQ-R's 48 at k = 47) is
-    reached by extending the filter with leading zero taps, and the right
-    edge by output_padding (< up)."""
+    1, pad) (f2d already flipped, correlated; up = (upx, upy)), or None
+    where there is none: at up 1 a depthwise F.conv2d with the symmetric
+    padding; else a depthwise F.conv_transpose2d of stride (upy, upx), whose
+    left padding on an axis is k - 1 - padding, so a padding beyond k - 1
+    (EQ-R's 48 at k = 47) is reached by extending the filter with leading
+    zero taps, and the right edge by output_padding (< the stride)."""
     import torch
     import torch.nn.functional as F
 
     C = xx.shape[1]
     fh, fw = f2d.shape
     px0, px1, py0, py1 = pad
-    if up == (1, 1):
+    if tuple(up) == (1, 1):
         if px0 != px1 or py0 != py1 or min(pad) < 0:
             return None
         w = f2d.to(xx.device, xx.dtype)[None, None].expand(C, 1, fh, fw).contiguous()
         return lambda: F.conv2d(xx, w, padding=(py0, px0), groups=C)
-    u = up[0]
-    if up[1] != u or fh != fw or px0 != py0:
-        return None
-    ext = max(px0 - (fw - 1), 0)           # leading zero taps
-    P = ext - (px0 - (fw - 1))             # conv_transpose2d's padding
-    k = fw + ext
-    op = out_hw[0] - ((xx.shape[2] - 1) * u - 2 * P + k)
-    if not 0 <= op < u or out_hw[1] - ((xx.shape[3] - 1) * u - 2 * P + k) != op:
-        return None
-    w = torch.zeros((k, k), dtype=xx.dtype, device=xx.device)
-    w[ext:, ext:] = f2d.flip([0, 1]).to(xx.device, xx.dtype)
-    w = w[None, None].expand(C, 1, k, k).contiguous()
-    return lambda: F.conv_transpose2d(xx, w, stride=u, padding=P, output_padding=op, groups=C)
+    ext, P, k, op = [], [], [], []
+    for u, kk, p0, n_in, n_out in ((up[1], fh, py0, xx.shape[2], out_hw[0]),
+                                   (up[0], fw, px0, xx.shape[3], out_hw[1])):
+        e = max(p0 - (kk - 1), 0)              # leading zero taps
+        ext.append(e)
+        P.append(e - (p0 - (kk - 1)))           # conv_transpose2d's padding
+        k.append(kk + e)
+        op.append(n_out - ((n_in - 1) * u - 2 * P[-1] + k[-1]))
+        if not 0 <= op[-1] < u:
+            return None
+    w = torch.zeros(k, dtype=xx.dtype, device=xx.device)
+    w[ext[0]:, ext[1]:] = f2d.flip([0, 1]).to(xx.device, xx.dtype)
+    w = w[None, None].expand(C, 1, *k).contiguous()
+    return lambda: F.conv_transpose2d(xx, w, stride=(up[1], up[0]), padding=tuple(P),
+                                      output_padding=tuple(op), groups=C)
 
 
 def k4_equivariance_checks(device, parent):
     """K4 at the equivariance path's calls on 512^2 f32 images (batch 4, 3
-    channels). The large-filter kernel (more than 64 taps, from a device
-    buffer): EQ-R's 47x47 resampling filter at up 4 (upsample2d) and the
-    pseudo-rotation's 11x11 (filter2d), for a rotation of 0.3 rad. The row
+    channels). The phase-blocked large-filter kernel (more than 64 taps,
+    from a device buffer): EQ-R's 47x47 resampling filter at up 4
+    (upsample2d) and the pseudo-rotation's 11x11 (filter2d), for a rotation
+    of 0.3 rad, each with its SASS instructions an output and, with
+    ``parent``, equal bit for bit to the parent's large-filter kernel and
+    timed against it; the tiled large-filter kernel at a 12x12 filter at
+    down 2 (the calls the phase-blocked one leaves to it). The row
     and the column form: EQ-T_frac's 1x6 and 6x1 windowed sincs (filter2d),
     as apply_fractional_translation makes them for a shift of (0.3, 0.7)
     pixels (a spy on ops/upfirdn2d.py:_fir), each faster than its library
@@ -832,7 +851,7 @@ def k4_equivariance_checks(device, parent):
         apply_fractional_translation, construct_affine_bandlimit_filter, rotation_matrix)
     from panic3d_tpu_torch.kernels import KERNELS
     from panic3d_tpu_torch.ops.upfirdn2d import (
-        fir_passes, k4_plan, upfirdn2d_kernel, upfirdn2d_plain)
+        fir_passes, k4_plan, large_phase_geometry, upfirdn2d_kernel, upfirdn2d_plain)
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     mod = importlib.import_module("panic3d_tpu_torch.ops.upfirdn2d")
@@ -872,11 +891,66 @@ def k4_equivariance_checks(device, parent):
         summ = record(e, lambda: upfirdn2d_kernel(xx, f2d, upp, down, pad),
                       lambda: upfirdn2d_plain(xx, f2d, upp, down, pad), nbytes(xx, yk, f2d),
                       yk.numel() * (fh * fw / up ** 2) * 2, library, plain_iters=3)
-        summ.update(call=what, shape=list(xx.shape), filter=[fh, fw], up=up, pad=list(pad))
+        summ.update(call=what, variant="large", shape=list(xx.shape), filter=[fh, fw], up=up,
+                    pad=list(pad))
         print(f"    ms {summ['ms']:.6f}  plain_ms {summ['plain_ms']:.6f}  library_ms "
               f"{summ['library_ms']:.6f}  bound_ms {summ['bound_ms']:.6f} ({summ['bound_by']})")
+        # the phase-blocked kernel's instantiation and a thread's outputs:
+        # 16 phase rows x 4 columns of each column phase, for each of the
+        # warp's jobs (a row phase and band each, 4 warps a block)
+        g = large_phase_geometry(fh, fw, upp, down)
+        per_thread = 16 * upp[0] * -(-upp[1] * g.nbands // 4)
+        summ.update(parent_and_sass(
+            parent, "upfirdn2d", "upfirdn2d", "upfirdn2d_large_phase_kernel",
+            lambda: upfirdn2d_kernel(xx, f2d, upp, down, pad), yk.numel(), "output",
+            {"FFMA": per_thread * fh * fw / (upp[0] * upp[1])}, 1 / per_thread, None,
+            new_kernel=f"upfirdn2d_large_phase_kernelIfLi{g.nch}ELb{int(upp[0] == 1)}EE",
+            parent_kernel="upfirdn2d_large_kernel"))
+        if "parent" in summ:
+            require(summ["parent"]["values_not_bit_equal"] == 0,
+                    f"K4 {what}: the phase-blocked kernel's outputs differ from the parent's "
+                    "large-filter kernel's (the same taps in the same order)")
         out.append(summ)
         del yk, yp
+    # the tiled large-filter kernel, which keeps the calls the phase-blocked
+    # one does not take (down > 1: the unfused K11 composition's radial down
+    # pass), at a 12x12 filter at down 2 (f32 [4,3,512,512], padding 5),
+    # required to take it, beside a depthwise conv2d of stride 2
+    k12 = np.kaiser(12, 8.0)
+    f12 = torch.from_numpy((np.outer(k12, k12) / np.outer(k12, k12).sum()).astype(np.float32))
+    (f2d, upp, down, pad), = fir_passes(f12, down=2, padding=5)
+    xx = torch.randn((SG3_BATCH, 3, EQ_RES, EQ_RES), generator=gen, device=device)
+    n_tiled = KERNELS["upfirdn2d"].variants.get("large_tiled", 0)
+    yk = upfirdn2d_kernel(xx, f2d, upp, down, pad)
+    require(KERNELS["upfirdn2d"].variants.get("large_tiled", 0) == n_tiled + 1,
+            "K4 12x12 at down 2: not the tiled large-filter kernel")
+    yp = upfirdn2d_plain(xx, f2d, upp, down, pad)
+    e = max_err(yk, yp)
+    check(f"K4 tiled large filter, 12x12 at down 2: {list(xx.shape)} f32 -> "
+          f"{yk.shape[-2]}x{yk.shape[-1]}", e, 1e-5 * float(yp.abs().max()))
+    w12 = f2d.to(device)[None, None].expand(3, 1, 12, 12).contiguous()
+
+    def library_tiled():
+        return torch.nn.functional.conv2d(xx, w12, stride=2, padding=5, groups=3)
+
+    check("  library conv2d (stride 2) vs plain", max_err(library_tiled(), yp),
+          1e-5 * float(yp.abs().max()))
+    summ = record(e, lambda: upfirdn2d_kernel(xx, f2d, upp, down, pad),
+                  lambda: upfirdn2d_plain(xx, f2d, upp, down, pad), nbytes(xx, yk, f2d),
+                  yk.numel() * 144 * 2, library_tiled, plain_iters=3)
+    summ.update(call="12x12 at down 2", variant="large_tiled", shape=list(xx.shape),
+                filter=[12, 12], up=1, down=2, pad=list(pad))
+    print(f"    ms {summ['ms']:.6f}  plain_ms {summ['plain_ms']:.6f}  library_ms "
+          f"{summ['library_ms']:.6f}  bound_ms {summ['bound_ms']:.6f} ({summ['bound_by']})")
+    summ.update(parent_and_sass(
+        parent, "upfirdn2d", "upfirdn2d", "upfirdn2d_large_kernel",
+        lambda: upfirdn2d_kernel(xx, f2d, upp, down, pad), yk.numel(), "output", None, 1,
+        None))
+    if "parent" in summ:
+        require(summ["parent"]["values_not_bit_equal"] == 0,
+                "K4 12x12 at down 2: the tiled kernel's outputs differ from the parent's")
+    out.append(summ)
+    del yk, yp
     require(len(calls) == 2, f"EQ-T_frac made {len(calls)} K4 calls, not 2")
     for (xx, f2d, upp, down, pad), form in zip(calls, ("row", "column")):
         fh, fw = f2d.shape
@@ -924,16 +998,19 @@ def k4_equivariance_checks(device, parent):
     return out
 
 
-def k8_compare(label, args8):
-    """K8 vs its plain version on one input: each binary mask may differ on
-    at most 0.1 % of the pixels (a value within rounding of its threshold),
-    mask_occ within 1e-5, and mask, paste and image within 1e-5 where the
-    binary masks agree. -> (the kernel's outputs, the largest error)."""
+def k8_compare(label, args8, kernel=None, plain=None):
+    """K8 vs its plain version on one input (paste_composite_kernel and
+    _plain by default; ``kernel`` / ``plain`` another entry's): each binary
+    mask may differ on at most 0.1 % of the pixels (a value within rounding
+    of its threshold), mask_occ within 1e-5, and mask, paste and image
+    within 1e-5 where the binary masks agree. -> (the kernel's outputs, the
+    largest error)."""
     import torch
 
     from panic3d_tpu_torch.models import triplane as tp
 
-    k8, p8 = tp.paste_composite_kernel(*args8), tp.paste_composite_plain(*args8)
+    k8 = (kernel or tp.paste_composite_kernel)(*args8)
+    p8 = (plain or tp.paste_composite_plain)(*args8)
     agree = torch.ones_like(k8["mask"], dtype=torch.bool)
     n_pix = k8["mask"].numel()
     for key in ("mask_weights", "mask_edges", "mask_dxyz"):
@@ -959,6 +1036,140 @@ def k8_compare(label, args8):
         check(f"K8 {key} where the masks agree (f32, the same rounded operations)",
               where_agree(key), 1e-5)
     return k8, e8
+
+
+def paste_chain(image, front, weights, xyz, vol, rays, bw, offset_occ, seg_len, thresh_occ,
+                thresh_weight, thresh_edges, thresh_dxyz, fwmask=None):
+    """The grid occlusion's path before K8 took it in (paste_front on the
+    card until then): K7b's sampler at the render's surface points, the
+    threshold and the discrepancy in torch, then K8's map entry. Same
+    contract as triplane.py:paste_composite_occ_kernel."""
+    import torch
+
+    from panic3d_tpu_torch.models import triplane as tp
+
+    occ = tp.front_occlusion_grid(vol, xyz, offset_occ, seg_len)
+    occ_bin = (occ < thresh_occ).to(torch.float32)
+    dxyz = tp.TriPlaneGenerator._get_xyz_discrepancy(xyz, rays)
+    return tp.paste_composite_kernel(image, front, weights, xyz, occ_bin, dxyz, bw,
+                                     thresh_weight, thresh_edges, thresh_dxyz, fwmask)
+
+
+def chain_libs(parent):
+    """The parent's K7b and K8 entry points, where --parent holds their
+    sources: {entry point: library}."""
+    return {name: parent[stem][0] for name, stem in (("occlusion_sample", "front_occlusion"),
+                                                     ("paste_front", "paste_front"))
+            if stem in parent}
+
+
+class chained_paste:
+    """Within the block paste_front's grid occlusion runs paste_chain, with
+    the parent's kernels where ``parent`` holds them."""
+
+    def __init__(self, parent):
+        self.swap = parent_entries(chain_libs(parent))
+
+    def __enter__(self):
+        from panic3d_tpu_torch.models import triplane as tp
+
+        self.fused = tp.paste_composite_occ_kernel
+        tp.paste_composite_occ_kernel = paste_chain
+        self.swap.__enter__()
+
+    def __exit__(self, *exc):
+        from panic3d_tpu_torch.models import triplane as tp
+
+        self.swap.__exit__(*exc)
+        tp.paste_composite_occ_kernel = self.fused
+
+
+# the device launches of cuDNN, cuBLAS(Lt) and CUTLASS (conv and matmul
+# kernels, their layout transposes, split-K reductions and memsets) and of
+# copies, by name
+LIBRARY_KERNELS = re.compile(r"cudnn|cublas|xmma|cutlass|nvjet|gemm|splitK|getrf|laswp|trsm|"
+                             r"Memset|Memcpy")
+
+
+def trace_counts(fn, runs: int = 1) -> dict:
+    """``runs`` calls of fn after a warm-up, under one torch.profiler
+    window: a call's device kernels and copies and their device time, of
+    them the libraries' (cuDNN's, cuBLAS's and their memsets and copies,
+    whose number moves from call to call with the algorithms the libraries
+    pick), its host-side ops, and the device's busy time and the span
+    (busy_span) over the window, each divided by ``runs``; and the distinct
+    names of the window's device launches (their first 120 characters)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.NamedTemporaryFile(suffix=".json", dir=BUILD_TMP) as f:
+        prof.export_chrome_trace(f.name)
+        with open(f.name) as g:
+            trace = json.load(g)
+    dev = [e for e in trace["traceEvents"] if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    require(dev, "trace_counts: the profiler recorded no device activity")
+    busy, span, n_dev, n_ops = busy_span(trace)
+    lib = sum(bool(LIBRARY_KERNELS.search(e.get("name", ""))) for e in dev)
+    return {"device_launches": n_dev / runs, "library_launches": lib / runs,
+            "device_us": sum(e["dur"] for e in dev) / runs, "host_ops": n_ops / runs,
+            "busy_ms": busy / runs, "span_ms": span / runs,
+            "names": list(dict.fromkeys(e.get("name", "")[:120] for e in dev))}
+
+
+def paste_chain_compare(parent, args_f, out_f, label, timed=True):
+    """K8's grid-occlusion entry against the chain it replaces (paste_chain;
+    with --parent the parent's K7b and K8) on the same inputs: the values
+    that differ, counted apart where mask_dxyz flips (the discrepancy's
+    norm, rounded by torch in its own order, on the other side of
+    thresh_dxyz) and required equal elsewhere; with ``timed``, device times
+    in the order chain / fused / fused / chain and the device launches and
+    time of a call of each (trace_counts). -> {label: ...}."""
+    import torch
+
+    from panic3d_tpu_torch.models import triplane as tp
+
+    swap = parent_entries(chain_libs(parent))
+
+    def chain():
+        with swap:
+            return paste_chain(*args_f)
+
+    def fused():
+        return tp.paste_composite_occ_kernel(*args_f)
+
+    got = chain()
+    flips = got["mask_dxyz"] != out_f["mask_dxyz"]
+    n_pix = flips.numel()
+    keys = [k for k in got if k != "mask_frontweight"]
+    differ = {k: int((got[k] != out_f[k]).sum()) for k in keys}
+    elsewhere = sum(int((got[k] != out_f[k])[~flips.expand_as(got[k])].sum()) for k in keys)
+    whose = "the parent's" if chain_libs(parent) else "this tree's"
+    print(f"K8 grid occlusion entry vs {whose} K7b -> glue -> K8 chain ({label}): "
+          f"mask_dxyz flips {int(flips.sum())} of {n_pix}; values that differ {differ}; "
+          f"where mask_dxyz agrees {elsewhere}")
+    require(elsewhere == 0 and int(flips.sum()) <= n_pix // 1000,
+            "K8 grid occlusion entry: outputs differ from the chain it replaces")
+    got = {"whose": whose, "mask_dxyz_flips": int(flips.sum()), "values_not_bit_equal": differ}
+    if not timed:
+        return {label: got}
+    c1 = cuda_ms(chain)
+    f1, f2 = cuda_ms(fused), cuda_ms(fused)
+    c2 = cuda_ms(chain)
+    calls = {"chain": trace_counts(chain, runs=10), "fused": trace_counts(fused, runs=10)}
+    print(f"  chain / fused / fused / chain {c1:.6f} / {f1:.6f} / {f2:.6f} / {c2:.6f} ms; "
+          + "; ".join(f"{k}: {v['device_launches']:g} device launches, {v['device_us']:.3f} us, "
+                      f"{v['host_ops']:g} host ops ({', '.join(v['names'])})"
+                      for k, v in calls.items()))
+    return {label: dict(got, ms_chain_fused_fused_chain=[c1, f1, f2, c2], per_call=calls)}
 
 
 def build_parent(parent_dir):
@@ -991,36 +1202,23 @@ def build_parent(parent_dir):
 
 class parent_entries:
     """Within the block, the kernel wrappers launch the entry points named
-    in ``libs`` ({entry point: the parent's ctypes library, or (library,
-    adapt)}) from the parent's libraries in place of this tree's, with the
-    same arguments, or with ``adapt(argtypes, args)`` where the parent's
-    entry point took other ones; with ``contiguous_terms`` the lattice
-    terms go to the kernels contiguous, as the parent's K6a and K7a read
-    them (its wrapper copied them)."""
+    in ``libs`` ({entry point: the parent's ctypes library}) from the
+    parent's libraries in place of this tree's, with the same arguments."""
 
-    def __init__(self, libs: dict, contiguous_terms: bool = False):
-        self.libs, self.contiguous_terms = libs, contiguous_terms
+    def __init__(self, libs: dict):
+        self.libs = libs
 
     def __enter__(self):
         import ctypes
 
         from panic3d_tpu_torch.kernels import build
-        from panic3d_tpu_torch.models.volumetric import renderer as vr
 
         self.launch = launch = build.launch
-        self.term_args = term_args = vr.lattice_term_args
-        if self.contiguous_terms:
-            vr.lattice_term_args = lambda terms, dev: term_args(
-                [(F_.contiguous(), a, b) for F_, a, b in terms], dev)
 
         def parent_launch(name, argtypes, *args):
             if name not in self.libs:
                 return launch(name, argtypes, *args)
-            lib, adapt = (self.libs[name] if isinstance(self.libs[name], tuple)
-                          else (self.libs[name], None))
-            if adapt:
-                argtypes, args = adapt(argtypes, args)
-            fn = getattr(lib, name)
+            fn = getattr(self.libs[name], name)
             fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
             rc = fn(*args)
             require(rc == 0, f"parent {name}: CUDA error {rc}")
@@ -1029,29 +1227,8 @@ class parent_entries:
 
     def __exit__(self, *exc):
         from panic3d_tpu_torch.kernels import build
-        from panic3d_tpu_torch.models.volumetric import renderer as vr
 
         build.launch = self.launch
-        vr.lattice_term_args = self.term_args
-
-
-# the lattice terms' strides among K6a's and K7a's arguments (renderer.py:
-# lattice_term_args), and K6a's scratch P: arguments the parent's entry
-# points (PR 11) did not take
-TERM_STRIDES = (3, 4, 5, 9, 10, 11, 15, 16, 17)
-K6A_SCRATCH = 24
-# K10's lattice entry point (volume_density_deep): stats, which the
-# parent's (K1's kernel with a trilinear gather) did not take
-K10V_NEW_ARGS = (23,)
-
-
-def drop_args(*idx):
-    """An ``adapt`` for parent_entries: the parent's entry point lacked the
-    arguments at ``idx``."""
-    def adapt(argtypes, args):
-        keep = [i for i in range(len(args)) if i not in idx]
-        return tuple(argtypes[i] for i in keep), tuple(args[i] for i in keep)
-    return adapt
 
 
 def sass_listing(so, kernel: str):
@@ -1146,7 +1323,7 @@ def kernel_device_us(fn, kernels, runs: int = 20):
 
 def parent_and_sass(parent, stem, name, kernel, fn, items, unit, new_work, new_scale,
                     parent_work, new_kernel=None, parent_kernel=None, profiled=None,
-                    parent_profiled=None, adapt=None, contiguous_terms=False):
+                    parent_profiled=None):
     """This tree's kernel against the parent's (``--parent``): the outputs
     compared bit for bit, then device times in the order parent / this /
     this / parent in one process; and each one's SASS instructions a
@@ -1157,9 +1334,8 @@ def parent_and_sass(parent, stem, name, kernel, fn, items, unit, new_work, new_s
     one thread an item (``parent_kernel``, else ``kernel``; ``parent_work``
     None: not counted). ``profiled`` / ``parent_profiled``: the kernels
     of the entry point that torch.profiler times alone (default the
-    kernel's name); ``adapt`` and ``contiguous_terms``: the parent entry
-    point's arguments, where they differ (parent_entries). -> {"sass": ...,
-    "parent": ...}."""
+    kernel's name). The parent's entry point takes this tree's arguments.
+    -> {"sass": ..., "parent": ...}."""
     import torch
 
     from panic3d_tpu_torch.kernels import build
@@ -1174,26 +1350,26 @@ def parent_and_sass(parent, stem, name, kernel, fn, items, unit, new_work, new_s
     theirs = None
     if stem in parent:
         lib, so = parent[stem]
-        swap = {name: (lib, adapt) if adapt else lib}
+        swap = {name: lib}
         if parent_work is not None:
             theirs = sass_per_thread(so, parent_kernel, parent_work)
         if theirs:
             theirs["per_" + unit] = theirs["per_thread"]
             theirs["ceiling_ms"] = items * theirs["per_" + unit] / ISSUE_PER_S * 1e3
         got = fn()
-        with parent_entries(swap, contiguous_terms):
+        with parent_entries(swap):
             want = fn()
         if torch.is_tensor(got):
             got, want = (got,), (want,)
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [
             (got[k], want[k]) for k in got]
         differ = sum(int((a != b).sum()) for a, b in pairs)
-        with parent_entries(swap, contiguous_terms):
+        with parent_entries(swap):
             p1 = cuda_ms(fn)
         n1, n2 = cuda_ms(fn), cuda_ms(fn)
-        with parent_entries(swap, contiguous_terms):
+        with parent_entries(swap):
             p2 = cuda_ms(fn)
-        with parent_entries(swap, contiguous_terms):
+        with parent_entries(swap):
             us_parent = kernel_device_us(fn, parent_profiled or parent_kernel)
         out["parent"] = {"ms_parent_this_this_parent": [p1, n1, n2, p2],
                          "kernel_us_profiler": us_parent,
@@ -1283,8 +1459,7 @@ def ess_paste_kernel_checks(G, x, device, parent):
         parent, "ess", "ess_occupancy", "ess_occupancy_kernel",
         lambda: vr.ess_occupancy_kernel(*args6), N * Gs ** 3, "point", None, 1, None,
         profiled=("factor_terms_kernel", "ess_occupancy_kernel", "dilate3_kernel"),
-        parent_profiled=("ess_occupancy_kernel", "dilate3_kernel"),
-        adapt=drop_args(*TERM_STRIDES, K6A_SCRATCH), contiguous_terms=True))
+        parent_profiled=("ess_occupancy_kernel", "dilate3_kernel")))
 
     # K6 narrowing, fed the same occupancy
     occ_out = (vr.zero_feature_density(planes, dec, filt.cull_clouds, None)
@@ -1384,8 +1559,7 @@ def ess_paste_kernel_checks(G, x, device, parent):
         parent, "front_occlusion", "occlusion_volume", "occlusion_volume_kernel",
         lambda: vlat.occlusion_volume_kernel(*args7), A_k.numel(), "cell", None, 1, None,
         profiled=("factor_terms_kernel", "occlusion_volume_kernel"),
-        parent_profiled=("factor_terms_kernel", "occlusion_volume_kernel"),
-        adapt=drop_args(*TERM_STRIDES), contiguous_terms=True))
+        parent_profiled=("factor_terms_kernel", "occlusion_volume_kernel")))
     if "parent" in out["occlusion_volume"]:
         require(out["occlusion_volume"]["parent"]["values_not_bit_equal"] == 0,
                 "K7a: the volume differs from the parent's")
@@ -1447,7 +1621,47 @@ def ess_paste_kernel_checks(G, x, device, parent):
         parent, "paste_front", "paste_front", "paste_front_kernel",
         lambda: tp.paste_composite_kernel(*args_main), n_pix, "pixel",
         new_work={"STG": 2 * front.shape[1]}, new_scale=1 / 4,
-        parent_work={"STG": 2 * front.shape[1]}, new_kernel="paste_front_kernelILb1E"))
+        parent_work={"STG": 2 * front.shape[1]}, new_kernel="paste_front_kernelILb1ELb0E"))
+
+    # K8's grid-occlusion entry (paste_front_occ): the volume, the rays and
+    # the thresholds in place of the two r^2 maps, on the render and on its
+    # opaque variant, against its plain version (the composition of K7b's
+    # plain sampler, the threshold, the discrepancy and K8's plain version),
+    # and against the chain it replaces (K7b, the torch glue and K8's map
+    # entry: with --parent the parent's kernels), whose outputs it equals
+    # but where the discrepancy's norm rounds across thresh_dxyz (counted)
+    seg = float(rk["ray_end"]) - float(rk["ray_start"])
+    # the rays contiguous, as G.f's ortho select (torch.where) gives them
+    rays_f = {k: v.contiguous() for k, v in rays_img.items()}
+    occ_args = (vol, rays_f, bw, pp["offset_occ"], seg, pp["thresh_occ"],
+                pp["thresh_weight"], pp["thresh_edges"], pp["thresh_dxyz"])
+    eF = 0.0
+    for label, wts, xyz in (("render", ref["image_weights"], ref["image_xyz"]),
+                            ("opaque variant", w_op, xyz_op)):
+        argsF = (ref["image"], front, wts, xyz, *occ_args)
+        kF, e = k8_compare(f"grid occlusion entry, {label}", argsF,
+                           tp.paste_composite_occ_kernel, tp.paste_composite_occ_plain)
+        eF = max(eF, e)
+        if label == "render":
+            args_f, out_f = argsF, kF
+        else:
+            chain_opaque = paste_chain_compare(parent, argsF, kF, "chain_opaque", timed=False)
+    out["paste_front_occ"] = record(
+        eF, lambda: tp.paste_composite_occ_kernel(*args_f),
+        lambda: tp.paste_composite_occ_plain(*args_f),
+        # the maps and images K8 reads and writes, and the 8 texels of the
+        # volume each render pixel's occlusion reads
+        nbytes(*(a for a in args_f[:4] if torch.is_tensor(a)), *rays_f.values())
+        + nbytes(*(v for k_, v in out_f.items() if k_ != "mask_frontweight"))
+        + ref["image_xyz"][:, 0].numel() * 8 * 4,
+        n_pix * 400 + ref["image_xyz"][:, 0].numel() * 120)
+    out["paste_front_occ"].update(paste_chain_compare(parent, args_f, out_f, "chain"),
+                                  **chain_opaque)
+    out["paste_front_occ"].update(parent_and_sass(
+        {}, "paste_front", "paste_front_occ", "paste_front_kernel",
+        lambda: tp.paste_composite_occ_kernel(*args_f), n_pix, "pixel",
+        new_work={"STG": 2 * front.shape[1]}, new_scale=1 / 4, parent_work=None,
+        new_kernel="paste_front_kernelILb1ELb1E"))
 
     # K12 at the Pallas probe's shapes (scripts/bench_pallas_gather.py)
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -1842,6 +2056,11 @@ def grad_guard_checks(device):
         "paste_front": lambda: tp.paste_composite_kernel(
             t(1, 3, 8, 8, grad=True), t(1, 3, 8, 8), t(1, 1, 8, 8), t(1, 3, 8, 8),
             t(1, 1, 8, 8), t(1, 1, 8, 8), 0.7, 0.5, 0.5, 0.5),
+        "paste_front_occ": lambda: tp.paste_composite_occ_kernel(
+            t(1, 3, 8, 8), t(1, 3, 8, 8), t(1, 1, 8, 8), t(1, 3, 8, 8),
+            {"A": t(1, 4, 4, 4, grad=True), "density0": t(1), "box_warp": 0.7},
+            {"ray_origins": t(1, 3, 8, 8), "ray_directions": t(1, 3, 8, 8)}, 0.7, 0.01, 1.0,
+            0.05, 0.5, 0.5, 0.5),
         "point_mesh_distance": lambda: mm.point_mesh_distance_sq_kernel(
             t(8, 3, grad=True), t(3, 3), t(1, 3, **i32)),
         "winding_number": lambda: gltf.winding_numbers_kernel(
@@ -2431,6 +2650,7 @@ def eval_cli_path(G, device, card):
             stages[k] = stages.get(k, 0.0) + v
     counts_gen = launch_counts()
     require_launched(counts_gen, ESS_PASTE_KERNELS + ("volume_density",), "eval generate")
+    require_absent(counts_gen, GRID_PASTE_ABSENT, "eval generate")
     waits_gen = count_syncs(lambda: portrait(level))
     with open(os.path.join(out, bn.replace("fandom_align", "marching_cubes") + ".pkl"),
               "rb") as f:
@@ -2741,8 +2961,7 @@ def k10_grid_checks(Gd, device, vol, vr, parent):
     level = mesh_levels(gu)[0]
     faces = len(grid_mesh(gu, level)[1])
     if "triplane_decode" in parent:
-        with parent_entries({"volume_density_deep": (parent["triplane_decode"][0],
-                                                     drop_args(*K10V_NEW_ARGS))}):
+        with parent_entries({"volume_density_deep": parent["triplane_decode"][0]}):
             gp = kernel(dec, vr.DensityFilters(), torch.float32)
         faces_parent = len(grid_mesh(gp, level)[1])
         print(f"  unfiltered mesh at the grid's level {level:.6f}: {faces} faces; from the "
@@ -2788,7 +3007,7 @@ def k10_grid_checks(Gd, device, vol, vr, parent):
     out.update(parent_and_sass(
         parent, "triplane_decode", "volume_density_deep", "volume_density_kernel",
         lambda: kernel(dec, filt, torch.float16), N**3, "point", None, 1, None,
-        parent_kernel="triplane_decode_kernel", adapt=drop_args(*K10V_NEW_ARGS)))
+        parent_kernel="triplane_decode_kernel"))
     return out
 
 
@@ -3135,10 +3354,81 @@ def equivariance_path(device, card):
     return counts_r, out
 
 
+def eqr_profile(device) -> dict:
+    """One EQ-R batch (calc_metric("eqr50k") of SG3_BATCH samples of the toy
+    generator at EQ_RES^2) under torch.profiler, its device kernel time
+    split by name: K4 (upfirdn2d), the rotation filters' FFTs (cuFFT's
+    kernels, *fft*, complex128: F13), the plain grid_sample_2d composition
+    on the up-4 image (the kernels launched inside a record_function range
+    around eval/equivariance.py's grid_sample_2d), and the rest; with the
+    host span and the device's busy time. -> {part: ms}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from panic3d_tpu_torch.eval import equivariance as eq
+    from panic3d_tpu_torch.eval.gan_metrics import calc_metric
+    from panic3d_tpu_torch.utils.device import to_device
+
+    ws = to_device(torch.randn((SG3_BATCH, 3),
+                               generator=torch.Generator().manual_seed(SEED)).numpy(), device)
+    synthesis = blob_synthesis(EQ_RES)
+    sample = eq.grid_sample_2d
+
+    def traced(*a, **k):
+        with record_function("grid_sample_2d"):
+            return sample(*a, **k)
+
+    def batch():
+        return calc_metric("eqr50k", synthesis_fn=synthesis, ws_iter=iter([ws]),
+                           num_samples=SG3_BATCH, img_resolution=EQ_RES,
+                           generator=torch.Generator().manual_seed(SEED))
+
+    eq.grid_sample_2d = traced
+    try:
+        batch()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            batch()
+            torch.cuda.synchronize()
+    finally:
+        eq.grid_sample_2d = sample
+    path = os.path.join(BUILD_TMP, "eqr_batch_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    os.unlink(path)
+    ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    ranges = [(e["ts"], e["ts"] + e["dur"], e.get("tid")) for e in ev
+              if e.get("name") == "grid_sample_2d" and e.get("cat") != "kernel"]
+    dev_cats = ("kernel", "gpu_memcpy", "gpu_memset")
+    inside = {e["args"]["correlation"] for e in ev
+              if e.get("cat") not in dev_cats and "correlation" in e.get("args", {})
+              and any(t0 <= e["ts"] <= t1 and tid == e.get("tid") for t0, t1, tid in ranges)}
+    parts = dict.fromkeys(("K4 upfirdn2d", "complex128 FFTs", "grid_sample_2d composition",
+                           "rest"), 0.0)
+    counts = dict.fromkeys(parts, 0)
+    for e in ev:
+        if e.get("cat") not in dev_cats:
+            continue
+        name = e.get("name", "")
+        part = ("K4 upfirdn2d" if "upfirdn2d" in name else
+                "complex128 FFTs" if re.search("fft", name, re.I) else
+                "grid_sample_2d composition" if e.get("args", {}).get("correlation") in inside
+                else "rest")
+        parts[part] += e["dur"] / 1e3
+        counts[part] += 1
+    busy, span, n_dev, n_ops = busy_span(trace)
+    print(f"one EQ-R batch ({SG3_BATCH} samples at {EQ_RES}^2) by device kernel: "
+          + ", ".join(f"{k} {v:.6f} ms ({counts[k]})" for k, v in parts.items())
+          + f"; device busy {busy:.3f} of a {span:.3f} ms span, {n_dev} device launches "
+          f"from {n_ops} host ops")
+    return dict(ms=parts, launches=counts, busy_ms=busy, span_ms=span, host_ops=n_ops)
+
+
 DEEP_KERNELS = ("triplane_decode_deep", "ray_composite", "importance_sample", "upfirdn2d",
                 "modconv_epilogue", "paste_front")
 DEEP_ABSENT = ("triplane_decode", "volume_density", "ess_occupancy", "ess_narrow",
-               "occlusion_volume", "occlusion_sample")
+               "occlusion_volume", "occlusion_sample", "paste_front_occ")
 
 
 def deep_plane_paths(Gd, x, device, card):
@@ -3325,22 +3615,31 @@ def device_time_by_kind(trace: dict) -> str:
 
 RENDER_KERNELS = ("triplane_decode", "ray_composite", "importance_sample", "upfirdn2d",
                   "modconv_epilogue")
+# the grid occlusion's paths: K8's paste_front_occ entry reads the volume;
+# K7b's sampler and K8's map-taking entry launch no time there
 ESS_PASTE_KERNELS = RENDER_KERNELS + ("ess_occupancy", "ess_narrow", "occlusion_volume",
-                                      "occlusion_sample", "paste_front")
+                                      "paste_front_occ")
+GRID_PASTE_ABSENT = ("occlusion_sample", "paste_front")
+# kernels no path of the port launches since K8 took the grid occlusion in:
+# checked among the kernels only
+CHECK_ONLY = ("occlusion_sample",)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one ESS + paste request, one turntable portrait "
-                         "and one deep-plane request into DIR")
+                         "and one deep-plane request into DIR, count the first two's "
+                         "launches with the grid occlusion's old chain and K8's entry, and "
+                         "split one EQ-R batch's device time by kernel")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels, then stop")
     ap.add_argument("--parent", metavar="DIR",
-                    help="a directory of the parent commit's upfirdn2d.cu and "
-                         "triplane_decode.cu: time K4's 4x4 calls and K10's lattice form "
-                         "against them (parent / this / this / parent), and K4's "
-                         "EQ-T_frac calls, K6a and K7a where DIR holds their sources")
+                    help="a directory of the parent commit's kernel sources (e.g. "
+                         "upfirdn2d.cu, front_occlusion.cu, paste_front.cu): time this "
+                         "tree's kernels against them (parent / this / this / parent) and "
+                         "compare their outputs, K8's grid-occlusion entry against the "
+                         "parent's K7b -> glue -> K8 chain")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3432,6 +3731,7 @@ def main(argv=None) -> int:
             card)
         check_outputs(out, (BATCH, 3, 512, 512))
         require_launched(counts_main, ESS_PASTE_KERNELS, "ESS + paste per call")
+        require_absent(counts_main, GRID_PASTE_ABSENT, "ESS + paste per call")
         require_k4_polyphase(per_call, "ESS + paste per call")
         for k in PASTE_KEYS:
             print(f"  {k} passes {float(out['paste'][k].mean()):.4f}")
@@ -3460,6 +3760,7 @@ def main(argv=None) -> int:
             len(views), PORTRAITS, card)
         check_outputs(out, (BATCH, 3, 512, 512))
         require_launched(counts_turn, ESS_PASTE_KERNELS, "turntable")
+        require_absent(counts_turn, GRID_PASTE_ABSENT, "turntable")
         require_k4_polyphase(turn, "turntable")
         print(f"  {turn['ms_per_run'] / 1e3:.4f} s/portrait")
         del out
@@ -3524,19 +3825,40 @@ def main(argv=None) -> int:
                 trace_json = json.loads(trace.read_text())
                 print(device_busy(trace_json) + f"  [{card}]")
                 print(device_time_by_kind(trace_json) + f"  [{card}]")
+            # the grid occlusion before and after K8 took it in: an ESS +
+            # paste request and a turntable portrait with the chain it
+            # replaced (paste_chain; with --parent the parent's K7b and K8)
+            # and with K8's grid-occlusion entry, chain / fused / fused /
+            # chain: device launches, host ops, device busy time
+            import contextlib
+
+            for label, fn, summ in (("ESS + paste request", lambda: Ge.f(xp), per_call),
+                                    ("turntable portrait", portrait, turn)):
+                rows = []
+                for tag in ("chain", "fused", "fused", "chain"):
+                    with chained_paste(parent) if tag == "chain" else contextlib.nullcontext():
+                        rows.append(dict(trace_counts(fn, runs=1), paste=tag))
+                summ["paste_chain_vs_fused"] = rows
+                print(f"{label}, the grid occlusion by the K7b -> glue -> K8 chain / K8's "
+                      "entry / K8's entry / the chain: device launches "
+                      + " / ".join(f"{r['device_launches']:g}" for r in rows)
+                      + ", of them the libraries' "
+                      + " / ".join(f"{r['library_launches']:g}" for r in rows) + "; host ops "
+                      + " / ".join(f"{r['host_ops']:g}" for r in rows) + "; busy ms "
+                      + " / ".join(f"{r['busy_ms']:.3f}" for r in rows) + " of "
+                      + " / ".join(f"{r['span_ms']:.3f}" for r in rows) + f"  [{card}]")
+            equivariance["eqr50k"]["batch_profile"] = eqr_profile(device)
             if "ess" in parent:
                 # a turntable portrait's device busy time with the parent's
                 # K6a and with this tree's, parent / this / this / parent
-                import contextlib
 
-                libs = {"ess_occupancy": (parent["ess"][0],
-                                          drop_args(*TERM_STRIDES, K6A_SCRATCH))}
+                libs = {"ess_occupancy": parent["ess"][0]}
                 tmp = Path(args.profile) / "busy_trace.json"
                 busy = []
                 for tag in ("parent", "this", "this", "parent"):
                     with contextlib.ExitStack() as stack:
                         if tag == "parent":
-                            stack.enter_context(parent_entries(libs, contiguous_terms=True))
+                            stack.enter_context(parent_entries(libs))
                         with profile(activities=[ProfilerActivity.CPU,
                                                  ProfilerActivity.CUDA]) as prof:
                             portrait()
@@ -3557,11 +3879,11 @@ def main(argv=None) -> int:
     # each kernel's launches on the path that launches it: the ESS + paste
     # request, else the geometry path, else eval measure, else the probe,
     # else the deep-plane request, else the deep-plane mesh, else the
-    # stylegan3-t layers, else EQ-R
+    # stylegan3-t layers, else EQ-R (0 for a kernel of CHECK_ONLY)
     sources = (counts_main, counts_geom, counts_eval, counts_probe, *counts_deep, counts_sg3,
                counts_eq)
     launches = {name: next((c[name] for c in sources if c[name]), 0) for name in KERNELS}
-    require_launched(launches, KERNELS, "all paths")
+    require_launched(launches, [k for k in KERNELS if k not in CHECK_ONLY], "all paths")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": launches[name], **checks[name]}

@@ -5,7 +5,8 @@
 // front_occlusion_volume (:239, decode_lattice with plane_reduce='mean', the
 // density filters, softplus, and the flip-cumsum-flip suffix integral) and
 // sample_front_occlusion (:303, grid_sample_3d_points with border padding
-// plus the out-of-box zero-feature terms).
+// plus the out-of-box zero-feature terms; its per-point arithmetic is
+// front_occlusion.cuh's, which K8's grid-occlusion entry also runs).
 //
 // K7a, the volume. What bounds it on the H100: 128 x 128 x 256 lattice
 // points per portrait, 8.4 M for bs=2, of which the triplane crop keeps
@@ -34,6 +35,7 @@
 // softplus runs on the SFU (softplus_fast); the density and the cull keep
 // the libm forms, once per point. A slab's A values go through a
 // per-thread row of shared memory into one 16-byte store.
+#include "front_occlusion.cuh"
 #include "lattice_decode.cuh"
 
 namespace {
@@ -179,46 +181,9 @@ __global__ void occlusion_sample_kernel(const float* __restrict__ A,
                                         float offset, float seg_len) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)N * M) return;
-  const float* vol = A + (i / M) * a_stride;      // [D=Gx, H=Gy, W=Gz]
-  const float px = points[i * 3], py = points[i * 3 + 1], pz = points[i * 3 + 2];
-  const float z0 = __fadd_rn(pz, offset);
-  // grid_sample_3d_points(A[:, None], (z0, y, x) * 2/bw, border): the
-  // query's x indexes W = Gz, y indexes H = Gy, z indexes D = Gx
-  const float q[3] = {__fmul_rn(z0, scale), __fmul_rn(py, scale), __fmul_rn(px, scale)};
-  const int sz[3] = {Gz, Gy, Gx};
-  int i0[3];
-  float w1[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float u = __fdiv_rn(__fsub_rn(__fmul_rn(__fadd_rn(q[a], 1.f), (float)sz[a]), 1.f), 2.f);
-    const float f = floorf(u);
-    i0[a] = (int)f;
-    w1[a] = __fsub_rn(u, f);
-  }
-  auto at = [&](int d, int h, int w) {
-    d = min(max(d, 0), Gx - 1);
-    h = min(max(h, 0), Gy - 1);
-    w = min(max(w, 0), Gz - 1);
-    return vol[((long long)d * Gy + h) * Gz + w];
-  };
-  float acc = 0.f;
-#pragma unroll
-  for (int dd = 0; dd < 2; ++dd) {
-    const float wz = dd == 0 ? __fsub_rn(1.f, w1[2]) : w1[2];
-    const int d = i0[2] + dd;
-    const float v00 = at(d, i0[1], i0[0]), v01 = at(d, i0[1], i0[0] + 1);
-    const float v10 = at(d, i0[1] + 1, i0[0]), v11 = at(d, i0[1] + 1, i0[0] + 1);
-    const float top = __fadd_rn(v00, __fmul_rn(__fsub_rn(v01, v00), w1[0]));
-    const float bot = __fadd_rn(v10, __fmul_rn(__fsub_rn(v11, v10), w1[0]));
-    acc = __fadd_rn(acc, __fmul_rn(__fadd_rn(top, __fmul_rn(__fsub_rn(bot, top), w1[1])), wz));
-  }
-  const float d0 = density0[0];
-  const bool inside_xy = fabsf(px) <= half_bw && fabsf(py) <= half_bw;
-  const float len_below = fminf(fmaxf(__fsub_rn(-half_bw, z0), 0.f), seg_len);
-  const float len_above = fminf(fmaxf(__fsub_rn(__fadd_rn(z0, seg_len), half_bw), 0.f), seg_len);
-  const float a_total = inside_xy ? __fadd_rn(acc, __fmul_rn(d0, __fadd_rn(len_below, len_above)))
-                                  : __fmul_rn(d0, seg_len);
-  out[i] = 1.f - expf(-a_total);
+  out[i] = front_occlusion_at(A + (i / M) * a_stride, Gx, Gy, Gz, density0[0], points[i * 3],
+                              points[i * 3 + 1], points[i * 3 + 2], scale, half_bw, offset,
+                              seg_len);
 }
 
 }  // namespace

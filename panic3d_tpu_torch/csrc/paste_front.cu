@@ -31,9 +31,22 @@
 // transposed-image convention of the JAX op. Pixels past the image's edge
 // (a partial tile) are computed at a clamped index and not stored; an
 // image whose side is not a multiple of 4 is stored pixel by pixel.
+//
+// A second entry point, paste_front_occ, takes the grid occlusion
+// (occ_impl='grid': triplane.py:657 _get_front_occlusion_grid, then
+// occ < thresh_occ, and :723 _get_xyz_discrepancy) into the same launch,
+// in place of K7b's launch and the ~13 small torch launches around it at
+// the render's r^2. Each block first works out the r^2 source pixels its
+// tile's bilinear and nearest upsamples read (at 512^2 from 64^2, ~3 x 10)
+// and stages, for each, the binary occlusion (K7b's read of the volume,
+// front_occlusion.cuh, thresholded) and the binary discrepancy mask (the
+// distance of the plane-space surface point from its ray, rounded
+// operation by operation); the pixels then upsample those as they would the
+// maps. Neighbouring tiles recompute a few of the same points: ~30 points
+// a block beside 512 pixels.
 #include <initializer_list>
 
-#include "common.cuh"
+#include "front_occlusion.cuh"
 
 namespace {
 
@@ -60,13 +73,34 @@ __device__ __forceinline__ Lerp lerp_of(int i, int r, float scale) {
   return c;
 }
 
-__device__ __forceinline__ float upsample(const float* m, int r, const Lerp& h, const Lerp& w) {
-  const float* row0 = m + h.i0 * r;
-  const float* row1 = m + h.i1 * r;
+// the upsampled value of map m (row stride ld) whose first row and column
+// are source row r0 and column c0
+__device__ __forceinline__ float upsample(const float* m, int ld, const Lerp& h, const Lerp& w,
+                                          int r0 = 0, int c0 = 0) {
+  const float* row0 = m + (h.i0 - r0) * ld - c0;
+  const float* row1 = m + (h.i1 - r0) * ld - c0;
   const float top = __fadd_rn(__fmul_rn(row0[w.i0], w.l0), __fmul_rn(row0[w.i1], w.l1));
   const float bot = __fadd_rn(__fmul_rn(row1[w.i0], w.l0), __fmul_rn(row1[w.i1], w.l1));
   return __fadd_rn(__fmul_rn(top, h.l0), __fmul_rn(bot, h.l1));
 }
+
+// the grid occlusion's inputs (paste_front_occ): the volume [N,Gx,Gy,Gz]
+// (batch stride a_stride, 0 for one portrait's), its zero-feature density,
+// K7b's scale (2 / box_warp), half box, offset and segment, the threshold,
+// and the force_rays [N,3,r,r] the discrepancy measures against
+struct OccArgs {
+  const float* A;
+  long long a_stride;
+  const float* density0;
+  int Gx, Gy, Gz;
+  const float* ray_o;
+  const float* ray_d;
+  float scale, half_bw, offset, seg_len, thresh_occ;
+};
+
+// the staged source pixels of a tile at r <= S: rows and columns of the
+// bilinear and nearest upsamples of TILE_H x TILE_W outputs
+constexpr int SRC_H = TILE_H + 2, SRC_W = TILE_W + 2;
 
 // reflect padding by one pixel, clamped into the image for the halo of a
 // partial tile (whose pixels are masked)
@@ -102,8 +136,10 @@ __device__ __forceinline__ void store_px(float* p, long long o, const float (&v)
 }
 
 // VEC: the image planes as float4 (a side that is a multiple of PX, so a
-// thread's pixels are all inside the image and 16-byte aligned)
-template <bool VEC>
+// thread's pixels are all inside the image and 16-byte aligned). OCC: the
+// grid occlusion from the volume (paste_front_occ; occ_bin and dxyz are
+// then unused), else the binary occlusion and discrepancy maps given
+template <bool VEC, bool OCC>
 __global__ void __launch_bounds__(THREADS, 6) paste_front_kernel(
     const float* __restrict__ image, const float* __restrict__ front, int C, int Hf, int Wf,
     const float* __restrict__ weights, const float* __restrict__ xyz,
@@ -112,12 +148,48 @@ __global__ void __launch_bounds__(THREADS, 6) paste_front_kernel(
     float* __restrict__ mask, float* __restrict__ wmask, float* __restrict__ smask,
     float* __restrict__ fmask, float* __restrict__ dmask, int S, int r, float half_bw,
     float inv_bw, float thresh_weight, float thresh_edges, float thresh_dxyz, float scale,
-    float near) {
+    float near, OccArgs occ) {
   __shared__ float up[3][HALO_H][HALO_W];
+  __shared__ float occ_s[OCC ? SRC_H : 1][OCC ? SRC_W : 1];
+  __shared__ float dxyz_s[OCC ? SRC_H : 1][OCC ? SRC_W : 1];
   const int n = blockIdx.z, tx = threadIdx.x % (TILE_W / PX), ty = threadIdx.x / (TILE_W / PX);
   const int i0 = blockIdx.y * TILE_H, j0 = blockIdx.x * TILE_W;
   const int rr = r * r;
   const float* xyz_n = xyz + (long long)n * 3 * rr;
+  // the source pixels the tile's upsamples read: the first and last row
+  // (column) of each, whose indices grow with the output's
+  int r0 = 0, c0 = 0;
+  if (OCC) {
+    const int il = min(i0 + TILE_H, S) - 1, jl = min(j0 + TILE_W, S) - 1;
+    r0 = min(lerp_of(i0, r, scale).i0, (int)floorf((float)i0 * near));
+    c0 = min(lerp_of(j0, r, scale).i0, (int)floorf((float)j0 * near));
+    const int nr = max(lerp_of(il, r, scale).i1, (int)floorf((float)il * near)) - r0 + 1;
+    const int nc = max(lerp_of(jl, r, scale).i1, (int)floorf((float)jl * near)) - c0 + 1;
+    const float d0 = occ.density0[0];
+    const float* vol = occ.A + n * occ.a_stride;
+    const float* ro = occ.ray_o + (long long)n * 3 * rr;
+    const float* rd = occ.ray_d + (long long)n * 3 * rr;
+    for (int q = threadIdx.x; q < nr * nc; q += THREADS) {
+      const int y = q / nc, x = q - y * nc;
+      const int p = (r0 + y) * r + c0 + x;
+      // the plane-space surface point: image_xyz x (-1, 1, -1), exact
+      const float qx = -xyz_n[p], qy = xyz_n[rr + p], qz = -xyz_n[2 * rr + p];
+      const float o = front_occlusion_at(vol, occ.Gx, occ.Gy, occ.Gz, d0, qx, qy, qz,
+                                         occ.scale, occ.half_bw, occ.offset, occ.seg_len);
+      occ_s[y][x] = o < occ.thresh_occ ? 1.f : 0.f;
+      // its distance from its ray: |(p - a) - ((p - a) . n) n|
+      const float e0 = __fsub_rn(qx, ro[p]), e1 = __fsub_rn(qy, ro[rr + p]);
+      const float e2 = __fsub_rn(qz, ro[2 * rr + p]);
+      const float n0 = rd[p], n1 = rd[rr + p], n2 = rd[2 * rr + p];
+      const float dot =
+          __fadd_rn(__fadd_rn(__fmul_rn(e0, n0), __fmul_rn(e1, n1)), __fmul_rn(e2, n2));
+      const float f0 = __fsub_rn(e0, __fmul_rn(dot, n0)), f1 = __fsub_rn(e1, __fmul_rn(dot, n1));
+      const float f2 = __fsub_rn(e2, __fmul_rn(dot, n2));
+      const float d = __fsqrt_rn(
+          __fadd_rn(__fadd_rn(__fmul_rn(f0, f0), __fmul_rn(f1, f1)), __fmul_rn(f2, f2)));
+      dxyz_s[y][x] = d < thresh_dxyz ? 1.f : 0.f;
+    }
+  }
 
   // the upsampled xyz of the tile and its halo, each value once
 #pragma unroll
@@ -152,8 +224,8 @@ __global__ void __launch_bounds__(THREADS, 6) paste_front_kernel(
   const Lerp h = lerp_of(i, r, scale);
   const int ni = (int)floorf((float)i * near);
   const float* w_n = weights + (long long)n * rr;
-  const float* o_n = occ_bin + (long long)n * rr;
-  const float* d_n = dxyz + (long long)n * rr + ni * r;
+  const float* o_n = OCC ? nullptr : occ_bin + (long long)n * rr;
+  const float* d_n = OCC ? nullptr : dxyz + (long long)n * rr + ni * r;
   float m[PX], wm[PX], sm[PX], fm[PX], dm[PX];
 #pragma unroll
   for (int q = 0; q < PX; ++q) {
@@ -161,8 +233,14 @@ __global__ void __launch_bounds__(THREADS, 6) paste_front_kernel(
     const Lerp w = lerp_of(j, r, scale);
     wm[q] = upsample(w_n, r, h, w) > thresh_weight ? 1.f : 0.f;
     sm[q] = __fsqrt_rn(__fadd_rn(mag2[q], 1e-12f)) < thresh_edges ? 1.f : 0.f;
-    fm[q] = upsample(o_n, r, h, w);
-    dm[q] = d_n[(int)floorf((float)j * near)] < thresh_dxyz ? 1.f : 0.f;
+    const int nj = (int)floorf((float)j * near);
+    if (OCC) {
+      fm[q] = upsample(&occ_s[0][0], SRC_W, h, w, r0, c0);
+      dm[q] = dxyz_s[ni - r0][nj - c0];
+    } else {
+      fm[q] = upsample(o_n, r, h, w);
+      dm[q] = d_n[nj] < thresh_dxyz ? 1.f : 0.f;
+    }
     const float fw = fwmask ? fwmask[row - jb + j] : 1.f;
     m[q] = (((wm[q] * sm[q]) * fm[q]) * dm[q]) * fw;
   }
@@ -225,6 +303,31 @@ __global__ void __launch_bounds__(THREADS, 6) paste_front_kernel(
   }
 }
 
+template <bool OCC>
+int launch_paste(const float* image, const float* front, int C, int Hf, int Wf,
+                 const float* weights, const float* xyz, const float* occ_bin, const float* dxyz,
+                 const float* fwmask, float* out_image, float* paste, float* mask, float* wmask,
+                 float* smask, float* fmask, float* dmask, int N, int S, int r, float bw,
+                 float thresh_weight, float thresh_edges, float thresh_dxyz, float near_h,
+                 float near_w, const OccArgs& occ, void* stream) {
+  if (near_h != near_w) return (int)cudaErrorInvalidValue;
+  const dim3 grid((S + TILE_W - 1) / TILE_W, (S + TILE_H - 1) / TILE_H, N);
+  const float inv_bw = 1.f / bw;   // f32, as torch takes a CUDA tensor's divisor's reciprocal
+  // float4 image planes: a side that is a multiple of PX (a thread's pixels
+  // all inside the image, each row 16-byte aligned) and 16-byte aligned bases
+  bool vec = S % PX == 0;
+  for (const float* p : {image, (const float*)out_image, (const float*)paste,
+                         (const float*)mask, (const float*)wmask, (const float*)smask,
+                         (const float*)fmask, (const float*)dmask})
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  auto kernel = vec ? paste_front_kernel<true, OCC> : paste_front_kernel<false, OCC>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      image, front, C, Hf, Wf, weights, xyz, occ_bin, dxyz, fwmask, out_image, paste, mask,
+      wmask, smask, fmask, dmask, S, r, bw * 0.5f, inv_bw, thresh_weight, thresh_edges,
+      thresh_dxyz, (float)r / (float)S, near_h, occ);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // image [N,C,S,S] f32 (the SR image), front [N,C,Hf,Wf] f32 (the image to
@@ -239,20 +342,33 @@ PANIC3D_EXPORT int paste_front(const float* image, const float* front, int C, in
                                float* fmask, float* dmask, int N, int S, int r, float bw,
                                float thresh_weight, float thresh_edges, float thresh_dxyz,
                                float near_h, float near_w, void* stream) {
-  if (near_h != near_w) return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + TILE_W - 1) / TILE_W, (S + TILE_H - 1) / TILE_H, N);
-  const float inv_bw = 1.f / bw;   // f32, as torch takes a CUDA tensor's divisor's reciprocal
-  // float4 image planes: a side that is a multiple of PX (a thread's pixels
-  // all inside the image, each row 16-byte aligned) and 16-byte aligned bases
-  bool vec = S % PX == 0;
-  for (const float* p : {image, (const float*)out_image, (const float*)paste,
-                         (const float*)mask, (const float*)wmask, (const float*)smask,
-                         (const float*)fmask, (const float*)dmask})
-    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  auto kernel = vec ? paste_front_kernel<true> : paste_front_kernel<false>;
-  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      image, front, C, Hf, Wf, weights, xyz, occ_bin, dxyz, fwmask, out_image, paste, mask,
-      wmask, smask, fmask, dmask, S, r, bw * 0.5f, inv_bw, thresh_weight, thresh_edges,
-      thresh_dxyz, (float)r / (float)S, near_h);
-  return (int)cudaGetLastError();
+  return launch_paste<false>(image, front, C, Hf, Wf, weights, xyz, occ_bin, dxyz, fwmask,
+                             out_image, paste, mask, wmask, smask, fmask, dmask, N, S, r, bw,
+                             thresh_weight, thresh_edges, thresh_dxyz, near_h, near_w,
+                             OccArgs{}, stream);
+}
+
+// paste_front with the grid occlusion in the same launch: in place of
+// occ_bin and dxyz, the occlusion volume A [N,Gx,Gy,Gz] f32 (batch stride
+// a_stride, 0: one volume for every view), density0 one f32, K7b's scale
+// (2 / box_warp), half box, offset and segment length, thresh_occ, and the
+// force_rays origins and directions [N,3,r,r] f32. r <= S.
+PANIC3D_EXPORT int paste_front_occ(const float* image, const float* front, int C, int Hf,
+                                   int Wf, const float* weights, const float* xyz,
+                                   const float* A, long long a_stride, const float* density0,
+                                   int Gx, int Gy, int Gz, const float* ray_o,
+                                   const float* ray_d, const float* fwmask, float* out_image,
+                                   float* paste, float* mask, float* wmask, float* smask,
+                                   float* fmask, float* dmask, int N, int S, int r, float bw,
+                                   float thresh_weight, float thresh_edges, float thresh_dxyz,
+                                   float near_h, float near_w, float occ_scale,
+                                   float occ_half_bw, float offset, float seg_len,
+                                   float thresh_occ, void* stream) {
+  if (r > S) return (int)cudaErrorInvalidValue;
+  const OccArgs occ{A, a_stride, density0, Gx, Gy, Gz, ray_o, ray_d,
+                    occ_scale, occ_half_bw, offset, seg_len, thresh_occ};
+  return launch_paste<true>(image, front, C, Hf, Wf, weights, xyz, nullptr, nullptr, fwmask,
+                            out_image, paste, mask, wmask, smask, fmask, dmask, N, S, r, bw,
+                            thresh_weight, thresh_edges, thresh_dxyz, near_h, near_w, occ,
+                            stream);
 }

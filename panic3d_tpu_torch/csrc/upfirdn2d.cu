@@ -80,14 +80,29 @@
 // each thread computes 4 outputs of a column, skipping the taps that land on
 // inserted zeros.
 //
-// upfirdn2d_large_kernel, a filter of more than MAX_TAPS taps (the
-// equivariance metrics' 47x47 resampling filter at up=4 and their 11x11
-// pseudo-rotation filter, eval/equivariance.py): the generic kernel's tiles,
-// with the taps read from a device buffer that the block stages in shared
-// memory (a new filter for every random angle, so nothing is cached on the
-// host), and each output visiting only the taps of its phase (for 47x47 at
-// up=4, 144 of the 2,209: a tap meets an inserted zero unless its row and
-// column are the output's phase). Bound: operations, ~144 FMAs an output.
+// A filter of more than MAX_TAPS taps (the equivariance metrics' 47x47
+// resampling filter at up=4 and their 11x11 pseudo-rotation filter,
+// eval/equivariance.py) comes as a device buffer that each block stages in
+// shared memory (a new filter for every random angle, so nothing is cached
+// on the host); each output visits only the taps of its phase (for 47x47 at
+// up=4, 121-144 of the 2,209: a tap meets an inserted zero unless its row
+// and column are the output's phase). Bound: operations, ~138 FMAs an
+// output there (f32 [4,3,512,512] -> 2094^2: 7.3 G FMAs, 0.22 ms).
+// - upfirdn2d_large_phase_kernel, at down 1 (up <= 4 on x, at most 16 taps
+//   in a phase's row and at least 4 rows: both calls of the metrics). An
+//   FMA fed from shared memory twice (a tap and an input, as the generic
+//   kernel does) runs at a quarter of the FMA rate at best. Here the block stages the taps
+//   phase-major (each phase's sub-filter contiguous, rows padded to a
+//   multiple of 4), and a lane keeps a 4 x 4 block of outputs of one phase
+//   in registers: each staged input it loads feeds up to 16 FMAs and each
+//   tap (a float4 of 4, broadcast to the warp) 4, ~0.1 shared loads an FMA.
+//   The outputs of a row phase go through shared memory to coalesced
+//   stores. Each output's taps are summed in the generic kernel's order
+//   (rows, then columns, ascending; fmaf from 0), so it equals that
+//   kernel's output bit for bit.
+// - upfirdn2d_large_kernel, any other large filter (down > 1, or a phase
+//   beyond those bounds): the generic kernel's tiles with the staged taps,
+//   each output walking its phase's.
 //
 // All accumulate in f32 and round once to the input's dtype.
 #include "common.cuh"
@@ -604,6 +619,244 @@ cudaError_t launch_large(const void* x, void* y, int NC, int H, int W, int OH, i
   return cudaGetLastError();
 }
 
+// ---- more than MAX_TAPS taps at down 1: the phase-blocked large-filter kernel ----
+//
+// Output (oy, ox) of phase (py, px) = (oy mod upy, ox mod upx) within the
+// block's tile sums the taps f[a0 + upy j][b0 + upx i] of its phase against
+// input (iy + j, ix + i), where (iy, ix) steps by one from one output of
+// the phase to the next. A lane owns LB_RY x LB_RC outputs of one phase
+// (rows and columns of the phase's subgrid), for each of the upx column
+// phases in turn. Per window row q it loads its 4 + nI - 1 staged inputs as
+// float4s once, and each tap row j = q - r feeds output row r: a tap, read
+// as a float4 of 4 with every lane of the warp on the same address, feeds
+// LB_RC FMAs, and an input LB_RC x LB_RY.
+constexpr int LB_WARPS = 4;                  // warps a block
+constexpr int LB_RY = 4, LB_RC = 4;          // a lane's outputs of one phase: rows x columns
+constexpr int LB_LY = 4, LB_LX = 8;          // a warp's lanes: rows x columns
+constexpr int LB_SUB_H = LB_RY * LB_LY;      // phase rows of a warp's job
+constexpr int LB_SUB_W = LB_RC * LB_LX;      // phase columns of a block
+constexpr int LB_MAX_UPX = 4, LB_MAX_NI = 16;
+
+// A lane's window of one staged row: 4 NCH + 4 inputs from its first
+// column, as float4s (LB_RC + nI - 1 <= 4 NCH + 3 of them are read)
+template <int NCH>
+__device__ __forceinline__ void load_window(float (&w)[4 * NCH + 4], const float* row) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int k = 0; k <= NCH; ++k) {
+    const float4 v = r4[k];
+    w[4 * k] = v.x, w[4 * k + 1] = v.y, w[4 * k + 2] = v.z, w[4 * k + 3] = v.w;
+  }
+}
+
+// One output row of a lane's block against one window row: the tap row tj
+// (nI = 4 (NCH - 1) + rem taps), column i feeding the LB_RC outputs from
+// window element c + i, in the tap order of the generic kernel
+template <int NCH>
+__device__ __forceinline__ void fma_row(float (&acc)[LB_RC], const float (&w)[4 * NCH + 4],
+                                        const float* tj, int rem) {
+  const float4* t4 = reinterpret_cast<const float4*>(tj);
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
+    const float4 v = t4[k];
+    const float t[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+      if (k < NCH - 1 || ii < rem) {
+#pragma unroll
+        for (int c = 0; c < LB_RC; ++c) acc[c] = fmaf(t[ii], w[c + 4 * k + ii], acc[c]);
+      }
+  }
+}
+
+// NCH: chunks of 4 taps in a phase's tap row (nI <= 4 NCH; chunks below the
+// last are full in every phase). Taps in shared memory, phase-major:
+// [upy][upx][nJmax][4 NCH], zero past the filter; the input window staged
+// as f32 (zero outside the image) in upx > 1 ? 2 : 1 copies, the second
+// shifted by one column so that every phase's window starts 16-byte
+// aligned; each warp's outputs of one row phase go through its own rows
+// of shared memory to coalesced stores. Every phase has nJ >= LB_RY tap
+// rows (large_phase), so window rows LB_RY - 1 .. nJ - 1 feed all of a
+// lane's output rows, without a branch. UP1: up 1 on x (one column phase,
+// one staged copy); there the 4 outputs of a lane's row are adjacent and,
+// where the rows allow it (direct: a multiple of 4 outputs, an aligned y),
+// go out as one vector store (a warp's 8 lanes of a row 128 contiguous
+// bytes in f32) without the staged rows, and six blocks an SM share its
+// registers (the 11x11's small tiles need the blocks; at up 4 EQ-R's
+// shared memory holds four, and the registers go to the loop).
+template <typename T, int NCH, bool UP1>
+__global__ void __launch_bounds__(LB_WARPS * 32, UP1 ? 6 : 4) upfirdn2d_large_phase_kernel(
+    const T* __restrict__ x, T* __restrict__ y, int H, int W, int OH, int OW, int upx_,
+    int upy, int px0, int py0, int fw, int fh, const float* __restrict__ f, int nbands,
+    int direct) {
+  const int upx = UP1 ? 1 : upx_;
+  constexpr int NIP = 4 * NCH, TWS = LB_SUB_W + 4 * NCH;
+  static_assert(TWS <= 64, "a lane stages two columns of a window row");
+  extern __shared__ __align__(16) float smem[];
+  const int nJmax = (fh + upy - 1) / upy;
+  const int PH = LB_SUB_H * nbands, th = PH + nJmax, ncopy = UP1 ? 1 : 2;
+  const int SO = LB_SUB_W * upx + 1;         // a staged output row (+1: fewer conflicts)
+  float* taps = smem;
+  float* tile = taps + upy * upx * nJmax * NIP;
+  float* outs = tile + ncopy * th * TWS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long nc = blockIdx.z;
+  const int oy0 = blockIdx.y * PH * upy, ox0 = blockIdx.x * LB_SUB_W * upx;
+  // the window's first input: the least over the phases, ceil((o0 - p0) / up)
+  const int iy0 = -floor_div(py0 - oy0, upy), ix0 = -floor_div(px0 - ox0, upx);
+
+  for (int ph = warp; ph < upy * upx; ph += LB_WARPS) {
+    const int py = ph / upx, px = ph - py * upx;
+    const int a0 = floor_mod(py0 - py, upy), b0 = floor_mod(px0 - px, upx);
+    float* dst = taps + ph * nJmax * NIP;
+    for (int e = lane; e < nJmax * NIP; e += 32) {
+      const int j = e / NIP, i = e - j * NIP;
+      const int a = a0 + upy * j, b = b0 + upx * i;
+      dst[e] = a < fh && b < fw ? f[a * fw + b] : 0.f;
+    }
+  }
+  // lane L stages columns L and L + 32 of each row of each copy
+  const T* src = x + nc * H * W;
+  for (int k = 0; k < ncopy; ++k) {
+    const int xa = ix0 + k + lane, xb = xa + 32;
+    const bool va = xa >= 0 && xa < W, has_b = lane + 32 < TWS, vb = has_b && xb >= 0 && xb < W;
+    for (int row = warp; row < th; row += LB_WARPS) {
+      const int iy = iy0 + row;
+      const bool in_y = iy >= 0 && iy < H;
+      const T* srow = src + (long long)(in_y ? iy : 0) * W;
+      float* drow = tile + (k * th + row) * TWS;
+      drow[lane] = in_y && va ? to_f(srow[xa]) : 0.f;
+      if (has_b) drow[lane + 32] = in_y && vb ? to_f(srow[xb]) : 0.f;
+    }
+  }
+  __syncthreads();
+
+  const int ly = lane / LB_LX, lx = lane % LB_LX;
+  float* ow = outs + warp * LB_SUB_H * SO;
+  T* dst = y + nc * OH * OW;
+  for (int job = warp; job < upy * nbands; job += LB_WARPS) {
+    const int py = job % upy, band = job / upy;
+    const int a0 = floor_mod(py0 - py, upy);
+    const int nJ = (fh - a0 + upy - 1) / upy;
+    const int dy = (oy0 + py + a0 - py0) / upy - iy0;   // 0 or 1
+    const int row0 = dy + band * LB_SUB_H + ly * LB_RY;
+    for (int px = 0; px < upx; ++px) {
+      const int b0 = floor_mod(px0 - px, upx);
+      const int nI = (fw - b0 + upx - 1) / upx;
+      const int rem = nI - 4 * (NCH - 1);                // taps of the last chunk, 0..4
+      const int dx = (ox0 + px + b0 - px0) / upx - ix0;  // 0 or 1: the copy
+      const float* win = tile + (dx * th + row0) * TWS + LB_RC * lx;
+      const float* tp = taps + (py * upx + px) * nJmax * NIP;
+      float acc[LB_RY][LB_RC];
+#pragma unroll
+      for (int r = 0; r < LB_RY; ++r)
+#pragma unroll
+        for (int c = 0; c < LB_RC; ++c) acc[r][c] = 0.f;
+      // window row q feeds output row r with tap row q - r: rows ascending
+      // for each output, as the generic kernel sums them
+      float w[4 * NCH + 4];
+#pragma unroll
+      for (int q = 0; q < LB_RY - 1; ++q) {   // output rows 0..q
+        load_window<NCH>(w, win + q * TWS);
+#pragma unroll
+        for (int r = 0; r <= q; ++r) fma_row<NCH>(acc[r], w, tp + (q - r) * NIP, rem);
+      }
+      for (int q = LB_RY - 1; q < nJ; ++q) {  // every output row
+        load_window<NCH>(w, win + q * TWS);
+#pragma unroll
+        for (int r = 0; r < LB_RY; ++r) fma_row<NCH>(acc[r], w, tp + (q - r) * NIP, rem);
+      }
+#pragma unroll
+      for (int t = 0; t < LB_RY - 1; ++t) {   // output rows t + 1..
+        const int q = nJ + t;
+        load_window<NCH>(w, win + q * TWS);
+#pragma unroll
+        for (int r = t + 1; r < LB_RY; ++r) fma_row<NCH>(acc[r], w, tp + (q - r) * NIP, rem);
+      }
+      if (UP1 && direct) {   // px 0 only
+        const int ox = ox0 + LB_RC * lx;
+#pragma unroll
+        for (int r = 0; r < LB_RY; ++r) {
+          const int oy = oy0 + py + upy * (band * LB_SUB_H + ly * LB_RY + r);
+          if (oy < OH && ox < OW)
+            store4(dst + (long long)oy * OW + ox,
+                   make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
+        }
+        continue;
+      }
+#pragma unroll
+      for (int r = 0; r < LB_RY; ++r)
+#pragma unroll
+        for (int c = 0; c < LB_RC; ++c)
+          ow[(ly * LB_RY + r) * SO + px + upx * (LB_RC * lx + c)] = acc[r][c];
+    }
+    if (UP1 && direct) continue;
+    __syncwarp();
+    for (int s = 0; s < LB_SUB_H; ++s) {
+      const int oy = oy0 + py + upy * (band * LB_SUB_H + s);
+      if (oy >= OH) break;
+      for (int col = lane; col < LB_SUB_W * upx; col += 32)
+        if (ox0 + col < OW) dst[(long long)oy * OW + ox0 + col] = from_f<T>(ow[s * SO + col]);
+    }
+    __syncwarp();
+  }
+}
+
+// the phase-blocked kernel's geometry, or false where it does not take the
+// call (ops/upfirdn2d.py:large_phase_geometry decides alike)
+struct LargePhase { int nch, nbands; size_t smem; };
+
+inline bool large_phase(int upx, int upy, int downx, int downy, int fw, int fh,
+                        LargePhase& g) {
+  if (downx != 1 || downy != 1 || upx > LB_MAX_UPX) return false;
+  const int nImax = (fw + upx - 1) / upx, nJmax = (fh + upy - 1) / upy;
+  if (nImax > LB_MAX_NI || fh / upy < LB_RY) return false;   // fh / upy: the least nJ
+  g.nch = (nImax + 3) / 4;
+  g.nbands = upy >= LB_WARPS ? 1 : (LB_WARPS + upy - 1) / upy;
+  const size_t th = (size_t)LB_SUB_H * g.nbands + nJmax, tws = LB_SUB_W + 4 * g.nch;
+  g.smem = sizeof(float) * ((size_t)upy * upx * nJmax * 4 * g.nch
+                            + (upx > 1 ? 2 : 1) * th * tws
+                            + (size_t)LB_WARPS * LB_SUB_H * (LB_SUB_W * upx + 1));
+  return g.smem <= 227 * 1024;
+}
+
+template <typename T, int NCH>
+cudaError_t launch_large_phase_nch(const void* x, void* y, int NC, int H, int W, int OH,
+                                   int OW, int upx, int upy, int px0, int py0, int fw, int fh,
+                                   const float* f, const LargePhase& g, cudaStream_t s) {
+  const auto kernel = upx == 1 ? upfirdn2d_large_phase_kernel<T, NCH, true>
+                               : upfirdn2d_large_phase_kernel<T, NCH, false>;
+  if (g.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((OW + LB_SUB_W * upx - 1) / (LB_SUB_W * upx),
+                  (OH + LB_SUB_H * g.nbands * upy - 1) / (LB_SUB_H * g.nbands * upy), NC);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const int direct = upx == 1 && OW % 4 == 0 && aligned4<T>(y);
+  kernel<<<grid, LB_WARPS * 32, g.smem, s>>>(static_cast<const T*>(x), static_cast<T*>(y),
+                                             H, W, OH, OW, upx, upy, px0, py0, fw, fh, f,
+                                             g.nbands, direct);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_large_phase(const void* x, void* y, int NC, int H, int W, int OH, int OW,
+                               int upx, int upy, int px0, int py0, int fw, int fh,
+                               const float* f, const LargePhase& g, cudaStream_t s) {
+#define P3D_LP(N)                                                                          \
+  return launch_large_phase_nch<T, N>(x, y, NC, H, W, OH, OW, upx, upy, px0, py0, fw, fh, f, \
+                                      g, s)
+  switch (g.nch) {
+    case 1: P3D_LP(1);
+    case 2: P3D_LP(2);
+    case 3: P3D_LP(3);
+    default: P3D_LP(4);
+  }
+#undef P3D_LP
+}
+
 // ---- up=2, down=1, 4x4 filter: the polyphase kernel ----
 
 constexpr int STRIP = 16;   // pair-rows per warp
@@ -747,8 +1000,10 @@ cudaError_t dispatch_up2(const void* x, void* y, int NC, int H, int W, int OH, i
 // x: [NC, H, W] (f32 or bf16), y: [NC, OH, OW] in the same dtype; f: fh*fw
 // host floats (<= 64 taps), already flipped and gained (the kernel
 // correlates); a filter of more than 64 taps comes instead as f_dev, fh*fw
-// floats on the device (f is then null) and runs the large-filter kernel. Padding px0/py0 is relative to the zero-inserted image and
-// may be negative (a crop); px1/py1 enter only through OH/OW. NC <= 65535.
+// floats on the device (f is then null) and runs the phase-blocked
+// large-filter kernel where it takes the call (large_phase), else the tiled
+// one. Padding px0/py0 is relative to the zero-inserted image and may be
+// negative (a crop); px1/py1 enter only through OH/OW. NC <= 65535.
 // phase_taps / phase_src: the polyphase table of an up=2, down=1, 4x4 call
 // (ops/upfirdn2d.py:k4_plan): 16 taps [ry][rx][j][i] and the source offsets
 // (sy0, sy1, sx0, sx1), whose two phases are equal or one apart for 4 taps.
@@ -767,6 +1022,14 @@ PANIC3D_EXPORT int upfirdn2d(const void* x, void* y, int dtype, int NC, int H, i
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fw * fh > MAX_TAPS) {
     if (f_dev == nullptr) return (int)cudaErrorInvalidValue;
+    LargePhase g;
+    if (large_phase(upx, upy, downx, downy, fw, fh, g)) {
+      if (dtype == DT_BF16)
+        return (int)launch_large_phase<__nv_bfloat16>(x, y, NC, H, W, OH, OW, upx, upy, px0,
+                                                      py0, fw, fh, f_dev, g, s);
+      return (int)launch_large_phase<float>(x, y, NC, H, W, OH, OW, upx, upy, px0, py0, fw,
+                                            fh, f_dev, g, s);
+    }
     if (dtype == DT_BF16)
       return (int)launch_large<__nv_bfloat16>(x, y, NC, H, W, OH, OW, upx, upy, downx, downy,
                                               px0, py0, fw, fh, f_dev, s);

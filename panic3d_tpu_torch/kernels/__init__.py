@@ -88,6 +88,11 @@ KERNELS = {
             "panic3d_tpu/models/triplane.py:730",
         ),
         Kernel(
+            "paste_front_occ",
+            "panic3d_tpu_torch/csrc/paste_front.cu",
+            "panic3d_tpu/models/triplane.py:730",
+        ),
+        Kernel(
             "point_mesh_distance",
             "panic3d_tpu_torch/csrc/mesh_distance.cu",
             "panic3d_tpu/eval/mesh_metrics.py:61",

@@ -13,8 +13,9 @@ D > 1, as the JAX package fails there, ROADMAP F12) and the precomputed inputs
 ``_planes``, ``_skip_sr``, ``_ess_occ``, ``_occ_vol`` (``_rays_z_aligned``
 is accepted and changes nothing: the JAX package's z-aligned gather is a
 TPU row trick, bit-equal to the plain render). Kernel K8
-(csrc/paste_front.cu) does paste-front's per-pixel work; its wrapper sits
-here beside its plain version.
+(csrc/paste_front.cu) does paste-front's per-pixel work, on the card with
+the grid occlusion's read of the volume in the same launch; its wrappers
+sit here beside their plain versions.
 Not ported yet (raise NotImplementedError): per-slot z+ latents (``zs``)
 and latent injection.
 """
@@ -345,21 +346,15 @@ class TriPlaneGenerator(nn.Module):
 
     # -- paste-front compositing (triplane.py:626-815) ------------------------
 
-    def _get_front_occlusion_grid(self, x, out, offset=0.01):
-        """Front occlusion from the per-portrait volume (triplane.py:657):
-        the total +z opacity past each surface point, [N,1,H,W]."""
-        rk = self.rk
+    def _front_occlusion_vol(self, x):
+        """The per-portrait occlusion volume of the grid occlusion
+        (triplane.py:657): ``x['_occ_vol']``, else made from the planes."""
         vol = x.get("_occ_vol")
         if vol is None:
             vol = self.front_occlusion_volume(
                 x["triplane"], triplane_crop=x.get("triplane_crop"),
                 cull_clouds=x.get("cull_clouds"), binarize_clouds=x.get("binarize_clouds"))
-        p = out["image_xyz"] * constant(_XYZ_FLIP, self.device)[None, :, None, None]   # plane-space xyz
-        N, _, H, W = p.shape
-        pts = p.reshape(N, 3, -1).transpose(1, 2)
-        seg_len = float(rk["ray_end"]) - float(rk["ray_start"])
-        occ = vlat.sample_front_occlusion(vol, pts, offset, seg_len)
-        return occ.transpose(1, 2).reshape(N, 1, H, W)
+        return vol
 
     def _get_front_occlusion(self, x, out, offset=0.01, noise_mode="const"):
         """Front occlusion by a re-render along +z from each surface point
@@ -408,22 +403,29 @@ class TriPlaneGenerator(nn.Module):
                     noise_mode="const", **kwargs):
         """Project the conditioning front view onto the render where the
         surface faces the front camera unoccluded (triplane.py:730). The
-        64^2 inputs (occlusion, xyz discrepancy) are plain torch; the
-        per-pixel masks, projection and blend are kernel K8."""
+        per-pixel masks, projection and blend are kernel K8. With the grid
+        occlusion on the card, K8's paste_front_occ entry also reads the
+        occlusion volume and the discrepancy at the render's pixels in the
+        same launch; elsewhere those r^2 maps are plain torch (the grid's
+        read through K7b's sampler) and K8 takes them."""
         bw = self.rk["box_warp"]
         front_rgb = x["cond"]["image_ortho_front"]
         size = out["image"].shape[-1]
         if front_rgb.shape[-1] != size:
             front_rgb = resize_bilinear(front_rgb, size)
+        grid = occ_impl == "grid" and isinstance(self.rk["ray_start"], (int, float))
+        fused = grid and out["image"].device.type == "cuda"
+        seg_len = float(self.rk["ray_end"]) - float(self.rk["ray_start"]) if grid else None
         with torch.no_grad():
-            if occ_impl == "grid" and isinstance(self.rk["ray_start"], (int, float)):
+            if grid:
                 vr.refuse_deep("paste_front with occ_impl='grid'", self.triplane_depth)
-                occ = self._get_front_occlusion_grid(x, out, offset=offset_occ)
-            else:
-                occ = self._get_front_occlusion(x, out, offset=offset_occ,
-                                                noise_mode=noise_mode)
-            occ_bin = (occ < thresh_occ).to(torch.float32)
-            dxyz = self._get_xyz_discrepancy(out["image_xyz"], x["force_rays"])
+                vol = self._front_occlusion_vol(x)
+            if not fused:
+                occ = (front_occlusion_grid(vol, out["image_xyz"], offset_occ, seg_len) if grid
+                       else self._get_front_occlusion(x, out, offset=offset_occ,
+                                                      noise_mode=noise_mode))
+                occ_bin = (occ < thresh_occ).to(torch.float32)
+                dxyz = self._get_xyz_discrepancy(out["image_xyz"], x["force_rays"])
             frontw = fwmask = None
             if front_weight_erosion >= 1:
                 frontw = self._get_front_weights(x, noise_mode=noise_mode)
@@ -434,11 +436,29 @@ class TriPlaneGenerator(nn.Module):
             tocopy = front_rgb if not x["normalize_images"] else front_rgb * 2 - 1
         else:
             tocopy = force_image
-        ans = paste_composite(out["image"], tocopy, out["image_weights"], out["image_xyz"],
-                              occ_bin, dxyz, bw, thresh_weight, thresh_edges, thresh_dxyz,
-                              fwmask)
+        if fused:
+            ans = paste_composite_occ_kernel(
+                out["image"], tocopy, out["image_weights"], out["image_xyz"], vol,
+                x["force_rays"], bw, offset_occ, seg_len, thresh_occ, thresh_weight,
+                thresh_edges, thresh_dxyz, fwmask)
+        else:
+            ans = paste_composite(out["image"], tocopy, out["image_weights"], out["image_xyz"],
+                                  occ_bin, dxyz, bw, thresh_weight, thresh_edges, thresh_dxyz,
+                                  fwmask)
         ans["frontweight"] = frontw
         return ans
+
+
+def front_occlusion_grid(vol, xyz, offset: float, seg_len: float, sample=None):
+    """The grid occlusion at each render pixel (triplane.py:657): the total
+    +z opacity past each plane-space surface point (image_xyz [N,3,H,W] x
+    (-1, 1, -1)) read from the per-portrait volume by ``sample`` (K7b's
+    sampler, vlat.sample_front_occlusion, by default) -> [N,1,H,W]."""
+    p = xyz * constant(_XYZ_FLIP, xyz.device)[None, :, None, None]
+    N, _, H, W = p.shape
+    pts = p.reshape(N, 3, -1).transpose(1, 2)
+    occ = (sample or vlat.sample_front_occlusion)(vol, pts, offset, seg_len)
+    return occ.transpose(1, 2).reshape(N, 1, H, W)
 
 
 # ---------------------------------------------------------------------------
@@ -601,6 +621,37 @@ def paste_composite_tiled(image, front, weights, xyz, occ_bin, dxyz, bw: float,
 
 _K8_ARGS = ((kb.PTR,) * 2 + (kb.INT,) * 3 + (kb.PTR,) * 5 + (kb.PTR,) * 7 + (kb.INT,) * 3
             + (kb.FLOAT,) * 6 + (kb.PTR,))
+_K8_OCC_ARGS = ((kb.PTR,) * 2 + (kb.INT,) * 3 + (kb.PTR,) * 3 + (kb.LONG, kb.PTR)
+                + (kb.INT,) * 3 + (kb.PTR,) * 10 + (kb.INT,) * 3 + (kb.FLOAT,) * 11 + (kb.PTR,))
+K8_OUTPUTS = ("image", "paste", "mask", "mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
+
+
+def _k8_operands(image, front, maps, fwmask):
+    """K8's checks, and its operands as contiguous f32 tensors: the image
+    [N,C,S,S], the front image [N,C,Hf,Wf], ``maps`` ((tensor, channels),
+    ...) each [N,channels,r,r], fwmask [N,1,S,S] or None; and its outputs,
+    allocated. -> (image, front, maps, fwmask, outputs)."""
+    dev = image.device
+    image = image.to(torch.float32).contiguous()
+    N, _, S, S2 = image.shape
+    vr._require(S == S2, "K8 takes square images")
+    C = front.shape[1]
+    vr._require(C == image.shape[1] and front.shape[0] == N and front.device == dev,
+                "K8 front must be [N,C,Hf,Wf] with the image's N and C, on its device")
+    r = maps[0][0].shape[-1]
+    ins = []
+    for t_, ch in maps:
+        vr._require(tuple(t_.shape) == (N, ch, r, r) and t_.device == dev,
+                    f"K8 takes [N,{ch},r,r] maps on the image's device")
+        ins.append(t_.to(torch.float32).contiguous())
+    if fwmask is not None:
+        vr._require(tuple(fwmask.shape) == (N, 1, S, S), "K8 fwmask must be [N,1,S,S]")
+        fwmask = fwmask.to(torch.float32).contiguous()
+    out = {"image": torch.empty_like(image),
+           "paste": torch.empty((N, C, S, S), dtype=torch.float32, device=dev)}
+    for k in K8_OUTPUTS[2:]:
+        out[k] = torch.empty((N, 1, S, S), dtype=torch.float32, device=dev)
+    return image, front.to(torch.float32).contiguous(), ins, fwmask, out
 
 
 def paste_composite_kernel(image, front, weights, xyz, occ_bin, dxyz, bw: float,
@@ -608,36 +659,71 @@ def paste_composite_kernel(image, front, weights, xyz, occ_bin, dxyz, bw: float,
                            fwmask=None):
     """Launch K8 on CUDA tensors: same contract as paste_composite_plain."""
     require_no_grad("paste_front", image, front, weights, xyz, occ_bin, dxyz, fwmask)
-    dev = image.device
-    image = image.to(torch.float32).contiguous()
-    N, _, S, S2 = image.shape
-    vr._require(S == S2, "K8 takes square images")
-    C, Hf, Wf = front.shape[1:]
-    vr._require(C == image.shape[1] and front.shape[0] == N and front.device == dev,
-                "K8 front must be [N,C,Hf,Wf] with the image's N and C, on its device")
-    r = weights.shape[-1]
-    ins = [front.to(torch.float32).contiguous()]
-    for t_, ch in ((weights, 1), (xyz, 3), (occ_bin, 1), (dxyz, 1)):
-        vr._require(tuple(t_.shape) == (N, ch, r, r) and t_.device == dev,
-                    f"K8 takes [N,{ch},r,r] maps on the image's device")
-        ins.append(t_.to(torch.float32).contiguous())
-    if fwmask is not None:
-        vr._require(tuple(fwmask.shape) == (N, 1, S, S), "K8 fwmask must be [N,1,S,S]")
-        ins.append(fwmask.to(torch.float32).contiguous())
-    out = {"image": torch.empty_like(image),
-           "paste": torch.empty((N, C, S, S), dtype=torch.float32, device=dev)}
-    for k in ("mask", "mask_weights", "mask_edges", "mask_occ", "mask_dxyz"):
-        out[k] = torch.empty((N, 1, S, S), dtype=torch.float32, device=dev)
+    image, front, maps, fwmask, out = _k8_operands(
+        image, front, ((weights, 1), (xyz, 3), (occ_bin, 1), (dxyz, 1)), fwmask)
+    (N, C, S, _), r = image.shape, maps[0].shape[-1]
     kb.launch(
-        "paste_front", _K8_ARGS, image.data_ptr(), ins[0].data_ptr(), C, Hf, Wf,
-        *(t_.data_ptr() for t_ in ins[1:5]),
-        ins[5].data_ptr() if fwmask is not None else None,
-        *(out[k].data_ptr() for k in ("image", "paste", "mask", "mask_weights", "mask_edges",
-                                      "mask_occ", "mask_dxyz")),
+        "paste_front", _K8_ARGS, image.data_ptr(), front.data_ptr(), C, *front.shape[2:],
+        *(t_.data_ptr() for t_ in maps), fwmask.data_ptr() if fwmask is not None else None,
+        *(out[k].data_ptr() for k in K8_OUTPUTS),
         N, S, r, float(bw), float(thresh_weight), float(thresh_edges), float(thresh_dxyz),
         float(r / S), float(r / S), vr._stream(image))
     KERNELS["paste_front"].launches += 1
     out["mask_frontweight"] = torch.ones_like(out["mask"]) if fwmask is None else fwmask
+    return out
+
+
+def _occlusion_sample_plain(vol, pts, offset: float, seg_len: float):
+    return vlat.occlusion_sample_plain(vol["A"], vol["density0"], pts.contiguous(),
+                                       vol["box_warp"], offset, seg_len)
+
+
+def paste_composite_occ_plain(image, front, weights, xyz, vol, rays, bw: float,
+                              offset_occ: float, seg_len: float, thresh_occ: float,
+                              thresh_weight: float, thresh_edges: float, thresh_dxyz: float,
+                              fwmask=None):
+    """paste_front with the grid occlusion from the r^2 render on (the plain
+    version of K8's paste_front_occ entry): the grid occlusion read by K7b's
+    plain sampler and thresholded, the xyz discrepancy from ``rays`` (the
+    force_rays, [N,3,r,r] origins and directions), then
+    paste_composite_plain. Same outputs as paste_composite_plain."""
+    occ = front_occlusion_grid(vol, xyz, offset_occ, seg_len, _occlusion_sample_plain)
+    occ_bin = (occ < thresh_occ).to(torch.float32)
+    dxyz = TriPlaneGenerator._get_xyz_discrepancy(xyz, rays)
+    return paste_composite_plain(image, front, weights, xyz, occ_bin, dxyz, bw, thresh_weight,
+                                 thresh_edges, thresh_dxyz, fwmask)
+
+
+def paste_composite_occ_kernel(image, front, weights, xyz, vol, rays, bw: float,
+                               offset_occ: float, seg_len: float, thresh_occ: float,
+                               thresh_weight: float, thresh_edges: float, thresh_dxyz: float,
+                               fwmask=None):
+    """Launch K8's paste_front_occ entry on CUDA tensors: same contract as
+    paste_composite_occ_plain."""
+    A, ro, rd = vol["A"], rays["ray_origins"], rays["ray_directions"]
+    require_no_grad("paste_front_occ", image, front, weights, xyz, A, ro, rd, fwmask)
+    image, front, maps, fwmask, out = _k8_operands(
+        image, front, ((weights, 1), (xyz, 3), (ro, 3), (rd, 3)), fwmask)
+    (N, C, S, _), r, dev = image.shape, maps[0].shape[-1], image.device
+    vr._require(r <= S, "K8's grid occlusion takes a render no larger than the image")
+    # A may be one portrait's volume broadcast over a view batch (stride 0)
+    vr._require(A.dtype == torch.float32 and A.shape[0] == N and A[0].is_contiguous()
+                and A.device == dev, "K8 A must be f32 [N,Gx,Gy,Gz] volumes, each contiguous")
+    d0 = torch.as_tensor(vol["density0"], dtype=torch.float32, device=dev).reshape(1)
+    box = float(vol["box_warp"])
+    kb.launch(
+        "paste_front_occ", _K8_OCC_ARGS, image.data_ptr(), front.data_ptr(), C,
+        *front.shape[2:], maps[0].data_ptr(), maps[1].data_ptr(), A.data_ptr(), A.stride(0),
+        d0.data_ptr(), *A.shape[1:], maps[2].data_ptr(), maps[3].data_ptr(),
+        fwmask.data_ptr() if fwmask is not None else None,
+        *(out[k].data_ptr() for k in K8_OUTPUTS),
+        N, S, r, float(bw), float(thresh_weight), float(thresh_edges), float(thresh_dxyz),
+        float(r / S), float(r / S), 2.0 / box, box / 2, float(offset_occ), float(seg_len),
+        float(thresh_occ), vr._stream(image))
+    KERNELS["paste_front_occ"].launches += 1
+    # no front-weight mask: ones, as a view of a cached constant (no launch)
+    out["mask_frontweight"] = (constant((1.0,), dev).expand(N, 1, S, S) if fwmask is None
+                               else fwmask)
     return out
 
 

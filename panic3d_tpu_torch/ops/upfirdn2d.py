@@ -13,7 +13,10 @@ discriminator's downsample2d) the "down2" form, and at up = down = 1
 (conv2d_resample's filter pass before a strided conv) the "fir4" form, one
 kernel. A filter of more than 64 taps (the
 equivariance metrics' 47x47 and 11x11 resampling filters, new for every
-random angle) is not cached: it goes to the kernel as a device buffer.
+random angle) is not cached: it goes to the kernel as a device buffer, to
+the phase-blocked large-filter kernel ("large") where
+``large_phase_geometry`` says it takes the call, else to the tiled one
+("large_tiled").
 """
 
 from __future__ import annotations
@@ -118,9 +121,9 @@ class K4Plan(NamedTuple):
     (csrc/upfirdn2d.cu decides alike, from the same arguments): "up2" (the
     polyphase kernel), "down2" or "fir4" (the 4x4 form: a 4x4 filter at up
     1 and down 2, or down 1, on both axes), "row" or "column" (a filter of
-    one row, else of one column, at up = down = 1), "generic", or "large" (a
-    filter of more than MAX_TAPS taps, read from a device buffer: no taps
-    here)."""
+    one row, else of one column, at up = down = 1), "generic", or "large" /
+    "large_tiled" (a filter of more than MAX_TAPS taps, read from a device
+    buffer, no taps here: the phase-blocked kernel, else the tiled one)."""
     variant: str
     taps: Optional[ctypes.Array]
     phase_taps: Optional[tuple]   # [ry][rx][j][i]: the tap of x[m+sy[ry]+j, n+sx[rx]+i]
@@ -157,16 +160,51 @@ def _plan(taps: tuple, fh: int, fw: int, up: tuple, down: tuple, pad: tuple) -> 
 
 
 _LARGE = K4Plan("large", None, None, None, None, None)
+_LARGE_TILED = K4Plan("large_tiled", None, None, None, None, None)
+
+# upfirdn2d_large_phase_kernel's blocking (csrc/upfirdn2d.cu: LB_*): warps a
+# block, a lane's output rows, a warp's job of 16 phase rows x 32 phase
+# columns, the most column phases and taps of a phase's row it takes
+LB_WARPS, LB_RY, LB_SUB_H, LB_SUB_W, LB_MAX_UPX, LB_MAX_NI = 4, 4, 16, 32, 4, 16
+SMEM_MAX = 227 * 1024
+
+
+class LargePhase(NamedTuple):
+    nch: int      # chunks of 4 taps in a phase's tap row
+    nbands: int   # a block's bands of LB_SUB_H phase rows
+    smem: int     # bytes of shared memory a block
+
+
+def large_phase_geometry(fh: int, fw: int, up, down) -> Optional[LargePhase]:
+    """The phase-blocked large-filter kernel's geometry for a call
+    (csrc/upfirdn2d.cu:large_phase), or None where it does not take it
+    (down > 1, up > 4 on x, more than 16 taps in a phase's row or fewer
+    than 4 rows, or more shared memory than a block has): the staged taps
+    [upy][upx][nJ][4 nch],
+    the input window (two copies where up > 1 on x) and each warp's
+    staged output rows."""
+    upx, upy = up
+    if tuple(down) != (1, 1) or upx > LB_MAX_UPX:
+        return None
+    ni, nj = -(-fw // upx), -(-fh // upy)
+    if ni > LB_MAX_NI or fh // upy < LB_RY:   # fh // upy: a phase's fewest tap rows
+        return None
+    nch = -(-ni // 4)
+    nbands = 1 if upy >= LB_WARPS else -(-LB_WARPS // upy)
+    th, tws = LB_SUB_H * nbands + nj, LB_SUB_W + 4 * nch
+    smem = 4 * (upy * upx * nj * 4 * nch + (2 if upx > 1 else 1) * th * tws
+                + LB_WARPS * LB_SUB_H * (LB_SUB_W * upx + 1))
+    return LargePhase(nch, nbands, smem) if smem <= SMEM_MAX else None
 
 
 def k4_plan(f2d, up, down, pad) -> K4Plan:
     """The cached plan of a call (f2d [fh, fw] flipped and gained, up/down
     (x, y) pairs, pad (px0, px1, py0, py1)); a filter of more than MAX_TAPS
-    taps takes the large kernel, with neither a cache entry nor a copy of
-    its taps to the host."""
+    taps takes a large-filter kernel, with neither a cache entry nor a copy
+    of its taps to the host."""
     fh, fw = int(f2d.shape[0]), int(f2d.shape[1])
     if fh * fw > MAX_TAPS:
-        return _LARGE
+        return _LARGE if large_phase_geometry(fh, fw, up, down) else _LARGE_TILED
     taps = tuple(f2d.detach().to("cpu", torch.float32).reshape(-1).tolist())
     return _plan(taps, fh, fw, tuple(up), tuple(down), tuple(pad))
 
@@ -185,7 +223,7 @@ def upfirdn2d_kernel(x, f2d, up, down, pad):
         raise ValueError(f"upfirdn2d: empty output {oh}x{ow}")
     plan = k4_plan(f2d, up, down, pad)
     f_dev = None
-    if plan.variant == "large":   # the taps as a device buffer, copied without a wait
+    if plan.taps is None:   # a large filter: its taps as a device buffer, copied without a wait
         f_dev = (to_device(f2d.detach().numpy(), x.device) if f2d.device.type == "cpu"
                  else f2d.detach().to(x.device, torch.float32).contiguous())
     y = torch.empty((n, c, oh, ow), device=x.device, dtype=x.dtype)

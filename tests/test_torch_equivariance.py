@@ -239,11 +239,12 @@ def test_k4_large_filter_arithmetic():
     # 144 products of values ~1-4 in another order (and the plain version's 2,209)
     np.testing.assert_allclose(got_plain.numpy(), want, rtol=0, atol=1e-5)
     np.testing.assert_allclose(got_kernel.numpy(), want, rtol=0, atol=1e-5)
-    # the plan of a filter beyond 64 taps: the large kernel, its taps neither
-    # cached nor copied to the host
+    # the plan of a filter beyond 64 taps: a large-filter kernel, its taps
+    # neither cached nor copied to the host (the phase-blocked one at 47x47;
+    # an 11x11 at up 4 has 2-3 tap rows a phase, below its 4: the tiled one)
     before = tup._plan.cache_info().currsize
     assert tup.k4_plan(f2d, up, down, pad).variant == "large"
-    assert tup.k4_plan(f2d[:11, :11], up, down, pad).variant == "large"
+    assert tup.k4_plan(f2d[:11, :11], up, down, pad).variant == "large_tiled"
     assert tup._plan.cache_info().currsize == before
     assert tup.k4_plan(f2d[:8, :8], up, down, pad).variant == "generic"
 

@@ -4,7 +4,7 @@ refuses an input that requires grad under grad mode
 
 - the helper raises only with grad mode on and a tensor that requires grad,
   found in nested tuples (the decoder's NamedTuple), lists and dicts;
-- each of the 17 kernel wrappers raises at its first statement when one of
+- each of the 18 kernel wrappers raises at its first statement when one of
   its tensor inputs requires grad, before it checks the device or launches;
 - the plain CPU forward of the tiny config (G.f) still back-propagates to
   the mapping, the backbone and the decoder.
@@ -80,6 +80,11 @@ WRAPPERS = {
     "paste_front": lambda: tp.paste_composite_kernel(
         leaf(1, 3, 8, 8, grad=True), leaf(1, 3, 8, 8), leaf(1, 1, 8, 8), leaf(1, 3, 8, 8),
         leaf(1, 1, 8, 8), leaf(1, 1, 8, 8), 0.7, 0.5, 0.5, 0.5),
+    "paste_front_occ": lambda: tp.paste_composite_occ_kernel(
+        leaf(1, 3, 8, 8), leaf(1, 3, 8, 8), leaf(1, 1, 8, 8), leaf(1, 3, 8, 8),
+        {"A": leaf(1, 4, 4, 4, grad=True), "density0": leaf(1), "box_warp": 0.7},
+        {"ray_origins": leaf(1, 3, 8, 8), "ray_directions": leaf(1, 3, 8, 8)}, 0.7, 0.01, 1.0,
+        0.05, 0.5, 0.5, 0.5),
     "point_mesh_distance": lambda: mm.point_mesh_distance_sq_kernel(
         leaf(5, 3, grad=True), leaf(3, 3), torch.zeros((1, 3), dtype=torch.int32)),
     "winding_number": lambda: gltf.winding_numbers_kernel(
