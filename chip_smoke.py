@@ -105,7 +105,15 @@
    (16 views + 16 xyza PNGs and the mesh pickle; s/portrait and stages),
    measure.main on its output (random CLIP / LPIPS; s/portrait, stages,
    host waits, the table's rows; remove_innards must drop the inner shell),
-   and generate.main --tiny through argparse; then the 15 StyleGAN3-T
+   and generate.main --tiny through argparse; then the checkpoint path
+   (checkpoint_path): the seeded ESS flagship written by the port's own
+   writers as a checkpoint directory of the JAX package's layout and as a
+   reference network-snapshot pickle, with a seeded line filler and
+   ResNet + PCA beside it, each loaded and timed (both loaded generators'
+   state_dicts and ESS + paste views equal the source's bit for bit), the
+   line filler at 512^2 card against CPU (mask flips counted apart), and
+   generate.main --ckpt on the eval tree (s/portrait, stages with rmline,
+   launches with K1-K8 and K1v required); then the 15 StyleGAN3-T
    alias-free layers' forwards at batch 4 (K5, K11), and the equivariance
    metrics EQ-T, EQ-T_frac and EQ-R at 512^2 (64 samples of the toy
    generator in batches of 4, one host wait a batch), each against the same
@@ -185,6 +193,7 @@ HEAD = (0.0, 1.3, 0.0)   # the synthetic GT head's bone
 # profiler traces written and read back: the git-ignored build directory
 BUILD_TMP = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 HEAD_LEVELS = (6, 5)     # its outer and inner shells' icosphere levels
+FLIP_TOL = 1e-5          # the line filler's DoG: a 0.5-threshold flip counts only this close
 
 
 # StyleGAN3's two public 512^2 configurations (NVlabs/stylegan3 train.py:
@@ -2729,6 +2738,204 @@ def eval_cli_path(G, device, card):
     return summary, counts_meas
 
 
+def checkpoint_path(Ge, cond1, device, card, level):
+    """Trained-weight loading and the paper's preprocess on the card, with
+    checkpoints written here under build/ckpt (no weights are in the
+    repository) by the port's own writers: the seeded ESS flagship ``Ge`` as
+    flagship/state.msgpack + config.json (flax's msgpack layout, model_kwargs
+    of family flagship with ESS's rendering kwargs), a seeded RMLineGenerator
+    as rmline/, a seeded ResNet50 with a seeded PCA basis and mean as resnet/
+    (+ pca.npz), and Ge as network-snapshot-000000.pkl in the reference's
+    persistent-pickle layout. Then, each timed: Reconstructor(ckpt=) and
+    the pickle (extract_reference_generator -> generator_config_from_init_
+    kwargs -> load_generator_state) must give Ge's state_dict and its ESS +
+    paste views bit for bit; the line filler on the synthetic 512^2
+    portrait, card against the CPU (convs in f32: cudnn.allow_tf32 is off
+    for the whole run; line-mask pixels that differ counted apart, the DoG
+    flips behind them each within FLIP_TOL of the 0.5 threshold, the filled
+    image within 1e-5 where the masks agree); generate.main --ckpt on the
+    eval CLIs' tree (build/eval_cli, --no-filters at ``level``) after a
+    warm-up run: s/portrait and its stages (rmline included), loading, host
+    waits, launches (K1-K8 and K1v required). -> the summary."""
+    import os
+    import pickle
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from panic3d_tpu_torch import configs
+    from panic3d_tpu_torch.api import Reconstructor
+    from panic3d_tpu_torch.data.databack import DatabackendMinna
+    from panic3d_tpu_torch.eval import generate
+    from panic3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from panic3d_tpu_torch.models.resnet import ResNet50, load_pca_extractor
+    from panic3d_tpu_torch.models.rmlinegan import RMLineGenerator, RMLineWrapper
+    from panic3d_tpu_torch.models.triplane import TriPlaneGenerator
+    from panic3d_tpu_torch.runtime import checkpoint as ck
+    from panic3d_tpu_torch.utils.sketchers import batch_dog
+
+    root = Path(BUILD_TMP) / "ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    summary = {"write_s": {}, "load_s": {}}
+
+    def timed(table, name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        summary[table][name] = time.perf_counter() - t
+        return out
+
+    ess_rk = {k: Ge.rk[k] for k in ("ess", "depth_resolution", "depth_resolution_importance")}
+    timed("write_s", "flagship", lambda: ck.save_checkpoint(
+        str(root / "flagship"), ck.flax_from_state_dict(Ge.state_dict()),
+        {"model_kwargs": {"family": "flagship", "rendering_kwargs": ess_rk}}))
+    timed("write_s", "rmline", lambda: ck.save_checkpoint(
+        str(root / "rmline"), ck.module_variables(RMLineGenerator(device=device).init_weights(SEED))))
+    rng = np.random.RandomState(SEED + 1)
+
+    def write_resnet():
+        ck.save_checkpoint(str(root / "resnet"), ck.module_variables(
+            ResNet50(device=device).init_weights(SEED + 1)))
+        np.savez(root / "resnet" / "pca.npz", components=rng.randn(512, 2048).astype(np.float32),
+                 mean=(0.1 * rng.randn(2048)).astype(np.float32))
+
+    timed("write_s", "resnet", write_resnet)
+    pkl = str(root / "network-snapshot-000000.pkl")
+    timed("write_s", "pickle", lambda: ck.save_reference_pickle(
+        pkl, Ge, configs.flagship_kwargs(eval_mode=True, ess=True)))
+    sizes = {p.name: p.stat().st_size for p in (root / "flagship" / "state.msgpack",
+                                                Path(pkl))}
+
+    # loading: the native directory, the reference pickle, the aux models
+    opts = dict(EVAL_FILTERS, paste_params=generate.INFERENCE_OPTS["paste_params"])
+    rec = timed("load_s", "flagship", lambda: Reconstructor(ckpt=str(root / "flagship"),
+                                                            opts=opts, seed=SEED, device=device))
+
+    def from_pickle():
+        sd, _, kw, extras = ck.extract_reference_generator(pkl)
+        G = TriPlaneGenerator(**ck.generator_config_from_init_kwargs(kw, extras),
+                              force_sigmoid=True).to(device).eval()
+        return ck.load_generator_state(G, sd)
+
+    Gp = timed("load_s", "pickle", from_pickle)
+    args = argparse.Namespace(ckpt=str(root / "flagship"))
+    rmline = timed("load_s", "rmline", lambda: generate._load_rmline(args, device))
+    timed("load_s", "resnet", lambda: load_pca_extractor(str(root / "resnet"), device=device))
+    want = Ge.state_dict()
+    for label, G in (("checkpoint dir", rec.g), ("reference pickle", Gp)):
+        got = G.state_dict()
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        require(set(got) == set(want) and not differ and G.rk == Ge.rk,
+                f"{label}: state_dict or rendering kwargs differ from the source ({differ[:5]})")
+    views = generate.eval_views()
+    pick = [views[i] for i in (0, 3, 4, 10)]   # 2 ortho, 2 perspective
+    angles = [[float(v[j]) for v in pick] for j in (2, 3, 4)]
+    seeded = Reconstructor(model=Ge, opts=opts, seed=SEED)
+    ref = seeded.views(cond1, *angles)
+    require(all(np.array_equal(ref[k], v) for k, v in seeded.views(cond1, *angles).items()),
+            "the seeded flagship's views differ from run to run")
+    for label, r in (("checkpoint dir", rec), ("reference pickle",
+                                                Reconstructor(model=Gp, opts=opts, seed=SEED))):
+        out = r.views(cond1, *angles)
+        errs = {k: float(np.abs(out[k] - ref[k]).max()) for k in ref}
+        require(all(np.array_equal(out[k], ref[k]) for k in ref),
+                f"{label}: ESS + paste views differ from the seeded flagship's: {errs}")
+    print(f"checkpoint path (torch {torch.__version__}): wrote "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in summary["write_s"].items())
+          + " (" + ", ".join(f"{k} {v / 2 ** 20:.1f} MiB" for k, v in sizes.items())
+          + "); loaded " + ", ".join(f"{k} {v:.3f} s" for k, v in summary["load_s"].items())
+          + f"; the directory's and the pickle's generators equal the source's state_dict and "
+          f"its {len(pick)} ESS + paste views bit for bit  [{card}]")
+
+    # the line filler at 512^2: card against the CPU
+    eval_root = Path(BUILD_TMP) / "eval_cli"
+    with open(eval_root / "_data/lustrous/renders/daredemoE/fandom_align_alignment.pkl",
+              "rb") as f:
+        align = pickle.load(f)
+    dk = DatabackendMinna(str(eval_root))
+    bn = next(iter(align))
+    rgb = dk[bn]["image"].bg("w").convert("RGB").t()
+    kpts = generate._aligned_keypoints(align[bn])
+    cpu_wrap = RMLineWrapper(RMLineGenerator(device="cpu").load_variables(
+        ck.load_checkpoint(str(root / "rmline"))[0]))
+    x_dev = torch.from_numpy(rgb)[None].to(device)
+    with torch.no_grad():
+        f_d, m_d, h_d = (t.cpu() for t in rmline(x_dev, kpts))
+        f_c, m_c, h_c = cpu_wrap(torch.from_numpy(rgb)[None], kpts)
+        dog_d = batch_dog(x_dev, t=1.0, sigma=0.5, k=1.6).cpu()
+        dog_c = batch_dog(torch.from_numpy(rgb)[None], t=1.0, sigma=0.5, k=1.6)
+    dog_flips = (dog_d > 0.5) != (dog_c > 0.5)
+    require(bool(((dog_c[dog_flips] - 0.5).abs() <= FLIP_TOL).all()),
+            "line filler: a DoG pixel crossed 0.5 farther than FLIP_TOL from it")
+    mask_diff = m_d != m_c
+    require(int(mask_diff.sum()) <= 4 * int(dog_flips.sum()),
+            f"line filler: {int(mask_diff.sum())} mask pixels differ from "
+            f"{int(dog_flips.sum())} DoG flips")
+    require(torch.equal(h_d, h_c), "line filler: the face hulls differ")
+    agree = ~mask_diff.expand_as(f_c)
+    err = float((f_d - f_c)[agree].abs().max())
+    check("line filler card vs CPU (filled image where the masks agree)", err, 1e-5)
+
+    def fill():
+        out = rmline(x_dev, kpts)
+        torch.cuda.synchronize()
+        return out
+
+    fill()
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        fill()
+        times.append((time.perf_counter() - t) * 1e3)
+    fill_ms = statistics.median(times)
+    stack = torch.zeros((1, 4, 524, 524), device=device)   # 512^2 padded by the depth
+    gen_ms = cuda_ms(lambda: rmline.gen(stack))
+    print(f"line filler at 512^2 (convs f32, cudnn TF32 off): {fill_ms:.3f} ms a portrait "
+          f"(median of 5, host clock, facehull on the host included), generator alone "
+          f"{gen_ms:.3f} ms device; line pixels {float(m_d.mean()):.4f} of the image; card "
+          f"vs CPU: {int(mask_diff.sum())} mask pixels differ from {int(dog_flips.sum())} "
+          f"DoG flips, filled image max err {err:.3e} where they agree  [{card}]")
+    summary["rmline"] = {"ms": fill_ms, "generator_ms": gen_ms, "max_abs_err": err,
+                         "mask_pixels_differ": int(mask_diff.sum()),
+                         "dog_flips": int(dog_flips.sum()), "tf32": False}
+
+    # eval generate from the checkpoint, with the line filler and the ResNet-PCA
+    out = str(root / "evalout")
+    argv = ["--ckpt", str(root / "flagship"), "--data", str(eval_root), "--out", out,
+            "--no-filters", "--level", f"{level}", "--mesh-res", str(MESH_RES),
+            "--device", str(device)]
+    generate.main(argv)   # warm-up
+    reset_launch_counts()
+    stages = {}
+    t = time.perf_counter()
+    generate.main(argv, stages=stages)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    counts = launch_counts()
+    require_launched(counts, ESS_PASTE_KERNELS + ("volume_density",), "generate --ckpt")
+    require_absent(counts, GRID_PASTE_ABSENT, "generate --ckpt")
+    require("rmline" in stages, f"generate --ckpt ran no line filler: stages {stages}")
+    waits = count_syncs(lambda: generate.main(argv))
+    with open(os.path.join(out, bn.replace("fandom_align", "marching_cubes") + ".pkl"),
+              "rb") as f:
+        mc = pickle.load(f)
+    per_portrait = sum(v for k, v in stages.items() if k != "load")
+    print(f"generate.main --ckpt (ESS flagship, rmline/ and resnet/, --no-filters at level "
+          f"{level:.6f}): {per_portrait:.4f} s/portrait + load {stages['load']:.3f} s "
+          f"(run {run_s:.4f} s); stages "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in stages.items())
+          + f"; {len(mc['verts'])} verts, {len(mc['faces'])} faces; host waits per run "
+          f"{waits} (loading included); launches per portrait "
+          + ", ".join(f"{k}={n:g}" for k, n in counts.items() if n) + f"  [{card}]")
+    summary["generate"] = {"s_per_portrait": per_portrait, "run_s": run_s,
+                           "stages_ms": {k: v * 1e3 for k, v in stages.items()},
+                           "host_waits": waits, "mesh_faces": len(mc["faces"]),
+                           "launches": {k: n for k, n in counts.items() if n}}
+    return summary
+
+
 def sass_per_pair(stem: str, kernel: str, op: str, per_pair: int):
     """The static SASS instructions a pair in ``kernel``'s innermost loop that
     holds MUFU instructions, from cuobjdump -sass of csrc/<stem>.cu's build:
@@ -3796,6 +4003,7 @@ def main(argv=None) -> int:
 
         geometry, counts_geom = geometry_path(Ge, device, card, levels)
         eval_cli, counts_eval = eval_cli_path(Ge, device, card)
+        ckpt = checkpoint_path(Ge, cond1, device, card, eval_cli["mesh_level"])
 
         # the alias-free layers (K11), then the equivariance metrics (K4's
         # large-filter form)
@@ -3873,7 +4081,7 @@ def main(argv=None) -> int:
 
     reset_launch_counts()
     paths = {"settings_parity": parity, "ess_paste_per_call": per_call, "turntable": turn,
-             "probe": probe, **deep, **geometry, "eval_cli": eval_cli,
+             "probe": probe, **deep, **geometry, "eval_cli": eval_cli, "checkpoint": ckpt,
              "stylegan3_t_layers": sg3_path, "equivariance": equivariance}
     print(json.dumps({"paths": paths, "card": card}))
     # each kernel's launches on the path that launches it: the ESS + paste

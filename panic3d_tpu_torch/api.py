@@ -1,19 +1,25 @@
 """Library entry point: portrait -> rendered views, turntable, coloured mesh
 (panic3d_tpu/api.py).
 
-    rec = Reconstructor(model=G)            # a port generator with its weights
-    cond = rec.preprocess(portrait_rgb)     # [3,H,W] RGB in [0,1]
-    spin = rec.turntable(cond, n=12)        # [12,3,512,512]
-    mesh = rec.mesh(cond)                   # verts / faces / colors
+    rec = Reconstructor(ckpt="/ckpts/flagship")   # or model=G, or tiny=True
+    cond = rec.preprocess(portrait_rgb, kpts)      # line filler + ResNet-PCA
+    spin = rec.turntable(cond, n=12)               # [12,3,512,512]
+    mesh = rec.mesh(cond)                          # verts / faces / colors
 
-One object owns the generator. Views render from one planes bundle per
-portrait (eval/generate.py), the mesh through eval/volume.py:extract_mesh;
-a deep-plane generator (triplane_depth > 1) takes opts without ESS and
-with paste_params' occ_impl='render' (ROADMAP F12).
-Not ported yet (they raise NotImplementedError): checkpoint loading
-(``ckpt=``), the multi-device ``mesh=`` sharding, and the conditioning
-preprocess's line filler and ResNet-PCA features (``rmline=``, ``resnet=``;
-the extractor itself is models/resnet.py, which eval generate uses).
+One object owns the generator. ``ckpt=`` is a directory of the JAX
+package's native format (``state.msgpack`` of G's variables or of a trainer
+snapshot, whose ``vars_Gema`` is taken, and ``config.json``), rebuilt by
+``configs.from_snapshot_config(eval_mode=True)``. ``rmline=`` takes an
+``RMLineWrapper`` and ``resnet=`` a ``ResnetFeatureExtractorPCA``
+(models/resnet.py:load_pca_extractor); ``preprocess`` applies them. The
+extractor is called as eval generate calls it (generate.py:293): the
+portrait [3,H,W] in [0,1], its first (unflipped) map. The JAX package's
+``preprocess`` passes ``img * 2 - 1`` of shape [1,3,H,W] and fails there
+(ROADMAP F14). Views render from one planes bundle per portrait
+(eval/generate.py), the mesh through eval/volume.py:extract_mesh; a
+deep-plane generator (triplane_depth > 1) takes opts without ESS and with
+paste_params' occ_impl='render' (ROADMAP F12). Not ported yet: the
+multi-device ``mesh=`` sharding (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ import torch
 from . import configs
 from .eval.generate import plane_cache_ok, planes_bundle, render_from_planes
 from .eval.volume import extract_mesh
+from .runtime.checkpoint import (extract_generator_variables, load_checkpoint,
+                                 state_dict_from_flax)
+from .utils.device import to_device
 
 DEFAULT_OPTS = dict(triplane_crop=0.1, cull_clouds=0.5)
 
@@ -34,31 +43,46 @@ class Reconstructor:
     def __init__(self, model=None, tiny: bool = False, view_batch: int = 2,
                  opts: Optional[dict] = None, seed: int = 0, rmline=None, resnet=None,
                  ckpt: Optional[str] = None, mesh=None, device=None):
-        for name, value in (("ckpt", ckpt), ("mesh", mesh), ("rmline", rmline),
-                            ("resnet", resnet)):
-            if value is not None:
-                raise NotImplementedError(f"Reconstructor({name}=...) is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("Reconstructor(mesh=...) is not ported yet")
         self.opts = dict(DEFAULT_OPTS if opts is None else opts)
         self.view_batch = view_batch
         self.seed = seed
+        self.rmline = rmline
+        self.resnet = resnet
         if model is not None:
             self.g = model
         elif tiny:
             self.g = configs.tiny(force_sigmoid=True, device=device).init_weights(seed).eval()
+        elif ckpt:
+            state, config = load_checkpoint(ckpt)
+            self.g = configs.from_snapshot_config(config, eval_mode=True, device=device)
+            self.g.load_state_dict(state_dict_from_flax(extract_generator_variables(state)),
+                                   strict=True)
+            self.g.eval()
         else:
-            raise ValueError("pass model= or tiny=True")
+            raise ValueError("pass ckpt=, model= or tiny=True")
 
     # -- conditioning --------------------------------------------------------
 
     def preprocess(self, image_rgb: np.ndarray, keypoints=None) -> dict:
-        """[3,H,W] RGB in [0,1] -> the G.f ``cond`` dict: the image itself
-        and zero ResNet features (the line filler is not ported yet, and
-        ``resnet=`` is not taken yet)."""
+        """[3,H,W] RGB in [0,1] -> the G.f ``cond`` dict. With ``rmline`` the
+        image is line-filled (``keypoints`` [28,2] required); with
+        ``resnet`` its ResNet-PCA features are taken, else zero features so
+        that the pipeline still runs."""
         dev = self.g.device
-        img = torch.as_tensor(np.asarray(image_rgb, np.float32))[None].to(dev)
+        img = to_device(image_rgb, dev)[None]
         ch = 16 if "reschonk_add_16" in self.g.backbone.synthesis.cond_mode else 512
-        return {"image_ortho_front": img,
-                "resnet_chonk": torch.zeros((1, ch, 8, 8), dtype=torch.float32, device=dev)}
+        filled = img
+        if self.rmline is not None:
+            if keypoints is None:
+                raise ValueError("the line filler needs the portrait's 28 keypoints")
+            filled, _, _ = self.rmline(img, keypoints)
+        if self.resnet is not None:
+            chonk = self.resnet(img[0])[None, 0, :ch].to(torch.float32)
+        else:
+            chonk = torch.zeros((1, ch, 8, 8), dtype=torch.float32, device=dev)
+        return {"image_ortho_front": filled, "resnet_chonk": chonk}
 
     # -- rendering -----------------------------------------------------------
 

@@ -58,6 +58,11 @@ def flagship(eval_mode: bool = False, ess: bool = False, device=None,
     ess=True turns on empty-space skipping: a 32^3 occupancy grid narrows
     each ray to its occupied span, with 48+48 samples."""
     dev = resolve_device(device)
+    return TriPlaneGenerator(**flagship_kwargs(eval_mode, ess, **overrides)).to(dev)
+
+
+def flagship_kwargs(eval_mode: bool = False, ess: bool = False, **overrides) -> dict:
+    """The flagship's TriPlaneGenerator constructor kwargs (see flagship)."""
     rk = dict(FLAGSHIP_RENDERING_KWARGS)
     if eval_mode:
         rk["depth_resolution"] = 96
@@ -85,7 +90,7 @@ def flagship(eval_mode: bool = False, ess: bool = False, device=None,
         sr_num_fp16_res=4,
     )
     kwargs.update(overrides)
-    return TriPlaneGenerator(**kwargs).to(dev)
+    return kwargs
 
 
 def from_snapshot_config(config, eval_mode: bool = False, ess: bool = False,
@@ -122,6 +127,11 @@ def from_snapshot_config(config, eval_mode: bool = False, ess: bool = False,
 def tiny(device=None, **overrides) -> TriPlaneGenerator:
     """Small config for tests and dry-runs (CPU-friendly)."""
     dev = resolve_device(device)
+    return TriPlaneGenerator(**tiny_kwargs(**overrides)).to(dev)
+
+
+def tiny_kwargs(**overrides) -> dict:
+    """The tiny config's TriPlaneGenerator constructor kwargs (see tiny)."""
     kwargs = dict(
         z_dim=64,
         c_dim=25,
@@ -147,4 +157,4 @@ def tiny(device=None, **overrides) -> TriPlaneGenerator:
         neural_rendering_resolution=16,
     )
     kwargs.update(overrides)
-    return TriPlaneGenerator(**kwargs).to(dev)
+    return kwargs

@@ -1,7 +1,8 @@
 """End-to-end inference over the daredemoE benchmark
 (panic3d_tpu/eval/generate.py).
 
-For each portrait of a subset: the ResNet-PCA features, then the
+For each portrait of a subset: the line filler on the white-background
+portrait (with a checkpoint's ``rmline/``), the ResNet-PCA features, then the
 marching-cubes mesh pickle and the 4 ortho + 12 spin views, saved as RGB and
 xyza PNGs in the reference's file layout (<out>/daredemoE/{marching_cubes,
 ortho, ortho_xyza, rgb60, xyza60}/franchise/id/view). The turntable renders
@@ -10,11 +11,14 @@ occupancy and the paste-front occlusion volume -- when the mapping ignores
 the camera, then every view batch from it. PyTorch runs eagerly, so the JAX
 package's jitted closures become plain functions.
 
+    python -m panic3d_tpu_torch.eval.generate --ckpt <dir>/G --data <root> --out <dir>
     python -m panic3d_tpu_torch.eval.generate --tiny --data <root> --out <dir>
 
-Not ported yet: checkpoint loading (``--ckpt`` raises NotImplementedError)
-and so the line filler, which only a checkpoint brings (without one the
-JAX CLI skips it too).
+``--ckpt`` is a directory of the JAX package's native format
+(runtime/checkpoint.py); the line filler and the ResNet-PCA extractor load
+from its siblings ``rmline/`` and ``resnet/`` (``state.msgpack``, and
+``pca.npz`` for the ResNet). Without them the CLI warns, skips the filler
+and takes seeded random features, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -158,24 +162,25 @@ def generate_portrait(G, resnet, x, aligndata, opts: dict, seed: int, view_batch
                       stages: Optional[dict] = None) -> dict:
     """One portrait of generate.py:282-366: ``x`` is the data item
     (DatabackendMinna[bn]: 'bn' and the RGBA 'image'), ``resnet`` the
-    ResNet-PCA extractor, ``aligndata`` the portrait's alignment record (the
-    line filler's keypoints; the filler is not ported, so ``rmline`` must
-    be None). Writes the marching-cubes pickle (extract_mesh's dict at
+    ResNet-PCA extractor, ``rmline`` the line filler (an RMLineWrapper) or
+    None, ``aligndata`` the portrait's alignment record (the filler's
+    keypoints). Writes the marching-cubes pickle (extract_mesh's dict at
     ``mesh_res``^3 and ``level``) and the 16 views' RGB and xyza PNGs under
-    ``out_dir``; with ``stages`` (a dict) records the seconds of features,
-    mesh, views and writing. -> the G.f ``cond`` of the portrait."""
+    ``out_dir``; with ``stages`` (a dict) records the seconds of the line
+    filler, the features, mesh, views and writing. -> the G.f ``cond`` of
+    the portrait."""
     from ..utils.imglib import Img, from_model_output
     from .volume import _stage_clock, extract_mesh
 
-    if rmline is not None:
-        raise NotImplementedError("the line filler (models/rmlinegan.py) is not ported yet")
     mark = _stage_clock(G.device, stages)
     bn, img = x["bn"], x["image"]
-    img_rmline = img.bg("w").convert("RGB").t()
+    rgb = to_device(img.bg("w").convert("RGB").t(), G.device)[None]
+    if rmline is not None:
+        rgb, _, _ = rmline(rgb, _aligned_keypoints(aligndata))
+        mark("rmline")
     chonk = resnet(img.bg("k").convert("RGB").t())
     ch = 16 if "reschonk_add_16" in G.backbone.synthesis.cond_mode else 512
-    cond = {"image_ortho_front": to_device(img_rmline, G.device)[None],
-            "resnet_chonk": chonk[None, 0, :ch].to(torch.float32)}
+    cond = {"image_ortho_front": rgb, "resnet_chonk": chonk[None, 0, :ch].to(torch.float32)}
     mark("features")
 
     # geometry (numerics per eg3d_metrics3d.py)
@@ -215,12 +220,61 @@ def generate_portrait(G, resnet, x, aligndata, opts: dict, seed: int, view_batch
     return cond
 
 
-def main(argv=None):
-    """The generate CLI (generate.py:201-230): argparse, the tiny model
-    with seeded weights (``--tiny``), the subset loop."""
+def _aligned_keypoints(aligndata) -> np.ndarray:
+    """The detector's keypoints of an alignment record, mapped by its
+    transformation into the aligned portrait (generate.py:369-376)."""
+    M = aligndata["transformation"]
+    src = aligndata["_alignment"]["source"]
+    kpts = src["keypoints"][src["_detection_used"]]
+    pts = np.concatenate([kpts[:, :2], np.ones((len(kpts), 1))], axis=-1)
+    return (M @ pts.T).T[:, :2]
+
+
+def _load_rmline(args, device):
+    """The line filler from ``<dirname(--ckpt)>/rmline`` (generate.py:378-390),
+    or None with a warning."""
+    from ..models.rmlinegan import RMLineGenerator, RMLineWrapper
+    from ..runtime.checkpoint import load_checkpoint
+
+    if not args.ckpt:
+        print("WARNING: no rmline checkpoint; skipping line filling")
+        return None
+    path = os.path.join(os.path.dirname(args.ckpt), "rmline")
+    if not os.path.isdir(path):
+        print("WARNING: no rmline checkpoint found; skipping line filling")
+        return None
+    variables, _ = load_checkpoint(path)
+    return RMLineWrapper(RMLineGenerator(device=device).load_variables(variables))
+
+
+def _load_resnet(args, device):
+    """The ResNet-PCA extractor from ``<dirname(--ckpt)>/resnet``
+    (generate.py:393-416), else seeded random features with a warning."""
+    from ..models.resnet import load_pca_extractor, random_feature_extractor
+
+    path = os.path.join(os.path.dirname(args.ckpt), "resnet") if args.ckpt else ""
+    if path and os.path.isdir(path):
+        return load_pca_extractor(path, device=device)
+    print("WARNING: no resnet checkpoint; using random features")
+    return random_feature_extractor(0, device=device)
+
+
+def main(argv=None, stages: Optional[dict] = None):
+    """The generate CLI (generate.py:201-300): argparse, the generator of a
+    ``--ckpt`` directory (G_ema of a trainer snapshot; ESS on unless
+    ``--no-ess``) or the tiny model with seeded weights (``--tiny``), the
+    line filler and the extractor from the checkpoint's siblings, the subset
+    loop. With ``stages`` (a dict) adds up the seconds of loading ('load')
+    and of each portrait's stages."""
     from .. import configs
     from ..data.databack import DatabackendMinna
-    from ..models.resnet import random_feature_extractor
+    from ..runtime.checkpoint import (extract_generator_variables, load_checkpoint,
+                                      state_dict_from_flax)
+    from .volume import _stage_clock
+
+    def add(part):
+        for k, v in (part or {}).items():
+            stages[k] = stages.get(k, 0.0) + v
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt", default=None, help="converted G_ema checkpoint dir")
@@ -251,12 +305,18 @@ def main(argv=None):
         opts.pop("triplane_crop"); opts.pop("cull_clouds")
 
     edn = args.out or f"./temp/eval/{args.name}"
-    if args.ckpt:
-        raise NotImplementedError("--ckpt: checkpoint loading is not ported yet "
-                                  "(ROADMAP Queue 1, checkpoint loading)")
-    if not args.tiny:
+    loading = {} if stages is not None else None
+    mark = _stage_clock(configs.resolve_device(args.device), loading)
+    if args.tiny:
+        G = configs.tiny(force_sigmoid=True, device=args.device).init_weights(0).eval()
+    elif args.ckpt:
+        state, config = load_checkpoint(args.ckpt)
+        G = configs.from_snapshot_config(config, eval_mode=True, ess=not args.no_ess,
+                                         device=args.device)
+        G.load_state_dict(state_dict_from_flax(extract_generator_variables(state)), strict=True)
+        G.eval()
+    else:
         raise SystemExit("--ckpt required unless --tiny")
-    G = configs.tiny(force_sigmoid=True, device=args.device).init_weights(0).eval()
 
     dk = DatabackendMinna(args.data)
     subset_csv = os.path.join(args.data, "_data", "lustrous", "subsets", f"{args.subset}.csv")
@@ -267,13 +327,16 @@ def main(argv=None):
     with open(align_pkl, "rb") as f:
         aligndata = pickle.load(f)
 
-    if not args.skip_rmline:
-        print("WARNING: no rmline checkpoint; skipping line filling")
-    print("WARNING: no resnet checkpoint; using random features")
-    resnet = random_feature_extractor(0, device=G.device)
+    rmline = None if args.skip_rmline else _load_rmline(args, G.device)
+    resnet = _load_resnet(args, G.device)
+    mark("load")
+    add(loading)
     for bn in bns:
+        one = {} if stages is not None else None
         generate_portrait(G, resnet, dk[bn], aligndata[bn], opts, args.seed, args.view_batch,
-                          edn, level=args.level, mesh_res=args.mesh_res)
+                          edn, level=args.level, mesh_res=args.mesh_res, rmline=rmline,
+                          stages=one)
+        add(one)
         print(bn, "done")
 
 

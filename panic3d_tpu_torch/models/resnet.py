@@ -20,7 +20,7 @@ from torch import nn
 
 from ..configs import resolve_device
 from ..ops.resize import resize
-from ..runtime.checkpoint import module_state_from_flax
+from ..runtime.checkpoint import load_checkpoint, module_state_from_flax
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], dtype=np.float32)
@@ -177,3 +177,16 @@ def random_feature_extractor(seed: int = 0, device=None) -> ResnetFeatureExtract
     return ResnetFeatureExtractorPCA(
         ResNet50(device=device).init_weights(seed), rng.randn(512, 2048).astype(np.float32),
         np.zeros(2048, np.float32), 512)
+
+
+def load_pca_extractor(path: str, dim_out: int = 512, device=None) -> ResnetFeatureExtractorPCA:
+    """A converted ResNet + PCA checkpoint directory (``state.msgpack`` of the
+    ResNet50 variables and ``pca.npz`` with 'components' [D, 2048] and
+    'mean' [2048], as panic3d_tpu/models/resnet.py:168-181 reads it) -> the
+    extractor, on ``device`` (CUDA by default)."""
+    import os
+
+    variables, _ = load_checkpoint(path)
+    pca = np.load(os.path.join(path, "pca.npz"))
+    return ResnetFeatureExtractorPCA(ResNet50(device=device).load_variables(variables),
+                                     pca["components"], pca["mean"], dim_out)

@@ -14,7 +14,9 @@ weights (the port's through state_dict_from_flax) and the same portrait.
 - mesh (resolution 16, the decoder's sigma bias raised so that voxels
   survive eval generate's crop and cull): identical faces, verts within
   1e-5, colours within 1e-4;
-- the arguments not ported yet raise NotImplementedError.
+- ``mesh=``, not ported yet, raises NotImplementedError (``ckpt=``,
+  ``rmline=`` and ``resnet=`` are held in test_torch_checkpoint.py and
+  test_torch_rmline.py).
 """
 
 import jax
@@ -106,7 +108,7 @@ def test_mesh_matches_jax(recs):
     np.testing.assert_allclose(got["colors"], want.colors, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("arg", ["ckpt", "mesh", "rmline", "resnet"])
+@pytest.mark.parametrize("arg", ["mesh"])
 def test_unported_arguments_raise(arg):
     with pytest.raises(NotImplementedError):
         Reconstructor(tiny=True, device="cpu", **{arg: object()})

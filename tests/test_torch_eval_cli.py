@@ -15,7 +15,8 @@ head holds two concentric icospheres (remove_innards drops the inner one).
   function's.
 - marked slow, as tests/test_eval_cli.py:145: generate.main --tiny then
   measure.main of the port end to end (the file layout, every metric
-  finite), and generate_portrait against the JAX pieces of generate.py's
+  finite; generate.main --ckpt of a directory holding the same seeded
+  weights writes the same PNGs), and generate_portrait against the JAX pieces of generate.py's
   loop with the same tiny weights (state_dict_from_flax), ResNet variables
   (module_state_from_flax) and PCA basis: the mesh pickle's keys, faces and
   vertices, and the PNG views.
@@ -173,8 +174,23 @@ def test_generate_then_measure(tmp_path):
             assert os.path.isfile(os.path.join(base, sub, FRANCH, IDX, f"{view}.png"))
     for sub in ("rgb60", "xyza60"):
         assert len(os.listdir(os.path.join(base, sub, FRANCH, IDX))) == 12
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        generate.main(["--ckpt", "x", "--data", root, "--out", out, "--device", "cpu"])
+    # the same seeded tiny G from a checkpoint directory (no rmline/ or
+    # resnet/ beside it: no line filling, the same random features) writes
+    # the same files
+    from panic3d_tpu_torch import configs as tcfg
+    from panic3d_tpu_torch.runtime.checkpoint import flax_from_state_dict, save_checkpoint
+
+    G = tcfg.tiny(device="cpu").init_weights(0)
+    save_checkpoint(str(tmp_path / "ckpt" / "G"), flax_from_state_dict(G.state_dict()),
+                    {"model_kwargs": {"family": "tiny"}})
+    out2 = str(tmp_path / "evalout_ckpt")
+    generate.main(["--ckpt", str(tmp_path / "ckpt" / "G"), "--data", root, "--out", out2,
+                   "--mesh-res", "24", "--level", "0.17", "--no-filters", "--device", "cpu"])
+    for sub in ("ortho", "rgb60", "xyza60"):
+        for name in os.listdir(os.path.join(base, sub, FRANCH, IDX)):
+            with open(os.path.join(base, sub, FRANCH, IDX, name), "rb") as a, \
+                    open(os.path.join(out2, "daredemoE", sub, FRANCH, IDX, name), "rb") as b:
+                assert a.read() == b.read(), (sub, name)
     with open(os.path.join(base, "marching_cubes", FRANCH, IDX, "front.pkl"), "rb") as f:
         mc = pickle.load(f)
     assert len(mc["faces"]), "measure needs a predicted surface"

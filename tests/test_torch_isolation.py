@@ -32,7 +32,7 @@ def run(code_or_args, timeout=240):
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'panic3d_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'panic3d_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import panic3d_tpu_torch, panic3d_tpu_torch.configs, panic3d_tpu_torch.ops\n"
         "import panic3d_tpu_torch.kernels.build, panic3d_tpu_torch.runtime.checkpoint\n"
@@ -50,9 +50,14 @@ def test_imports_with_jax_blocked():
         "import panic3d_tpu_torch.ops.filtered_lrelu, panic3d_tpu_torch.models.stylegan3\n"
         "import panic3d_tpu_torch.eval.equivariance, panic3d_tpu_torch.eval.gan_metrics\n"
         "from panic3d_tpu_torch.models.superresolution import AFSynthesisLayer\n"
+        "import panic3d_tpu_torch.runtime.convert, panic3d_tpu_torch.utils.sketchers\n"
+        "import panic3d_tpu_torch.models.rmlinegan\n"
         "import panic3d_tpu_torch.configs as c\n"
         "c.tiny(device='cpu')\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'panic3d_tpu')\n"
+        "from panic3d_tpu_torch.runtime import checkpoint as ck\n"
+        "assert ck.msgpack_restore(ck.to_bytes({'a': [1.5]})) == {'a': {'0': 1.5}}\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'msgpack', 'panic3d_tpu')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('isolated')\n"
