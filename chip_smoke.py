@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (panic3d_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile DIR] [--kernels-only] [--parent DIR]
+    python3 chip_smoke.py [--profile DIR] [--kernels-only] [--keyed-only] [--parent DIR]
 
 1. Prints the setup (torch, CUDA, card name and power limit); exits non-zero
    without a CUDA device.
@@ -87,6 +87,22 @@
    - per-portrait turntable: one planes bundle (planes, ESS occupancy,
      occlusion volume), then the 16 eval views (4 ortho + spin12) in view
      batches of 2;
+   - the keyed forward of training (keyed_forward_path): configs.flagship()
+     (48+48, eval_mode False), batch 8, G.f(x, noise_mode='random',
+     generator=g), with ESS off, on, and on with ray_start = ray_end =
+     'auto': views/s, launches with K3's u form, K5's per-sample noise form
+     and K6b's jitter and per-ray forms required (counted as their
+     kernels' variants), 0 host waits, one generator seed twice equal and
+     another moving image_raw, and one run with every K1, K2, K3, K5 and
+     K6b launch shadowed by its plain version on the same inputs and draws
+     (plain_shadow; K2's rays with a half out of depth order counted, > 0);
+     then each new form alone at the path's shapes, timed with its bound
+     (keyed_form_checks; with --parent and the parent's
+     importance_sample.cu, ess.cu and modconv_epilogue.cu, the eval forms
+     bit for bit against the parent's kernels, parent / this / this /
+     parent), and a Hybrid8X flagship with superresolution_noise_mode
+     'random' in f32, card against CPU on the same draws (hybrid8x_check);
+     --keyed-only runs the build and these phases alone;
    K12's own path, the gather-decode probe; the deep-plane generator
    (configs.flagship(eval_mode=True, rendering_kwargs=dict(triplane_depth=2)),
    ESS off, eval generate's paste with occ_impl='render'): G.f per call
@@ -1508,7 +1524,8 @@ def ess_paste_kernel_checks(G, x, device, parent):
         parent, "ess", "ess_narrow", "ess_narrow_kernel", lambda: vr.ess_narrow_kernel(*args6b),
         ro.shape[0] * ro.shape[1], "ray",
         new_work={"LDG": -(-ess["taps"] // 32), "STG": -(-S // 32)}, new_scale=32,
-        parent_work={"LDG": ess["taps"], "STG": S}))
+        parent_work={"LDG": ess["taps"], "STG": S},
+        new_kernel="ess_narrow_kernelILb0ELb0E"))   # the eval form: fixed bounds, no jitter
 
     # K3 at the ESS paths' 48+48: the narrowed coarse depths, and the
     # coarse sigmas K1 decodes there (the render's planes and dtype)
@@ -2092,6 +2109,17 @@ def grad_guard_checks(device):
          "cond": {"image_ortho_front": torch.rand(1, 3, 64, 64, device=device),
                   "resnet_chonk": torch.randn(1, 16, 8, 8, device=device)}}
     calls["G.f (tiny config)"] = lambda: G.f(x)
+    # the keyed forms: the input each adds requires grad
+    calls["importance_sample [u]"] = lambda: vr.importance_sample_kernel(
+        t(1, 4, 8, 1), t(1, 4, 8, 1), 8, u=t(4, 8, grad=True))
+    calls["modconv_epilogue [per_sample_noise]"] = lambda: modconv_epilogue_kernel(
+        t(2, 8, 4, 4), noise=t(2, 1, 4, 4, grad=True))
+    calls["ess_narrow [per_ray]"] = lambda: vr.ess_narrow_kernel(
+        t(1, 2, 2, 2), t(1), t(1, 4, 3), t(1, 4, 3), t(1, 4, 1, grad=True), t(1, 4, 1), 0.7,
+        {"ess": {}}, 8)
+    calls["ess_narrow [jitter]"] = lambda: vr.ess_narrow_kernel(
+        t(1, 2, 2, 2), t(1), t(1, 4, 3), t(1, 4, 3), 0.5, 1.5, 0.7, {"ess": {}}, 8,
+        jitter=t(1, 4, 8, 1, grad=True))
     reset_launch_counts()
     refused = []
     with torch.enable_grad():
@@ -2978,7 +3006,7 @@ def _entry_name(mangled: str) -> str:
             break
     args = mangled[i:].split("Ev")[0] if mangled[i:i + 1] == "I" else ""
     dtype = ["bf16"] if "bfloat16" in args else ["f32"] if args.startswith("If") else []
-    ints = re.findall(r"Li(-?\d+)E", args)
+    ints = re.findall(r"L[ib](-?\d+)E", args)
     return name + (f"<{','.join(dtype + ints)}>" if dtype or ints else "")
 
 
@@ -3832,6 +3860,459 @@ GRID_PASTE_ABSENT = ("occlusion_sample", "paste_front")
 CHECK_ONLY = ("occlusion_sample",)
 
 
+# ---------------------------------------------------------------------------
+# the keyed forward (training's G.f: noise_mode='random', a render key)
+
+KEYED_BATCH = 8     # the trainer's --batch default (panic3d_tpu/training/trainer.py:35)
+KEYED_RUNS = 3      # timed keyed forwards a configuration, after one warm-up
+# the keyed forms each kernel wrapper counts as a variant, by configuration
+KEYED_FORMS = {"ess off": {"importance_sample": "u", "modconv_epilogue": "per_sample_noise"},
+               "ess on": {"importance_sample": "u", "modconv_epilogue": "per_sample_noise",
+                          "ess_narrow": "jitter"},
+               "auto, ess on": {"importance_sample": "u", "modconv_epilogue": "per_sample_noise",
+                                "ess_narrow": "per_ray"}}
+KEYED_KERNELS = {"ess off": RENDER_KERNELS,
+                 "ess on": RENDER_KERNELS + ("ess_occupancy", "ess_narrow"),
+                 "auto, ess on": RENDER_KERNELS + ("ess_occupancy", "ess_narrow")}
+
+
+def keyed_generators(device, labels=("ess off", "ess on", "auto, ess on"), **kw):
+    """The flagship with the training settings (48+48 samples, eval_mode
+    False), seeded weights with the sigma bias raised (as the eval paths)
+    and every noise strength 0.1 (the seeded init zeroes them), as three
+    generators: ESS off, ESS on, and ESS on with ray_start = ray_end =
+    'auto' (those of ``labels``). -> {label: generator}."""
+    import torch
+
+    from panic3d_tpu_torch import configs
+    from panic3d_tpu_torch.models.stylegan2 import SynthesisLayer
+
+    G = configs.flagship(device=device, **kw).init_weights(SEED).eval()
+    with torch.no_grad():
+        G.decoder.net[2].bias[0] += 2.5
+        for m in G.modules():
+            if isinstance(m, SynthesisLayer) and m.use_noise:
+                m.noise_strength.fill_(0.1)
+    out = {"ess off": G}
+    base = kw.pop("rendering_kwargs", {})
+    for label, rk in (("ess on", {}), ("auto, ess on", dict(ray_start="auto", ray_end="auto"))):
+        if label in labels:
+            Gx = configs.flagship(ess=True, device=device, rendering_kwargs=dict(base, **rk),
+                                  **kw).eval()
+            Gx.load_state_dict(G.state_dict())
+            out[label] = Gx
+    return {k: v for k, v in out.items() if k in labels}
+
+
+def keyed_inputs(G, device, n=KEYED_BATCH):
+    """n training-like views: seeded z, cond and cameras (elevation within
+    +-20, any azimuth, fov 30)."""
+    import torch
+
+    rng = np.random.RandomState(SEED + 1)
+    return {"z": torch.from_numpy(rng.randn(n, G.z_dim).astype(np.float32)).to(device),
+            "elevations": torch.from_numpy(rng.uniform(-20, 20, n).astype(np.float32)).to(device),
+            "azimuths": torch.from_numpy(rng.uniform(0, 360, n).astype(np.float32)).to(device),
+            "cond": {"image_ortho_front": torch.from_numpy(
+                         rng.rand(n, 3, 512, 512).astype(np.float32)).to(device),
+                     "resnet_chonk": torch.from_numpy(
+                         rng.randn(n, 512, 8, 8).astype(np.float32)).to(device)}}
+
+
+def _recorder_class():
+    from panic3d_tpu_torch.utils import draws
+
+    class Recorder(draws.Replay):
+        """Draws from a torch.Generator, each kept (by kind, in order) so that
+        a Replay can feed the same numbers to another run."""
+
+        def __init__(self, generator):
+            super().__init__()
+            self.generator, self.kept = generator, {"normal": [], "uniform": []}
+
+        def take(self, kind, shape, device):
+            t = draws._draw(kind, shape, self.generator, device, "Recorder")
+            self.kept[kind].append(t)
+            return t
+
+        def replay(self, device):
+            return draws.Replay(**{k: [t.to(device) for t in v] for k, v in self.kept.items()})
+
+    return Recorder
+
+
+class plain_shadow:
+    """Within the block, every launch of K1, K2, K3, K5 and K6b also runs the
+    kernel's plain version on the same inputs (the drawn jitter, u and
+    noise included) and keeps the largest difference by kernel and form:
+    K5 exact, K6b within 1e-6 (the plain version's own ops on the card),
+    K3, K2 within 1e-4 (f32 scan and sum order), K1 as check_k1 (cull flips
+    counted apart, rgb within 2^-8 in bf16, sigma within 1e-4). K2 calls also
+    count the rays with a half out of depth order (the rank-count branch).
+    The last inputs of each keyed form are kept (``inputs``) for timing."""
+
+    def __init__(self):
+        self.err, self.calls, self.inputs = {}, {}, {}
+        self.unsorted_rays = self.flips = self.points = 0
+
+    def _keep(self, key, err):
+        self.err[key] = max(self.err.get(key, 0.0), err)
+        self.calls[key] = self.calls.get(key, 0) + 1
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        vr = importlib.import_module("panic3d_tpu_torch.models.volumetric.renderer")
+        ba = importlib.import_module("panic3d_tpu_torch.ops.bias_act")
+        self.saved = [(vr, n, getattr(vr, n)) for n in (
+            "triplane_decode_kernel", "importance_sample_kernel", "ray_composite_kernel",
+            "ess_narrow_kernel")] + [(ba, "modconv_epilogue_kernel", ba.modconv_epilogue_kernel)]
+        real = {n: f for _, n, f in self.saved}
+
+        def k1(planes_cl, coords, dec, bw, axes, filters=vr.DensityFilters()):
+            rgb, sig = real["triplane_decode_kernel"](planes_cl, coords, dec, bw, axes, filters)
+            rgb_p, sig_p = vr.triplane_decode_plain(planes_cl, coords, dec, bw, axes, filters)
+            ck, cp = sig == -1e3, sig_p == -1e3
+            self.flips += int((ck != cp).sum())
+            self.points += sig.numel()
+            agree = ck == cp
+            self._keep(("triplane_decode", "rgb"), max_err(rgb, rgb_p))
+            self._keep(("triplane_decode", "sigma"),
+                       float((sig - sig_p).abs()[agree].max()) if bool(agree.any()) else 0.0)
+            return rgb, sig
+
+        def k3(depths, sigmas, n_importance, u=None):
+            out = real["importance_sample_kernel"](depths, sigmas, n_importance, u)
+            form = "u" if u is not None else "linspace"
+            self._keep(("importance_sample", form),
+                       max_err(out, vr.importance_sample_plain(depths, sigmas, n_importance, u)))
+            self.inputs[("importance_sample", form)] = (depths, sigmas, n_importance, u)
+            return out
+
+        def k2(d1, c1, s1, x1, d2, c2, s2, x2, white_back):
+            args = (d1, c1, s1, x1, d2, c2, s2, x2, white_back)
+            out = real["ray_composite_kernel"](*args)
+            for a, b in zip(out, vr.ray_composite_plain(*args)):
+                self._keep(("ray_composite", "merge"), max_err(a, b))
+            bad = torch.zeros(d1.shape[:2], dtype=torch.bool, device=d1.device)
+            for d in (d1, d2):
+                if d.shape[2] > 1:
+                    bad |= (d[:, :, 1:, 0] < d[:, :, :-1, 0]).any(-1)
+            self.unsorted_rays += int(bad.sum())
+            return out
+
+        def k6b(occ, occ_outside, ro, rd, ray_start, ray_end, bw, options, S, jitter=None):
+            args = (occ, occ_outside, ro, rd, ray_start, ray_end, bw, options, S)
+            out = real["ess_narrow_kernel"](*args, jitter=jitter)
+            form = ("per_ray" if torch.is_tensor(ray_start) else "fixed") + (
+                "+jitter" if jitter is not None else "")
+            for a, b in zip(out, vr.ess_narrow_plain(*args, jitter=jitter)):
+                self._keep(("ess_narrow", form), max_err(a, b))
+            self.inputs[("ess_narrow", form)] = (args, jitter)
+            return out
+
+        def k5(x, dcoef=None, noise=None, noise_strength=None, bias=None, *rest):
+            out = real["modconv_epilogue_kernel"](x, dcoef, noise, noise_strength, bias, *rest)
+            plain = ba.modconv_epilogue_plain(x, dcoef, noise, noise_strength, bias, *rest)
+            form = "per_sample_noise" if noise is not None and noise.ndim == 4 else "other"
+            self._keep(("modconv_epilogue", form), max_err(out, plain))
+            if form == "per_sample_noise":
+                kept = self.inputs.get(("modconv_epilogue", form))
+                if kept is None or x.numel() > kept[0].numel():
+                    self.inputs[("modconv_epilogue", form)] = (x, dcoef, noise, noise_strength,
+                                                               bias, *rest)
+            return out
+
+        for mod, name, fn in ((vr, "triplane_decode_kernel", k1),
+                              (vr, "importance_sample_kernel", k3),
+                              (vr, "ray_composite_kernel", k2), (vr, "ess_narrow_kernel", k6b),
+                              (ba, "modconv_epilogue_kernel", k5)):
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def report(self, label):
+        """Print and check the differences; -> {kernel.form: max error}."""
+        tol = {"triplane_decode": {"rgb": 2.0 ** -8, "sigma": 1e-4},
+               "importance_sample": 1e-4, "ray_composite": 1e-4, "ess_narrow": 1e-6,
+               "modconv_epilogue": 0.0}
+        out = {}
+        for (name, form), e in sorted(self.err.items()):
+            t = tol[name][form] if isinstance(tol[name], dict) else tol[name]
+            check(f"{label}: {name} [{form}] kernel vs plain, {self.calls[(name, form)]} calls",
+                  e, t)
+            out[f"{name}.{form}"] = e
+        print(f"  {label}: K1 cull decisions that differ {self.flips} of {self.points}")
+        require(self.flips <= self.points // 100000, f"{label}: {self.flips} cull flips")
+        print(f"  {label}: rays that take K2's rank-count branch (a half out of order): "
+              f"{self.unsorted_rays}")
+        require(self.unsorted_rays > 0, f"{label}: no ray took K2's unsorted branch")
+        return dict(out, k2_unsorted_rays=self.unsorted_rays, k1_cull_flips=self.flips)
+
+
+def keyed_forward_path(device, card):
+    """The keyed forward at full width (the flagship with the training
+    settings, batch KEYED_BATCH, G.f(x, noise_mode='random', generator=g)),
+    ESS off, on, and on with 'auto' bounds: each driven (views/s, launches,
+    0 host waits) with K3's u form, K5's per-sample noise form and, with
+    ESS, K6b's jitter or per-ray form required; the same generator seed twice
+    equal, another seed changing image_raw; one run with every kernel
+    launch shadowed by its plain version (plain_shadow). -> (paths summary,
+    {(kernel, form): inputs} for the form checks, launch counts of the ESS
+    run)."""
+    import torch
+
+    Gs = keyed_generators(device)
+    x = keyed_inputs(Gs["ess off"], device)
+    summary, inputs, counts_ess = {}, {}, None
+    for label, G in Gs.items():
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        out, counts, summ = drive(
+            f"keyed forward, {label} (48+48, bs={KEYED_BATCH}, noise_mode='random', a "
+            "generator)", lambda: G.f(x, noise_mode="random", generator=gen), KEYED_BATCH,
+            KEYED_RUNS, card)
+        check_outputs(out, (KEYED_BATCH, 3, 512, 512))
+        require_launched(counts, KEYED_KERNELS[label], f"keyed {label}")
+        for name, form in KEYED_FORMS[label].items():
+            n = summ["variants_per_run"].get(name, {}).get(form, 0)
+            print(f"  {name} [{form}] launches per run {n:g}")
+            require(n > 0, f"keyed {label}: {name}'s {form} form launched no time")
+        if label == "ess on":
+            counts_ess = counts
+        del out
+
+        def run(seed):
+            g = torch.Generator(device=device).manual_seed(seed)
+            return G.f(x, noise_mode="random", generator=g)
+
+        a, b, c = run(7), run(7), run(8)
+        same = all(torch.equal(a[k], b[k]) for k in ("image", "image_raw", "image_depth"))
+        moved = float((a["image_raw"] - c["image_raw"]).abs().max())
+        print(f"  same seed twice equal: {same}; another seed moves image_raw by {moved:.4f}")
+        require(same, f"keyed {label}: one seed gave two outputs")
+        require(moved > 0, f"keyed {label}: the draws do not reach image_raw")
+        del a, b, c
+        with plain_shadow() as shadow:
+            run(7)
+            torch.cuda.synchronize()
+        summ["kernel_vs_plain"] = shadow.report(f"keyed {label}")
+        for key, val in shadow.inputs.items():
+            inputs.setdefault(key, val)
+        summary[label.replace(", ", "_").replace(" ", "_")] = summ
+    return summary, inputs, counts_ess
+
+
+def keyed_form_checks(inputs, keyed):
+    """Each new kernel form alone at the keyed path's shapes against its
+    plain version, timed with its bound (no single library call computes
+    any of them). -> {kernel name: {form: summary}}."""
+    import torch
+
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+    from panic3d_tpu_torch.ops.bias_act import modconv_epilogue_kernel, modconv_epilogue_plain
+
+    out = {}
+    d, s, K, u = inputs[("importance_sample", "u")]
+    B, R, S, _ = d.shape
+    y = vr.importance_sample_kernel(d, s, K, u)
+    e = max_err(y, vr.importance_sample_plain(d, s, K, u))
+    check(f"K3 importance_sample, u form, {S}+{K} at {B}x{R} rays", e, 1e-4)
+    out["importance_sample"] = {"u": dict(record(
+        e, lambda: vr.importance_sample_kernel(d, s, K, u),
+        lambda: vr.importance_sample_plain(d, s, K, u), nbytes(d, s, u, y),
+        B * R * (S * 20 + K * 10)), samples=f"{S}+{K}")}
+
+    args5 = inputs[("modconv_epilogue", "per_sample_noise")]
+    x5, dcoef, noise = args5[:3]
+    y = modconv_epilogue_kernel(*args5)
+    e = max_err(y, modconv_epilogue_plain(*args5))
+    check(f"K5 modconv_epilogue, per-sample noise, {x5.dtype} {tuple(x5.shape)} (exact)", e, 0.0)
+    reads = [t for t in (dcoef, noise, args5[4]) if t is not None]
+    out["modconv_epilogue"] = {"per_sample_noise": dict(record(
+        e, lambda: modconv_epilogue_kernel(*args5), lambda: modconv_epilogue_plain(*args5),
+        nbytes(x5, y, *reads), y.numel() * 8), shape=list(x5.shape), dtype=str(x5.dtype))}
+
+    args6, jitter = inputs[("ess_narrow", "per_ray+jitter")]
+    occ, ro, rs_, re_ = args6[0], args6[2], args6[4], args6[5]
+    S6, taps = args6[8], int(args6[7]["ess"].get("taps", 64))
+    k6 = vr.ess_narrow_kernel(*args6, jitter=jitter)
+    e = max(max_err(a, b) for a, b in zip(k6, vr.ess_narrow_plain(*args6, jitter=jitter)))
+    check(f"K6b ess_narrow, per-ray bounds and jitter, {tuple(ro.shape[:2])} rays", e, 1e-6)
+    n_rays = ro.shape[0] * ro.shape[1]
+    out["ess_narrow"] = {"per_ray": dict(record(
+        e, lambda: vr.ess_narrow_kernel(*args6, jitter=jitter),
+        lambda: vr.ess_narrow_plain(*args6, jitter=jitter),
+        nbytes(occ, args6[2], args6[3], rs_, re_, jitter, *k6), n_rays * (taps * 20 + S6 * 6)),
+        taps=taps, samples=S6)}
+    for name, forms in out.items():
+        for form, summ in forms.items():
+            summ["launches_keyed_per_run"] = {
+                cfg: v["variants_per_run"].get(name, {}).get(form, 0) for cfg, v in keyed.items()}
+            print(f"  {name} [{form}]: ms {summ['ms']:.6f} (plain {summ['plain_ms']:.6f}), "
+                  f"bound {summ['bound_ms']:.6f} ms by {summ['bound_by']}")
+    return out
+
+
+def keyed_parent_checks(parent, inputs):
+    """With --parent (the parent's importance_sample.cu, ess.cu and
+    modconv_epilogue.cu): this tree's K3 without u, K6b with fixed bounds
+    and no jitter and K5 with one noise map for the batch give the parent
+    kernels' outputs bit for bit, timed parent / this / this / parent.
+    The parent's entry points take their own (shorter) argument lists."""
+    import ctypes
+
+    import torch
+
+    from panic3d_tpu_torch.kernels import build as kb
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+    from panic3d_tpu_torch.ops.bias_act import activation_funcs, modconv_epilogue_kernel
+
+    if not all(k in parent for k in ("importance_sample", "ess", "modconv_epilogue")):
+        return {}
+
+    def entry(stem, name, argtypes):
+        fn = getattr(parent[stem][0], name)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        return fn
+
+    P, I, L, F = kb.PTR, kb.INT, kb.LONG, kb.FLOAT
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+
+    d, s, K, _ = inputs[("importance_sample", "u")]
+    k3_old = entry("importance_sample", "importance_sample", (P, P, P, I, I, I, P))
+
+    def k3_parent():
+        o = torch.empty((*d.shape[:2], K, 1), device=d.device)
+        require(k3_old(d.data_ptr(), s.data_ptr(), o.data_ptr(), d.shape[0] * d.shape[1],
+                       d.shape[2], K, stream) == 0, "parent K3 failed")
+        return o
+
+    res["importance_sample"] = (k3_parent, lambda: vr.importance_sample_kernel(d, s, K))
+
+    args6, _ = inputs[("ess_narrow", "fixed+jitter")]
+    occ, occ_out, ro, rd, rs_, re_, bw, opts, S = args6
+    taps, margin = int(opts["ess"].get("taps", 64)), float(opts["ess"].get("margin", 1))
+    k6_old = entry("ess", "ess_narrow", (P,) * 7 + (I,) * 4 + (L,) + (F,) * 4 + (I, P))
+    occ_out1 = occ_out.to(device=occ.device, dtype=torch.float32).reshape(1).contiguous()
+
+    def k6_parent():
+        N, R = ro.shape[:2]
+        t0 = torch.empty((N, R, 1), device=ro.device)
+        t1 = torch.empty_like(t0)
+        dd = torch.empty((N, R, S, 1), device=ro.device)
+        require(k6_old(occ.data_ptr(), occ_out1.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+                       t0.data_ptr(), t1.data_ptr(), dd.data_ptr(), N * R, R, occ.shape[-1],
+                       taps, occ.stride(0), float(rs_), float(re_), float(bw), margin, S,
+                       stream) == 0, "parent K6b failed")
+        return t0, t1, dd
+
+    res["ess_narrow"] = (k6_parent, lambda: vr.ess_narrow_kernel(*args6))
+
+    x5, dcoef, noise, strength, bias, act, alpha, gain, clamp = inputs[
+        ("modconv_epilogue", "per_sample_noise")]
+    const = noise[0, 0].contiguous()
+    k5_old = entry("modconv_epilogue", "modconv_epilogue",
+                   (P, P, I, L, I, I) + (P,) * 4 + (I, F, F, I, F, P))
+
+    def k5_parent():
+        y = torch.empty_like(x5)
+        C, inner = x5.shape[1], x5[0, 0].numel()
+        require(k5_old(x5.data_ptr(), y.data_ptr(), 1 if x5.dtype == torch.bfloat16 else 0,
+                       x5.numel(), C, inner, dcoef.data_ptr(), const.data_ptr(),
+                       strength.detach().float().reshape(1).contiguous().data_ptr(),
+                       bias.detach().float().contiguous().data_ptr(), int(act == "lrelu"),
+                       float(activation_funcs[act].def_alpha if alpha is None else alpha),
+                       float(activation_funcs[act].def_gain if gain is None else gain),
+                       int(clamp is not None),
+                       float(clamp) if clamp is not None else 0.0, stream) == 0,
+                "parent K5 failed")
+        return y
+
+    res["modconv_epilogue"] = (k5_parent, lambda: modconv_epilogue_kernel(
+        x5, dcoef, const, strength, bias, act, alpha, gain, clamp))
+    out = {}
+    for name, (old, new) in res.items():
+        a, b = old(), new()
+        a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b
+        equal = all(torch.equal(p, q) for p, q in zip(a, b))
+        ms = [cuda_ms(f) for f in (old, new, new, old)]
+        print(f"{name}, eval form: this tree's kernel equals the parent's bit for bit: {equal}; "
+              "ms parent / this / this / parent " + " / ".join(f"{m:.6f}" for m in ms))
+        require(equal, f"{name}: the eval form differs from the parent kernel's")
+        out[name] = {"bit_equal_to_parent": equal, "ms_parent_this_this_parent": ms}
+    return out
+
+
+def hybrid8x_check(device, card):
+    """A Hybrid8X flagship with superresolution_noise_mode='random' (the
+    trainer's --sr-module / --sr-noise-mode), pinned to f32, keyed, on the
+    card against the CPU with the same draws (the card's recorded, replayed
+    on the CPU), batch BATCH: the triplane within 1e-4 of its largest value
+    (f32 convolutions summed in other orders); the SR module alone on the
+    same inputs and noise within 1e-3; the images within F2's model
+    (FLAGSHIP_PARITY.json: max 0.05, mean 5e-3). -> summary."""
+    import torch
+
+    kw = dict(rendering_kwargs=dict(
+        superresolution_module="training.superresolution.SuperresolutionHybrid8X",
+        superresolution_noise_mode="random", render_dtype="float32"),
+        sr_num_fp16_res=0,
+        synthesis_kwargs=dict(channel_base=32768, channel_max=512, num_fp16_res=0))
+    Gc = keyed_generators(device, ("ess off",), **kw)["ess off"]
+    Gh = keyed_generators("cpu", ("ess off",), **kw)["ess off"]
+    xc = keyed_inputs(Gc, device, BATCH)
+    xh = {k: (v.cpu() if torch.is_tensor(v) else {kk: vv.cpu() for kk, vv in v.items()})
+          for k, v in xc.items()}
+    Recorder = _recorder_class()
+    rec = Recorder(torch.Generator(device=device).manual_seed(SEED))
+    t = time.perf_counter()
+    got = Gc.f(xc, noise_mode="random", generator=rec)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t
+    rep = rec.replay("cpu")
+    t = time.perf_counter()
+    ref = Gh.f(xh, noise_mode="random", generator=rep)
+    t_cpu = time.perf_counter() - t
+    require(rep.left() == {"normal": 0, "uniform": 0}, "Hybrid8X: draws left over")
+    n_sr = sum(1 for m in Gc.superresolution.modules() if hasattr(m, "noise_strength"))
+    print(f"Hybrid8X flagship, f32, keyed with random SR noise, bs={BATCH}: card vs CPU, the "
+          f"card's {len(rec.kept['normal'])} normal draws ({n_sr} of them the SR's) and "
+          f"{len(rec.kept['uniform'])} uniform ones replayed on the CPU "
+          f"(card {t_card:.3f} s, CPU {t_cpu:.3f} s)")
+    require(tuple(got["image"].shape) == (BATCH, 3, 512, 512), "Hybrid8X image shape")
+    scale = float(ref["triplane"].abs().max())
+    check("triplane (f32 convolutions; 1e-4 of its largest value)",
+          max_err(got["triplane"].cpu(), ref["triplane"]), 1e-4 * scale)
+    out = {}
+    for k in ("image_raw", "image_depth", "image"):
+        diff = (got[k].cpu() - ref[k]).abs()
+        out[k] = {"max": float(diff.max()), "mean": float(diff.mean())}
+        check(f"{k} max (F2)", out[k]["max"], 0.05)
+        check(f"{k} mean (F2)", out[k]["mean"], 5e-3)
+    # the SR alone on the same inputs and noise
+    g = torch.Generator().manual_seed(SEED)
+    feat = torch.randn((BATCH, 32, 64, 64), generator=g) * 0.5
+    ws = torch.randn((BATCH, Gh.num_ws, 512), generator=g)
+    sr_noise = [torch.randn((BATCH, 1, r, r), generator=g) for r in (256, 256, 512, 512)]
+    from panic3d_tpu_torch.utils import draws
+
+    sr_c = Gc.superresolution(feat[:, :3].to(device), feat.to(device), ws.to(device),
+                              noise_mode="random",
+                              generator=draws.Replay(normal=[n.to(device) for n in sr_noise]))
+    sr_h = Gh.superresolution(feat[:, :3], feat, ws, noise_mode="random",
+                              generator=draws.Replay(normal=sr_noise))
+    e_sr = max_err(sr_c.cpu(), sr_h)
+    check("SR module alone, random noise, card vs CPU (f32)", e_sr, 1e-3)
+    return dict(out, triplane_err=max_err(got["triplane"].cpu(), ref["triplane"]), sr_err=e_sr,
+                card_s=t_card, cpu_s=t_cpu, card=card)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -3841,6 +4322,10 @@ def main(argv=None) -> int:
                          "split one EQ-R batch's device time by kernel")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels, then stop")
+    ap.add_argument("--keyed-only", action="store_true",
+                    help="build, then run only the keyed forward path, its kernel forms' "
+                         "checks (with --parent, the eval forms against the parent's kernels) "
+                         "and the Hybrid8X card-vs-CPU check, then stop")
     ap.add_argument("--parent", metavar="DIR",
                     help="a directory of the parent commit's kernel sources (e.g. "
                          "upfirdn2d.cu, front_occlusion.cu, paste_front.cu): time this "
@@ -3894,6 +4379,17 @@ def main(argv=None) -> int:
     with torch.no_grad():
         Gd.decoder.net[2].bias[0] += 2.5
     paste = INFERENCE_OPTS["paste_params"]
+
+    if args.keyed_only:
+        with torch.no_grad():
+            keyed, keyed_inputs_, _ = keyed_forward_path(device, card)
+            forms = keyed_form_checks(keyed_inputs_, keyed)
+            parent_keyed = keyed_parent_checks(parent, keyed_inputs_)
+            hybrid = hybrid8x_check(device, card)
+        print(json.dumps({"paths": {"keyed_forward": keyed, "hybrid8x": hybrid},
+                          "kernel_forms": forms, "parent": parent_keyed}, default=str))
+        print(card)
+        return 0
 
     with torch.no_grad():
         x = flagship_inputs(G, device)
@@ -3971,6 +4467,16 @@ def main(argv=None) -> int:
         require_k4_polyphase(turn, "turntable")
         print(f"  {turn['ms_per_run'] / 1e3:.4f} s/portrait")
         del out
+
+        # the keyed forward (training's G.f: random noise, a render key),
+        # its kernel forms alone, and a Hybrid8X flagship with random SR noise
+        keyed, keyed_in, _ = keyed_forward_path(device, card)
+        for name, forms in keyed_form_checks(keyed_in, keyed).items():
+            checks[name].update(forms)
+        for name, summ in keyed_parent_checks(parent, keyed_in).items():
+            checks[name]["eval_form_vs_parent"] = summ
+        del keyed_in
+        hybrid = hybrid8x_check(device, card)
 
         # K5's bound summed over a request's and a portrait's calls
         k5_sums = {}
@@ -4081,6 +4587,7 @@ def main(argv=None) -> int:
 
     reset_launch_counts()
     paths = {"settings_parity": parity, "ess_paste_per_call": per_call, "turntable": turn,
+             "keyed_forward": keyed, "hybrid8x_keyed": hybrid,
              "probe": probe, **deep, **geometry, "eval_cli": eval_cli, "checkpoint": ckpt,
              "stylegan3_t_layers": sg3_path, "equivariance": equivariance}
     print(json.dumps({"paths": paths, "card": card}))

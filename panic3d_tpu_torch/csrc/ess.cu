@@ -5,7 +5,9 @@
 // (:303) with lattice.py:decode_lattice (:136, plane_reduce='mean') and the
 // sigma-only OSGDecoder (triplane.py:63, sigma_only=True); and
 // renderer.py:ess_narrow_intervals (:378) with the per-ray
-// sample_stratified (:479-483).
+// sample_stratified (:479-488): over fixed bounds or per-ray ones
+// (ray_start = ray_end = 'auto', get_ray_limits_box), at jitter 0.5 (eval)
+// or at a drawn jitter (the keyed render of training, :485-487).
 //
 // What bounds it on the H100: the occupancy decodes (G*ss)^3 lattice points
 // per portrait -- 64^3 = 262,144 at the flagship (grid 32, supersample 2) --
@@ -49,7 +51,10 @@
 // lowest and highest set bits of the first and last non-zero ballots.
 // The lanes then write [t0, t1] (lane 0) and the S stratified depths of the
 // narrowed interval together (lane l: depths l, l + 32, ...), so the stores
-// coalesce and the coarse sampling costs no launch of its own. The tap,
+// coalesce and the coarse sampling costs no launch of its own. Per-ray
+// bounds are one load each by every lane of the ray (a broadcast); a
+// jitter is one coalesced load a depth. With fixed bounds and no jitter
+// the arithmetic is the same as without those forms. The tap,
 // grid-index and depth arithmetic uses explicitly rounded operations in
 // the JAX package's order, so a grid index or depth never differs from the
 // plain version by a contracted multiply-add.
@@ -260,12 +265,19 @@ __device__ __forceinline__ bool tap_hit(const float* __restrict__ grid, bool out
 }
 
 // 8 blocks of 8 warps an SM (at most 32 registers a thread): 8,192 rays
-// are 8,192 warps, one wave on 132 SMs
-__global__ void __launch_bounds__(NARROW_WARPS * 32, 8) ess_narrow_kernel(
+// are 8,192 warps, one wave on 132 SMs. The keyed forms (PER_RAY: the
+// bounds read a ray, JITTER: a jitter read a depth) are instantiations of
+// their own, 6 blocks an SM (at most 40 registers), so the eval form's code
+// and registers stay as they were
+template <bool PER_RAY, bool JITTER>
+__global__ void __launch_bounds__(NARROW_WARPS * 32, (PER_RAY || JITTER) ? 6 : 8)
+ess_narrow_kernel(
     const float* __restrict__ occ, const float* __restrict__ occ_outside,
     const float* __restrict__ ro, const float* __restrict__ rd, float* __restrict__ t0_out,
     float* __restrict__ t1_out, float* __restrict__ depths, int n_rays, int R, int G, int K,
-    long long occ_stride, float ray_start, float ray_end, float bw, float margin, int S) {
+    long long occ_stride, float ray_start, float ray_end, float bw, float margin, int S,
+    const float* __restrict__ rs_ray, const float* __restrict__ re_ray,
+    const float* __restrict__ jitter) {
   const int lane = threadIdx.x & 31;
   const int ray = blockIdx.x * NARROW_WARPS + (threadIdx.x >> 5);
   if (ray >= n_rays) return;             // the whole warp: one ray a warp
@@ -273,7 +285,12 @@ __global__ void __launch_bounds__(NARROW_WARPS * 32, 8) ess_narrow_kernel(
   const bool outside = occ_outside[0] > 0.f;
   const float o[3] = {ro[ray * 3], ro[ray * 3 + 1], ro[ray * 3 + 2]};
   const float d[3] = {rd[ray * 3], rd[ray * 3 + 1], rd[ray * 3 + 2]};
-  const float rs = ray_start, L = __fsub_rn(ray_end, ray_start);
+  float rs = ray_start, re = ray_end;
+  if constexpr (PER_RAY) {
+    rs = rs_ray[ray];
+    re = re_ray[ray];
+  }
+  const float L = __fsub_rn(re, rs);
   // lane l holds taps l, l + 32, ...: its hits first, as bit c of one mask
   // (no exchange between the taps, so their loads are in flight together),
   // then chunk c's hits are one ballot, and the first and last occupied
@@ -294,7 +311,7 @@ __global__ void __launch_bounds__(NARROW_WARPS * 32, 8) ess_narrow_kernel(
       last = c * 32 + 31 - __clz(bits);
     }
   }
-  float t0 = rs, t1 = ray_end;
+  float t0 = rs, t1 = re;
   if (first >= 0) {
     const float step = __fdiv_rn(L, (float)K);
     t0 = __fadd_rn(rs, __fmul_rn(fmaxf(__fsub_rn((float)first, margin), 0.f), step));
@@ -305,15 +322,18 @@ __global__ void __launch_bounds__(NARROW_WARPS * 32, 8) ess_narrow_kernel(
     t0_out[ray] = t0;
     t1_out[ray] = t1;
   }
-  // batched_linspace(t0, t1, S) + 0.5 * (t1 - t0) / (S - 1); lane l writes
-  // depths l, l + 32, ...: a warp's stores are one contiguous run
+  // batched_linspace(t0, t1, S) + jitter * (t1 - t0) / (S - 1), jitter 0.5
+  // when none is given; lane l writes depths l, l + 32, ...: a warp's stores
+  // are one contiguous run
   const float diff = __fsub_rn(t1, t0);
-  const float half_delta = __fmul_rn(0.5f, __fdiv_rn(diff, (float)(S - 1)));
+  const float delta = __fdiv_rn(diff, (float)(S - 1));
   float* out = depths + (long long)ray * S;
+  const float* jit = JITTER ? jitter + (long long)ray * S : nullptr;
 #pragma unroll 1
   for (int s = lane; s < S; s += 32) {
     const float step = __fdiv_rn((float)s, (float)(S - 1));
-    out[s] = __fadd_rn(__fadd_rn(t0, __fmul_rn(step, diff)), half_delta);
+    const float off = __fmul_rn(JITTER ? jit[s] : 0.5f, delta);
+    out[s] = __fadd_rn(__fadd_rn(t0, __fmul_rn(step, diff)), off);
   }
 }
 
@@ -392,16 +412,23 @@ PANIC3D_EXPORT int ess_occupancy(
 
 // occ [N,G,G,G] f32 with batch stride occ_stride (0: one grid for every
 // view); occ_outside one f32; rays [n_rays,3] f32 (R rays per batch
-// element); t0/t1 [n_rays] and depths [n_rays,S] f32 out. K taps in
+// element); the bounds ray_start / ray_end, or per ray rs_ray / re_ray
+// [n_rays] f32 where those are not null; jitter [n_rays,S] f32 in [0, 1),
+// or null for 0.5; t0/t1 [n_rays] and depths [n_rays,S] f32 out. K taps in
 // 1..1024 and S >= 2, else cudaErrorInvalidValue.
 PANIC3D_EXPORT int ess_narrow(const float* occ, const float* occ_outside, const float* ro,
                               const float* rd, float* t0, float* t1, float* depths, int n_rays,
                               int R, int G, int K, long long occ_stride, float ray_start,
-                              float ray_end, float bw, float margin, int S, void* stream) {
+                              float ray_end, float bw, float margin, int S, const float* rs_ray,
+                              const float* re_ray, const float* jitter, void* stream) {
   if (K < 1 || K > MAX_TAPS || S < 2) return (int)cudaErrorInvalidValue;
+  if ((rs_ray == nullptr) != (re_ray == nullptr)) return (int)cudaErrorInvalidValue;
   const int blocks = (n_rays + NARROW_WARPS - 1) / NARROW_WARPS;
-  ess_narrow_kernel<<<blocks, NARROW_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = rs_ray ? (jitter ? ess_narrow_kernel<true, true> : ess_narrow_kernel<true, false>)
+                        : (jitter ? ess_narrow_kernel<false, true>
+                                  : ess_narrow_kernel<false, false>);
+  kernel<<<blocks, NARROW_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       occ, occ_outside, ro, rd, t0, t1, depths, n_rays, R, G, K, occ_stride, ray_start, ray_end,
-      bw, margin, S);
+      bw, margin, S, rs_ray, re_ray, jitter);
   return (int)cudaGetLastError();
 }

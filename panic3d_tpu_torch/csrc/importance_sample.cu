@@ -1,10 +1,12 @@
 // K3 importance_sample: coarse ray-march weights -> max-pool/avg-pool
-// smoothing -> pdf/cdf -> inverse-CDF sampling at u = linspace(0, 1, K).
+// smoothing -> pdf/cdf -> inverse-CDF sampling at u = linspace(0, 1, K), or,
+// in the keyed form, at u [rays, K] read from memory.
 //
 // Replaces (JAX): panic3d_tpu/models/volumetric/renderer.py:1052-1056, i.e.
 // ray_march (:188, weights only) -> sample_importance (:548) -> sample_pdf
-// (:496) -> _searchsorted_right (:486), on the deterministic eval path
-// (key=None).
+// (:496) -> _searchsorted_right (:486): on the deterministic eval path
+// (key=None) and, with u the draw jax.random.uniform(k_imp, (R, K)) of
+// sample_pdf (:516-519), on the keyed path of training.
 //
 // What bounds it on the H100: per ray it reads S depths and S sigmas (2 x 96
 // f32) and writes K depths, ~9 MB at 8,192 rays of 96+96: bytes bound it at
@@ -27,7 +29,10 @@
 // - The cdf and the bin midpoints go to a per-ray shared array of L NPL
 //   floats each; each lane resolves its K / L values u = k / (K - 1) by a
 //   binary search of fixed steps for the number of cdf entries <= u
-//   (searchsorted right). The cdf rises by at least
+//   (searchsorted right); the keyed form reads its u's, one coalesced load
+//   per lane and step, in place of computing them, and nothing else
+//   changes (its fine depths are then in no order along the ray: K2 takes
+//   its rank-count branch). The cdf rises by at least
 //   0.01 / (1.01 (S - 3)) >= 3.9e-5 an entry (the smoothed weights are >=
 //   0.01, the weights are <= 1 on sorted depths), and a prefix in the scan's
 //   order is within ~13 roundings (< 4e-7) of the sequential one, so it
@@ -61,7 +66,7 @@ __device__ __forceinline__ float scan_inclusive(float v, int lane) {
 template <int NPL, int L, int FIXED_S>
 __global__ void __launch_bounds__(WARPS * 32) importance_sample_kernel(
     const float* __restrict__ depths, const float* __restrict__ sigmas,
-    float* __restrict__ out, int rays, int S_arg, int K) {
+    const float* __restrict__ u_in, float* __restrict__ out, int rays, int S_arg, int K) {
   constexpr int RPW = 32 / L;       // rays a warp
   constexpr int W = L * NPL;        // samples a ray can hold
   __shared__ float s_cdf[WARPS * RPW][W];
@@ -168,12 +173,16 @@ __global__ void __launch_bounds__(WARPS * 32) importance_sample_kernel(
   __syncwarp();
   if (!live) return;
 
-  // u = linspace(0, 1, K) in torch.linspace's symmetric form ([0] for K = 1)
+  // u = linspace(0, 1, K) in torch.linspace's symmetric form ([0] for K = 1),
+  // or u_in's row of the ray
   const float step = K > 1 ? 1.f / (float)(K - 1) : 0.f;
   int top = 1;                      // the largest power of 2 <= Sw + 1
   while (top * 2 <= Sw + 1) top *= 2;
+  const float* ur = u_in ? u_in + r * K : nullptr;
   for (int k = lane; k < K; k += L) {
-    const float u = (k < K / 2 || K == 1) ? step * (float)k : 1.f - step * (float)(K - 1 - k);
+    const float u = ur ? ur[k]
+                       : (k < K / 2 || K == 1) ? step * (float)k
+                                               : 1.f - step * (float)(K - 1 - k);
     int n = 0;                      // cdf[0..n-1] <= u < cdf[n]: the count
     for (int h = top; h > 0; h >>= 1)
       if (n + h <= Sw + 1 && cdf[n + h - 1] <= u) n += h;
@@ -188,25 +197,26 @@ __global__ void __launch_bounds__(WARPS * 32) importance_sample_kernel(
 }
 
 template <int NPL, int L, int FIXED_S>
-int launch(const float* depths, const float* sigmas, float* out, int rays, int S, int K,
-           cudaStream_t stream) {
+int launch(const float* depths, const float* sigmas, const float* u, float* out, int rays,
+           int S, int K, cudaStream_t stream) {
   const long long per_block = WARPS * 32 / L;
   const long long blocks = ((long long)rays + per_block - 1) / per_block;
   importance_sample_kernel<NPL, L, FIXED_S><<<(unsigned)blocks, WARPS * 32, 0, stream>>>(
-      depths, sigmas, out, rays, S, K);
+      depths, sigmas, u, out, rays, S, K);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// depths, sigmas: [rays, S] f32 (coarse samples, sorted by depth);
-// out: [rays, K] f32. Requires 4 <= S <= 256.
+// depths, sigmas: [rays, S] f32 (coarse samples, sorted by depth); u:
+// [rays, K] f32 in [0, 1), or null for linspace(0, 1, K); out: [rays, K]
+// f32. Requires 4 <= S <= 256.
 PANIC3D_EXPORT int importance_sample(const float* depths, const float* sigmas,
-                                     float* out, int rays, int S, int K,
+                                     const float* u, float* out, int rays, int S, int K,
                                      void* stream) {
   if (S < 4 || S > MAX_S || K < 1 || rays < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S == 48) return launch<3, 16, 48>(depths, sigmas, out, rays, S, K, st);
-  if (S == 96) return launch<3, 32, 96>(depths, sigmas, out, rays, S, K, st);
-  return launch<MAX_S / 32, 32, 0>(depths, sigmas, out, rays, S, K, st);
+  if (S == 48) return launch<3, 16, 48>(depths, sigmas, u, out, rays, S, K, st);
+  if (S == 96) return launch<3, 32, 96>(depths, sigmas, u, out, rays, S, K, st);
+  return launch<MAX_S / 32, 32, 0>(depths, sigmas, u, out, rays, S, K, st);
 }

@@ -1,7 +1,9 @@
 // K5 modconv_epilogue: the modulated conv's epilogue fused with bias_act, in
 // one elementwise pass after the weight convolution:
-//   x * dcoef[n,c]  ->  + noise[h,w]  ->  + bias[c]  ->  lrelu(alpha)  ->  * gain
+//   x * dcoef[n,c]  ->  + noise[n,h,w]  ->  + bias[c]  ->  lrelu(alpha)  ->  * gain
 //   ->  clamp(+-clamp)
+// (the noise is one map for the batch, noise_const, read at batch stride 0,
+// or one map a sample, noise_mode='random', at batch stride H*W)
 // (each stage optional: ToRGB takes bias + clamp, the mapping network's
 // FullyConnectedLayer bias + lrelu on [N, F]).
 //
@@ -36,7 +38,8 @@ __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); 
 
 struct Params {
   const float* dcoef;           // [N*C] or null
-  const float* noise;           // [inner] or null
+  const float* noise;           // [N or 1, inner] or null
+  long long noise_stride;       // its batch stride: 0 or inner
   const float* noise_strength;  // 0-d, or null for 1
   const float* bias;            // [C] or null
   long long total;
@@ -68,6 +71,7 @@ __global__ void __launch_bounds__(THREADS) modconv_epilogue_kernel(
     const long long row = e0 / p.inner;                 // n * C + c
     const int hw = (int)(e0 - row * p.inner);
     const int c = (int)(row % p.C);
+    const float* nrow = p.noise ? p.noise + (row / p.C) * p.noise_stride + hw : nullptr;
     // the plain version's .to(dtype) of the demodulation coefficient and bias
     const float d = p.dcoef ? round_to<T>(p.dcoef[row]) : 0.f;
     const float b = p.bias ? round_to<T>(p.bias[c]) : 0.f;
@@ -80,8 +84,8 @@ __global__ void __launch_bounds__(THREADS) modconv_epilogue_kernel(
     }
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
-      // noise_const * noise_strength in f32, then .to(dtype)
-      const float nz = p.noise ? round_to<T>(__fmul_rn(p.noise[hw + k], strength)) : 0.f;
+      // noise * noise_strength in f32, then .to(dtype)
+      const float nz = p.noise ? round_to<T>(__fmul_rn(nrow[k], strength)) : 0.f;
       v[k] = from_f<T>(epilogue<T>(to_f(v[k]), d, nz, b, p));
     }
     if constexpr (VEC * sizeof(T) == 16) {
@@ -109,19 +113,21 @@ cudaError_t launch(const void* x, void* y, const Params& p, cudaStream_t stream)
 }  // namespace
 
 // x, y: contiguous [N, C, inner] (inner = H*W for NCHW, 1 for [N, F]) of
-// dtype f32 or bf16, 16-byte aligned; dcoef [N*C] f32, noise [inner] f32
-// (times noise_strength, a 0-d f32, when that is not null), bias [C] f32, each
-// null when absent. lrelu: 0 for the linear activation, 1 for leaky relu with
+// dtype f32 or bf16, 16-byte aligned; dcoef [N*C] f32, noise [inner] f32 at
+// noise_stride 0 or [N, inner] f32 at noise_stride inner (times
+// noise_strength, a 0-d f32, when that is not null), bias [C] f32, each null
+// when absent. lrelu: 0 for the linear activation, 1 for leaky relu with
 // slope alpha.
 PANIC3D_EXPORT int modconv_epilogue(
     const void* x, void* y, int dtype, long long total, int C, int inner,
     const float* dcoef, const float* noise, const float* noise_strength,
     const float* bias, int lrelu, float alpha, float gain, int use_clamp, float clamp,
-    void* stream) {
-  if (C < 1 || inner < 1 || total % ((long long)C * inner) != 0)
+    long long noise_stride, void* stream) {
+  if (C < 1 || inner < 1 || total % ((long long)C * inner) != 0 ||
+      (noise_stride != 0 && noise_stride != inner))
     return (int)cudaErrorInvalidValue;
-  Params p{dcoef, noise, noise_strength, bias, total, C, inner, lrelu, alpha, gain, clamp,
-           use_clamp};
+  Params p{dcoef, noise, noise_stride, noise_strength, bias, total, C, inner, lrelu, alpha,
+           gain, clamp, use_clamp};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
     return (int)(inner % 8 == 0 ? launch<__nv_bfloat16, 8>(x, y, p, s)

@@ -84,7 +84,7 @@ def planes_bundle(G, seed: int, cond: dict, opts: dict | None = None,
                    cull_clouds=opts.get("cull_clouds"),
                    binarize_clouds=opts.get("binarize_clouds"))
     with torch.no_grad():
-        ws = G.mapping(z, c0)
+        ws = G.mapping(z, c0, cond)
         planes = G._planes_from_ws(ws, cond, noise_mode=noise_mode)
         out = {"ws": ws, "planes": planes}
         if G.rk.get("ess"):

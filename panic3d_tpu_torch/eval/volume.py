@@ -115,7 +115,7 @@ def portrait_planes(G, xin: dict, noise_mode: str = "const"):
             cam = camera_label(_on(xin.get("elevations", 0.0), n, dev),
                                _on(xin.get("azimuths", 0.0), n, dev),
                                _on(1.0, n, dev), _on(30.0, n, dev))
-            ws = G.mapping(z, cam)
+            ws = G.mapping(z, cam, xin.get("cond"))
         return ws, G._planes_from_ws(ws, xin.get("cond"), noise_mode=noise_mode)
 
 

@@ -8,9 +8,11 @@ through upfirdn2d (kernel K4 on the card); the weight convs are cuDNN, and
 the epilogue after each (demodulation, noise, bias, leaky relu, gain,
 clamp) is one launch of kernel K5, as is the mapping layers' bias + lrelu.
 
-Ported cond modes: ``ortho_front.add_shuffle2_4.reschonk_add_<N>`` (the
-flagship and tiny configs). Others raise NotImplementedError, as do
-architectures other than 'skip' and noise_mode='random'.
+Every cond mode of the JAX package (``_apply_cond``; ``resnetcond_<N>`` in
+the mapping), the 'skip', 'resnet' and 'orig' architectures, latent
+injection (``da_<lvl>`` / ``db_<lvl>`` after each block) and the three
+noise modes. noise_mode='random' draws one [N,1,res,res] map a layer, from
+``generator`` (utils/draws.py) or as given.
 """
 
 from __future__ import annotations
@@ -24,10 +26,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.bias_act import activation_funcs, modconv_epilogue
-from ..ops.conv import modulated_conv2d
+from ..ops.conv import conv2d_resample, modulated_conv2d
 from ..ops.upfirdn2d import setup_filter, upsample2d
-
-_COND_TOKENS = ("ortho_front", "add_shuffle2_4")
+from ..utils import draws
 
 
 def normalize_2nd_moment(x, dim=1, eps=1e-8):
@@ -96,15 +97,58 @@ class FullyConnectedLayer(nn.Module):
                                 act=self.activation)
 
 
+class Conv2dLayer(nn.Module):
+    """Unmodulated conv with FIR resampling and bias_act
+    (networks_stylegan2.py:140-194); the resnet block's 1x1 ``skip``."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, bias=True,
+                 activation="linear", up=1, down=1, resample_filter=(1, 3, 3, 1),
+                 conv_clamp=None):
+        super().__init__()
+        self.activation, self.up, self.down = activation, up, down
+        self.conv_clamp = conv_clamp
+        self.padding = kernel_size // 2
+        self.weight_gain = 1 / math.sqrt(in_channels * kernel_size ** 2)
+        self.resample_filter = setup_filter(list(resample_filter))   # recomputed, not state
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size,
+                                               kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+
+    def reset_parameters_(self, gen):
+        _randn(self.weight, gen)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x, gain=1.0):
+        w = (self.weight * self.weight_gain).to(x.dtype)
+        x = conv2d_resample(x, w, f=self.resample_filter, up=self.up, down=self.down,
+                            padding=self.padding, flip_weight=(self.up == 1))
+        act_gain = activation_funcs[self.activation].def_gain * gain
+        act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
+        b = self.bias.to(x.dtype) if self.bias is not None else None
+        return modconv_epilogue(x, bias=b, act=self.activation, gain=act_gain, clamp=act_clamp)
+
+
+def resnet_cond_features(cond_mode: str) -> int:
+    """N of a ``resnetcond_N`` token: the resnet features the mapping
+    appends to the camera label (0 without one)."""
+    for m in cond_mode.split("."):
+        if m.startswith("resnetcond_"):
+            return int(m.split("_")[-1])
+    return 0
+
+
 class MappingNetwork(nn.Module):
-    """networks_stylegan2.py:198-294 (eval form: no w_avg update)."""
+    """networks_stylegan2.py:198-294 (eval form: no w_avg update), with the
+    ``resnetcond_N`` feature conditioning (panic3d_tpu/models/stylegan2.py:151)."""
 
     def __init__(self, z_dim, c_dim, w_dim, num_ws, num_layers=8, embed_features=None,
                  layer_features=None, activation="lrelu", lr_multiplier=0.01,
-                 w_avg_beta=0.998):
+                 w_avg_beta=0.998, cond_mode="none"):
         super().__init__()
         self.z_dim, self.c_dim, self.w_dim, self.num_ws = z_dim, c_dim, w_dim, num_ws
         self.num_layers = num_layers
+        self.resnet_cond = resnet_cond_features(cond_mode)
         if embed_features is None:
             embed_features = w_dim
         if c_dim == 0:
@@ -112,7 +156,7 @@ class MappingNetwork(nn.Module):
         layer_features = layer_features or w_dim
         features = [z_dim + embed_features] + [layer_features] * (num_layers - 1) + [w_dim]
         if c_dim > 0:
-            self.embed = FullyConnectedLayer(c_dim, embed_features)
+            self.embed = FullyConnectedLayer(c_dim + self.resnet_cond, embed_features)
         for idx in range(num_layers):
             setattr(self, f"fc{idx}", FullyConnectedLayer(
                 features[idx], features[idx + 1], activation=activation,
@@ -124,9 +168,13 @@ class MappingNetwork(nn.Module):
         if hasattr(self, "w_avg"):
             self.w_avg.zero_()
 
-    def forward(self, z, c, truncation_psi=1.0, truncation_cutoff=None):
+    def forward(self, z, c, cond=None, truncation_psi=1.0, truncation_cutoff=None):
         x = normalize_2nd_moment(z.to(torch.float32)) if self.z_dim > 0 else None
         if self.c_dim > 0:
+            if self.resnet_cond > 0:
+                if cond is None or "resnet_feats" not in cond:
+                    raise ValueError(f"resnetcond_{self.resnet_cond} needs cond['resnet_feats']")
+                c = torch.cat([c, cond["resnet_feats"][:, :self.resnet_cond].to(c.dtype)], 1)
             y = normalize_2nd_moment(self.embed(c.to(torch.float32)))
             x = torch.cat([x, y], 1) if x is not None else y
         for idx in range(self.num_layers):
@@ -151,6 +199,7 @@ class SynthesisLayer(nn.Module):
                  conv_clamp: Optional[float] = None):
         super().__init__()
         self.up, self.use_noise, self.activation = up, use_noise, activation
+        self.resolution = resolution
         self.padding = kernel_size // 2
         self.conv_clamp = conv_clamp
         self.resample_filter = setup_filter(list(resample_filter))   # recomputed, not state
@@ -169,13 +218,25 @@ class SynthesisLayer(nn.Module):
             _randn(self.noise_const, gen)
             self.noise_strength.zero_()
 
-    def forward(self, x, w, noise_mode="const", gain=1.0):
-        if noise_mode not in ("const", "none"):
-            raise NotImplementedError(f"noise_mode={noise_mode!r} is not ported yet")
+    def forward(self, x, w, noise_mode="const", gain=1.0, generator=None, noise=None):
+        """noise_mode 'const' adds noise_const, 'random' a [N,1,res,res]
+        draw (``noise`` when given, else from ``generator``), each times
+        noise_strength; 'none' adds nothing."""
+        if noise_mode not in ("random", "const", "none"):
+            raise ValueError(f"noise_mode must be 'random', 'const' or 'none', not {noise_mode!r}")
         styles = self.affine(w)
-        noise = strength = None
+        strength = None
         if self.use_noise and noise_mode == "const":
             noise, strength = self.noise_const, self.noise_strength
+        elif self.use_noise and noise_mode == "random":
+            shape = (x.shape[0], 1, self.resolution, self.resolution)
+            if noise is None:
+                noise = draws.normal(shape, generator, x.device, "SynthesisLayer noise")
+            elif tuple(noise.shape) != shape:
+                raise ValueError(f"SynthesisLayer noise must be {shape}, got {tuple(noise.shape)}")
+            strength = self.noise_strength
+        else:
+            noise = None
         act_gain = activation_funcs[self.activation].def_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
         return modulated_conv2d(x, self.weight, styles, noise=noise, noise_strength=strength,
@@ -208,17 +269,22 @@ class ToRGBLayer(nn.Module):
                                 bias=self.bias, clamp=self.conv_clamp)
 
 
+ARCHITECTURES = ("orig", "skip", "resnet")
+
+
 class SynthesisBlock(nn.Module):
-    """networks_stylegan2.py:387-487, 'skip' architecture; no_up is the
-    superresolution variant (SynthesisBlockNoUp)."""
+    """networks_stylegan2.py:387-487 in the 'skip', 'resnet' (a 1x1 ``skip``
+    conv beside the two layers, each branch at gain sqrt(0.5)) and 'orig'
+    architectures; a block has its torgb when it is the last or 'skip'.
+    no_up is the superresolution variant (SynthesisBlockNoUp)."""
 
     def __init__(self, in_channels, out_channels, w_dim, resolution, img_channels,
                  is_last, architecture="skip", resample_filter=(1, 3, 3, 1),
                  conv_clamp: Optional[float] = 256, use_fp16=False, no_up=False):
         super().__init__()
-        if architecture != "skip":
-            raise NotImplementedError(f"architecture={architecture!r} is not ported yet")
-        self.in_channels = in_channels
+        if architecture not in ARCHITECTURES:
+            raise ValueError(f"architecture must be one of {ARCHITECTURES}, not {architecture!r}")
+        self.in_channels, self.architecture = in_channels, architecture
         self.use_fp16, self.no_up = use_fp16, no_up
         self.resample_filter = setup_filter(list(resample_filter))   # recomputed, not state
         up = 1 if no_up else 2
@@ -229,43 +295,54 @@ class SynthesisBlock(nn.Module):
         else:
             self.conv0 = SynthesisLayer(in_channels, out_channels, up=up, **kw)
         self.conv1 = SynthesisLayer(out_channels, out_channels, **kw)
-        self.torgb = ToRGBLayer(out_channels, img_channels, w_dim=w_dim,
-                                conv_clamp=conv_clamp)
+        if is_last or architecture == "skip":
+            self.torgb = ToRGBLayer(out_channels, img_channels, w_dim=w_dim,
+                                    conv_clamp=conv_clamp)
+        if in_channels != 0 and architecture == "resnet":
+            self.skip = Conv2dLayer(in_channels, out_channels, kernel_size=1, bias=False, up=up,
+                                    resample_filter=resample_filter)
 
     def reset_parameters_(self, gen):
         if self.in_channels == 0:
             _randn(self.const, gen)
 
-    def forward(self, x, img, ws, force_fp32=False, noise_mode="const"):
+    def forward(self, x, img, ws, force_fp32=False, noise_mode="const", generator=None):
         full = torch.float64 if (ws if x is None else x).dtype == torch.float64 else torch.float32
         dtype = torch.bfloat16 if (self.use_fp16 and not force_fp32) else full
         w_iter = iter(ws.unbind(1))
+        kw = dict(noise_mode=noise_mode, generator=generator)
         if self.in_channels == 0:
             x = self.const[None].to(dtype).expand((ws.shape[0],) + tuple(self.const.shape))
+            x = self.conv1(x, next(w_iter), **kw)
+        elif self.architecture == "resnet":
+            x = x.to(dtype)
+            y = self.skip(x, gain=math.sqrt(0.5))
+            x = self.conv0(x, next(w_iter), **kw)
+            x = self.conv1(x, next(w_iter), gain=math.sqrt(0.5), **kw)
+            x = y + x
         else:
             x = x.to(dtype)
-            x = self.conv0(x, next(w_iter), noise_mode=noise_mode)
-        x = self.conv1(x, next(w_iter), noise_mode=noise_mode)
+            x = self.conv0(x, next(w_iter), **kw)
+            x = self.conv1(x, next(w_iter), **kw)
         if img is not None and not self.no_up:
             img = upsample2d(img, self.resample_filter)
-        y = self.torgb(x, next(w_iter)).to(torch.float32)
-        img = img + y if img is not None else y
+        if hasattr(self, "torgb"):
+            y = self.torgb(x, next(w_iter)).to(torch.float32)
+            img = img + y if img is not None else y
         return x, img
 
 
 class SynthesisNetwork(nn.Module):
-    """networks_stylegan2.py:491-724 with the ported cond_mode injections."""
+    """networks_stylegan2.py:491-724 with every cond_mode injection
+    (panic3d_tpu/models/stylegan2.py:488-651)."""
 
     def __init__(self, w_dim, img_resolution, img_channels, cond_mode="none",
                  channel_base=32768, channel_max=512, num_fp16_res=4, conv_clamp=256,
                  architecture="skip"):
         super().__init__()
         self.cond_mode = cond_mode
-        cm = [] if cond_mode == "none" else cond_mode.split(".")
-        chonk = [int(m.split("_")[-1]) for m in cm if m.startswith("reschonk_add_")]
-        unsupported = [m for m in cm if m not in _COND_TOKENS and not m.startswith("reschonk_add_")]
-        if unsupported or (cm and cm[0] != "ortho_front"):
-            raise NotImplementedError(f"cond_mode {cond_mode!r} is not ported yet")
+        self.cm = set(cond_mode.split("."))
+        chonk = [int(m.split("_")[-1]) for m in self.cm if m.startswith("reschonk_add_")]
         self.chonkadd = chonk[0] if chonk else 0
         self.block_resolutions = [2 ** i for i in range(2, int(np.log2(img_resolution)) + 1)]
         channels = {res: min(channel_base // res, channel_max) for res in self.block_resolutions}
@@ -280,40 +357,109 @@ class SynthesisNetwork(nn.Module):
                 use_fp16=(res >= fp16_resolution)))
         self.num_ws += 1   # final torgb
 
-    def forward(self, ws, cond=None, noise_mode="const"):
+    def forward(self, ws, cond=None, noise_mode="const", generator=None,
+                latent_injection=None, stop_level=None):
+        """ws [N,num_ws,w_dim] -> the image. Each block takes its convs'
+        ws and the next one for its torgb, as the JAX package splits them
+        (:498-505, a torgb counted for every block); ``latent_injection``
+        adds ``da_<lvl>`` to x and ``db_<lvl>`` to the image after block
+        lvl's cond injection; ``stop_level`` returns level stop_level's
+        image, upsampled to the full size."""
         ws = ws.to(torch.float32)
         x = img = None
         w_idx = 0
         n_levels = len(self.block_resolutions)
+        imgs = []
         for lvl, res in enumerate(self.block_resolutions):
             n_conv = 1 if res == 4 else 2
             cur_ws = ws[:, w_idx: w_idx + n_conv + 1]
             w_idx += n_conv
-            x, img = getattr(self, f"b{res}")(x, img, cur_ws, noise_mode=noise_mode)
+            x, img = getattr(self, f"b{res}")(x, img, cur_ws, noise_mode=noise_mode,
+                                              generator=generator)
             x = self._apply_cond(x, cond, res, lvl, n_levels)
-        return img
+            img = self._inject_image(img, cond, res, lvl, n_levels)
+            imgs.append(img)
+            if latent_injection is not None:
+                if f"da_{lvl}" in latent_injection:
+                    x = x + latent_injection[f"da_{lvl}"]
+                if f"db_{lvl}" in latent_injection:
+                    img = img + latent_injection[f"db_{lvl}"]
+        if stop_level is None:
+            return img
+        ret = imgs[stop_level]
+        f = setup_filter([1, 3, 3, 1])
+        for _ in range(stop_level + 1, n_levels):
+            ret = upsample2d(ret, f)
+        return ret
 
     def _apply_cond(self, x, cond, res, lvl, n_levels):
-        """cond_mode injections (networks_stylegan2.py:550-694): the
-        resnet-feature chonk added at 8^2, then the ortho-front image added
-        into the trailing channels of every other level (resized below the
-        last two levels, pixel-shuffled at them)."""
+        """cond_mode injections into x (networks_stylegan2.py:550-694): the
+        resnet-feature chonk added at 8^2 (and nothing else there); the
+        ortho-front image (with the side views under gt_sides / dorthoA,
+        times 4 under cond_img_norm_4) added into the trailing channels
+        (add_4), written over them (concatfront), added or multiplied
+        resized below the last two levels and pixel-shuffled at them
+        (add_shuffle2_4, mult_shuffle2_4); then the plane symmetry priors
+        crossavg_4 / crossavgt_38."""
+        cm = self.cm
         if self.cond_mode == "none":
             return x
         if res == 8 and self.chonkadd > 0:
             ch = self.chonkadd
             chonk = cond["resnet_chonk"].to(x.dtype)
             return torch.cat([x[:, :ch] + chonk[:, :ch], x[:, ch:]], 1)
-        cimg = cond["image_ortho_front"].flip(-2) * 2 - 1
-        if lvl < n_levels - 2:
-            toadd = resize_bilinear(cimg, x.shape[-1])
-        else:
-            toadd = pixel_shuffle_fold(cimg, cimg.shape[-1] // x.shape[-1])
-        toadd = toadd.to(x.dtype)
-        reps = int((x.shape[1] / 4) // toadd.shape[1])
-        toadd = toadd.repeat(1, reps, 1, 1)
+        if self.cond_mode.startswith("ortho_front."):
+            cimg = cond["image_ortho_front"].flip(-2)
+            sides = [v for v in ("gt_sides", "dorthoA") if v in cm]
+            for v in sides:
+                key = "ortho" if v == "gt_sides" else "dorthoA"
+                left = cond[f"image_{key}_left"].transpose(-1, -2).flip(-1, -2)
+                right = cond[f"image_{key}_right"].transpose(-1, -2).flip(-1)
+                cimg = torch.cat([cimg, left, right], 1)
+            cimg = cimg * 2 - 1
+            if "cond_img_norm_4" in cm:
+                cimg = 4 * cimg
+            if "add_4" in cm:
+                toadd = resize_bilinear(cimg, x.shape[-1]).to(x.dtype)
+                toadd = toadd.repeat(1, int((x.shape[1] / 4) // toadd.shape[1]), 1, 1)
+                ch = toadd.shape[1]
+                x = torch.cat([x[:, :-ch], x[:, -ch:] + toadd], 1)
+            if "concatfront" in cm:
+                toadd = resize_bilinear(cimg, x.shape[-1]).to(x.dtype)
+                x = torch.cat([x[:, :-toadd.shape[1]], toadd], 1)
+            if "add_shuffle2_4" in cm or "mult_shuffle2_4" in cm:
+                if lvl < n_levels - 2:
+                    toadd = resize_bilinear(cimg, x.shape[-1])
+                else:
+                    toadd = pixel_shuffle_fold(cimg, cimg.shape[-1] // x.shape[-1])
+                toadd = toadd.to(x.dtype)
+                toadd = toadd.repeat(1, int((x.shape[1] / 4) // toadd.shape[1]), 1, 1)
+                ch = toadd.shape[1]
+                tail = x[:, -ch:] + toadd if "add_shuffle2_4" in cm else x[:, -ch:] * toadd
+                x = torch.cat([x[:, :-ch], tail], 1)
+        if "crossavg_4" in cm or "crossavgt_38" in cm:
+            ch = int(x.shape[1] // 8)
+            horz, vert = x[:, :ch], x[:, ch:2 * ch]
+            parts = [horz.mean(-1, keepdim=True).expand_as(horz),
+                     vert.mean(-2, keepdim=True).expand_as(vert)]
+            if "crossavg_4" in cm:
+                parts.append(x[:, 2 * ch:])
+            else:
+                parts += [x[:, 2 * ch:3 * ch].transpose(-1, -2), x[:, 3 * ch:]]
+            x = torch.cat(parts, 1)
+        return x
+
+    def _inject_image(self, img, cond, res, lvl, n_levels):
+        """inj_6b_4 (networks_stylegan2.py:550-694): at the last level the
+        flipped ortho-front image, times 4, added into the image's first
+        channels (not at a level that took the resnet chonk)."""
+        if (not self.cond_mode.startswith("ortho_front.") or "inj_6b_4" not in self.cm
+                or lvl != n_levels - 1 or (res == 8 and self.chonkadd > 0)):
+            return img
+        toadd = (cond["image_ortho_front"].flip(-2) * 2 - 1) * 4
+        toadd = resize_bilinear(toadd, img.shape[-1]).to(img.dtype)
         ch = toadd.shape[1]
-        return torch.cat([x[:, :-ch], x[:, -ch:] + toadd], 1)
+        return torch.cat([img[:, :ch] + toadd, img[:, ch:]], 1)
 
 
 class Generator(nn.Module):
@@ -327,10 +473,11 @@ class Generator(nn.Module):
                                           **(synthesis_kwargs or {}))
         self.num_ws = self.synthesis.num_ws
         self.mapping = MappingNetwork(z_dim=z_dim, c_dim=c_dim, w_dim=w_dim,
-                                      num_ws=self.num_ws, **(mapping_kwargs or {}))
+                                      num_ws=self.num_ws, cond_mode=cond_mode,
+                                      **(mapping_kwargs or {}))
 
     def forward(self, z, c, cond=None, truncation_psi=1.0, truncation_cutoff=None,
-                noise_mode="const"):
-        ws = self.mapping(z, c, truncation_psi=truncation_psi,
+                **synthesis_kwargs):
+        ws = self.mapping(z, c, cond, truncation_psi=truncation_psi,
                           truncation_cutoff=truncation_cutoff)
-        return self.synthesis(ws, cond, noise_mode=noise_mode)
+        return self.synthesis(ws, cond, **synthesis_kwargs)

@@ -2,7 +2,12 @@
 -> paste-front (panic3d_tpu/models/triplane.py).
 
 ``G.f(x)``, the kwargs-dict inference entry, is the public API, as in the
-JAX package. Ported: z / seeds / ws latents, camera labels from
+JAX package. It takes every input of the JAX G.f: z / zs (per-slot z+
+latents) / seeds / ws latents, latent injection (``dw``, ``dws`` on the ws,
+``da_<lvl>`` / ``db_<lvl>`` into the synthesis), ``stop_level``, the noise
+modes and the keyed render (``generator=``: a torch.Generator, or a
+utils/draws.Replay of given draws, the counterpart of the JAX package's
+``noise`` rng and ``render_key``), camera labels from
 elevations/azimuths[/distances/fovs] or camera_params, the ortho/pinhole ray
 select, mapping, synthesis, triplane_crop / cull_clouds / binarize_clouds,
 empty-space skipping (rendering_kwargs['ess']), paste-front compositing
@@ -16,8 +21,6 @@ TPU row trick, bit-equal to the plain render). Kernel K8
 (csrc/paste_front.cu) does paste-front's per-pixel work, on the card with
 the grid occlusion's read of the volume in the same launch; its wrappers
 sit here beside their plain versions.
-Not ported yet (raise NotImplementedError): per-slot z+ latents (``zs``)
-and latent injection.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ from .superresolution import SR_MODULES
 from .volumetric import lattice as vlat
 from .volumetric import renderer as vr
 
-_UNPORTED_INPUTS = ("zs", "latent_injection")
 _XYZ_FLIP = (-1.0, 1.0, -1.0)
 
 
@@ -150,17 +152,37 @@ class TriPlaneGenerator(nn.Module):
     def _t(self, v):
         return torch.as_tensor(v, dtype=torch.float32, device=self.device)
 
-    def mapping(self, z, c, truncation_psi=1.0, truncation_cutoff=None):
-        """triplane.py:88-122, with c zeroing and c_scale."""
+    def mapping(self, z, c, cond=None, truncation_psi=1.0, truncation_cutoff=None):
+        """triplane.py:88-122, with c zeroing and c_scale; ``cond`` carries
+        resnet_feats for a resnetcond_N cond mode."""
         if self.rk["c_gen_conditioning_zero"]:
             c = torch.zeros_like(c)
         c = c * self.rk.get("c_scale", 0)
-        return self.backbone.mapping(z, c, truncation_psi=truncation_psi,
+        return self.backbone.mapping(z, c, cond, truncation_psi=truncation_psi,
                                      truncation_cutoff=truncation_cutoff)
 
-    def _planes_from_ws(self, ws, cond, noise_mode="const"):
+    def mapping_zplus(self, zs, c, cond=None, truncation_psi=1.0, truncation_cutoff=None):
+        """Per-slot z+ mapping (triplane.py:123-143): zs [N,n,z_dim], z_i
+        fills w slot i -> ws [N,n,w_dim]."""
+        bs, n, dim = zs.shape
+        c_new = c[:, None, :].repeat(1, n, 1).reshape(bs * n, -1)
+        cond_new = cond
+        if cond is not None and "resnet_feats" in cond:
+            feats = cond["resnet_feats"]
+            cond_new = dict(cond, resnet_feats=feats[:, None, :].repeat(1, n, 1)
+                            .reshape(bs * n, -1))
+        ans = self.mapping(zs.reshape(bs * n, dim), c_new, cond_new,
+                           truncation_psi=truncation_psi, truncation_cutoff=truncation_cutoff)
+        ans = ans.reshape(bs, n, n, -1)
+        diag = torch.arange(n, device=ans.device)
+        return ans[:, diag, diag, :]
+
+    def _planes_from_ws(self, ws, cond, noise_mode="const", generator=None,
+                        latent_injection=None, stop_level=None):
         """Backbone synthesis -> planes [N,3,C*D,H,W] (triplane.py:264)."""
-        planes = self.backbone.synthesis(ws, cond, noise_mode=noise_mode)
+        planes = self.backbone.synthesis(ws, cond, noise_mode=noise_mode, generator=generator,
+                                         latent_injection=latent_injection,
+                                         stop_level=stop_level)
         return planes.reshape(planes.shape[0], 3, self.triplane_width * self.triplane_depth,
                               planes.shape[-2], planes.shape[-1])
 
@@ -207,20 +229,25 @@ class TriPlaneGenerator(nn.Module):
                 rk["box_warp"], axes)
         return {"rgb": rgb, "sigma": sigma, "xyz": coordinates}
 
-    def sample_mixed(self, coordinates, directions, ws, cond=None, noise_mode="const"):
+    def sample_mixed(self, coordinates, directions, ws, cond=None, noise_mode="const",
+                     generator=None):
         """Decode (rgb, sigma) at arbitrary coordinates from ws
         (triplane.py:439): the backbone planes, then sample_mixed_planes."""
-        return self.sample_mixed_planes(self._planes_from_ws(ws, cond, noise_mode=noise_mode),
-                                        coordinates)
+        planes = self._planes_from_ws(ws, cond, noise_mode=noise_mode, generator=generator)
+        return self.sample_mixed_planes(planes, coordinates)
 
     def synthesis(self, ws, c, cond=None, neural_rendering_resolution: Optional[int] = None,
                   force_rays=None, triplane_crop=None, cull_clouds=None,
                   binarize_clouds=None, normalize_images=True, noise_mode="const",
-                  planes=None, skip_superresolution=False, ess_occ=None):
+                  planes=None, skip_superresolution=False, ess_occ=None, generator=None,
+                  latent_injection=None, stop_level=None):
         """triplane.py:288-417 -> the output dict. ``planes`` skips the
         backbone, ``skip_superresolution`` leaves ``image`` None (for
         consumers of image_weights only), ``ess_occ`` pre-seeds the ESS
-        occupancy."""
+        occupancy. ``generator`` draws the backbone's noise under
+        noise_mode='random', the render's jitter and u, then the SR's noise
+        under superresolution_noise_mode='random', in that order (the JAX
+        package's order of draws)."""
         rk = self.rk
         res = neural_rendering_resolution or self.neural_rendering_resolution
         N = ws.shape[0]
@@ -233,7 +260,9 @@ class TriPlaneGenerator(nn.Module):
                 ray_origins = ray_origins.reshape(N, 3, -1).transpose(1, 2)
                 ray_directions = ray_directions.reshape(N, 3, -1).transpose(1, 2)
         if planes is None:
-            planes = self._planes_from_ws(ws, cond, noise_mode=noise_mode)
+            planes = self._planes_from_ws(ws, cond, noise_mode=noise_mode, generator=generator,
+                                          latent_injection=latent_injection,
+                                          stop_level=stop_level)
         if rk.get("ess"):
             # the occupancy depends only on the planes: computed once and
             # shared by every render of them (paste-front, turntables)
@@ -243,7 +272,8 @@ class TriPlaneGenerator(nn.Module):
             rk = dict(rk, _ess_occ=ess_occ)
         out = vr.render(planes, self._decoder(), ray_origins.contiguous(),
                         ray_directions.contiguous(), rk, triplane_crop=triplane_crop,
-                        cull_clouds=cull_clouds, binarize_clouds=binarize_clouds)
+                        cull_clouds=cull_clouds, binarize_clouds=binarize_clouds,
+                        generator=generator)
 
         def image(t):
             return t.transpose(1, 2).reshape(N, -1, res, res)
@@ -252,7 +282,8 @@ class TriPlaneGenerator(nn.Module):
         xyz_image = 0.5 * (image(out.xyz) + 1) * constant(_XYZ_FLIP, self.device)[None, :, None, None]
         rgb_image = feature_image[:, :3]
         sr_image = None if skip_superresolution else self.superresolution(
-            rgb_image, feature_image, ws, noise_mode=rk["superresolution_noise_mode"])
+            rgb_image, feature_image, ws, noise_mode=rk["superresolution_noise_mode"],
+            generator=generator)
         ans = {
             "image": sr_image,
             "image_raw": rgb_image,
@@ -274,20 +305,25 @@ class TriPlaneGenerator(nn.Module):
         return ans
 
     def f(self, x: Dict[str, Any], truncation_psi=1.0, truncation_cutoff=None,
-          normalize_images=False, noise_mode="const"):
-        """Universal inference entry (triplane.py:473-622). Accepts ws | z |
-        seeds, camera_params | (elevations, azimuths[, distances, fovs]),
-        cond, triplane_crop / cull_clouds / binarize_clouds / paste_params,
-        force_rays, and the precomputed _planes / _skip_sr / _ess_occ /
-        _occ_vol. Returns image, image_raw, image_depth, image_weights,
-        image_xyz, triplane, normalize_images, plus _ess_occ with ESS on and
-        image_prepaste / paste when pasting."""
+          normalize_images=False, noise_mode="const", generator=None,
+          latent_injection=None, stop_level=None):
+        """Universal inference entry (triplane.py:473-622). Accepts ws | zs
+        | z | seeds, camera_params | (elevations, azimuths[, distances,
+        fovs]), cond, latent_injection (also as x['latent_injection'], which
+        wins key by key), triplane_crop / cull_clouds / binarize_clouds /
+        paste_params, force_rays, and the precomputed _planes / _skip_sr /
+        _ess_occ / _occ_vol. noise_mode 'random' draws the backbone's noise
+        from ``generator``, which also keys the render (jittered coarse
+        depths, importance depths at random u) and the SR's noise under
+        superresolution_noise_mode='random' (see synthesis). Returns image,
+        image_raw, image_depth, image_weights, image_xyz, triplane,
+        normalize_images, plus _ess_occ with ESS on and image_prepaste /
+        paste when pasting."""
         x = dict(x)
-        for k in _UNPORTED_INPUTS:
-            if k in x:
-                raise NotImplementedError(f"G.f input {k!r} is not ported yet")
+        if "latent_injection" in x:
+            latent_injection = dict(latent_injection or {}, **x["latent_injection"])
         rk = self.rk
-        if "ws" not in x and "z" not in x:
+        if "ws" not in x and "zs" not in x and "z" not in x:
             x["z"] = self._t(seeds_to_z(x["seeds"], self.z_dim))
 
         if "camera_params" not in x:
@@ -321,15 +357,30 @@ class TriPlaneGenerator(nn.Module):
 
         cond = x.get("cond")
         if "ws" not in x:
-            x["ws"] = self.mapping(self._t(x["z"]), cam, truncation_psi=truncation_psi,
-                                   truncation_cutoff=truncation_cutoff)
+            # zs: a z for each w slot; one z for every slot takes the plain
+            # mapping, identical to mapping_zplus and num_ws times cheaper
+            # (triplane.py:508-516)
+            if "zs" in x:
+                x["ws"] = self.mapping_zplus(self._t(x["zs"]), cam, cond,
+                                             truncation_psi=truncation_psi,
+                                             truncation_cutoff=truncation_cutoff)
+            else:
+                x["ws"] = self.mapping(self._t(x["z"]), cam, cond,
+                                       truncation_psi=truncation_psi,
+                                       truncation_cutoff=truncation_cutoff)
+        ws = x["ws"]
+        if latent_injection is not None:
+            for k in ("dw", "dws"):
+                if k in latent_injection:
+                    ws = ws + latent_injection[k]
         normalize_images = x.get("normalize_images", normalize_images)
         synth = self.synthesis(
-            x["ws"], cam, cond, neural_rendering_resolution=res, force_rays=force_rays,
+            ws, cam, cond, neural_rendering_resolution=res, force_rays=force_rays,
             triplane_crop=x.get("triplane_crop"), cull_clouds=x.get("cull_clouds"),
             binarize_clouds=x.get("binarize_clouds"), normalize_images=normalize_images,
             noise_mode=noise_mode, planes=x.get("_planes"),
-            skip_superresolution=x.get("_skip_sr", False), ess_occ=x.get("_ess_occ"))
+            skip_superresolution=x.get("_skip_sr", False), ess_occ=x.get("_ess_occ"),
+            generator=generator, latent_injection=latent_injection, stop_level=stop_level)
         ret = {k: synth[k] for k in ("image", "image_raw", "image_depth", "image_weights",
                                      "triplane", "image_xyz")}
         ret["normalize_images"] = normalize_images
@@ -339,7 +390,8 @@ class TriPlaneGenerator(nn.Module):
         x.update(ret)
         if x.get("paste_params"):
             ret["image_prepaste"] = ret["image"]
-            paste = self.paste_front(x, ret, noise_mode=noise_mode, **x["paste_params"])
+            paste = self.paste_front(x, ret, noise_mode=noise_mode, generator=generator,
+                                     **x["paste_params"])
             ret["paste"] = paste
             ret["image"] = paste["image"]
         return ret
@@ -356,7 +408,7 @@ class TriPlaneGenerator(nn.Module):
                 cull_clouds=x.get("cull_clouds"), binarize_clouds=x.get("binarize_clouds"))
         return vol
 
-    def _get_front_occlusion(self, x, out, offset=0.01, noise_mode="const"):
+    def _get_front_occlusion(self, x, out, offset=0.01, noise_mode="const", generator=None):
         """Front occlusion by a re-render along +z from each surface point
         (triplane.py:686, occ_impl='render'), reusing the planes and the
         ESS occupancy; SR is skipped (image_weights does not need it)."""
@@ -372,9 +424,9 @@ class TriPlaneGenerator(nn.Module):
             xin["_planes"] = x["triplane"]
         xin["_skip_sr"] = True
         xin["_rays_z_aligned"] = True
-        return self.f(xin, noise_mode=noise_mode)["image_weights"]
+        return self.f(xin, noise_mode=noise_mode, generator=generator)["image_weights"]
 
-    def _get_front_weights(self, x, noise_mode="const"):
+    def _get_front_weights(self, x, noise_mode="const", generator=None):
         """The front ortho view's weights (triplane.py:705), for
         front_weight_erosion."""
         bs = x["cond"]["image_ortho_front"].shape[0]
@@ -387,7 +439,7 @@ class TriPlaneGenerator(nn.Module):
         if "triplane" in x:
             xin["_planes"] = x["triplane"]
         xin["_skip_sr"] = True
-        return self.f(xin, noise_mode=noise_mode)["image_weights"]
+        return self.f(xin, noise_mode=noise_mode, generator=generator)["image_weights"]
 
     @staticmethod
     def _get_xyz_discrepancy(xyz, rays):
@@ -400,7 +452,7 @@ class TriPlaneGenerator(nn.Module):
     def paste_front(self, x, out, mode="default", thresh_weight=0.95, thresh_edges=0.02,
                     thresh_occ=0.05, offset_occ=0.01, thresh_dxyz=0.01,
                     front_weight_erosion=0, force_image=None, occ_impl="grid",
-                    noise_mode="const", **kwargs):
+                    noise_mode="const", generator=None, **kwargs):
         """Project the conditioning front view onto the render where the
         surface faces the front camera unoccluded (triplane.py:730). The
         per-pixel masks, projection and blend are kernel K8. With the grid
@@ -423,12 +475,14 @@ class TriPlaneGenerator(nn.Module):
             if not fused:
                 occ = (front_occlusion_grid(vol, out["image_xyz"], offset_occ, seg_len) if grid
                        else self._get_front_occlusion(x, out, offset=offset_occ,
-                                                      noise_mode=noise_mode))
+                                                      noise_mode=noise_mode,
+                                                      generator=generator))
                 occ_bin = (occ < thresh_occ).to(torch.float32)
                 dxyz = self._get_xyz_discrepancy(out["image_xyz"], x["force_rays"])
             frontw = fwmask = None
             if front_weight_erosion >= 1:
-                frontw = self._get_front_weights(x, noise_mode=noise_mode)
+                frontw = self._get_front_weights(x, noise_mode=noise_mode,
+                                                 generator=generator)
                 fw = erosion((frontw > 0.5).to(torch.float32), front_weight_erosion)
                 fwmask = resize_nearest(
                     sample_orthofront(fw, resize_bilinear(out["image_xyz"], size), bw), size)

@@ -1,6 +1,9 @@
 """Hierarchical (coarse + importance) triplane volume renderer
-(panic3d_tpu/models/volumetric/renderer.py), eval path, with empty-space
-skipping.
+(panic3d_tpu/models/volumetric/renderer.py), with empty-space skipping,
+ray_start = ray_end = 'auto' (each ray's span through the box), disparity-
+space sampling and the keyed form of training (jittered stratified depths,
+importance depths at random u: ``render(..., generator=)``, or the draws
+``jitter`` and ``u`` themselves, utils/draws.py).
 
 Five CUDA kernels carry the render on the card, each wrapped here beside
 its plain PyTorch version:
@@ -10,10 +13,12 @@ its plain PyTorch version:
 - K2 ``ray_composite`` (csrc/ray_composite.cu): stable depth merge of the
   coarse and fine samples + midpoint-quadrature composite, per ray;
 - K3 ``importance_sample`` (csrc/importance_sample.cu): coarse weights ->
-  smoothed pdf -> inverse-CDF depths at u = linspace(0, 1, K), per ray;
+  smoothed pdf -> inverse-CDF depths at u = linspace(0, 1, K), or at u
+  read from memory (the keyed form), per ray;
 - K6 ``ess_occupancy`` and ``ess_narrow`` (csrc/ess.cu): the empty-space-
   skipping occupancy grid decoded from the factorised lattice terms
-  (lattice.py), and each ray's narrowed interval with its coarse depths.
+  (lattice.py), and each ray's narrowed interval with its coarse depths
+  (from fixed or per-ray bounds, at jitter 0.5 or a drawn jitter).
 
 A wrapper takes its plain version only for CPU tensors; on a CUDA tensor it
 launches its kernel or raises.
@@ -26,9 +31,9 @@ density filters in the same kernel. The JAX package's ESS and grid paste
 occlusion fail at D > 1 (ROADMAP F12); the port refuses them there with a
 NotImplementedError that names F12.
 
-Not ported yet: ``ray_start='auto'``, disparity-space sampling, random
-(keyed) sampling, and the TPU-only ray chunking and corner packing (ROADMAP
-"Do not port").
+Not ported: the TPU-only ray chunking and corner packing (ROADMAP "Do not
+port"). The JAX package's chunked render folds the chunk index into the
+key; the port renders all rays at once and draws once.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import torch.nn.functional as F
 from ...kernels import KERNELS, require_no_grad
 from ...kernels import build as kb
 from ...ops.grid_sample import grid_sample_2d_points, grid_sample_3d_points
+from ...utils import draws
 from ...utils.device import constant
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -177,7 +183,34 @@ def _apply_density_filters(densities, xyz, box_warp, triplane_crop, cull_clouds,
 
 
 # ---------------------------------------------------------------------------
-# sampling (deterministic eval form, key=None)
+# sampling
+
+def get_ray_limits_box(rays_o, rays_d, box_side_length):
+    """Ray/AABB entry and exit distances (math_utils.py:46-98); invalid
+    rays get (-1, -2). rays_o/rays_d [..., 3] -> (tmin [..., 1], tmax
+    [..., 1], valid [..., 1])."""
+    half = box_side_length / 2
+    inv_d = 1.0 / rays_d
+    t_lo = (-half - rays_o) * inv_d
+    t_hi = (half - rays_o) * inv_d
+    tmin = torch.minimum(t_lo, t_hi).amax(-1)
+    tmax = torch.maximum(t_lo, t_hi).amin(-1)
+    valid = tmin <= tmax
+    tmin = torch.where(valid, tmin, torch.full_like(tmin, -1.0))
+    tmax = torch.where(valid, tmax, torch.full_like(tmax, -2.0))
+    return tmin[..., None], tmax[..., None], valid[..., None]
+
+
+def auto_ray_limits(rays_o, rays_d, box_warp: float):
+    """ray_start = ray_end = 'auto' (renderer.py:980-989): each ray's span
+    through the box; an invalid ray starts at the batch's least valid start
+    and ends at its greatest valid start. The fill's min and max stay on the
+    device. -> (ray_start [N,R,1], ray_end [N,R,1])."""
+    rs, re, valid = get_ray_limits_box(rays_o, rays_d, box_warp)
+    big = torch.where(valid, rs, torch.full_like(rs, math.inf))
+    small = torch.where(valid, rs, torch.full_like(rs, -math.inf))
+    return torch.where(valid, rs, big.amin()), torch.where(valid, re, small.amax())
+
 
 def batched_linspace(start, stop, num: int):
     """[num, *start.shape] linspace (math_utils.py:101-118), in the JAX
@@ -187,31 +220,66 @@ def batched_linspace(start, stop, num: int):
     return start[None] + steps * (stop - start)[None]
 
 
-def sample_stratified(ray_origins, ray_start, ray_end, depth_resolution: int):
-    """Midpoint-stratified depths [N,M,S,1] (renderer.py:479-483 with
-    key=None: jitter 0.5) over a fixed interval (floats) or per-ray
-    intervals ([N,M,1] tensors, the ESS-narrowed form)."""
+def _jitter(jitter, shape, generator, device, what):
+    """The stratified jitter: ``jitter`` [N,M,S,1] as given, a draw from
+    ``generator``, else 0.5 (the midpoints of eval, key=None)."""
+    if jitter is None and generator is None:
+        return 0.5
+    if jitter is None:
+        return draws.uniform(shape, generator, device, what)
+    if tuple(jitter.shape) != tuple(shape):
+        raise ValueError(f"{what}: jitter must be {tuple(shape)}, got {tuple(jitter.shape)}")
+    return jitter
+
+
+def sample_stratified(ray_origins, ray_start, ray_end, depth_resolution: int, jitter=None,
+                      generator=None, disparity_space_sampling: bool = False):
+    """Stratified depths [N,M,S,1] (renderer.py:450-483) over a fixed
+    interval (floats) or per-ray intervals ([N,M,1] tensors: 'auto', or
+    the ESS-narrowed spans), evenly in depth or, with
+    disparity_space_sampling, in inverse depth. Each stratum is offset by
+    ``jitter`` [N,M,S,1] (uniform in [0, 1)) times its width: as given,
+    drawn from ``generator``, else 0.5 (the midpoints of eval)."""
     N, M, _ = ray_origins.shape
     S = depth_resolution
+    dev = ray_origins.device
+    jitter = _jitter(jitter, (N, M, S, 1), generator, dev, "sample_stratified")
+    if disparity_space_sampling:
+        d = torch.linspace(0, 1, S, device=dev).reshape(1, 1, S, 1).expand(N, M, S, 1)
+        d = d + jitter * (1 / (S - 1))
+        return 1.0 / (1.0 / ray_start * (1.0 - d) + 1.0 / ray_end * d)
     if isinstance(ray_start, (int, float)):
-        depths = torch.linspace(ray_start, ray_end, S, device=ray_origins.device)
-        depths = depths.reshape(1, 1, S, 1) + 0.5 * ((ray_end - ray_start) / (S - 1))
+        depths = torch.linspace(ray_start, ray_end, S, device=dev).reshape(1, 1, S, 1)
+        depths = depths + jitter * ((ray_end - ray_start) / (S - 1))
         return depths.expand(N, M, S, 1)
     depths = batched_linspace(ray_start, ray_end, S).permute(1, 2, 0, 3)   # [N,M,S,1]
     delta = (ray_end - ray_start) / (S - 1)
-    return depths + 0.5 * delta[..., None]
+    return depths + jitter * delta[..., None]
 
 
-def sample_pdf(bins, weights, n_importance: int, eps: float = 1e-5):
-    """Inverse-CDF sampling at u = linspace(0, 1, n) (renderer.py:348-387).
+def _u(u, shape, generator, device, what):
+    """The importance u [R,K]: as given, drawn from ``generator``, else
+    None (linspace(0, 1, K), eval's)."""
+    if u is None and generator is not None:
+        return draws.uniform(shape, generator, device, what)
+    if u is not None and tuple(u.shape) != tuple(shape):
+        raise ValueError(f"{what}: u must be {tuple(shape)}, got {tuple(u.shape)}")
+    return u
+
+
+def sample_pdf(bins, weights, n_importance: int, eps: float = 1e-5, u=None, generator=None):
+    """Inverse-CDF sampling (renderer.py:496-545) at ``u`` [R,K] (uniform in
+    [0, 1): as given, drawn from ``generator``, else linspace(0, 1, K)).
     bins [R,B], weights [R,W] with W <= B - 1."""
     R, S = weights.shape
     weights = weights + eps
     pdf = weights / weights.sum(-1, keepdim=True)
     cdf = torch.cumsum(pdf, -1)
     cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], -1)               # [R,S+1]
-    u = torch.linspace(0, 1, n_importance, device=cdf.device, dtype=cdf.dtype)
-    u = u.expand(R, n_importance).contiguous()
+    u = _u(u, (R, n_importance), generator, cdf.device, "sample_pdf")
+    if u is None:
+        u = torch.linspace(0, 1, n_importance, device=cdf.device, dtype=cdf.dtype)
+        u = u.expand(R, n_importance).contiguous()
     inds = (cdf[:, None, :] <= u[:, :, None]).sum(-1)                      # searchsorted right
     below = (inds - 1).clamp_min(0)
     above = inds.clamp_max(S)
@@ -222,9 +290,10 @@ def sample_pdf(bins, weights, n_importance: int, eps: float = 1e-5):
     return bins_lo + (u - cdf_lo) / denom * (bins_hi - bins_lo)
 
 
-def sample_importance(z_vals, weights, n_importance: int):
+def sample_importance(z_vals, weights, n_importance: int, u=None, generator=None):
     """Importance depths from max-pool/avg-pool smoothed coarse weights
-    (renderer.py:328-346). z_vals [B,R,S,1], weights [B,R,S-1,1]."""
+    (renderer.py:548-564), at ``u`` as sample_pdf takes it. z_vals
+    [B,R,S,1], weights [B,R,S-1,1]."""
     B, R, S, _ = z_vals.shape
     z = z_vals.reshape(B * R, S)
     w = weights.reshape(B * R, -1)
@@ -232,7 +301,8 @@ def sample_importance(z_vals, weights, n_importance: int):
     wmax = torch.maximum(wpad[:, :-1], wpad[:, 1:])
     w = (wmax[:, :-1] + wmax[:, 1:]) / 2 + 0.01
     z_mid = 0.5 * (z[:, :-1] + z[:, 1:])
-    return sample_pdf(z_mid, w[:, 1:-1], n_importance).reshape(B, R, n_importance, 1)
+    return sample_pdf(z_mid, w[:, 1:-1], n_importance, u=u,
+                      generator=generator).reshape(B, R, n_importance, 1)
 
 
 def unify_samples(d1, c1, s1, x1, d2, c2, s2, x2):
@@ -532,21 +602,23 @@ def ray_composite(d1, c1, s1, x1, d2, c2, s2, x2, white_back: bool):
 # ---------------------------------------------------------------------------
 # K3 importance_sample
 
-def importance_sample_plain(depths, sigmas, n_importance: int):
-    """Coarse depths/sigmas [B,R,S,1] -> importance depths [B,R,K,1]."""
-    return sample_importance(depths, _march_weights(sigmas, depths), n_importance)
+def importance_sample_plain(depths, sigmas, n_importance: int, u=None):
+    """Coarse depths/sigmas [B,R,S,1] -> importance depths [B,R,K,1], at
+    u = linspace(0, 1, K), or at ``u`` [B*R,K] (the keyed form)."""
+    return sample_importance(depths, _march_weights(sigmas, depths), n_importance, u=u)
 
 
-def importance_sample_warp_order(depths, sigmas, n_importance: int):
+def importance_sample_warp_order(depths, sigmas, n_importance: int, u=None):
     """K3's order of operations (csrc/importance_sample.cu) in PyTorch, for
     the tests. A ray has L lanes (16 at S = 48, else 32), lane l holding
     samples l npl .. l npl + npl - 1 (npl = ceil(S / L)); the transmittance
     and the cdf are Kogge-Stone scans of the lanes' products and sums
     (log2 L shuffles up), continued in order through each lane's own terms;
     the pdf's sum is each lane's sum, then a butterfly; each u is resolved
-    by a binary search of fixed steps. depths/sigmas [B,R,S,1] -> (fine
-    depths [B,R,K,1], the search's cdf index [B*R,K], the count of cdf
-    entries <= u [B*R,K])."""
+    by a binary search of fixed steps; ``u`` [B*R,K] read from memory in
+    place of linspace(0, 1, K). depths/sigmas [B,R,S,1] -> (fine depths
+    [B,R,K,1], the search's cdf index [B*R,K], the count of cdf entries <=
+    u [B*R,K])."""
     B, R, S, _ = depths.shape
     K, eps = n_importance, 1e-5
     L = 16 if S == 48 else 32
@@ -609,7 +681,8 @@ def importance_sample_warp_order(depths, sigmas, n_importance: int):
     cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], 1)                # [N, Sw+1]
     bins = (0.5 * (z + z1)).reshape(N, W)[:, :S - 1]
 
-    u = torch.linspace(0, 1, K, device=dev).expand(N, K).contiguous()
+    if u is None:
+        u = torch.linspace(0, 1, K, device=dev).expand(N, K).contiguous()
     n = torch.zeros((N, K), dtype=torch.long, device=dev)   # cdf[:n] <= u < cdf[n]
     h = 1                     # the largest power of 2 <= Sw + 1, halved each step
     while h * 2 <= Sw + 1:
@@ -627,30 +700,40 @@ def importance_sample_warp_order(depths, sigmas, n_importance: int):
     return out, n, (cdf[:, None, :] <= u[:, :, None]).sum(-1)
 
 
-_K3_ARGS = (kb.PTR, kb.PTR, kb.PTR, kb.INT, kb.INT, kb.INT, kb.PTR)
+_K3_ARGS = (kb.PTR, kb.PTR, kb.PTR, kb.PTR, kb.INT, kb.INT, kb.INT, kb.PTR)
 
 
-def importance_sample_kernel(depths, sigmas, n_importance: int):
-    """Launch K3 on CUDA tensors: same contract as importance_sample_plain."""
-    require_no_grad("importance_sample", depths, sigmas)
+def importance_sample_kernel(depths, sigmas, n_importance: int, u=None):
+    """Launch K3 on CUDA tensors: same contract as importance_sample_plain.
+    With ``u`` (contiguous f32 [B*R,K]) it runs the form that reads u
+    (counted as the variant ``u``)."""
+    require_no_grad("importance_sample", depths, sigmas, u)
     B, R, S, _ = depths.shape
     for t in (depths, sigmas):
         _require(t.dtype == torch.float32 and t.is_contiguous()
                  and tuple(t.shape) == (B, R, S, 1) and t.device == depths.device,
                  "K3 takes contiguous f32 [B,R,S,1] depths and sigmas")
     _require(4 <= S <= 256 and n_importance >= 1, f"K3 takes 4..256 coarse samples, got {S}")
+    _require(u is None or (u.dtype == torch.float32 and u.is_contiguous()
+                           and tuple(u.shape) == (B * R, n_importance)
+                           and u.device == depths.device),
+             "K3's u must be contiguous f32 [B*R,K] on the depths' device")
     out = torch.empty((B, R, n_importance, 1), dtype=torch.float32, device=depths.device)
     kb.launch("importance_sample", _K3_ARGS, depths.data_ptr(), sigmas.data_ptr(),
-              out.data_ptr(), B * R, S, n_importance, _stream(depths))
-    KERNELS["importance_sample"].launches += 1
+              u.data_ptr() if u is not None else None, out.data_ptr(), B * R, S,
+              n_importance, _stream(depths))
+    k = KERNELS["importance_sample"]
+    k.launches += 1
+    if u is not None:
+        k.variants["u"] = k.variants.get("u", 0) + 1
     return out
 
 
-def importance_sample(depths, sigmas, n_importance: int):
+def importance_sample(depths, sigmas, n_importance: int, u=None):
     if depths.device.type == "cpu":
-        return importance_sample_plain(depths, sigmas, n_importance)
+        return importance_sample_plain(depths, sigmas, n_importance, u)
     if depths.device.type == "cuda":
-        return importance_sample_kernel(depths, sigmas, n_importance)
+        return importance_sample_kernel(depths, sigmas, n_importance, u)
     raise RuntimeError(f"importance_sample: no path for device {depths.device}")
 
 
@@ -794,10 +877,18 @@ def ess_occupancy(plane_axes, planes, dec: Decoder, box_warp: float, options: di
     return occ, (density0 > thresh).to(torch.float32)
 
 
+def _scalar_bounds(ray_start, ray_end) -> bool:
+    return isinstance(ray_start, (int, float)) and isinstance(ray_end, (int, float))
+
+
 def _narrow_check(ray_start, ray_end, box_warp, G, K):
     """The no-step-over invariant (renderer.py:394-410): the tap spacing
-    must not exceed the occupancy cell."""
-    max_len = float(ray_end) - float(ray_start)
+    must not exceed the occupancy cell; the interval is the configured span
+    for fixed bounds, else the box's diagonal."""
+    if _scalar_bounds(ray_start, ray_end):
+        max_len = float(ray_end) - float(ray_start)
+    else:
+        max_len = float(np.sqrt(3.0)) * box_warp
     if max_len / K > box_warp / G:
         raise ValueError(
             f"ess: taps={K} cannot cover interval length {max_len:g} at grid={G} (tap "
@@ -805,19 +896,30 @@ def _narrow_check(ray_start, ray_end, box_warp, G, K):
             f"{int(np.ceil(max_len * G / box_warp))}")
 
 
-def ess_narrow_intervals(occ, occ_outside, ray_origins, ray_directions, ray_start: float,
-                         ray_end: float, box_warp: float, options: dict):
+def _ray_bounds(ray_start, ray_end, N, R, dev):
+    """The bounds as [N,R,1] f32 tensors: fixed floats filled, per-ray
+    tensors broadcast."""
+    if isinstance(ray_start, (int, float)):
+        rs = torch.full((N, R, 1), float(ray_start), dtype=torch.float32, device=dev)
+        re = torch.full((N, R, 1), float(ray_end), dtype=torch.float32, device=dev)
+        return rs, re
+    return (ray_start.expand(N, R, 1).to(torch.float32),
+            ray_end.expand(N, R, 1).to(torch.float32))
+
+
+def ess_narrow_intervals(occ, occ_outside, ray_origins, ray_directions, ray_start, ray_end,
+                         box_warp: float, options: dict):
     """Per-ray [t0, t1] covering the occupied span plus ``margin`` taps
-    (renderer.py:378-440): K taps along each ray's interval; rays with no
-    occupied tap keep their full interval. -> ([N,R,1] t0, [N,R,1] t1)."""
+    (renderer.py:378-440): K taps along each ray's interval (fixed floats,
+    or per-ray [N,R,1] bounds); rays with no occupied tap keep their full
+    interval. -> ([N,R,1] t0, [N,R,1] t1)."""
     ess = options["ess"]
     K, margin = int(ess.get("taps", 64)), float(ess.get("margin", 1))
     N, R, _ = ray_origins.shape
     G = occ.shape[-1]
     _narrow_check(ray_start, ray_end, box_warp, G, K)
     dev = ray_origins.device
-    rs = torch.full((N, R, 1), float(ray_start), dtype=torch.float32, device=dev)
-    re = torch.full((N, R, 1), float(ray_end), dtype=torch.float32, device=dev)
+    rs, re = _ray_bounds(ray_start, ray_end, N, R, dev)
     L = re - rs
     frac = (torch.arange(K, dtype=torch.float32, device=dev) + 0.5) / K
     tk = rs + frac[None, None, :] * L                                   # [N,R,K]
@@ -841,26 +943,28 @@ def ess_narrow_intervals(occ, occ_outside, ray_origins, ray_directions, ray_star
     return t0[..., None], t1[..., None]
 
 
-def ess_narrow_plain(occ, occ_outside, ray_origins, ray_directions, ray_start: float,
-                     ray_end: float, box_warp: float, options: dict, depth_resolution: int):
-    """ess_narrow_intervals, then the per-ray stratified coarse depths.
-    -> (t0 [N,R,1], t1 [N,R,1], depths [N,R,S,1])."""
+def ess_narrow_plain(occ, occ_outside, ray_origins, ray_directions, ray_start, ray_end,
+                     box_warp: float, options: dict, depth_resolution: int, jitter=None):
+    """ess_narrow_intervals, then the per-ray stratified coarse depths at
+    ``jitter`` [N,R,S,1] (0.5 when None). -> (t0 [N,R,1], t1 [N,R,1],
+    depths [N,R,S,1])."""
     t0, t1 = ess_narrow_intervals(occ, occ_outside, ray_origins, ray_directions, ray_start,
                                   ray_end, box_warp, options)
-    return t0, t1, sample_stratified(ray_origins, t0, t1, depth_resolution)
+    return t0, t1, sample_stratified(ray_origins, t0, t1, depth_resolution, jitter=jitter)
 
 
-def ess_narrow_warp_order(occ, occ_outside, ray_origins, ray_directions, ray_start: float,
-                          ray_end: float, box_warp: float, options: dict,
-                          depth_resolution: int):
+def ess_narrow_warp_order(occ, occ_outside, ray_origins, ray_directions, ray_start, ray_end,
+                          box_warp: float, options: dict, depth_resolution: int,
+                          jitter=None):
     """K6b's order of operations (csrc/ess.cu:ess_narrow_kernel) in PyTorch,
     for the tests. A ray is a warp of 32 lanes, lane l holding taps l,
     l + 32, ...; each chunk of 32 taps is a ballot (an integer bitmask of
     the lanes' hits), the first and last occupied taps are the lowest and
     highest set bits of the first and last non-zero ballots, and lane l
-    writes depths l, l + 32, .... The occupancy is read at batch stride
-    ``occ.stride(0)`` (0: one grid for every view). Same contract as
-    ess_narrow_plain."""
+    writes depths l, l + 32, ..., each offset by its jitter (0.5 when None)
+    times the stratum. The occupancy is read at batch stride
+    ``occ.stride(0)`` (0: one grid for every view); the bounds are floats
+    or per-ray [N,R,1]. Same contract as ess_narrow_plain."""
     ess = options["ess"]
     K, margin = int(ess.get("taps", 64)), float(ess.get("margin", 1))
     N, R, _ = ray_origins.shape
@@ -870,8 +974,8 @@ def ess_narrow_warp_order(occ, occ_outside, ray_origins, ray_directions, ray_sta
     n_rays, lanes = N * R, torch.arange(32, device=dev)
     o = ray_origins.reshape(n_rays, 1, 3)
     d = ray_directions.reshape(n_rays, 1, 3)
-    rs = torch.full((n_rays,), float(ray_start), dtype=torch.float32, device=dev)
-    L = torch.full_like(rs, float(ray_end)) - rs
+    rs, re = (t.reshape(n_rays) for t in _ray_bounds(ray_start, ray_end, N, R, dev))
+    L = re - rs
     cells = torch.as_strided(occ, ((N - 1) * occ.stride(0) + G ** 3,), (1,))
     base = (torch.arange(n_rays, device=dev) // R) * occ.stride(0)
     first = torch.full((n_rays,), -1, dtype=torch.int64, device=dev)
@@ -897,25 +1001,33 @@ def ess_narrow_warp_order(occ, occ_outside, ray_origins, ray_directions, ray_sta
     t0 = rs + torch.clamp_min(first.to(torch.float32) - margin, 0.0) * step
     t1 = rs + torch.clamp_max(last.to(torch.float32) + 1 + margin, float(K)) * step
     t0 = torch.where(hit_any, t0, rs)
-    t1 = torch.where(hit_any, t1, torch.full_like(rs, float(ray_end)))
+    t1 = torch.where(hit_any, t1, re)
     diff = t1 - t0
-    half_delta = 0.5 * (diff / (S - 1))
+    delta = diff / (S - 1)
+    jit = (torch.full((n_rays, S), 0.5, device=dev) if jitter is None
+           else jitter.reshape(n_rays, S).to(torch.float32))
     depths = torch.empty((n_rays, S), dtype=torch.float32, device=dev)
     for s0 in range(0, S, 32):                                          # lane l: s0 + l
         s = torch.arange(s0, min(s0 + 32, S), device=dev)
         frac = s.to(torch.float32) / (S - 1)
-        depths[:, s] = (t0[:, None] + frac[None, :] * diff[:, None]) + half_delta[:, None]
+        depths[:, s] = ((t0[:, None] + frac[None, :] * diff[:, None])
+                        + jit[:, s] * delta[:, None])
     return (t0.reshape(N, R, 1), t1.reshape(N, R, 1), depths.reshape(N, R, S, 1))
 
 
-_K6B_ARGS = ((kb.PTR,) * 7 + (kb.INT,) * 4 + (kb.LONG,) + (kb.FLOAT,) * 4 + (kb.INT, kb.PTR))
+_K6B_ARGS = ((kb.PTR,) * 7 + (kb.INT,) * 4 + (kb.LONG,) + (kb.FLOAT,) * 4 + (kb.INT,)
+             + (kb.PTR,) * 3 + (kb.PTR,))
 
 
-def ess_narrow_kernel(occ, occ_outside, ray_origins, ray_directions, ray_start: float,
-                      ray_end: float, box_warp: float, options: dict, depth_resolution: int):
+def ess_narrow_kernel(occ, occ_outside, ray_origins, ray_directions, ray_start, ray_end,
+                      box_warp: float, options: dict, depth_resolution: int, jitter=None):
     """Launch K6's narrowing on CUDA tensors: same contract as
-    ess_narrow_plain."""
-    require_no_grad("ess_narrow", occ, occ_outside, ray_origins, ray_directions)
+    ess_narrow_plain. Per-ray bounds (contiguous f32 [N,R,1]) run its
+    per-ray form, a jitter (contiguous f32 [N,R,S,1]) its keyed form
+    (counted as the variants ``per_ray`` and ``jitter``)."""
+    require_no_grad("ess_narrow", occ, occ_outside, ray_origins, ray_directions,
+                    None if _scalar_bounds(ray_start, ray_end) else (ray_start, ray_end),
+                    jitter)
     ess = options["ess"]
     K, margin = int(ess.get("taps", 64)), float(ess.get("margin", 1))
     N, R, _ = ray_origins.shape
@@ -930,22 +1042,38 @@ def ess_narrow_kernel(occ, occ_outside, ray_origins, ray_directions, ray_start: 
              and tuple(occ.shape) == (N, G, G, G), "K6 occupancy must be f32 [N,G,G,G]")
     _require(S >= 2, "K6 takes at least 2 coarse samples")
     _require(K <= 1024, "K6 takes at most 1024 taps (a lane's hits are one 32-bit mask)")
+    per_ray = not _scalar_bounds(ray_start, ray_end)
+    bounds = (ray_start, ray_end) if per_ray else ()
+    for t_ in bounds:
+        _require(t_.dtype == torch.float32 and t_.is_contiguous() and t_.device == dev
+                 and tuple(t_.shape) == (N, R, 1), "K6 per-ray bounds must be contiguous f32 "
+                 "[N,R,1] on the occupancy's device")
+    _require(jitter is None or (jitter.dtype == torch.float32 and jitter.is_contiguous()
+                                and tuple(jitter.shape) == (N, R, S, 1) and jitter.device == dev),
+             "K6 jitter must be contiguous f32 [N,R,S,1] on the occupancy's device")
     occ_out = occ_outside.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
     t0 = torch.empty((N, R, 1), dtype=torch.float32, device=dev)
     t1 = torch.empty_like(t0)
     depths = torch.empty((N, R, S, 1), dtype=torch.float32, device=dev)
     kb.launch("ess_narrow", _K6B_ARGS, occ.data_ptr(), occ_out.data_ptr(),
               ray_origins.data_ptr(), ray_directions.data_ptr(), t0.data_ptr(),
-              t1.data_ptr(), depths.data_ptr(), N * R, R, G, K, occ.stride(0), float(ray_start),
-              float(ray_end), float(box_warp), margin, S, _stream(occ))
-    KERNELS["ess_narrow"].launches += 1
+              t1.data_ptr(), depths.data_ptr(), N * R, R, G, K, occ.stride(0),
+              0.0 if per_ray else float(ray_start), 0.0 if per_ray else float(ray_end),
+              float(box_warp), margin, S, ray_start.data_ptr() if per_ray else None,
+              ray_end.data_ptr() if per_ray else None,
+              jitter.data_ptr() if jitter is not None else None, _stream(occ))
+    k = KERNELS["ess_narrow"]
+    k.launches += 1
+    for form, on in (("per_ray", per_ray), ("jitter", jitter is not None)):
+        if on:
+            k.variants[form] = k.variants.get(form, 0) + 1
     return t0, t1, depths
 
 
-def ess_narrow(occ, occ_outside, ray_origins, ray_directions, ray_start: float,
-               ray_end: float, box_warp: float, options: dict, depth_resolution: int):
+def ess_narrow(occ, occ_outside, ray_origins, ray_directions, ray_start, ray_end,
+               box_warp: float, options: dict, depth_resolution: int, jitter=None):
     args = (occ, occ_outside, ray_origins, ray_directions, ray_start, ray_end, box_warp,
-            options, depth_resolution)
+            options, depth_resolution, jitter)
     if occ.device.type == "cpu":
         return ess_narrow_plain(*args)
     if occ.device.type == "cuda":
@@ -964,24 +1092,33 @@ class RenderOutput(NamedTuple):
 
 
 def render(planes, decoder: Decoder, ray_origins, ray_directions, options: dict,
-           triplane_crop=None, cull_clouds=None, binarize_clouds=None) -> RenderOutput:
+           triplane_crop=None, cull_clouds=None, binarize_clouds=None, generator=None,
+           jitter=None, u=None) -> RenderOutput:
     """Two-pass hierarchical render: stratified coarse pass (K1), importance
     depths (K3), fine pass (K1), merged composite (K2). planes [N,3,C*D,H,W];
-    rays [N,R,3]; ``options`` are the reference rendering_kwargs. At
-    triplane_depth D > 1 each pass decodes through triplane_decode_deep (K10,
-    the trilinear K1 form) in place of K1. With ``options['ess']`` the coarse
-    depths come from K6's narrowed intervals; the occupancy is
-    ``options['_ess_occ']`` when the caller pre-seeds it (paste-front's
-    auxiliary renders, turntables), else it is computed here from the
-    planes (renderer.py:899-907, :992-997; D = 1 only, F12)."""
-    if options.get("disparity_space_sampling"):
-        raise NotImplementedError("render: disparity-space sampling is not ported yet")
+    rays [N,R,3]; ``options`` are the reference rendering_kwargs
+    (ray_start = ray_end = 'auto': each ray's span through the box,
+    renderer.py:980-989; disparity_space_sampling). At triplane_depth D > 1
+    each pass decodes through triplane_decode_deep (K10, the trilinear K1
+    form) in place of K1. With ``options['ess']`` (and not disparity-space
+    sampling) the coarse depths come from K6's narrowed intervals; the
+    occupancy is ``options['_ess_occ']`` when the caller pre-seeds it
+    (paste-front's auxiliary renders, turntables), else it is computed here
+    from the planes (renderer.py:899-907, :992-997; D = 1 only, F12).
+
+    Keyed (the JAX render_key): the coarse depths are jittered by
+    ``jitter`` [N,R,S,1] and the importance depths taken at ``u``
+    [N*R,K], each as given or drawn from ``generator`` (jitter first, as
+    JAX's k_strat, then u, as its k_imp); with neither, eval's midpoints
+    and linspace."""
     depth = options.get("triplane_depth", 1)
-    ray_start, ray_end = options["ray_start"], options["ray_end"]
-    if not isinstance(ray_start, (int, float)) or not isinstance(ray_end, (int, float)):
-        raise NotImplementedError("render: ray_start/ray_end='auto' is not ported yet")
     N, R, _ = ray_origins.shape
     box_warp = options["box_warp"]
+    if options["ray_start"] == options["ray_end"] == "auto":
+        ray_start, ray_end = auto_ray_limits(ray_origins, ray_directions, box_warp)
+    else:
+        ray_start, ray_end = options["ray_start"], options["ray_end"]
+    disparity = options.get("disparity_space_sampling", False)
     render_dtype = RENDER_DTYPES[options.get("render_dtype", "bfloat16")]
     # channels-last planes in the render dtype, shared by both passes
     if depth == 1:
@@ -1005,19 +1142,27 @@ def render(planes, decoder: Decoder, ray_origins, ray_directions, options: dict,
         return (rgb.reshape(N, R, n, -1), sigma.reshape(N, R, n, 1),
                 coords.reshape(N, R, n, 3))
 
-    if options.get("ess"):
+    S = options["depth_resolution"]
+    if jitter is None and generator is not None:
+        jitter = draws.uniform((N, R, S, 1), generator, ray_origins.device, "render jitter")
+    if options.get("ess") and not disparity:
         occ, occ_outside = options["_ess_occ"]
-        _, _, depths_coarse = ess_narrow(occ, occ_outside, ray_origins, ray_directions,
-                                         ray_start, ray_end, box_warp, options,
-                                         options["depth_resolution"])
+        bounds = (ray_start, ray_end)
+        if torch.is_tensor(ray_start):
+            bounds = tuple(t.to(torch.float32).contiguous() for t in bounds)
+        _, _, depths_coarse = ess_narrow(
+            occ, occ_outside, ray_origins, ray_directions, *bounds, box_warp, options, S,
+            jitter=jitter.contiguous() if jitter is not None else None)
     else:
-        depths_coarse = sample_stratified(ray_origins, ray_start, ray_end,
-                                          options["depth_resolution"])
+        depths_coarse = sample_stratified(ray_origins, ray_start, ray_end, S, jitter=jitter,
+                                          disparity_space_sampling=disparity)
     depths_coarse = depths_coarse.to(ray_origins.dtype).contiguous()
     colors_c, sigma_c, xyz_c = eval_pass(depths_coarse)
     n_imp = options.get("depth_resolution_importance") or 0
     if n_imp > 0:
-        depths_fine = importance_sample(depths_coarse, sigma_c, n_imp)
+        u = _u(u, (N * R, n_imp), generator, ray_origins.device, "render u")
+        depths_fine = importance_sample(depths_coarse, sigma_c, n_imp,
+                                        u.contiguous() if u is not None else None)
         colors_f, sigma_f, xyz_f = eval_pass(depths_fine)
     else:   # the coarse samples are already depth-ordered
         depths_fine, colors_f, sigma_f, xyz_f = (

@@ -71,7 +71,9 @@ def modconv_epilogue_plain(x, dcoef=None, noise=None, noise_strength=None, bias=
     """x [N,C,H,W] (or [N,C]) -> x * dcoef[n,c] + noise * noise_strength,
     then bias_act along dim 1. Each op rounds to x's dtype, as the JAX
     package's modulated_conv2d and bias_act do: dcoef [N,C] f32 and the
-    noise [H,W] f32 are cast to x's dtype before they are applied."""
+    noise (one [H,W] f32 map for the batch, or [N,1,H,W], one a sample),
+    times its strength in f32, are cast to x's dtype before they are
+    applied."""
     if dcoef is not None:
         x = x * dcoef.to(x.dtype)[:, :, None, None]
     if noise is not None:
@@ -82,7 +84,7 @@ def modconv_epilogue_plain(x, dcoef=None, noise=None, noise_strength=None, bias=
 
 
 _K5_ARGS = ((kb.PTR, kb.PTR, kb.INT, kb.LONG, kb.INT, kb.INT) + (kb.PTR,) * 4
-            + (kb.INT, kb.FLOAT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
+            + (kb.INT, kb.FLOAT, kb.FLOAT, kb.INT, kb.FLOAT, kb.LONG, kb.PTR))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_ACTS = {"linear": 0, "lrelu": 1}
 
@@ -99,7 +101,9 @@ def modconv_epilogue_kernel(x, dcoef=None, noise=None, noise_strength=None, bias
                             act: str = "linear", alpha: Optional[float] = None,
                             gain: Optional[float] = None, clamp: Optional[float] = None):
     """Launch K5 on a CUDA tensor: same contract as
-    :func:`modconv_epilogue_plain` (f32 or bf16; linear or lrelu)."""
+    :func:`modconv_epilogue_plain` (f32 or bf16; linear or lrelu). A
+    [N,1,H,W] noise is read at batch stride H*W (the per-sample noise form,
+    counted as the variant ``per_sample_noise``), an [H,W] one at stride 0."""
     require_no_grad("modconv_epilogue", x, dcoef, noise, noise_strength, bias)
     if x.dtype not in _DTYPES:
         raise TypeError(f"K5 takes float32 or bfloat16, got {x.dtype}")
@@ -116,16 +120,24 @@ def modconv_epilogue_kernel(x, dcoef=None, noise=None, noise_strength=None, bias
     dev = x.device
     N, C = x.shape[:2]
     inner = x[0, 0].numel()
-    args = [_f32_on(dcoef, dev, N * C, "dcoef"), _f32_on(noise, dev, inner, "noise"),
+    per_sample = noise is not None and noise.ndim == 4
+    if per_sample and tuple(noise.shape) != (N, 1) + tuple(x.shape[2:]):
+        raise ValueError(f"K5 noise: [H,W] or [N,1,H,W] for x {tuple(x.shape)}, got "
+                         f"{tuple(noise.shape)}")
+    args = [_f32_on(dcoef, dev, N * C, "dcoef"),
+            _f32_on(noise, dev, N * inner if per_sample else inner, "noise"),
             _f32_on(noise_strength, dev, 1, "noise_strength"), _f32_on(bias, dev, C, "bias")]
     y = torch.empty_like(x)
     kb.launch(
         "modconv_epilogue", _K5_ARGS, x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], x.numel(),
         C, inner, *(a.data_ptr() if a is not None else None for a in args),
         _KERNEL_ACTS[act], alpha, gain, int(clamp is not None),
-        float(clamp) if clamp is not None else 0.0,
+        float(clamp) if clamp is not None else 0.0, inner if per_sample else 0,
         torch.cuda.current_stream(dev).cuda_stream)
-    KERNELS["modconv_epilogue"].launches += 1
+    k = KERNELS["modconv_epilogue"]
+    k.launches += 1
+    if per_sample:
+        k.variants["per_sample_noise"] = k.variants.get("per_sample_noise", 0) + 1
     return y
 
 

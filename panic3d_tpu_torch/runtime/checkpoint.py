@@ -467,9 +467,9 @@ def generator_config_from_init_kwargs(init_kwargs: dict,
     """Reference init_kwargs -> the port's TriPlaneGenerator kwargs: the
     reference's rebuild ``TriPlaneGenerator(**G.init_kwargs)`` with its
     neural_rendering_resolution and rendering_kwargs attributes carried over
-    (eg3dc_v0.py:46-52). A snapshot's own options the port refuses fail
-    where the generator meets them (an SR module it lacks: KeyError at
-    construction; ray_start='auto': NotImplementedError at the render)."""
+    (eg3dc_v0.py:46-52). Every SR module of the JAX package, its cond
+    modes and ray_start='auto' build and render; an SR module neither
+    package has fails at construction (KeyError)."""
     kw = dict(init_kwargs)
     out: Dict[str, Any] = {}
     for k in _GEN_NAMED_KWARGS:

@@ -211,21 +211,27 @@ def test_reference_pickle_both_packages(tmp_path):
 
 
 def test_reference_pickle_refused_options(tmp_path):
-    G, kw = port_tiny()
-    for rk, err in ((dict(superresolution_module="training.superresolution."
-                          "SuperresolutionHybrid4X"), KeyError),
-                    (dict(ray_start="auto"), NotImplementedError)):
+    """Snapshots with the options the port once refused (the Hybrid4X SR
+    module, ray_start = ray_end = 'auto') now load: the rebuilt generator
+    has the source's state and renders the source's views bit for bit."""
+    for rk in (dict(superresolution_module="training.superresolution.SuperresolutionHybrid4X"),
+               dict(ray_start="auto", ray_end="auto")):
+        kw = tcfg.tiny_kwargs(force_sigmoid=True, **dict(
+            F32, rendering_kwargs=dict(F32["rendering_kwargs"], **rk)))
+        G = TriPlaneGenerator(**kw).init_weights(SEED).eval()
+        with torch.no_grad():
+            G.decoder.net[2].bias[0] += 2.5
         path = str(tmp_path / "snap.pkl")
         tck.save_reference_pickle(path, G, kw)
         sd, _, kw_t, ex = tck.extract_reference_generator(path)
-        # the option in the snapshot's rendering_kwargs attribute, which
-        # overrides the constructor's (eg3dc_v0.py:46-52)
-        ex = dict(ex, rendering_kwargs=dict(ex["rendering_kwargs"], **rk))
+        assert {k: ex["rendering_kwargs"][k] for k in rk} == rk
         cfg = tck.generator_config_from_init_kwargs(kw_t, ex)
-        with pytest.raises(err, match="Hybrid4X|auto"):
-            G2 = tck.load_generator_state(TriPlaneGenerator(**cfg).eval(), sd)
-            with torch.no_grad():
-                G2.f(tiny_input(G2))
+        G2 = tck.load_generator_state(TriPlaneGenerator(**cfg, force_sigmoid=True).eval(), sd)
+        with torch.no_grad():
+            a, b = G.f(tiny_input(G)), G2.f(tiny_input(G2))
+        assert a["image"].shape[-1] == (256 if "superresolution_module" in rk else 128)
+        for k in ("image", "image_raw", "image_depth"):
+            assert torch.equal(a[k], b[k]), k
 
 
 def test_state_loader_refuses_misfits():

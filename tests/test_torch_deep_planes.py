@@ -338,10 +338,10 @@ def test_from_snapshot_config_forms_match_jax():
     gt = meta(legacy, eval_mode=True)
     same(gt, jcfg.from_snapshot_config(legacy, eval_mode=True))
     assert gt.triplane_depth == 2 and gt.rk["depth_resolution"] == 96
-    # a legacy tiny snapshot names the add_4 cond mode, not ported yet
-    assert jcfg.from_snapshot_config({"tiny": True}).cond_mode == "ortho_front.add_4.reschonk_add_16"
-    with pytest.raises(NotImplementedError, match="add_4"):
-        meta({"tiny": True})
+    # a legacy tiny snapshot names the add_4 cond mode, which the port builds
+    gj = jcfg.from_snapshot_config({"tiny": True})
+    assert gj.cond_mode == "ortho_front.add_4.reschonk_add_16"
+    same(meta({"tiny": True}), gj)
 
 
 def test_f12_ess_and_grid_occlusion_refused_at_depth_2(pair):

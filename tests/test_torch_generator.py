@@ -20,7 +20,7 @@ import torch
 from panic3d_tpu import configs as jcfg
 from panic3d_tpu.models.triplane import TriPlaneGenerator as JG
 from panic3d_tpu_torch import configs as tcfg
-from panic3d_tpu_torch.cameras import camera_label
+from panic3d_tpu_torch.cameras import camera_label, sample_rays
 from panic3d_tpu_torch.runtime.checkpoint import state_dict_from_flax
 
 torch.backends.cudnn.allow_tf32 = False
@@ -141,12 +141,75 @@ UNPORTED_RENDERING = {"ray_start_auto": dict(ray_start="auto", ray_end="auto"),
 
 @pytest.mark.parametrize("what", ["zs", "latent_injection", *UNPORTED_RENDERING])
 def test_unported_inputs_raise(pair, what):
-    G = pair[3]
-    x = {"ws": torch.zeros(1, G.num_ws, 64), "camera_params": torch.zeros(1, 25),
-         "_planes": torch.zeros(1, 3, 8, 16, 16)}
-    with pytest.raises(NotImplementedError):
-        if what in UNPORTED_RENDERING:
-            rk = dict(F32["rendering_kwargs"], **UNPORTED_RENDERING[what])
-            tcfg.tiny(device="cpu", **dict(F32, rendering_kwargs=rk)).f(x)
-        else:
-            G.f(dict(x, **{what: torch.zeros(1, G.num_ws, 64)}))
+    """The inputs and options G.f once refused, against the JAX package on
+    the same weights, each at the stage it changes: z+ latents through
+    mapping_zplus (ws at STAGE_TOL), latent injection (dw, dws, da_2, db_3)
+    through the backbone synthesis (planes at STAGE_TOL), 'auto' ray bounds
+    and disparity-space sampling through the JAX render of the port's
+    planes (images at IMAGE_TOL); then G.f with the input equals G.f fed
+    that stage's result. The two rendering options run without the
+    triplane crop: with 'auto' spans a few fine samples land within f32
+    rounding of the crop's edge, where a 1e-6 difference in depth switches a
+    sample's density between -1e3 and its decoded value (F2)."""
+    g, variables, _, G, a = pair
+    xj, xt = jax_inputs(a, 30.0), torch_inputs(a, 30.0)
+    cam = camera_label(xt["elevations"], xt["azimuths"], torch.ones(BS), xt["fovs"])
+    r = np.random.RandomState(11)
+    if what == "zs":
+        zs = r.randn(BS, G.num_ws, 64).astype(np.float32)
+        ws_j = jax.jit(lambda v, z, c: g.apply(v, z, c, method=JG.mapping_zplus))(
+            variables, jnp.asarray(zs), jnp.asarray(cam.numpy()))
+        with torch.no_grad():
+            ws_t = G.mapping_zplus(torch.from_numpy(zs), cam)
+            got = G.f(dict({k: v for k, v in xt.items() if k != "z"}, zs=torch.from_numpy(zs)))
+            want = G.f(dict(xt, ws=ws_t))
+        np.testing.assert_allclose(ws_t.numpy(), np.asarray(ws_j), **STAGE_TOL)
+        assert not np.allclose(ws_t[:, 0].numpy(), ws_t[:, 1].numpy())   # a z a slot
+    elif what == "latent_injection":
+        li = {"dw": r.randn(BS, 1, 64), "dws": r.randn(BS, G.num_ws, 64),
+              "da_2": r.randn(BS, 64, 16, 16), "db_3": r.randn(BS, 24, 32, 32)}
+        li = {k: (0.1 * v).astype(np.float32) for k, v in li.items()}
+        tli = {k: torch.from_numpy(v) for k, v in li.items()}
+        with torch.no_grad():
+            ws = G.mapping(xt["z"], cam)
+            planes_t = G._planes_from_ws(ws + tli["dw"] + tli["dws"], xt["cond"],
+                                         latent_injection=tli)
+            got = G.f(dict(xt, latent_injection=tli))
+            want = G.f(dict(xt, ws=ws + tli["dw"] + tli["dws"], _planes=planes_t))
+        planes_j = jax.jit(lambda v, w, c, l: g.apply(v, w, c, latent_injection=l,
+                                                      noise_mode="const",
+                                                      method=JG._planes_from_ws))(
+            variables, jnp.asarray((ws + tli["dw"] + tli["dws"]).numpy()), xj["cond"],
+            {k: jnp.asarray(v) for k, v in li.items()})
+        np.testing.assert_allclose(planes_t.numpy(), np.asarray(planes_j), **STAGE_TOL)
+    else:
+        rk = dict(F32["rendering_kwargs"], **UNPORTED_RENDERING[what])
+        G2 = tcfg.tiny(device="cpu", **dict(F32, rendering_kwargs=rk)).eval()
+        G2.load_state_dict(G.state_dict())
+        xt = {k: v for k, v in xt.items() if k != "triplane_crop"}
+        with torch.no_grad():
+            got = G2.f(xt)
+        o, d = sample_rays(cam[:, :16].reshape(-1, 4, 4), cam[:, 16:25].reshape(-1, 3, 3), 16)
+        opts = dict(g.rk, **rk)
+        ref = jax.jit(lambda v, pl, o_, d_: g.apply(v, pl, o_, d_, opts, method=_jax_render,
+                                                    cull_clouds=0.5))(
+            variables, jnp.asarray(got["triplane"].numpy()), jnp.asarray(o.numpy()),
+            jnp.asarray(d.numpy()))
+        for k, j in (("image_raw", 0), ("image_depth", 1), ("image_weights", 2)):
+            img = np.asarray(ref[j]).transpose(0, 2, 1).reshape(BS, -1, 16, 16)
+            if k == "image_raw":     # G.f's normalize_images=False: [0, 1]
+                img = 0.5 * img[:, :3] + 0.5
+            np.testing.assert_allclose(got[k].numpy(), img, err_msg=k, **IMAGE_TOL)
+        assert float(got["image_weights"].max()) > 0.1
+        return
+    for k in ("image", "image_raw", "image_depth", "triplane"):
+        assert torch.equal(got[k], want[k]), k
+
+
+def _jax_render(self, planes, ro, rd, opts, **filters):
+    """The JAX render of given planes through the module's decoder."""
+    from panic3d_tpu.models.volumetric import renderer as jvr
+
+    return jvr.render(planes, lambda f, **kw: self.decoder(f, force_sigmoid=self.force_sigmoid,
+                                                          **kw),
+                      ro, rd, opts, **filters)

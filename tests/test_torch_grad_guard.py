@@ -6,6 +6,8 @@ refuses an input that requires grad under grad mode
   found in nested tuples (the decoder's NamedTuple), lists and dicts;
 - each of the 18 kernel wrappers raises at its first statement when one of
   its tensor inputs requires grad, before it checks the device or launches;
+  so do the keyed forms' new inputs (K3's u, K5's per-sample noise, K6b's
+  per-ray bounds and jitter);
 - the plain CPU forward of the tiny config (G.f) still back-propagates to
   the mapping, the backbone and the decoder.
 """
@@ -101,6 +103,29 @@ WRAPPERS = {
     "gather_dot": lambda: gather_dot_kernel(torch.zeros(4, dtype=torch.int32), leaf(4, 8),
                                             leaf(8, 4, grad=True)),
 }
+
+
+# the keyed forms: the input each form adds requires grad
+FORMS = {
+    "importance_sample[u]": lambda: vr.importance_sample_kernel(
+        leaf(1, 2, 8, 1), leaf(1, 2, 8, 1), 4, u=leaf(2, 4, grad=True)),
+    "modconv_epilogue[per_sample_noise]": lambda: modconv_epilogue_kernel(
+        leaf(2, 4, 3, 3), noise=leaf(2, 1, 3, 3, grad=True)),
+    "ess_narrow[per_ray]": lambda: vr.ess_narrow_kernel(
+        leaf(1, 2, 2, 2), leaf(1), leaf(1, 4, 3), leaf(1, 4, 3), leaf(1, 4, 1, grad=True),
+        leaf(1, 4, 1), 0.7, {"ess": {}}, 8),
+    "ess_narrow[jitter]": lambda: vr.ess_narrow_kernel(
+        leaf(1, 2, 2, 2), leaf(1), leaf(1, 4, 3), leaf(1, 4, 3), 0.5, 1.5, 0.7, {"ess": {}}, 8,
+        jitter=leaf(1, 4, 8, 1, grad=True)),
+}
+
+
+@pytest.mark.parametrize("name", list(FORMS))
+def test_keyed_form_raises_under_grad_mode(name):
+    kernel = name.split("[")[0]
+    with pytest.raises(RuntimeError, match=f"^{kernel}: the CUDA kernel has no backward"):
+        FORMS[name]()
+    assert sum(launch_counts().values()) == 0
 
 
 def test_every_kernel_has_a_case():

@@ -52,6 +52,8 @@ def test_imports_with_jax_blocked():
         "from panic3d_tpu_torch.models.superresolution import AFSynthesisLayer\n"
         "import panic3d_tpu_torch.runtime.convert, panic3d_tpu_torch.utils.sketchers\n"
         "import panic3d_tpu_torch.models.rmlinegan\n"
+        "import panic3d_tpu_torch.utils.draws, panic3d_tpu_torch.models.superresolution\n"
+        "import panic3d_tpu_torch.models.stylegan2, panic3d_tpu_torch.models.triplane\n"
         "import panic3d_tpu_torch.configs as c\n"
         "c.tiny(device='cpu')\n"
         "from panic3d_tpu_torch.runtime import checkpoint as ck\n"

@@ -174,12 +174,27 @@ def test_render_vs_jax(n_importance):
 
 
 def test_render_rejects_unported_options():
-    planes = torch.zeros(1, 3, 8, 4, 4)
-    dec = torch_decoder(decoder_params(8), True)
-    ro = torch.zeros(1, 4, 3)
-    with pytest.raises(NotImplementedError):
-        tvr.render(planes, dec, ro, ro, dict(disparity_space_sampling=True, box_warp=BW,
-                                             ray_start=0.5, ray_end=1.5, depth_resolution=4))
-    with pytest.raises(NotImplementedError):
-        tvr.render(planes, dec, ro, ro, dict(box_warp=BW, ray_start="auto", ray_end="auto",
-                                             depth_resolution=4))
+    """The options render once refused, disparity-space sampling and
+    ray_start = ray_end = 'auto' (rays that miss the box filled from the
+    batch's valid starts), against the JAX render."""
+    r = np.random.RandomState(6)
+    C, N, res = 8, 2, 6
+    planes = r.randn(N, 3, C, 16, 16).astype(np.float32)
+    p = decoder_params(C, seed=7)
+    ro = np.tile(np.asarray([0.0, 0.0, 1.0], np.float32), (N, res * res, 1))
+    rd = np.concatenate([r.uniform(-1.2, 1.2, (N, res * res, 2)),
+                         -np.ones((N, res * res, 1))], -1).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    base = dict(box_warp=BW, ray_start=0.5, ray_end=1.5, depth_resolution=8,
+                depth_resolution_importance=6, white_back=True, use_triplane=True,
+                render_dtype="float32")
+    _, _, valid = tvr.get_ray_limits_box(t(ro), t(rd), BW)
+    assert 0 < int(valid.sum()) < valid.numel()        # some rays miss the box
+    for extra in (dict(disparity_space_sampling=True), dict(ray_start="auto", ray_end="auto")):
+        opts = dict(base, **extra)
+        out_j = jvr.render(jnp.asarray(planes), jax_decode_fn(p, C, True), jnp.asarray(ro),
+                           jnp.asarray(rd), opts)
+        out_t = tvr.render(t(planes), torch_decoder(p, True), t(ro), t(rd), opts)
+        for a, b in zip(out_t, out_j):
+            close(a, b, **RENDER_TOL)
+    assert sum(launch_counts().values()) == 0
