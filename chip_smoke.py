@@ -103,6 +103,22 @@
      parent), and a Hybrid8X flagship with superresolution_noise_mode
      'random' in f32, card against CPU on the same draws (hybrid8x_check);
      --keyed-only runs the build and these phases alone;
+   training (training_checks): trainer.main at the flagship's defaults
+   (batch 8, synthetic 512^2 data, Gmain, Gcond, Greg, Dmain, Dreg,
+   lazy-reg Adam, G_ema), one warm-up step and TRAIN_STEPS timed ones with
+   the launch counts zeroed before and read after (K1, K2, K3, K4, K5 and
+   the backward forms of K1, K2 and K5 required, K4's variants forward and
+   backward, its generic kernel absent), every phase's losses finite, G, D
+   and G_ema moved; one step of every phase on the trained state timed
+   phase by phase, its host waits counted, one profiled for the device's
+   busy share; then each backward form against its plain version's autograd
+   at the training shapes (K4 at the step's own transposed calls, beside
+   their library calls; K1 and K2 at a training render's samples; K5 at
+   the discriminator's b512 layer), R1's second order through K4's and K5's
+   backward forms against the plain ops (plain_ops) in f32 and in bf16,
+   and one whole step of the flagship against the same step with the plain
+   ops on the same draws; --training-only runs the build and these phases
+   alone;
    K12's own path, the gather-decode probe; the deep-plane generator
    (configs.flagship(eval_mode=True, rendering_kwargs=dict(triplane_depth=2)),
    ESS off, eval generate's paste with occ_impl='render'): G.f per call
@@ -154,7 +170,8 @@
    the kernels (one entry per entry point, with its launches on the ESS +
    paste path, else on the geometry path, else on eval measure, else on the
    probe, else on the deep-plane request, else on the StyleGAN3-T layers,
-   else on EQ-R; 0 for K7b's sampler, checked only), the card
+   else on EQ-R, else on the training path: the backward forms, K4's as
+   its own entry "upfirdn2d_grad"; 0 for K7b's sampler, checked only), the card
    line, and last the {"ok": true, ...} line. Any failure raises before
    that line.
 """
@@ -162,6 +179,7 @@
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -2031,16 +2049,24 @@ def volume_kernel_checks(G, device, parent):
 
 
 def grad_guard_checks(device):
-    """F8: under grad mode every kernel wrapper refuses a CUDA input that
-    requires grad before it launches, and so does G.f of the tiny config on
-    the card (its parameters require grad); no launch is counted."""
+    """F8: under grad mode every kernel wrapper without a backward form
+    refuses a CUDA input that requires grad before it launches, and the four
+    with one (K1, K2, K4, K5) refuse the inputs they give no gradient (K1's
+    coordinates, K2's depths, K4's filter, K5's noise); no launch is
+    counted. Then G.f of the tiny config on the card back-propagates
+    through the backward forms: its render, backbone and superresolution
+    parameters get finite gradients, within 1e-2 relative L2 a group of the
+    plain version's on the CPU (f32; K1's MLP is 3xTF32 and importance
+    resampling amplifies rounding, ROADMAP F2), with K1's, K2's and K5's
+    backward forms and K4's transposed passes launched."""
     import torch
 
     from panic3d_tpu_torch import configs
     from panic3d_tpu_torch.eval import gltf
     from panic3d_tpu_torch.eval import mesh_metrics as mm
     from panic3d_tpu_torch.eval import volume as vol
-    from panic3d_tpu_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from panic3d_tpu_torch.kernels import (KERNELS, launch_counts, reset_launch_counts,
+                                           variant_counts)
     from panic3d_tpu_torch.models import triplane as tp
     from panic3d_tpu_torch.models.volumetric import lattice as vlat
     from panic3d_tpu_torch.models.volumetric import renderer as vr
@@ -2058,19 +2084,10 @@ def grad_guard_checks(device):
     axes, nof = vr.generate_plane_axes(True), vr.DensityFilters()
     i32 = dict(dtype=torch.int32)
     calls = {
-        "triplane_decode": lambda: vr.triplane_decode_kernel(
-            t(1, 3, 8, 8, 32), t(1, 16, 3), dec(True), 0.7, axes, nof),
         "volume_density": lambda: vol.density_grid_kernel(t(1, 3, 32, 8, 8, grad=True), dec(),
                                                           16, 0.7, axes, nof),
-        "ray_composite": lambda: vr.ray_composite_kernel(
-            t(1, 4, 8, 1), t(1, 4, 8, 32, grad=True), t(1, 4, 8, 1), t(1, 4, 8, 3),
-            t(1, 4, 8, 1), t(1, 4, 8, 32), t(1, 4, 8, 1), t(1, 4, 8, 3), True),
         "importance_sample": lambda: vr.importance_sample_kernel(
             t(1, 4, 8, 1), t(1, 4, 8, 1, grad=True), 8),
-        "upfirdn2d": lambda: upfirdn2d_kernel(t(1, 4, 8, 8, grad=True), t(4, 4), (2, 2), (1, 1),
-                                              (2, 1, 2, 1)),
-        "modconv_epilogue": lambda: modconv_epilogue_kernel(t(2, 8), bias=t(8, grad=True),
-                                                            act="lrelu"),
         "ess_occupancy": lambda: vr.ess_occupancy_kernel(
             [(t(1, 4, 4, 32), 0, 1)] * 3, dec(True), 0.7, 2, 2, 0.01, nof),
         "ess_narrow": lambda: vr.ess_narrow_kernel(
@@ -2101,14 +2118,17 @@ def grad_guard_checks(device):
             t(1, 3, 64, 8, 8, grad=True), dec(), 16, 0.7, vr.generate_plane_axes(True),
             vr.DensityFilters(), 2),
     }
-    require(set(calls) == set(KERNELS), "F8: a kernel without a grad-mode check")
-    G = configs.tiny(device=device).init_weights(SEED)
-    rng = np.random.RandomState(SEED)
-    x = {"z": torch.from_numpy(rng.randn(1, G.z_dim).astype(np.float32)).to(device),
-         "elevations": torch.zeros(1, device=device), "azimuths": torch.zeros(1, device=device),
-         "cond": {"image_ortho_front": torch.rand(1, 3, 64, 64, device=device),
-                  "resnet_chonk": torch.randn(1, 16, 8, 8, device=device)}}
-    calls["G.f (tiny config)"] = lambda: G.f(x)
+    with_backward = {"triplane_decode", "ray_composite", "upfirdn2d", "modconv_epilogue",
+                     "triplane_decode_grad", "ray_composite_grad", "modconv_epilogue_grad"}
+    require(set(calls) | with_backward == set(KERNELS), "F8: a kernel without a grad-mode check")
+    # the inputs the backward forms give no gradient
+    calls["triplane_decode [coords]"] = lambda: vr.triplane_decode_kernel(
+        t(1, 3, 8, 8, 32), t(1, 16, 3, grad=True), dec(), 0.7, axes, nof)
+    calls["ray_composite [depths]"] = lambda: vr.ray_composite_kernel(
+        t(1, 4, 8, 1, grad=True), t(1, 4, 8, 32), t(1, 4, 8, 1), t(1, 4, 8, 3),
+        t(1, 4, 8, 1), t(1, 4, 8, 32), t(1, 4, 8, 1), t(1, 4, 8, 3), True)
+    calls["upfirdn2d [filter]"] = lambda: upfirdn2d_kernel(t(1, 4, 8, 8), t(4, 4, grad=True),
+                                                           (2, 2), (1, 1), (2, 1, 2, 1))
     # the keyed forms: the input each adds requires grad
     calls["importance_sample [u]"] = lambda: vr.importance_sample_kernel(
         t(1, 4, 8, 1), t(1, 4, 8, 1), 8, u=t(4, 8, grad=True))
@@ -2135,6 +2155,45 @@ def grad_guard_checks(device):
           f"requires grad ({', '.join(refused)})")
     require(refused == list(calls), f"F8: not refused: {set(calls) - set(refused)}")
     require(sum(launch_counts().values()) == 0, "F8: a kernel launched under grad mode")
+
+    # the tiny G.f on the card back-propagates through the backward forms,
+    # against the plain version on the CPU (f32, the same weights and inputs)
+    rng = np.random.RandomState(SEED)
+    x = {"z": rng.randn(1, 64).astype(np.float32), "elevations": np.zeros(1, np.float32),
+         "azimuths": np.full(1, 30.0, np.float32),
+         "cond": {"image_ortho_front": rng.rand(1, 3, 64, 64).astype(np.float32),
+                  "resnet_chonk": rng.randn(1, 16, 8, 8).astype(np.float32)}}
+    grads = {}
+    for dev in (device, torch.device("cpu")):
+        G = configs.tiny(device=dev, synthesis_kwargs=dict(channel_base=2048, channel_max=64,
+                                                           num_fp16_res=0),
+                         rendering_kwargs=dict(configs.tiny_kwargs()["rendering_kwargs"],
+                                               render_dtype="float32")).init_weights(SEED)
+        xd = {k: ({c: torch.from_numpy(a).to(dev) for c, a in v.items()} if k == "cond"
+                  else torch.from_numpy(v).to(dev)) for k, v in x.items()}
+        reset_launch_counts()
+        with torch.enable_grad():
+            out = G.f(xd)
+            loss = out["image"].square().mean() + out["image_raw"].square().mean()
+            params = dict(G.named_parameters())
+            gr = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads[dev.type] = {n: g for n, g in zip(params, gr) if g is not None}
+        if dev.type == "cuda":
+            counts, k4 = launch_counts(), variant_counts().get("upfirdn2d", {})
+    for name in ("triplane_decode_grad", "ray_composite_grad", "modconv_epilogue_grad"):
+        require(counts[name] > 0, f"tiny G.f backward: {name} not launched")
+    require(any(v.startswith("grad_") for v in k4), "tiny G.f backward: no transposed K4 pass")
+    worst = {}
+    for group in ("decoder.", "backbone.", "superresolution."):
+        names = [n for n in grads["cpu"] if n.startswith(group)]
+        require(names and all(n in grads["cuda"] for n in names),
+                f"tiny G.f backward: {group} has no gradient on the card")
+        num = sum(float((grads["cuda"][n].cpu() - grads["cpu"][n]).square().sum()) for n in names)
+        den = sum(float(grads["cpu"][n].square().sum()) for n in names)
+        worst[group] = math.sqrt(num / den)
+        check(f"tiny G.f backward, card vs CPU: {group}* (relative L2)", worst[group], 1e-2)
+        require(all(bool(torch.isfinite(grads["cuda"][n]).all()) for n in names),
+                f"tiny G.f backward: non-finite {group} gradient")
 
 
 def tiny_end_to_end(device, ess_paste: bool, deep: bool = False):
@@ -4313,6 +4372,595 @@ def hybrid8x_check(device, card):
                 card_s=t_card, cpu_s=t_cpu, card=card)
 
 
+
+# ---------------------------------------------------------------------------
+# training: the backward forms of K1, K2, K4 and K5, R1's second order, one
+# step against the plain ops, and trainer.main at the flagship defaults
+
+TRAIN_BATCH = 8        # the trainer's default batch
+TRAIN_STEPS = 4        # timed steps after one warm-up step: Greg at steps 0 and 4, Dreg at 0
+TRAIN_ARGS = ("--synthetic", "--tick-steps", "1", "--snap", "1000000")
+BACKWARD_KERNELS = ("triplane_decode_grad", "ray_composite_grad", "modconv_epilogue_grad")
+TRAIN_KERNELS = ("triplane_decode", "ray_composite", "importance_sample", "upfirdn2d",
+                 "modconv_epilogue") + BACKWARD_KERNELS
+STEP_TOL_F32 = 1e-2    # the f32 step against the plain ops: relative L2 of G's update
+D_STEP_TOL_F32 = 0.1   # ... and of D's, which learns from G's images (F2)
+R1_TOL = {"float32": 1e-3, "bfloat16": 0.05}   # R1 against the plain ops: value and gradients
+
+
+def plain_ops():
+    """A context in which K1, K2, K3, K4 and K5 take their plain versions on
+    CUDA tensors too (the dispatchers swapped for the plain functions, and
+    back on leaving): the whole step's and R1's references on the card."""
+    import importlib
+
+    vr = importlib.import_module("panic3d_tpu_torch.models.volumetric.renderer")
+    uf = importlib.import_module("panic3d_tpu_torch.ops.upfirdn2d")
+    ba = importlib.import_module("panic3d_tpu_torch.ops.bias_act")
+    conv = importlib.import_module("panic3d_tpu_torch.ops.conv")
+    sg2 = importlib.import_module("panic3d_tpu_torch.models.stylegan2")
+
+    def k1_plain(planes_cl, coords, dec, box_warp, axes, filters=vr.DensityFilters()):
+        return vr.triplane_decode_plain(planes_cl, coords, dec, box_warp, axes, filters)
+
+    swaps = [(vr, "triplane_decode", k1_plain), (vr, "ray_composite", vr.ray_composite_plain),
+             (vr, "importance_sample", vr.importance_sample_plain),
+             (uf, "_fir", uf.upfirdn2d_plain)] + [
+        (m, "modconv_epilogue", ba.modconv_epilogue_plain) for m in (ba, conv, sg2)]
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+        for m, n, f in swaps:
+            setattr(m, n, f)
+        try:
+            yield
+        finally:
+            for m, n, f in saved:
+                setattr(m, n, f)
+    return ctx()
+
+
+def rel_max_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+
+def k1_grad_ops(points: int, C: int) -> float:
+    """K1's backward form a point: the forward MLP again, its backward, and
+    the weight gradients' products: 3 x (C*64 + 64*33) multiply-adds."""
+    return points * 2.0 * 3 * (C * 64 + 64 * 33)
+
+
+def training_render_samples(G, device):
+    """A training render's samples on the card: bf16 planes [8,3,256,256,32]
+    (random), 8 random pinhole cameras, 64^2 rays, 48 jittered coarse
+    depths, K1's coarse pass, K3's u form at random u, K1's fine pass. ->
+    dict of the tensors K1's and K2's backward forms take."""
+    import torch
+
+    from panic3d_tpu_torch.cameras import camera_label, sample_rays
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    rk = G.rk
+    N, S, K, res = TRAIN_BATCH, rk["depth_resolution"], rk["depth_resolution_importance"], 64
+    R = res * res
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    planes = torch.randn((N, 3, 32, 256, 256), generator=gen, device=device) * 0.5
+    planes_cl = planes.to(torch.bfloat16).permute(0, 1, 3, 4, 2).contiguous()
+    ones = torch.ones(N, device=device)
+    cam = camera_label(torch.rand(N, generator=gen, device=device) * 40 - 10,
+                       torch.rand(N, generator=gen, device=device) * 360 - 180, ones, 30 * ones)
+    ro, rd = sample_rays(cam[:, :16].reshape(-1, 4, 4), cam[:, 16:].reshape(-1, 3, 3), res)
+    ro, rd = ro.contiguous(), rd.contiguous()
+    dec, axes, nof = G._decoder(), vr.generate_plane_axes(True), vr.DensityFilters()
+
+    def coords_of(depths):
+        return (ro[:, :, None] + depths * rd[:, :, None]).reshape(N, -1, 3).contiguous()
+
+    with torch.no_grad():
+        d_c = vr.sample_stratified(ro, rk["ray_start"], rk["ray_end"], S, jitter=torch.rand(
+            (N, R, S, 1), generator=gen, device=device)).contiguous()
+        x_c = coords_of(d_c)
+        rgb_c, s_c = vr.triplane_decode_kernel(planes_cl, x_c, dec, rk["box_warp"], axes, nof)
+        u = torch.rand((N * R, K), generator=gen, device=device)
+        d_f = vr.importance_sample_kernel(d_c, s_c.reshape(N, R, S, 1), K, u)
+        x_f = coords_of(d_f)
+        rgb_f, s_f = vr.triplane_decode_kernel(planes_cl, x_f, dec, rk["box_warp"], axes, nof)
+    return dict(planes_cl=planes_cl, dec=dec, axes=axes, nof=nof, bw=rk["box_warp"], gen=gen,
+                k2=(d_c, rgb_c.reshape(N, R, S, 32), s_c.reshape(N, R, S, 1),
+                    x_c.reshape(N, R, S, 3), d_f, rgb_f.reshape(N, R, K, 32),
+                    s_f.reshape(N, R, K, 1), x_f.reshape(N, R, K, 3)),
+                x_c=x_c, white_back=rk["white_back"])
+
+
+def k1_k2_grad_checks(G, device):
+    """K1's and K2's backward forms against their plain versions (autograd
+    of triplane_decode_plain and ray_composite_plain) on the card at a
+    training render's shapes (training_render_samples). K1: the plane
+    gradient (bf16) within 1 bf16 ulp of the largest value (2^-7 x max, the
+    plain's scatter is f32 atomics too); the weight gradients, sums over
+    1.57 M points whose terms nearly cancel, the kernel's and the f32 plain
+    version's each against an f64 evaluation: the kernel's within 10x the
+    plain's error (or 1e-4) of each tensor's max. K2: the colours'
+    gradient (bf16) within 2^-7 x max, the sigmas' (f32) within 1e-3 x max
+    (the reverse recurrence against autograd's cumprod). -> {name: summary}."""
+    import torch
+
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    t = training_render_samples(G, device)
+    gen, planes_cl, x_c = t["gen"], t["planes_cl"], t["x_c"]
+    N, P = x_c.shape[:2]
+    g_rgb = (torch.randn((N, P, 32), generator=gen, device=device) * 1e-3).to(torch.bfloat16)
+    g_sig = torch.randn((N, P, 1), generator=gen, device=device) * 1e-3
+    args = (planes_cl, x_c, t["dec"], t["bw"], t["axes"], t["nof"], g_rgb, g_sig)
+    print(f"K1's backward form: planes {tuple(planes_cl.shape)} bf16, coords {tuple(x_c.shape)}")
+    with torch.no_grad():
+        gk = vr.triplane_decode_grad_kernel(*args)
+        gp = vr.triplane_decode_grad_plain(*args)
+        dec64 = t["dec"]._replace(**{f: getattr(t["dec"], f).double()
+                                      for f in ("w0", "b0", "w1", "b1")})
+        g64 = vr.triplane_decode_grad_plain(planes_cl.double(), x_c.double(), dec64, *args[3:6],
+                                            g_rgb.double(), g_sig.double())
+    e_planes = rel_max_err(gk[0], gp[0])
+    check("K1 backward: the plane gradient (relative to its max)", e_planes, 2.0 ** -7)
+    # the weight gradients are sums over 1.57 M points whose terms nearly
+    # cancel: the kernel's and the f32 plain version's each against f64
+    e_w, e_wp = 0.0, 0.0
+    for name, a, b, c in zip(("w0", "b0", "w1", "b1"), gk[1:], gp[1:], g64[1:]):
+        ek, ep = rel_max_err(a.double(), c), rel_max_err(b.double(), c)
+        print(f"  K1 backward: d{name} against f64: kernel {ek:.3e}, plain {ep:.3e}")
+        e_w, e_wp = max(e_w, ek), max(e_wp, ep)
+    check("K1 backward: the decoder's weight gradients against f64 (relative to each max)",
+          e_w, max(1e-4, 10 * e_wp))
+    del g64
+    with torch.no_grad():
+        k1 = record(max_err(gk[0], gp[0]), lambda: vr.triplane_decode_grad_kernel(*args),
+                    lambda: vr.triplane_decode_grad_plain(*args),
+                    nbytes(planes_cl, x_c, g_rgb, g_sig, gk[0]), k1_grad_ops(N * P, 32),
+                    plain_iters=3)
+    k1.update(relative_err=e_planes, weight_grads_relative_err_f64=e_w,
+              plain_weight_grads_relative_err_f64=e_wp,
+              shapes={"planes": list(planes_cl.shape), "coords": list(x_c.shape)})
+    del gk, gp
+
+    k2 = t["k2"]
+    B, R = k2[0].shape[:2]
+    with torch.no_grad():
+        rgb, depth, wsum, xyz = vr.ray_composite_kernel(*k2, t["white_back"])
+    g_comp = torch.randn((B, R, 35), generator=gen, device=device)
+    g_dep = torch.randn((B, R, 1), generator=gen, device=device)
+    g_ws = torch.randn((B, R, 1), generator=gen, device=device)
+    args2 = (*k2, t["white_back"], depth, g_comp, g_dep, g_ws)
+    print(f"K2's backward form: {B * R} rays, {k2[0].shape[2]}+{k2[4].shape[2]} samples, "
+          f"bf16 colours")
+    with torch.no_grad():
+        gk = vr.ray_composite_grad_kernel(*args2)
+        gp = vr.ray_composite_grad_plain(*args2)
+    e_c = max(rel_max_err(gk[0], gp[0]), rel_max_err(gk[2], gp[2]))
+    e_s = max(rel_max_err(gk[1], gp[1]), rel_max_err(gk[3], gp[3]))
+    check("K2 backward: the colours' gradient (relative to its max)", e_c, 2.0 ** -7)
+    check("K2 backward: the sigmas' gradient (relative to its max)", e_s, 1e-3)
+    d_c, c1, s1, x1, d_f, c2, s2, x2 = k2
+    with torch.no_grad():
+        k2s = record(max(max_err(a, b) for a, b in zip(gk, gp)),
+                     lambda: vr.ray_composite_grad_kernel(*args2),
+                     lambda: vr.ray_composite_grad_plain(*args2),
+                     nbytes(d_c, c1, s1, x1, d_f, c2, s2, x2, depth, g_comp, g_dep, g_ws, *gk),
+                     B * R * (k2[0].shape[2] + k2[4].shape[2]) * (4 * 32 + 40), plain_iters=3)
+    k2s.update(colours_relative_err=e_c, sigmas_relative_err=e_s,
+               shapes={"rays": B * R, "samples": [k2[0].shape[2], k2[4].shape[2]]})
+    return {"triplane_decode_grad": k1, "ray_composite_grad": k2s}
+
+
+def k5_grad_check(device):
+    """K5's backward form against its plain version (epilogue_grad_plain,
+    what autograd of the plain epilogue computes) at a discriminator layer
+    of the flagship at batch 8: bf16 [8,64,512,512], lrelu, gain sqrt(2),
+    clamp 256 (b512's conv0). Exact: both round after the gain and after the
+    slope. -> summary."""
+    import torch
+
+    from panic3d_tpu_torch.ops.bias_act import (epilogue_grad_kernel, epilogue_grad_plain,
+                                                modconv_epilogue_kernel)
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    shape = (TRAIN_BATCH, 64, 512, 512)
+    x = (torch.randn(shape, generator=gen, device=device) * 100).to(torch.bfloat16)
+    bias = torch.randn(64, generator=gen, device=device)
+    cfg = ("lrelu", None, math.sqrt(2), 256.0)
+    with torch.no_grad():
+        y = modconv_epilogue_kernel(x, bias=bias, act=cfg[0], gain=cfg[2], clamp=cfg[3])
+        dy = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        dk, dp = epilogue_grad_kernel(dy, y, *cfg), epilogue_grad_plain(dy, y, *cfg)
+    clamped = float((y.abs() >= cfg[3]).float().mean())
+    check(f"K5 backward {list(shape)} bf16 ({100 * clamped:.2f} % clamped)", max_err(dk, dp), 0.0)
+    return dict(record(max_err(dk, dp), lambda: epilogue_grad_kernel(dy, y, *cfg),
+                       lambda: epilogue_grad_plain(dy, y, *cfg), nbytes(dy, y, dk),
+                       dy.numel() * 4.0), shape=list(shape), clamped_share=clamped)
+
+
+def k4_backward_library(xx, f2d, up, down, pad, out_hw):
+    """The single PyTorch call that computes a transposed pass: at down 2 a
+    depthwise conv2d of stride 2 (symmetric padding), else k4_library's."""
+    import torch.nn.functional as F
+
+    if tuple(down) == (1, 1):
+        return k4_library(xx, f2d, up, pad, out_hw)
+    px0, px1, py0, py1 = pad
+    if tuple(up) != (1, 1) or px0 != px1 or py0 != py1 or min(pad) < 0:
+        return None
+    C = xx.shape[1]
+    w = f2d.to(xx.device, xx.dtype)[None, None].expand(C, 1, *f2d.shape).contiguous()
+    return lambda: F.conv2d(xx, w, stride=(down[1], down[0]), padding=(py0, px0), groups=C)
+
+
+def k4_backward_checks(calls, device):
+    """K4's backward form (the transposed passes, K4's own forms) at every
+    distinct transposed call of one training step (``calls``: {(shape,
+    dtype, up, down, pad): [count, f2d]}), each against its plain version
+    (bf16 within 1 bf16 ulp of the largest value, f32 within 1e-5) and
+    timed beside its plain version and its library call. The summary's own
+    numbers are the largest call's. -> summary."""
+    import importlib
+
+    import torch
+
+    uf = importlib.import_module("panic3d_tpu_torch.ops.upfirdn2d")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows, head = [], None
+    for (shape, dtype, up, down, pad), (count, f2d) in sorted(
+            calls.items(), key=lambda kv: -np.prod(kv[0][0])):
+        xx = torch.randn(shape, generator=gen, device=device).to(dtype)
+        spec = (f2d, up, down, pad)
+        with torch.no_grad():
+            yk = uf._launch_k4(xx, *spec, True)
+            yp = uf.upfirdn2d_plain(xx, *spec)
+        e = max_err(yk, yp)
+        tol = 2.0 ** -7 * float(yp.abs().max()) if dtype == torch.bfloat16 else 1e-5
+        variant = uf.k4_plan(*spec).variant
+        check(f"K4 backward x{count} {list(shape)} {str(dtype)[6:]} up={up[0]} down={down[0]} "
+              f"pad={list(pad)} -> {yk.shape[-2]}x{yk.shape[-1]} ({variant})", e, tol)
+        lib = k4_backward_library(xx, f2d, up, down, pad, tuple(yk.shape[-2:]))
+        fh, fw = f2d.shape
+        row = dict(record(e, lambda: uf._launch_k4(xx, *spec, True),
+                          lambda: uf.upfirdn2d_plain(xx, *spec), nbytes(xx, yk),
+                          yk.numel() * fh * fw * 2.0 / (up[0] * up[1]), library_fn=lib,
+                          plain_iters=3),
+                   shape=list(shape), dtype=str(dtype)[6:], up=up[0], down=down[0],
+                   pad=list(pad), variant=variant, calls_per_step=count)
+        print(f"    ms {row['ms']:.6f}  plain {row['plain_ms']:.6f}  bound {row['bound_ms']:.6f} "
+              f"({row['bound_by']})  library "
+              + (f"{row['library_ms']:.6f}" if row["library_ms"] is not None else "none"))
+        rows.append(row)
+        head = head or row
+    require(rows, "K4 backward: no transposed call in the training step")
+    return dict({k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
+                max_abs_err=max(r["max_abs_err"] for r in rows), calls=rows,
+                variants=sorted({r["variant"] for r in rows}))
+
+
+def r1_checks(device, res=512):
+    """R1 (the Dreg phase: a gradient of the discriminator's gradient,
+    through K4's and K5's backward forms and their own backward) on the
+    flagship discriminator at batch 8, 512^2, against the same with the
+    plain ops (plain_ops): the penalty and the gradient of every parameter
+    of D (one vector) within R1_TOL relative, in f32 (no bf16 blocks) and in
+    the flagship's bf16 at the top 4 resolutions. -> summary."""
+    import torch
+
+    from panic3d_tpu_torch.kernels import launch_counts, reset_launch_counts, variant_counts
+    from panic3d_tpu_torch.models.dual_discriminator import DualDiscriminator
+    from panic3d_tpu_torch.training.loss import LossConfig, OrthoCondLoss
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    batch = {"image": torch.rand((TRAIN_BATCH, 3, res, res), generator=gen, device=device) * 2 - 1,
+             "cond": {}}
+    c = torch.randn((TRAIN_BATCH, 25), generator=gen, device=device)
+    out = {}
+    for label, fp16 in (("float32", 0), ("bfloat16", 4)):
+        D = DualDiscriminator(c_dim=25, img_resolution=res, num_fp16_res=fp16,
+                              conv_clamp=256 if fp16 else None).to(device).init_weights(SEED)
+        loss = OrthoCondLoss(LossConfig(r1_gamma=4.0), None, None, None,
+                             lambda img, c_, cond, g: D(img, c_, cond, generator=g), None)
+        params = list(D.parameters())
+        runs = []
+        for plain in (False, True):
+            reset_launch_counts()
+            with plain_ops() if plain else contextlib.nullcontext():
+                value, _ = loss.d_reg_loss(batch, c, None, 0, gain=16.0)
+                grads = torch.autograd.grad(value, params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            torch.cuda.synchronize()
+            counts, variants = launch_counts(), variant_counts().get("upfirdn2d", {})
+            runs.append((value.detach(), torch.cat([g.reshape(-1) for g in grads]), counts,
+                         variants))
+        (vk, gk, ck, vk4), (vp, gp, cp, _) = runs
+        e_v = float((vk - vp).abs() / vp.abs())
+        e_g = float((gk - gp).norm() / gp.norm())
+        check(f"R1 {label} D: the penalty (relative)", e_v, R1_TOL[label])
+        check(f"R1 {label} D: the gradient of D's parameters (relative L2)", e_g, R1_TOL[label])
+        grad_k4 = {k: n for k, n in vk4.items() if k.startswith("grad_")}
+        print(f"  kernel run: K5's backward {ck['modconv_epilogue_grad']} launches, K4's "
+              f"transposed passes {grad_k4}; plain run launched "
+              f"{sum(cp.values())} kernels")
+        require(ck["modconv_epilogue_grad"] > 0 and grad_k4, "R1: a backward form not launched")
+        require(sum(cp.values()) == 0, "R1: the plain run launched a kernel")
+        out[label] = {"penalty": float(vk), "penalty_relative_err": e_v,
+                      "grad_relative_l2": e_g, "k5_grad_launches": ck["modconv_epilogue_grad"],
+                      "k4_grad_variants": grad_k4}
+    return out
+
+
+def step_vs_plain(device, card):
+    """One whole training step of the flagship (batch 8, every phase: Greg
+    first, then Gmain, Gcond, Dmain, Dreg) with the kernels, against the
+    same step with the plain ops (plain_ops), from the same weights on the
+    same draws (one generator seed: both draw the same numbers in the same
+    order), in f32 (--fp32 and an f32 render) and at the trainer's bf16
+    defaults; in f32 the kernels' step runs twice. Adam's eps is 1e-4 here
+    (TrainConfig.eps), above the gradients' rounding, so that each
+    element's step is a smooth function of its gradient (at 1e-8 it is ~lr
+    sign(g), and a rounding-sized gradient flips it). Held, for each
+    module's update (the parameters after the step less before): in f32,
+    G's and G_ema's (whose gradients pass through all four backward forms)
+    within STEP_TOL_F32 relative L2 of the plain ops', or within twice the
+    kernels' own run-to-run distance where that is larger (the plane
+    gradient's atomics add in another order each run); D's within
+    D_STEP_TOL_F32: D learns from the generator's images, which the
+    importance resampling moves between any two f32 implementations
+    (ROADMAP F2: up to 0.021 at flagship shape; printed here for one G.f
+    on the step's draws), while D's own forward and backward agree with
+    the plain ops within 5e-7 (r1_checks); in bf16, within twice the plain
+    ops' own distance between bf16 and f32 (bf16's rounding is the noise
+    floor there). -> summary."""
+    import copy
+
+    import torch
+
+    from panic3d_tpu_torch.data.dataset import synthetic_batch
+    from panic3d_tpu_torch.training import TrainConfig, build_train_step, init_state, trainer
+    from panic3d_tpu_torch.training.setup import init_lpips, make_loss
+
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, eps=1e-4,
+                      phases=("Greg", "Gmain", "Gcond", "Dmain", "Dreg"))
+    lpips = init_lpips(device=device)
+    updates, times, before, f2 = {}, {}, {}, {}
+    for precision, extra in (("float32", ["--fp32"]), ("bfloat16", [])):
+        args = trainer.parse_args(["--name", "cmp", *TRAIN_ARGS, *extra])
+        G, D, chonk, feat, _ = trainer.build_models(args, device)
+        if precision == "float32":
+            G.rk["render_dtype"] = "float32"
+        G.init_weights(SEED)
+        D.init_weights(SEED + 1)
+        loss_cfg = trainer.loss_config(args, G.rk["box_warp"], False)
+        batch = trainer._to_device(synthetic_batch(bs=TRAIN_BATCH, size=G.img_resolution,
+                                                   chonk_ch=chonk, feat_dim=feat), device)
+        before = {"G": copy.deepcopy(G.state_dict()), "D": copy.deepcopy(D.state_dict())}
+        if precision == "float32":   # F2's size here: one G.f on the step's draws
+            xin = {"z": torch.randn((TRAIN_BATCH, G.z_dim), device=device,
+                                    generator=torch.Generator(device=device).manual_seed(SEED)),
+                   "camera_params": batch["camera"], "cond": batch["cond"],
+                   "normalize_images": True}
+            outs = []
+            for plain in (False, True):
+                gen = torch.Generator(device=device).manual_seed(SEED)
+                with torch.no_grad(), plain_ops() if plain else contextlib.nullcontext():
+                    outs.append(G.f(xin, noise_mode="random", generator=gen))
+            f2 = {k: max_err(outs[0][k], outs[1][k]) for k in ("image", "image_raw")}
+            print(f"  f32 G.f on the step's draws, kernels vs plain ops: image max |diff| "
+                  f"{f2['image']:.3e}, image_raw {f2['image_raw']:.3e} (ROADMAP F2)")
+            del outs
+        for plain, rep in ((False, 0), (True, 0)) + (((False, 1),) if precision == "float32"
+                                                     else ()):
+            Gs, Ds = copy.deepcopy(G), copy.deepcopy(D)
+            state = init_state(Gs, Ds, cfg)
+            step = build_train_step(make_loss(Gs, Ds, lpips, loss_cfg), cfg, G.z_dim, cfg.phases)
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with plain_ops() if plain else contextlib.nullcontext():
+                step(state, batch, gen)
+            torch.cuda.synchronize()
+            key = (precision, "plain" if plain else ("kernels", "kernels again")[rep])
+            times[key] = time.perf_counter() - t
+            updates[key] = {
+                "G": {n: p.detach() - before["G"][n] for n, p in Gs.named_parameters()},
+                "D": {n: p.detach() - before["D"][n] for n, p in Ds.named_parameters()},
+                "G_ema": {n: p.detach() - before["G"][n]
+                          for n, p in state.G_ema.named_parameters()}}
+            del state, step, Gs, Ds
+        del G, D, before, batch
+
+    def dist(a, b, module):
+        u, v = updates[a][module], updates[b][module]
+        num = math.sqrt(sum(float((u[n] - v[n]).float().square().sum()) for n in v))
+        return num / math.sqrt(sum(float(v[n].float().square().sum()) for n in v))
+
+    out = {"seconds": {f"{p} {k}": t for (p, k), t in times.items()},
+           "f32_gf_image_max_diff": f2}
+    for module in ("G", "D", "G_ema"):
+        f32 = dist(("float32", "kernels"), ("float32", "plain"), module)
+        again = dist(("float32", "kernels again"), ("float32", "kernels"), module)
+        bf16 = dist(("bfloat16", "kernels"), ("bfloat16", "plain"), module)
+        floor = dist(("bfloat16", "plain"), ("float32", "plain"), module)
+        tol = D_STEP_TOL_F32 if module == "D" else max(STEP_TOL_F32, 2 * again)
+        check(f"one step in f32, kernels vs plain ops: {module}'s update (relative L2; "
+              f"kernels run to run {again:.3e})", f32, tol)
+        check(f"one step in bf16, kernels vs plain ops: {module}'s update (relative L2; "
+              f"plain bf16 vs plain f32 {floor:.3e})", bf16, 2 * floor)
+        out[module] = {"f32_relative_l2": f32, "f32_kernels_run_to_run": again,
+                       "bf16_relative_l2": bf16, "bf16_vs_f32_plain_relative_l2": floor}
+    print("  one step (the first of each, with warm-up): " + ", ".join(
+        f"{p} {k} {t:.3f} s" for (p, k), t in times.items()) + f"  [{card}]")
+    return out
+
+
+def training_path(device, card):
+    """trainer.main at the flagship's defaults on the card (synthetic 512^2
+    data, batch 8, the five phases, lazy-reg Adam, G_ema): one warm-up step
+    and TRAIN_STEPS timed ones, the launch counts zeroed before and read
+    after (each kernel of the path launched, the backward forms too, K4's
+    variants forward and backward), every phase's losses finite at every
+    step, G, D and G_ema moved from their seeded weights; then, on the
+    trained state, one step of every phase timed phase by phase (CUDA
+    events), one counted for its host waits, one profiled for the device's
+    busy share, and K4's transposed calls of one step collected for
+    k4_backward_checks. -> (launch counts, summary, K4's transposed calls)."""
+    import importlib
+    import shutil
+
+    import torch
+
+    from panic3d_tpu_torch.kernels import launch_counts, reset_launch_counts, variant_counts
+    from panic3d_tpu_torch.training import build_train_step, phases_for_step, trainer
+
+    outdir = os.path.join(BUILD_TMP, "train_runs")
+    shutil.rmtree(outdir, ignore_errors=True)
+    argv = ["--name", "smoke", "--outdir", outdir, *TRAIN_ARGS,
+            "--max-steps", str(1 + TRAIN_STEPS)]
+    marks, bad = [], []
+
+    def on_step(i, phases, stats):
+        torch.cuda.synchronize()
+        marks.append((i, phases, time.perf_counter()))
+        bad.extend(k for k, v in stats.items() if not math.isfinite(float(v)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.main(argv, on_step=on_step)
+    counts, variants = launch_counts(), variant_counts()
+    peak = torch.cuda.max_memory_allocated()
+    require(not bad, f"training: non-finite losses {bad}")
+    ran = [p for _, phases, _ in marks for p in phases]
+    require(all(p in ran for p in ("Gmain", "Gcond", "Greg", "Dmain", "Dreg")),
+            f"training: phases run {sorted(set(ran))}")
+    require_launched(counts, TRAIN_KERNELS, "training")
+    steps = len(marks)
+    step_s = [b[2] - a[2] for a, b in zip(marks, marks[1:])]
+    k4v = variants.get("upfirdn2d", {})
+    print(f"training (trainer.main, flagship defaults, batch {TRAIN_BATCH}, synthetic 512^2): "
+          f"{steps} steps, the first {marks[0][2] - t0:.3f} s after the start (build, init, "
+          f"warm-up); then s/step " + ", ".join(f"{s:.3f}" for s in step_s)
+          + f" (median {statistics.median(step_s):.3f}); peak memory {peak / 2**30:.3f} GiB; "
+          f"launches per step " + ", ".join(f"{k}={n / steps:g}" for k, n in counts.items() if n)
+          + f"  [{card}]")
+    print("  K4 launches per step by variant, forward: " + ", ".join(
+        f"{v}={n / steps:g}" for v, n in k4v.items() if not v.startswith("grad_"))
+        + "; backward: " + ", ".join(f"{v[5:]}={n / steps:g}" for v, n in k4v.items()
+                                     if v.startswith("grad_")))
+    require(not any(v in k4v for v in ("generic", "grad_generic")),
+            f"training: K4's generic kernel ran: {k4v}")
+
+    # G, D and G_ema moved from their seeded weights
+    args = trainer.parse_args(argv)
+    G0, D0, *_ = trainer.build_models(args, device)
+    G0.init_weights(args.seed)
+    D0.init_weights(args.seed + 1)
+    state = out["state"]
+    moved = {}
+    with torch.no_grad():
+        for name, mod, ref in (("G", state.G, G0), ("D", state.D, D0),
+                               ("G_ema", state.G_ema, G0)):
+            ref_p = dict(ref.named_parameters())
+            moved[name] = max(float((p - ref_p[n]).abs().max())
+                              for n, p in mod.named_parameters())
+    print("  largest parameter change: " + ", ".join(f"{k} {v:.3e}" for k, v in moved.items()))
+    require(all(v > 0 for v in moved.values()), f"training: a module did not move: {moved}")
+    del G0, D0
+
+    # one step of every phase on the trained state: each phase's ms (CUDA
+    # events), and K4's transposed calls (a spy on its launch)
+    cfg, batch, gen = out["train_cfg"], out["batch"], out["generator"]
+    phases = phases_for_step(0, cfg)
+    step = build_train_step(out["loss"], cfg, state.G.z_dim, phases)
+    uf = importlib.import_module("panic3d_tpu_torch.ops.upfirdn2d")
+    launch, calls, events = uf._launch_k4, {}, []
+
+    def spy(x, f2d, up, down, pad, transposed=False):
+        if transposed:
+            key = (tuple(x.shape), x.dtype, tuple(up), tuple(down), tuple(pad))
+            calls.setdefault(key, [0, f2d.detach().clone()])[0] += 1
+        return launch(x, f2d, up, down, pad, transposed)
+
+    def on_phase(phase):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((phase, ev))
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    uf._launch_k4 = spy
+    try:
+        step(state, batch, gen, on_phase=on_phase)
+    finally:
+        uf._launch_k4 = launch
+    torch.cuda.synchronize()
+    phase_ms, prev = {}, start
+    for phase, ev in events:
+        phase_ms[phase] = prev.elapsed_time(ev)
+        prev = ev
+    print("  one step of every phase, ms by phase: " + ", ".join(
+        f"{p} {ms:.3f}" for p, ms in phase_ms.items()) + f"  [{card}]")
+    waits = count_syncs(lambda: step(state, batch, gen))
+    prof = trace_counts(lambda: step(state, batch, gen))
+    busy = prof["busy_ms"] / prof["span_ms"]
+    print(f"  host waits a step {waits}; profiled step: device busy {prof['busy_ms']:.3f} ms of "
+          f"{prof['span_ms']:.3f} ({100 * busy:.1f} %), {prof['device_launches']:g} device "
+          f"launches from {prof['host_ops']:g} host ops  [{card}]")
+    summary = {"steps": steps, "s_per_step": step_s,
+               "s_per_step_median": statistics.median(step_s),
+               "first_step_s_from_start": marks[0][2] - t0, "peak_gib": peak / 2**30,
+               "launches_per_step": {k: n / steps for k, n in counts.items() if n},
+               "k4_variants_per_step": {v: n / steps for v, n in k4v.items()},
+               "phase_ms_all_phase_step": phase_ms, "host_waits_per_step": waits,
+               "device_busy_share": busy, "profiled_step": {k: v for k, v in prof.items()
+                                                            if k != "names"},
+               "largest_change": moved}
+    return counts, summary, calls
+
+
+def training_checks(device, card):
+    """The training path (training_path), then the backward forms at its
+    shapes (K4 at the step's own transposed calls, K1 and K2 at a training
+    render's, K5 at a discriminator layer), R1's second order and one whole
+    step against the plain ops. -> (kernel summaries, the path's launch
+    counts, the path's summary)."""
+    import torch
+
+    from panic3d_tpu_torch import configs
+
+    with torch.enable_grad():
+        counts, summary, calls = training_path(device, card)
+    checks = {"upfirdn2d_grad": k4_backward_checks(calls, device)}
+    summary["k4_grad_launches"] = sum(n for v, n in summary["k4_variants_per_step"].items()
+                                      if v.startswith("grad_")) * summary["steps"]
+    G = configs.flagship(device=device).init_weights(SEED)
+    checks.update(k1_k2_grad_checks(G, device))
+    del G
+    checks["modconv_epilogue_grad"] = k5_grad_check(device)
+    with torch.enable_grad():
+        summary["r1_vs_plain"] = r1_checks(device)
+        summary["step_vs_plain"] = step_vs_plain(device, card)
+    torch.cuda.empty_cache()
+    return checks, counts, summary
+
+
+def k4_grad_entry(checks, launches):
+    """The kernels line's entry of K4's backward form (K4's own entry point
+    on the transposed pass, counted under its grad_ variants)."""
+    from panic3d_tpu_torch.kernels import KERNELS
+
+    k = KERNELS["upfirdn2d"]
+    return {"name": "upfirdn2d_grad", "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "launches": launches, **checks["upfirdn2d_grad"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -4326,6 +4974,10 @@ def main(argv=None) -> int:
                     help="build, then run only the keyed forward path, its kernel forms' "
                          "checks (with --parent, the eval forms against the parent's kernels) "
                          "and the Hybrid8X card-vs-CPU check, then stop")
+    ap.add_argument("--training-only", action="store_true",
+                    help="build, then run only the training path (trainer.main at the "
+                         "flagship defaults) and its checks (the backward forms, R1 against "
+                         "the plain ops, one step against the plain ops), then stop")
     ap.add_argument("--parent", metavar="DIR",
                     help="a directory of the parent commit's kernel sources (e.g. "
                          "upfirdn2d.cu, front_occlusion.cu, paste_front.cu): time this "
@@ -4391,6 +5043,17 @@ def main(argv=None) -> int:
         print(card)
         return 0
 
+    if args.training_only:
+        checks, counts_train, training = training_checks(device, card)
+        kernels = [dict(name=n, route="cuda", source=KERNELS[n].source,
+                        replaces=KERNELS[n].replaces, launches=counts_train[n], **checks[n])
+                   for n in BACKWARD_KERNELS]
+        kernels.append(k4_grad_entry(checks, training["k4_grad_launches"]))
+        print(f"wall time {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"paths": {"training": training}, "kernels": kernels}, default=str))
+        print(card)
+        return 0
+
     with torch.no_grad():
         x = flagship_inputs(G, device)
         checks = kernel_checks(G, device)
@@ -4410,7 +5073,8 @@ def main(argv=None) -> int:
         checks.update(k11_checks(device))
         grad_guard_checks(device)
         if args.kernels_only:
-            print(json.dumps({"kernels": [dict(name=n, **checks[n]) for n in KERNELS]}))
+            print(json.dumps({"kernels": [dict(name=n, **checks[n]) for n in KERNELS
+                                          if n in checks]}))
             print(card)
             return 0
         tiny_end_to_end(device, ess_paste=False)
@@ -4477,6 +5141,11 @@ def main(argv=None) -> int:
             checks[name]["eval_form_vs_parent"] = summ
         del keyed_in
         hybrid = hybrid8x_check(device, card)
+
+        # training: trainer.main at the flagship defaults, the backward
+        # forms at its shapes, R1 and one step against the plain ops
+        train_checks, counts_train, training = training_checks(device, card)
+        checks.update(train_checks)
 
         # K5's bound summed over a request's and a portrait's calls
         k5_sums = {}
@@ -4589,20 +5258,22 @@ def main(argv=None) -> int:
     paths = {"settings_parity": parity, "ess_paste_per_call": per_call, "turntable": turn,
              "keyed_forward": keyed, "hybrid8x_keyed": hybrid,
              "probe": probe, **deep, **geometry, "eval_cli": eval_cli, "checkpoint": ckpt,
-             "stylegan3_t_layers": sg3_path, "equivariance": equivariance}
-    print(json.dumps({"paths": paths, "card": card}))
+             "stylegan3_t_layers": sg3_path, "equivariance": equivariance,
+             "training": training}
+    print(json.dumps({"paths": paths, "card": card}, default=str))
     # each kernel's launches on the path that launches it: the ESS + paste
     # request, else the geometry path, else eval measure, else the probe,
     # else the deep-plane request, else the deep-plane mesh, else the
-    # stylegan3-t layers, else EQ-R (0 for a kernel of CHECK_ONLY)
+    # stylegan3-t layers, else EQ-R, else training (the backward forms; 0
+    # for a kernel of CHECK_ONLY)
     sources = (counts_main, counts_geom, counts_eval, counts_probe, *counts_deep, counts_sg3,
-               counts_eq)
+               counts_eq, counts_train)
     launches = {name: next((c[name] for c in sources if c[name]), 0) for name in KERNELS}
     require_launched(launches, [k for k in KERNELS if k not in CHECK_ONLY], "all paths")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": launches[name], **checks[name]}
-        for name, k in KERNELS.items()]}
+        for name, k in KERNELS.items()] + [k4_grad_entry(checks, training["k4_grad_launches"])]}
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))
     print(card)

@@ -26,6 +26,21 @@
 // repeats those roundings in the same order, with __fmul_rn/__fadd_rn so that
 // nvcc does not contract a multiply and an add into one FMA. It is therefore
 // exact against its plain version.
+//
+// Its backward form (modconv_epilogue_grad) replaces what XLA's autodiff
+// makes of the same chain of jnp ops in training (the reference's
+// _BiasActCudaGrad in StyleGAN2-ADA's bias_act.py): from the output y and
+// its gradient dy, the gradient of the pre-activation
+//   dz = dy * (|y| < clamp) * gain * (y >= 0 ? 1 : alpha),
+// one elementwise pass, rounded to the layer dtype after the gain and after
+// the slope as the plain version's autograd rounds them. The slope comes
+// from the sign of the output (the pre-activation's, since gain > 0), and
+// an output at the clamp passes no gradient. The gradient of dz is the same
+// masked product of its own gradient (lrelu's second derivative is 0), so
+// the wrapper's autograd.Function calls this entry again for R1's second
+// order. The reductions (the bias, the demodulation coefficients,
+// noise_strength) and dx = dz * dcoef are PyTorch ops on dz
+// (ops/bias_act.py). Bound: bytes (read dy and y, write dz).
 #include "common.cuh"
 
 namespace {
@@ -110,6 +125,64 @@ cudaError_t launch(const void* x, void* y, const Params& p, cudaStream_t stream)
   return cudaGetLastError();
 }
 
+// the backward form: dz = dy * (|y| < clamp) * gain * (y >= 0 ? 1 : alpha)
+struct GradParams {
+  long long total;
+  int lrelu, use_clamp;
+  float alpha, gain, clamp;
+};
+
+template <typename T>
+__device__ __forceinline__ float grad_one(float g, float yv, const GradParams& p) {
+  if (p.use_clamp && !(fabsf(yv) < p.clamp)) return 0.f;
+  g = round_to<T>(__fmul_rn(g, p.gain));
+  if (p.lrelu && !(yv >= 0.f)) g = round_to<T>(__fmul_rn(g, p.alpha));
+  return g;
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS) modconv_epilogue_grad_kernel(
+    const T* __restrict__ dy, const T* __restrict__ y, T* __restrict__ dz, GradParams p) {
+  const long long stride = (long long)gridDim.x * blockDim.x * VEC;
+  for (long long e0 = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * VEC; e0 < p.total;
+       e0 += stride) {
+    __align__(16) T g[VEC];
+    __align__(16) T yv[VEC];
+    if constexpr (VEC * sizeof(T) == 16) {
+      *reinterpret_cast<uint4*>(g) = *reinterpret_cast<const uint4*>(dy + e0);
+      *reinterpret_cast<uint4*>(yv) = *reinterpret_cast<const uint4*>(y + e0);
+    } else {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        g[k] = dy[e0 + k];
+        yv[k] = y[e0 + k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) g[k] = from_f<T>(grad_one<T>(to_f(g[k]), to_f(yv[k]), p));
+    if constexpr (VEC * sizeof(T) == 16) {
+      *reinterpret_cast<uint4*>(dz + e0) = *reinterpret_cast<const uint4*>(g);
+    } else {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) dz[e0 + k] = g[k];
+    }
+  }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_grad(const void* dy, const void* y, void* dz, const GradParams& p,
+                        cudaStream_t stream) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long blocks = (p.total / VEC + THREADS - 1) / THREADS;
+  if (blocks > 32LL * sms) blocks = 32LL * sms;
+  if (blocks < 1) blocks = 1;
+  modconv_epilogue_grad_kernel<T, VEC><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(y), static_cast<T*>(dz), p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, y: contiguous [N, C, inner] (inner = H*W for NCHW, 1 for [N, F]) of
@@ -133,4 +206,20 @@ PANIC3D_EXPORT int modconv_epilogue(
     return (int)(inner % 8 == 0 ? launch<__nv_bfloat16, 8>(x, y, p, s)
                                 : launch<__nv_bfloat16, 1>(x, y, p, s));
   return (int)(inner % 4 == 0 ? launch<float, 4>(x, y, p, s) : launch<float, 1>(x, y, p, s));
+}
+
+// The backward form. dy, y, dz: contiguous, `total` values of dtype f32 or
+// bf16, 16-byte aligned; lrelu, alpha, gain and the clamp as the forward
+// call took them. dz = dy * (|y| < clamp) * gain * (y >= 0 ? 1 : alpha).
+PANIC3D_EXPORT int modconv_epilogue_grad(const void* dy, const void* y, void* dz, int dtype,
+                                         long long total, int lrelu, float alpha, float gain,
+                                         int use_clamp, float clamp, void* stream) {
+  if (total < 1) return (int)cudaErrorInvalidValue;
+  GradParams p{total, lrelu, use_clamp, alpha, gain, clamp};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_BF16)
+    return (int)(total % 8 == 0 ? launch_grad<__nv_bfloat16, 8>(dy, y, dz, p, s)
+                                : launch_grad<__nv_bfloat16, 1>(dy, y, dz, p, s));
+  return (int)(total % 4 == 0 ? launch_grad<float, 4>(dy, y, dz, p, s)
+                              : launch_grad<float, 1>(dy, y, dz, p, s));
 }

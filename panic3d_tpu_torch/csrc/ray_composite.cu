@@ -34,6 +34,26 @@
 // atomics, and the last block to finish (a counter after __threadfence)
 // clips every ray's depth and resets the pair and the counter for the next
 // call. One launch.
+//
+// Its backward form (ray_composite_grad) replaces what XLA's autodiff makes
+// of the same merge and ray_march in training: the gradient to the colours
+// and the sigmas of both halves (the sample depths are stop-gradiented,
+// renderer.py:563; the sample xyz carry none, being points on camera rays).
+// Same layout, one warp per ray: the warp redoes the merge (the same slots,
+// so ties between the halves route exactly as the stable argsort does), the
+// alphas and the weights in the forward's order; the colours' gradient is
+// 2 v_i g_c (each lane writes 16-byte chunks of the rows in stored order),
+// and the coefficients' gradient g_v_i = 2 (g_c . c_i + g_xyz . x_i) goes
+// to the weights as g_w_k = (g_v[k] + g_v[k+1]) / 2 in sorted order, plus
+// the weight total's (white_back's -2 sum g_c included) and the depth's,
+// (dmid_k - depth) / wsum where the depth was not clipped. The alphas'
+// gradient is T_k (g_w_k - R_k) with the reverse recurrence
+// R_{k-1} = g_w_k alpha_k + (1 - alpha_k + 1e-10) R_k, R_{S-2} = 0 (no
+// division by the transmittance): one lane walks it over the ray's
+// intervals in shared memory. Then dalpha/ddens = delta e^(-dens delta),
+// softplus' = sigmoid, and each interval's gradient splits half to each of
+// its two sorted samples, scattered back to stored order by the slots.
+// Bound: bytes (the colours read once and their gradient written once).
 #include "common.cuh"
 
 namespace {
@@ -268,6 +288,209 @@ __global__ void ray_composite_kernel(
   }
 }
 
+// the stored (d, sigma) of a ray into d / sg, its sorted slots into slot and
+// the sorted copies into ds / ss (the forward's merge, the same order)
+__device__ __forceinline__ void merge_ray(const float* d1, const float* s1, const float* d2,
+                                          const float* s2, long long r, int S1, int S2,
+                                          float* d, float* sg, float* ds, float* ss, int* slot,
+                                          int lane) {
+  const int S = S1 + S2;
+  for (int i = lane; i < S; i += 32) {
+    d[i] = i < S1 ? d1[r * S1 + i] : d2[r * S2 + (i - S1)];
+    sg[i] = i < S1 ? s1[r * S1 + i] : s2[r * S2 + (i - S1)];
+  }
+  __syncwarp();
+  bool sorted = true;
+  for (int i = lane; i < S - 1; i += 32)
+    if (i != S1 - 1) sorted &= d[i] <= d[i + 1];
+  sorted = __all_sync(FULL, sorted);
+  for (int i = lane; i < S; i += 32) {
+    const float di = d[i];
+    int k = 0;
+    if (sorted) {
+      k = i < S1 ? i + count_below<true>(d + S1, S2, di)
+                 : (i - S1) + count_below<false>(d, S1, di);
+    } else {
+      for (int j = 0; j < S; ++j) {
+        const float dj = d[j];
+        k += (dj < di) || (dj == di && j < i);
+      }
+    }
+    slot[i] = k;
+    ds[k] = di;
+    ss[k] = sg[i];
+  }
+  __syncwarp();
+}
+
+constexpr int GRAD_ARRAYS = 10;   // per warp: d, sg, ds, ss, slot, alpha, T, w, gv, g
+
+template <typename T>
+__global__ void ray_composite_grad_kernel(
+    const float* __restrict__ d1, const T* __restrict__ c1, const float* __restrict__ s1,
+    const float* __restrict__ x1, const float* __restrict__ d2, const T* __restrict__ c2,
+    const float* __restrict__ s2, const float* __restrict__ x2,
+    const float* __restrict__ depth_out, const float* __restrict__ g_comp,
+    const float* __restrict__ g_depth, const float* __restrict__ g_wsum,
+    T* __restrict__ g_c1, float* __restrict__ g_s1, T* __restrict__ g_c2,
+    float* __restrict__ g_s2, int rays, int S1, int S2, int C, int white_back) {
+  extern __shared__ float sm[];
+  constexpr int VEC = 16 / sizeof(T);
+  const int S = S1 + S2, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5, Cc = C + 3;
+  const long long r = (long long)blockIdx.x * n_warps + warp;
+  if (r >= rays) return;
+  float* d = sm + (size_t)warp * GRAD_ARRAYS * S;
+  float* sg = d + S;
+  float* ds = sg + S;
+  float* ss = ds + S;
+  int* slot = reinterpret_cast<int*>(ss + S);
+  float* alpha = ss + 2 * S;
+  float* tr = alpha + S;    // the transmittance T_k
+  float* w = tr + S;        // weights by sorted slot, w[S-1] = 0
+  float* gv = w + S;        // g_v by stored sample, then g_w by sorted slot
+  float* g = gv + S;        // v by stored sample, then the intervals' g_arg
+  merge_ray(d1, s1, d2, s2, r, S1, S2, d, sg, ds, ss, slot, lane);
+
+  // the forward's weights, alphas and transmittances, in its order
+  float carry = 1.f, wsum = 0.f, dsum = 0.f;
+  for (int base = 0; base < S - 1; base += 32) {
+    const int k = base + lane;
+    float a = 0.f, f = 1.f;
+    if (k < S - 1) {
+      const float delta = ds[k + 1] - ds[k];
+      const float dens = softplus_f((ss[k] + ss[k + 1]) / 2.f - 1.f);
+      a = 1.f - expf(-(dens * delta));
+      f = (1.f - a) + 1e-10f;
+    }
+    float p = f;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(FULL, p, off);
+      if (lane >= off) p *= o;
+    }
+    float excl = __shfl_up_sync(FULL, p, 1);
+    if (lane == 0) excl = 1.f;
+    if (k < S - 1) {
+      const float t = carry * excl;
+      const float wk = a * t;
+      alpha[k] = a;
+      tr[k] = t;
+      w[k] = wk;
+      wsum += wk;
+      dsum += wk * ((ds[k] + ds[k + 1]) / 2.f);
+    }
+    carry *= __shfl_sync(FULL, p, 31);
+  }
+  if (lane == 0) w[S - 1] = 0.f;
+  wsum = warp_sum(wsum);
+  dsum = warp_sum(dsum);
+  __syncwarp();
+  for (int i = lane; i < S; i += 32) {
+    const int k = slot[i];
+    g[i] = ((k > 0 ? w[k - 1] : 0.f) + w[k]) / 2.f;   // v_i
+  }
+  __syncwarp();
+
+  // colours: g_c_i = 2 v_i g_comp, and g_v_i = 2 g_comp . c_i (G lanes a row)
+  const float* gc = g_comp + r * Cc;
+  const int G = C / VEC, q = lane % G, grp = lane / G, step = 32 / G;
+  float gq[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) gq[k] = gc[q * VEC + k];
+  for (int base = 0; base < S; base += step) {
+    const int i = base + grp;
+    float part = 0.f;
+    if (i < S) {
+      const T* row = i < S1 ? c1 + (r * S1 + i) * C : c2 + (r * S2 + (i - S1)) * C;
+      T* grow = i < S1 ? g_c1 + (r * S1 + i) * C : g_c2 + (r * S2 + (i - S1)) * C;
+      float c[VEC];
+      load16(row + q * VEC, c);
+      const float vi2 = 2.f * g[i];
+      __align__(16) T out[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        part = fmaf(gq[k], c[k], part);
+        out[k] = from_f<T>(vi2 * gq[k]);
+      }
+      *reinterpret_cast<uint4*>(grow + q * VEC) = *reinterpret_cast<const uint4*>(out);
+    }
+    for (int off = 1; off < G; off <<= 1) part += __shfl_xor_sync(FULL, part, off);
+    if (i < S && q == 0) gv[i] = 2.f * part;
+  }
+  __syncwarp();
+  const float gx0 = gc[C], gx1 = gc[C + 1], gx2 = gc[C + 2];
+  for (int i = lane; i < S; i += 32) {
+    const float* xi = i < S1 ? x1 + (r * S1 + i) * 3 : x2 + (r * S2 + (i - S1)) * 3;
+    gv[i] += 2.f * (gx0 * xi[0] + gx1 * xi[1] + gx2 * xi[2]);
+  }
+  // the weight total's gradient: its own, and white_back's -2 sum g_comp
+  float gsum = 0.f;
+  for (int k = lane; k < Cc; k += 32) gsum += gc[k];
+  gsum = warp_sum(gsum);
+  const float g_tot = g_wsum[r] - (white_back ? 2.f * gsum : 0.f);
+  // the depth's, where dsum / wsum was not clipped
+  const float dep = dsum / wsum;
+  const float g_dep = (!isnan(dep) && dep == depth_out[r]) ? g_depth[r] / wsum : 0.f;
+  __syncwarp();
+  // g_v to sorted order (into g), then g_w_k = (g_v[k] + g_v[k+1]) / 2 + ...
+  for (int i = lane; i < S; i += 32) g[slot[i]] = gv[i];
+  __syncwarp();
+  for (int k = lane; k < S - 1; k += 32) {
+    float gw = (g[k] + g[k + 1]) / 2.f + g_tot;
+    if (g_dep != 0.f) gw += g_dep * ((ds[k] + ds[k + 1]) / 2.f - dep);
+    gv[k] = gw;
+  }
+  __syncwarp();
+  // the alphas: T_k (g_w_k - R_k), R walked back from the last interval
+  if (lane == 0) {
+    float R = 0.f;
+    for (int k = S - 2; k >= 0; --k) {
+      const float a = alpha[k], gw = gv[k];
+      g[k] = tr[k] * (gw - R);   // g_alpha_k
+      R = gw * a + ((1.f - a) + 1e-10f) * R;
+    }
+  }
+  __syncwarp();
+  for (int k = lane; k < S - 1; k += 32) {
+    const float delta = ds[k + 1] - ds[k];
+    const float arg = (ss[k] + ss[k + 1]) / 2.f - 1.f;
+    const float dens = softplus_f(arg);
+    const float ddens = g[k] * delta * expf(-(dens * delta));
+    g[k] = ddens / (1.f + expf(-arg));   // g_arg, softplus' = sigmoid
+  }
+  __syncwarp();
+  for (int i = lane; i < S; i += 32) {
+    const int k = slot[i];
+    const float gs = 0.5f * ((k > 0 ? g[k - 1] : 0.f) + (k < S - 1 ? g[k] : 0.f));
+    if (i < S1) g_s1[r * S1 + i] = gs;
+    else g_s2[r * S2 + (i - S1)] = gs;
+  }
+}
+
+template <typename T>
+cudaError_t launch_grad(const float* d1, const void* c1, const float* s1, const float* x1,
+                        const float* d2, const void* c2, const float* s2, const float* x2,
+                        const float* depth_out, const float* g_comp, const float* g_depth,
+                        const float* g_wsum, void* g_c1, float* g_s1, void* g_c2,
+                        float* g_s2, int rays, int S1, int S2, int C, int white_back,
+                        cudaStream_t stream) {
+  const int S = S1 + S2;
+  const size_t per_warp = (size_t)GRAD_ARRAYS * S * sizeof(float);
+  int n_warps = (int)((96 * 1024) / per_warp);
+  n_warps = n_warps < 1 ? 1 : (n_warps > 8 ? 8 : n_warps);
+  const size_t smem = per_warp * n_warps;
+  cudaError_t e = cudaFuncSetAttribute(ray_composite_grad_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const unsigned blocks = (unsigned)((rays + n_warps - 1) / n_warps);
+  ray_composite_grad_kernel<T><<<blocks, 32 * n_warps, smem, stream>>>(
+      d1, static_cast<const T*>(c1), s1, x1, d2, static_cast<const T*>(c2), s2, x2,
+      depth_out, g_comp, g_depth, g_wsum, static_cast<T*>(g_c1), g_s1, static_cast<T*>(g_c2),
+      g_s2, rays, S1, S2, C, white_back);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const float* d1, const void* c1, const float* s1, const float* x1,
                    const float* d2, const void* c2, const float* s2, const float* x2,
@@ -312,4 +535,31 @@ PANIC3D_EXPORT int ray_composite(const float* d1, const void* c1, const float* s
                                       scratch, rays, S1, S2, C, white_back, s);
   return (int)launch<float>(d1, c1, s1, x1, d2, c2, s2, x2, comp, depth, wsum, scratch,
                             rays, S1, S2, C, white_back, s);
+}
+
+// The backward form. The forward's inputs (S2 >= 1 here), its clipped
+// depth output depth_out [rays], and the gradients of its outputs: g_comp
+// [rays, C+3] (colours | xyz), g_depth [rays], g_wsum [rays], all f32
+// (zeros where an output has none). Writes g_c1 [rays, S1, C] and g_c2
+// [rays, S2, C] in the colours' dtype and g_s1 [rays, S1], g_s2 [rays, S2]
+// in f32.
+PANIC3D_EXPORT int ray_composite_grad(const float* d1, const void* c1, const float* s1,
+                                      const float* x1, const float* d2, const void* c2,
+                                      const float* s2, const float* x2, int dtype,
+                                      const float* depth_out, const float* g_comp,
+                                      const float* g_depth, const float* g_wsum, void* g_c1,
+                                      float* g_s1, void* g_c2, float* g_s2, int rays, int S1,
+                                      int S2, int C, int white_back, void* stream) {
+  const int vec = dtype == DT_BF16 ? 8 : 4, G = C / vec;
+  if (rays < 1 || S1 < 1 || S2 < 1 || S1 + S2 > 1024 || C % vec != 0 || G < 1 || G > 32 ||
+      (G & (G - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_BF16)
+    return (int)launch_grad<__nv_bfloat16>(d1, c1, s1, x1, d2, c2, s2, x2, depth_out, g_comp,
+                                           g_depth, g_wsum, g_c1, g_s1, g_c2, g_s2, rays, S1,
+                                           S2, C, white_back, s);
+  return (int)launch_grad<float>(d1, c1, s1, x1, d2, c2, s2, x2, depth_out, g_comp, g_depth,
+                                 g_wsum, g_c1, g_s1, g_c2, g_s2, rays, S1, S2, C, white_back,
+                                 s);
 }

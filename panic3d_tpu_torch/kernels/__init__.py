@@ -8,9 +8,17 @@ ran, in ``variants``. ``chip_smoke.py`` zeroes the counts before it drives
 the main path and reads them after, to show the path went through every
 kernel.
 
-The kernels have no backward pass. ``require_no_grad`` is called by every
-wrapper before it launches: under grad mode an input that requires grad
-would otherwise leave the outputs cut off from it without an error.
+Four kernels have a backward form, each run by an autograd.Function
+around the forward launch: K1 (``triplane_decode_grad``, to the planes and
+the decoder's weights), K2 (``ray_composite_grad``, to the colours and
+sigmas), K4 (the transposed upfirdn2d, K4's own entry point, counted under
+``grad_<variant>``) and K5 (``modconv_epilogue_grad``, differentiable again
+for R1). Their wrappers still refuse, through ``require_no_grad``, the
+inputs they give no gradient: K1's and K2's sample coordinates and depths,
+K4's filter and K5's noise. Every other wrapper calls ``require_no_grad``
+on all its inputs before it launches: under grad mode an input that
+requires grad would otherwise leave the outputs cut off from it without an
+error.
 """
 
 from __future__ import annotations
@@ -41,6 +49,21 @@ KERNELS = {
             "volume_density",
             "panic3d_tpu_torch/csrc/triplane_decode.cu",
             "panic3d_tpu/eval/volume.py:285",
+        ),
+        Kernel(
+            "triplane_decode_grad",
+            "panic3d_tpu_torch/csrc/triplane_decode_grad.cu",
+            "panic3d_tpu/models/volumetric/renderer.py:778",
+        ),
+        Kernel(
+            "ray_composite_grad",
+            "panic3d_tpu_torch/csrc/ray_composite.cu",
+            "panic3d_tpu/models/volumetric/renderer.py:567",
+        ),
+        Kernel(
+            "modconv_epilogue_grad",
+            "panic3d_tpu_torch/csrc/modconv_epilogue.cu",
+            "panic3d_tpu/ops/bias_act.py:40",
         ),
         Kernel(
             "ray_composite",

@@ -1,4 +1,6 @@
-"""StyleGAN2 generator side (panic3d_tpu/models/stylegan2.py:33-699).
+"""StyleGAN2 generator side (panic3d_tpu/models/stylegan2.py:33-699) and
+discriminator side (:700-893: MinibatchStdLayer, DiscriminatorBlock,
+DiscriminatorEpilogue, Discriminator with its c mapping).
 
 Module and attribute names follow the reference state_dict (b{res}, conv0,
 conv1, torgb, affine, fc{i}, embed, noise_const, w_avg), so
@@ -7,6 +9,9 @@ runtime/checkpoint.py maps the flax tree onto ``state_dict()`` 1:1.
 through upfirdn2d (kernel K4 on the card); the weight convs are cuDNN, and
 the epilogue after each (demodulation, noise, bias, leaky relu, gain,
 clamp) is one launch of kernel K5, as is the mapping layers' bias + lrelu.
+On the card both kernels carry their backward forms (K4's transposed
+pass, K5's masked product), so the discriminator's blocks differentiate
+twice for R1.
 
 Every cond mode of the JAX package (``_apply_cond``; ``resnetcond_<N>`` in
 the mapping), the 'skip', 'resnet' and 'orig' architectures, latent
@@ -27,7 +32,7 @@ import torch.nn.functional as F
 
 from ..ops.bias_act import activation_funcs, modconv_epilogue
 from ..ops.conv import conv2d_resample, modulated_conv2d
-from ..ops.upfirdn2d import setup_filter, upsample2d
+from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
 from ..utils import draws
 
 
@@ -481,3 +486,147 @@ class Generator(nn.Module):
         ws = self.mapping(z, c, cond, truncation_psi=truncation_psi,
                           truncation_cutoff=truncation_cutoff)
         return self.synthesis(ws, cond, **synthesis_kwargs)
+
+
+# ---------------------------------------------------------------------------
+# discriminator side
+
+
+class MinibatchStdLayer(nn.Module):
+    """networks_stylegan2.py:847-872: the groups' standard deviation as
+    ``num_channels`` extra feature maps (groups of ``group_size`` samples
+    taken at stride N / G, as the reference reshapes)."""
+
+    def __init__(self, group_size, num_channels=1):
+        super().__init__()
+        self.group_size, self.num_channels = group_size, num_channels
+
+    def forward(self, x):
+        N, C, H, W = x.shape
+        G = min(self.group_size, N) if self.group_size is not None else N
+        F_ = self.num_channels
+        y = x.reshape(G, -1, F_, C // F_, H, W)
+        y = y - y.mean(0)
+        y = (y.square().mean(0) + 1e-8).sqrt()
+        y = y.mean((2, 3, 4)).reshape(-1, F_, 1, 1)
+        y = y.repeat(G, 1, H, W).to(x.dtype)
+        return torch.cat([x, y], 1)
+
+
+class DiscriminatorBlock(nn.Module):
+    """networks_stylegan2.py:758-843 ('resnet', 'skip' or 'orig'): fromrgb
+    on the first block (every block for 'skip'), conv0, conv1 with down=2,
+    and the resnet's 1x1 ``skip`` beside them, each branch at gain
+    sqrt(0.5); bfloat16 where ``use_fp16``."""
+
+    def __init__(self, in_channels, tmp_channels, out_channels, resolution, img_channels,
+                 architecture="resnet", activation="lrelu", resample_filter=(1, 3, 3, 1),
+                 conv_clamp=None, use_fp16=False):
+        super().__init__()
+        if architecture not in ARCHITECTURES:
+            raise ValueError(f"architecture must be one of {ARCHITECTURES}, not {architecture!r}")
+        self.in_channels, self.architecture, self.use_fp16 = in_channels, architecture, use_fp16
+        self.resample_filter = setup_filter(list(resample_filter))   # recomputed, not state
+        if in_channels == 0 or architecture == "skip":
+            self.fromrgb = Conv2dLayer(img_channels, tmp_channels, kernel_size=1,
+                                       activation=activation, conv_clamp=conv_clamp)
+        kw = dict(activation=activation, conv_clamp=conv_clamp)
+        if architecture == "resnet":
+            self.skip = Conv2dLayer(tmp_channels, out_channels, kernel_size=1, bias=False,
+                                    down=2, resample_filter=resample_filter)
+        self.conv0 = Conv2dLayer(tmp_channels, tmp_channels, kernel_size=3, **kw)
+        self.conv1 = Conv2dLayer(tmp_channels, out_channels, kernel_size=3, down=2,
+                                 resample_filter=resample_filter, **kw)
+
+    def forward(self, x, img, force_fp32=False):
+        dtype = torch.bfloat16 if (self.use_fp16 and not force_fp32) else torch.float32
+        if x is not None:
+            x = x.to(dtype)
+        if self.in_channels == 0 or self.architecture == "skip":
+            img = img.to(dtype)
+            y = self.fromrgb(img)
+            x = x + y if x is not None else y
+            img = (downsample2d(img, self.resample_filter) if self.architecture == "skip"
+                   else None)
+        if self.architecture == "resnet":
+            y = self.skip(x, gain=math.sqrt(0.5))
+            x = self.conv0(x)
+            x = self.conv1(x, gain=math.sqrt(0.5))
+            x = y + x
+        else:
+            x = self.conv1(self.conv0(x))
+        return x, img
+
+
+class DiscriminatorEpilogue(nn.Module):
+    """networks_stylegan2.py:876-933 at 4x4: minibatch std, conv, fc, out,
+    and the projection onto the mapped c."""
+
+    def __init__(self, in_channels, cmap_dim, resolution, img_channels, architecture="resnet",
+                 mbstd_group_size=4, mbstd_num_channels=1, activation="lrelu",
+                 conv_clamp=None):
+        super().__init__()
+        self.architecture, self.cmap_dim = architecture, cmap_dim
+        if architecture == "skip":
+            self.fromrgb = Conv2dLayer(img_channels, in_channels, kernel_size=1,
+                                       activation=activation)
+        self.mbstd = (MinibatchStdLayer(mbstd_group_size, mbstd_num_channels)
+                      if mbstd_num_channels > 0 else None)
+        self.conv = Conv2dLayer(in_channels + mbstd_num_channels, in_channels, kernel_size=3,
+                                activation=activation, conv_clamp=conv_clamp)
+        self.fc = FullyConnectedLayer(in_channels * resolution ** 2, in_channels,
+                                      activation=activation)
+        self.out = FullyConnectedLayer(in_channels, 1 if cmap_dim == 0 else cmap_dim)
+
+    def forward(self, x, img, cmap, force_fp32=False):
+        x = x.to(torch.float32)
+        if self.architecture == "skip":
+            x = x + self.fromrgb(img.to(torch.float32))
+        if self.mbstd is not None:
+            x = self.mbstd(x)
+        x = self.conv(x)
+        x = self.out(self.fc(x.reshape(x.shape[0], -1)))
+        if self.cmap_dim > 0:
+            x = (x * cmap).sum(1, keepdim=True) * (1 / math.sqrt(self.cmap_dim))
+        return x
+
+
+class Discriminator(nn.Module):
+    """networks_stylegan2.py:937-998: blocks b{res} from img_resolution down
+    to 8, the c mapping (8 layers, z_dim 0) and the epilogue b4; bfloat16
+    in the blocks at the top ``num_fp16_res`` resolutions."""
+
+    def __init__(self, c_dim, img_resolution, img_channels, cond_mode="none",
+                 architecture="resnet", channel_base=32768, channel_max=512, num_fp16_res=4,
+                 conv_clamp=256, cmap_dim=None, block_kwargs=None, mapping_kwargs=None,
+                 epilogue_kwargs=None):
+        super().__init__()
+        res_log2 = int(np.log2(img_resolution))
+        self.block_resolutions = [2 ** i for i in range(res_log2, 2, -1)]
+        channels = {res: min(channel_base // res, channel_max)
+                    for res in self.block_resolutions + [4]}
+        fp16_resolution = max(2 ** (res_log2 + 1 - num_fp16_res), 8)
+        if cmap_dim is None:
+            cmap_dim = channels[4]
+        if c_dim == 0:
+            cmap_dim = 0
+        self.c_dim = c_dim
+        for res in self.block_resolutions:
+            setattr(self, f"b{res}", DiscriminatorBlock(
+                channels[res] if res < img_resolution else 0, channels[res], channels[res // 2],
+                resolution=res, img_channels=img_channels, architecture=architecture,
+                conv_clamp=conv_clamp, use_fp16=res >= fp16_resolution, **(block_kwargs or {})))
+        if c_dim > 0:
+            self.mapping = MappingNetwork(z_dim=0, c_dim=c_dim, w_dim=cmap_dim, num_ws=None,
+                                          w_avg_beta=None, cond_mode=cond_mode,
+                                          **(mapping_kwargs or {}))
+        self.b4 = DiscriminatorEpilogue(channels[4], cmap_dim=cmap_dim, resolution=4,
+                                        img_channels=img_channels, architecture=architecture,
+                                        conv_clamp=conv_clamp, **(epilogue_kwargs or {}))
+
+    def forward(self, img, c, cond=None, force_fp32=False):
+        x = None
+        for res in self.block_resolutions:
+            x, img = getattr(self, f"b{res}")(x, img, force_fp32=force_fp32)
+        cmap = self.mapping(None, c, cond) if self.c_dim > 0 else None
+        return self.b4(x, img, cmap, force_fp32=force_fp32)

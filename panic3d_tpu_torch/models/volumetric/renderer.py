@@ -23,6 +23,16 @@ its plain PyTorch version:
 A wrapper takes its plain version only for CPU tensors; on a CUDA tensor it
 launches its kernel or raises.
 
+Training differentiates K1 and K2: each runs inside an autograd.Function
+(``TriplaneDecode``, ``RayComposite``) whose backward is a kernel too, K1's
+(csrc/triplane_decode_grad.cu: the decode redone and run backward a point a
+thread, the plane gradient by vector atomics, the weight gradients as
+products over the points) and K2's (``ray_composite_grad``: the merge
+redone, the alphas' gradient by a reverse recurrence), each with its plain
+version beside it (autograd of the plain forward). The importance depths
+take no gradient (the JAX package's stop_gradient, renderer.py:563), nor do
+the sample coordinates.
+
 Deep planes (triplane_depth D > 1: planes [N,3,C*D,H,W], channel c*D + d
 is feature c at depth d) take ``triplane_decode_deep`` in place of K1: K10,
 the trilinear K1 form (csrc/triplane_decode.cu), samples the N*3
@@ -57,10 +67,28 @@ RENDER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float64": torch.float64}
 
 
+class _Softplus(torch.autograd.Function):
+    """The value in jax.nn.softplus's overflow-safe form, max(x, 0) +
+    log1p(e^-|x|); the derivative sigmoid(x), as jax.grad gives it,
+    at 0 too (autograd of the formula takes 1 there: |x|'s subgradient 0),
+    where the decoder's zero-initialised first-layer bias puts every point
+    outside the planes at initialisation."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.sigmoid(x)
+
+
 def softplus(x):
     """log(1 + e^x) in jax.nn.softplus's overflow-safe form (the kernels use
-    the same formula)."""
-    return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
+    the same formula), with its derivative sigmoid(x) (_Softplus)."""
+    return _Softplus.apply(x)
 
 
 def _acc(dtype):
@@ -394,11 +422,9 @@ _K1_ARGS = ((kb.PTR, kb.INT) + (kb.PTR,) * 7 + (kb.INT,) * 5 + (kb.PTR,) + (kb.F
             + (kb.INT, kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
 
 
-def triplane_decode_kernel(planes_cl, coords, dec: Decoder, box_warp: float,
-                           plane_axes, filters: DensityFilters):
-    """Launch K1 on CUDA tensors: same contract as triplane_decode_plain;
-    rgb comes back in the planes' dtype, sigma in f32."""
-    require_no_grad("triplane_decode", planes_cl, coords, dec)
+def _launch_k1(planes_cl, coords, dec: Decoder, box_warp: float, plane_axes,
+               filters: DensityFilters):
+    """One launch of K1 (see :func:`triplane_decode_kernel`)."""
     _require(planes_cl.dtype in _DTYPES, f"K1 planes must be f32 or bf16, got {planes_cl.dtype}")
     _require(planes_cl.ndim == 5 and planes_cl.shape[1] == 3, "K1 planes must be [N,3,H,W,C]")
     N, _, H, W, C = planes_cl.shape
@@ -428,6 +454,116 @@ def triplane_decode_kernel(planes_cl, coords, dec: Decoder, box_warp: float,
     )
     KERNELS["triplane_decode"].launches += 1
     return rgb, sigma
+
+
+def triplane_decode_grad_plain(planes_cl, coords, dec: Decoder, box_warp: float, plane_axes,
+                               filters: DensityFilters, g_rgb, g_sigma):
+    """The plain version of K1's backward form: autograd of
+    :func:`triplane_decode_plain`, to the planes and the decoder's four
+    tensors. -> (g_planes_cl, g_w0, g_b0, g_w1, g_b1)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (planes_cl, dec.w0, dec.b0, dec.w1, dec.b1)]
+        rgb, sigma = triplane_decode_plain(leaves[0], coords.detach(),
+                                           dec._replace(w0=leaves[1], b0=leaves[2],
+                                                        w1=leaves[3], b1=leaves[4]),
+                                           box_warp, plane_axes, filters)
+        grads = torch.autograd.grad((rgb, sigma), leaves, (g_rgb, g_sigma), allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads))
+
+
+_K1G_ARGS = ((kb.PTR, kb.INT) + (kb.PTR,) * 12 + (kb.INT,) * 5 + (kb.PTR,) + (kb.FLOAT,) * 4
+             + (kb.INT, kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
+
+
+def triplane_decode_grad_kernel(planes_cl, coords, dec: Decoder, box_warp: float, plane_axes,
+                                filters: DensityFilters, g_rgb, g_sigma):
+    """Launch K1's backward form on CUDA tensors: same contract as
+    :func:`triplane_decode_grad_plain`. The kernel adds each point's corner
+    contributions into an f32 plane gradient and writes the per-point
+    blocks (f, h, dL/dpre, dL/dout) that the weight gradients are taken
+    from here, as products over the points."""
+    N, _, H, W, C = planes_cl.shape
+    M = coords.shape[1]
+    dev = planes_cl.device
+    _require(planes_cl.is_contiguous() and coords.is_contiguous()
+             and coords.dtype == torch.float32, "K1's backward takes K1's inputs")
+    _require(tuple(g_rgb.shape) == (N, M, 32) and g_rgb.dtype == planes_cl.dtype
+             and tuple(g_sigma.shape) == (N, M, 1),
+             "K1's backward takes g_rgb [N,M,32] in the planes' dtype and g_sigma [N,M,1]")
+    w0, b0, w1, b1 = _decoder_f32(dec, dev)
+    g_rgb = g_rgb.contiguous()
+    g_sigma = g_sigma.to(torch.float32).contiguous()
+    g_planes = torch.zeros(planes_cl.shape, dtype=torch.float32, device=dev)
+    P = N * M
+    feats = torch.empty((P, C), dtype=torch.float32, device=dev)
+    hid = torch.empty((P, 64), dtype=torch.float32, device=dev)
+    g_pre = torch.empty((P, 64), dtype=torch.float32, device=dev)
+    g_out = torch.empty((P, 33), dtype=torch.float32, device=dev)
+    proj = np.linalg.inv(plane_axes)[:, :, :2]
+    gain0, gain1 = dec.lr_mul / math.sqrt(C), dec.lr_mul / math.sqrt(64)
+    kb.launch(
+        "triplane_decode_grad", _K1G_ARGS, planes_cl.data_ptr(), _DTYPES[planes_cl.dtype],
+        coords.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        g_rgb.data_ptr(), g_sigma.data_ptr(), g_planes.data_ptr(), feats.data_ptr(),
+        hid.data_ptr(), g_pre.data_ptr(), g_out.data_ptr(), N, M, H, W, C,
+        kb.f32_array(proj.reshape(-1)), 2.0 / box_warp, gain0, gain1, dec.lr_mul,
+        int(dec.force_sigmoid), *_filter_args(filters, box_warp), _stream(planes_cl),
+    )
+    KERNELS["triplane_decode_grad"].launches += 1
+    g_w0 = (g_pre.T @ feats) * gain0
+    g_w1 = (g_out.T @ hid) * gain1
+    g_b0 = g_pre.sum(0) * dec.lr_mul
+    g_b1 = g_out.sum(0) * dec.lr_mul
+    return (g_planes.to(planes_cl.dtype),) + tuple(
+        g.to(t.dtype) for g, t in zip((g_w0, g_b0, g_w1, g_b1), (dec.w0, dec.b0, dec.w1, dec.b1)))
+
+
+class TriplaneDecode(torch.autograd.Function):
+    """K1 with its backward form: the forward launches K1 on CUDA tensors
+    (the plain version on CPU ones); the backward gives the planes and the
+    decoder's weights their gradients, by the kernel on CUDA tensors and by
+    autograd of the plain version on CPU ones. ``meta`` = (lr_mul,
+    force_sigmoid, box_warp, plane_axes, filters). The coordinates take
+    none (the wrapper refuses coordinates that require grad)."""
+
+    @staticmethod
+    def forward(ctx, planes_cl, coords, w0, b0, w1, b1, meta):
+        lr_mul, force_sigmoid, box_warp, plane_axes, filters = meta
+        dec = Decoder(w0, b0, w1, b1, lr_mul, force_sigmoid)
+        fn = _launch_k1 if planes_cl.is_cuda else triplane_decode_plain
+        rgb, sigma = fn(planes_cl, coords, dec, box_warp, plane_axes, filters)
+        ctx.save_for_backward(planes_cl, coords, w0, b0, w1, b1)
+        ctx.meta = meta
+        return rgb, sigma
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_rgb, g_sigma):
+        planes_cl, coords, w0, b0, w1, b1 = ctx.saved_tensors
+        lr_mul, force_sigmoid, box_warp, plane_axes, filters = ctx.meta
+        dec = Decoder(w0, b0, w1, b1, lr_mul, force_sigmoid)
+        N, M = coords.shape[:2]
+        if g_rgb is None:
+            g_rgb = torch.zeros((N, M, 32), dtype=planes_cl.dtype, device=planes_cl.device)
+        if g_sigma is None:
+            g_sigma = torch.zeros((N, M, 1), dtype=torch.float32, device=planes_cl.device)
+        fn = triplane_decode_grad_kernel if planes_cl.is_cuda else triplane_decode_grad_plain
+        g_planes, g_w0, g_b0, g_w1, g_b1 = fn(planes_cl, coords, dec, box_warp, plane_axes,
+                                              filters, g_rgb, g_sigma)
+        return g_planes, None, g_w0, g_b0, g_w1, g_b1, None
+
+
+def triplane_decode_kernel(planes_cl, coords, dec: Decoder, box_warp: float,
+                           plane_axes, filters: DensityFilters):
+    """K1 on CUDA tensors, differentiable in the planes and the decoder's
+    weights (:class:`TriplaneDecode`): same contract as
+    triplane_decode_plain; rgb comes back in the planes' dtype, sigma in
+    f32. Coordinates that require grad raise under grad mode."""
+    require_no_grad("triplane_decode", coords)
+    _require(planes_cl.is_cuda, f"K1 runs on CUDA tensors, got planes on {planes_cl.device}")
+    return TriplaneDecode.apply(planes_cl, coords, dec.w0, dec.b0, dec.w1, dec.b1,
+                                (dec.lr_mul, dec.force_sigmoid, box_warp, plane_axes, filters))
 
 
 def triplane_decode(planes_cl, coords, dec: Decoder, box_warp: float, plane_axes,
@@ -558,9 +694,9 @@ def _k2_scratch(dev, stream: int):
     return buf
 
 
-def ray_composite_kernel(d1, c1, s1, x1, d2, c2, s2, x2, white_back: bool):
-    """Launch K2 on CUDA tensors: same contract as ray_composite_plain."""
-    require_no_grad("ray_composite", d1, c1, s1, x1, d2, c2, s2, x2)
+def _launch_k2(d1, c1, s1, x1, d2, c2, s2, x2, white_back: bool):
+    """One launch of K2 (see :func:`ray_composite_kernel`) -> (comp
+    [B,R,C+3], depth, wsum)."""
     B, R, S1, C = c1.shape
     S2 = c2.shape[2]
     _require(c1.dtype in _DTYPES and c2.dtype == c1.dtype, "K2 colors must be f32 or bf16")
@@ -588,6 +724,95 @@ def ray_composite_kernel(d1, c1, s1, x1, d2, c2, s2, x2, white_back: bool):
         _k2_scratch(dev, _stream(c1)).data_ptr(), B * R, S1, S2, C, int(white_back), _stream(c1),
     )
     KERNELS["ray_composite"].launches += 1
+    return comp, depth, wsum
+
+
+def ray_composite_grad_plain(d1, c1, s1, x1, d2, c2, s2, x2, white_back: bool, depth,
+                             g_comp, g_depth, g_wsum):
+    """The plain version of K2's backward form: autograd of
+    :func:`ray_composite_plain` to the colours and sigmas of both halves.
+    ``depth`` (the forward's output) is not needed here; g_comp is the
+    gradient of (colours | xyz). -> (g_c1, g_s1, g_c2, g_s2)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (c1, s1, c2, s2)]
+        rgb, dep, wsum, xyz = ray_composite_plain(d1, leaves[0], leaves[1], x1, d2, leaves[2],
+                                                  leaves[3], x2, white_back)
+        grads = torch.autograd.grad((torch.cat([rgb, xyz], -1), dep, wsum), leaves,
+                                    (g_comp, g_depth, g_wsum), allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads))
+
+
+_K2G_ARGS = (kb.PTR,) * 8 + (kb.INT,) + (kb.PTR,) * 8 + (kb.INT,) * 5 + (kb.PTR,)
+
+
+def ray_composite_grad_kernel(d1, c1, s1, x1, d2, c2, s2, x2, white_back: bool, depth,
+                              g_comp, g_depth, g_wsum):
+    """Launch K2's backward form on CUDA tensors (K2's inputs, its clipped
+    depth output and its outputs' gradients): same contract as
+    :func:`ray_composite_grad_plain`."""
+    B, R, S1, C = c1.shape
+    S2 = c2.shape[2]
+    _require(S2 >= 1, "K2's backward needs an importance pass (S2 >= 1)")
+    dev = c1.device
+    g_comp = g_comp.to(torch.float32).contiguous()
+    g_depth = g_depth.to(torch.float32).contiguous()
+    g_wsum = g_wsum.to(torch.float32).contiguous()
+    g_c1, g_c2 = torch.empty_like(c1), torch.empty_like(c2)
+    g_s1 = torch.empty(s1.shape, dtype=torch.float32, device=dev)
+    g_s2 = torch.empty(s2.shape, dtype=torch.float32, device=dev)
+    kb.launch(
+        "ray_composite_grad", _K2G_ARGS, d1.data_ptr(), c1.data_ptr(), s1.data_ptr(),
+        x1.data_ptr(), d2.data_ptr(), c2.data_ptr(), s2.data_ptr(), x2.data_ptr(),
+        _DTYPES[c1.dtype], depth.data_ptr(), g_comp.data_ptr(), g_depth.data_ptr(),
+        g_wsum.data_ptr(), g_c1.data_ptr(), g_s1.data_ptr(), g_c2.data_ptr(), g_s2.data_ptr(),
+        B * R, S1, S2, C, int(white_back), _stream(c1),
+    )
+    KERNELS["ray_composite_grad"].launches += 1
+    return g_c1, g_s1, g_c2, g_s2
+
+
+class RayComposite(torch.autograd.Function):
+    """K2 with its backward form: the forward launches K2 on CUDA tensors
+    (the plain version on CPU ones) -> (comp [B,R,C+3] colours | xyz,
+    depth, wsum); the backward gives the colours and sigmas of both halves
+    their gradients, by the kernel on CUDA tensors and by autograd of the
+    plain version on CPU ones. Depths and xyz take none (the wrapper
+    refuses them under grad mode)."""
+
+    @staticmethod
+    def forward(ctx, d1, c1, s1, x1, d2, c2, s2, x2, white_back):
+        if c1.is_cuda:
+            comp, depth, wsum = _launch_k2(d1, c1, s1, x1, d2, c2, s2, x2, white_back)
+        else:
+            rgb, depth, wsum, xyz = ray_composite_plain(d1, c1, s1, x1, d2, c2, s2, x2,
+                                                        white_back)
+            comp = torch.cat([rgb, xyz], -1)
+        ctx.save_for_backward(d1, c1, s1, x1, d2, c2, s2, x2, depth)
+        ctx.white_back = white_back
+        return comp, depth, wsum
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_comp, g_depth, g_wsum):
+        d1, c1, s1, x1, d2, c2, s2, x2, depth = ctx.saved_tensors
+        B, R = c1.shape[:2]
+        zeros = functools.partial(torch.zeros, dtype=torch.float32, device=c1.device)
+        g_comp = zeros((B, R, c1.shape[-1] + 3)) if g_comp is None else g_comp
+        g_depth = zeros((B, R, 1)) if g_depth is None else g_depth
+        g_wsum = zeros((B, R, 1)) if g_wsum is None else g_wsum
+        fn = ray_composite_grad_kernel if c1.is_cuda else ray_composite_grad_plain
+        g_c1, g_s1, g_c2, g_s2 = fn(d1, c1, s1, x1, d2, c2, s2, x2, ctx.white_back, depth,
+                                    g_comp, g_depth, g_wsum)
+        return None, g_c1, g_s1, None, None, g_c2, g_s2, None, None
+
+
+def ray_composite_kernel(d1, c1, s1, x1, d2, c2, s2, x2, white_back: bool):
+    """K2 on CUDA tensors, differentiable in the colours and sigmas
+    (:class:`RayComposite`): same contract as ray_composite_plain. Depths
+    and xyz that require grad raise under grad mode."""
+    require_no_grad("ray_composite", d1, x1, d2, x2)
+    _require(c1.is_cuda, f"K2 runs on CUDA tensors, got colours on {c1.device}")
+    comp, depth, wsum = RayComposite.apply(d1, c1, s1, x1, d2, c2, s2, x2, white_back)
     return comp[..., :-3], depth, wsum, comp[..., -3:]
 
 
@@ -1161,7 +1386,8 @@ def render(planes, decoder: Decoder, ray_origins, ray_directions, options: dict,
     n_imp = options.get("depth_resolution_importance") or 0
     if n_imp > 0:
         u = _u(u, (N * R, n_imp), generator, ray_origins.device, "render u")
-        depths_fine = importance_sample(depths_coarse, sigma_c, n_imp,
+        # the importance depths take no gradient (renderer.py:563's stop_gradient)
+        depths_fine = importance_sample(depths_coarse, sigma_c.detach(), n_imp,
                                         u.contiguous() if u is not None else None)
         colors_f, sigma_f, xyz_f = eval_pass(depths_fine)
     else:   # the coarse samples are already depth-ordered

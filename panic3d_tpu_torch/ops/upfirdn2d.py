@@ -17,6 +17,17 @@ random angle) is not cached: it goes to the kernel as a device buffer, to
 the phase-blocked large-filter kernel ("large") where
 ``large_phase_geometry`` says it takes the call, else to the tiled one
 ("large_tiled").
+
+On the card the kernel runs inside ``UpFirDn2d``, an autograd.Function
+whose backward is K4's backward form: the transposed upfirdn2d (the filter
+rotated by 180 degrees, up and down swapped, the padding by StyleGAN2-ADA's
+``_upfirdn2d_cuda`` rule, :func:`transposed_pass`), launched through the same
+Function, so that its own backward is the forward call again and R1 can
+differentiate it twice. The transposed calls take K4's forward forms: the
+discriminator's "down2" calls go back as "up2", its "fir4" passes as
+"fir4", the generator's "up2" calls as "down2". Each launch is counted
+under its variant, a backward one under ``grad_<variant>``. The filter
+takes no gradient: a filter that requires grad raises.
 """
 
 from __future__ import annotations
@@ -209,9 +220,9 @@ def k4_plan(f2d, up, down, pad) -> K4Plan:
     return _plan(taps, fh, fw, tuple(up), tuple(down), tuple(pad))
 
 
-def upfirdn2d_kernel(x, f2d, up, down, pad):
-    """Launch K4 on a CUDA tensor: same contract as :func:`upfirdn2d_plain`."""
-    require_no_grad("upfirdn2d", x, f2d)
+def _launch_k4(x, f2d, up, down, pad, transposed=False):
+    """One launch of K4 (see :func:`upfirdn2d_kernel`); a launch of the
+    backward form counts under ``grad_<variant>``."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"upfirdn2d kernel takes float32 or bfloat16, got {x.dtype}")
     if x.ndim != 4 or not x.is_contiguous():
@@ -236,15 +247,64 @@ def upfirdn2d_kernel(x, f2d, up, down, pad):
     )
     k = KERNELS["upfirdn2d"]
     k.launches += 1
-    k.variants[plan.variant] = k.variants.get(plan.variant, 0) + 1
+    variant = ("grad_" if transposed else "") + plan.variant
+    k.variants[variant] = k.variants.get(variant, 0) + 1
     return y
+
+
+def transposed_pass(f2d, up, down, pad, in_hw, out_hw):
+    """The pass whose output is the gradient of ``upfirdn2d_plain(x, f2d,
+    up, down, pad)`` to x (x [.., in_h, in_w], its output [.., out_h,
+    out_w]): the filter rotated by 180 degrees, up and down swapped, and
+    the padding of StyleGAN2-ADA's _upfirdn2d_cuda backward.
+    -> (f2d, up, down, pad)."""
+    fh, fw = int(f2d.shape[0]), int(f2d.shape[1])
+    (upx, upy), (downx, downy) = up, down
+    px0, _, py0, _ = pad
+    (ih, iw), (oh, ow) = in_hw, out_hw
+    p = (fw - px0 - 1, iw * upx - ow * downx + px0 - upx + 1,
+         fh - py0 - 1, ih * upy - oh * downy + py0 - upy + 1)
+    return f2d.flip([0, 1]), (downx, downy), (upx, upy), p
+
+
+class UpFirDn2d(torch.autograd.Function):
+    """One upfirdn2d pass (the arguments of :func:`upfirdn2d_plain`) with
+    K4's backward form: the forward launches K4 on CUDA tensors (the plain
+    version on CPU ones), the backward is this Function on the transposed
+    pass, and so differentiable again."""
+
+    @staticmethod
+    def forward(ctx, x, f2d, up, down, pad, transposed=False):
+        y = (_launch_k4(x.contiguous(), f2d, up, down, pad, transposed) if x.is_cuda
+             else upfirdn2d_plain(x, f2d, up, down, pad))
+        ctx.save_for_backward(f2d)
+        ctx.call = (up, down, pad, tuple(x.shape[2:]), tuple(y.shape[2:]), transposed)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (f2d,) = ctx.saved_tensors
+        up, down, pad, in_hw, out_hw, transposed = ctx.call
+        ft, upt, downt, padt = transposed_pass(f2d, up, down, pad, in_hw, out_hw)
+        return UpFirDn2d.apply(dy, ft, upt, downt, padt, not transposed), None, None, None, \
+            None, None
+
+
+def upfirdn2d_kernel(x, f2d, up, down, pad):
+    """K4 on a CUDA tensor, differentiable (:class:`UpFirDn2d`): same
+    contract as :func:`upfirdn2d_plain`. The filter is a constant: one that
+    requires grad raises under grad mode."""
+    require_no_grad("upfirdn2d", f2d)
+    if not x.is_cuda:
+        raise ValueError(f"K4 runs on CUDA tensors, got one on {x.device}")
+    return UpFirDn2d.apply(x, f2d, up, down, pad)
 
 
 def _fir(x, f2d, up, down, pad):
     if x.device.type == "cpu":
         return upfirdn2d_plain(x, f2d, up, down, pad)
     if x.device.type == "cuda":
-        return upfirdn2d_kernel(x.contiguous(), f2d, up, down, pad)
+        return upfirdn2d_kernel(x, f2d, up, down, pad)
     raise RuntimeError(f"upfirdn2d: no path for device {x.device}")
 
 

@@ -22,6 +22,14 @@ flax, no msgpack package and nothing of the JAX package.
   ``resample_filter`` buffers and the alias-free layer's ``up_filter`` and
   ``down_filter`` are recomputed and have no entry.
 
+A trainer snapshot holds the JAX package's GANTrainState tree (flax's
+to_state_dict of it): vars_G / vars_D / vars_Gema, the two optimizers as
+optax's chain state ``{"0": {"count", "mu", "nu"}, "1": {}}``, cur_nimg,
+aug_p and pl_mean. ``train_state_tree`` writes the port's
+training/loop.py:GANTrainState in that layout and ``load_train_state``
+reads it back into one (panic3d_tpu/runtime/checkpoint.py:111), so a
+snapshot of either package resumes in the other.
+
 The ResNet, the line filler and the metric nets (LPIPS, CLIP) keep the
 flax tree's own names in the port (``module_state_from_flax``), so their
 variables, and the ``.npz`` files of flax paths that carry converted
@@ -685,3 +693,74 @@ def load_flax_npz(path: str) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = np.asarray(data[k])
     return {"params": params}
+
+
+# ---------------------------------------------------------------------------
+# trainer snapshots: the JAX package's GANTrainState tree
+
+_TRAIN_FIELDS = ("vars_G", "vars_D", "vars_Gema", "opt_G", "opt_D", "cur_nimg", "aug_p",
+                 "pl_mean")
+
+
+def _adam_tree(opt) -> dict:
+    """An optimizer (training/loop.py:Adam) as optax's adam chain state."""
+    def params(moments):
+        return flax_from_state_dict(moments).get("params", {})
+    return {"0": {"count": np.asarray(opt.count, np.int32), "mu": params(opt.mu),
+                  "nu": params(opt.nu)}, "1": {}}
+
+
+def train_state_tree(state) -> dict:
+    """training/loop.py:GANTrainState -> the JAX package's train-state tree
+    (numpy leaves), as its save_checkpoint writes a GANTrainState."""
+    return {
+        "vars_G": flax_from_state_dict(state.G.state_dict()),
+        "vars_D": flax_from_state_dict(state.D.state_dict()),
+        "vars_Gema": flax_from_state_dict(state.G_ema.state_dict()),
+        "opt_G": _adam_tree(state.opt_G),
+        "opt_D": _adam_tree(state.opt_D),
+        "cur_nimg": np.asarray(state.cur_nimg, np.int32),
+        "aug_p": np.asarray(state.aug_p, np.float32),
+        "pl_mean": np.asarray(state.pl_mean, np.float32),
+    }
+
+
+def _load_module(module: torch.nn.Module, variables) -> None:
+    own = module.state_dict()
+    module.load_state_dict({n: t.to(own[n].dtype) for n, t in
+                            state_dict_from_flax(variables).items()}, strict=True)
+
+
+def _load_adam(opt, tree) -> None:
+    opt.count = int(np.asarray(tree["0"]["count"]))
+    for key, moments in (("mu", opt.mu), ("nu", opt.nu)):
+        given = state_dict_from_flax({"params": tree["0"][key]})
+        if set(given) != set(moments):
+            raise ValueError(f"optimizer {key}: the snapshot's parameters differ from the "
+                             f"model's: {sorted(set(given) ^ set(moments))[:5]}")
+        with torch.no_grad():
+            for n, t in moments.items():
+                t.copy_(given[n].to(t.dtype))
+
+
+def load_train_state(path: str, state):
+    """Restore a trainer snapshot (either package's) into the port's
+    GANTrainState ``state`` in place, tolerating fields the snapshot
+    predates (they keep ``state``'s values); a field the state does not
+    know is an error. -> (state, the snapshot's config)."""
+    raw, config = load_checkpoint(path)
+    unknown = set(raw) - set(_TRAIN_FIELDS)
+    if unknown:
+        raise ValueError(f"snapshot has unknown state fields: {sorted(unknown)}")
+    for field, module in (("vars_G", state.G), ("vars_D", state.D), ("vars_Gema", state.G_ema)):
+        if field in raw:
+            _load_module(module, raw[field])
+    for field, opt in (("opt_G", state.opt_G), ("opt_D", state.opt_D)):
+        if field in raw:
+            _load_adam(opt, raw[field])
+    if "cur_nimg" in raw:
+        state.cur_nimg = int(np.asarray(raw["cur_nimg"]))
+    for field in ("aug_p", "pl_mean"):
+        if field in raw:
+            setattr(state, field, float(np.asarray(raw[field])))
+    return state, config

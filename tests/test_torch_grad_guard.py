@@ -1,13 +1,17 @@
-"""The port's CUDA kernels have no backward pass, so every kernel wrapper
-refuses an input that requires grad under grad mode
-(kernels/__init__.py:require_no_grad), on the CPU:
+"""The port's kernels without a backward form refuse an input that
+requires grad under grad mode (kernels/__init__.py:require_no_grad), and
+the four with one (K1, K2, K4, K5) carry the gradient, on the CPU:
 
 - the helper raises only with grad mode on and a tensor that requires grad,
   found in nested tuples (the decoder's NamedTuple), lists and dicts;
-- each of the 18 kernel wrappers raises at its first statement when one of
-  its tensor inputs requires grad, before it checks the device or launches;
-  so do the keyed forms' new inputs (K3's u, K5's per-sample noise, K6b's
-  per-ray bounds and jitter);
+- each of the 14 kernel wrappers without a backward raises at its first
+  statement when one of its tensor inputs requires grad, before it checks
+  the device or launches; so do the keyed forms' new inputs (K3's u, K6b's
+  per-ray bounds and jitter) and the inputs the four backward forms give no
+  gradient (K5's noise, K4's filter, K1's coordinates, K2's depths);
+- K1, K2, K4 and K5 and their three backward entry points are wired:
+  each autograd.Function, on CPU tensors (its kernel's plain version),
+  gives its differentiable inputs a finite gradient and counts no launch;
 - the plain CPU forward of the tiny config (G.f) still back-propagates to
   the mapping, the backbone and the decoder.
 """
@@ -24,10 +28,20 @@ from panic3d_tpu_torch.kernels import KERNELS, launch_counts, require_no_grad
 from panic3d_tpu_torch.models import triplane as tp
 from panic3d_tpu_torch.models.volumetric import lattice as vlat
 from panic3d_tpu_torch.models.volumetric import renderer as vr
-from panic3d_tpu_torch.ops.bias_act import modconv_epilogue_kernel
+from panic3d_tpu_torch.ops.bias_act import EpilogueGrad, ModconvEpilogue, modconv_epilogue_kernel
 from panic3d_tpu_torch.ops.filtered_lrelu import filtered_lrelu_kernel
 from panic3d_tpu_torch.ops.gather_dot import gather_dot_kernel
-from panic3d_tpu_torch.ops.upfirdn2d import upfirdn2d_kernel
+from panic3d_tpu_torch.ops.upfirdn2d import UpFirDn2d, setup_filter, upfirdn2d_kernel
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small ops: one torch thread beside the other test workers (ROADMAP
+    "Tier-1 time")."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def leaf(*shape, grad=False):
@@ -54,21 +68,11 @@ def _decoder(grad):
 # each wrapper with one tensor input that requires grad; the rest are
 # placeholders, never reached
 WRAPPERS = {
-    "triplane_decode": lambda: vr.triplane_decode_kernel(
-        leaf(1, 3, 4, 4, 8), leaf(1, 5, 3, grad=True), _decoder(False), 0.7,
-        vr.generate_plane_axes(True), vr.DensityFilters()),
     "volume_density": lambda: vol.density_grid_kernel(
         leaf(1, 3, 8, 4, 4), _decoder(True), 16, 0.7, vr.generate_plane_axes(True),
         vr.DensityFilters()),
-    "ray_composite": lambda: vr.ray_composite_kernel(
-        leaf(1, 2, 4, 1), leaf(1, 2, 4, 4, grad=True), leaf(1, 2, 4, 1), leaf(1, 2, 4, 3),
-        leaf(1, 2, 4, 1), leaf(1, 2, 4, 4), leaf(1, 2, 4, 1), leaf(1, 2, 4, 3), True),
     "importance_sample": lambda: vr.importance_sample_kernel(
         leaf(1, 2, 8, 1), leaf(1, 2, 8, 1, grad=True), 4),
-    "upfirdn2d": lambda: upfirdn2d_kernel(leaf(1, 2, 4, 4, grad=True), leaf(4, 4), (2, 2),
-                                          (1, 1), (1, 1, 1, 1)),
-    "modconv_epilogue": lambda: modconv_epilogue_kernel(leaf(2, 4), bias=leaf(4, grad=True),
-                                                        act="lrelu"),
     "ess_occupancy": lambda: vr.ess_occupancy_kernel(
         [(leaf(1, 4, 4, 8, grad=True), 0, 1)] * 3, _decoder(False), 0.7, 2, 2, 0.01,
         vr.DensityFilters()),
@@ -105,8 +109,17 @@ WRAPPERS = {
 }
 
 
-# the keyed forms: the input each form adds requires grad
+# the keyed forms: the input each form adds requires grad; and the inputs
+# the backward forms give no gradient
 FORMS = {
+    "triplane_decode[coords]": lambda: vr.triplane_decode_kernel(
+        leaf(1, 3, 4, 4, 8), leaf(1, 5, 3, grad=True), _decoder(False), 0.7,
+        vr.generate_plane_axes(True), vr.DensityFilters()),
+    "ray_composite[depths]": lambda: vr.ray_composite_kernel(
+        leaf(1, 2, 4, 1, grad=True), leaf(1, 2, 4, 4), leaf(1, 2, 4, 1), leaf(1, 2, 4, 3),
+        leaf(1, 2, 4, 1), leaf(1, 2, 4, 4), leaf(1, 2, 4, 1), leaf(1, 2, 4, 3), True),
+    "upfirdn2d[filter]": lambda: upfirdn2d_kernel(leaf(1, 2, 4, 4), leaf(4, 4, grad=True),
+                                                  (2, 2), (1, 1), (1, 1, 1, 1)),
     "importance_sample[u]": lambda: vr.importance_sample_kernel(
         leaf(1, 2, 8, 1), leaf(1, 2, 8, 1), 4, u=leaf(2, 4, grad=True)),
     "modconv_epilogue[per_sample_noise]": lambda: modconv_epilogue_kernel(
@@ -128,8 +141,73 @@ def test_keyed_form_raises_under_grad_mode(name):
     assert sum(launch_counts().values()) == 0
 
 
+def _rand(*shape, seed=0):
+    return torch.from_numpy(np.random.RandomState(seed).randn(*shape).astype(np.float32))
+
+
+def _k1_wiring():
+    planes = _rand(1, 3, 4, 4, 8).requires_grad_(True)
+    coords = torch.from_numpy(np.random.RandomState(1).uniform(-0.3, 0.3, (1, 5, 3))).float()
+    dec = [_rand(64, 8, seed=2).requires_grad_(True), _rand(64, seed=3).requires_grad_(True),
+           _rand(33, 64, seed=4).requires_grad_(True), _rand(33, seed=5).requires_grad_(True)]
+    rgb, sigma = vr.TriplaneDecode.apply(planes, coords, *dec, (1.0, False, 0.7,
+                                         vr.generate_plane_axes(True), vr.DensityFilters()))
+    return [planes, *dec], rgb.sum() + sigma.sum()
+
+
+def _k2_wiring():
+    d = torch.sort(torch.rand(1, 2, 4, 1, generator=torch.Generator().manual_seed(0)), 2)[0]
+    c, s = _rand(1, 2, 4, 8).requires_grad_(True), _rand(1, 2, 4, 1, seed=1).requires_grad_(True)
+    x = _rand(1, 2, 4, 3, seed=2)
+    comp, depth, wsum = vr.RayComposite.apply(d, c, s, x, d + 0.01, c, s, x, True)
+    return [c, s], comp.sum() + depth.sum() + wsum.sum()
+
+
+def _k4_wiring():
+    x = _rand(1, 2, 8, 8).requires_grad_(True)
+    f = setup_filter([1, 3, 3, 1])
+    return [x], UpFirDn2d.apply(x, f, (1, 1), (2, 2), (1, 1, 1, 1)).square().sum()
+
+
+def _k5_wiring():
+    x, b = _rand(2, 4, 3, 3).requires_grad_(True), _rand(4, seed=1).requires_grad_(True)
+    return [x, b], ModconvEpilogue.apply(x, None, None, None, b, ("lrelu", None, None, 1.0)).sum()
+
+
+def _k5_grad_wiring():   # the backward form differentiated again (R1)
+    x, b = _rand(2, 4, 3, 3).requires_grad_(True), _rand(4, seed=1).requires_grad_(True)
+    y = ModconvEpilogue.apply(x, None, None, None, b, ("lrelu", None, None, 1.0))
+    (gx,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+    assert gx.requires_grad
+    dz = EpilogueGrad.apply(gx, y, ("lrelu", None, None, 1.0))
+    return [x, b], gx.square().sum() + dz.sum()
+
+
+# the kernels with a backward form, and their backward entry points: the
+# Function's wiring on CPU tensors
+BACKWARD = {
+    "triplane_decode": _k1_wiring,
+    "triplane_decode_grad": _k1_wiring,
+    "ray_composite": _k2_wiring,
+    "ray_composite_grad": _k2_wiring,
+    "upfirdn2d": _k4_wiring,
+    "modconv_epilogue": _k5_wiring,
+    "modconv_epilogue_grad": _k5_grad_wiring,
+}
+
+
+@pytest.mark.parametrize("name", list(BACKWARD))
+def test_backward_wiring(name):
+    leaves, value = BACKWARD[name]()
+    grads = torch.autograd.grad(value, leaves)
+    for g, t in zip(grads, leaves):
+        assert g.shape == t.shape and bool(torch.isfinite(g).all()) and g.abs().sum() > 0
+    assert sum(launch_counts().values()) == 0
+
+
 def test_every_kernel_has_a_case():
-    assert set(WRAPPERS) == set(KERNELS)
+    assert set(WRAPPERS) | set(BACKWARD) == set(KERNELS)
+    assert not set(WRAPPERS) & set(BACKWARD)
 
 
 @pytest.mark.parametrize("name", list(WRAPPERS))

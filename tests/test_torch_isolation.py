@@ -54,6 +54,11 @@ def test_imports_with_jax_blocked():
         "import panic3d_tpu_torch.models.rmlinegan\n"
         "import panic3d_tpu_torch.utils.draws, panic3d_tpu_torch.models.superresolution\n"
         "import panic3d_tpu_torch.models.stylegan2, panic3d_tpu_torch.models.triplane\n"
+        "import panic3d_tpu_torch.models.dual_discriminator, panic3d_tpu_torch.data.dataset\n"
+        "import panic3d_tpu_torch.training, panic3d_tpu_torch.training.loss\n"
+        "import panic3d_tpu_torch.training.loop, panic3d_tpu_torch.training.setup\n"
+        "import panic3d_tpu_torch.training.stats, panic3d_tpu_torch.training.trainer\n"
+        "import panic3d_tpu_torch.utils.misc\n"
         "import panic3d_tpu_torch.configs as c\n"
         "c.tiny(device='cpu')\n"
         "from panic3d_tpu_torch.runtime import checkpoint as ck\n"
@@ -81,6 +86,13 @@ def test_constructors_need_cuda_unless_asked_for_the_cpu():
     proc = run(["-c", code])
     assert proc.returncode == 0, proc.stderr
     assert "refused: no CUDA device" in proc.stdout
+
+
+def test_trainer_needs_cuda_unless_asked_for_the_cpu(tmp_path):
+    proc = run(["-m", "panic3d_tpu_torch.training.trainer", "--name", "x", "--outdir",
+                str(tmp_path), "--tiny", "--synthetic", "--max-steps", "1"])
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+    assert not os.path.exists(tmp_path / "x" / "network-snapshot-000008")
 
 
 def test_chip_smoke_fails_without_cuda():
