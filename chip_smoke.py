@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (panic3d_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile DIR] [--kernels-only] [--keyed-only] [--parent DIR]
+    python3 chip_smoke.py [--profile DIR] [--kernels-only] [--keyed-only] [--training-only]
+                          [--forms-only [--k1-grad-parts]] [--parent DIR]
 
 1. Prints the setup (torch, CUDA, card name and power limit); exits non-zero
    without a CUDA device.
@@ -113,12 +114,17 @@
    phase by phase, its host waits counted, one profiled for the device's
    busy share; then each backward form against its plain version's autograd
    at the training shapes (K4 at the step's own transposed calls, beside
-   their library calls; K1 and K2 at a training render's samples; K5 at
+   their library calls; K1 at a training render's samples and at Gcond's
+   ortho front render, coarse and fine, its weight gradients bit-equal
+   from launch to launch, with --parent against the parent's form; K2 at a
+   training render's samples; K5 at
    the discriminator's b512 layer), R1's second order through K4's and K5's
    backward forms against the plain ops (plain_ops) in f32 and in bf16,
    and one whole step of the flagship against the same step with the plain
    ops on the same draws; --training-only runs the build and these phases
-   alone;
+   alone; --forms-only runs the build, K4's forms of the calls the generic
+   kernel lost (k4_form_checks) and K1's and K2's backward checks alone,
+   and with --k1-grad-parts times K1's backward built with parts left out;
    K12's own path, the gather-decode probe; the deep-plane generator
    (configs.flagship(eval_mode=True, rendering_kwargs=dict(triplane_depth=2)),
    ESS off, eval generate's paste with occ_impl='render'): G.f per call
@@ -208,7 +214,8 @@ NO_SPILL = ("triplane_decode_kernel", "factor_terms_kernel", "occlusion_volume_k
             "importance_sample_kernel", "ess_narrow_kernel",
             "paste_front_kernel", "ess_occupancy_kernel", "upfirdn2d_rows_kernel",
             "upfirdn2d_cols_kernel", "upfirdn2d_fir4_kernel",
-            "upfirdn2d_large_phase_kernel")   # must not spill
+            "upfirdn2d_large_phase_kernel", "upfirdn2d_rows2_kernel",
+            "upfirdn2d_cols2_kernel", "triplane_decode_grad_kernel")   # must not spill
 PASTE_KEYS = ("mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
 MESH_RES = 256     # eval generate's mesh resolution
 LEVEL = 0.5        # eval generate's iso level
@@ -622,6 +629,141 @@ def check_k1(planes_cl, coords, dec, box_warp, axes, filt, kernel=None, plain=No
     return rgb_k, sig_k, max(e_rgb, e_sig)
 
 
+def k4_call(gen, shape, dtype, f2d, up, down, pad, label):
+    """One K4 call on a random input: the kernel against its plain version
+    (bf16 within 1 bf16 ulp of the largest value, f32 within 1e-5: the
+    summation order), timed, with a bytes bound at 4 taps an output. ->
+    (input, kernel output, plain output, error, summary)."""
+    import torch
+
+    from panic3d_tpu_torch.ops.upfirdn2d import k4_plan, upfirdn2d_kernel, upfirdn2d_plain
+
+    xx = torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+    spec = (f2d, up, down, pad)
+    yk, yp = upfirdn2d_kernel(xx, *spec), upfirdn2d_plain(xx, *spec)
+    e = max_err(yk, yp)
+    tol = 2.0 ** -7 * float(yp.abs().max()) if dtype == torch.bfloat16 else 1e-5
+    check(f"{label} {list(shape)} {str(dtype)[6:]} up={tuple(up)} down={tuple(down)} pad={pad} "
+          f"-> {yk.shape[-2]}x{yk.shape[-1]} ({k4_plan(*spec).variant})", e, tol)
+    ms = cuda_ms(lambda: upfirdn2d_kernel(xx, *spec))
+    bms, _ = bound(nbytes(xx, yk), yk.numel() * 4 * 2)
+    print(f"    ms {ms:.6f}  bound_ms {bms:.6f}")
+    return xx, yk, yp, e, {"shape": list(shape), "dtype": str(dtype)[6:], "up": up[0],
+                           "down": down[0], "pad": list(pad),
+                           "variant": k4_plan(*spec).variant, "max_abs_err": e,
+                           "ms": ms, "bound_ms": bms}
+
+
+ADA_BATCH, ADA_CHANNELS, ADA_RES = 8, 6, 512   # batch 8; 6: D's joint pair (training/loss.py:567)
+# the sym6 wavelet's low-pass taps, ADA's geometric filter (a copy of
+# panic3d_tpu/training/augment.py:WAVELET_SYM6; ADA is not ported yet)
+SYM6 = (0.015404109327027373, 0.0034907120842174702, -0.11799011114819057,
+        -0.048311742585633, 0.4910559419267466, 0.787641141030194,
+        0.3379294217276218, -0.07263752278646252, -0.021060292512300564,
+        0.04472490177066578, 0.0017677118642428036, -0.007800708325034148)
+
+
+def ada_passes():
+    """ADA's geometric warp's two sym6 resamplings at 512^2
+    (panic3d_tpu/training/augment.py:197-255), split into their 1-D passes:
+    the reflect pad margin m = min(W - 1, W / 4 + 2 Hz_pad) = 134 (Hz_pad =
+    3), so the up=2 call takes [N,C,780,780] (upsample2d's padding
+    [6, 5, 6, 5], gain 4) to 1560^2, and the down=2 call takes the 2x
+    sample over (512 + 6) x 2 = 1036^2 (downsample2d, padding -6, the
+    flipped filter) to 512^2. -> [(label, input shape, (f2d, up, down,
+    pad))] in f32."""
+    import importlib
+
+    uf = importlib.import_module("panic3d_tpu_torch.ops.upfirdn2d")
+    hz = uf.setup_filter(SYM6)
+    n, c, w = ADA_BATCH, ADA_CHANNELS, ADA_RES
+    pad_m = min(w - 1, w // 4 + 2 * (len(SYM6) // 4))
+    wp, ws = w + 2 * pad_m, (w + 2 * (len(SYM6) // 4)) * 2
+    up_x, up_y = uf.fir_passes(hz, up=2, padding=[6, 5, 6, 5], gain=4)
+    dn_x, dn_y = uf.fir_passes(hz, down=2, padding=[-1, -1, -1, -1], flip_filter=True)
+    wd = (ws - 2 - len(SYM6)) // 2 + 1   # the down=2 x pass's output width: 512
+    return [("ADA up=2, x pass", (n, c, wp, wp), up_x),
+            ("ADA up=2, y pass", (n, c, wp, 2 * wp), up_y),
+            ("ADA down=2, x pass", (n, c, ws, ws), dn_x),
+            ("ADA down=2, y pass", (n, c, ws, wd), dn_y)]
+
+
+def k4_form_checks(device, parent, gen):
+    """K4's forms for the calls the generic kernel lost to its library call, each
+    required to take its form, held to its plain version, timed beside its
+    bound (bytes; the nonzero taps an output as operations), its plain
+    version and its library call (a depthwise conv2d or conv_transpose2d),
+    and with ``parent`` (--parent) equal bit for bit to the parent's generic
+    kernel and timed parent / this / this / parent: the 1-D polyphase form
+    at the unfused K11 composition's 1x12 up=2 pass (a StyleGAN3-T layer 10
+    input, bf16) and its transposed pass (1x12 down=2), and ADA's four sym6
+    passes (f32, batch 8, 512^2, ada_passes); the small 2-D form at a 3x3
+    filter (f32). And the generic kernel at a call it keeps: a 5x5 filter at
+    up=2 (f32), required to take it. -> {"poly1d": [...], "fir_small":
+    summary, "generic": [summary], "max_abs_err": the largest error}."""
+    import importlib
+
+    import torch
+
+    from panic3d_tpu_torch.kernels import KERNELS
+    from panic3d_tpu_torch.ops.upfirdn2d import upfirdn2d_kernel, upfirdn2d_plain
+
+    mod = importlib.import_module("panic3d_tpu_torch.ops.upfirdn2d")
+    k12 = np.kaiser(12, 8.0).astype(np.float32)
+    f12 = torch.from_numpy(k12 / k12.sum())
+    k11_up = mod.fir_passes(f12, up=2, padding=[11, 10, 11, 10], gain=4)[0]
+    k11_shape = (SG3_BATCH, 287, 276, 276)
+    k11_out = (276, 2 * 276 + 10)
+    k11_down = mod.transposed_pass(*k11_up, k11_shape[2:], k11_out)
+    f5 = mod.setup_filter([1, 4, 6, 4, 1])
+    calls = [("poly1d", "K11 composition 1x12 up=2 pass", k11_shape, torch.bfloat16, k11_up,
+              "row_up2", 6),
+             ("poly1d", "its transposed pass, 1x12 down=2", k11_shape[:3] + (k11_out[1],),
+              torch.bfloat16, k11_down, "row_down2", 12)]
+    calls += [("poly1d", label, shape, torch.float32, spec,
+               mod.poly_variant(*spec[0].shape, spec[1], spec[2]), 6 if spec[1] != (1, 1)
+               else 12) for label, shape, spec in ada_passes()]
+    calls += [("fir_small", "3x3 filter", (BATCH, 64, 256, 256), torch.float32,
+               (mod.setup_filter([1, 2, 1]), (1, 1), (1, 1), (1, 1, 1, 1)), "fir_small", 9),
+              ("generic", "5x5 filter at up=2 (stays generic)", (BATCH, 64, 128, 128),
+               torch.float32, (f5, (2, 2), (1, 1), (4, 3, 4, 3)), "generic", 9)]
+    out, err = {"poly1d": [], "generic": []}, 0.0
+    for key, label, shape, dtype, spec, variant, taps in calls:
+        n_var = KERNELS["upfirdn2d"].variants.get(variant, 0)
+        xg, yg, ypg, e_g, summ = k4_call(gen, shape, dtype, *spec, label)
+        require(KERNELS["upfirdn2d"].variants.get(variant, 0) > n_var,
+                f"K4: the {label} call did not take the {variant} form")
+        err = max(err, e_g)
+        bms_g, by_g = bound(nbytes(xg, yg), yg.numel() * taps * 2)
+        summ.update(call=label, filter=list(spec[0].shape), bound_ms=bms_g, bound_by=by_g,
+                    plain_ms=cuda_ms(lambda: upfirdn2d_plain(xg, *spec), iters=3, warmup=1))
+        library_g = k4_library(xg, spec[0], spec[1], spec[3], yg.shape[-2:], down=spec[2])
+        require(library_g is not None, f"K4 {label}: no library call")
+        tol_g = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * float(ypg.abs().max())
+        check(f"library call vs plain ({str(dtype)[6:]})", max_err(library_g(), ypg), tol_g)
+        summ["library_ms"] = cuda_ms(library_g)
+        print(f"    plain_ms {summ['plain_ms']:.6f}  library_ms {summ['library_ms']:.6f}  "
+              f"bound_ms {summ['bound_ms']:.6f} ({summ['bound_by']})")
+        form_kernel = {"row_up2": "upfirdn2d_rows2_kernel", "row_down2": "upfirdn2d_rows2_kernel",
+                       "column_up2": "upfirdn2d_cols2_kernel",
+                       "column_down2": "upfirdn2d_cols2_kernel",
+                       "fir_small": "upfirdn2d_fir4_kernel"}.get(variant, "upfirdn2d_kernel")
+        summ.update(parent_and_sass(
+            parent, "upfirdn2d", "upfirdn2d", "upfirdn2d_kernel",
+            lambda: upfirdn2d_kernel(xg, *spec), yg.numel(), "output", None, 1, None,
+            profiled=form_kernel))
+        if "parent" in summ:
+            require(summ["parent"]["values_not_bit_equal"] == 0,
+                    f"K4 {label}: the outputs differ from the parent's generic kernel's")
+        if key == "fir_small":
+            out[key] = summ
+        else:
+            out[key].append(summ)
+        del xg, yg, ypg
+    out["max_abs_err"] = err
+    return out
+
+
 def k4_checks(G, x, device, parent):
     """K4 vs its plain version on the card at every distinct call of one
     flagship request (found by a spy on ops/upfirdn2d.py:_fir: the backbone's
@@ -634,18 +776,16 @@ def k4_checks(G, x, device, parent):
     stride 2, or of stride 1; each must be faster than it), with its SASS
     instructions an output, and with ``parent`` (--parent) equal bit for
     bit to the parent's generic kernel and timed against it; its other
-    instantiations checked at f32, unaligned rows and padding 0. The
-    generic kernel at two calls that still take it (the unfused K11
-    composition's 1-D up=2 pass, a 3x3 filter), beside its plain version
-    and, with ``parent``, equal bit for bit to the parent's. bf16 within 1
-    bf16 ulp of the largest value, f32 within 1e-5 (summation order).
-    -> {"upfirdn2d": summary}."""
+    instantiations checked at f32, unaligned rows and padding 0. The forms
+    of the calls the generic kernel lost, and the generic kernel at a call
+    it keeps (k4_form_checks). bf16 within 1 bf16 ulp of the largest value,
+    f32 within 1e-5 (summation order). -> {"upfirdn2d": summary}."""
     import importlib
 
     import torch
 
     from panic3d_tpu_torch.kernels import KERNELS
-    from panic3d_tpu_torch.ops.upfirdn2d import k4_plan, upfirdn2d_kernel, upfirdn2d_plain
+    from panic3d_tpu_torch.ops.upfirdn2d import upfirdn2d_kernel, upfirdn2d_plain
 
     mod = importlib.import_module("panic3d_tpu_torch.ops.upfirdn2d")
     calls, fir = {}, mod._fir
@@ -665,20 +805,7 @@ def k4_checks(G, x, device, parent):
           f"{len(calls)} distinct")
 
     def one(shape, dtype, f2d, up, down, pad, label):
-        xx = torch.randn(shape, generator=gen, device=device).to(dtype)
-        spec = (f2d, up, down, pad)
-        yk, yp = upfirdn2d_kernel(xx, *spec), upfirdn2d_plain(xx, *spec)
-        e = max_err(yk, yp)
-        tol = 2.0 ** -7 * float(yp.abs().max()) if dtype == torch.bfloat16 else 1e-5
-        check(f"{label} {list(shape)} {str(dtype)[6:]} up={up[0]} down={down[0]} pad={pad} -> "
-              f"{yk.shape[-2]}x{yk.shape[-1]} ({k4_plan(*spec).variant})", e, tol)
-        ms = cuda_ms(lambda: upfirdn2d_kernel(xx, *spec))
-        bms, _ = bound(nbytes(xx, yk), yk.numel() * 4 * 2)
-        print(f"    ms {ms:.6f}  bound_ms {bms:.6f}")
-        return xx, yk, yp, e, {"shape": list(shape), "dtype": str(dtype)[6:], "up": up[0],
-                               "down": down[0], "pad": list(pad),
-                               "variant": k4_plan(*spec).variant, "max_abs_err": e,
-                               "ms": ms, "bound_ms": bms}
+        return k4_call(gen, shape, dtype, f2d, up, down, pad, label)
 
     shapes, err = [], 0.0
     for (shape, dtype, up, down, pad), (count, f2d) in sorted(
@@ -729,7 +856,7 @@ def k4_checks(G, x, device, parent):
         summ.update(parent_and_sass(
             parent, "upfirdn2d", "upfirdn2d", "upfirdn2d_fir4_kernel",
             lambda: upfirdn2d_kernel(xd, *spec_d), yd.numel(), "output", {}, 1 / 8, None,
-            new_kernel=f"upfirdn2d_fir4_kernelI13__nv_bfloat16Li{down}ELb1ELb{odd}E",
+            new_kernel=f"upfirdn2d_fir4_kernelI13__nv_bfloat16Li{down}ELb1ELb{odd}ELi4ELi4E",
             parent_kernel="upfirdn2d_kernel"))
         if "parent" in summ:
             require(summ["parent"]["values_not_bit_equal"] == 0,
@@ -764,48 +891,8 @@ def k4_checks(G, x, device, parent):
         err = max(err, e_o)
         del yo, ypo
 
-    # the generic kernel, at calls that still take it, each required to take
-    # it and held to its plain version: the unfused K11 composition's up=2
-    # pass of a 12-tap filter (a StyleGAN3-T layer 10 input, bf16; 6 taps an
-    # output) and a 3x3 filter at up = down = 1 (f32), that one also beside
-    # its library call (a depthwise conv2d, padding 1); with ``parent``
-    # (--parent) each equal bit for bit to the parent's generic kernel
-    # (unchanged) and timed against it
-    k12 = np.kaiser(12, 8.0).astype(np.float32)
-    f12 = torch.from_numpy(k12 / k12.sum())
-    f3 = mod.setup_filter([1, 2, 1])
-    generic = []
-    for label, shape, dtype, spec_g, taps in (
-            ("K11 composition up=2 pass", (SG3_BATCH, 287, 276, 276), torch.bfloat16,
-             mod.fir_passes(f12, up=2, padding=[11, 10, 11, 10], gain=4)[0], 6),
-            ("3x3 filter", (BATCH, 64, 256, 256), torch.float32,
-             (f3, (1, 1), (1, 1), (1, 1, 1, 1)), 9)):
-        n_gen = KERNELS["upfirdn2d"].variants.get("generic", 0)
-        xg, yg, ypg, e_g, summ = one(shape, dtype, *spec_g, f"generic kernel, {label}")
-        require(KERNELS["upfirdn2d"].variants.get("generic", 0) > n_gen,
-                f"K4: the {label} call did not take the generic kernel")
-        err = max(err, e_g)
-        bms_g, by_g = bound(nbytes(xg, yg), yg.numel() * taps * 2)
-        summ.update(call=label, filter=list(spec_g[0].shape), bound_ms=bms_g, bound_by=by_g,
-                    plain_ms=cuda_ms(lambda: upfirdn2d_plain(xg, *spec_g), iters=3, warmup=1),
-                    library_ms=None)
-        # the library call: a depthwise conv2d (padding 1) for the 3x3, a
-        # depthwise conv_transpose2d of stride (1, 2) for the 1-D up=2 pass
-        library_g = k4_library(xg, *spec_g[0:2], spec_g[3], yg.shape[-2:])
-        require(library_g is not None, f"K4 generic kernel, {label}: no library call")
-        tol_g = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * float(ypg.abs().max())
-        check(f"library call vs plain ({str(dtype)[6:]})", max_err(library_g(), ypg), tol_g)
-        summ["library_ms"] = cuda_ms(library_g)
-        print(f"    plain_ms {summ['plain_ms']:.6f}  library_ms {summ['library_ms']}  "
-              f"bound_ms {summ['bound_ms']:.6f} ({summ['bound_by']})")
-        summ.update(parent_and_sass(
-            parent, "upfirdn2d", "upfirdn2d", "upfirdn2d_kernel",
-            lambda: upfirdn2d_kernel(xg, *spec_g), yg.numel(), "output", None, 1, None))
-        if "parent" in summ:
-            require(summ["parent"]["values_not_bit_equal"] == 0,
-                    f"K4 generic kernel, {label}: the outputs differ from the parent's")
-        generic.append(summ)
-        del xg, yg, ypg
+    new_forms = k4_form_checks(device, parent, gen)
+    err = max(err, new_forms.pop("max_abs_err"))
 
     # the SR block-1 call, with its plain version and the single library
     # call for this upsample: a depthwise transposed convolution (stride 2)
@@ -828,15 +915,17 @@ def k4_checks(G, x, device, parent):
     require(summary["ms"] < summary["library_ms"],
             f"K4: {summary['ms']} ms, not faster than the library call's "
             f"{summary['library_ms']} ms")
-    return {"upfirdn2d": dict(summary, shapes=shapes, **forms, generic=generic,
+    return {"upfirdn2d": dict(summary, shapes=shapes, **forms, **new_forms,
                               equivariance=k4_equivariance_checks(device, parent))}
 
 
-def k4_library(xx, f2d, up, pad, out_hw):
+def k4_library(xx, f2d, up, pad, out_hw, down=(1, 1)):
     """The single PyTorch call that computes upfirdn2d_plain(xx, f2d, up,
-    1, pad) (f2d already flipped, correlated; up = (upx, upy)), or None
-    where there is none: at up 1 a depthwise F.conv2d with the symmetric
-    padding; else a depthwise F.conv_transpose2d of stride (upy, upx), whose
+    down, pad) (f2d already flipped, correlated; up = (upx, upy)), or None
+    where there is none: at up 1 a depthwise F.conv2d of stride (downy,
+    downx) with each axis's symmetric padding (a negative one a crop of
+    the input, a view); at down 1 a depthwise F.conv_transpose2d of stride
+    (upy, upx), whose
     left padding on an axis is k - 1 - padding, so a padding beyond k - 1
     (EQ-R's 48 at k = 47) is reached by extending the filter with leading
     zero taps, and the right edge by output_padding (< the stride)."""
@@ -847,10 +936,15 @@ def k4_library(xx, f2d, up, pad, out_hw):
     fh, fw = f2d.shape
     px0, px1, py0, py1 = pad
     if tuple(up) == (1, 1):
-        if px0 != px1 or py0 != py1 or min(pad) < 0:
+        if px0 != px1 or py0 != py1:
             return None
         w = f2d.to(xx.device, xx.dtype)[None, None].expand(C, 1, fh, fw).contiguous()
-        return lambda: F.conv2d(xx, w, padding=(py0, px0), groups=C)
+        cy, cx = max(-py0, 0), max(-px0, 0)
+        xc = xx[:, :, cy:xx.shape[2] - cy, cx:xx.shape[3] - cx]
+        return lambda: F.conv2d(xc, w, stride=(down[1], down[0]),
+                                padding=(max(py0, 0), max(px0, 0)), groups=C)
+    if tuple(down) != (1, 1):
+        return None
     ext, P, k, op = [], [], [], []
     for u, kk, p0, n_in, n_out in ((up[1], fh, py0, xx.shape[2], out_hw[0]),
                                    (up[0], fw, px0, xx.shape[3], out_hw[1])):
@@ -4426,20 +4520,69 @@ def rel_max_err(a, b) -> float:
     return max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
 
 
-def k1_grad_ops(points: int, C: int) -> float:
-    """K1's backward form a point: the forward MLP again, its backward, and
-    the weight gradients' products: 3 x (C*64 + 64*33) multiply-adds."""
-    return points * 2.0 * 3 * (C * 64 + 64 * 33)
+def k1_grad_ops(points: int, C: int):
+    """K1's backward form's operations a call, by K1's forward's rule ->
+    (f32 operations, TF32 tensor-core operations): per point the gather's
+    lerps (3 planes x C x 6) and the scatter's corner products (3 x 4 x C x
+    2) on the CUDA cores; the five products (layers 1 and 2 again, dL/dh,
+    dL/df and the two weight gradients: 3 x (C*64 + 64*33) multiply-adds)
+    on the tensor cores, each three times (3xTF32)."""
+    return points * 3 * C * (6 + 8), points * 3 * 2 * 3 * (C * 64 + 64 * 33)
 
 
-def training_render_samples(G, device):
+def k1_grad_bytes(planes_cl, coords, g_rgb, g_sigma) -> int:
+    """The bytes a pass of K1's backward form needs: its inputs read once
+    (the planes, the coordinates, the output gradients) and its f32 plane
+    gradient zeroed and written."""
+    return nbytes(planes_cl, coords, g_rgb, g_sigma) + 2 * planes_cl.numel() * 4
+
+
+def parent_k1_grad(lib, planes_cl, coords, dec, box_warp, plane_axes, filters, g_rgb, g_sigma):
+    """The parent's K1 backward form (its csrc/triplane_decode_grad.cu: a
+    point a thread writing the per-point blocks f, h, dL/dpre, dL/dout)
+    with its wrapper as it was (the weight gradients by torch.matmul over
+    the blocks): the same contract as triplane_decode_grad_kernel."""
+    import ctypes
+
+    import torch
+
+    from panic3d_tpu_torch.kernels import build as kb
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    N, _, H, W, C = planes_cl.shape
+    M, dev, P = coords.shape[1], planes_cl.device, planes_cl.shape[0] * coords.shape[1]
+    w0, b0, w1, b1 = vr._decoder_f32(dec, dev)
+    g_rgb, g_sigma = g_rgb.contiguous(), g_sigma.to(torch.float32).contiguous()
+    g_planes = torch.zeros(planes_cl.shape, dtype=torch.float32, device=dev)
+    blocks = [torch.empty((P, n), dtype=torch.float32, device=dev) for n in (C, 64, 64, 33)]
+    gain0, gain1 = dec.lr_mul / math.sqrt(C), dec.lr_mul / math.sqrt(64)
+    fn = lib.triplane_decode_grad
+    fn.argtypes = list((kb.PTR, kb.INT) + (kb.PTR,) * 12 + (kb.INT,) * 5 + (kb.PTR,)
+                       + (kb.FLOAT,) * 4 + (kb.INT, kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
+    fn.restype = ctypes.c_int
+    rc = fn(planes_cl.data_ptr(), vr._DTYPES[planes_cl.dtype], coords.data_ptr(),
+            w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), g_rgb.data_ptr(),
+            g_sigma.data_ptr(), g_planes.data_ptr(), *(b.data_ptr() for b in blocks), N, M, H,
+            W, C, kb.f32_array(np.linalg.inv(plane_axes)[:, :, :2].reshape(-1)),
+            2.0 / box_warp, gain0, gain1, dec.lr_mul, int(dec.force_sigmoid),
+            *vr._filter_args(filters, box_warp), torch.cuda.current_stream(dev).cuda_stream)
+    require(rc == 0, f"parent triplane_decode_grad: CUDA error {rc}")
+    feats, hid, g_pre, g_out = blocks
+    return (g_planes.to(planes_cl.dtype), (g_pre.T @ feats) * gain0, g_pre.sum(0) * dec.lr_mul,
+            (g_out.T @ hid) * gain1, g_out.sum(0) * dec.lr_mul)
+
+
+def training_render_samples(G, device, ortho=False):
     """A training render's samples on the card: bf16 planes [8,3,256,256,32]
-    (random), 8 random pinhole cameras, 64^2 rays, 48 jittered coarse
-    depths, K1's coarse pass, K3's u form at random u, K1's fine pass. ->
-    dict of the tensors K1's and K2's backward forms take."""
+    (random), 64^2 rays of 8 random pinhole cameras (or, with ``ortho``,
+    of Gcond's ortho front camera: cameras/conventions.py:get_rays_ortho at
+    elevation 0, azimuth 0, distance 1, as loss.py's Gcond renders it), 48
+    jittered coarse depths, K1's coarse pass, K3's u form at random u, K1's
+    fine pass. -> dict of the tensors K1's and K2's backward forms take."""
     import torch
 
     from panic3d_tpu_torch.cameras import camera_label, sample_rays
+    from panic3d_tpu_torch.cameras.conventions import get_rays_ortho
     from panic3d_tpu_torch.models.volumetric import renderer as vr
 
     rk = G.rk
@@ -4449,9 +4592,16 @@ def training_render_samples(G, device):
     planes = torch.randn((N, 3, 32, 256, 256), generator=gen, device=device) * 0.5
     planes_cl = planes.to(torch.bfloat16).permute(0, 1, 3, 4, 2).contiguous()
     ones = torch.ones(N, device=device)
-    cam = camera_label(torch.rand(N, generator=gen, device=device) * 40 - 10,
-                       torch.rand(N, generator=gen, device=device) * 360 - 180, ones, 30 * ones)
-    ro, rd = sample_rays(cam[:, :16].reshape(-1, 4, 4), cam[:, 16:].reshape(-1, 3, 3), res)
+    if ortho:
+        zeros = torch.zeros(N, device=device)
+        ro, rd = get_rays_ortho(zeros, zeros, ones, rk["box_warp"], res)
+        ro = ro.reshape(N, 3, R).transpose(1, 2)
+        rd = rd.reshape(N, 3, R).transpose(1, 2)
+    else:
+        cam = camera_label(torch.rand(N, generator=gen, device=device) * 40 - 10,
+                           torch.rand(N, generator=gen, device=device) * 360 - 180, ones,
+                           30 * ones)
+        ro, rd = sample_rays(cam[:, :16].reshape(-1, 4, 4), cam[:, 16:].reshape(-1, 3, 3), res)
     ro, rd = ro.contiguous(), rd.contiguous()
     dec, axes, nof = G._decoder(), vr.generate_plane_axes(True), vr.DensityFilters()
 
@@ -4471,59 +4621,164 @@ def training_render_samples(G, device):
                 k2=(d_c, rgb_c.reshape(N, R, S, 32), s_c.reshape(N, R, S, 1),
                     x_c.reshape(N, R, S, 3), d_f, rgb_f.reshape(N, R, K, 32),
                     s_f.reshape(N, R, K, 1), x_f.reshape(N, R, K, 3)),
-                x_c=x_c, white_back=rk["white_back"])
+                x_c=x_c, x_f=x_f, white_back=rk["white_back"])
 
 
-def k1_k2_grad_checks(G, device):
-    """K1's and K2's backward forms against their plain versions (autograd
-    of triplane_decode_plain and ray_composite_plain) on the card at a
-    training render's shapes (training_render_samples). K1: the plane
-    gradient (bf16) within 1 bf16 ulp of the largest value (2^-7 x max, the
-    plain's scatter is f32 atomics too); the weight gradients, sums over
-    1.57 M points whose terms nearly cancel, the kernel's and the f32 plain
-    version's each against an f64 evaluation: the kernel's within 10x the
-    plain's error (or 1e-4) of each tensor's max. K2: the colours'
-    gradient (bf16) within 2^-7 x max, the sigmas' (f32) within 1e-3 x max
-    (the reverse recurrence against autograd's cumprod). -> {name: summary}."""
+def k1_grad_check(label, t, x, parent, timed_plain=True):
+    """K1's backward form at one pass (the samples ``x`` of a training
+    render ``t``, random output gradients) against its plain version
+    (autograd of triplane_decode_plain): the plane gradient (bf16) within 1
+    bf16 ulp of the largest value (2^-7 x max: the plain's scatter is f32
+    atomics too); the weight gradients, sums over 1.57 M points whose terms
+    nearly cancel, the kernel's and the f32 plain version's each against an
+    f64 evaluation: the kernel's within 10x the plain's error (or 1e-4) of
+    each tensor's max. Timed beside its bound and (``timed_plain``) its
+    plain version, and with ``parent`` (--parent: the parent's
+    triplane_decode_grad.cu) against the parent's form, parent / this / this /
+    parent. -> summary."""
     import torch
 
     from panic3d_tpu_torch.models.volumetric import renderer as vr
 
-    t = training_render_samples(G, device)
-    gen, planes_cl, x_c = t["gen"], t["planes_cl"], t["x_c"]
-    N, P = x_c.shape[:2]
-    g_rgb = (torch.randn((N, P, 32), generator=gen, device=device) * 1e-3).to(torch.bfloat16)
-    g_sig = torch.randn((N, P, 1), generator=gen, device=device) * 1e-3
-    args = (planes_cl, x_c, t["dec"], t["bw"], t["axes"], t["nof"], g_rgb, g_sig)
-    print(f"K1's backward form: planes {tuple(planes_cl.shape)} bf16, coords {tuple(x_c.shape)}")
+    gen, planes_cl = t["gen"], t["planes_cl"]
+    N, P = x.shape[:2]
+    g_rgb = (torch.randn((N, P, 32), generator=gen, device=x.device) * 1e-3).to(torch.bfloat16)
+    g_sig = torch.randn((N, P, 1), generator=gen, device=x.device) * 1e-3
+    args = (planes_cl, x, t["dec"], t["bw"], t["axes"], t["nof"], g_rgb, g_sig)
+    print(f"K1's backward form, {label}: planes {tuple(planes_cl.shape)} bf16, coords "
+          f"{tuple(x.shape)}")
     with torch.no_grad():
         gk = vr.triplane_decode_grad_kernel(*args)
         gp = vr.triplane_decode_grad_plain(*args)
         dec64 = t["dec"]._replace(**{f: getattr(t["dec"], f).double()
                                       for f in ("w0", "b0", "w1", "b1")})
-        g64 = vr.triplane_decode_grad_plain(planes_cl.double(), x_c.double(), dec64, *args[3:6],
+        g64 = vr.triplane_decode_grad_plain(planes_cl.double(), x.double(), dec64, *args[3:6],
                                             g_rgb.double(), g_sig.double())
     e_planes = rel_max_err(gk[0], gp[0])
-    check("K1 backward: the plane gradient (relative to its max)", e_planes, 2.0 ** -7)
-    # the weight gradients are sums over 1.57 M points whose terms nearly
-    # cancel: the kernel's and the f32 plain version's each against f64
+    check(f"K1 backward, {label}: the plane gradient (relative to its max)", e_planes, 2.0 ** -7)
     e_w, e_wp = 0.0, 0.0
     for name, a, b, c in zip(("w0", "b0", "w1", "b1"), gk[1:], gp[1:], g64[1:]):
         ek, ep = rel_max_err(a.double(), c), rel_max_err(b.double(), c)
-        print(f"  K1 backward: d{name} against f64: kernel {ek:.3e}, plain {ep:.3e}")
+        print(f"  K1 backward, {label}: d{name} against f64: kernel {ek:.3e}, plain {ep:.3e}")
         e_w, e_wp = max(e_w, ek), max(e_wp, ep)
-    check("K1 backward: the decoder's weight gradients against f64 (relative to each max)",
-          e_w, max(1e-4, 10 * e_wp))
-    del g64
+    check(f"K1 backward, {label}: the decoder's weight gradients against f64 (relative to each "
+          "max)", e_w, max(1e-4, 10 * e_wp))
+    again = vr.triplane_decode_grad_kernel(*args)
+    differ = sum(int((a != b).sum()) for a, b in zip(gk[1:], again[1:]))
+    print(f"  K1 backward, {label}: weight gradients of two launches not bit-equal: {differ}")
+    require(differ == 0, f"K1 backward, {label}: the weight gradients change between runs")
+    del g64, again
+    f32_ops, tf32_ops = k1_grad_ops(N * P, planes_cl.shape[-1])
+    n_bytes = k1_grad_bytes(planes_cl, x, g_rgb, g_sig)
     with torch.no_grad():
-        k1 = record(max_err(gk[0], gp[0]), lambda: vr.triplane_decode_grad_kernel(*args),
-                    lambda: vr.triplane_decode_grad_plain(*args),
-                    nbytes(planes_cl, x_c, g_rgb, g_sig, gk[0]), k1_grad_ops(N * P, 32),
-                    plain_iters=3)
-    k1.update(relative_err=e_planes, weight_grads_relative_err_f64=e_w,
-              plain_weight_grads_relative_err_f64=e_wp,
-              shapes={"planes": list(planes_cl.shape), "coords": list(x_c.shape)})
+        if timed_plain:
+            summ = record(max_err(gk[0], gp[0]), lambda: vr.triplane_decode_grad_kernel(*args),
+                          lambda: vr.triplane_decode_grad_plain(*args), n_bytes, f32_ops,
+                          plain_iters=3, tf32_flops=tf32_ops)
+        else:
+            bms, by = bound(n_bytes, f32_ops, tf32_ops)
+            summ = {"max_abs_err": max_err(gk[0], gp[0]),
+                    "ms": cuda_ms(lambda: vr.triplane_decode_grad_kernel(*args)),
+                    "bound_ms": bms, "bound_by": by}
+    summ.update(relative_err=e_planes, weight_grads_relative_err_f64=e_w,
+                plain_weight_grads_relative_err_f64=e_wp,
+                shapes={"planes": list(planes_cl.shape), "coords": list(x.shape)},
+                kernel_us_profiler=kernel_device_us(
+                    lambda: vr.triplane_decode_grad_kernel(*args),
+                    ("triplane_decode_grad_kernel", "triplane_decode_grad_finish")))
+    print(f"  ms {summ['ms']:.6f}  bound_ms {summ['bound_ms']:.6f} ({summ['bound_by']})  "
+          f"kernels alone (torch.profiler) {summ['kernel_us_profiler']} us")
+    if "triplane_decode_grad" in parent:
+        lib = parent["triplane_decode_grad"][0]
+        with torch.no_grad():
+            gq = parent_k1_grad(lib, *args)
+            e_parent = max(rel_max_err(a.double(), b.double()) for a, b in zip(gk, gq))
+            run = [lambda: parent_k1_grad(lib, *args),
+                   lambda: vr.triplane_decode_grad_kernel(*args)]
+            ms = [cuda_ms(run[i]) for i in (0, 1, 1, 0)]
+        summ["parent"] = {"ms_parent_this_this_parent": ms,
+                          "relative_err_vs_parent": e_parent}
+        print(f"  K1 backward, {label}: parent / this / this / parent "
+              + " / ".join(f"{v:.6f}" for v in ms) + f" ms; largest difference from the "
+              f"parent's relative to each max {e_parent:.3e}")
     del gk, gp
+    return summ
+
+
+K1G_PARTS = {"all": 15, "atomics as plain stores": 7, "no scatter": 13,
+             "no weight products": 11, "no gather": 14, "decode and backward MLP only": 8}
+
+
+def k1_grad_parts(G, device):
+    """Where K1's backward form's time goes (ncu does not run on the card's
+    machine): csrc/triplane_decode_grad.cu built with parts left out
+    (-DK1G_PARTS, K1G_PARTS), each variant's main kernel timed alone by
+    torch.profiler at the pinhole training pass and Gcond's ortho front
+    coarse pass. A variant without a part gives wrong values: only the
+    full build is checked (k1_grad_check). -> {pass: {variant: us}}."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from panic3d_tpu_torch.kernels import build
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    out = Path(BUILD_TMP) / "k1g_parts"
+    out.mkdir(parents=True, exist_ok=True)
+    src = build.CSRC / "triplane_decode_grad.cu"
+    procs = {name: (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC}",
+                                      f"-DK1G_PARTS={bits}", str(src), "-o",
+                                      str(out / f"parts{bits}.so")],
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+                     out / f"parts{bits}.so") for name, bits in K1G_PARTS.items()}
+    libs = {}
+    for name, (proc, so) in procs.items():
+        _, err = proc.communicate(timeout=600)
+        require(proc.returncode == 0, f"K1 backward, {name}: build failed:\n{err}")
+        libs[name] = ctypes.CDLL(str(so))
+    result = {}
+    for label, ortho in (("pinhole training pass", False), ("ortho front coarse pass", True)):
+        t = training_render_samples(G, device, ortho=ortho)
+        x = t["x_c"]
+        N, P = x.shape[:2]
+        g_rgb = (torch.randn((N, P, 32), generator=t["gen"], device=device) * 1e-3).to(
+            torch.bfloat16)
+        g_sig = torch.randn((N, P, 1), generator=t["gen"], device=device) * 1e-3
+        args = (t["planes_cl"], x, t["dec"], t["bw"], t["axes"], t["nof"], g_rgb, g_sig)
+        result[label] = {}
+        with torch.no_grad():
+            for name, lib in libs.items():
+                with parent_entries({"triplane_decode_grad": lib}):
+                    us = kernel_device_us(lambda: vr.triplane_decode_grad_kernel(*args),
+                                          "triplane_decode_grad_kernel")
+                result[label][name] = us
+        print(f"K1 backward by parts, {label} (main kernel alone, us): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in result[label].items()))
+        del t, args
+    return result
+
+
+def k1_k2_grad_checks(G, device, parent):
+    """K1's and K2's backward forms against their plain versions on the card
+    at a training render's shapes (training_render_samples). K1
+    (k1_grad_check): the pinhole training pass (its coarse samples) and
+    Gcond's ortho front render (coarse and fine: on the xy plane every
+    sample of a ray shares its texel). K2: the colours' gradient (bf16)
+    within 2^-7 x max, the sigmas' (f32) within 1e-3 x max (the reverse
+    recurrence against autograd's cumprod). -> {name: summary}."""
+    import torch
+
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    t = training_render_samples(G, device)
+    gen = t["gen"]
+    k1 = k1_grad_check("pinhole training pass", t, t["x_c"], parent)
+    to = training_render_samples(G, device, ortho=True)
+    k1["ortho_front"] = {name: k1_grad_check(f"ortho front {name} pass", to, to[key], parent,
+                                             timed_plain=False)
+                         for name, key in (("coarse", "x_c"), ("fine", "x_f"))}
+    del to
 
     k2 = t["k2"]
     B, R = k2[0].shape[:2]
@@ -4925,7 +5180,7 @@ def training_path(device, card):
     return counts, summary, calls
 
 
-def training_checks(device, card):
+def training_checks(device, card, parent):
     """The training path (training_path), then the backward forms at its
     shapes (K4 at the step's own transposed calls, K1 and K2 at a training
     render's, K5 at a discriminator layer), R1's second order and one whole
@@ -4941,7 +5196,7 @@ def training_checks(device, card):
     summary["k4_grad_launches"] = sum(n for v, n in summary["k4_variants_per_step"].items()
                                       if v.startswith("grad_")) * summary["steps"]
     G = configs.flagship(device=device).init_weights(SEED)
-    checks.update(k1_k2_grad_checks(G, device))
+    checks.update(k1_k2_grad_checks(G, device, parent))
     del G
     checks["modconv_epilogue_grad"] = k5_grad_check(device)
     with torch.enable_grad():
@@ -4974,6 +5229,14 @@ def main(argv=None) -> int:
                     help="build, then run only the keyed forward path, its kernel forms' "
                          "checks (with --parent, the eval forms against the parent's kernels) "
                          "and the Hybrid8X card-vs-CPU check, then stop")
+    ap.add_argument("--forms-only", action="store_true",
+                    help="build, then check only K4's forms of the calls the generic kernel "
+                         "lost (k4_form_checks) and K1's and K2's backward forms "
+                         "(k1_k2_grad_checks), with --parent against the parent's kernels, "
+                         "then stop: a redesign's first short call")
+    ap.add_argument("--k1-grad-parts", action="store_true",
+                    help="with --forms-only, also time K1's backward form built with parts "
+                         "left out (k1_grad_parts)")
     ap.add_argument("--training-only", action="store_true",
                     help="build, then run only the training path (trainer.main at the "
                          "flagship defaults) and its checks (the backward forms, R1 against "
@@ -5021,6 +5284,18 @@ def main(argv=None) -> int:
     require(not spilled, f"kernels that spill registers: {spilled}")
     parent = build_parent(args.parent)
 
+    if args.forms_only:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        with torch.no_grad():
+            forms = k4_form_checks(device, parent, gen)
+        Gt = configs.flagship(device=device).init_weights(SEED)
+        grads = k1_k2_grad_checks(Gt, device, parent)
+        parts = k1_grad_parts(Gt, device) if args.k1_grad_parts else None
+        print(f"wall time {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"upfirdn2d": forms, **grads, "k1_grad_parts": parts}, default=str))
+        print(card)
+        return 0
+
     G = configs.flagship(eval_mode=True).init_weights(SEED).eval()
     with torch.no_grad():
         G.decoder.net[2].bias[0] += 2.5   # so that something renders (as test_flagship_parity)
@@ -5044,7 +5319,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.training_only:
-        checks, counts_train, training = training_checks(device, card)
+        checks, counts_train, training = training_checks(device, card, parent)
         kernels = [dict(name=n, route="cuda", source=KERNELS[n].source,
                         replaces=KERNELS[n].replaces, launches=counts_train[n], **checks[n])
                    for n in BACKWARD_KERNELS]
@@ -5144,7 +5419,7 @@ def main(argv=None) -> int:
 
         # training: trainer.main at the flagship defaults, the backward
         # forms at its shapes, R1 and one step against the plain ops
-        train_checks, counts_train, training = training_checks(device, card)
+        train_checks, counts_train, training = training_checks(device, card, parent)
         checks.update(train_checks)
 
         # K5's bound summed over a request's and a portrait's calls

@@ -74,11 +74,34 @@
 // summed in the generic kernel's order (a then b, fmaf from 0), so the
 // output equals the generic kernel's bit for bit; stores are coalesced.
 //
-// upfirdn2d_kernel, any other call (other factors or filters): one
-// block per 32x32 output tile of one (n, c) image; the block stages the input
-// window the tile needs in shared memory as f32 (zero outside the image), and
-// each thread computes 4 outputs of a column, skipping the taps that land on
-// inserted zeros.
+// The same kernel, templated on the filter's size, takes any other 2-D
+// filter of at most 4x4 at up = down = 1 ("fir_small": a 3x3 blur, fh x fw
+// of 2 to 4), in the same tap order, so its output equals the generic
+// kernel's bit for bit; the generic kernel was 2.2x slower than a depthwise
+// conv2d at a 3x3 (its index arithmetic again).
+//
+// upfirdn2d_rows2_kernel and upfirdn2d_cols2_kernel, a 1-D pass at up 2 or
+// down 2 on its axis, the other unscaled, at most 16 taps ("row_up2",
+// "row_down2", "column_up2", "column_down2": the unfused K11 composition's
+// 1x12 up=2 pass and its transpose, a 1x12 down=2 pass, and ADA's sym6
+// passes, panic3d_tpu/training/augment.py:226,250). Bound: bytes (the 1x12
+// up=2 pass, bf16 [4,287,276,276] -> 276x562, moves 531 MB: 0.159 ms). The
+// generic kernel ran it at 4 % of that, 5 % slower than a depthwise
+// conv_transpose2d: its 32x32 tile computed 4 outputs a thread with a
+// floor_div and a floor_mod a tap and skipped the half of the taps that
+// meet inserted zeros one by one. The polyphase forms are the row and
+// column forms above with the scaling folded into the taps: at up 2 output
+// phase r takes only the taps of its parity (fw / 2 of them, by value, from
+// the host's phase table), at down 2 an output reads fw inputs at stride 2;
+// the run or strip is staged once, the stores are vector or pair stores
+// where the rows allow it, and each output sums its nonzero taps in the
+// generic kernel's fmaf order from 0, so the outputs equal its bit for bit.
+//
+// upfirdn2d_kernel, any other call (other factors or filters, e.g. a 5x5 at
+// up 2): one block per 32x32 output tile of one (n, c) image; the block
+// stages the input window the tile needs in shared memory as f32 (zero
+// outside the image), and each thread computes 4 outputs of a column,
+// skipping the taps that land on inserted zeros.
 //
 // A filter of more than MAX_TAPS taps (the equivariance metrics' 47x47
 // resampling filter at up=4 and their 11x11 pseudo-rotation filter,
@@ -415,11 +438,12 @@ struct Taps16 { float f[16]; };   // [a][b], flipped and gained: correlate
 // column is odd in the staged frame (ODD), one 8-byte read between two
 // scalar ones. At DOWN = 1 four scalar reads (consecutive lanes,
 // consecutive banks).
-template <int DOWN, bool ODD>
-__device__ __forceinline__ void fir4_row(const float* p, float w[4]) {
+template <int DOWN, bool ODD, int FW>
+__device__ __forceinline__ void fir4_row(const float* p, float w[FW]) {
+  static_assert(DOWN == 1 || FW == 4, "down 2 takes 4 taps a row");
   if constexpr (DOWN == 1) {
 #pragma unroll
-    for (int b = 0; b < 4; ++b) w[b] = p[b];
+    for (int b = 0; b < FW; ++b) w[b] = p[b];
   } else if constexpr (ODD) {
     const float2 m = *reinterpret_cast<const float2*>(p + 1);
     w[0] = p[0]; w[1] = m.x; w[2] = m.y; w[3] = p[3];
@@ -443,11 +467,11 @@ __device__ __forceinline__ void fir4_row(const float* p, float w[4]) {
 // operands) in the generic kernel's order, a then b, with fmaf from 0, so
 // it equals the generic kernel's output bit for bit. Stores are coalesced
 // (32 consecutive outputs a warp).
-template <typename T, int DOWN, bool VEC, bool ODD>
+template <typename T, int DOWN, bool VEC, bool ODD, int FH, int FW>
 __global__ void __launch_bounds__(32 * F4_WARPS) upfirdn2d_fir4_kernel(
     const T* __restrict__ x, T* __restrict__ y, int H, int W, int OH, int OW, int px0,
     int py0, Taps16 taps) {
-  constexpr int WIN_X = DOWN * (F4_X - 1) + 4, WIN_Y = DOWN * (F4_Y - 1) + 4;
+  constexpr int WIN_X = DOWN * (F4_X - 1) + FW, WIN_Y = DOWN * (F4_Y - 1) + FH;
   constexpr int V = 16 / (int)sizeof(T);              // elements of a 16-byte chunk
   constexpr int NCH = (WIN_X + 2 * (V - 1)) / V;      // chunks a staged row, at most
   constexpr int SW = VEC ? V * NCH : (WIN_X + 1) & ~1;  // staged row stride, floats (even)
@@ -509,30 +533,31 @@ __global__ void __launch_bounds__(32 * F4_WARPS) upfirdn2d_fir4_kernel(
   T* dst = y + (nc * OH + oy0 + r0) * OW + ox;
   const int rows = ox < OW ? min(F4_R, OH - oy0 - r0) : 0;
   // w[k]: window row DOWN * (row - oy0) + k of the current output row
-  float w[4][4];
+  float w[FH][FW];
 #pragma unroll
-  for (int k = 0; k < 4 - DOWN; ++k) fir4_row<DOWN, ODD>(col + (DOWN * r0 + k) * SW, w[k]);
+  for (int k = 0; k < FH - DOWN; ++k)
+    fir4_row<DOWN, ODD, FW>(col + (DOWN * r0 + k) * SW, w[k]);
 #pragma unroll
   for (int r = 0; r < F4_R; ++r) {
     const int wr = DOWN * (r0 + r);
 #pragma unroll
-    for (int k = 4 - DOWN; k < 4; ++k) fir4_row<DOWN, ODD>(col + (wr + k) * SW, w[k]);
+    for (int k = FH - DOWN; k < FH; ++k) fir4_row<DOWN, ODD, FW>(col + (wr + k) * SW, w[k]);
     float acc = 0.f;
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < FH; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) acc = fmaf(taps.f[a * 4 + b], w[a][b], acc);
+      for (int b = 0; b < FW; ++b) acc = fmaf(taps.f[a * FW + b], w[a][b], acc);
     const T v = from_f<T>(acc);
     if (r < rows) *dst = v;
     dst += OW;
 #pragma unroll
-    for (int k = 0; k < 4 - DOWN; ++k)
+    for (int k = 0; k < FH - DOWN; ++k)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) w[k][b] = w[k + DOWN][b];
+      for (int b = 0; b < FW; ++b) w[k][b] = w[k + DOWN][b];
   }
 }
 
-template <typename T, int DOWN>
+template <typename T, int DOWN, int FH = 4, int FW = 4>
 cudaError_t launch_fir4(const void* x, void* y, int NC, int H, int W, int OH, int OW, int px0,
                         int py0, const Taps16& taps, cudaStream_t s) {
   constexpr int V = 16 / (int)sizeof(T);
@@ -543,8 +568,8 @@ cudaError_t launch_fir4(const void* x, void* y, int NC, int H, int W, int OH, in
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
 #define P3D_FIR4(VEC, ODD)                                                                \
-  upfirdn2d_fir4_kernel<T, DOWN, VEC, ODD><<<grid, block, 0, s>>>(xt, yt, H, W, OH, OW, px0, \
-                                                                  py0, taps)
+  upfirdn2d_fir4_kernel<T, DOWN, VEC, ODD, FH, FW><<<grid, block, 0, s>>>(xt, yt, H, W, OH, OW, \
+                                                                          px0, py0, taps)
   if (!vec) P3D_FIR4(false, false);
   else if constexpr (DOWN == 1) P3D_FIR4(true, false);
   // ODD: with the aligned staging the lanes' first columns lie at odd
@@ -995,6 +1020,349 @@ cudaError_t dispatch_up2(const void* x, void* y, int NC, int H, int W, int OH, i
   return launch_up2<T, 1, 1>(x, y, NC, H, W, OH, OW, by, bx, ph, s);
 }
 
+// ---- a 1-D pass at up = 2 or down = 2 on its axis: the polyphase 1-D forms ----
+
+constexpr int POLY_MAX_TAPS = 16;   // the most taps the 1-D polyphase forms take
+constexpr int ROW2_PAIRS = 64;      // output pairs a warp of the up-2 row form, 2 a lane
+constexpr int ROW2_RUN = 128;       // outputs a warp of the down-2 row form, 4 a lane
+constexpr int ROW2_RPW = 4;         // output rows a warp of the row form
+
+// A 1-D pass's taps by output phase (up 2) or in order (down 2). At up 2,
+// output 2m + r of the scaled axis sums f[r * MAX_TAPS / 2 + i] x[m + s_r +
+// i], i < n[r], in the order of the generic kernel's taps (b0_r + 2 i
+// ascending, b0_r = (p0 - r) mod 2); s_1 = s0 + DS, DS 0 or 1. At down 2,
+// output o sums f[b] x[2 o + b - p0], b < n[0].
+struct Poly {
+  float f[MAX_TAPS];
+  int n[2];
+  int s0;
+};
+
+// the row form: fh == 1, up or down 2 on x. A warp owns a run of ROW2_RPW
+// output rows (64 pairs at up 2, 128 outputs at down 2; with one row a warp
+// a block lives ~3 us on an H100, and block launches, not bytes, bound the
+// form): it stages the rows' input runs (every load of the warp in flight
+// before the first store) and each lane computes 4 adjacent outputs of a
+// row from one window of the staged run: at up 2 pairs 2 lane and 2 lane +
+// 1 (n + DS + 1 inputs, read as float2s), at down 2 outputs 4 lane .. 4
+// lane + 3 (n + 6 inputs, read as float4s), the taps by value; the 4
+// outputs go out as one vector store where the rows allow it, else as pair
+// or scalar stores. K >= the taps (unrolled, the taps past the filter's
+// predicated off).
+template <typename T, int K, bool UP2, int DS, bool VIN>
+__global__ void __launch_bounds__(32 * ROW_WARPS) upfirdn2d_rows2_kernel(
+    const T* __restrict__ x, T* __restrict__ y, int H, int W, int OH, int OW, int px0, int py0,
+    Poly p) {
+  constexpr int NP = K / 2;
+  constexpr int MAXLEN = UP2 ? ROW2_PAIRS + NP + 1 : 2 * ROW2_RUN - 2 + K;   // a run's inputs
+  // a lane's window: up 2, NP + DS + 1 inputs from 2 lane (float2s); down 2,
+  // K + 6 from 8 lane (float4s)
+  constexpr int WN = UP2 ? (NP + DS + 2) / 2 * 2 : (K + 6 + 3) / 4 * 4;
+  constexpr int SLEN = (MAXLEN + WN + 3) / 4 * 4;   // room past the run for the windows
+  __shared__ __align__(16) float stage[ROW_WARPS][ROW2_RPW][SLEN];
+  const int lane = threadIdx.x;
+  const int oy0 = (blockIdx.y * ROW_WARPS + threadIdx.y) * ROW2_RPW;
+  if (oy0 >= OH) return;   // uniform across the warp; the warp syncs only itself
+  const long long nc = blockIdx.z;
+  const T* img = x + nc * H * W;
+  // s[j] = x[oy - py0, start + j], j < len, 0 outside the image
+  const int start = UP2 ? blockIdx.x * ROW2_PAIRS + p.s0 : 2 * blockIdx.x * ROW2_RUN - px0;
+  const int len = UP2 ? ROW2_PAIRS + max(p.n[0], DS + p.n[1]) : 2 * ROW2_RUN - 2 + p.n[0];
+  float(*s)[SLEN] = stage[threadIdx.y];
+  if constexpr (VIN) {
+    // aligned 4-wide chunks from the one holding `start` (W % 4 == 0: a
+    // chunk is inside the row or outside it as a whole)
+    constexpr int CPL = (MAXLEN + 6 + 127) / 128;   // chunks a lane
+    const int base = start & ~3, chunks = (start + len - base + 3) >> 2;
+    float4 q[ROW2_RPW][CPL];
+#pragma unroll
+    for (int k = 0; k < ROW2_RPW; ++k) {
+      const int iy = oy0 + k - py0;
+      const bool row_in = oy0 + k < OH && iy >= 0 && iy < H;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int ch = lane + 32 * c, g = base + 4 * ch;
+        q[k][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row_in && ch < chunks && g >= 0 && g < W) q[k][c] = load4(img + (long long)iy * W + g);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < ROW2_RPW; ++k)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int ch = lane + 32 * c, g = base + 4 * ch;
+        const float e[4] = {q[k][c].x, q[k][c].y, q[k][c].z, q[k][c].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = g + i - start;
+          if (ch < chunks && j >= 0 && j < len) s[k][j] = e[i];
+        }
+      }
+  } else {   // unaligned rows (rare): scalar loads, a row's in flight together
+    constexpr int EPL = (MAXLEN + 31) / 32;   // inputs a lane
+#pragma unroll
+    for (int k = 0; k < ROW2_RPW; ++k) {
+      const int iy = oy0 + k - py0;
+      const bool row_in = oy0 + k < OH && iy >= 0 && iy < H;
+      float v[EPL];
+#pragma unroll
+      for (int c = 0; c < EPL; ++c) {
+        const int j = lane + 32 * c, g = start + j;
+        v[c] = row_in && j < len && g >= 0 && g < W ? to_f(img[(long long)iy * W + g]) : 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < EPL; ++c)
+        if (lane + 32 * c < len) s[k][lane + 32 * c] = v[c];
+    }
+  }
+  __syncwarp();
+  // the lane's 4 outputs from ox, as one vector store where OW % 4 == 0
+  // (the row and the 4 outputs aligned); the window's values past the run
+  // are read but meet only predicated-off taps
+  const bool vec = (OW & 3) == 0;
+  const int ox = UP2 ? 2 * (blockIdx.x * ROW2_PAIRS + 2 * lane) : blockIdx.x * ROW2_RUN + 4 * lane;
+#pragma unroll 1
+  for (int k = 0; k < ROW2_RPW && oy0 + k < OH; ++k) {
+    T* out = y + (nc * OH + oy0 + k) * OW + ox;
+    const float* sk = s[k];
+    float w[WN];
+    float o[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (UP2) {
+      // pair h (output 2h + r) of phase r reads w[h + r DS + i], i < n[r]
+#pragma unroll
+      for (int q = 0; q < WN / 2; ++q) {
+        const float2 v = *reinterpret_cast<const float2*>(sk + 2 * lane + 2 * q);
+        w[2 * q] = v.x;
+        w[2 * q + 1] = v.y;
+      }
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        if (i < p.n[0]) {
+          o[0] = fmaf(p.f[i], w[i], o[0]);
+          o[2] = fmaf(p.f[i], w[1 + i], o[2]);
+        }
+        if (i < p.n[1]) {
+          o[1] = fmaf(p.f[MAX_TAPS / 2 + i], w[DS + i], o[1]);
+          o[3] = fmaf(p.f[MAX_TAPS / 2 + i], w[1 + DS + i], o[3]);
+        }
+      }
+    } else {
+      // output j reads w[2 j + b], b < n[0]
+#pragma unroll
+      for (int q = 0; q < WN / 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(sk + 8 * lane + 4 * q);
+        w[4 * q] = v.x;
+        w[4 * q + 1] = v.y;
+        w[4 * q + 2] = v.z;
+        w[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int b = 0; b < K; ++b)
+        if (b < p.n[0]) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) o[j] = fmaf(p.f[b], w[2 * j + b], o[j]);
+        }
+    }
+    if (vec && ox + 3 < OW) {
+      store4(out, make_float4(o[0], o[1], o[2], o[3]));
+    } else if (UP2) {
+      const bool paired = (OW & 1) == 0;   // 2m is even: a pair store is aligned
+      if (ox < OW) store_pair<T>(out, o[0], o[1], paired, ox + 1 < OW);
+      if (ox + 2 < OW) store_pair<T>(out + 2, o[2], o[3], paired, ox + 3 < OW);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (ox + j < OW) out[j] = from_f<T>(o[j]);
+    }
+  }
+}
+
+// the column form: fw == 1, up or down 2 on y. As the 1-D column form: a
+// lane owns one output column (or, in f32, 4 adjacent ones as a float4), a
+// strip of R output rows; it loads the strip's input rows once into
+// registers (coalesced, all in flight together) and each output row sums
+// its phase's taps (up 2: R / 2 pairs, their window of n + DS rows; down 2:
+// rows 2 r + b) in the generic kernel's order.
+template <typename T, int V, int K, int R, bool UP2, int DS>
+__global__ void __launch_bounds__(32 * COL_WARPS) upfirdn2d_cols2_kernel(
+    const T* __restrict__ x, T* __restrict__ y, int H, int W, int OH, int OW, int px0, int py0,
+    Poly p) {
+  constexpr int NP = K / 2;
+  constexpr int NR = UP2 ? R / 2 + NP + DS : 2 * (R - 1) + K;   // the strip's input rows
+  const int oy0 = (blockIdx.y * COL_WARPS + threadIdx.y) * R;
+  if (oy0 >= OH) return;   // uniform across the warp
+  const long long nc = blockIdx.z;
+  const T* src = x + nc * H * W;
+  T* dst = y + nc * OH * OW;
+  const int ox = (blockIdx.x * 32 + threadIdx.x) * V;
+  const int ix = ox - px0;
+  const bool col_in = ix >= 0 && ix + V <= W;   // V = 4: W, OW, px0 multiples of 4
+  const int iy0 = UP2 ? oy0 / 2 + p.s0 : 2 * oy0 - py0;
+  const int need = UP2 ? R / 2 + max(p.n[0], DS + p.n[1]) : 2 * (R - 1) + p.n[0];
+  float in[NR][V];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int iy = iy0 + i;
+    const bool load = i < need && col_in && iy >= 0 && iy < H;
+    if constexpr (V == 4) {
+      float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (load) q = load4(src + (long long)iy * W + ix);
+      in[i][0] = q.x; in[i][1] = q.y; in[i][2] = q.z; in[i][3] = q.w;
+    } else {
+      in[i][0] = load ? to_f(src[(long long)iy * W + ix]) : 0.f;
+    }
+  }
+  if (ox >= OW) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.f;
+    if constexpr (UP2) {   // output row 2 m + (r & 1); r is unrolled, so the phase is constant
+      const int m = r >> 1, ph = r & 1, d = ph ? DS : 0;
+#pragma unroll
+      for (int i = 0; i < NP; ++i)
+        if (i < p.n[ph]) {
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            acc[v] = fmaf(p.f[ph * (MAX_TAPS / 2) + i], in[m + d + i][v], acc[v]);
+        }
+    } else {
+#pragma unroll
+      for (int b = 0; b < K; ++b)
+        if (b < p.n[0]) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = fmaf(p.f[b], in[2 * r + b][v], acc[v]);
+        }
+    }
+    const int oy = oy0 + r;
+    if (oy < OH) {
+      T* o = dst + (long long)oy * OW + ox;
+      if constexpr (V == 4) store4(o, make_float4(acc[0], acc[1], acc[2], acc[3]));
+      else o[0] = from_f<T>(acc[0]);
+    }
+  }
+}
+
+template <typename T, int K, bool UP2>
+cudaError_t launch_rows2(const void* x, void* y, int NC, int H, int W, int OH, int OW, int px0,
+                         int py0, const Poly& p, int ds, cudaStream_t s) {
+  const bool vin = W % 4 == 0 && aligned4<T>(x);
+  const int per = UP2 ? 2 * ROW2_PAIRS : ROW2_RUN;   // outputs of a row a warp
+  dim3 grid((OW + per - 1) / per, (OH + ROW_WARPS * ROW2_RPW - 1) / (ROW_WARPS * ROW2_RPW), NC);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const dim3 block(32, ROW_WARPS);
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+#define P3D_ROWS2(D, VI)                                                                   \
+  upfirdn2d_rows2_kernel<T, K, UP2, D, VI><<<grid, block, 0, s>>>(xt, yt, H, W, OH, OW, px0, \
+                                                                  py0, p)
+  if constexpr (UP2) {
+    if (ds && vin) P3D_ROWS2(1, true);
+    else if (ds) P3D_ROWS2(1, false);
+    else if (vin) P3D_ROWS2(0, true);
+    else P3D_ROWS2(0, false);
+  } else {
+    if (vin) P3D_ROWS2(0, true);
+    else P3D_ROWS2(0, false);
+  }
+#undef P3D_ROWS2
+  return cudaGetLastError();
+}
+
+template <typename T, int K, bool UP2>
+cudaError_t launch_cols2(const void* x, void* y, int NC, int H, int W, int OH, int OW, int px0,
+                         int py0, const Poly& p, int ds, cudaStream_t s) {
+  // 4 columns a lane (one float4) in f32 up to 16 taps; the strips' rows:
+  // up 2, 16 output rows (8 pairs); down 2, 4 (float4s) or 8 outputs
+  constexpr bool wide = sizeof(T) == 4 && K <= 16;
+  constexpr int R1 = UP2 ? 16 : 8, R4 = UP2 ? 16 : 4;
+  const bool v4 = wide && W % 4 == 0 && OW % 4 == 0 && px0 % 4 == 0 && aligned4<T>(x) &&
+                  aligned4<T>(y);
+  const int V = v4 ? 4 : 1, R = v4 ? R4 : R1;
+  const int strips = (OH + R - 1) / R;
+  dim3 grid((OW + 32 * V - 1) / (32 * V), (strips + COL_WARPS - 1) / COL_WARPS, NC);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const dim3 block(32, COL_WARPS);
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+#define P3D_COLS2(VV, RR, D)                                                             \
+  upfirdn2d_cols2_kernel<T, VV, K, RR, UP2, D><<<grid, block, 0, s>>>(xt, yt, H, W, OH, OW, \
+                                                                      px0, py0, p)
+  if constexpr (wide) {
+    if (v4) {
+      if (UP2 && ds) P3D_COLS2(4, R4, UP2 ? 1 : 0);
+      else P3D_COLS2(4, R4, 0);
+      return cudaGetLastError();
+    }
+  }
+  if (UP2 && ds) P3D_COLS2(1, R1, UP2 ? 1 : 0);
+  else P3D_COLS2(1, R1, 0);
+#undef P3D_COLS2
+  return cudaGetLastError();
+}
+
+// whether a call takes a 1-D polyphase form (ops/upfirdn2d.py:_plan decides
+// alike): a filter of one row with up or down 2 on x and y unscaled (the
+// row form), else of one column with up or down 2 on y and x unscaled (the
+// column form), of at most POLY_MAX_TAPS taps
+inline bool poly_form(int upx, int upy, int downx, int downy, int fw, int fh, bool& rows,
+                      bool& up2) {
+  const bool two_x = (upx == 2 && downx == 1) || (upx == 1 && downx == 2);
+  const bool two_y = (upy == 2 && downy == 1) || (upy == 1 && downy == 2);
+  if (fh == 1 && upy == 1 && downy == 1 && two_x && fw <= POLY_MAX_TAPS) {
+    rows = true;
+    up2 = upx == 2;
+    return true;
+  }
+  if (fw == 1 && upx == 1 && downx == 1 && two_y && fh <= POLY_MAX_TAPS) {
+    rows = false;
+    up2 = upy == 2;
+    return true;
+  }
+  return false;
+}
+
+// the taps of a 1-D pass at up 2 (by phase, from the scaled axis's leading
+// padding p0) or down 2 (in order) -> (Poly, DS)
+inline Poly make_poly(const float* f, int n, int p0, bool up2, int& ds) {
+  Poly p{};
+  ds = 0;
+  if (!up2) {
+    for (int b = 0; b < n; ++b) p.f[b] = f[b];
+    p.n[0] = n;
+    return p;
+  }
+  int s[2];
+  for (int r = 0; r < 2; ++r) {
+    const int b0 = ((p0 - r) % 2 + 2) % 2;   // the phase's first tap
+    p.n[r] = b0 < n ? (n - b0 + 1) / 2 : 0;
+    for (int i = 0; i < p.n[r]; ++i) p.f[r * (MAX_TAPS / 2) + i] = f[b0 + 2 * i];
+    s[r] = (r + b0 - p0) / 2;                // r + b0 - p0 is even
+  }
+  p.s0 = s[0];
+  ds = s[1] - s[0];                          // 0 (p0 odd) or 1 (p0 even)
+  return p;
+}
+
+template <typename T>
+cudaError_t launch_poly(const void* x, void* y, int NC, int H, int W, int OH, int OW, int px0,
+                        int py0, int fw, int fh, const float* f, bool rows, bool up2,
+                        cudaStream_t s) {
+  const int n = rows ? fw : fh;
+  int ds;
+  const Poly p = make_poly(f, n, rows ? px0 : py0, up2, ds);
+#define P3D_POLY(KK)                                                                         \
+  return rows ? (up2 ? launch_rows2<T, KK, true>(x, y, NC, H, W, OH, OW, px0, py0, p, ds, s)  \
+                     : launch_rows2<T, KK, false>(x, y, NC, H, W, OH, OW, px0, py0, p, ds, s)) \
+              : (up2 ? launch_cols2<T, KK, true>(x, y, NC, H, W, OH, OW, px0, py0, p, ds, s)  \
+                     : launch_cols2<T, KK, false>(x, y, NC, H, W, OH, OW, px0, py0, p, ds, s))
+  if (n <= 8) P3D_POLY(8);
+  if (n <= 12) P3D_POLY(12);   // 12 taps: sym6, the kaiser filters of StyleGAN3's layers
+  P3D_POLY(16);
+#undef P3D_POLY
+}
+
 }  // namespace
 
 // x: [NC, H, W] (f32 or bf16), y: [NC, OH, OW] in the same dtype; f: fh*fw
@@ -1008,10 +1376,13 @@ cudaError_t dispatch_up2(const void* x, void* y, int NC, int H, int W, int OH, i
 // (ops/upfirdn2d.py:k4_plan): 16 taps [ry][rx][j][i] and the source offsets
 // (sy0, sy1, sx0, sx1), whose two phases are equal or one apart for 4 taps.
 // Such a call runs the polyphase kernel; a 4x4 filter at up = 1 and down = 2
-// (or 1) on both axes the 4x4 form; a filter of one row or one column at
-// up = down = 1 the row or the column form; any other call the generic
-// kernel (ops/upfirdn2d.py:k4_plan names the same variant). Both tables may
-// be null for a call outside the polyphase family.
+// (or 1) on both axes the 4x4 form; another 2-D filter of at most 4x4 at up
+// = down = 1 the 4x4 form at its size; a filter of one row or one column at
+// up = down = 1 the row or the column form, at up or down 2 on its axis
+// (the other unscaled, at most 16 taps) the 1-D polyphase row or column
+// form; any other call the generic kernel (ops/upfirdn2d.py:k4_plan names
+// the same variant). Both tables may be null for a call outside the
+// polyphase family.
 PANIC3D_EXPORT int upfirdn2d(const void* x, void* y, int dtype, int NC, int H, int W,
                              int OH, int OW, int upx, int upy, int downx, int downy,
                              int px0, int py0, const float* f, int fw, int fh,
@@ -1062,12 +1433,35 @@ PANIC3D_EXPORT int upfirdn2d(const void* x, void* y, int dtype, int NC, int H, i
     P3D_F4(float, 1);
 #undef P3D_F4
   }
+  const bool unit = upx == 1 && upy == 1 && downx == 1 && downy == 1;
+  if (unit && fw >= 2 && fh >= 2 && fw <= 4 && fh <= 4) {   // a small 2-D filter, not 4x4
+    Taps16 t16;
+    for (int i = 0; i < fw * fh; ++i) t16.f[i] = f[i];
+#define P3D_FS(FH, FW)                                                                  \
+  if (fh == FH && fw == FW)                                                             \
+    return (int)(dtype == DT_BF16                                                       \
+                     ? launch_fir4<__nv_bfloat16, 1, FH, FW>(x, y, NC, H, W, OH, OW, px0, \
+                                                             py0, t16, s)                \
+                     : launch_fir4<float, 1, FH, FW>(x, y, NC, H, W, OH, OW, px0, py0, t16, s))
+    P3D_FS(2, 2); P3D_FS(2, 3); P3D_FS(2, 4);
+    P3D_FS(3, 2); P3D_FS(3, 3); P3D_FS(3, 4);
+    P3D_FS(4, 2); P3D_FS(4, 3);
+#undef P3D_FS
+  }
   Taps taps;
   for (int i = 0; i < fw * fh; ++i) taps.f[i] = f[i];
-  if (upx == 1 && upy == 1 && downx == 1 && downy == 1 && (fh == 1 || fw == 1)) {
+  if (unit && (fh == 1 || fw == 1)) {
     if (dtype == DT_BF16)
       return (int)launch_1d<__nv_bfloat16>(x, y, NC, H, W, OH, OW, px0, py0, fw, fh, taps, s);
     return (int)launch_1d<float>(x, y, NC, H, W, OH, OW, px0, py0, fw, fh, taps, s);
+  }
+  bool rows, poly_up2;
+  if (poly_form(upx, upy, downx, downy, fw, fh, rows, poly_up2)) {
+    if (dtype == DT_BF16)
+      return (int)launch_poly<__nv_bfloat16>(x, y, NC, H, W, OH, OW, px0, py0, fw, fh, f, rows,
+                                             poly_up2, s);
+    return (int)launch_poly<float>(x, y, NC, H, W, OH, OW, px0, py0, fw, fh, f, rows, poly_up2,
+                                   s);
   }
   if (dtype == DT_BF16)
     return (int)launch<__nv_bfloat16>(x, y, NC, H, W, OH, OW, upx, upy, downx, downy, px0,

@@ -25,10 +25,12 @@ launches its kernel or raises.
 
 Training differentiates K1 and K2: each runs inside an autograd.Function
 (``TriplaneDecode``, ``RayComposite``) whose backward is a kernel too, K1's
-(csrc/triplane_decode_grad.cu: the decode redone and run backward a point a
-thread, the plane gradient by vector atomics, the weight gradients as
-products over the points) and K2's (``ray_composite_grad``: the merge
-redone, the alphas' gradient by a reverse recurrence), each with its plain
+(csrc/triplane_decode_grad.cu: the decode redone and run backward by a warp
+a tile of 16 points on the tensor cores, the weight gradients formed in the
+kernel, a partial a CTA summed in a fixed order, the plane gradient by
+vector atomics, a corner of a run of points in one cell at a time) and
+K2's (``ray_composite_grad``: the merge redone, the alphas' gradient by a
+reverse recurrence), each with its plain
 version beside it (autograd of the plain forward). The importance depths
 take no gradient (the JAX package's stop_gradient, renderer.py:563), nor do
 the sample coordinates.
@@ -472,22 +474,41 @@ def triplane_decode_grad_plain(planes_cl, coords, dec: Decoder, box_warp: float,
     return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads))
 
 
-_K1G_ARGS = ((kb.PTR, kb.INT) + (kb.PTR,) * 12 + (kb.INT,) * 5 + (kb.PTR,) + (kb.FLOAT,) * 4
+_K1G_ARGS = ((kb.PTR, kb.INT) + (kb.PTR,) * 10 + (kb.INT,) * 6 + (kb.PTR,) + (kb.FLOAT,) * 4
              + (kb.INT, kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
+# csrc/triplane_decode_grad.cu: warps a CTA (a tile of 16 points each a
+# round), resident CTAs an SM (the persistent grid)
+K1G_WARPS, K1G_CTAS_PER_SM = 4, 2
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def k1_grad_ctas(points: int, sms: int) -> int:
+    """The persistent grid of K1's backward form: 2 CTAs an SM, fewer where
+    the points' rounds (4 tiles of 16) are fewer."""
+    rounds = -(-points // (16 * K1G_WARPS))
+    return max(1, min(K1G_CTAS_PER_SM * sms, rounds))
 
 
 def triplane_decode_grad_kernel(planes_cl, coords, dec: Decoder, box_warp: float, plane_axes,
                                 filters: DensityFilters, g_rgb, g_sigma):
     """Launch K1's backward form on CUDA tensors: same contract as
-    :func:`triplane_decode_grad_plain`. The kernel adds each point's corner
-    contributions into an f32 plane gradient and writes the per-point
-    blocks (f, h, dL/dpre, dL/dout) that the weight gradients are taken
-    from here, as products over the points."""
+    :func:`triplane_decode_grad_plain`. The kernel adds each corner of a
+    run of points in one cell once into an f32 plane gradient (cast to the
+    planes' dtype here) and forms the weight gradients itself: a partial a
+    CTA, summed in a fixed order by its second launch."""
     N, _, H, W, C = planes_cl.shape
     M = coords.shape[1]
     dev = planes_cl.device
     _require(planes_cl.is_contiguous() and coords.is_contiguous()
              and coords.dtype == torch.float32, "K1's backward takes K1's inputs")
+    _require(planes_cl.dtype in _DTYPES and C in (8, 16, 32) and planes_cl.data_ptr() % 16 == 0,
+             "K1's backward takes K1's planes: f32 or bf16, 8, 16 or 32 channels, aligned")
+    _require(N * 3 * (H + 2) * (W + 2) < 2 ** 31,
+             "K1's backward indexes the plane cells in 32 bits")
     _require(tuple(g_rgb.shape) == (N, M, 32) and g_rgb.dtype == planes_cl.dtype
              and tuple(g_sigma.shape) == (N, M, 1),
              "K1's backward takes g_rgb [N,M,32] in the planes' dtype and g_sigma [N,M,1]")
@@ -495,28 +516,24 @@ def triplane_decode_grad_kernel(planes_cl, coords, dec: Decoder, box_warp: float
     g_rgb = g_rgb.contiguous()
     g_sigma = g_sigma.to(torch.float32).contiguous()
     g_planes = torch.zeros(planes_cl.shape, dtype=torch.float32, device=dev)
-    P = N * M
-    feats = torch.empty((P, C), dtype=torch.float32, device=dev)
-    hid = torch.empty((P, 64), dtype=torch.float32, device=dev)
-    g_pre = torch.empty((P, 64), dtype=torch.float32, device=dev)
-    g_out = torch.empty((P, 33), dtype=torch.float32, device=dev)
+    ctas = k1_grad_ctas(N * M, _sm_count(dev.index))
+    sizes = (64 * C, 33 * 64, 64, 33)
+    partials = torch.empty((ctas, sum(sizes)), dtype=torch.float32, device=dev)
+    g_w = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     proj = np.linalg.inv(plane_axes)[:, :, :2]
-    gain0, gain1 = dec.lr_mul / math.sqrt(C), dec.lr_mul / math.sqrt(64)
     kb.launch(
         "triplane_decode_grad", _K1G_ARGS, planes_cl.data_ptr(), _DTYPES[planes_cl.dtype],
         coords.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        g_rgb.data_ptr(), g_sigma.data_ptr(), g_planes.data_ptr(), feats.data_ptr(),
-        hid.data_ptr(), g_pre.data_ptr(), g_out.data_ptr(), N, M, H, W, C,
-        kb.f32_array(proj.reshape(-1)), 2.0 / box_warp, gain0, gain1, dec.lr_mul,
+        g_rgb.data_ptr(), g_sigma.data_ptr(), g_planes.data_ptr(), partials.data_ptr(),
+        g_w.data_ptr(), ctas, N, M, H, W, C, kb.f32_array(proj.reshape(-1)), 2.0 / box_warp,
+        dec.lr_mul / math.sqrt(C), dec.lr_mul / math.sqrt(64), dec.lr_mul,
         int(dec.force_sigmoid), *_filter_args(filters, box_warp), _stream(planes_cl),
     )
     KERNELS["triplane_decode_grad"].launches += 1
-    g_w0 = (g_pre.T @ feats) * gain0
-    g_w1 = (g_out.T @ hid) * gain1
-    g_b0 = g_pre.sum(0) * dec.lr_mul
-    g_b1 = g_out.sum(0) * dec.lr_mul
+    g_w0, g_w1, g_b0, g_b1 = g_w.split(sizes)
     return (g_planes.to(planes_cl.dtype),) + tuple(
-        g.to(t.dtype) for g, t in zip((g_w0, g_b0, g_w1, g_b1), (dec.w0, dec.b0, dec.w1, dec.b1)))
+        g.reshape(t.shape).to(t.dtype)
+        for g, t in zip((g_w0, g_b0, g_w1, g_b1), (dec.w0, dec.b0, dec.w1, dec.b1)))
 
 
 class TriplaneDecode(torch.autograd.Function):

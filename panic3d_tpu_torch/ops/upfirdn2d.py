@@ -8,10 +8,13 @@ grouped correlation, decimate): the CPU path and the kernel's oracle.
 cached: for up=2, down=1 and a 4x4 filter (every call of the flagship) the
 polyphase table of the specialised kernel; a filter of one row or one column
 at up = down = 1 (the equivariance metrics' EQ-T_frac passes) runs the row
-or the column form; a 4x4 filter at up 1 and down 2 on both axes (the
+or the column form, and at up or down 2 on its axis (the unfused K11
+composition's 1x12 up=2 pass, ADA's sym6 passes) the 1-D polyphase row or
+column form; a 4x4 filter at up 1 and down 2 on both axes (the
 discriminator's downsample2d) the "down2" form, and at up = down = 1
 (conv2d_resample's filter pass before a strided conv) the "fir4" form, one
-kernel. A filter of more than 64 taps (the
+kernel, which also takes a smaller 2-D filter at up = down = 1
+("fir_small", a 3x3). A filter of more than 64 taps (the
 equivariance metrics' 47x47 and 11x11 resampling filters, new for every
 random angle) is not cached: it goes to the kernel as a device buffer, to
 the phase-blocked large-filter kernel ("large") where
@@ -25,7 +28,9 @@ rotated by 180 degrees, up and down swapped, the padding by StyleGAN2-ADA's
 Function, so that its own backward is the forward call again and R1 can
 differentiate it twice. The transposed calls take K4's forward forms: the
 discriminator's "down2" calls go back as "up2", its "fir4" passes as
-"fir4", the generator's "up2" calls as "down2". Each launch is counted
+"fir4", the generator's "up2" calls as "down2"; a 1-D polyphase pass goes
+back as its transpose ("row_up2" as "row_down2", and so on), "fir_small"
+as "fir_small". Each launch is counted
 under its variant, a backward one under ``grad_<variant>``. The filter
 takes no gradient: a filter that requires grad raises.
 """
@@ -131,10 +136,13 @@ class K4Plan(NamedTuple):
     polyphase table. ``variant`` names the kernel the entry point runs
     (csrc/upfirdn2d.cu decides alike, from the same arguments): "up2" (the
     polyphase kernel), "down2" or "fir4" (the 4x4 form: a 4x4 filter at up
-    1 and down 2, or down 1, on both axes), "row" or "column" (a filter of
-    one row, else of one column, at up = down = 1), "generic", or "large" /
-    "large_tiled" (a filter of more than MAX_TAPS taps, read from a device
-    buffer, no taps here: the phase-blocked kernel, else the tiled one)."""
+    1 and down 2, or down 1, on both axes), "fir_small" (the 4x4 form at a
+    smaller 2-D filter's size, up = down = 1), "row" or "column" (a filter
+    of one row, else of one column, at up = down = 1), "row_up2",
+    "row_down2", "column_up2" or "column_down2" (the 1-D polyphase forms,
+    :func:`poly_variant`), "generic", or "large" / "large_tiled" (a filter
+    of more than MAX_TAPS taps, read from a device buffer, no taps here:
+    the phase-blocked kernel, else the tiled one)."""
     variant: str
     taps: Optional[ctypes.Array]
     phase_taps: Optional[tuple]   # [ry][rx][j][i]: the tap of x[m+sy[ry]+j, n+sx[rx]+i]
@@ -151,13 +159,35 @@ def _phase(r, p0):
     return k0, (r + k0 - p0) // 2
 
 
+POLY_MAX_TAPS = 16   # the most taps of the 1-D polyphase forms (csrc/upfirdn2d.cu)
+
+
+def poly_variant(fh: int, fw: int, up: tuple, down: tuple) -> Optional[str]:
+    """The 1-D polyphase form a call takes (csrc/upfirdn2d.cu:poly_form),
+    or None: a filter of one row at up or down 2 on x with y unscaled
+    ("row_up2" / "row_down2"), else of one column at up or down 2 on y with
+    x unscaled ("column_up2" / "column_down2"), at most POLY_MAX_TAPS taps."""
+    for axis, (n, n_other), (u, d), (u_o, d_o) in (
+            ("row", (fw, fh), (up[0], down[0]), (up[1], down[1])),
+            ("column", (fh, fw), (up[1], down[1]), (up[0], down[0]))):
+        if (n_other == 1 and (u_o, d_o) == (1, 1) and (u, d) in ((2, 1), (1, 2))
+                and n <= POLY_MAX_TAPS):
+            return f"{axis}_{'up2' if u == 2 else 'down2'}"
+    return None
+
+
 @functools.lru_cache(maxsize=256)
 def _plan(taps: tuple, fh: int, fw: int, up: tuple, down: tuple, pad: tuple) -> K4Plan:
     c_taps = kb.f32_array(taps)
     if up == (1, 1) and down in ((1, 1), (2, 2)) and (fh, fw) == (4, 4):
         return K4Plan("down2" if down == (2, 2) else "fir4", c_taps, None, None, None, None)
+    if up == (1, 1) and down == (1, 1) and 2 <= min(fh, fw) and max(fh, fw) <= 4:
+        return K4Plan("fir_small", c_taps, None, None, None, None)
     if up == (1, 1) and down == (1, 1) and 1 in (fh, fw):
         return K4Plan("row" if fh == 1 else "column", c_taps, None, None, None, None)
+    poly = poly_variant(fh, fw, up, down)
+    if poly:
+        return K4Plan(poly, c_taps, None, None, None, None)
     if not (up == (2, 2) and down == (1, 1) and (fh, fw) == (4, 4)):
         return K4Plan("generic", c_taps, None, None, None, None)
     f = [taps[a * fw:(a + 1) * fw] for a in range(fh)]

@@ -14,10 +14,11 @@ the CPU, where each Function runs its kernel's plain version:
 - K5's backward form in bf16: epilogue_grad_plain, what the kernel
   computes, equals autograd of modconv_epilogue_plain bit for bit;
 - the arithmetic of K1's and K2's backward kernels, emulated in f64 numpy
-  point by point and ray by ray as csrc/triplane_decode_grad.cu and
-  csrc/ray_composite.cu order it (K2's reverse recurrence for the alphas,
-  its merge slots, the clipped depth), within 1e-9 of autograd of the
-  plain versions;
+  as csrc/triplane_decode_grad.cu (tiles of 16 points, the cell runs of
+  its scatter, the rounds' weight products into CTA partials summed in
+  order) and csrc/ray_composite.cu (ray by ray: K2's reverse recurrence
+  for the alphas, its merge slots, the clipped depth) order it, within
+  1e-9 of autograd of the plain versions;
 - the drawn noise and the filter still take no gradient (they raise), and
   a wrapper launches on CUDA tensors only.
 """
@@ -184,8 +185,14 @@ def _sigmoid(x):
     return 1 / (1 + np.exp(-x))
 
 
-def k1_grad_emulated(planes, coords, dec, box_warp, g_rgb, g_sigma, crop):
-    """csrc/triplane_decode_grad.cu point by point, in f64 numpy."""
+def k1_grad_emulated(planes, coords, dec, box_warp, g_rgb, g_sigma, crop, ctas=2):
+    """csrc/triplane_decode_grad.cu's arithmetic in f64 numpy: tiles of 16
+    points (past the end, zero features and output gradients); per tile the
+    decode, dL/dout, dL/dh = W1^T dL/dout, dL/dpre = dL/dh sigmoid(pre),
+    dL/df = W0^T dL/dpre; the scatter by plane, each run of consecutive
+    points in one cell summed (weight / 3 x dL/df) before one add a corner;
+    the weight products of a round of 4 tiles into the partial of CTA round
+    mod ``ctas``, the partials summed in CTA order, times the gains."""
     P = planes[0]                        # [3,H,W,C]
     _, H, W, C = P.shape
     proj = np.linalg.inv(AXES)[:, :, :2]
@@ -193,48 +200,83 @@ def k1_grad_emulated(planes, coords, dec, box_warp, g_rgb, g_sigma, crop):
     w0 = dec.w0.numpy() / math.sqrt(C)
     w1 = dec.w1.numpy() / math.sqrt(64)
     b0, b1 = dec.b0.numpy(), dec.b1.numpy()
+    M = coords.shape[1]
+    tiles = -(-M // 16)
     gp_planes = np.zeros_like(P)
-    gw0, gb0, gw1, gb1 = (np.zeros_like(w0), np.zeros_like(b0), np.zeros_like(w1),
-                          np.zeros_like(b1))
-    for m, xyz in enumerate(coords[0]):
-        corners = []
-        f = np.zeros(C)
-        for p in range(3):
-            u, v = (xyz * scale) @ proj[p]
-            ix, iy = ((u + 1) * W - 1) / 2, ((v + 1) * H - 1) / 2
-            x0, y0 = math.floor(ix), math.floor(iy)
-            wx, wy = ix - x0, iy - y0
-            for k in range(4):
-                xx, yy = x0 + (k & 1), y0 + (k >> 1)
-                w = (wx if k & 1 else 1 - wx) * (wy if k >> 1 else 1 - wy)
-                if 0 <= xx < W and 0 <= yy < H:
-                    corners.append((p, yy, xx, w))
-                    f += w * P[p, yy, xx]
-        f /= 3
-        h = _softplus(w0 @ f + b0)
-        o = w1 @ h + b1
-        passed = not (abs(xyz[0]) > box_warp / 2 - crop or abs(xyz[2]) > box_warp / 2 - crop)
-        go = np.empty(33)
-        go[0] = g_sigma[0, m, 0] if passed else 0.0
-        s = _sigmoid(o[1:])
-        go[1:] = g_rgb[0, m] * s * (1 - s) * 1.002
-        gpre = (w1.T @ go) * -np.expm1(-h)
-        gf = w0.T @ gpre
-        for p, yy, xx, w in corners:
-            gp_planes[p, yy, xx] += gf * w / 3
-        gw0 += np.outer(gpre, f) / math.sqrt(C)
-        gb0 += gpre
-        gw1 += np.outer(go, h) / math.sqrt(64)
-        gb1 += go
-    return gp_planes[None], gw0, gb0, gw1, gb1
+    parts = np.zeros((ctas, 64 * C + 33 * 64 + 64 + 33))
+    for rnd in range(-(-tiles // 4)):
+        F, Hd, Gp, Go = (np.zeros((64, n)) for n in (C, 64, 64, 33))
+        for q in range(64):
+            m = rnd * 64 + q
+            if m >= M:
+                continue
+            xyz = coords[0, m]
+            f = np.zeros(C)
+            for p in range(3):
+                u, v = (xyz * scale) @ proj[p]
+                ix, iy = ((u + 1) * W - 1) / 2, ((v + 1) * H - 1) / 2
+                x0, y0 = math.floor(ix), math.floor(iy)
+                wx, wy = ix - x0, iy - y0
+                for k in range(4):
+                    xx, yy = x0 + (k & 1), y0 + (k >> 1)
+                    if 0 <= xx < W and 0 <= yy < H:
+                        f += (wx if k & 1 else 1 - wx) * (wy if k >> 1 else 1 - wy) * P[p, yy, xx]
+            F[q] = f / 3
+            pre = w0 @ F[q] + b0
+            Hd[q] = _softplus(pre)
+            o = w1 @ Hd[q] + b1
+            passed = not (abs(xyz[0]) > box_warp / 2 - crop or abs(xyz[2]) > box_warp / 2 - crop)
+            Go[q, 0] = g_sigma[0, m, 0] if passed else 0.0
+            s = _sigmoid(o[1:])
+            Go[q, 1:] = g_rgb[0, m] * s * (1 - s) * 1.002
+            Gp[q] = (w1.T @ Go[q]) * _sigmoid(pre)
+        # the scatter, tile by tile and plane by plane: runs of consecutive
+        # points in one cell (the corner (y0, x0)), each corner inside the
+        # plane added once with the run's sum
+        for tile in range(4):
+            for p in range(3):
+                runs = []
+                for i in range(16):
+                    m = rnd * 64 + tile * 16 + i
+                    cell, w = None, None
+                    if m < M:
+                        u, v = (coords[0, m] * scale) @ proj[p]
+                        ix, iy = ((u + 1) * W - 1) / 2, ((v + 1) * H - 1) / 2
+                        x0, y0 = math.floor(ix), math.floor(iy)
+                        if -1 <= x0 < W and -1 <= y0 < H:
+                            cell = (y0, x0)
+                            wx, wy = ix - x0, iy - y0
+                            w = [(1 - wx) * (1 - wy) / 3, wx * (1 - wy) / 3, (1 - wx) * wy / 3,
+                                 wx * wy / 3]
+                    if runs and runs[-1][0] == cell:
+                        runs[-1][1].append((tile * 16 + i, w))
+                    else:
+                        runs.append((cell, [(tile * 16 + i, w)]))
+                for cell, members in runs:
+                    if cell is None:
+                        continue
+                    for k in range(4):
+                        yy, xx = cell[0] + (k >> 1), cell[1] + (k & 1)
+                        if 0 <= xx < W and 0 <= yy < H:
+                            gp_planes[p, yy, xx] += sum(w[k] * (w0.T @ Gp[q]) for q, w in members)
+        part = parts[rnd % ctas]
+        part[:64 * C] += (Gp.T @ F).ravel()
+        part[64 * C:64 * C + 2112] += (Go.T @ Hd).ravel()
+        part[64 * C + 2112:64 * C + 2176] += Gp.sum(0)
+        part[64 * C + 2176:] += Go.sum(0)
+    total = parts.sum(0)
+    gw0 = total[:64 * C].reshape(64, C) / math.sqrt(C)
+    gw1 = total[64 * C:64 * C + 2112].reshape(33, 64) / math.sqrt(64)
+    return gp_planes[None], gw0, total[64 * C + 2112:64 * C + 2176], gw1, total[64 * C + 2176:]
 
 
 def test_k1_backward_kernel_arithmetic():
-    planes, coords = k1_inputs(C=8, M=12)
+    planes, coords = k1_inputs(C=8, M=70)
     coords[0, 0, 0] = 0.33        # cropped: sigma passes no gradient
+    coords[0, 20:28, :2] = coords[0, 20, :2]   # a ray along z: one xy cell, one run
     dec = decoder(8)
     r = np.random.RandomState(22)
-    g_rgb, g_sigma = torch.from_numpy(r.randn(1, 12, 32)), torch.from_numpy(r.randn(1, 12, 1))
+    g_rgb, g_sigma = torch.from_numpy(r.randn(1, 70, 32)), torch.from_numpy(r.randn(1, 70, 1))
     want = vr.triplane_decode_grad_plain(planes, coords, dec, 0.7, AXES, FILTERS, g_rgb, g_sigma)
     got = k1_grad_emulated(planes.numpy(), coords.numpy(), dec, 0.7, g_rgb.numpy(),
                            g_sigma.numpy(), FILTERS.triplane_crop)

@@ -15,7 +15,8 @@ package's filter2d within 1e-6 x max|out| (six to eight products an output,
 summed in another order). And ops/upfirdn2d.py:k4_plan must send the
 EQ-T_frac passes to these forms, keep every call of a tiny-config forward
 (at triplane_depth 1 and 2) on the polyphase kernel, a 4x4 down=2 call on
-the 4x4 form and a 3x3 filter on the generic kernel.
+the 4x4 form, a 1-D pass at up or down 2 on the 1-D polyphase forms and a
+3x3 filter on the 4x4 form at its size.
 """
 
 import importlib
@@ -126,12 +127,14 @@ def test_other_calls_keep_their_kernels():
     f = tup.setup_filter([1, 3, 3, 1])
     assert tup.k4_plan(f, (1, 1), (2, 2), (1, 1, 1, 1)).variant == "down2"   # the 4x4 form
     assert tup.k4_plan(f, (2, 2), (1, 1), (2, 1, 2, 1)).variant == "up2"
-    # a 1-D pass that up- or downsamples, and a 2-D filter at up = down = 1
+    # a 1-D pass that up- or downsamples takes the 1-D polyphase forms, a
+    # 2-D filter smaller than 4x4 at up = down = 1 the 4x4 form at its size
     f8 = tup.setup_filter(np.ones(8))
-    for spec in tup.fir_passes(f8, up=2, padding=4) + tup.fir_passes(f8, down=2, padding=3):
-        assert tup.k4_plan(*spec).variant == "generic", spec[1:]
+    passes = tup.fir_passes(f8, up=2, padding=4) + tup.fir_passes(f8, down=2, padding=3)
+    assert [tup.k4_plan(*spec).variant for spec in passes] == [
+        "row_up2", "column_up2", "row_down2", "column_down2"]
     assert tup.k4_plan(f, (1, 1), (1, 1), (1, 2, 1, 2)).variant == "fir4"
-    assert tup.k4_plan(f[:3, :3], (1, 1), (1, 1), (1, 1, 1, 1)).variant == "generic"
+    assert tup.k4_plan(f[:3, :3], (1, 1), (1, 1), (1, 1, 1, 1)).variant == "fir_small"
 
 
 def tiny_forward_variants(monkeypatch, depth):
