@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (panic3d_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only] [--keyed-only] [--training-only]
-                          [--forms-only [--k1-grad-parts]] [--parent DIR]
+                          [--forms-only [--k1-grad-parts]] [--ada-only] [--parent DIR]
 
 1. Prints the setup (torch, CUDA, card name and power limit); exits non-zero
    without a CUDA device.
@@ -69,7 +69,17 @@
    with exact cross-half ties and with rays out of order, timed at both
    shapes, must make one device launch a call, and two launches at once on
    two streams must equal the same two in sequence (its scratch is per
-   stream); K7a's cropped cells are checked exactly. Under grad mode every
+   stream); K7a's cropped cells are checked exactly. K14 (grid_sample_2d)
+   is checked at its callers' calls (k14_checks): ADA's filtered warp of a
+   'bgc' transform at p = 1 ([8,6,1560,1560] at [8,1036,1036,2]) and EQ-R's
+   rotation ([4,3,2094,2094] at [4,512,512,2]) bit for bit, each timed with
+   its bound and F.grid_sample, the unfiltered warp's align_corners=True
+   call and a border call bit for bit; its backward at ADA's call against
+   the plain version's autograd (1e-5 of the largest gradient: atomics),
+   timed beside aten's grid_sampler_2d_backward, and its double backward
+   equal to its forward; then augment_pipe ('bgc', p = 1, batch 8, 6
+   channels, 512^2) against the plain ops on the same draws (1e-4 of the
+   largest value), its forward and forward + backward ms. Under grad mode every
    kernel wrapper, and G.f of the tiny config on the card, must refuse an
    input that requires grad (the kernels have no backward).
    --kernels-only stops here.
@@ -121,7 +131,14 @@
    the discriminator's b512 layer), R1's second order through K4's and K5's
    backward forms against the plain ops (plain_ops) in f32 and in bf16,
    and one whole step of the flagship against the same step with the plain
-   ops on the same draws; --training-only runs the build and these phases
+   ops on the same draws; then ADA's training path (ada_training_path):
+   trainer.main at the same defaults with --aug fixed --aug-p 0.6 for 3
+   steps, then --aug ada --ada-interval 1 resumed from its snapshot for 3
+   more (K14 forward and backward and K4's four 1-D forms forward and
+   backward required, finite losses, p moved by the heuristic's own steps
+   on the recorded real-logit signs, s/step, ms by phase, host waits a
+   step); --training-only runs the build and these phases alone; --ada-only
+   runs the build, K14's checks, the augment check and ADA's training path
    alone; --forms-only runs the build, K4's forms of the calls the generic
    kernel lost (k4_form_checks) and K1's and K2's backward checks alone,
    and with --k1-grad-parts times K1's backward built with parts left out;
@@ -154,8 +171,8 @@
    launches with K1-K8 and K1v required); then the 15 StyleGAN3-T
    alias-free layers' forwards at batch 4 (K5, K11), and the equivariance
    metrics EQ-T, EQ-T_frac and EQ-R at 512^2 (64 samples of the toy
-   generator in batches of 4, one host wait a batch), each against the same
-   metric on the CPU within 0.01 dB. It prints views/s (s per
+   generator in batches of 4, one host wait a batch; K14 launched once a
+   batch on EQ-R), each against the same metric on the CPU within 0.01 dB. It prints views/s (s per
    portrait and its stages on the geometry path), peak memory, launches per
    run of every kernel (K4's by variant: on the three view paths all of
    them must be the polyphase kernel) and the host's waits for the card
@@ -168,7 +185,7 @@
    device's busy share; the first two's device launches, host ops and busy
    time with the grid occlusion's old chain and with K8's entry (chain /
    fused / fused / chain); one EQ-R batch's device time split by kernel
-   (K4, the complex128 FFTs, the plain grid_sample_2d, the rest); with
+   (K4, the complex128 FFTs, grid_sample_2d, the rest); with
    --parent also a turntable portrait's device
    busy time with the parent's K6a and with this tree's, in the order
    parent / this / this / parent.
@@ -177,7 +194,8 @@
    paste path, else on the geometry path, else on eval measure, else on the
    probe, else on the deep-plane request, else on the StyleGAN3-T layers,
    else on EQ-R, else on the training path: the backward forms, K4's as
-   its own entry "upfirdn2d_grad"; 0 for K7b's sampler, checked only), the card
+   its own entry "upfirdn2d_grad", else on ADA's training run: K14's
+   backward; 0 for K7b's sampler, checked only), the card
    line, and last the {"ok": true, ...} line. Any failure raises before
    that line.
 """
@@ -215,7 +233,8 @@ NO_SPILL = ("triplane_decode_kernel", "factor_terms_kernel", "occlusion_volume_k
             "paste_front_kernel", "ess_occupancy_kernel", "upfirdn2d_rows_kernel",
             "upfirdn2d_cols_kernel", "upfirdn2d_fir4_kernel",
             "upfirdn2d_large_phase_kernel", "upfirdn2d_rows2_kernel",
-            "upfirdn2d_cols2_kernel", "triplane_decode_grad_kernel")   # must not spill
+            "upfirdn2d_cols2_kernel", "triplane_decode_grad_kernel",
+            "grid_sample_kernel", "grid_sample_grad_kernel")   # must not spill
 PASTE_KEYS = ("mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
 MESH_RES = 256     # eval generate's mesh resolution
 LEVEL = 0.5        # eval generate's iso level
@@ -654,18 +673,12 @@ def k4_call(gen, shape, dtype, f2d, up, down, pad, label):
                            "ms": ms, "bound_ms": bms}
 
 
-ADA_BATCH, ADA_CHANNELS, ADA_RES = 8, 6, 512   # batch 8; 6: D's joint pair (training/loss.py:567)
-# the sym6 wavelet's low-pass taps, ADA's geometric filter (a copy of
-# panic3d_tpu/training/augment.py:WAVELET_SYM6; ADA is not ported yet)
-SYM6 = (0.015404109327027373, 0.0034907120842174702, -0.11799011114819057,
-        -0.048311742585633, 0.4910559419267466, 0.787641141030194,
-        0.3379294217276218, -0.07263752278646252, -0.021060292512300564,
-        0.04472490177066578, 0.0017677118642428036, -0.007800708325034148)
+ADA_BATCH, ADA_CHANNELS, ADA_RES = 8, 6, 512   # batch 8; 6: D's joint pair (training/loss.py)
 
 
 def ada_passes():
     """ADA's geometric warp's two sym6 resamplings at 512^2
-    (panic3d_tpu/training/augment.py:197-255), split into their 1-D passes:
+    (training/augment.py:execute_geometric_filtered), split into their 1-D passes:
     the reflect pad margin m = min(W - 1, W / 4 + 2 Hz_pad) = 134 (Hz_pad =
     3), so the up=2 call takes [N,C,780,780] (upsample2d's padding
     [6, 5, 6, 5], gain 4) to 1560^2, and the down=2 call takes the 2x
@@ -675,13 +688,14 @@ def ada_passes():
     import importlib
 
     uf = importlib.import_module("panic3d_tpu_torch.ops.upfirdn2d")
-    hz = uf.setup_filter(SYM6)
+    ag = importlib.import_module("panic3d_tpu_torch.training.augment")
+    taps = len(ag.WAVELET_SYM6)
+    hz = uf.setup_filter(ag.WAVELET_SYM6)
     n, c, w = ADA_BATCH, ADA_CHANNELS, ADA_RES
-    pad_m = min(w - 1, w // 4 + 2 * (len(SYM6) // 4))
-    wp, ws = w + 2 * pad_m, (w + 2 * (len(SYM6) // 4)) * 2
+    wp, ws = w + 2 * ag.geometric_margin(w), (w + 2 * (taps // 4)) * 2
     up_x, up_y = uf.fir_passes(hz, up=2, padding=[6, 5, 6, 5], gain=4)
     dn_x, dn_y = uf.fir_passes(hz, down=2, padding=[-1, -1, -1, -1], flip_filter=True)
-    wd = (ws - 2 - len(SYM6)) // 2 + 1   # the down=2 x pass's output width: 512
+    wd = (ws - 2 - taps) // 2 + 1   # the down=2 x pass's output width: 512
     return [("ADA up=2, x pass", (n, c, wp, wp), up_x),
             ("ADA up=2, y pass", (n, c, wp, 2 * wp), up_y),
             ("ADA down=2, x pass", (n, c, ws, ws), dn_x),
@@ -1256,10 +1270,15 @@ def trace_counts(fn, runs: int = 1) -> dict:
     require(dev, "trace_counts: the profiler recorded no device activity")
     busy, span, n_dev, n_ops = busy_span(trace)
     lib = sum(bool(LIBRARY_KERNELS.search(e.get("name", ""))) for e in dev)
+    by_name = {}
+    for e in dev:
+        k = e.get("name", "")[:60]
+        by_name[k] = by_name.get(k, 0.0) + e["dur"] / 1e3 / runs
     return {"device_launches": n_dev / runs, "library_launches": lib / runs,
             "device_us": sum(e["dur"] for e in dev) / runs, "host_ops": n_ops / runs,
             "busy_ms": busy / runs, "span_ms": span / runs,
-            "names": list(dict.fromkeys(e.get("name", "")[:120] for e in dev))}
+            "names": list(dict.fromkeys(e.get("name", "")[:120] for e in dev)),
+            "top_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])}
 
 
 def paste_chain_compare(parent, args_f, out_f, label, timed=True):
@@ -2144,9 +2163,9 @@ def volume_kernel_checks(G, device, parent):
 
 def grad_guard_checks(device):
     """F8: under grad mode every kernel wrapper without a backward form
-    refuses a CUDA input that requires grad before it launches, and the four
-    with one (K1, K2, K4, K5) refuse the inputs they give no gradient (K1's
-    coordinates, K2's depths, K4's filter, K5's noise); no launch is
+    refuses a CUDA input that requires grad before it launches, and the five
+    with one (K1, K2, K4, K5, K14) refuse the inputs they give no gradient
+    (K1's coordinates, K2's depths, K4's filter, K5's noise, K14's grid); no launch is
     counted. Then G.f of the tiny config on the card back-propagates
     through the backward forms: its render, backbone and superresolution
     parameters get finite gradients, within 1e-2 relative L2 a group of the
@@ -2167,6 +2186,7 @@ def grad_guard_checks(device):
     from panic3d_tpu_torch.ops.bias_act import modconv_epilogue_kernel
     from panic3d_tpu_torch.ops.filtered_lrelu import filtered_lrelu_kernel
     from panic3d_tpu_torch.ops.gather_dot import gather_dot_kernel
+    from panic3d_tpu_torch.ops.grid_sample import grid_sample_2d_kernel
     from panic3d_tpu_torch.ops.upfirdn2d import upfirdn2d_kernel
 
     def t(*shape, grad=False, dtype=torch.float32):
@@ -2213,7 +2233,8 @@ def grad_guard_checks(device):
             vr.DensityFilters(), 2),
     }
     with_backward = {"triplane_decode", "ray_composite", "upfirdn2d", "modconv_epilogue",
-                     "triplane_decode_grad", "ray_composite_grad", "modconv_epilogue_grad"}
+                     "grid_sample_2d", "triplane_decode_grad", "ray_composite_grad",
+                     "modconv_epilogue_grad", "grid_sample_2d_grad"}
     require(set(calls) | with_backward == set(KERNELS), "F8: a kernel without a grad-mode check")
     # the inputs the backward forms give no gradient
     calls["triplane_decode [coords]"] = lambda: vr.triplane_decode_kernel(
@@ -2223,6 +2244,8 @@ def grad_guard_checks(device):
         t(1, 4, 8, 1), t(1, 4, 8, 32), t(1, 4, 8, 1), t(1, 4, 8, 3), True)
     calls["upfirdn2d [filter]"] = lambda: upfirdn2d_kernel(t(1, 4, 8, 8), t(4, 4, grad=True),
                                                            (2, 2), (1, 1), (2, 1, 2, 1))
+    calls["grid_sample_2d [grid]"] = lambda: grid_sample_2d_kernel(t(1, 4, 8, 8),
+                                                                  t(1, 5, 6, 2, grad=True))
     # the keyed forms: the input each adds requires grad
     calls["importance_sample [u]"] = lambda: vr.importance_sample_kernel(
         t(1, 4, 8, 1), t(1, 4, 8, 1), 8, u=t(4, 8, grad=True))
@@ -3735,6 +3758,9 @@ def equivariance_path(device, card):
         if name == "eqr50k":
             require(k4.get("large", 0) >= 2 * batches,
                     f"eqr50k: K4's large-filter kernel launched {k4.get('large', 0)} times a run")
+            k14 = summ["launches_per_run"].get("grid_sample_2d", 0)
+            require(k14 >= batches, f"eqr50k: K14 launched {k14:g} times a run of {batches} "
+                                    "batches")
             counts_r = counts
         finite = {v: (v if math.isfinite(v) else str(v)) for v in (psnr, psnr_cpu)}
         out[name] = dict(summ, psnr_db=finite[psnr], cpu_psnr_db=finite[psnr_cpu],
@@ -3746,9 +3772,9 @@ def eqr_profile(device) -> dict:
     """One EQ-R batch (calc_metric("eqr50k") of SG3_BATCH samples of the toy
     generator at EQ_RES^2) under torch.profiler, its device kernel time
     split by name: K4 (upfirdn2d), the rotation filters' FFTs (cuFFT's
-    kernels, *fft*, complex128: F13), the plain grid_sample_2d composition
-    on the up-4 image (the kernels launched inside a record_function range
-    around eval/equivariance.py's grid_sample_2d), and the rest; with the
+    kernels, *fft*, complex128: F13), grid_sample_2d on the up-4 image (K14;
+    the kernels launched inside a record_function range around
+    eval/equivariance.py's grid_sample_2d), and the rest; with the
     host span and the device's busy time. -> {part: ms}."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -3792,8 +3818,7 @@ def eqr_profile(device) -> dict:
     inside = {e["args"]["correlation"] for e in ev
               if e.get("cat") not in dev_cats and "correlation" in e.get("args", {})
               and any(t0 <= e["ts"] <= t1 and tid == e.get("tid") for t0, t1, tid in ranges)}
-    parts = dict.fromkeys(("K4 upfirdn2d", "complex128 FFTs", "grid_sample_2d composition",
-                           "rest"), 0.0)
+    parts = dict.fromkeys(("K4 upfirdn2d", "complex128 FFTs", "grid_sample_2d", "rest"), 0.0)
     counts = dict.fromkeys(parts, 0)
     for e in ev:
         if e.get("cat") not in dev_cats:
@@ -3801,7 +3826,7 @@ def eqr_profile(device) -> dict:
         name = e.get("name", "")
         part = ("K4 upfirdn2d" if "upfirdn2d" in name else
                 "complex128 FFTs" if re.search("fft", name, re.I) else
-                "grid_sample_2d composition" if e.get("args", {}).get("correlation") in inside
+                "grid_sample_2d" if e.get("args", {}).get("correlation") in inside
                 else "rest")
         parts[part] += e["dur"] / 1e3
         counts[part] += 1
@@ -4483,9 +4508,10 @@ R1_TOL = {"float32": 1e-3, "bfloat16": 0.05}   # R1 against the plain ops: value
 
 
 def plain_ops():
-    """A context in which K1, K2, K3, K4 and K5 take their plain versions on
-    CUDA tensors too (the dispatchers swapped for the plain functions, and
-    back on leaving): the whole step's and R1's references on the card."""
+    """A context in which K1, K2, K3, K4, K5 and K14 take their plain
+    versions on CUDA tensors too (the dispatchers swapped for the plain
+    functions, and back on leaving): the whole step's, R1's and ADA's
+    references on the card."""
     import importlib
 
     vr = importlib.import_module("panic3d_tpu_torch.models.volumetric.renderer")
@@ -4493,6 +4519,9 @@ def plain_ops():
     ba = importlib.import_module("panic3d_tpu_torch.ops.bias_act")
     conv = importlib.import_module("panic3d_tpu_torch.ops.conv")
     sg2 = importlib.import_module("panic3d_tpu_torch.models.stylegan2")
+    gs = importlib.import_module("panic3d_tpu_torch.ops.grid_sample")
+    k14_users = [importlib.import_module(f"panic3d_tpu_torch.{m}") for m in (
+        "ops.grid_sample", "training.augment", "training.loss", "eval.equivariance")]
 
     def k1_plain(planes_cl, coords, dec, box_warp, axes, filters=vr.DensityFilters()):
         return vr.triplane_decode_plain(planes_cl, coords, dec, box_warp, axes, filters)
@@ -4500,7 +4529,8 @@ def plain_ops():
     swaps = [(vr, "triplane_decode", k1_plain), (vr, "ray_composite", vr.ray_composite_plain),
              (vr, "importance_sample", vr.importance_sample_plain),
              (uf, "_fir", uf.upfirdn2d_plain)] + [
-        (m, "modconv_epilogue", ba.modconv_epilogue_plain) for m in (ba, conv, sg2)]
+        (m, "modconv_epilogue", ba.modconv_epilogue_plain) for m in (ba, conv, sg2)] + [
+        (m, "grid_sample_2d", gs.grid_sample_2d_plain) for m in k14_users]
 
     @contextlib.contextmanager
     def ctx():
@@ -5184,8 +5214,9 @@ def training_checks(device, card, parent):
     """The training path (training_path), then the backward forms at its
     shapes (K4 at the step's own transposed calls, K1 and K2 at a training
     render's, K5 at a discriminator layer), R1's second order and one whole
-    step against the plain ops. -> (kernel summaries, the path's launch
-    counts, the path's summary)."""
+    step against the plain ops, then ADA's training path
+    (ada_training_path). -> (kernel summaries, the path's launch counts,
+    the path's summary, the ADA run's launch counts)."""
     import torch
 
     from panic3d_tpu_torch import configs
@@ -5203,7 +5234,337 @@ def training_checks(device, card, parent):
         summary["r1_vs_plain"] = r1_checks(device)
         summary["step_vs_plain"] = step_vs_plain(device, card)
     torch.cuda.empty_cache()
-    return checks, counts, summary
+    with torch.enable_grad():
+        counts_ada, summary["ada"] = ada_training_path(device, card)
+    return checks, counts, summary, counts_ada
+
+
+K14_GRAD_TOL = 1e-5   # K14's backward vs the plain version's autograd, of the largest gradient
+ADA_TOL = 1e-4        # augment_pipe on the card vs the plain ops, of the largest value
+ADA_STEPS = 3         # ADA training steps: step 0 runs every phase, steps 1 and 2 are timed
+ADA_K4_FORMS = ("row_up2", "column_up2", "row_down2", "column_down2")
+
+
+def capture_call(module, name, fn):
+    """Run fn() with ``module.<name>`` spied on -> the (args, kwargs) of its
+    first call."""
+    real, seen = getattr(module, name), []
+
+    def spy(*args, **kwargs):
+        if not seen:
+            seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        fn()
+    finally:
+        setattr(module, name, real)
+    require(seen, f"{name} was not called")
+    return seen[0]
+
+
+def k14_calls(device):
+    """K14's calls as their callers make them: ADA's filtered warp (a 'bgc'
+    transform at p = 1 on [8,6,512,512]: [8,6,1560,1560] at [8,1036,1036,2]),
+    its unfiltered warp (align_corners=True, [8,6,512,512] at [8,512,512,2])
+    and EQ-R's rotation of a batch of 4 at 512^2 ([4,3,2094,2094] at
+    [4,512,512,2]). -> {label: (input, grid, padding_mode, align_corners)}."""
+    import dataclasses
+
+    import torch
+
+    from panic3d_tpu_torch.eval import equivariance as eq
+    from panic3d_tpu_torch.training import augment as ag
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.rand((ADA_BATCH, ADA_CHANNELS, ADA_RES, ADA_RES), generator=gen,
+                   device=device) * 2 - 1
+    out = {}
+    for label, cfg in (("ada", ag.AugmentConfig.bgc()),
+                       ("ada_unfiltered", dataclasses.replace(ag.AugmentConfig.bgc(),
+                                                              filtered=False))):
+        (xi, grid), kw = capture_call(ag, "grid_sample_2d", lambda: ag.augment_pipe(
+            x, torch.Generator(device=device).manual_seed(SEED), 1.0, cfg))
+        out[label] = (xi, grid, kw["padding_mode"], kw["align_corners"])
+    img = torch.rand((SG3_BATCH, 3, EQ_RES, EQ_RES), generator=gen, device=device)
+    (xi, grid), kw = capture_call(eq, "grid_sample_2d",
+                                  lambda: eq.apply_fractional_rotation(img, 0.35))
+    out["eqr"] = (xi, grid, kw.get("padding_mode", "zeros"), kw.get("align_corners", False))
+    return out
+
+
+def k14_touched_bytes(x, grid, padding, align) -> int:
+    """The bytes of the input texels that some point's bilinear corners
+    read (a texel read by many points counts once)."""
+    import torch
+
+    from panic3d_tpu_torch.ops import grid_sample as gs
+
+    N, C, H, W = x.shape
+    corners, _, _ = gs._corners(N, H, W, grid.reshape(N, -1, 2), padding, align, x.dtype)
+    hit = torch.zeros(N * H * W, dtype=torch.bool, device=x.device)
+    for lin, valid in corners:
+        hit[lin.reshape(-1) if valid is None else lin[valid]] = True
+    return int(hit.sum()) * C * x.element_size()
+
+
+def k14_ops(points: int, C: int) -> float:
+    """f32 operations: a point's unnormalisation, floors and weights (~16),
+    and per channel the lerps' 3 subtractions, 3 products and 3 sums."""
+    return points * (16 + 9 * C)
+
+
+def k14_checks(device):
+    """K14 against its plain version on the card at its callers' calls
+    (k14_calls): the forward bit for bit (its arithmetic is the plain
+    version's, uncontracted) at ADA's and EQ-R's calls, each timed with its
+    bound (the texels read, the grid and the output over 3.35 TB/s) and
+    F.grid_sample (bilinear, the same padding and align_corners), and at the
+    unfiltered warp's align_corners=True call and a border call; the
+    backward at ADA's call against the plain version's autograd within
+    K14_GRAD_TOL of the largest gradient (atomics sum in another order),
+    timed with its bound (the output's gradient, the grid and the whole
+    input gradient) and aten's grid_sampler_2d_backward (the input's
+    gradient alone); the double backward equal to K14's forward on the
+    same grid. -> {"grid_sample_2d": summary, "grid_sample_2d_grad": summary}."""
+    import torch
+    import torch.nn.functional as F
+
+    from panic3d_tpu_torch.ops import grid_sample as gs
+
+    with torch.no_grad():
+        calls = k14_calls(device)
+    fwd, shapes = None, {}
+    for label, (x, grid, pad, ac) in calls.items():
+        with torch.no_grad():
+            yk = gs.grid_sample_2d_kernel(x, grid, pad, ac)
+            yp = gs.grid_sample_2d_plain(x, grid, pad, ac)
+            e = max_err(yk, yp)
+            check(f"K14 {label} {list(x.shape)} at {list(grid.shape)} {pad} "
+                  f"align_corners={ac}, bit for bit", e, 0.0)
+            if label == "ada_unfiltered":   # the border call on the same grid
+                e_b = max_err(gs.grid_sample_2d_kernel(x, grid, "border", ac),
+                              gs.grid_sample_2d_plain(x, grid, "border", ac))
+                check(f"K14 {label} border padding, bit for bit", e_b, 0.0)
+                shapes[label] = {"max_abs_err": e, "border_max_abs_err": e_b}
+                continue
+            pts = grid.shape[0] * grid.shape[1] * grid.shape[2]
+            n_bytes = k14_touched_bytes(x, grid, pad, ac) + nbytes(grid, yk)
+            summ = record(e, lambda: gs.grid_sample_2d_kernel(x, grid, pad, ac),
+                          lambda: gs.grid_sample_2d_plain(x, grid, pad, ac), n_bytes,
+                          k14_ops(pts, x.shape[1]),
+                          library_fn=lambda: F.grid_sample(x, grid, mode="bilinear",
+                                                           padding_mode=pad, align_corners=ac),
+                          plain_iters=3)
+        summ.update(input=list(x.shape), grid=list(grid.shape), touched_bytes=n_bytes)
+        print(f"  ms {summ['ms']:.6f} (plain {summ['plain_ms']:.6f}, F.grid_sample "
+              f"{summ['library_ms']:.6f}, bound {summ['bound_ms']:.6f} by {summ['bound_by']}, "
+              f"{n_bytes / 1e6:.1f} MB)")
+        shapes[label] = summ
+        if fwd is None:
+            fwd = dict(summ)
+    fwd["shapes"] = shapes
+
+    # the backward at ADA's call, and its own backward (R1 through the augment)
+    x, grid, pad, ac = calls["ada"]
+    del calls
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    out_shape = (x.shape[0], x.shape[1]) + tuple(grid.shape[1:3])
+    g = torch.randn(out_shape, generator=gen, device=device)
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        gr = g.detach().requires_grad_(True)
+        (gk,) = torch.autograd.grad(gs.grid_sample_2d_kernel(xr, grid, pad, ac), xr, gr,
+                                    create_graph=True)
+        xp = x.detach().requires_grad_(True)
+        (gp,) = torch.autograd.grad(gs.grid_sample_2d_plain(xp, grid, pad, ac), xp, g)
+        e = max_err(gk.detach(), gp)
+        tol = K14_GRAD_TOL * float(gp.abs().max())
+        check(f"K14 backward {list(x.shape)} at {list(grid.shape)} vs the plain autograd", e,
+              tol)
+        ddx = torch.randn(tuple(x.shape), generator=gen, device=device)
+        (ddy,) = torch.autograd.grad(gk, gr, ddx)
+    with torch.no_grad():
+        e2 = max_err(ddy, gs.grid_sample_2d_kernel(ddx, grid, pad, ac))
+        check("K14 double backward = K14's forward of the incoming gradient", e2, 0.0)
+        del gk, gp, ddy, ddx, xr, xp, gr
+        n_bytes = nbytes(g, grid) + x.numel() * 4
+        pts = grid.shape[0] * grid.shape[1] * grid.shape[2]
+        bwd = record(e, lambda: gs._launch_k14_grad(g, grid, tuple(x.shape), pad, ac),
+                     lambda: gs.grid_sample_2d_grad_plain(g, grid, tuple(x.shape), pad, ac),
+                     n_bytes, pts * (16 + 10 * x.shape[1]),
+                     library_fn=lambda: torch.ops.aten.grid_sampler_2d_backward(
+                         g, x, grid, 0, 0 if pad == "zeros" else 1, ac, [True, False]),
+                     plain_iters=3)
+    bwd.update(tol=tol, double_backward_max_abs_err=e2, input=list(x.shape),
+               grid=list(grid.shape))
+    print(f"  K14 backward ms {bwd['ms']:.6f} (plain {bwd['plain_ms']:.6f}, aten "
+          f"grid_sampler_2d_backward {bwd['library_ms']:.6f}, bound {bwd['bound_ms']:.6f} by "
+          f"{bwd['bound_by']})")
+    del x, grid, g
+    torch.cuda.empty_cache()
+    return {"grid_sample_2d": fwd, "grid_sample_2d_grad": bwd}
+
+
+def augment_check(device, card):
+    """augment_pipe on the card at batch 8, 6 channels, 512^2, 'bgc' at
+    p = 1: against the same pipe with the plain ops (plain_ops: K4's and
+    K14's plain versions) on the same draws (one generator seed), within
+    ADA_TOL of the largest value; its launches (K14 and the four 1-D K4
+    forms required); ms of the forward and of the forward + backward
+    (CUDA events). -> summary."""
+    import torch
+
+    from panic3d_tpu_torch.kernels import launch_counts, reset_launch_counts, variant_counts
+    from panic3d_tpu_torch.training import augment as ag
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.rand((ADA_BATCH, ADA_CHANNELS, ADA_RES, ADA_RES), generator=gen,
+                   device=device) * 2 - 1
+
+    def run(xx):
+        return ag.augment_pipe(xx, torch.Generator(device=device).manual_seed(SEED), 1.0,
+                               ag.AugmentConfig.bgc())
+
+    with torch.no_grad():
+        reset_launch_counts()
+        yk = run(x)
+        counts, k4v = launch_counts(), variant_counts().get("upfirdn2d", {})
+        with plain_ops():
+            yp = run(x)
+        e = rel_max_err(yk, yp)
+        check(f"augment_pipe 'bgc' p=1 {list(x.shape)} vs the plain ops (of the largest value)",
+              e, ADA_TOL)
+        require(counts["grid_sample_2d"] == 1 and all(k4v.get(v) == 1 for v in ADA_K4_FORMS),
+                f"augment_pipe: launches {counts}, K4's {k4v}")
+        ms_fwd = cuda_ms(lambda: run(x))
+        del yk, yp
+    gy = torch.randn(tuple(x.shape), generator=gen, device=device)
+    xr = x.detach().requires_grad_(True)
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(run(xr), xr, gy)
+
+    ms_both = cuda_ms(fwd_bwd)
+    prof = trace_counts(fwd_bwd)
+    waits = count_syncs(fwd_bwd)
+    print(f"augment_pipe 'bgc' p=1 {list(x.shape)}: forward {ms_fwd:.3f} ms, forward + "
+          f"backward {ms_both:.3f} ms; {prof['device_launches']:g} device launches, busy "
+          f"{prof['busy_ms']:.3f} of {prof['span_ms']:.3f} ms, host waits {waits}; by kernel "
+          + ", ".join(f"{k} {v:.3f}" for k, v in prof["top_ms"].items()) + f"  [{card}]")
+    return {"rel_max_err": e, "tol": ADA_TOL, "ms_forward": ms_fwd,
+            "ms_forward_backward": ms_both, "host_waits": waits,
+            "profiled_forward_backward": {k: v for k, v in prof.items() if k != "names"}}
+
+
+def ada_training_path(device, card):
+    """trainer.main at the flagship defaults (batch 8, synthetic 512^2
+    data) with --aug fixed --aug-p 0.6 for ADA_STEPS steps, then with --aug
+    ada --ada-interval 1 resumed from its snapshot for ADA_STEPS more, the
+    launch counts zeroed before and read after each: K14 forward and
+    backward, the four 1-D K4 forms forward and backward and the training
+    kernels launched; every phase's losses finite; under fixed p 0.6, under
+    ada p moved from 0.6 by the heuristic's own steps on the recorded signs
+    of the real logits (sign(s - 0.6) x 8 / 100,000 a step at a resumed
+    run's ADA kimg, clamped at 0, in f32); s/step of the steps after the
+    first, and one step of every phase timed phase by phase (CUDA events)
+    and counted for its host waits. -> (launch counts of the ada run,
+    summary)."""
+    import shutil
+
+    import torch
+
+    from panic3d_tpu_torch.kernels import launch_counts, reset_launch_counts, variant_counts
+    from panic3d_tpu_torch.training import build_train_step, phases_for_step, trainer
+
+    outdir = os.path.join(BUILD_TMP, "train_runs_ada")
+    shutil.rmtree(outdir, ignore_errors=True)
+    summary, counts_ada, snap = {}, None, None
+    for mode in ("fixed", "ada"):
+        if mode == "fixed":
+            extra = ("--aug", "fixed", "--aug-p", "0.6", "--max-steps", str(ADA_STEPS))
+        else:   # resumed from the fixed run's snapshot: p starts at 0.6
+            extra = ("--aug", "ada", "--ada-interval", "1", "--resume", snap,
+                     "--max-steps", str(2 * ADA_STEPS))
+        argv = ["--name", f"smoke_{mode}", "--outdir", outdir, *TRAIN_ARGS, *extra]
+        marks, bad, signs = [], [], []
+
+        def on_step(i, phases, stats):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            bad.extend(k for k, v in stats.items() if not math.isfinite(float(v)))
+            signs.append(float(stats["Loss/signs/real"]))
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = trainer.main(argv, on_step=on_step)
+        counts, k4v = launch_counts(), variant_counts().get("upfirdn2d", {})
+        label = f"ADA training (--aug {mode})"
+        require(not bad, f"{label}: non-finite losses {bad}")
+        require_launched(counts, TRAIN_KERNELS + ("grid_sample_2d", "grid_sample_2d_grad"),
+                         label)
+        missing = [v for f in ADA_K4_FORMS for v in (f, "grad_" + f) if not k4v.get(v)]
+        require(not missing, f"{label}: K4's 1-D forms not launched: {missing}")
+        p = np.float32(0.6)
+        if mode == "ada":   # a resumed run's ADA kimg: 100
+            for sgn in signs:
+                p = max(p + np.float32(np.sign(sgn - 0.6) * TRAIN_BATCH / 100_000), np.float32(0))
+        require(out["state"].aug_p == float(p),
+                f"{label}: p {out['state'].aug_p}, the heuristic gives {float(p)}")
+        steps = len(marks)
+        step_s = [b - a for a, b in zip(marks, marks[1:])]
+
+        # one step of every phase on the trained state, phase by phase
+        state, cfg, batch, gen = out["state"], out["train_cfg"], out["batch"], out["generator"]
+        step = build_train_step(out["loss"], cfg, state.G.z_dim, phases_for_step(0, cfg))
+        events = []
+
+        def on_phase(phase):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((phase, ev))
+
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch, gen, on_phase=on_phase)
+        torch.cuda.synchronize()
+        phase_ms, prev = {}, start
+        for phase, ev in events:
+            phase_ms[phase] = prev.elapsed_time(ev)
+            prev = ev
+        waits = count_syncs(lambda: step(state, batch, gen))
+        prof = trace_counts(lambda: step(state, batch, gen))
+        per_step = {k: n / steps for k, n in counts.items() if n}
+        print(f"{label}, flagship defaults, batch {TRAIN_BATCH}: {steps} steps, p "
+              f"{out['state'].aug_p:.7g} (real-logit signs "
+              + ", ".join(f"{v:.3f}" for v in signs) + "); s/step after the first "
+              + ", ".join(f"{v:.3f}" for v in step_s) + "; launches per step "
+              + ", ".join(f"{k}={n:g}" for k, n in per_step.items()) + f"  [{card}]")
+        print("  K4 1-D forms per step: " + ", ".join(
+            f"{v}={k4v.get(v, 0) / steps:g}" for f in ADA_K4_FORMS for v in (f, "grad_" + f)))
+        print("  one step of every phase, ms by phase: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in phase_ms.items()) + f"; host waits in a step {waits}"
+            + ("; ADA's flush: 1 host wait every --ada-interval steps" if mode == "ada" else "")
+            + f"  [{card}]")
+        print(f"  profiled step: device busy {prof['busy_ms']:.3f} ms of {prof['span_ms']:.3f} "
+              f"({100 * prof['busy_ms'] / prof['span_ms']:.1f} %), "
+              f"{prof['device_launches']:g} device launches from {prof['host_ops']:g} host ops"
+              f"  [{card}]")
+        summary[mode] = {"steps": steps, "aug_p": out["state"].aug_p, "signs_real": signs,
+                         "s_per_step": step_s, "launches_per_step": per_step,
+                         "k4_variants_per_step": {v: n / steps for v, n in k4v.items()},
+                         "phase_ms_all_phase_step": phase_ms, "host_waits_per_step": waits,
+                         "profiled_step": {k: v for k, v in prof.items() if k != "names"}}
+        if mode == "ada":
+            counts_ada = counts
+            require(out["state"].aug_p != float(np.float32(0.6)), f"{label}: p did not move")
+        snap = out["snapshot"]
+        del out, state, step, batch
+        torch.cuda.empty_cache()
+    return counts_ada, summary
 
 
 def k4_grad_entry(checks, launches):
@@ -5241,6 +5602,9 @@ def main(argv=None) -> int:
                     help="build, then run only the training path (trainer.main at the "
                          "flagship defaults) and its checks (the backward forms, R1 against "
                          "the plain ops, one step against the plain ops), then stop")
+    ap.add_argument("--ada-only", action="store_true",
+                    help="build, then run only K14's checks, augment_pipe on the card and ADA's "
+                         "training path (--aug fixed, then --aug ada), then stop")
     ap.add_argument("--parent", metavar="DIR",
                     help="a directory of the parent commit's kernel sources (e.g. "
                          "upfirdn2d.cu, front_occlusion.cu, paste_front.cu): time this "
@@ -5296,6 +5660,19 @@ def main(argv=None) -> int:
         print(card)
         return 0
 
+    if args.ada_only:
+        checks = k14_checks(device)
+        checks["grid_sample_2d"]["augment_pipe"] = augment_check(device, card)
+        with torch.enable_grad():
+            counts_ada, ada = ada_training_path(device, card)
+        kernels = [dict(name=n, route="cuda", source=KERNELS[n].source,
+                        replaces=KERNELS[n].replaces, launches=counts_ada[n], **checks[n])
+                   for n in ("grid_sample_2d", "grid_sample_2d_grad")]
+        print(f"wall time {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"paths": {"ada_training": ada}, "kernels": kernels}, default=str))
+        print(card)
+        return 0
+
     G = configs.flagship(eval_mode=True).init_weights(SEED).eval()
     with torch.no_grad():
         G.decoder.net[2].bias[0] += 2.5   # so that something renders (as test_flagship_parity)
@@ -5319,7 +5696,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.training_only:
-        checks, counts_train, training = training_checks(device, card, parent)
+        checks, counts_train, training, _ = training_checks(device, card, parent)
         kernels = [dict(name=n, route="cuda", source=KERNELS[n].source,
                         replaces=KERNELS[n].replaces, launches=counts_train[n], **checks[n])
                    for n in BACKWARD_KERNELS]
@@ -5346,6 +5723,8 @@ def main(argv=None) -> int:
         checks.update(k13_checks(device))
         checks.update(k10_checks(Gd, device, parent))
         checks.update(k11_checks(device))
+        checks.update(k14_checks(device))
+        checks["grid_sample_2d"]["augment_pipe"] = augment_check(device, card)
         grad_guard_checks(device)
         if args.kernels_only:
             print(json.dumps({"kernels": [dict(name=n, **checks[n]) for n in KERNELS
@@ -5419,8 +5798,11 @@ def main(argv=None) -> int:
 
         # training: trainer.main at the flagship defaults, the backward
         # forms at its shapes, R1 and one step against the plain ops
-        train_checks, counts_train, training = training_checks(device, card, parent)
+        train_checks, counts_train, training, counts_ada = training_checks(device, card, parent)
         checks.update(train_checks)
+        for name in ("grid_sample_2d", "grid_sample_2d_grad"):
+            checks[name]["launches_per_ada_step"] = training["ada"]["ada"][
+                "launches_per_step"].get(name, 0)
 
         # K5's bound summed over a request's and a portrait's calls
         k5_sums = {}
@@ -5539,10 +5921,11 @@ def main(argv=None) -> int:
     # each kernel's launches on the path that launches it: the ESS + paste
     # request, else the geometry path, else eval measure, else the probe,
     # else the deep-plane request, else the deep-plane mesh, else the
-    # stylegan3-t layers, else EQ-R, else training (the backward forms; 0
-    # for a kernel of CHECK_ONLY)
+    # stylegan3-t layers, else EQ-R (K14's forward, a run of 16 batches),
+    # else training (the backward forms), else ADA's training run (K14's
+    # backward, ADA_STEPS steps); 0 for a kernel of CHECK_ONLY
     sources = (counts_main, counts_geom, counts_eval, counts_probe, *counts_deep, counts_sg3,
-               counts_eq, counts_train)
+               counts_eq, counts_train, counts_ada)
     launches = {name: next((c[name] for c in sources if c[name]), 0) for name in KERNELS}
     require_launched(launches, [k for k in KERNELS if k not in CHECK_ONLY], "all paths")
     summary = {"kernels": [

@@ -8,17 +8,18 @@ ran, in ``variants``. ``chip_smoke.py`` zeroes the counts before it drives
 the main path and reads them after, to show the path went through every
 kernel.
 
-Four kernels have a backward form, each run by an autograd.Function
+Five kernels have a backward form, each run by an autograd.Function
 around the forward launch: K1 (``triplane_decode_grad``, to the planes and
 the decoder's weights), K2 (``ray_composite_grad``, to the colours and
 sigmas), K4 (the transposed upfirdn2d, K4's own entry point, counted under
-``grad_<variant>``) and K5 (``modconv_epilogue_grad``, differentiable again
-for R1). Their wrappers still refuse, through ``require_no_grad``, the
-inputs they give no gradient: K1's and K2's sample coordinates and depths,
-K4's filter and K5's noise. Every other wrapper calls ``require_no_grad``
-on all its inputs before it launches: under grad mode an input that
-requires grad would otherwise leave the outputs cut off from it without an
-error.
+``grad_<variant>``), K5 (``modconv_epilogue_grad``, differentiable again
+for R1) and K14 (``grid_sample_2d_grad``, to the sampled image,
+differentiable again through K14's forward). Their wrappers still refuse,
+through ``require_no_grad``, the inputs they give no gradient: K1's and
+K2's sample coordinates and depths, K4's filter, K5's noise and K14's grid.
+Every other wrapper calls ``require_no_grad`` on all its inputs before it
+launches: under grad mode an input that requires grad would otherwise leave
+the outputs cut off from it without an error.
 """
 
 from __future__ import annotations
@@ -139,6 +140,16 @@ KERNELS = {
             "filtered_lrelu",
             "panic3d_tpu_torch/csrc/filtered_lrelu.cu",
             "panic3d_tpu/ops/filtered_lrelu.py:22",
+        ),
+        Kernel(
+            "grid_sample_2d",
+            "panic3d_tpu_torch/csrc/grid_sample.cu",
+            "panic3d_tpu/ops/grid_sample.py:256",
+        ),
+        Kernel(
+            "grid_sample_2d_grad",
+            "panic3d_tpu_torch/csrc/grid_sample.cu",
+            "panic3d_tpu/ops/grid_sample.py:256",
         ),
         Kernel(
             "gather_dot",

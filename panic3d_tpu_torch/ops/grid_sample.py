@@ -1,7 +1,19 @@
 """Bilinear 2-D and trilinear 3-D point sampling (panic3d_tpu/ops/grid_sample.py).
 
-``grid_sample_2d`` is the image-grid form of the 2-D sample, which the
-equivariance metrics resample with (eval/equivariance.py).
+``grid_sample_2d`` is the image-grid form of the 2-D sample: the
+equivariance metrics resample with it (eval/equivariance.py), the training
+loss mask reads the front view through it (training/loss.py), and ADA warps
+the discriminator's images with it (training/augment.py). On CUDA tensors it
+is the wrapper of kernel K14 (csrc/grid_sample.cu, f32), run inside
+``GridSample2d``, an autograd.Function whose backward is K14's backward form
+(``grid_sample_2d_grad``: the input's gradient, scattered with atomics),
+itself an autograd.Function whose backward is K14's forward on the same grid
+(the backward is linear in its gradient, and its transpose is the sample),
+so R1 differentiates it twice. The grid takes no gradient on any path of the
+port (ADA's comes from random draws, the loss mask's from a rounded data
+grid, EQ-R's from a fixed matrix): a grid that requires grad raises. On CPU
+tensors ``grid_sample_2d`` is the plain composition below, which autograd
+differentiates in full.
 
 ``grid_sample_2d_points`` is the plain half of kernel K1 (the triplane
 lookup of models/volumetric/renderer.py:triplane_decode_plain, zeros
@@ -18,14 +30,19 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import KERNELS, require_no_grad
+from ..kernels import build as kb
 
-def _unnormalize(coord, size):
-    """align_corners=False: [-1, 1] -> texel coordinates."""
+
+def _unnormalize(coord, size, align_corners=False):
+    """[-1, 1] -> texel coordinates, in the JAX op's order of operations."""
+    if align_corners:
+        return (coord + 1) / 2 * (size - 1)
     return ((coord + 1) * size - 1) / 2
 
 
-def _setup(coord, size, acc, dtype):
-    i = _unnormalize(coord.to(acc), size)
+def _setup(coord, size, acc, dtype, align_corners=False):
+    i = _unnormalize(coord.to(acc), size, align_corners)
     i0f = torch.floor(i)
     return i0f.to(torch.int64), (i - i0f)[..., None].to(dtype)
 
@@ -35,48 +52,192 @@ def _check_padding(padding_mode):
         raise ValueError(f"padding_mode must be 'zeros' or 'border', got {padding_mode!r}")
 
 
-def grid_sample_2d_points(input, points, padding_mode="zeros"):
+def _corners(N, H, W, points, padding_mode, align_corners, dtype):
+    """The four corners of each point of ``points`` [N,P,2]: [(flat row
+    index [N,P], valid [N,P], or None under border padding)] in the order
+    00, 01, 10, 11, and the weights wx1, wy1 [N,P,1] in ``dtype``. Border
+    padding clamps the corner indices (the weights come from the unclamped
+    coordinate), which is torch's border mode."""
+    acc = torch.promote_types(points.dtype, torch.float32)
+    ix0, wx1 = _setup(points[..., 0], W, acc, dtype, align_corners)
+    iy0, wy1 = _setup(points[..., 1], H, acc, dtype, align_corners)
+    base = (torch.arange(N, device=points.device) * (H * W))[:, None]
+    out = []
+    for iy, ix in ((iy0, ix0), (iy0, ix0 + 1), (iy0 + 1, ix0), (iy0 + 1, ix0 + 1)):
+        lin = iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1) + base
+        valid = None if padding_mode == "border" else (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
+        out.append((lin, valid))
+    return out, wx1, wy1
+
+
+def _zero_outside(v, valid):
+    if valid is None:
+        return v
+    return torch.where(valid[..., None], v, torch.zeros((), dtype=v.dtype, device=v.device))
+
+
+def grid_sample_2d_points(input, points, padding_mode="zeros", align_corners=False):
     """Sample ``input`` [N,C,H,W] at ``points`` [N,P,2] (x, y in [-1, 1])
-    -> [N,P,C], as torch's grid_sample(mode='bilinear', align_corners=False)
-    does with zeros or border padding. Border padding clamps the corner
-    indices (the weights come from the unclamped coordinate), which is
-    torch's border mode. The lerp runs in the input's dtype, as in the JAX
-    op."""
+    -> [N,P,C], as torch's grid_sample(mode='bilinear') does with zeros or
+    border padding and either ``align_corners``. The lerp runs in the
+    input's dtype, as in the JAX op:
+    top = v00 + (v01 - v00) wx, bot likewise, out = top + (bot - top) wy."""
     _check_padding(padding_mode)
     N, C, H, W = input.shape
     P = points.shape[1]
     flat = input.reshape(N, C, H * W).transpose(1, 2).reshape(N * H * W, C)
-    acc = torch.promote_types(points.dtype, torch.float32)
-    ix0, wx1 = _setup(points[..., 0], W, acc, input.dtype)
-    iy0, wy1 = _setup(points[..., 1], H, acc, input.dtype)
-    base = (torch.arange(N, device=input.device) * (H * W))[:, None]
-
-    def gather(iy, ix):
-        lin = iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1) + base
-        vals = flat[lin.reshape(-1)].reshape(N, P, C)
-        if padding_mode == "border":
-            return vals
-        valid = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
-        return torch.where(valid[..., None], vals, torch.zeros((), dtype=vals.dtype,
-                                                               device=vals.device))
-
-    v00 = gather(iy0, ix0)
-    v01 = gather(iy0, ix0 + 1)
-    v10 = gather(iy0 + 1, ix0)
-    v11 = gather(iy0 + 1, ix0 + 1)
+    corners, wx1, wy1 = _corners(N, H, W, points, padding_mode, align_corners, input.dtype)
+    v00, v01, v10, v11 = (_zero_outside(flat[lin.reshape(-1)].reshape(N, P, C), valid)
+                          for lin, valid in corners)
     top = v00 + (v01 - v00) * wx1
     bot = v10 + (v11 - v10) * wx1
     return top + (bot - top) * wy1
 
 
-def grid_sample_2d(input, grid, padding_mode="zeros"):
-    """The image-grid form (panic3d_tpu/ops/grid_sample.py:256): ``input``
-    [N,C,H,W] sampled at ``grid`` [N,Hg,Wg,2] (x, y in [-1, 1]) ->
-    [N,C,Hg,Wg], bilinear, align_corners=False."""
+def grid_sample_2d_plain(input, grid, padding_mode="zeros", align_corners=False):
+    """The image-grid form (panic3d_tpu/ops/grid_sample.py:256) in plain
+    PyTorch: ``input`` [N,C,H,W] sampled at ``grid`` [N,Hg,Wg,2] (x, y in
+    [-1, 1]) -> [N,C,Hg,Wg], bilinear. The CPU path and K14's oracle."""
     N, C = input.shape[:2]
     gshape = tuple(grid.shape[1:-1])
-    out = grid_sample_2d_points(input, grid.reshape(N, -1, 2), padding_mode)
+    out = grid_sample_2d_points(input, grid.reshape(N, -1, 2), padding_mode, align_corners)
     return out.transpose(1, 2).reshape(N, C, *gshape)
+
+
+def grid_sample_2d_grad_plain(grad, grid, in_shape, padding_mode="zeros", align_corners=False):
+    """The plain version of K14's backward form: the gradient to the input
+    (of shape ``in_shape`` [N,C,H,W]) of :func:`grid_sample_2d_plain` at
+    ``grid``, from the output's gradient ``grad`` [N,C,Hg,Wg]. A point's
+    four corner terms are autograd's of the lerp, in its order of rounding
+    (g_top = g - g wy, g_bot = g wy, g00 = g_top - g_top wx, g01 = g_top wx,
+    the bottom row likewise), added into a zeroed gradient by index_add_;
+    corners outside the image add nothing under zeros padding."""
+    _check_padding(padding_mode)
+    N, C, H, W = in_shape
+    g = grad.reshape(N, C, -1).transpose(1, 2)
+    corners, wx1, wy1 = _corners(N, H, W, grid.reshape(N, -1, 2), padding_mode, align_corners,
+                                 grad.dtype)
+    g_top = g - g * wy1
+    g_bot = g * wy1
+    terms = (g_top - g_top * wx1, g_top * wx1, g_bot - g_bot * wx1, g_bot * wx1)
+    flat = torch.zeros((N * H * W, C), dtype=grad.dtype, device=grad.device)
+    for (lin, valid), v in zip(corners, terms):
+        flat.index_add_(0, lin.reshape(-1), _zero_outside(v, valid).reshape(-1, C))
+    return flat.reshape(N, H * W, C).transpose(1, 2).reshape(N, C, H, W)
+
+
+_K14_ARGS = (kb.PTR, kb.PTR, kb.PTR, kb.INT, kb.INT, kb.INT, kb.INT, kb.LONG, kb.INT, kb.INT,
+             kb.PTR)
+_PADDING = {"zeros": 0, "border": 1}
+
+
+def _k14_operands(x, grid, what):
+    """Check one K14 launch's operands, an f32 [N,C,H,W] tensor and an f32
+    grid [N,Hg,Wg,2] on its CUDA device -> (x, grid as [N,P,2], P), both
+    contiguous."""
+    if x.dtype != torch.float32 or grid.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32 tensors (every caller's dtype), got "
+                        f"{x.dtype} and a grid of {grid.dtype}")
+    if x.ndim != 4 or grid.ndim != 4 or grid.shape[-1] != 2 or grid.shape[0] != x.shape[0]:
+        raise ValueError(f"{what} takes [N,C,H,W] and a grid [N,Hg,Wg,2], got "
+                         f"{tuple(x.shape)} and {tuple(grid.shape)}")
+    if not (x.is_cuda and grid.device == x.device):
+        raise ValueError(f"{what} runs on CUDA tensors of one device, got {x.device} and "
+                         f"{grid.device}")
+    return (x.contiguous(), grid.reshape(x.shape[0], -1, 2).contiguous(),
+            grid.shape[1] * grid.shape[2])
+
+
+def _launch_k14(x, grid, padding_mode, align_corners):
+    """One launch of K14's forward: :func:`grid_sample_2d_plain` on f32 CUDA
+    tensors."""
+    _check_padding(padding_mode)
+    x, pts, P = _k14_operands(x, grid, "K14 grid_sample_2d")
+    N, C, H, W = x.shape
+    y = torch.empty((N, C) + tuple(grid.shape[1:3]), device=x.device, dtype=torch.float32)
+    kb.launch("grid_sample_2d", _K14_ARGS, x.data_ptr(), pts.data_ptr(), y.data_ptr(), N, C, H,
+              W, P, _PADDING[padding_mode], int(bool(align_corners)),
+              torch.cuda.current_stream(x.device).cuda_stream)
+    KERNELS["grid_sample_2d"].launches += 1
+    return y
+
+
+def _launch_k14_grad(grad, grid, in_shape, padding_mode, align_corners):
+    """One launch of K14's backward form: :func:`grid_sample_2d_grad_plain`
+    on f32 CUDA tensors. The input's gradient is zeroed, then each point
+    adds its corner terms with atomics (their order, and so the last bits
+    of a sum, varies from run to run)."""
+    _check_padding(padding_mode)
+    grad, pts, P = _k14_operands(grad, grid, "K14 grid_sample_2d_grad")
+    N, C, H, W = in_shape
+    if tuple(grad.shape) != (N, C) + tuple(grid.shape[1:3]):
+        raise ValueError(f"K14 grid_sample_2d_grad: a gradient {tuple(grad.shape)} for the "
+                         f"input {tuple(in_shape)} and the grid {tuple(grid.shape)}")
+    gx = torch.zeros((N, C, H, W), device=grad.device, dtype=torch.float32)
+    kb.launch("grid_sample_2d_grad", _K14_ARGS, grad.data_ptr(), pts.data_ptr(),
+              gx.data_ptr(), N, C, H, W, P, _PADDING[padding_mode], int(bool(align_corners)),
+              torch.cuda.current_stream(grad.device).cuda_stream)
+    KERNELS["grid_sample_2d_grad"].launches += 1
+    return gx
+
+
+class GridSample2d(torch.autograd.Function):
+    """K14 with its backward: the forward launches K14 on CUDA tensors (the
+    plain version on CPU ones), the backward is :class:`GridSample2dGrad`
+    on the same grid. ``cfg`` = (padding_mode, align_corners). The grid
+    takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, grid, cfg):
+        y = _launch_k14(x, grid, *cfg) if x.is_cuda else grid_sample_2d_plain(x, grid, *cfg)
+        ctx.save_for_backward(grid)
+        ctx.in_shape, ctx.cfg = tuple(x.shape), cfg
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (grid,) = ctx.saved_tensors
+        return GridSample2dGrad.apply(dy, grid, ctx.in_shape, ctx.cfg), None, None
+
+
+class GridSample2dGrad(torch.autograd.Function):
+    """The input's gradient from the output's: K14's backward form on CUDA
+    tensors, its plain version on CPU ones. It is linear in the output's
+    gradient, so its own backward is the sample of the incoming gradient on
+    the same grid (:class:`GridSample2d`)."""
+
+    @staticmethod
+    def forward(ctx, dy, grid, in_shape, cfg):
+        fn = _launch_k14_grad if dy.is_cuda else grid_sample_2d_grad_plain
+        ctx.save_for_backward(grid)
+        ctx.cfg = cfg
+        return fn(dy, grid, in_shape, *cfg)
+
+    @staticmethod
+    def backward(ctx, ddx):
+        (grid,) = ctx.saved_tensors
+        return GridSample2d.apply(ddx, grid, ctx.cfg), None, None, None
+
+
+def grid_sample_2d_kernel(input, grid, padding_mode="zeros", align_corners=False):
+    """K14 on a CUDA tensor, differentiable to ``input`` (:class:`GridSample2d`):
+    same contract as :func:`grid_sample_2d_plain`, f32 only. A grid that
+    requires grad raises under grad mode."""
+    require_no_grad("grid_sample_2d", grid)
+    if not input.is_cuda:
+        raise ValueError(f"K14 runs on CUDA tensors, got one on {input.device}")
+    return GridSample2d.apply(input, grid, (padding_mode, bool(align_corners)))
+
+
+def grid_sample_2d(input, grid, padding_mode="zeros", align_corners=False):
+    """Bilinear sample of ``input`` [N,C,H,W] at ``grid`` [N,Hg,Wg,2] (x, y
+    in [-1, 1]) -> [N,C,Hg,Wg], zeros or border padding: the plain version
+    on CPU tensors, kernel K14 on CUDA tensors."""
+    if input.device.type == "cpu":
+        return grid_sample_2d_plain(input, grid, padding_mode, align_corners)
+    if input.device.type == "cuda":
+        return grid_sample_2d_kernel(input, grid, padding_mode, align_corners)
+    raise RuntimeError(f"grid_sample_2d: no path for device {input.device}")
 
 
 def grid_sample_3d_points(input, points, padding_mode="zeros"):

@@ -16,10 +16,12 @@ optimizer is :class:`Adam`, optax.adam's update written out (the same
 moments, bias corrections and order of operations, in f32), so that one
 step agrees with the JAX package's. A step draws from one generator: the
 latents first, then each phase in order (each micro-batch in order), as the
-JAX step splits its key. The fused recon phases (Grecon-fused, Grecon-seq)
-and the path-length phase (Gpl) are not ported: they raise, naming ROADMAP
-Queue 1 item 5 (the trainer refuses remat, the JAX TrainConfig's other
-field, before it builds one).
+JAX step splits its key. With ADA, Gmain, Dmain and Dreg augment D's inputs
+at ``state.aug_p``, which :func:`ada_update` moves between steps. The
+fused recon phases (Grecon-fused, Grecon-seq) and the path-length phase
+(Gpl) are not ported: they raise, naming ROADMAP Queue 1 item 5 (the
+trainer refuses remat, the JAX TrainConfig's other field, before it builds
+one).
 """
 
 from __future__ import annotations
@@ -87,7 +89,7 @@ class GANTrainState:
     opt_G: Adam
     opt_D: Adam
     cur_nimg: int = 0
-    aug_p: float = 0.0    # ADA's p (the JAX state's field; ADA is not ported)
+    aug_p: float = 0.0    # ADA's p, an f32 value on the host (ada_update)
     pl_mean: float = 0.0  # the path-length mean (the JAX state's field; Gpl is not ported)
 
 
@@ -186,14 +188,14 @@ def build_train_step(loss: OrthoCondLoss, train_cfg: TrainConfig, z_dim: int,
         """One step; ``on_phase(phase)``, when given, is called after each
         phase's optimizer step (chip_smoke.py records a CUDA event there)."""
         stats = {}
-        cur_nimg = state.cur_nimg
+        cur_nimg, aug_p = state.cur_nimg, state.aug_p
         bs = batch["image"].shape[0]
         gen_z = draws.normal((bs, z_dim), generator, batch["image"].device, "step z")
         gen_c = batch["camera"]
         for phase in active_phases:
             if phase == "Gmain":
                 def fn(mb, z, c, g):
-                    return loss.g_main_loss(mb, z, c, g, cur_nimg)
+                    return loss.g_main_loss(mb, z, c, g, cur_nimg, aug_p=aug_p)
             elif phase in views:
                 def fn(mb, z, c, g, v=views[phase]):
                     return loss.g_cond_loss(mb, z, g, view=v)
@@ -203,11 +205,11 @@ def build_train_step(loss: OrthoCondLoss, train_cfg: TrainConfig, z_dim: int,
                                            gain=float(train_cfg.g_reg_interval))
             elif phase == "Dmain":
                 def fn(mb, z, c, g):
-                    return loss.d_main_loss(mb, z, c, g, cur_nimg)
+                    return loss.d_main_loss(mb, z, c, g, cur_nimg, aug_p=aug_p)
             elif phase == "Dreg":
                 def fn(mb, z, c, g):
                     return loss.d_reg_loss(mb, c, g, cur_nimg,
-                                           gain=float(train_cfg.d_reg_interval))
+                                           gain=float(train_cfg.d_reg_interval), aug_p=aug_p)
             else:
                 raise ValueError(phase)
             opt = state.opt_D if phase.startswith("D") else state.opt_G
@@ -245,6 +247,18 @@ def update_ema(state: GANTrainState, train_cfg: TrainConfig) -> None:
     ema_buf = dict(state.G_ema.named_buffers())
     for n, b in state.G.named_buffers():
         ema_buf[n].copy_(b)
+
+
+def ada_update(state: GANTrainState, signs_real: float, ada_target: float, batch_size: int,
+               ada_interval: int, ada_kimg: float) -> None:
+    """The ADA heuristic (training_loop_v0.py:398-402): p moves toward the
+    target rate of positive real logits by sign(signs_real - target) x
+    batch x interval / (kimg x 1000), clamped at 0, in f32 as the JAX
+    package's state keeps it."""
+    f32 = np.float32
+    adjust = float(np.sign(signs_real - ada_target)) * (batch_size * ada_interval) / (
+        ada_kimg * 1000)
+    state.aug_p = float(max(f32(state.aug_p) + f32(adjust), f32(0.0)))
 
 
 def phases_for_step(step: int, cfg: TrainConfig) -> Tuple[str, ...]:

@@ -14,7 +14,10 @@ phase that runs G and then D draws G's (the swap, the noise, the render's
 jitter and u) before D's (the label noise). Each ``jax.lax.stop_gradient``
 of the JAX phases is a ``.detach()`` (or ``torch.no_grad()`` around
 Dmain's generator pass); R1 is ``torch.autograd.grad(create_graph=True)``.
-The fused recon modes and the path-length phase are not ported (the
+With an ``augment_fn`` (ADA) the discriminator's inputs go through the
+augment pipe at the step's ``aug_p`` in Gmain, Dmain and Dreg, drawing from
+the phase's generator before D's own draws, as the JAX package splits its
+key. The fused recon modes and the path-length phase are not ported (the
 trainer refuses them, ROADMAP Queue 1 item 5).
 """
 
@@ -199,15 +202,18 @@ class OrthoCondLoss:
     G_sample_mixed(coords, dirs, ws, cond) -> dict with 'sigma'
     D_apply(img_dict, c, cond, generator) -> logits
     lpips_fn(a, b) -> [N]
+    augment_fn(images, generator, p) -> images (ADA), or None
     """
 
-    def __init__(self, cfg: LossConfig, G_f, G_mapping, G_sample_mixed, D_apply, lpips_fn):
+    def __init__(self, cfg: LossConfig, G_f, G_mapping, G_sample_mixed, D_apply, lpips_fn,
+                 augment_fn=None):
         self.cfg = cfg
         self.G_f = G_f
         self.G_mapping = G_mapping
         self.G_sample_mixed = G_sample_mixed
         self.D_apply = D_apply
         self.lpips_fn = lpips_fn
+        self.augment_fn = augment_fn
 
     # -- G recon phases -----------------------------------------------------
 
@@ -280,9 +286,20 @@ class OrthoCondLoss:
                "paste_params": self.cfg.paste_params}
         return self.G_f(xin, generator)
 
-    def run_D(self, img, c, cond, generator, blur_sigma: float = 0.0):
+    def run_D(self, img, c, cond, generator, blur_sigma: float = 0.0,
+              aug_p: Optional[float] = None):
         if blur_sigma > 0:
             img = dict(img, image=gaussian_blur_filter2d(img["image"], blur_sigma))
+        if self.augment_fn is not None and aug_p is not None:
+            # joint-pair ADA (loss_orthocondA.py:189-195): the raw stream
+            # resized up to full size, the 6-channel pair augmented with one
+            # warp, split, and the raw half resized back down, antialiased
+            full, raw = img["image"], img["image_raw"]
+            up = resize_bilinear(raw, full.shape[-1])
+            pair = self.augment_fn(torch.cat([full, up], 1), generator, aug_p)
+            img = dict(img, image=pair[:, :full.shape[1]],
+                       image_raw=filtered_resizing(pair[:, full.shape[1]:], raw.shape[-1],
+                                                   filter_mode="antialiased"))
         return self.D_apply(img, c, cond, generator)
 
     def prep_real_img(self, real_img, cur_nimg):
@@ -301,7 +318,7 @@ class OrthoCondLoss:
 
     # -- Gmain ---------------------------------------------------------------
 
-    def g_main_loss(self, batch, z, c, generator, cur_nimg, gain=1.0):
+    def g_main_loss(self, batch, z, c, generator, cur_nimg, gain=1.0, aug_p=None):
         """Adversarial G phase (+ masked recon, loss:480-576)."""
         cfg = self.cfg
         cond = batch["cond"]
@@ -320,7 +337,7 @@ class OrthoCondLoss:
                 + (gen_img["image_raw"] - real_img["image_raw_noblur"]) * raw_mask}
         else:
             gen_for_adv = gen_img
-        gen_logits = self.run_D(gen_for_adv, c, cond, generator, cfg.blur_sigma(cur_nimg))
+        gen_logits = self.run_D(gen_for_adv, c, cond, generator, cfg.blur_sigma(cur_nimg), aug_p)
         loss_gmain = F.softplus(-gen_logits)
         stats["Loss/scores/fake"] = gen_logits.mean()
         stats["Loss/G/loss"] = loss_gmain.mean()
@@ -373,7 +390,7 @@ class OrthoCondLoss:
 
     # -- D phases --------------------------------------------------------------
 
-    def d_main_loss(self, batch, z, c, generator, cur_nimg, gain=1.0):
+    def d_main_loss(self, batch, z, c, generator, cur_nimg, gain=1.0, aug_p=None):
         """Dgen + Dreal softplus (loss:690-718); G's pass takes no gradient."""
         cfg = self.cfg
         cond = batch["cond"]
@@ -381,11 +398,11 @@ class OrthoCondLoss:
         with torch.no_grad():
             gen_img = self.run_G(z, c, cond, generator, cfg.swapping_prob(cur_nimg),
                                  cfg.neural_rendering_resolution(cur_nimg))
-        gen_logits = self.run_D(gen_img, c, cond, generator, blur_sigma)
+        gen_logits = self.run_D(gen_img, c, cond, generator, blur_sigma, aug_p)
         loss_dgen = F.softplus(gen_logits)
         real_img = self.prep_real_img(batch["image"], cur_nimg)
         real_logits = self.run_D({"image": real_img["image"], "image_raw": real_img["image_raw"]},
-                                 c, cond, generator, blur_sigma)
+                                 c, cond, generator, blur_sigma, aug_p)
         loss_dreal = F.softplus(-real_logits)
         total = (loss_dgen + loss_dreal).mean()
         stats = {"Loss/scores/fake": gen_logits.mean(), "Loss/scores/real": real_logits.mean(),
@@ -393,14 +410,16 @@ class OrthoCondLoss:
                  "Loss/signs/real": real_logits.sign().mean(), "Loss/D/loss": total}
         return total * gain, stats
 
-    def d_reg_loss(self, batch, c, generator, cur_nimg, gain=1.0):
-        """R1 penalty by a gradient of the gradient (loss:704-738)."""
+    def d_reg_loss(self, batch, c, generator, cur_nimg, gain=1.0, aug_p=None):
+        """R1 penalty by a gradient of the gradient (loss:704-738), through
+        the augment when ADA runs (K4's and K14's backward forms, each
+        differentiable again)."""
         cfg = self.cfg
         real_img = self.prep_real_img(batch["image"], cur_nimg)
         image = real_img["image"].detach().requires_grad_(True)
         image_raw = real_img["image_raw"].detach().requires_grad_(True)
         logits = self.run_D({"image": image, "image_raw": image_raw}, c, batch["cond"], generator,
-                            cfg.blur_sigma(cur_nimg))
+                            cfg.blur_sigma(cur_nimg), aug_p)
         g_img, g_raw = torch.autograd.grad(logits.sum(), (image, image_raw), create_graph=True)
         r1 = g_img.square().sum((1, 2, 3))
         if cfg.dual_discrimination:

@@ -12,11 +12,16 @@ Run on the card: python -m panic3d_tpu_torch.training.trainer --name myrun
 --data . --batch 8 --gamma 4 [--synthetic]; on the CPU add --device cpu
 (with --tiny for a model that trains there in seconds a step).
 
+--aug ada augments the discriminator's inputs with ADA's 'bgc' pipe
+(training/augment.py) at a p that the heuristic moves every --ada-interval
+steps from the real logits' signs (one read of them from the card each
+time); --aug fixed holds p at --aug-p.
+
 Options whose path is not ported yet raise NotImplementedError naming the
-ROADMAP item that will port them: --aug ada|fixed (ADA), --fuse-recon
-sum|seq, --remat, --metrics other than none, --mesh-rays > 1 and several
-processes, --paste-params-mode A|Agrad, --pl-weight > 0, --triplane-depth
-2 and --tensorboard.
+ROADMAP item that will port them: --fuse-recon sum|seq, --remat, --metrics
+other than none, --mesh-rays > 1 and several processes,
+--paste-params-mode A|Agrad, --pl-weight > 0, --triplane-depth 2 and
+--tensorboard.
 """
 
 from __future__ import annotations
@@ -144,8 +149,6 @@ def refuse_unported(args) -> None:
     """Options whose path is not ported raise, naming the ROADMAP item."""
     q5 = "ROADMAP Queue 1 item 5"
     refusals = [
-        (args.aug != "noaug", f"--aug {args.aug} (ADA: grid_sample_2d's kernel and its "
-                              f"backward), {q5}"),
         (args.fuse_recon in ("sum", "seq"), f"--fuse-recon {args.fuse_recon}, {q5}"),
         (args.remat is not None, f"--remat, {q5}"),
         (args.metrics != "none", "--metrics (the GAN metrics, ROADMAP Queue 1 item 4)"),
@@ -335,7 +338,7 @@ def main(argv=None, on_step=None):
     from ..runtime.checkpoint import (load_checkpoint, load_train_state, save_checkpoint,
                                       state_dict_from_flax, train_state_tree)
     from ..utils.misc import count_params, state_hash
-    from .loop import TrainConfig, build_train_step, init_state, phases_for_step
+    from .loop import TrainConfig, ada_update, build_train_step, init_state, phases_for_step
     from .setup import init_lpips, make_loss
     from .stats import Collector, JsonlLogger
 
@@ -345,6 +348,8 @@ def main(argv=None, on_step=None):
     with open(os.path.join(run_dir, "training_options.json"), "w") as f:
         json.dump(vars(args), f, indent=1)
     resume = args.resume or find_resume(run_dir)
+    # resuming makes ADA react faster (train_eclustrousC.py:536-542)
+    ada_kimg = 100.0 if resume else args.ada_kimg
 
     G, D, chonk_ch, feat_dim, model_kwargs = build_models(args, args.device)
     dev = G.device
@@ -383,6 +388,8 @@ def main(argv=None, on_step=None):
     D.init_weights(args.seed + 1)
     print(f"G {count_params(G):,} parameters, D {count_params(D):,}, on {dev}")
     state = init_state(G, D, train_cfg)
+    if args.aug == "fixed":
+        state.aug_p = float(np.float32(args.aug_p))
     if resume:
         print(f"resuming from {resume}")
         load_train_state(resume, state)
@@ -422,6 +429,9 @@ def main(argv=None, on_step=None):
     start_step = state.cur_nimg // args.batch
     first = None
     stats = {}
+    # ADA: the real logits' sign rates stay on the card until a flush reads
+    # them (one host wait), every --ada-interval steps and at each tick
+    pending_signs, signs_hist = [], []
 
     def snapshot(nres):
         snap = os.path.join(run_dir, f"network-snapshot-{state.cur_nimg:06d}")
@@ -440,7 +450,8 @@ def main(argv=None, on_step=None):
             nres = host_neural_res(step_i)
             if nres not in losses:
                 losses[nres] = make_loss(G, D, lpips, dataclasses.replace(
-                    loss_cfg, neural_rendering_resolution_initial=nres))
+                    loss_cfg, neural_rendering_resolution_initial=nres),
+                    augment=args.aug != "noaug")
             if (active, nres) not in steps:
                 steps[(active, nres)] = build_train_step(losses[nres], train_cfg, G.z_dim,
                                                          active)
@@ -450,13 +461,25 @@ def main(argv=None, on_step=None):
             stats = steps[(active, nres)](state, batch, generator)
             if on_step is not None:
                 on_step(step_i, active, stats)
+            if args.aug == "ada":
+                pending_signs.append(stats["Loss/signs/real"])
+                if len(pending_signs) >= args.ada_interval or step_i % tick_interval == 0:
+                    signs_hist.extend(torch.stack(pending_signs).tolist())
+                    pending_signs.clear()
+                # the ADA heuristic (training_loop_v0.py:398-402)
+                if len(signs_hist) >= args.ada_interval:
+                    ada_update(state, float(np.mean(signs_hist)), args.ada_target, args.batch,
+                               args.ada_interval, ada_kimg)
+                    signs_hist.clear()
+                    collector.report_dict({"Progress/augment": state.aug_p})
             if step_i % tick_interval == 0 or step_i == total_steps - 1:
                 collector.report_dict({k: float(v) for k, v in stats.items()})
                 kimg = state.cur_nimg / 1000
                 msg = " ".join(f"{k.split('/')[-1]}={collector.mean(k):.3f}"
                                for k in sorted(collector.as_dict()) if k.startswith("Loss/"))
+                aug = f" augment={state.aug_p:.6g}" if args.aug != "noaug" else ""
                 print(f"tick kimg={kimg:.3f} step={step_i} "
-                      f"time={time.time() - t_start:.0f}s {msg}")
+                      f"time={time.time() - t_start:.0f}s{aug} {msg}")
                 logger.write(collector, kimg=kimg)
                 collector.reset()
             if step_i % (tick_interval * args.snap) == 0 and step_i > 0:

@@ -1,15 +1,16 @@
 """The port's kernels without a backward form refuse an input that
 requires grad under grad mode (kernels/__init__.py:require_no_grad), and
-the four with one (K1, K2, K4, K5) carry the gradient, on the CPU:
+the five with one (K1, K2, K4, K5, K14) carry the gradient, on the CPU:
 
 - the helper raises only with grad mode on and a tensor that requires grad,
   found in nested tuples (the decoder's NamedTuple), lists and dicts;
 - each of the 14 kernel wrappers without a backward raises at its first
   statement when one of its tensor inputs requires grad, before it checks
   the device or launches; so do the keyed forms' new inputs (K3's u, K6b's
-  per-ray bounds and jitter) and the inputs the four backward forms give no
-  gradient (K5's noise, K4's filter, K1's coordinates, K2's depths);
-- K1, K2, K4 and K5 and their three backward entry points are wired:
+  per-ray bounds and jitter) and the inputs the five backward forms give no
+  gradient (K5's noise, K4's filter, K1's coordinates, K2's depths, K14's
+  grid);
+- K1, K2, K4, K5 and K14 and their four backward entry points are wired:
   each autograd.Function, on CPU tensors (its kernel's plain version),
   gives its differentiable inputs a finite gradient and counts no launch;
 - the plain CPU forward of the tiny config (G.f) still back-propagates to
@@ -31,6 +32,8 @@ from panic3d_tpu_torch.models.volumetric import renderer as vr
 from panic3d_tpu_torch.ops.bias_act import EpilogueGrad, ModconvEpilogue, modconv_epilogue_kernel
 from panic3d_tpu_torch.ops.filtered_lrelu import filtered_lrelu_kernel
 from panic3d_tpu_torch.ops.gather_dot import gather_dot_kernel
+from panic3d_tpu_torch.ops.grid_sample import (GridSample2d, GridSample2dGrad,
+                                               grid_sample_2d_kernel)
 from panic3d_tpu_torch.ops.upfirdn2d import UpFirDn2d, setup_filter, upfirdn2d_kernel
 
 
@@ -130,6 +133,8 @@ FORMS = {
     "ess_narrow[jitter]": lambda: vr.ess_narrow_kernel(
         leaf(1, 2, 2, 2), leaf(1), leaf(1, 4, 3), leaf(1, 4, 3), 0.5, 1.5, 0.7, {"ess": {}}, 8,
         jitter=leaf(1, 4, 8, 1, grad=True)),
+    "grid_sample_2d[grid]": lambda: grid_sample_2d_kernel(leaf(1, 2, 4, 4),
+                                                          leaf(1, 3, 3, 2, grad=True)),
 }
 
 
@@ -183,6 +188,22 @@ def _k5_grad_wiring():   # the backward form differentiated again (R1)
     return [x, b], gx.square().sum() + dz.sum()
 
 
+def _k14_wiring():
+    x = _rand(1, 2, 6, 6).requires_grad_(True)
+    grid = torch.from_numpy(np.random.RandomState(1).uniform(-1.2, 1.2, (1, 4, 5, 2))).float()
+    return [x], GridSample2d.apply(x, grid, ("zeros", False)).square().sum()
+
+
+def _k14_grad_wiring():   # the backward form differentiated again (R1 through ADA)
+    x = _rand(1, 2, 6, 6).requires_grad_(True)
+    grid = torch.from_numpy(np.random.RandomState(1).uniform(-1.2, 1.2, (1, 4, 5, 2))).float()
+    y = GridSample2d.apply(x, grid, ("border", True))
+    (gx,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+    assert gx.requires_grad
+    return [x], gx.square().sum() + GridSample2dGrad.apply(y, grid, (1, 2, 6, 6),
+                                                           ("border", True)).sum()
+
+
 # the kernels with a backward form, and their backward entry points: the
 # Function's wiring on CPU tensors
 BACKWARD = {
@@ -193,6 +214,8 @@ BACKWARD = {
     "upfirdn2d": _k4_wiring,
     "modconv_epilogue": _k5_wiring,
     "modconv_epilogue_grad": _k5_grad_wiring,
+    "grid_sample_2d": _k14_wiring,
+    "grid_sample_2d_grad": _k14_grad_wiring,
 }
 
 

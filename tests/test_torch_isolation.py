@@ -19,6 +19,8 @@ from panic3d_tpu_torch.ops import setup_filter, upfirdn2d
 from panic3d_tpu_torch.ops.bias_act import modconv_epilogue
 from panic3d_tpu_torch.ops.filtered_lrelu import filtered_lrelu
 from panic3d_tpu_torch.ops.gather_dot import gather_dot
+from panic3d_tpu_torch.ops.grid_sample import grid_sample_2d
+from panic3d_tpu_torch.training.augment import AugmentConfig, augment_pipe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -58,7 +60,8 @@ def test_imports_with_jax_blocked():
         "import panic3d_tpu_torch.training, panic3d_tpu_torch.training.loss\n"
         "import panic3d_tpu_torch.training.loop, panic3d_tpu_torch.training.setup\n"
         "import panic3d_tpu_torch.training.stats, panic3d_tpu_torch.training.trainer\n"
-        "import panic3d_tpu_torch.utils.misc\n"
+        "import panic3d_tpu_torch.utils.misc, panic3d_tpu_torch.training.augment\n"
+        "import panic3d_tpu_torch.ops.grid_sample\n"
         "import panic3d_tpu_torch.configs as c\n"
         "c.tiny(device='cpu')\n"
         "from panic3d_tpu_torch.runtime import checkpoint as ck\n"
@@ -180,4 +183,13 @@ def test_wrappers_count_no_launch_on_cpu():
     d2 = mesh_metrics.point_mesh_distance_sq(torch.rand(7, 3), torch.rand(4, 3),
                                              torch.tensor([[0, 1, 2], [1, 2, 3]]))
     assert d2.shape == (7,) and bool((d2 >= 0).all())
+    # K14: the grid sample, differentiated twice, and ADA's pipe around it
+    img = torch.randn(2, 3, 24, 24, requires_grad=True)
+    g = torch.rand(2, 5, 6, 2) * 2.2 - 1.1
+    (gx,) = torch.autograd.grad(grid_sample_2d(img, g).square().sum(), img, create_graph=True)
+    gx.square().sum().backward()
+    assert img.grad.shape == img.shape
+    aug = augment_pipe(torch.randn(2, 6, 24, 24), torch.Generator().manual_seed(0), 1.0,
+                       AugmentConfig.bgcfnc())
+    assert aug.shape == (2, 6, 24, 24) and bool(torch.isfinite(aug).all())
     assert launch_counts() == before == {name: 0 for name in KERNELS}

@@ -130,10 +130,10 @@ def test_trainer_accumulates_over_batch_gpu(tmp_path):
 
 
 REFUSED = {
-    "ada": ["--aug", "ada"], "fixed_aug": ["--aug", "fixed"], "fuse_sum": ["--fuse-recon", "sum"],
-    "fuse_seq": ["--fuse-recon", "seq"], "remat": ["--remat", "full"],
-    "metrics": ["--metrics", "fid50k_full"], "mesh_rays": ["--mesh-rays", "2"],
-    "paste": ["--paste-params-mode", "A"], "gpl": ["--pl-weight", "2"],
+    "fuse_sum": ["--fuse-recon", "sum"], "fuse_seq": ["--fuse-recon", "seq"],
+    "remat": ["--remat", "full"], "metrics": ["--metrics", "fid50k_full"],
+    "mesh_rays": ["--mesh-rays", "2"], "paste": ["--paste-params-mode", "A"],
+    "gpl": ["--pl-weight", "2"],
     "depth2": ["--triplane-depth", "2"], "tensorboard": ["--tensorboard"],
 }
 
