@@ -70,13 +70,20 @@
    shapes, must make one device launch a call, and two launches at once on
    two streams must equal the same two in sequence (its scratch is per
    stream); K7a's cropped cells are checked exactly. K14 (grid_sample_2d)
-   is checked at its callers' calls (k14_checks): ADA's filtered warp of a
-   'bgc' transform at p = 1 ([8,6,1560,1560] at [8,1036,1036,2]) and EQ-R's
+   is checked at its callers' calls (k14_checks), its two kernels'
+   registers and shared memory printed: ADA's filtered warp of a 'bgc'
+   transform at p = 1 ([8,6,1560,1560] at [8,1036,1036,2]) and EQ-R's
    rotation ([4,3,2094,2094] at [4,512,512,2]) bit for bit, each timed with
-   its bound and F.grid_sample, the unfiltered warp's align_corners=True
-   call and a border call bit for bit; its backward at ADA's call against
-   the plain version's autograd (1e-5 of the largest gradient: atomics),
-   timed beside aten's grid_sampler_2d_backward, and its double backward
+   its bound and F.grid_sample (with --parent also against the parent's kernel,
+   bit for bit and parent / this / this / parent), the unfiltered warp's
+   align_corners=True call, border calls and a synthetic call whose tiles
+   take both of the backward's branches bit for bit; at each call the
+   backward's blocks that take its staged branch counted on the card and
+   required equal to the footprint model's (ops/grid_sample.py:
+   k14_tile_plan; ADA's call mostly staged, EQ-R's direct); its backward at
+   ADA's and the two-branch call against the plain version's autograd (1e-5
+   of the largest gradient: atomics), ADA's timed beside aten's
+   grid_sampler_2d_backward (and the parent's), and its double backward
    equal to its forward; then augment_pipe ('bgc', p = 1, batch 8, 6
    channels, 512^2) against the plain ops on the same draws (1e-4 of the
    largest value), its forward and forward + backward ms. Under grad mode every
@@ -1328,6 +1335,9 @@ def paste_chain_compare(parent, args_f, out_f, label, timed=True):
     return {label: dict(got, ms_chain_fused_fused_chain=[c1, f1, f2, c2], per_call=calls)}
 
 
+PARENT_SOURCES = {}   # build_parent: stem -> the parent's source it built
+
+
 def build_parent(parent_dir):
     """The parent commit's sources of the kernels this tree redesigned
     (``--parent DIR``: DIR/<stem>.cu, e.g. written by ``git show
@@ -1343,6 +1353,7 @@ def build_parent(parent_dir):
 
     if not parent_dir:
         return {}
+    PARENT_SOURCES.clear()
     out_dir = Path(__file__).resolve().parent / "build" / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {}
@@ -1352,6 +1363,7 @@ def build_parent(parent_dir):
                                "-o", str(so)], capture_output=True, text=True, timeout=600)
         require(proc.returncode == 0, f"parent {src.name} failed to build:\n{proc.stderr}")
         libs[src.stem] = (ctypes.CDLL(str(so)), so)
+        PARENT_SOURCES[src.stem] = src
     print(f"parent kernels built from {parent_dir}: {sorted(libs)}")
     return libs
 
@@ -1359,7 +1371,9 @@ def build_parent(parent_dir):
 class parent_entries:
     """Within the block, the kernel wrappers launch the entry points named
     in ``libs`` ({entry point: the parent's ctypes library}) from the
-    parent's libraries in place of this tree's, with the same arguments."""
+    parent's libraries in place of this tree's, with the same arguments; or,
+    where the value is (library, adapt), with ``adapt(argtypes, args)`` ->
+    the parent's (argtypes, args) (an entry point whose arguments changed)."""
 
     def __init__(self, libs: dict):
         self.libs = libs
@@ -1374,7 +1388,11 @@ class parent_entries:
         def parent_launch(name, argtypes, *args):
             if name not in self.libs:
                 return launch(name, argtypes, *args)
-            fn = getattr(self.libs[name], name)
+            lib, adapt = (self.libs[name] if isinstance(self.libs[name], tuple)
+                          else (self.libs[name], None))
+            if adapt is not None:
+                argtypes, args = adapt(argtypes, args)
+            fn = getattr(lib, name)
             fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
             rc = fn(*args)
             require(rc == 0, f"parent {name}: CUDA error {rc}")
@@ -1479,7 +1497,7 @@ def kernel_device_us(fn, kernels, runs: int = 20):
 
 def parent_and_sass(parent, stem, name, kernel, fn, items, unit, new_work, new_scale,
                     parent_work, new_kernel=None, parent_kernel=None, profiled=None,
-                    parent_profiled=None):
+                    parent_profiled=None, adapt=None):
     """This tree's kernel against the parent's (``--parent``): the outputs
     compared bit for bit, then device times in the order parent / this /
     this / parent in one process; and each one's SASS instructions a
@@ -1490,8 +1508,8 @@ def parent_and_sass(parent, stem, name, kernel, fn, items, unit, new_work, new_s
     one thread an item (``parent_kernel``, else ``kernel``; ``parent_work``
     None: not counted). ``profiled`` / ``parent_profiled``: the kernels
     of the entry point that torch.profiler times alone (default the
-    kernel's name). The parent's entry point takes this tree's arguments.
-    -> {"sass": ..., "parent": ...}."""
+    kernel's name). The parent's entry point takes this tree's arguments,
+    or ``adapt``'s (parent_entries). -> {"sass": ..., "parent": ...}."""
     import torch
 
     from panic3d_tpu_torch.kernels import build
@@ -1506,7 +1524,7 @@ def parent_and_sass(parent, stem, name, kernel, fn, items, unit, new_work, new_s
     theirs = None
     if stem in parent:
         lib, so = parent[stem]
-        swap = {name: lib}
+        swap = {name: lib if adapt is None else (lib, adapt)}
         if parent_work is not None:
             theirs = sass_per_thread(so, parent_kernel, parent_work)
         if theirs:
@@ -3188,7 +3206,8 @@ def _entry_name(mangled: str) -> str:
 
 def ptxas_report(text: str):
     """nvcc -Xptxas -v's report -> [(kernel<template args>, registers,
-    spill store bytes, spill load bytes)] per entry function."""
+    spill store bytes, spill load bytes, static shared memory bytes)] per
+    entry function."""
     import re
 
     out, fn, spills = [], None, (0, 0)
@@ -3201,7 +3220,8 @@ def ptxas_report(text: str):
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
-            out.append((fn, int(m.group(1)), *spills))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((fn, int(m.group(1)), *spills, int(smem.group(1)) if smem else 0))
             fn = None
     return out
 
@@ -5269,7 +5289,9 @@ def k14_calls(device):
     transform at p = 1 on [8,6,512,512]: [8,6,1560,1560] at [8,1036,1036,2]),
     its unfiltered warp (align_corners=True, [8,6,512,512] at [8,512,512,2])
     and EQ-R's rotation of a batch of 4 at 512^2 ([4,3,2094,2094] at
-    [4,512,512,2]). -> {label: (input, grid, padding_mode, align_corners)}."""
+    [4,512,512,2]); and a synthetic call that takes both of the kernels'
+    branches in one launch (k14_two_branch_call).
+    -> {label: (input, grid, padding_mode, align_corners)}."""
     import dataclasses
 
     import torch
@@ -5291,7 +5313,34 @@ def k14_calls(device):
     (xi, grid), kw = capture_call(eq, "grid_sample_2d",
                                   lambda: eq.apply_fractional_rotation(img, 0.35))
     out["eqr"] = (xi, grid, kw.get("padding_mode", "zeros"), kw.get("align_corners", False))
+    out["two_branch"] = k14_two_branch_call(device, gen)
     return out
+
+
+def k14_two_branch_call(device, gen):
+    """A synthetic K14 call whose tiles take both of the backward's branches
+    in one launch:
+    [2,5,1024,1022] (W % 4 = 2: the backward's scalar flush; 5 channels: a
+    staged pass of 3, then one of 2, and the forward's last batch of one
+    channel) sampled at [2,256,256,2], the output's left
+    half at about a texel a point, sheared (footprints of ~400 texels:
+    staged), its right half at 4 texels a point (a 4x minification,
+    footprints of ~4,000 texels: direct); the second image shifted by
+    (5.25, 3.5) texels. -> (input, grid, "zeros", False)."""
+    import torch
+
+    H, W, S = 1024, 1022, 256
+    x = torch.rand((2, 5, H, W), generator=gen, device=device) * 2 - 1
+    py, px = torch.meshgrid(torch.arange(S, dtype=torch.float32, device=device),
+                            torch.arange(S, dtype=torch.float32, device=device), indexing="ij")
+    left = px < S // 2
+    ix = torch.where(left, px + 0.2 * py + 0.3, (px - S // 2) * 4 + 0.7)
+    iy = torch.where(left, py + 0.15 * px + 0.3, py * 4 + 0.7)
+    shift = torch.tensor([[0.0, 0.0], [5.25, 3.5]], device=device)
+    pts = torch.stack([ix, iy], -1)[None] + shift[:, None, None]
+    size = torch.tensor([W, H], dtype=torch.float32, device=device)
+    grid = ((2 * pts + 1) / size - 1).contiguous()   # texels -> align_corners=False's [-1, 1]
+    return x, grid, "zeros", False
 
 
 def k14_touched_bytes(x, grid, padding, align) -> int:
@@ -5315,96 +5364,230 @@ def k14_ops(points: int, C: int) -> float:
     return points * (16 + 9 * C)
 
 
-def k14_checks(device):
+def k14_parent_args(argtypes, args):
+    """Arguments for K14 entry points that take the points of an image, P =
+    Hg Wg, where this tree's take Hg and Wg (parent_entries' adapt)."""
+    from panic3d_tpu_torch.kernels import build as kb
+
+    return ((*argtypes[:7], kb.LONG, *argtypes[9:]),
+            (*args[:7], args[7] * args[8], *args[9:]))
+
+
+def k14_parent_adapt():
+    """parent_entries' adapt for the parent's K14: k14_parent_args where the
+    parent's grid_sample.cu takes ``long long P`` (its entry points before
+    the tiles), else None (it takes this tree's arguments)."""
+    import re
+
+    src = PARENT_SOURCES.get("grid_sample")
+    if src is None:
+        return None
+    return (k14_parent_args if re.search(r"int W,\s*long long P,", src.read_text())
+            else None)
+
+
+def k14_branches(x, grid, pad, ac) -> dict:
+    """The blocks of K14's backward at this call that take the staged branch,
+    counted on the card (the check entry grid_sample_2d_grad_counted: the
+    backward's kernel at the call's shapes, a random output gradient), and
+    the share that ops/grid_sample.py:k14_tile_plan (the footprint test in
+    PyTorch) predicts; fails unless the two agree tile for tile in number.
+    -> {"staged_share", "staged_blocks", "tiles", "modelled_staged_share"}."""
+    import torch
+
+    from panic3d_tpu_torch.kernels import build as kb
+    from panic3d_tpu_torch.ops import grid_sample as gs
+
+    N, C, H, W = x.shape
+    Hg, Wg = grid.shape[1:3]
+    g = torch.randn((N, C, Hg, Wg), generator=torch.Generator(device=x.device).manual_seed(SEED),
+                    device=x.device)
+    g, grid_c = gs._k14_operands(g, grid, "K14 grid_sample_2d_grad_counted", (H, W))
+    gx = torch.zeros((N, C, H, W), device=x.device)
+    count = torch.zeros(1, dtype=torch.int64, device=x.device)
+    kb.launch("grid_sample_2d_grad_counted", gs._K14_ARGS[:-1] + (kb.PTR, kb.PTR),
+              g.data_ptr(), grid_c.data_ptr(), gx.data_ptr(), N, C, H, W, Hg, Wg,
+              gs._PADDING[pad], int(bool(ac)), count.data_ptr(),
+              torch.cuda.current_stream(x.device).cuda_stream)
+    plan = gs.k14_tile_plan(grid, H, W, pad, ac)
+    staged, tiles = int(count.item()), plan["staged"].numel()
+    modelled = int(plan["staged"].sum())
+    require(staged == modelled, f"K14's backward at {list(x.shape)} {pad}: {staged} blocks "
+            f"took the staged branch on the card, the footprint model says {modelled}")
+    return {"staged_share": staged / tiles, "staged_blocks": staged, "tiles": tiles,
+            "modelled_staged_share": modelled / tiles}
+
+
+def k14_resources():
+    """K14's two kernels' registers and static shared memory from nvcc's
+    -Xptxas -v report. -> {kernel: {"registers", "smem_bytes"}}."""
+    from panic3d_tpu_torch.kernels import build
+
+    report = ptxas_report(build.build("grid_sample").with_suffix(".log").read_text())
+    return {fn: {"registers": regs, "smem_bytes": smem} for fn, regs, _, _, smem in report}
+
+
+def k14_checks(device, parent):
     """K14 against its plain version on the card at its callers' calls
     (k14_calls): the forward bit for bit (its arithmetic is the plain
-    version's, uncontracted) at ADA's and EQ-R's calls, each timed with its
-    bound (the texels read, the grid and the output over 3.35 TB/s) and
-    F.grid_sample (bilinear, the same padding and align_corners), and at the
-    unfiltered warp's align_corners=True call and a border call; the
-    backward at ADA's call against the plain version's autograd within
-    K14_GRAD_TOL of the largest gradient (atomics sum in another order),
-    timed with its bound (the output's gradient, the grid and the whole
-    input gradient) and aten's grid_sampler_2d_backward (the input's
-    gradient alone); the double backward equal to K14's forward on the
-    same grid. -> {"grid_sample_2d": summary, "grid_sample_2d_grad": summary}."""
+    version's, uncontracted) at ADA's, EQ-R's and the two-branch call; at
+    each call the backward's blocks that take its staged branch, counted on
+    the card and required equal to the footprint model's (k14_branches:
+    ADA's call mostly staged, EQ-R's mostly direct, the two-branch call's
+    both); ADA's and EQ-R's forward timed with their bound (the texels read, the grid and the output
+    over 3.35 TB/s) and F.grid_sample (bilinear, the same padding and
+    align_corners), and with ``parent`` (the parent's grid_sample.cu) bit for
+    bit against the parent's kernel, timed parent / this / this / parent
+    with the SASS instructions a point; the unfiltered warp's
+    align_corners=True call and border calls bit for bit; the backward at
+    ADA's and the two-branch call (zeros and border) against the plain
+    version's autograd within K14_GRAD_TOL of the largest gradient (atomics
+    sum in another order), ADA's timed with its bound (the output's
+    gradient, the grid and the whole input gradient) and aten's
+    grid_sampler_2d_backward (the input's gradient alone), and against the
+    parent's; the double backward equal to K14's forward on the same grid;
+    the two kernels' registers and shared memory.
+    -> {"grid_sample_2d": summary, "grid_sample_2d_grad": summary}."""
     import torch
     import torch.nn.functional as F
 
     from panic3d_tpu_torch.ops import grid_sample as gs
 
+    res = k14_resources()
+    for fn, r in res.items():
+        print(f"  {fn}: {r['registers']} registers, {r['smem_bytes']} bytes of shared memory "
+              f"a block of {gs.K14_TILE ** 2} threads")
     with torch.no_grad():
         calls = k14_calls(device)
-    fwd, shapes = None, {}
+    fwd, shapes, branches = None, {}, {}
     for label, (x, grid, pad, ac) in calls.items():
+        C = x.shape[1]
+        pts = grid.shape[0] * grid.shape[1] * grid.shape[2]
         with torch.no_grad():
             yk = gs.grid_sample_2d_kernel(x, grid, pad, ac)
             yp = gs.grid_sample_2d_plain(x, grid, pad, ac)
             e = max_err(yk, yp)
             check(f"K14 {label} {list(x.shape)} at {list(grid.shape)} {pad} "
                   f"align_corners={ac}, bit for bit", e, 0.0)
-            if label == "ada_unfiltered":   # the border call on the same grid
+            summ = {"max_abs_err": e}
+            modes = (pad,)
+            if label in ("ada_unfiltered", "two_branch"):   # border calls on the same grids
                 e_b = max_err(gs.grid_sample_2d_kernel(x, grid, "border", ac),
                               gs.grid_sample_2d_plain(x, grid, "border", ac))
                 check(f"K14 {label} border padding, bit for bit", e_b, 0.0)
-                shapes[label] = {"max_abs_err": e, "border_max_abs_err": e_b}
+                summ.update(border_max_abs_err=e_b)
+                modes = (pad, "border")
+            for mode in modes:
+                br = k14_branches(x, grid, mode, ac)
+                branches[label if mode == pad else f"{label}_{mode}"] = br
+                print(f"  K14 backward's staged branch at {label} {mode}: {br['staged_blocks']} "
+                      f"of {br['tiles']} blocks on the card ({br['staged_share']:.4f}), as the "
+                      "footprint model says")
+            share = branches[label]["staged_share"]
+            if label == "ada":
+                require(share >= 0.5, f"K14 at ADA's call: staged blocks {share}, not most")
+            elif label == "eqr":
+                require(share <= 0.1, f"K14 at EQ-R's call: staged blocks {share}, not direct")
+            elif label == "two_branch":
+                require(0.3 <= share <= 0.7, f"K14's two-branch call: staged blocks {share}")
+            if label not in ("ada", "eqr"):
+                shapes[label] = summ
                 continue
-            pts = grid.shape[0] * grid.shape[1] * grid.shape[2]
             n_bytes = k14_touched_bytes(x, grid, pad, ac) + nbytes(grid, yk)
-            summ = record(e, lambda: gs.grid_sample_2d_kernel(x, grid, pad, ac),
-                          lambda: gs.grid_sample_2d_plain(x, grid, pad, ac), n_bytes,
-                          k14_ops(pts, x.shape[1]),
-                          library_fn=lambda: F.grid_sample(x, grid, mode="bilinear",
-                                                           padding_mode=pad, align_corners=ac),
-                          plain_iters=3)
-        summ.update(input=list(x.shape), grid=list(grid.shape), touched_bytes=n_bytes)
-        print(f"  ms {summ['ms']:.6f} (plain {summ['plain_ms']:.6f}, F.grid_sample "
-              f"{summ['library_ms']:.6f}, bound {summ['bound_ms']:.6f} by {summ['bound_by']}, "
-              f"{n_bytes / 1e6:.1f} MB)")
+            summ.update(record(e, lambda: gs.grid_sample_2d_kernel(x, grid, pad, ac),
+                               lambda: gs.grid_sample_2d_plain(x, grid, pad, ac), n_bytes,
+                               k14_ops(pts, C),
+                               library_fn=lambda: F.grid_sample(x, grid, mode="bilinear",
+                                                                padding_mode=pad,
+                                                                align_corners=ac),
+                               plain_iters=3))
+            summ.update(input=list(x.shape), grid=list(grid.shape), touched_bytes=n_bytes)
+            print(f"  ms {summ['ms']:.6f} (plain {summ['plain_ms']:.6f}, F.grid_sample "
+                  f"{summ['library_ms']:.6f}, bound {summ['bound_ms']:.6f} by "
+                  f"{summ['bound_by']}, {n_bytes / 1e6:.1f} MB)")
+            summ.update(parent_and_sass(
+                parent, "grid_sample", "grid_sample_2d", "grid_sample_kernel",
+                lambda: gs.grid_sample_2d_kernel(x, grid, pad, ac), pts, "point",
+                {"STG": C}, 1, {"STG": C}, adapt=k14_parent_adapt()))
+            if "parent" in summ:
+                require(summ["parent"]["values_not_bit_equal"] == 0,
+                        f"K14 at {label}'s call: the output differs from the parent's")
         shapes[label] = summ
         if fwd is None:
             fwd = dict(summ)
     fwd["shapes"] = shapes
+    fwd["resources"] = res.get("grid_sample_kernel")
 
     # the backward at ADA's call, and its own backward (R1 through the augment)
-    x, grid, pad, ac = calls["ada"]
-    del calls
-    gen = torch.Generator(device=device).manual_seed(SEED + 1)
-    out_shape = (x.shape[0], x.shape[1]) + tuple(grid.shape[1:3])
-    g = torch.randn(out_shape, generator=gen, device=device)
-    with torch.enable_grad():
-        xr = x.detach().requires_grad_(True)
-        gr = g.detach().requires_grad_(True)
-        (gk,) = torch.autograd.grad(gs.grid_sample_2d_kernel(xr, grid, pad, ac), xr, gr,
-                                    create_graph=True)
-        xp = x.detach().requires_grad_(True)
-        (gp,) = torch.autograd.grad(gs.grid_sample_2d_plain(xp, grid, pad, ac), xp, g)
-        e = max_err(gk.detach(), gp)
-        tol = K14_GRAD_TOL * float(gp.abs().max())
-        check(f"K14 backward {list(x.shape)} at {list(grid.shape)} vs the plain autograd", e,
-              tol)
-        ddx = torch.randn(tuple(x.shape), generator=gen, device=device)
-        (ddy,) = torch.autograd.grad(gk, gr, ddx)
-    with torch.no_grad():
-        e2 = max_err(ddy, gs.grid_sample_2d_kernel(ddx, grid, pad, ac))
-        check("K14 double backward = K14's forward of the incoming gradient", e2, 0.0)
-        del gk, gp, ddy, ddx, xr, xp, gr
-        n_bytes = nbytes(g, grid) + x.numel() * 4
-        pts = grid.shape[0] * grid.shape[1] * grid.shape[2]
-        bwd = record(e, lambda: gs._launch_k14_grad(g, grid, tuple(x.shape), pad, ac),
-                     lambda: gs.grid_sample_2d_grad_plain(g, grid, tuple(x.shape), pad, ac),
-                     n_bytes, pts * (16 + 10 * x.shape[1]),
-                     library_fn=lambda: torch.ops.aten.grid_sampler_2d_backward(
-                         g, x, grid, 0, 0 if pad == "zeros" else 1, ac, [True, False]),
-                     plain_iters=3)
-    bwd.update(tol=tol, double_backward_max_abs_err=e2, input=list(x.shape),
-               grid=list(grid.shape))
-    print(f"  K14 backward ms {bwd['ms']:.6f} (plain {bwd['plain_ms']:.6f}, aten "
-          f"grid_sampler_2d_backward {bwd['library_ms']:.6f}, bound {bwd['bound_ms']:.6f} by "
-          f"{bwd['bound_by']})")
-    del x, grid, g
+    bwd = None
+    for label in ("two_branch", "ada"):
+        x, grid, pad, ac = calls.pop(label)
+        gen = torch.Generator(device=device).manual_seed(SEED + 1)
+        out_shape = (x.shape[0], x.shape[1]) + tuple(grid.shape[1:3])
+        g = torch.randn(out_shape, generator=gen, device=device)
+        for mode in (pad, "border") if label == "two_branch" else (pad,):
+            with torch.enable_grad():
+                xr = x.detach().requires_grad_(True)
+                gr = g.detach().requires_grad_(True)
+                (gk,) = torch.autograd.grad(gs.grid_sample_2d_kernel(xr, grid, mode, ac), xr,
+                                            gr, create_graph=True)
+                xp = x.detach().requires_grad_(True)
+                (gp,) = torch.autograd.grad(gs.grid_sample_2d_plain(xp, grid, mode, ac), xp, g)
+                e = max_err(gk.detach(), gp)
+                tol = K14_GRAD_TOL * float(gp.abs().max())
+                check(f"K14 backward {label} {list(x.shape)} at {list(grid.shape)} {mode} vs "
+                      "the plain autograd", e, tol)
+                ddx = torch.randn(tuple(x.shape), generator=gen, device=device)
+                (ddy,) = torch.autograd.grad(gk, gr, ddx)
+            with torch.no_grad():
+                e2 = max_err(ddy, gs.grid_sample_2d_kernel(ddx, grid, mode, ac))
+                check("K14 double backward = K14's forward of the incoming gradient", e2, 0.0)
+            del gk, gp, ddy, ddx, xr, xp, gr
+            if label == "two_branch":
+                shapes[label][f"grad_{mode}_max_abs_err"] = e
+                shapes[label][f"grad_{mode}_tol"] = tol
+        if label == "two_branch":
+            continue
+        with torch.no_grad():
+            n_bytes = nbytes(g, grid) + x.numel() * 4
+            pts = grid.shape[0] * grid.shape[1] * grid.shape[2]
+            C = x.shape[1]
+            shape = tuple(x.shape)
+            bwd = record(e, lambda: gs._launch_k14_grad(g, grid, shape, pad, ac),
+                         lambda: gs.grid_sample_2d_grad_plain(g, grid, shape, pad, ac),
+                         n_bytes, pts * (16 + 10 * C),
+                         library_fn=lambda: torch.ops.aten.grid_sampler_2d_backward(
+                             g, x, grid, 0, 0 if pad == "zeros" else 1, ac, [True, False]),
+                         plain_iters=3)
+            bwd.update(tol=tol, double_backward_max_abs_err=e2, input=list(x.shape),
+                       grid=list(grid.shape), staged_share=branches[label]["staged_share"],
+                       staged_blocks=branches[label]["staged_blocks"],
+                       tiles=branches[label]["tiles"], branches=branches,
+                       resources=res.get("grid_sample_grad_kernel"))
+            print(f"  K14 backward ms {bwd['ms']:.6f} (plain {bwd['plain_ms']:.6f}, aten "
+                  f"grid_sampler_2d_backward {bwd['library_ms']:.6f}, bound "
+                  f"{bwd['bound_ms']:.6f} by {bwd['bound_by']})")
+            bwd.update(parent_and_sass(
+                parent, "grid_sample", "grid_sample_2d_grad", "grid_sample_grad_kernel",
+                lambda: gs._launch_k14_grad(g, grid, shape, pad, ac), pts, "point",
+                {"BAR": -(-C // 3)}, 1, {"LDG": C}, adapt=k14_parent_adapt()))   # passes of CB = 3
+            if "parent" in bwd:
+                e_par = max_err(gs._launch_k14_grad(g, grid, shape, pad, ac),
+                                k14_parent_grad(parent, g, grid, shape, pad, ac))
+                check("K14 backward vs the parent's kernel", e_par, tol)
+                bwd["parent"]["max_abs_err"] = e_par
+        del x, grid, g
     torch.cuda.empty_cache()
     return {"grid_sample_2d": fwd, "grid_sample_2d_grad": bwd}
+
+
+def k14_parent_grad(parent, g, grid, shape, pad, ac):
+    """The parent's K14 backward form at the same call (parent_entries)."""
+    from panic3d_tpu_torch.ops import grid_sample as gs
+
+    with parent_entries({"grid_sample_2d_grad": (parent["grid_sample"][0],
+                                                 k14_parent_adapt())}):
+        return gs._launch_k14_grad(g, grid, shape, pad, ac)
 
 
 def augment_check(device, card):
@@ -5640,7 +5823,7 @@ def main(argv=None) -> int:
           + " ".join(f"{k}={v:.1f}s" for k, v in per.items()))
     spilled = []
     for stem in per:
-        for fn, regs, spill_st, spill_ld in ptxas_report(
+        for fn, regs, spill_st, spill_ld, _ in ptxas_report(
                 build.build(stem).with_suffix(".log").read_text()):
             print(f"  {stem}: {fn} {regs} registers, spill stores/loads {spill_st}/{spill_ld}")
             if fn.startswith(NO_SPILL) and (spill_st or spill_ld):
@@ -5661,7 +5844,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.ada_only:
-        checks = k14_checks(device)
+        checks = k14_checks(device, parent)
         checks["grid_sample_2d"]["augment_pipe"] = augment_check(device, card)
         with torch.enable_grad():
             counts_ada, ada = ada_training_path(device, card)
@@ -5723,7 +5906,7 @@ def main(argv=None) -> int:
         checks.update(k13_checks(device))
         checks.update(k10_checks(Gd, device, parent))
         checks.update(k11_checks(device))
-        checks.update(k14_checks(device))
+        checks.update(k14_checks(device, parent))
         checks["grid_sample_2d"]["augment_pipe"] = augment_check(device, card)
         grad_guard_checks(device)
         if args.kernels_only:

@@ -162,7 +162,8 @@ KERNELS = {
 # C entry points that launch no kernel of a path and are not counted (a
 # check for chip_smoke.py, or a launch parameter a wrapper asks for):
 # entry point -> the kernel whose source holds it
-CHECK_ENTRIES = {"volume_lattice": "volume_density", "winding_number_splits": "winding_number"}
+CHECK_ENTRIES = {"volume_lattice": "volume_density", "winding_number_splits": "winding_number",
+                 "grid_sample_2d_grad_counted": "grid_sample_2d_grad"}
 
 
 def _tensors(obj):

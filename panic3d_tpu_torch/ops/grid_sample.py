@@ -6,7 +6,9 @@ loss mask reads the front view through it (training/loss.py), and ADA warps
 the discriminator's images with it (training/augment.py). On CUDA tensors it
 is the wrapper of kernel K14 (csrc/grid_sample.cu, f32), run inside
 ``GridSample2d``, an autograd.Function whose backward is K14's backward form
-(``grid_sample_2d_grad``: the input's gradient, scattered with atomics),
+(``grid_sample_2d_grad``: the input's gradient, a tile of points added into
+its source footprint in shared memory and flushed with atomics, or added
+with an atomic a corner where the footprint is large: ``k14_tile_plan``),
 itself an autograd.Function whose backward is K14's forward on the same grid
 (the backward is linear in its gradient, and its transpose is the sample),
 so R1 differentiates it twice. The grid takes no gradient on any path of the
@@ -126,15 +128,67 @@ def grid_sample_2d_grad_plain(grad, grid, in_shape, padding_mode="zeros", align_
     return flat.reshape(N, H * W, C).transpose(1, 2).reshape(N, C, H, W)
 
 
-_K14_ARGS = (kb.PTR, kb.PTR, kb.PTR, kb.INT, kb.INT, kb.INT, kb.INT, kb.LONG, kb.INT, kb.INT,
-             kb.PTR)
+_K14_ARGS = (kb.PTR, kb.PTR, kb.PTR, kb.INT, kb.INT, kb.INT, kb.INT, kb.INT, kb.INT, kb.INT,
+             kb.INT, kb.PTR)
 _PADDING = {"zeros": 0, "border": 1}
+K14_TILE = 16             # csrc/grid_sample.cu: a block's tile of 16 x 16 output points
+K14_STAGE_TEXELS = 1024   # the largest footprint the staged branch takes (4 texels a point)
 
 
-def _k14_operands(x, grid, what):
+def k14_tile_plan(grid, H, W, padding_mode="zeros", align_corners=False):
+    """K14's backward's footprint test (csrc/grid_sample.cu) in PyTorch: for each tile
+    of K14_TILE x K14_TILE output points of ``grid`` [N,Hg,Wg,2] sampling an
+    H x W image, the bounding box of its points' valid corners (under border
+    padding the clamped corners), its x-start rounded down to a multiple of
+    4 and its width up to one; the tile takes the staged branch where the
+    box holds at most K14_STAGE_TEXELS texels, the direct branch where it
+    holds more or nothing. -> dict of [N,Ty,Tx] tensors: ``x``, ``y`` (the
+    box's first column and row), ``w``, ``h`` (its row stride and rows; the
+    copy of a row stops at the image's width), ``empty``, ``staged``."""
+    _check_padding(padding_mode)
+    N, Hg, Wg, _ = grid.shape
+    acc = torch.promote_types(grid.dtype, torch.float32)
+    x0, _ = _setup(grid[..., 0], W, acc, grid.dtype, align_corners)
+    y0, _ = _setup(grid[..., 1], H, acc, grid.dtype, align_corners)
+    big = 2 ** 31 - 1
+    lo_x, hi_x, lo_y, hi_y = (torch.full_like(x0, v) for v in (big, -big, big, -big))
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xs, ys = x0 + dx, y0 + dy
+            ok = (torch.ones_like(xs, dtype=torch.bool) if padding_mode == "border"
+                  else (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H))
+            xc, yc = xs.clamp(0, W - 1), ys.clamp(0, H - 1)
+            lo_x = torch.where(ok, torch.minimum(lo_x, xc), lo_x)
+            hi_x = torch.where(ok, torch.maximum(hi_x, xc), hi_x)
+            lo_y = torch.where(ok, torch.minimum(lo_y, yc), lo_y)
+            hi_y = torch.where(ok, torch.maximum(hi_y, yc), hi_y)
+    T = K14_TILE
+    pad = (0, -Wg % T, 0, -Hg % T)
+
+    def per_tile(v, fill, reduce):
+        v = torch.nn.functional.pad(v, pad, value=fill)
+        v = v.reshape(N, v.shape[1] // T, T, v.shape[2] // T, T)
+        return reduce(reduce(v, 4), 2)
+
+    lo_x = per_tile(lo_x, big, torch.amin)
+    hi_x = per_tile(hi_x, -big, torch.amax)
+    lo_y = per_tile(lo_y, big, torch.amin)
+    hi_y = per_tile(hi_y, -big, torch.amax)
+    empty = lo_x == big
+    zero = torch.zeros_like(lo_x)
+    bx = torch.where(empty, zero, lo_x - lo_x % 4)
+    bw = torch.where(empty, zero, (hi_x + 1 - bx + 3) // 4 * 4)
+    by = torch.where(empty, zero, lo_y)
+    bh = torch.where(empty, zero, hi_y + 1 - lo_y)
+    staged = ~empty & (bw * bh <= K14_STAGE_TEXELS)
+    return {"x": bx, "y": by, "w": bw, "h": bh, "empty": empty, "staged": staged}
+
+
+def _k14_operands(x, grid, what, image_hw=None):
     """Check one K14 launch's operands, an f32 [N,C,H,W] tensor and an f32
-    grid [N,Hg,Wg,2] on its CUDA device -> (x, grid as [N,P,2], P), both
-    contiguous."""
+    grid [N,Hg,Wg,2] on its CUDA device, for an image of ``image_hw`` (by
+    default x's H, W) -> (x, grid), both contiguous, the grid 8-byte
+    aligned."""
     if x.dtype != torch.float32 or grid.dtype != torch.float32:
         raise TypeError(f"{what} takes float32 tensors (every caller's dtype), got "
                         f"{x.dtype} and a grid of {grid.dtype}")
@@ -144,19 +198,28 @@ def _k14_operands(x, grid, what):
     if not (x.is_cuda and grid.device == x.device):
         raise ValueError(f"{what} runs on CUDA tensors of one device, got {x.device} and "
                          f"{grid.device}")
-    return (x.contiguous(), grid.reshape(x.shape[0], -1, 2).contiguous(),
-            grid.shape[1] * grid.shape[2])
+    N = x.shape[0]
+    H, W = image_hw or x.shape[2:]
+    Hg, Wg = grid.shape[1:3]
+    if H * W >= 2 ** 31 or Hg * Wg >= 2 ** 31 or N > 65535 or -(-Hg // K14_TILE) > 65535:
+        raise ValueError(f"{what}: an image {tuple(x.shape)} or a grid {tuple(grid.shape)} "
+                         f"beyond the kernel's 32-bit offsets or its launch's limits")
+    grid = grid.contiguous()
+    if grid.data_ptr() % 8:   # the kernel reads a point as a float2
+        grid = grid.clone()
+    return x.contiguous(), grid
 
 
 def _launch_k14(x, grid, padding_mode, align_corners):
     """One launch of K14's forward: :func:`grid_sample_2d_plain` on f32 CUDA
     tensors."""
     _check_padding(padding_mode)
-    x, pts, P = _k14_operands(x, grid, "K14 grid_sample_2d")
+    x, grid = _k14_operands(x, grid, "K14 grid_sample_2d")
     N, C, H, W = x.shape
-    y = torch.empty((N, C) + tuple(grid.shape[1:3]), device=x.device, dtype=torch.float32)
-    kb.launch("grid_sample_2d", _K14_ARGS, x.data_ptr(), pts.data_ptr(), y.data_ptr(), N, C, H,
-              W, P, _PADDING[padding_mode], int(bool(align_corners)),
+    Hg, Wg = grid.shape[1:3]
+    y = torch.empty((N, C, Hg, Wg), device=x.device, dtype=torch.float32)
+    kb.launch("grid_sample_2d", _K14_ARGS, x.data_ptr(), grid.data_ptr(), y.data_ptr(), N, C, H,
+              W, Hg, Wg, _PADDING[padding_mode], int(bool(align_corners)),
               torch.cuda.current_stream(x.device).cuda_stream)
     KERNELS["grid_sample_2d"].launches += 1
     return y
@@ -164,19 +227,21 @@ def _launch_k14(x, grid, padding_mode, align_corners):
 
 def _launch_k14_grad(grad, grid, in_shape, padding_mode, align_corners):
     """One launch of K14's backward form: :func:`grid_sample_2d_grad_plain`
-    on f32 CUDA tensors. The input's gradient is zeroed, then each point
-    adds its corner terms with atomics (their order, and so the last bits
-    of a sum, varies from run to run)."""
+    on f32 CUDA tensors. The input's gradient is zeroed, then each tile of
+    points adds its corner terms into its footprint in shared memory and
+    flushes it with atomics, or, where the footprint fails the staged test,
+    adds them with atomics one by one (their order, and so the last bits of
+    a sum, varies from run to run)."""
     _check_padding(padding_mode)
-    grad, pts, P = _k14_operands(grad, grid, "K14 grid_sample_2d_grad")
     N, C, H, W = in_shape
     if tuple(grad.shape) != (N, C) + tuple(grid.shape[1:3]):
         raise ValueError(f"K14 grid_sample_2d_grad: a gradient {tuple(grad.shape)} for the "
                          f"input {tuple(in_shape)} and the grid {tuple(grid.shape)}")
+    grad, grid = _k14_operands(grad, grid, "K14 grid_sample_2d_grad", (H, W))
     gx = torch.zeros((N, C, H, W), device=grad.device, dtype=torch.float32)
-    kb.launch("grid_sample_2d_grad", _K14_ARGS, grad.data_ptr(), pts.data_ptr(),
-              gx.data_ptr(), N, C, H, W, P, _PADDING[padding_mode], int(bool(align_corners)),
-              torch.cuda.current_stream(grad.device).cuda_stream)
+    kb.launch("grid_sample_2d_grad", _K14_ARGS, grad.data_ptr(), grid.data_ptr(),
+              gx.data_ptr(), N, C, H, W, grid.shape[1], grid.shape[2], _PADDING[padding_mode],
+              int(bool(align_corners)), torch.cuda.current_stream(grad.device).cuda_stream)
     KERNELS["grid_sample_2d_grad"].launches += 1
     return gx
 
