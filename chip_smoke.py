@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch + CUDA port (panic3d_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only] [--keyed-only] [--training-only]
-                          [--forms-only [--k1-grad-parts]] [--ada-only] [--parent DIR]
+                          [--forms-only [--k1-grad-parts]] [--ada-only] [--metrics-only]
+                          [--parent DIR]
 
 1. Prints the setup (torch, CUDA, card name and power limit); exits non-zero
    without a CUDA device.
@@ -144,7 +145,14 @@
    more (K14 forward and backward and K4's four 1-D forms forward and
    backward required, finite losses, p moved by the heuristic's own steps
    on the recorded real-logit signs, s/step, ms by phase, host waits a
-   step); --training-only runs the build and these phases alone; --ada-only
+   step); then the GAN metrics (gan_metrics_path): calc_metrics.main on a
+   seeded flagship snapshot with a seeded InceptionV3, the six metrics
+   finite; fid50k_full's card work (G_ema.f and InceptionV3, K1-K5
+   required) in s per 1,000 items, InceptionV3's ms a batch, host waits
+   and peak memory; InceptionV3 card vs CPU and unmoved by the global TF32
+   flags; trainer.main --metrics fid50k_full to one in-loop snapshot, its
+   jsonl finite (--metrics-only runs the build and this phase alone);
+   --training-only runs the build and these phases alone; --ada-only
    runs the build, K14's checks, the augment check and ADA's training path
    alone; --forms-only runs the build, K4's forms of the calls the generic
    kernel lost (k4_form_checks) and K1's and K2's backward checks alone,
@@ -5750,6 +5758,207 @@ def ada_training_path(device, card):
     return counts_ada, summary
 
 
+GAN_METRICS = ("fid50k_full", "fid_clip", "kid50k_full", "pr50k3_full", "is50k", "ppl2_wend")
+METRIC_ITEMS = 64          # the metrics CLI's and the trainer's --metric-items
+METRIC_BATCH = 8           # the CLI's --batch (the trainer's default batch)
+METRIC_TIMED_ITEMS = 512   # fid50k_full's timed fakes, from two pre-drawn batches cycled
+METRIC_FEAT_TOL = 1e-4     # InceptionV3's features, card against CPU, of the largest feature
+TF32_PIN_TOL = 1e-6        # the feature fn under the global TF32 flags on against off, relative
+
+
+def inception_flops(net, x) -> float:
+    """The f32 operations of InceptionV3's features on ``x``: 2 per
+    multiply-add of each conv (their output shapes from one run), the
+    pools and ReLUs left out."""
+    from panic3d_tpu_torch.eval.inception import FConv
+
+    total = [0.0]
+
+    def hook(mod, inp, out):
+        total[0] += 2.0 * out.numel() * mod.w[0].numel()
+
+    handles = [m.register_forward_hook(hook) for m in net.modules() if isinstance(m, FConv)]
+    try:
+        net(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def gan_metrics_path(device, card):
+    """The GAN metrics on the card (eval/calc_metrics.py, training/
+    metric_eval.py, the trainer's snapshot-time --metrics): a flagship
+    snapshot at the trainer's defaults with seeded weights and a seeded
+    InceptionV3 (convert_inception_v3 of a seeded torchvision-named state
+    dict with BatchNorm statistics) written by save_checkpoint; calc_metrics.
+    main with --synthetic --batch 8 --metric-items 64 and the six metrics,
+    every value finite, each metric's seconds from its jsonl's timestamps;
+    fid50k_full's card work apart from the host's synthetic draws (512 fakes
+    from two pre-drawn batches, cycled: G_ema.f and InceptionV3, s per 1,000
+    items), with the launch counts zeroed before and read after (K1-K5
+    required), peak memory, InceptionV3's ms a batch of 8 at 299^2 and
+    generate_fakes' ms a batch (CUDA events), and one batch's host waits (1:
+    the features' copy to the host, for the statistics); the features of one
+    fixed batch of 8 images at 512^2 on the card against the port on the CPU
+    (METRIC_FEAT_TOL); the feature fn under the global TF32 flags on and
+    off (equal within TF32_PIN_TOL, the caller's flags restored), and a
+    TF32 forward's distance for reference; then trainer.main --synthetic
+    --metrics fid50k_full --metric-items 64 to one in-loop snapshot, whose
+    metric-fid50k_full.jsonl must hold a finite value. -> summary."""
+    import itertools
+    import shutil
+
+    import torch
+
+    from panic3d_tpu_torch.data.dataset import synthetic_batch
+    from panic3d_tpu_torch.eval import calc_metrics
+    from panic3d_tpu_torch.eval.inception import InceptionV3, seeded_state_dict
+    from panic3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from panic3d_tpu_torch.runtime.checkpoint import (flax_from_state_dict, load_checkpoint,
+                                                      save_checkpoint)
+    from panic3d_tpu_torch.runtime.convert import convert_inception_v3
+    from panic3d_tpu_torch.training import trainer
+    from panic3d_tpu_torch.training.metric_eval import (f32_math, generate_fakes,
+                                                        make_inception_feature_fn)
+
+    root = os.path.join(BUILD_TMP, "gan_metrics")
+    shutil.rmtree(root, ignore_errors=True)
+    summary = {}
+
+    # the snapshot and the detector's weights
+    t0 = time.perf_counter()
+    args = trainer.parse_args(["--name", "metrics"])
+    G, D, chonk_ch, feat_dim, model_kwargs = trainer.build_models(args, device)
+    del D
+    G.init_weights(SEED).eval()
+    snap = os.path.join(root, "run", "network-snapshot-000000")
+    save_checkpoint(snap, flax_from_state_dict(G.state_dict()),
+                    config=dict(vars(args), model_kwargs=model_kwargs))
+    inc_dir = os.path.join(root, "inception")
+    inc_vars = convert_inception_v3(seeded_state_dict(SEED))
+    save_checkpoint(inc_dir, inc_vars)
+    print(f"GAN metrics: flagship snapshot and InceptionV3 written in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    # calc_metrics.main, the six metrics
+    run_dir = os.path.join(root, "run")
+    t_cli = time.time()
+    calc_metrics.main(["--ckpt", snap, "--synthetic", "--batch", str(METRIC_BATCH),
+                       "--metric-items", str(METRIC_ITEMS), "--metrics", ",".join(GAN_METRICS),
+                       "--inception-weights", inc_dir])
+    values, seconds, prev = {}, {}, t_cli
+    for name in GAN_METRICS:
+        with open(os.path.join(run_dir, f"metric-{name}.jsonl")) as f:
+            rec = json.loads(f.read().splitlines()[-1])
+        seconds[name] = rec["timestamp"] - prev
+        prev = rec["timestamp"]
+        values.update(rec["results"])
+    bad = {k: v for k, v in values.items() if not math.isfinite(v)}
+    require(not bad, f"calc_metrics: values not finite: {bad}")
+    print(f"calc_metrics (flagship, --synthetic --batch {METRIC_BATCH} --metric-items "
+          f"{METRIC_ITEMS}, seeded nets): " + ", ".join(f"{k} {v:.6g}" for k, v in values.items())
+          + "; seconds " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+          + f" (the first with the snapshot's load; the host's synthetic draws included)  [{card}]")
+    summary["cli"] = {"values": values, "seconds": seconds}
+
+    # fid50k_full's card work: G_ema.f and InceptionV3 on pre-drawn batches
+    fn = make_inception_feature_fn(load_checkpoint(inc_dir)[0], device=device)
+    pre = [synthetic_batch(bs=METRIC_BATCH, size=G.img_resolution, chonk_ch=chonk_ch,
+                           feat_dim=feat_dim, seed=i) for i in range(2)]
+    batches = itertools.cycle(pre)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for fakes in generate_fakes(G, batches, METRIC_BATCH, gen):
+        fn(fakes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t = time.perf_counter()
+    n = 0
+    for fakes in generate_fakes(G, batches, METRIC_TIMED_ITEMS, gen):
+        n += len(fn(fakes))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    counts, peak = launch_counts(), torch.cuda.max_memory_allocated()
+    require(n == METRIC_TIMED_ITEMS, f"fid50k_full fakes: {n} items")
+    require_launched(counts, RENDER_KERNELS, "fid50k_full fakes")
+    waits = count_syncs(lambda: [fn(f) for f in generate_fakes(G, batches, METRIC_BATCH, gen)])
+    require(waits == 1, f"fid50k_full: {waits} host waits a batch, expected 1 (the features)")
+    net = InceptionV3(device=device).load_variables(inc_vars).eval()
+    x299 = torch.rand((METRIC_BATCH, 3, 299, 299), generator=gen, device=device) * 2 - 1
+    with f32_math(), torch.no_grad():
+        inc_ms = cuda_ms(lambda: net(x299))
+        inc_flops = inception_flops(net, x299)
+    inc_bound, inc_by = bound(0.0, inc_flops)
+    fake_ms = cuda_ms(lambda: next(generate_fakes(G, batches, METRIC_BATCH, gen)))
+    per_batch = {k: v * METRIC_BATCH / n for k, v in counts.items() if v}
+    print(f"fid50k_full fakes ({n} items, batch {METRIC_BATCH}, two pre-drawn synthetic "
+          f"batches cycled): {dt / n * 1e3:.3f} s per 1,000 items; InceptionV3 "
+          f"{inc_ms:.3f} ms a batch of {METRIC_BATCH} at 299^2 ({inc_flops / 1e9:.3f} GFLOP: "
+          f"{inc_flops / inc_ms / 1e9:.3f} TFLOP/s, bound {inc_bound:.6f} ms by f32 "
+          f"{inc_by}); generate_fakes "
+          f"{fake_ms:.3f} ms a batch; host waits a batch {waits}; peak memory "
+          f"{peak / 2**30:.3f} GiB; launches a batch "
+          + ", ".join(f"{k}={v:g}" for k, v in per_batch.items()) + f"  [{card}]")
+    summary["fid50k_full_fakes"] = {
+        "items": n, "s_per_1000_items": dt / n * 1e3, "inception_ms_batch8_299": inc_ms,
+        "inception_gflop_batch8_299": inc_flops / 1e9, "inception_bound_ms": inc_bound,
+        "generate_fakes_ms_batch": fake_ms, "host_waits_per_batch": waits,
+        "peak_gib": peak / 2**30, "launches_per_batch": per_batch}
+
+    # InceptionV3's features: the card against the CPU, and TF32 pinned off
+    imgs = torch.rand((METRIC_BATCH, 3, 512, 512), generator=torch.Generator().manual_seed(SEED))
+    want = make_inception_feature_fn(inc_vars, device="cpu")(imgs)
+    got = fn(imgs)
+    err = float(np.abs(got - want).max())
+    check("InceptionV3 features, card vs CPU (of the largest feature)",
+          err / float(np.abs(want).max()), METRIC_FEAT_TOL)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        on = fn(imgs)
+        kept = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        with torch.no_grad():
+            tf32 = net(InceptionV3.preprocess(imgs.to(device), (0.0, 1.0))).cpu().numpy()
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        off = fn(imgs)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    require(kept == (True, True), f"the feature fn left the TF32 flags at {kept}")
+    scale = float(np.abs(off).max())
+    pin = float(np.abs(on - off).max()) / scale
+    tf32_err = float(np.abs(tf32 - off).max()) / scale
+    check("InceptionV3 feature fn, global TF32 flags on vs off (relative)", pin, TF32_PIN_TOL)
+    print(f"  a TF32 forward lands {tf32_err:.3e} of the largest feature from f32; the card "
+          f"vs the CPU {err / float(np.abs(want).max()):.3e}")
+    summary["features"] = {"card_vs_cpu_rel": err / float(np.abs(want).max()),
+                           "tf32_flags_on_vs_off_rel": pin, "tf32_forward_rel": tf32_err}
+    del net, fn, G
+    torch.cuda.empty_cache()
+
+    # the trainer's snapshot-time metric, at one in-loop snapshot
+    outdir = os.path.join(root, "train")
+    t = time.perf_counter()
+    with torch.enable_grad():
+        out = trainer.main(["--name", "metrics", "--outdir", outdir, "--synthetic",
+                            "--tick-steps", "1", "--snap", "1", "--max-steps", "2",
+                            "--metrics", "fid50k_full", "--metric-items", str(METRIC_ITEMS),
+                            "--inception-weights", inc_dir])
+    train_s = time.perf_counter() - t
+    with open(os.path.join(out["run_dir"], "metric-fid50k_full.jsonl")) as f:
+        lines = [json.loads(x) for x in f.read().splitlines()]
+    require(len(lines) == 1 and math.isfinite(lines[0]["results"]["fid50k_full"]),
+            f"trainer --metrics fid50k_full: {lines}")
+    print(f"trainer --metrics fid50k_full --metric-items {METRIC_ITEMS} (2 steps, a snapshot "
+          f"after the second): fid50k_full {lines[0]['results']['fid50k_full']:.6g} at "
+          f"{lines[0]['snapshot_pkl']}; {train_s:.3f} s in all  [{card}]")
+    summary["trainer"] = {"fid50k_full": lines[0]["results"]["fid50k_full"],
+                          "snapshot": lines[0]["snapshot_pkl"], "seconds": train_s}
+    del out
+    torch.cuda.empty_cache()
+    return summary
+
+
 def k4_grad_entry(checks, launches):
     """The kernels line's entry of K4's backward form (K4's own entry point
     on the transposed pass, counted under its grad_ variants)."""
@@ -5788,6 +5997,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ada-only", action="store_true",
                     help="build, then run only K14's checks, augment_pipe on the card and ADA's "
                          "training path (--aug fixed, then --aug ada), then stop")
+    ap.add_argument("--metrics-only", action="store_true",
+                    help="build, then run only the GAN metrics path (calc_metrics.main with "
+                         "the six metrics, fid50k_full's card work timed, InceptionV3 card vs "
+                         "CPU and under the TF32 flags, the trainer's --metrics), then stop")
     ap.add_argument("--parent", metavar="DIR",
                     help="a directory of the parent commit's kernel sources (e.g. "
                          "upfirdn2d.cu, front_occlusion.cu, paste_front.cu): time this "
@@ -5853,6 +6066,13 @@ def main(argv=None) -> int:
                    for n in ("grid_sample_2d", "grid_sample_2d_grad")]
         print(f"wall time {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"paths": {"ada_training": ada}, "kernels": kernels}, default=str))
+        print(card)
+        return 0
+
+    if args.metrics_only:
+        gan = gan_metrics_path(device, card)
+        print(f"wall time {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"paths": {"gan_metrics": gan}}, default=str))
         print(card)
         return 0
 
@@ -5987,6 +6207,10 @@ def main(argv=None) -> int:
             checks[name]["launches_per_ada_step"] = training["ada"]["ada"][
                 "launches_per_step"].get(name, 0)
 
+        # the GAN metrics: calc_metrics, fid50k_full's card work, the
+        # trainer's snapshot-time --metrics
+        gan = gan_metrics_path(device, card)
+
         # K5's bound summed over a request's and a portrait's calls
         k5_sums = {}
         for label, fn in (("ess_paste_request", lambda: Ge.f(xp)),
@@ -6099,7 +6323,7 @@ def main(argv=None) -> int:
              "keyed_forward": keyed, "hybrid8x_keyed": hybrid,
              "probe": probe, **deep, **geometry, "eval_cli": eval_cli, "checkpoint": ckpt,
              "stylegan3_t_layers": sg3_path, "equivariance": equivariance,
-             "training": training}
+             "training": training, "gan_metrics": gan}
     print(json.dumps({"paths": paths, "card": card}, default=str))
     # each kernel's launches on the path that launches it: the ESS + paste
     # request, else the geometry path, else eval measure, else the probe,

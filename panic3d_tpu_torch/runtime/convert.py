@@ -1,10 +1,12 @@
-"""Weight converters for the eval preprocess (panic3d_tpu/runtime/convert.py:
-convert_resnet50 and convert_rmline), numpy only: a torch state_dict of the
-released artifacts (the danbooru tagger's ResNet50 trunk, the rmlineganA
-Lightning checkpoint's generator) -> the flax variables tree that the
-port's ResNet50 and RMLineGenerator load through
+"""Weight converters for the eval preprocess and the GAN metrics
+(panic3d_tpu/runtime/convert.py: convert_resnet50, convert_rmline and
+convert_inception_v3), numpy only: a torch state_dict of the released
+artifacts (the danbooru tagger's ResNet50 trunk, the rmlineganA Lightning
+checkpoint's generator, the FID detector) -> the flax variables tree that
+the port's ResNet50, RMLineGenerator and InceptionV3 load through
 runtime/checkpoint.py:module_state_from_flax, and that save_checkpoint
-writes as the JAX package's ``resnet/`` and ``rmline/`` directories.
+writes as the JAX package's ``resnet/`` and ``rmline/`` directories and
+the metric CLIs' ``--inception-weights``.
 
 Loading the torch file (torch.load of a Lightning .ckpt) happens at the
 call site, so these take an in-memory {name: array or tensor}.
@@ -75,3 +77,35 @@ def convert_rmline(state_dict: Dict[str, np.ndarray], depth: int = 6,
             stats[f"bn{i}"] = {"mean": gen[f"{bi}.running_mean"],
                                "var": gen[f"{bi}.running_var"]}
     return {"params": params, "batch_stats": stats}
+
+
+def convert_inception_v3(state_dict: Dict[str, np.ndarray], eps: float = 1e-3) -> dict:
+    """torchvision / pytorch-fid ``inception_v3`` state_dict -> the
+    InceptionV3 variables {'params'} (eval/inception.py), every BatchNorm
+    folded into its conv: the net is inference-only, one conv + bias a layer.
+
+    Source names: ``<block>.conv.weight`` and ``<block>.bn.{weight, bias,
+    running_mean, running_var}`` for every BasicConv2d (``Conv2d_1a_3x3``,
+    ``Mixed_5b.branch1x1``, ...), and ``fc.{weight, bias}`` ([1008, 2048] in
+    the FID checkpoint, [1000, 2048] in torchvision's; both taken). The fold
+    runs in float64: w' = w g / sqrt(v + eps), b' = beta - mean g / sqrt(v +
+    eps), with torchvision's BasicConv2d eps of 0.001. ``AuxLogits.*``
+    (torchvision's, absent from the FID checkpoint) is ignored."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    params: dict = {}
+    for k in sorted(sd):
+        if not k.endswith(".conv.weight") or k.startswith("AuxLogits."):
+            continue
+        base = k[: -len(".conv.weight")]
+        w = sd[k].astype(np.float64)
+        g = sd[base + ".bn.weight"].astype(np.float64)
+        beta = sd[base + ".bn.bias"].astype(np.float64)
+        mean = sd[base + ".bn.running_mean"].astype(np.float64)
+        var = sd[base + ".bn.running_var"].astype(np.float64)
+        s = g / np.sqrt(var + eps)
+        path = tuple(base.split("."))
+        _put(params, path + ("w",), (w * s[:, None, None, None]).astype(np.float32))
+        _put(params, path + ("b",), (beta - mean * s).astype(np.float32))
+    params["fc_w"] = sd["fc.weight"]
+    params["fc_b"] = sd["fc.bias"]
+    return {"params": params}

@@ -17,9 +17,15 @@ Run on the card: python -m panic3d_tpu_torch.training.trainer --name myrun
 steps from the real logits' signs (one read of them from the card each
 time); --aug fixed holds p at --aug-p.
 
+--metrics fid50k_full,fid_clip scores G_ema at each snapshot of the loop
+(not the final one) on --metric-items fakes (training/metric_eval.py) and
+appends metric-<name>.jsonl to the run directory; the dataset's
+statistics are cached under <outdir>/.metric_cache. The feature nets are
+seeded unless --inception-weights / --clip-weights name converted ones.
+
 Options whose path is not ported yet raise NotImplementedError naming the
-ROADMAP item that will port them: --fuse-recon sum|seq, --remat, --metrics
-other than none, --mesh-rays > 1 and several processes,
+ROADMAP item that will port them: --fuse-recon sum|seq, --remat,
+--mesh-rays > 1 and several processes,
 --paste-params-mode A|Agrad, --pl-weight > 0, --triplane-depth 2 and
 --tensorboard.
 """
@@ -86,8 +92,15 @@ def parse_args(argv=None):
                     help="reference grad-accumulation semantics: sum micro-batch grads")
     ap.add_argument("--tensorboard", action="store_true")
     ap.add_argument("--remat", default=None, choices=["full", "dots"])
-    ap.add_argument("--metrics", default="none")
+    # snapshot-time metric eval (training_loop_v0.py:487-498)
+    ap.add_argument("--metrics", default="none",
+                    help="comma list of fid50k_full and fid_clip; 'none' disables")
     ap.add_argument("--metric-items", type=int, default=50000)
+    ap.add_argument("--clip-weights", default=None,
+                    help="checkpoint dir of converted CLIP weights (fid_clip's feature net)")
+    ap.add_argument("--inception-weights", default=None,
+                    help="checkpoint dir of converted InceptionV3 weights for fid50k_full "
+                         "(runtime/convert.py:convert_inception_v3's output)")
     ap.add_argument("--resume-blur", action="store_true",
                     help="keep blur/gpc rampups active after resume")
     ap.add_argument("--allow-random-lpips", action="store_true",
@@ -151,7 +164,6 @@ def refuse_unported(args) -> None:
     refusals = [
         (args.fuse_recon in ("sum", "seq"), f"--fuse-recon {args.fuse_recon}, {q5}"),
         (args.remat is not None, f"--remat, {q5}"),
-        (args.metrics != "none", "--metrics (the GAN metrics, ROADMAP Queue 1 item 4)"),
         (args.mesh_rays > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1,
          f"--mesh-rays > 1 and several processes (torch.distributed), {q5}"),
         (args.paste_params_mode in ("A", "Agrad"),
@@ -321,6 +333,46 @@ def _snapshot_images(G, batch, path):
     write_png(path, np.concatenate(list(img), axis=2))
 
 
+SNAPSHOT_METRICS = ("fid50k_full", "fid_clip")
+
+
+def _snapshot_metrics(args, G, make_batch_iter, run_dir, snap, feature_fns: dict):
+    """Snapshot-time metric eval (training_loop_v0.py:487-498): fid50k_full
+    on InceptionV3, fid_clip on the CLIP tower, each net built once a run
+    and kept in ``feature_fns`` (name -> feature fn). A failed metric does
+    not end training (panic3d_tpu/training/trainer.py:353-354): its
+    traceback is printed."""
+    import traceback
+
+    import torch
+
+    from ..runtime.checkpoint import load_checkpoint
+    from .metric_eval import evaluate_fid, make_clip_feature_fn, make_inception_feature_fn
+
+    requested = args.metrics.split(",")
+    for name in SNAPSHOT_METRICS:
+        if name not in requested:
+            continue
+        try:
+            if name not in feature_fns:
+                path = args.inception_weights if name == "fid50k_full" else args.clip_weights
+                variables = load_checkpoint(path)[0] if path else None
+                make = (make_inception_feature_fn if name == "fid50k_full"
+                        else make_clip_feature_fn)
+                feature_fns[name] = make(variables, device=G.device)
+            r = evaluate_fid(
+                G, make_batch_iter, feature_fns[name], n_items=args.metric_items,
+                run_dir=run_dir, snapshot_name=os.path.basename(snap),
+                cache_dir=os.path.join(args.outdir, ".metric_cache"),
+                dataset_key=(args.data, args.data_subset, args.synthetic, name),
+                metric_name=name,
+                generator=torch.Generator(device=G.device).manual_seed(args.seed))
+            print(f"{name} = {r['results'][name]:.3f}")
+        except Exception:   # metric eval must never kill training
+            print(f"snapshot metric {name} failed:")
+            traceback.print_exc()
+
+
 def main(argv=None, on_step=None):
     """Train; -> a summary dict (the final state, the run directory, the
     final snapshot, the steps taken, the last step's stats, and the loss,
@@ -369,20 +421,22 @@ def main(argv=None, on_step=None):
 
     size = G.img_resolution
     if args.synthetic:
-        def batches():
+        def make_batch_iter():
             i = 0
             while True:
                 yield synthetic_batch(bs=args.batch, size=size, chonk_ch=chonk_ch,
                                       feat_dim=feat_dim, seed=i)
                 i += 1
-        batch_iter = batches()
     else:
         ds = EcrutileEDataset(args.data, subset=args.data_subset, size=size, mirror=args.mirror)
 
         def to_train(b):
             return {"image": b["image"].astype(np.float32) / 127.5 - 1, "camera": b["camera"],
                     "xyz": b["xyz"], "alpha": b["alpha"], "cond": b["condition"]}
-        batch_iter = map(to_train, iter(InfiniteBatcher(ds, args.batch, seed=args.seed)))
+
+        def make_batch_iter():
+            return map(to_train, iter(InfiniteBatcher(ds, args.batch, seed=args.seed)))
+    batch_iter = make_batch_iter()
 
     G.init_weights(args.seed)
     D.init_weights(args.seed + 1)
@@ -432,6 +486,7 @@ def main(argv=None, on_step=None):
     # ADA: the real logits' sign rates stay on the card until a flush reads
     # them (one host wait), every --ada-interval steps and at each tick
     pending_signs, signs_hist = [], []
+    feature_fns = {}   # the snapshot metrics' nets, built at the first snapshot
 
     def snapshot(nres):
         snap = os.path.join(run_dir, f"network-snapshot-{state.cur_nimg:06d}")
@@ -486,6 +541,9 @@ def main(argv=None, on_step=None):
                 snap = snapshot(nres)
                 _snapshot_images(state.G_ema, first, os.path.join(snap, "fakes.png"))
                 print(f"saved {snap} (G_ema {state_hash(state.G_ema)})")
+                if args.metrics != "none":
+                    _snapshot_metrics(args, state.G_ema, make_batch_iter, run_dir, snap,
+                                      feature_fns)
     finally:
         batch_queue.close()
     snap = snapshot(nres)

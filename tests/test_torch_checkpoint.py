@@ -41,6 +41,7 @@ from panic3d_tpu_torch.runtime import checkpoint as tck
 
 from test_torch_api import SIGMA_BIAS, jax_views
 from test_torch_generator import F32, IMAGE_TOL, seeded_variables
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 SEED = 3
 

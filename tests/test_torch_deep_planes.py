@@ -61,6 +61,7 @@ from test_torch_generator import F32, IMAGE_TOL, STAGE_TOL, seeded_variables
 from test_torch_paste import MASKS, count_flips
 from test_torch_render import BW, IMP_TOL, TOL, close, decoder_params, jax_decode_fn, t
 from test_torch_render import torch_decoder
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 DEPTH = 2
 RK = dict(F32["rendering_kwargs"], triplane_depth=DEPTH)

@@ -34,6 +34,7 @@ from panic3d_tpu.eval import gan_metrics as gmj
 from panic3d_tpu_torch.eval import equivariance as eqt
 from panic3d_tpu_torch.eval import gan_metrics as gmt
 from panic3d_tpu_torch.kernels import launch_counts
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 # the modules (the ops packages re-export their functions of the same name)
 jup = importlib.import_module("panic3d_tpu.ops.upfirdn2d")

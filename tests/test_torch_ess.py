@@ -23,6 +23,7 @@ from panic3d_tpu_torch.models.volumetric import renderer as tvr
 
 from test_torch_render import BW, RENDER_TOL, close, decoder_params, jax_decode_fn, t, \
     torch_decoder
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 ESS = dict(grid=8, taps=16, thresh=0.01, margin=1.0)
 FILTERS = (0.1, 0.5, None)                  # the eval path: crop 0.1, cull 0.5

@@ -41,6 +41,7 @@ from panic3d_tpu_torch.utils.imglib import Img
 
 from test_torch_gltf import icosphere, two_shells, write_vrm
 from test_torch_metricnets import save_flax_npz
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 SIZE, PRED = 64, 128
 FRANCH, IDX = "frn", "0007"

@@ -22,6 +22,7 @@ from panic3d_tpu.models.triplane import TriPlaneGenerator as JG
 from panic3d_tpu_torch import configs as tcfg
 from panic3d_tpu_torch.cameras import camera_label, sample_rays
 from panic3d_tpu_torch.runtime.checkpoint import state_dict_from_flax
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 torch.backends.cudnn.allow_tf32 = False
 

@@ -40,6 +40,7 @@ from panic3d_tpu_torch.utils import draws
 
 from test_torch_api import jax_views
 from test_torch_generator import F32, IMAGE_TOL, STAGE_TOL, seeded_variables
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)      # one network, f32 on both sides
 BS = 2

@@ -62,6 +62,8 @@ def test_imports_with_jax_blocked():
         "import panic3d_tpu_torch.training.stats, panic3d_tpu_torch.training.trainer\n"
         "import panic3d_tpu_torch.utils.misc, panic3d_tpu_torch.training.augment\n"
         "import panic3d_tpu_torch.ops.grid_sample\n"
+        "import panic3d_tpu_torch.eval.inception, panic3d_tpu_torch.eval.calc_metrics\n"
+        "import panic3d_tpu_torch.training.metric_eval\n"
         "import panic3d_tpu_torch.configs as c\n"
         "c.tiny(device='cpu')\n"
         "from panic3d_tpu_torch.runtime import checkpoint as ck\n"

@@ -24,6 +24,7 @@ from panic3d_tpu.eval import mesh_metrics as jmm
 from panic3d_tpu_torch.eval import measure as tmeasure
 from panic3d_tpu_torch.eval import mesh_metrics as tmm
 from panic3d_tpu_torch.kernels import launch_counts
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 
 def assert_close_sq(got, want):

@@ -34,6 +34,7 @@ from panic3d_tpu.runtime.convert import convert_clip_vit_b32, convert_lpips_alex
 from panic3d_tpu_torch.eval import lpips as tlpips
 from panic3d_tpu_torch.eval import metrics2d as tm2d
 from panic3d_tpu_torch.ops.resize import resize, weight_mat
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "metricnets.npz")
 

@@ -37,6 +37,7 @@ from panic3d_tpu_torch.models.volumetric import lattice as tlat
 from panic3d_tpu_torch.models.volumetric import renderer as tvr
 
 from test_torch_render import BW, decoder_params, jax_decode_fn, t, torch_decoder
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 GRID = (16, 16, 64)
 THIRD = np.float32(1.0 / 3.0)

@@ -39,6 +39,7 @@ from panic3d_tpu_torch.utils import imageops as tio
 
 from test_torch_generator import F32, seeded_variables
 from test_torch_render import BW, close, decoder_params, jax_decode_fn, t, torch_decoder
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 IMAGE_TOL = dict(rtol=2e-3, atol=2e-3)     # G.f images: importance resampling (ROADMAP F2)

@@ -25,6 +25,7 @@ from panic3d_tpu_torch.models.stylegan2 import resize_bilinear
 from test_torch_generator import F32
 from test_torch_paste import (PASTE, RK, _force_rays, compare_paste, filtered, jax_paste,
                               opaque_variant, pair, port_paste, rendered)   # noqa: F401
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 R64 = 64          # the flagship's neural rendering resolution
 KEYS = ("image", "paste", "mask", "mask_weights", "mask_edges", "mask_occ", "mask_dxyz",

@@ -18,6 +18,7 @@ from panic3d_tpu.models.triplane import OSGDecoder as JDecoder
 from panic3d_tpu.models.volumetric import renderer as jvr
 from panic3d_tpu_torch.kernels import launch_counts
 from panic3d_tpu_torch.models.volumetric import renderer as tvr
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 BW = 0.7
 # f32 on both sides, the same formulas; only summation order differs

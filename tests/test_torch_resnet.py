@@ -21,6 +21,7 @@ import torch
 
 from panic3d_tpu.models import resnet as jres
 from panic3d_tpu_torch.models import resnet as tres
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 
 def close(got, want, tol=1e-4):

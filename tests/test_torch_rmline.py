@@ -53,6 +53,7 @@ from panic3d_tpu_torch.runtime import convert as tconv
 from panic3d_tpu_torch.utils import sketchers as tsk
 
 from test_torch_eval_cli import BN, build_tree
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 FLIP_TOL = 1e-5     # a threshold flip counts only this close to the threshold
 MAX_FLIPS = 4

@@ -29,6 +29,7 @@ from panic3d_tpu_torch.kernels import launch_counts
 from panic3d_tpu_torch.models import stylegan3 as tsg3
 from panic3d_tpu_torch.models.superresolution import AFSynthesisLayer as SRAFLayer
 from panic3d_tpu_torch.runtime.checkpoint import flax_path_from_torch, state_dict_from_flax
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

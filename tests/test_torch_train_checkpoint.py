@@ -131,7 +131,7 @@ def test_trainer_accumulates_over_batch_gpu(tmp_path):
 
 REFUSED = {
     "fuse_sum": ["--fuse-recon", "sum"], "fuse_seq": ["--fuse-recon", "seq"],
-    "remat": ["--remat", "full"], "metrics": ["--metrics", "fid50k_full"],
+    "remat": ["--remat", "full"],
     "mesh_rays": ["--mesh-rays", "2"], "paste": ["--paste-params-mode", "A"],
     "gpl": ["--pl-weight", "2"],
     "depth2": ["--triplane-depth", "2"], "tensorboard": ["--tensorboard"],

@@ -35,6 +35,7 @@ from panic3d_tpu_torch.models.volumetric import renderer as vr
 from panic3d_tpu_torch.runtime.checkpoint import state_dict_from_flax
 
 from test_torch_generator import F32, seeded_variables
+from torch_one_thread import torch_one_thread  # noqa: F401  (autouse)
 
 RES, CHUNK = 16, 1024
 FILTERS = dict(triplane_crop=0.1, cull_clouds=0.5)
