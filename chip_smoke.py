@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only] [--keyed-only] [--training-only]
                           [--forms-only [--k1-grad-parts]] [--ada-only] [--metrics-only]
-                          [--parent DIR]
+                          [--options-only] [--parent DIR]
 
 1. Prints the setup (torch, CUDA, card name and power limit); exits non-zero
    without a CUDA device.
@@ -88,8 +88,11 @@
    equal to its forward; then augment_pipe ('bgc', p = 1, batch 8, 6
    channels, 512^2) against the plain ops on the same draws (1e-4 of the
    largest value), its forward and forward + backward ms. Under grad mode every
-   kernel wrapper, and G.f of the tiny config on the card, must refuse an
-   input that requires grad (the kernels have no backward).
+   kernel wrapper refuses an input that requires grad where it has no
+   backward form for it (F8), and G.f of the tiny config on the card
+   back-propagates as the CPU's plain version does (1e-2 relative L2 a
+   parameter group) at the defaults, with training's paste (image_xyz's
+   gradient too) and at triplane_depth 2 (grad_guard_checks).
    --kernels-only stops here.
 4. Checks the whole forward of the tiny config on the card (kernels) against
    the same forward on the CPU (plain versions), in f32: ESS and paste off,
@@ -129,7 +132,7 @@
    the backward forms of K1, K2 and K5 required, K4's variants forward and
    backward, its generic kernel absent), every phase's losses finite, G, D
    and G_ema moved; one step of every phase on the trained state timed
-   phase by phase, its host waits counted, one profiled for the device's
+   phase by phase, its host waits counted (0 required), one profiled for the device's
    busy share; then each backward form against its plain version's autograd
    at the training shapes (K4 at the step's own transposed calls, beside
    their library calls; K1 at a training render's samples and at Gcond's
@@ -145,7 +148,17 @@
    more (K14 forward and backward and K4's four 1-D forms forward and
    backward required, finite losses, p moved by the heuristic's own steps
    on the recorded real-logit signs, s/step, ms by phase, host waits a
-   step); then the GAN metrics (gan_metrics_path): calc_metrics.main on a
+   step); then the trainer's options (training_options_path): the same
+   training path with --paste-params-mode A --reg-type monotonic-fixed,
+   then with --triplane-depth 2 --reg-type monotonic-detach (K8's grid
+   entry and its backward form, or K10 and its backward form, launched,
+   0 host waits in a step of every phase, s/step and card time against
+   the default run's, peak memory), K8's backward
+   form against its plain version at training's paste (both entries'
+   masks, random output gradients, two launches equal bit for bit) and
+   K10's at depth 2's coarse pass (K1's backward's tolerances), each timed
+   beside its bound (--options-only runs the build, the grad-mode checks
+   of step 3, a run at the defaults and this phase alone); then the GAN metrics (gan_metrics_path): calc_metrics.main on a
    seeded flagship snapshot with a seeded InceptionV3, the six metrics
    finite; fid50k_full's card work (G_ema.f and InceptionV3, K1-K5
    required) in s per 1,000 items, InceptionV3's ms a batch, host waits
@@ -210,7 +223,8 @@
    probe, else on the deep-plane request, else on the StyleGAN3-T layers,
    else on EQ-R, else on the training path: the backward forms, K4's as
    its own entry "upfirdn2d_grad", else on ADA's training run: K14's
-   backward; 0 for K7b's sampler, checked only), the card
+   backward, else on the options' paste run: K8's backward, else on their
+   depth-2 run: K10's backward; 0 for K7b's sampler, checked only), the card
    line, and last the {"ok": true, ...} line. Any failure raises before
    that line.
 """
@@ -249,7 +263,8 @@ NO_SPILL = ("triplane_decode_kernel", "factor_terms_kernel", "occlusion_volume_k
             "upfirdn2d_cols_kernel", "upfirdn2d_fir4_kernel",
             "upfirdn2d_large_phase_kernel", "upfirdn2d_rows2_kernel",
             "upfirdn2d_cols2_kernel", "triplane_decode_grad_kernel",
-            "grid_sample_kernel", "grid_sample_grad_kernel")   # must not spill
+            "grid_sample_kernel", "grid_sample_grad_kernel", "paste_grad_pixels_kernel",
+            "paste_grad_texels_kernel")   # must not spill
 PASTE_KEYS = ("mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
 MESH_RES = 256     # eval generate's mesh resolution
 LEVEL = 0.5        # eval generate's iso level
@@ -2189,23 +2204,19 @@ def volume_kernel_checks(G, device, parent):
 
 def grad_guard_checks(device):
     """F8: under grad mode every kernel wrapper without a backward form
-    refuses a CUDA input that requires grad before it launches, and the five
-    with one (K1, K2, K4, K5, K14) refuse the inputs they give no gradient
-    (K1's coordinates, K2's depths, K4's filter, K5's noise, K14's grid); no launch is
-    counted. Then G.f of the tiny config on the card back-propagates
-    through the backward forms: its render, backbone and superresolution
-    parameters get finite gradients, within 1e-2 relative L2 a group of the
-    plain version's on the CPU (f32; K1's MLP is 3xTF32 and importance
-    resampling amplifies rounding, ROADMAP F2), with K1's, K2's and K5's
-    backward forms and K4's transposed passes launched."""
+    refuses a CUDA input that requires grad before it launches, and the seven
+    with one (K1, K2, K4, K5, K8, K10, K14) refuse the inputs they give no
+    gradient (K1's and K10's coordinates, K2's depths, K4's filter, K5's
+    noise, K8's front image, K14's grid); no launch is counted. Then G.f
+    of the tiny config on the card back-propagates through the backward
+    forms as the CPU's plain version does (tiny_backward_check): at the
+    defaults, with training's paste and at depth 2."""
     import torch
 
-    from panic3d_tpu_torch import configs
     from panic3d_tpu_torch.eval import gltf
     from panic3d_tpu_torch.eval import mesh_metrics as mm
     from panic3d_tpu_torch.eval import volume as vol
-    from panic3d_tpu_torch.kernels import (KERNELS, launch_counts, reset_launch_counts,
-                                           variant_counts)
+    from panic3d_tpu_torch.kernels import KERNELS, launch_counts, reset_launch_counts
     from panic3d_tpu_torch.models import triplane as tp
     from panic3d_tpu_torch.models.volumetric import lattice as vlat
     from panic3d_tpu_torch.models.volumetric import renderer as vr
@@ -2236,12 +2247,13 @@ def grad_guard_checks(device):
             [(t(1, 4, 4, 32), 0, 1)] * 3, dec(True), 0.7, (4, 4, 4), nof),
         "occlusion_sample": lambda: vlat.occlusion_sample_kernel(
             t(1, 4, 4, 4, grad=True), t(1), t(1, 8, 3), 0.7, 0.01, 1.0),
+        # K8's front image takes no gradient (its image and xyz do)
         "paste_front": lambda: tp.paste_composite_kernel(
-            t(1, 3, 8, 8, grad=True), t(1, 3, 8, 8), t(1, 1, 8, 8), t(1, 3, 8, 8),
+            t(1, 3, 8, 8), t(1, 3, 8, 8, grad=True), t(1, 1, 8, 8), t(1, 3, 8, 8),
             t(1, 1, 8, 8), t(1, 1, 8, 8), 0.7, 0.5, 0.5, 0.5),
         "paste_front_occ": lambda: tp.paste_composite_occ_kernel(
-            t(1, 3, 8, 8), t(1, 3, 8, 8), t(1, 1, 8, 8), t(1, 3, 8, 8),
-            {"A": t(1, 4, 4, 4, grad=True), "density0": t(1), "box_warp": 0.7},
+            t(1, 3, 8, 8), t(1, 3, 8, 8, grad=True), t(1, 1, 8, 8), t(1, 3, 8, 8),
+            {"A": t(1, 4, 4, 4), "density0": t(1), "box_warp": 0.7},
             {"ray_origins": t(1, 3, 8, 8), "ray_directions": t(1, 3, 8, 8)}, 0.7, 0.01, 1.0,
             0.05, 0.5, 0.5, 0.5),
         "point_mesh_distance": lambda: mm.point_mesh_distance_sq_kernel(
@@ -2251,8 +2263,9 @@ def grad_guard_checks(device):
         "gather_dot": lambda: gather_dot_kernel(t(8, **i32), t(8, 16), t(16, 8, grad=True)),
         "filtered_lrelu": lambda: filtered_lrelu_kernel(
             t(1, 2, 8, 8), t(12), t(12), t(2, grad=True), up=2, down=2, padding=[5, 6, 5, 6]),
+        # K10's coordinates take no gradient (its volumes and decoder do)
         "triplane_decode_deep": lambda: vr.triplane_decode_deep_kernel(
-            t(3, 2, 4, 4, 32, grad=True), t(1, 8, 3), dec(), 0.7, vr.generate_plane_axes(True),
+            t(3, 2, 4, 4, 32), t(1, 8, 3, grad=True), dec(), 0.7, vr.generate_plane_axes(True),
             vr.DensityFilters()),
         "volume_density_deep": lambda: vol.density_grid_deep_kernel(
             t(1, 3, 64, 8, 8, grad=True), dec(), 16, 0.7, vr.generate_plane_axes(True),
@@ -2260,7 +2273,8 @@ def grad_guard_checks(device):
     }
     with_backward = {"triplane_decode", "ray_composite", "upfirdn2d", "modconv_epilogue",
                      "grid_sample_2d", "triplane_decode_grad", "ray_composite_grad",
-                     "modconv_epilogue_grad", "grid_sample_2d_grad"}
+                     "modconv_epilogue_grad", "grid_sample_2d_grad", "paste_front_grad",
+                     "triplane_decode_deep_grad"}
     require(set(calls) | with_backward == set(KERNELS), "F8: a kernel without a grad-mode check")
     # the inputs the backward forms give no gradient
     calls["triplane_decode [coords]"] = lambda: vr.triplane_decode_kernel(
@@ -2299,44 +2313,104 @@ def grad_guard_checks(device):
     require(refused == list(calls), f"F8: not refused: {set(calls) - set(refused)}")
     require(sum(launch_counts().values()) == 0, "F8: a kernel launched under grad mode")
 
-    # the tiny G.f on the card back-propagates through the backward forms,
-    # against the plain version on the CPU (f32, the same weights and inputs)
+    for case in ("default", "paste", "depth 2"):
+        tiny_backward_check(device, case)
+
+
+TINY_GRAD_TOL = 1e-2   # the tiny G.f's gradients, card against CPU, relative L2 a group
+
+
+def tiny_backward_check(device, case):
+    """G.f of the tiny config on the card back-propagates through the
+    backward forms, against the plain version on the CPU (f32, the same
+    weights and inputs): its render, backbone and superresolution
+    parameters get finite gradients within TINY_GRAD_TOL relative L2 a
+    group of the CPU's (K1's MLP is 3xTF32 and importance resampling
+    amplifies rounding, ROADMAP F2). ``case``: "default"; "paste", with
+    training's paste (the grid occlusion on a 16x16x32 lattice, K8's
+    paste_front_occ entry and its backward form) at a thresh_weight in the
+    widest gap of the CPU's upsampled weights between their 30 % and 70 %
+    quantiles (the card's mask must equal the CPU's) and every occlusion
+    and discrepancy passed, the decoder's density bias raised 2.5 so that
+    most surface points lie in the box (where the front projection is not
+    clamped): image_xyz's gradient, channels 0 and 1 only, also within
+    TINY_GRAD_TOL; "depth 2", triplane_depth DEEP_DEPTH (K10 and its
+    backward form)."""
+    import torch
+
+    from panic3d_tpu_torch import configs
+    from panic3d_tpu_torch.kernels import launch_counts, reset_launch_counts, variant_counts
+    from panic3d_tpu_torch.models import triplane as tp
+
     rng = np.random.RandomState(SEED)
     x = {"z": rng.randn(1, 64).astype(np.float32), "elevations": np.zeros(1, np.float32),
          "azimuths": np.full(1, 30.0, np.float32),
          "cond": {"image_ortho_front": rng.rand(1, 3, 64, 64).astype(np.float32),
                   "resnet_chonk": rng.randn(1, 16, 8, 8).astype(np.float32)}}
-    grads = {}
-    for dev in (device, torch.device("cpu")):
+    rk = dict(configs.tiny_kwargs()["rendering_kwargs"], render_dtype="float32")
+    rk.update({"paste": dict(occ_grid=(16, 16, 32)),
+               "depth 2": dict(triplane_depth=DEEP_DEPTH)}.get(case, {}))
+    launched = {"default": ("triplane_decode_grad",),
+                "paste": ("triplane_decode_grad", "paste_front_occ", "paste_front_grad"),
+                "depth 2": ("triplane_decode_deep_grad",)}[case]
+    paste, grads, masks = None, {}, {}
+    for dev in (torch.device("cpu"), device):
         G = configs.tiny(device=dev, synthesis_kwargs=dict(channel_base=2048, channel_max=64,
                                                            num_fp16_res=0),
-                         rendering_kwargs=dict(configs.tiny_kwargs()["rendering_kwargs"],
-                                               render_dtype="float32")).init_weights(SEED)
+                         rendering_kwargs=rk).init_weights(SEED)
         xd = {k: ({c: torch.from_numpy(a).to(dev) for c, a in v.items()} if k == "cond"
                   else torch.from_numpy(v).to(dev)) for k, v in x.items()}
+        if case == "paste":
+            with torch.no_grad():
+                G.decoder.net[2].bias[0] += 2.5
+                if paste is None:   # the threshold from the CPU's render
+                    out = G.f(dict(xd))
+                    w = tp.upsample_bilinear(out["image_weights"], out["image"].shape[-1])
+                    w = w.flatten().sort().values
+                    lo, hi = int(0.3 * w.numel()), int(0.7 * w.numel())
+                    i = lo + int((w[lo + 1:hi] - w[lo:hi - 1]).argmax())
+                    paste = dict(mode="default", thresh_weight=float(w[i] + w[i + 1]) / 2,
+                                 thresh_edges=0.02, thresh_occ=2.0, offset_occ=0.01,
+                                 thresh_dxyz=1.0, occ_impl="grid")
+            xd["paste_params"] = paste
         reset_launch_counts()
         with torch.enable_grad():
             out = G.f(xd)
             loss = out["image"].square().mean() + out["image_raw"].square().mean()
             params = dict(G.named_parameters())
+            if paste is not None:
+                params["image_xyz"] = out["image_xyz"]
+                masks[dev.type] = out["paste"]["mask"].detach().cpu()
             gr = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads[dev.type] = {n: g for n, g in zip(params, gr) if g is not None}
         if dev.type == "cuda":
             counts, k4 = launch_counts(), variant_counts().get("upfirdn2d", {})
-    for name in ("triplane_decode_grad", "ray_composite_grad", "modconv_epilogue_grad"):
-        require(counts[name] > 0, f"tiny G.f backward: {name} not launched")
-    require(any(v.startswith("grad_") for v in k4), "tiny G.f backward: no transposed K4 pass")
-    worst = {}
-    for group in ("decoder.", "backbone.", "superresolution."):
+    for name in launched + ("ray_composite_grad", "modconv_epilogue_grad"):
+        require(counts[name] > 0, f"tiny G.f backward ({case}): {name} not launched")
+    require(any(v.startswith("grad_") for v in k4),
+            f"tiny G.f backward ({case}): no transposed K4 pass")
+    groups = ("decoder.", "backbone.", "superresolution.")
+    if paste is not None:
+        differ = int((masks["cuda"] != masks["cpu"]).sum())
+        passes = float(masks["cpu"].mean())
+        print(f"  tiny G.f with paste (thresh_weight {paste['thresh_weight']:.6f}): the mask "
+              f"passes {passes:.4f}, {differ} pixels differ card vs CPU")
+        require(differ == 0 and 0.05 < passes < 0.95,
+                f"tiny G.f backward (paste): mask passes {passes}, {differ} pixels differ")
+        g_xyz = grads["cpu"]["image_xyz"]
+        require(float(g_xyz[:, :2].abs().max()) > 0 and float(g_xyz[:, 2].abs().max()) == 0,
+                "tiny G.f backward (paste): image_xyz's gradient must fill channels 0 and 1")
+        groups += ("image_xyz",)
+    for group in groups:
         names = [n for n in grads["cpu"] if n.startswith(group)]
         require(names and all(n in grads["cuda"] for n in names),
-                f"tiny G.f backward: {group} has no gradient on the card")
+                f"tiny G.f backward ({case}): {group} has no gradient on the card")
         num = sum(float((grads["cuda"][n].cpu() - grads["cpu"][n]).square().sum()) for n in names)
         den = sum(float(grads["cpu"][n].square().sum()) for n in names)
-        worst[group] = math.sqrt(num / den)
-        check(f"tiny G.f backward, card vs CPU: {group}* (relative L2)", worst[group], 1e-2)
+        check(f"tiny G.f backward ({case}), card vs CPU: {group}* (relative L2)",
+              math.sqrt(num / den), TINY_GRAD_TOL)
         require(all(bool(torch.isfinite(grads["cuda"][n]).all()) for n in names),
-                f"tiny G.f backward: non-finite {group} gradient")
+                f"tiny G.f backward ({case}): non-finite {group} gradient")
 
 
 def tiny_end_to_end(device, ess_paste: bool, deep: bool = False):
@@ -4004,6 +4078,36 @@ def check_outputs(out, shape):
           f"mean weight {float(out['image_weights'].mean()):.4f}")
 
 
+def launch_means(fn, runs: int = 5) -> dict:
+    """``runs`` calls of fn after a warm-up under one torch.profiler window:
+    for each device kernel name (its first 60 characters) the launches
+    recorded and their mean device time in ms. The profiler can drop a
+    launch's record (a K10 backward call's 4 launches were recorded 3.4
+    times a call), so a kernel's time is its recorded launches' mean, not
+    a sum divided by ``runs``."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.NamedTemporaryFile(suffix=".json", dir=BUILD_TMP) as f:
+        prof.export_chrome_trace(f.name)
+        with open(f.name) as g:
+            trace = json.load(g)
+    seen = {}
+    for e in trace["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            n, total = seen.get(e.get("name", "")[:60], (0, 0.0))
+            seen[e.get("name", "")[:60]] = (n + 1, total + e["dur"] / 1e3)
+    return {k: (n, total / n) for k, (n, total) in seen.items()}
+
+
 def busy_span(trace: dict):
     """The card's busy time in a profiled run, from its chrome trace: the
     union of kernel, copy and memset intervals, and the span from the
@@ -4530,6 +4634,18 @@ TRAIN_ARGS = ("--synthetic", "--tick-steps", "1", "--snap", "1000000")
 BACKWARD_KERNELS = ("triplane_decode_grad", "ray_composite_grad", "modconv_epilogue_grad")
 TRAIN_KERNELS = ("triplane_decode", "ray_composite", "importance_sample", "upfirdn2d",
                  "modconv_epilogue") + BACKWARD_KERNELS
+TRAIN_RUNS = {         # by run: the trainer's flags beyond TRAIN_ARGS, the kernels launched
+    "default": ((), TRAIN_KERNELS,   # ... and the kernels launched no time
+                ("paste_front_grad", "triplane_decode_deep", "triplane_decode_deep_grad")),
+    "paste": (("--paste-params-mode", "A", "--reg-type", "monotonic-fixed"),
+              TRAIN_KERNELS + ("occlusion_volume", "paste_front_occ", "paste_front_grad"),
+              ("triplane_decode_deep", "triplane_decode_deep_grad")),
+    "depth2": (("--triplane-depth", "2", "--reg-type", "monotonic-detach"),
+               ("triplane_decode_deep", "triplane_decode_deep_grad", "ray_composite",
+                "ray_composite_grad", "importance_sample", "upfirdn2d", "modconv_epilogue",
+                "modconv_epilogue_grad"),
+               ("triplane_decode", "triplane_decode_grad", "paste_front_occ", "paste_front_grad")),
+}
 STEP_TOL_F32 = 1e-2    # the f32 step against the plain ops: relative L2 of G's update
 D_STEP_TOL_F32 = 0.1   # ... and of D's, which learns from G's images (F2)
 R1_TOL = {"float32": 1e-3, "bfloat16": 0.05}   # R1 against the plain ops: value and gradients
@@ -4589,10 +4705,13 @@ def k1_grad_ops(points: int, C: int):
 
 
 def k1_grad_bytes(planes_cl, coords, g_rgb, g_sigma) -> int:
-    """The bytes a pass of K1's backward form needs: its inputs read once
-    (the planes, the coordinates, the output gradients) and its f32 plane
-    gradient zeroed and written."""
-    return nbytes(planes_cl, coords, g_rgb, g_sigma) + 2 * planes_cl.numel() * 4
+    """The bytes the function of K1's (or K10's) backward form must move:
+    its inputs read once (the planes or volumes, the coordinates, the output
+    gradients) and the planes' gradient written once in their dtype (the
+    kernel's f32 scratch, zeroed and cast back, is its design's cost, not
+    the function's). The decoder's weights and their gradients (~80 KB)
+    are left out."""
+    return nbytes(planes_cl, coords, g_rgb, g_sigma) + planes_cl.numel() * planes_cl.element_size()
 
 
 def parent_k1_grad(lib, planes_cl, coords, dec, box_warp, plane_axes, filters, g_rgb, g_sigma):
@@ -4738,7 +4857,7 @@ def k1_grad_check(label, t, x, parent, timed_plain=True):
             summ = {"max_abs_err": max_err(gk[0], gp[0]),
                     "ms": cuda_ms(lambda: vr.triplane_decode_grad_kernel(*args)),
                     "bound_ms": bms, "bound_by": by}
-    summ.update(relative_err=e_planes, weight_grads_relative_err_f64=e_w,
+    summ.update(relative_err=e_planes, weight_grads_relative_err_f64=e_w, bytes=n_bytes,
                 plain_weight_grads_relative_err_f64=e_wp,
                 shapes={"planes": list(planes_cl.shape), "coords": list(x.shape)},
                 kernel_us_profiler=kernel_device_us(
@@ -5111,52 +5230,68 @@ def step_vs_plain(device, card):
     return out
 
 
-def training_path(device, card):
+def training_path(device, card, run="default", capture=None):
     """trainer.main at the flagship's defaults on the card (synthetic 512^2
-    data, batch 8, the five phases, lazy-reg Adam, G_ema): one warm-up step
-    and TRAIN_STEPS timed ones, the launch counts zeroed before and read
-    after (each kernel of the path launched, the backward forms too, K4's
-    variants forward and backward), every phase's losses finite at every
-    step, G, D and G_ema moved from their seeded weights; then, on the
-    trained state, one step of every phase timed phase by phase (CUDA
-    events), one counted for its host waits, one profiled for the device's
-    busy share, and K4's transposed calls of one step collected for
-    k4_backward_checks. -> (launch counts, summary, K4's transposed calls)."""
+    data, batch 8, the five phases, lazy-reg Adam, G_ema) with
+    TRAIN_RUNS[run]'s flags: one warm-up step and TRAIN_STEPS timed ones,
+    the launch counts zeroed before and read after (the run's kernels
+    launched, the backward forms too, and its absent ones not; K4's
+    variants forward and backward, its generic kernel not), every phase's
+    losses finite at every step, G, D and G_ema moved from their seeded
+    weights; then, on the trained state, one step of every phase timed
+    phase by phase (CUDA events), one counted for its host waits (0
+    required), one profiled for the device's busy share, and K4's
+    transposed calls of one step collected for k4_backward_checks. With
+    ``capture`` (a list) the first call of
+    triplane.py:paste_composite_occ_kernel is appended to it (K8's backward
+    check takes training's paste from it). -> (launch counts, summary, K4's
+    transposed calls)."""
     import importlib
     import shutil
 
     import torch
 
     from panic3d_tpu_torch.kernels import launch_counts, reset_launch_counts, variant_counts
+    from panic3d_tpu_torch.models import triplane as tp
     from panic3d_tpu_torch.training import build_train_step, phases_for_step, trainer
 
+    flags, required, absent = TRAIN_RUNS[run]
     outdir = os.path.join(BUILD_TMP, "train_runs")
-    shutil.rmtree(outdir, ignore_errors=True)
-    argv = ["--name", "smoke", "--outdir", outdir, *TRAIN_ARGS,
+    shutil.rmtree(os.path.join(outdir, f"smoke_{run}"), ignore_errors=True)
+    argv = ["--name", f"smoke_{run}", "--outdir", outdir, *TRAIN_ARGS, *flags,
             "--max-steps", str(1 + TRAIN_STEPS)]
-    marks, bad = [], []
+    label = f"training ({' '.join(flags) or 'defaults'})"
+    marks, bad, outs = [], [], []
 
     def on_step(i, phases, stats):
         torch.cuda.synchronize()
         marks.append((i, phases, time.perf_counter()))
         bad.extend(k for k, v in stats.items() if not math.isfinite(float(v)))
 
+    def train():
+        outs.append(trainer.main(argv, on_step=on_step))
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    out = trainer.main(argv, on_step=on_step)
+    if capture is None:
+        train()
+    else:
+        capture.append(capture_call(tp, "paste_composite_occ_kernel", train))
+    out = outs.pop()
     counts, variants = launch_counts(), variant_counts()
     peak = torch.cuda.max_memory_allocated()
-    require(not bad, f"training: non-finite losses {bad}")
+    require(not bad, f"{label}: non-finite losses {bad}")
     ran = [p for _, phases, _ in marks for p in phases]
     require(all(p in ran for p in ("Gmain", "Gcond", "Greg", "Dmain", "Dreg")),
-            f"training: phases run {sorted(set(ran))}")
-    require_launched(counts, TRAIN_KERNELS, "training")
+            f"{label}: phases run {sorted(set(ran))}")
+    require_launched(counts, required, label)
+    require_absent(counts, absent, label)
     steps = len(marks)
     step_s = [b[2] - a[2] for a, b in zip(marks, marks[1:])]
     k4v = variants.get("upfirdn2d", {})
-    print(f"training (trainer.main, flagship defaults, batch {TRAIN_BATCH}, synthetic 512^2): "
+    print(f"{label}, flagship defaults, batch {TRAIN_BATCH}, synthetic 512^2: "
           f"{steps} steps, the first {marks[0][2] - t0:.3f} s after the start (build, init, "
           f"warm-up); then s/step " + ", ".join(f"{s:.3f}" for s in step_s)
           + f" (median {statistics.median(step_s):.3f}); peak memory {peak / 2**30:.3f} GiB; "
@@ -5167,7 +5302,7 @@ def training_path(device, card):
         + "; backward: " + ", ".join(f"{v[5:]}={n / steps:g}" for v, n in k4v.items()
                                      if v.startswith("grad_")))
     require(not any(v in k4v for v in ("generic", "grad_generic")),
-            f"training: K4's generic kernel ran: {k4v}")
+            f"{label}: K4's generic kernel ran: {k4v}")
 
     # G, D and G_ema moved from their seeded weights
     args = trainer.parse_args(argv)
@@ -5183,7 +5318,7 @@ def training_path(device, card):
             moved[name] = max(float((p - ref_p[n]).abs().max())
                               for n, p in mod.named_parameters())
     print("  largest parameter change: " + ", ".join(f"{k} {v:.3e}" for k, v in moved.items()))
-    require(all(v > 0 for v in moved.values()), f"training: a module did not move: {moved}")
+    require(all(v > 0 for v in moved.values()), f"{label}: a module did not move: {moved}")
     del G0, D0
 
     # one step of every phase on the trained state: each phase's ms (CUDA
@@ -5226,6 +5361,7 @@ def training_path(device, card):
     print(f"  host waits a step {waits}; profiled step: device busy {prof['busy_ms']:.3f} ms of "
           f"{prof['span_ms']:.3f} ({100 * busy:.1f} %), {prof['device_launches']:g} device "
           f"launches from {prof['host_ops']:g} host ops  [{card}]")
+    require(waits == 0, f"{label}: {waits} host waits in a step")
     summary = {"steps": steps, "s_per_step": step_s,
                "s_per_step_median": statistics.median(step_s),
                "first_step_s_from_start": marks[0][2] - t0, "peak_gib": peak / 2**30,
@@ -5758,6 +5894,240 @@ def ada_training_path(device, card):
     return counts_ada, summary
 
 
+K8G_TOL = 1e-5         # K8's backward vs the plain autograd: the xyz gradient, of its max
+K8G_IMAGE_TOL = 1e-6   # ... the image's, g - g mask (one FMA against two roundings), of its max
+K10G_PLANES_TOL = 2.0 ** -7   # K10's backward: the volumes' gradient (bf16), K1's rule
+
+
+def k8_grad_checks(call, card):
+    """K8's backward form against its plain version (autograd of the paste's
+    projection, paste_front_grad_plain) at training's paste: the arguments
+    of one paste_composite_occ_kernel call of a training step (N = 8, C =
+    3, the 64^2 render into 512^2), both entries' masks (paste_front_occ's
+    on those arguments; paste_front's on the same, its occlusion and
+    discrepancy maps by the plain ops), random output gradients. Training's
+    thresholds pass next to nothing at seeded weights (the discrepancy's
+    5e-6), so the check takes the weights' median for thresh_weight and
+    passes every occlusion and discrepancy: the mask then passes about half
+    the image (required between 5 % and 95 %). The seeded render's
+    composited points may lie outside the box, where the projection's
+    border clamp gives no gradient: the check takes them squashed into it,
+    0.3 tanh(xyz / 0.3) (|xyz| < bw / 2 = 0.35). The
+    image's gradient within K8G_IMAGE_TOL and the xyz's within K8G_TOL of
+    each one's max; two launches equal bit for bit; the paste's own
+    gradient (None in training) checked once. Timed: each entry's forward,
+    the backward and the plain version (CUDA events), beside the bytes
+    bound. -> summary (paste_front_occ's mask; paste_front's under
+    "map_entry")."""
+    import torch
+
+    from panic3d_tpu_torch.models import triplane as tp
+
+    (image, front, weights, xyz, vol, rays, bw, offset_occ, seg_len, thresh_occ, thr_w, thr_e,
+     thr_d, *rest), kw = call
+    fwmask = rest[0] if rest else kw.get("fwmask")
+    image, weights, xyz = image.detach(), weights.detach(), xyz.detach()
+    N, C, S, _ = image.shape
+    r = xyz.shape[-1]
+    gen = torch.Generator(device=image.device).manual_seed(SEED)
+    g_img = torch.randn(image.shape, generator=gen, device=image.device)
+    g_paste = torch.randn(image.shape, generator=gen, device=image.device)
+    print(f"K8's backward form at training's paste: image {tuple(image.shape)}, front "
+          f"{tuple(front.shape)}, xyz {tuple(xyz.shape)}")
+    with torch.no_grad():
+        train_pass = float(tp.paste_composite_occ_kernel(
+            image, front, weights, xyz, vol, rays, bw, offset_occ, seg_len, thresh_occ, thr_w,
+            thr_e, thr_d, fwmask)["mask"].mean())
+        print(f"  training's thresholds pass {train_pass:.4f} of the pixels")
+        thr_w, thr_o, thr_d = float(weights.float().quantile(0.5)), 2.0, 1.0
+        xyz = 0.3 * torch.tanh(xyz / 0.3)
+        occ_args = (image, front, weights, xyz, vol, rays, bw, offset_occ, seg_len, thr_o,
+                    thr_w, thr_e, thr_d, fwmask)
+        occ = tp.front_occlusion_grid(vol, xyz, offset_occ, seg_len, tp._occlusion_sample_plain)
+        map_args = (image, front, weights, xyz, (occ < thr_o).to(torch.float32),
+                    tp.TriPlaneGenerator._get_xyz_discrepancy(xyz, rays), bw, thr_w, thr_e,
+                    thr_d, fwmask)
+        entries = {"paste_front_occ": lambda: tp.paste_composite_occ_kernel(*occ_args),
+                   "paste_front": lambda: tp.paste_composite_kernel(*map_args)}
+        out = {}
+        for entry, fwd in entries.items():
+            mask = fwd()["mask"]
+            args = (mask, g_img, None, front, xyz, bw)
+            gk = tp.paste_front_grad_kernel(*args)
+            gp = tp.paste_front_grad_plain(*args)
+            again = tp.paste_front_grad_kernel(*args)
+            differ = sum(int((a != b).sum()) for a, b in zip(gk, again))
+            print(f"  K8 backward ({entry}'s mask, passes {float(mask.mean()):.4f}): values of "
+                  f"two launches not bit-equal: {differ}")
+            require(0.05 < float(mask.mean()) < 0.95,
+                    f"K8 backward ({entry}): the mask passes {float(mask.mean())}")
+            require(differ == 0, f"K8 backward ({entry}): the gradients change between runs")
+            e_img, e_xyz = rel_max_err(gk[0], gp[0]), rel_max_err(gk[1], gp[1])
+            check(f"K8 backward ({entry}): the image's gradient (relative to its max)", e_img,
+                  K8G_IMAGE_TOL)
+            check(f"K8 backward ({entry}): the xyz gradient (relative to its max)", e_xyz, K8G_TOL)
+            require(float(gk[1][:, 2].abs().max()) == 0 and float(gk[1].abs().max()) > 0,
+                    f"K8 backward ({entry}): the xyz gradient must fill channels 0 and 1 only")
+            n_bytes = nbytes(mask, g_img, front, xyz, *gk)
+            flops = N * S * S * (C * 16 + 40) + N * r * r * 2 * (S // r + 2) ** 2 * 2
+            summ = record(max(max_err(a, b) for a, b in zip(gk, gp)),
+                          lambda: tp.paste_front_grad_kernel(*args),
+                          lambda: tp.paste_front_grad_plain(*args), n_bytes, flops,
+                          plain_iters=3)
+            summ.update(forward_ms=cuda_ms(fwd), image_relative_err=e_img,
+                        xyz_relative_err=e_xyz, mask_passes=float(mask.mean()),
+                        shapes={"image": list(image.shape), "front": list(front.shape),
+                                "xyz": list(xyz.shape)})
+            print(f"  K8 {entry} forward ms {summ['forward_ms']:.6f}; backward ms "
+                  f"{summ['ms']:.6f}, plain {summ['plain_ms']:.6f}, bound_ms "
+                  f"{summ['bound_ms']:.6f} ({summ['bound_by']})  [{card}]")
+            out[entry] = summ
+            del gk, gp, again
+        # the paste output's own gradient (the kernel's g_paste operand)
+        args = (mask, g_img, g_paste, front, xyz, bw)
+        gk, gp = tp.paste_front_grad_kernel(*args), tp.paste_front_grad_plain(*args)
+        e_paste = max(rel_max_err(gk[0], gp[0]), rel_max_err(gk[1], gp[1]))
+        check("K8 backward with the paste's own gradient (relative to each max)", e_paste,
+              K8G_TOL)
+    summary = dict(out["paste_front_occ"], map_entry=out["paste_front"],
+                   with_paste_gradient_relative_err=e_paste,
+                   training_thresholds_pass=train_pass, thresh_weight=thr_w)
+    return summary
+
+
+def k10_grad_ops(points: int, C: int):
+    """K10's backward form's operations a call, by K1's backward's rule
+    (k1_grad_ops) with the trilinear gather and scatter: per point and
+    channel of each plane the 8 corners' lerps and blend (14) and their
+    products into the 8 corners (16) on the CUDA cores; K1's five products
+    on the tensor cores in 3xTF32."""
+    return points * 3 * C * (14 + 16), k1_grad_ops(points, C)[1]
+
+
+def k10_grad_check(device, card):
+    """K10's backward form against its plain version (autograd of
+    triplane_decode_deep_plain) on the card at depth 2's coarse training
+    pass: bf16 volumes [24,2,256,256,32] (seeded planes), 8 x 4,096 rays of
+    random pinhole cameras x 48 jittered depths, a seeded decoder, random
+    output gradients. K1's backward's tolerances (k1_grad_check): the
+    volumes' gradient within 2^-7 of its max; the decoder's against an f64
+    evaluation, the kernel's within 10x the f32 plain version's error (or
+    1e-4) of each max; the weight gradients equal bit for bit over two
+    launches. Timed beside its bound and the plain version. -> summary."""
+    import torch
+
+    from panic3d_tpu_torch import configs
+    from panic3d_tpu_torch.cameras import camera_label, sample_rays
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    rk = configs.flagship_kwargs()["rendering_kwargs"]
+    N, S, res, C, D = TRAIN_BATCH, rk["depth_resolution"], 64, 32, DEEP_DEPTH
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    planes = torch.randn((N, 3, C * D, 256, 256), generator=gen, device=device) * 0.5
+    vols = vr.deep_volumes_cl(planes, D, torch.bfloat16)
+    del planes
+    ones = torch.ones(N, device=device)
+    cam = camera_label(torch.rand(N, generator=gen, device=device) * 40 - 10,
+                       torch.rand(N, generator=gen, device=device) * 360 - 180, ones, 30 * ones)
+    ro, rd = sample_rays(cam[:, :16].reshape(-1, 4, 4), cam[:, 16:].reshape(-1, 3, 3), res)
+    depths = vr.sample_stratified(ro, rk["ray_start"], rk["ray_end"], S, jitter=torch.rand(
+        (N, res * res, S, 1), generator=gen, device=device))
+    x = (ro[:, :, None] + depths * rd[:, :, None]).reshape(N, -1, 3).contiguous()
+    w = [torch.randn(s, generator=gen, device=device) for s in ((64, C), (64,), (33, 64), (33,))]
+    dec = vr.Decoder(w[0], w[1] * 0.1, w[2], w[3] * 0.1, 1.0, False)
+    axes, nof, bw = vr.generate_plane_axes(True), vr.DensityFilters(), rk["box_warp"]
+    P = x.shape[1]
+    g_rgb = (torch.randn((N, P, 32), generator=gen, device=device) * 1e-3).to(torch.bfloat16)
+    g_sig = torch.randn((N, P, 1), generator=gen, device=device) * 1e-3
+    args = (vols, x, dec, bw, axes, nof, g_rgb, g_sig)
+    print(f"K10's backward form, depth {D} coarse training pass: volumes {tuple(vols.shape)} "
+          f"bf16, coords {tuple(x.shape)}")
+    with torch.no_grad():
+        gk = vr.triplane_decode_deep_grad_kernel(*args)
+        gp = vr.triplane_decode_deep_grad_plain(*args)
+        dec64 = dec._replace(**{f: getattr(dec, f).double() for f in ("w0", "b0", "w1", "b1")})
+        g64 = vr.triplane_decode_deep_grad_plain(vols.double(), x.double(), dec64, bw, axes, nof,
+                                                 g_rgb.double(), g_sig.double())
+    e_vols = rel_max_err(gk[0], gp[0])
+    check("K10 backward: the volumes' gradient (relative to its max)", e_vols, K10G_PLANES_TOL)
+    e_w, e_wp = 0.0, 0.0
+    for name, a, b, c in zip(("w0", "b0", "w1", "b1"), gk[1:], gp[1:], g64[1:]):
+        ek, ep = rel_max_err(a.double(), c), rel_max_err(b.double(), c)
+        print(f"  K10 backward: d{name} against f64: kernel {ek:.3e}, plain {ep:.3e}")
+        e_w, e_wp = max(e_w, ek), max(e_wp, ep)
+    check("K10 backward: the decoder's weight gradients against f64 (relative to each max)",
+          e_w, max(1e-4, 10 * e_wp))
+    del g64
+    again = vr.triplane_decode_deep_grad_kernel(*args)
+    differ = sum(int((a != b).sum()) for a, b in zip(gk[1:], again[1:]))
+    print(f"  K10 backward: weight gradients of two launches not bit-equal: {differ}")
+    require(differ == 0, "K10 backward: the weight gradients change between runs")
+    f32_ops, tf32_ops = k10_grad_ops(N * P, C)
+    n_bytes = k1_grad_bytes(vols, x, g_rgb, g_sig)
+    with torch.no_grad():
+        summ = record(max_err(gk[0], gp[0]), lambda: vr.triplane_decode_deep_grad_kernel(*args),
+                      lambda: vr.triplane_decode_deep_grad_plain(*args), n_bytes, f32_ops,
+                      plain_iters=3, tf32_flops=tf32_ops)
+    # where a call's time goes: each device launch (the f32 scratch's
+    # fill, the kernel, the weight partials' sum, the cast), by torch.profiler
+    runs = 10
+    means = launch_means(lambda: vr.triplane_decode_deep_grad_kernel(*args), runs)
+    summ.update(relative_err=e_vols, weight_grads_relative_err_f64=e_w, bytes=n_bytes,
+                plain_weight_grads_relative_err_f64=e_wp,
+                shapes={"volumes": list(vols.shape), "coords": list(x.shape)},
+                launch_means_ms={k: ms for k, (n, ms) in means.items()},
+                launches_recorded={k: n for k, (n, ms) in means.items()}, profiled_calls=runs)
+    print(f"  ms {summ['ms']:.6f}  plain_ms {summ['plain_ms']:.6f}  bound_ms "
+          f"{summ['bound_ms']:.6f} ({summ['bound_by']}; {n_bytes} bytes)  [{card}]")
+    print(f"  {runs} calls profiled, by launch (recorded, mean ms): " + ", ".join(
+        f"{k} {n} {ms:.6f}" for k, (n, ms) in means.items())
+        + f"; the means sum to {sum(ms for _, ms in means.values()):.6f}  [{card}]")
+    return summ
+
+
+def training_options_path(device, card, default=None):
+    """The trainer's paste-front and depth-2 options on the card: K8's
+    backward form at training's paste (k8_grad_checks) and K10's at depth
+    2's coarse pass (k10_grad_check) against their plain versions, and
+    training_path's runs "paste" (paste-front and Greg's monotonic-fixed
+    term) and "depth2" (triplane_depth 2 and monotonic-detach), each one's
+    card time (the device's busy ms of a profiled step of every phase) and
+    host s/step against the default run's: ``default``, training_path's
+    summary, or (None: --options-only) its run here. -> (kernel summaries,
+    {run: launch counts}, summary)."""
+    import torch
+
+    t0 = time.perf_counter()
+    counts, summary = {}, {}
+    with torch.enable_grad():
+        if default is None:
+            counts["default"], default, _ = training_path(device, card)
+            summary["default"] = default
+        call = []
+        counts["paste"], summary["paste"], _ = training_path(device, card, "paste", capture=call)
+    checks = {"paste_front_grad": k8_grad_checks(call[0], card)}
+    del call
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        counts["depth2"], summary["depth2"], _ = training_path(device, card, "depth2")
+    checks["triplane_decode_deep_grad"] = k10_grad_check(device, card)
+    torch.cuda.empty_cache()
+    base, base_busy = default["s_per_step_median"], default["profiled_step"]["busy_ms"]
+    for run in ("paste", "depth2"):
+        med, busy = summary[run]["s_per_step_median"], summary[run]["profiled_step"]["busy_ms"]
+        summary[run]["vs_default_step"] = {"card_busy": busy / base_busy, "host_s": med / base}
+        print(f"training ({' '.join(TRAIN_RUNS[run][0])}): a step of every phase busy {busy:.3f} "
+              f"ms of card time against the default step's {base_busy:.3f} "
+              f"({busy / base_busy:.2f}x); host s/step {med:.3f} against {base:.3f} "
+              f"({med / base:.2f}x)  [{card}]")
+    for name, run in (("paste_front_grad", "paste"), ("triplane_decode_deep_grad", "depth2")):
+        checks[name]["launches_per_step"] = summary[run]["launches_per_step"][name]
+        print(f"{name}: {checks[name]['launches_per_step']:g} launches a step")
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"training options path: {summary['seconds']:.1f} s")
+    return checks, counts, summary
+
+
 GAN_METRICS = ("fid50k_full", "fid_clip", "kid50k_full", "pr50k3_full", "is50k", "ppl2_wend")
 METRIC_ITEMS = 64          # the metrics CLI's and the trainer's --metric-items
 METRIC_BATCH = 8           # the CLI's --batch (the trainer's default batch)
@@ -5997,6 +6367,13 @@ def main(argv=None) -> int:
     ap.add_argument("--ada-only", action="store_true",
                     help="build, then run only K14's checks, augment_pipe on the card and ADA's "
                          "training path (--aug fixed, then --aug ada), then stop")
+    ap.add_argument("--options-only", action="store_true",
+                    help="build, then run only the grad-mode checks with the tiny G.f's "
+                         "backward card against CPU (grad_guard_checks) and the trainer's "
+                         "options path (K8's and K10's "
+                         "backward forms against their plain versions, trainer.main with "
+                         "paste-front and with triplane_depth 2, each with a monotonic Greg, "
+                         "beside a run at the defaults), then stop")
     ap.add_argument("--metrics-only", action="store_true",
                     help="build, then run only the GAN metrics path (calc_metrics.main with "
                          "the six metrics, fid50k_full's card work timed, InceptionV3 card vs "
@@ -6066,6 +6443,19 @@ def main(argv=None) -> int:
                    for n in ("grid_sample_2d", "grid_sample_2d_grad")]
         print(f"wall time {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"paths": {"ada_training": ada}, "kernels": kernels}, default=str))
+        print(card)
+        return 0
+
+    if args.options_only:
+        grad_guard_checks(device)
+        checks, counts_opts, options = training_options_path(device, card)
+        kernels = [dict(name=n, route="cuda", source=KERNELS[n].source,
+                        replaces=KERNELS[n].replaces, launches=counts_opts[run][n], **checks[n])
+                   for n, run in (("paste_front_grad", "paste"),
+                                  ("triplane_decode_deep_grad", "depth2"))]
+        print(f"wall time {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"paths": {"training_options": options}, "kernels": kernels},
+                         default=str))
         print(card)
         return 0
 
@@ -6203,6 +6593,10 @@ def main(argv=None) -> int:
         # forms at its shapes, R1 and one step against the plain ops
         train_checks, counts_train, training, counts_ada = training_checks(device, card, parent)
         checks.update(train_checks)
+        # the trainer's options: paste-front and depth 2 (K8's and K10's
+        # backward forms), each with a monotonic Greg
+        opt_checks, counts_opts, options = training_options_path(device, card, training)
+        checks.update(opt_checks)
         for name in ("grid_sample_2d", "grid_sample_2d_grad"):
             checks[name]["launches_per_ada_step"] = training["ada"]["ada"][
                 "launches_per_step"].get(name, 0)
@@ -6323,16 +6717,18 @@ def main(argv=None) -> int:
              "keyed_forward": keyed, "hybrid8x_keyed": hybrid,
              "probe": probe, **deep, **geometry, "eval_cli": eval_cli, "checkpoint": ckpt,
              "stylegan3_t_layers": sg3_path, "equivariance": equivariance,
-             "training": training, "gan_metrics": gan}
+             "training": training, "training_options": options, "gan_metrics": gan}
     print(json.dumps({"paths": paths, "card": card}, default=str))
     # each kernel's launches on the path that launches it: the ESS + paste
     # request, else the geometry path, else eval measure, else the probe,
     # else the deep-plane request, else the deep-plane mesh, else the
     # stylegan3-t layers, else EQ-R (K14's forward, a run of 16 batches),
     # else training (the backward forms), else ADA's training run (K14's
-    # backward, ADA_STEPS steps); 0 for a kernel of CHECK_ONLY
+    # backward, ADA_STEPS steps), else the options' paste run (K8's
+    # backward), else their depth-2 run (K10's backward), each 1 +
+    # TRAIN_STEPS steps; 0 for a kernel of CHECK_ONLY
     sources = (counts_main, counts_geom, counts_eval, counts_probe, *counts_deep, counts_sg3,
-               counts_eq, counts_train, counts_ada)
+               counts_eq, counts_train, counts_ada, counts_opts["paste"], counts_opts["depth2"])
     launches = {name: next((c[name] for c in sources if c[name]), 0) for name in KERNELS}
     require_launched(launches, [k for k in KERNELS if k not in CHECK_ONLY], "all paths")
     summary = {"kernels": [

@@ -44,6 +44,25 @@
 // operation by operation); the pixels then upsample those as they would the
 // maps. Neighbouring tiles recompute a few of the same points: ~30 points
 // a block beside 512 pixels.
+//
+// K8's backward form (paste_front_grad) serves both entries: their masks
+// are the same outputs. It replaces what XLA's autodiff makes of
+// paste_front in training (the masks are stop-gradiented there, so only the
+// blend and the front projection carry a gradient): to the rendered image
+// g (1 - mask), to the paste g mask, and through the projection's bilinear
+// sample of the front image (border clamping: no gradient where the clamp
+// holds) to channels 0 and 1 of the upsampled xyz, then by the transpose of
+// the bilinear upsample to the render's r^2 image_xyz. The front image is
+// data and takes none. Two launches, no atomics, so the result is the same
+// bits on every run: a thread a pixel writes the image's gradient and the
+// two upsampled channels' gradients ([N,2,S,S] f32 scratch); then a thread
+// a render texel gathers, for each of the two channels, the pixels whose
+// upsample reads it (at S / r = 8, ~16 x 16 of at most 20 x 20
+// candidates), a row at a time, in a fixed order. What bounds it: the
+// bytes (the mask, the output gradient, the front image and the image's
+// gradient at S^2, ~84 MB at training's N = 8, C = 3, 512^2: ~0.025 ms),
+// plus the scratch written once and read by the ~4 texels whose footprints
+// hold each pixel.
 #include <initializer_list>
 
 #include "front_occlusion.cuh"
@@ -328,6 +347,105 @@ int launch_paste(const float* image, const float* front, int C, int Hf, int Wf,
   return (int)cudaGetLastError();
 }
 
+// K8's backward form, first launch: a thread a pixel of [N,S,S]. The image
+// takes g - g mask (autograd's sum for image + (paste - image) mask), the
+// paste g mask (+ g_paste, the paste output's own gradient, where given);
+// the projection's uv is the forward's (the same upsampled xyz and rounded
+// operations, so the same texels and weights), and dL/d(wx, wy) of the
+// bilinear sample, times d(ix, iy)/d(xyz1, xyz0) = -(Hf, Wf) / bw, gives
+// the upsampled xyz's channels 1 and 0 their gradients in g_up [N,2,S,S].
+constexpr int GRAD_THREADS = 256;
+
+__global__ void __launch_bounds__(GRAD_THREADS) paste_grad_pixels_kernel(
+    const float* __restrict__ mask, const float* __restrict__ g_out,
+    const float* __restrict__ g_paste, const float* __restrict__ front, int C, int Hf, int Wf,
+    const float* __restrict__ xyz, float* __restrict__ g_image, float* __restrict__ g_up, int N,
+    int S, int r, float half_bw, float inv_bw, float scale) {
+  const long long plane = (long long)S * S;
+  const long long idx = (long long)blockIdx.x * GRAD_THREADS + threadIdx.x;
+  if (idx >= N * plane) return;
+  const int n = (int)(idx / plane);
+  const long long pix = idx - n * plane;
+  const int i = (int)(pix / S), j = (int)(pix - (long long)i * S);
+  const int rr = r * r;
+  const float* xyz_n = xyz + (long long)n * 3 * rr;
+  const Lerp h = lerp_of(i, r, scale), w = lerp_of(j, r, scale);
+  const float cx = upsample(xyz_n + rr, r, h, w), cy = upsample(xyz_n, r, h, w);
+  const float u = __fsub_rn(
+      __fmul_rn(__fsub_rn(1.f, __fmul_rn(__fadd_rn(cx, half_bw), inv_bw)), 2.f), 1.f);
+  const float v = __fsub_rn(
+      __fmul_rn(__fsub_rn(1.f, __fmul_rn(__fadd_rn(cy, half_bw), inv_bw)), 2.f), 1.f);
+  const float ix = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(u, 1.f), (float)Hf), 1.f), 0.5f);
+  const float iy = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(v, 1.f), (float)Wf), 1.f), 0.5f);
+  const float fx = floorf(ix), fy = floorf(iy);
+  const float wx = __fsub_rn(ix, fx), wy = __fsub_rn(iy, fy);
+  const int x0 = min(max((int)fx, 0), Hf - 1), x1 = min(max((int)fx + 1, 0), Hf - 1);
+  const int y0 = min(max((int)fy, 0), Wf - 1), y1 = min(max((int)fy + 1, 0), Wf - 1);
+  const float m = mask[idx];
+  float gwx = 0.f, gwy = 0.f;
+  for (int c = 0; c < C; ++c) {
+    const long long o = ((long long)n * C + c) * plane + pix;
+    const float g = g_out[o];
+    g_image[o] = g - g * m;
+    const float gp = g * m + (g_paste ? g_paste[o] : 0.f);
+    const float* f = front + ((long long)n * C + c) * Hf * Wf;
+    const float v00 = f[x0 * Wf + y0], v01 = f[x1 * Wf + y0];
+    const float v10 = f[x0 * Wf + y1], v11 = f[x1 * Wf + y1];
+    const float top = v00 + (v01 - v00) * wx, bot = v10 + (v11 - v10) * wx;
+    gwx += gp * ((v01 - v00) * (1.f - wy) + (v11 - v10) * wy);
+    gwy += gp * (bot - top);
+  }
+  g_up[(2LL * n) * plane + pix] = -gwy * (float)Wf * inv_bw;
+  g_up[(2LL * n + 1) * plane + pix] = -gwx * (float)Hf * inv_bw;
+}
+
+// an output row's (column's) weight on source row a of the bilinear
+// upsample: l0 where it reads a as its lower neighbour, l1 as its upper
+__device__ __forceinline__ float upsample_weight(int i, int a, int r, float scale) {
+  const Lerp l = lerp_of(i, r, scale);
+  return (l.i0 == a ? l.l0 : 0.f) + (l.i1 == a ? l.l1 : 0.f);
+}
+
+// K8's backward form, second launch: a thread a render texel (n, a, b) of
+// [N,r,r]; the transpose of the upsample, gathered: for channels 0 and 1,
+// the sum over the output rows i and columns j that read the texel of
+// w_row(i) (sum_j w_col(j) g_up[i][j]), rows and columns in order; channel
+// 2 takes no gradient
+__global__ void __launch_bounds__(GRAD_THREADS) paste_grad_texels_kernel(
+    const float* __restrict__ g_up, float* __restrict__ g_xyz, int N, int S, int r,
+    float scale) {
+  const int rr = r * r;
+  const long long idx = (long long)blockIdx.x * GRAD_THREADS + threadIdx.x;
+  if (idx >= (long long)N * rr) return;
+  const int n = (int)(idx / rr), t = (int)(idx - (long long)n * rr), a = t / r, b = t - a * r;
+  // the output rows (columns) whose lower or upper neighbour is a (b), and
+  // a margin of one: src(i) = (i + 0.5) r / S - 0.5 lies in [a - 1, a + 1)
+  const float inv = (float)S / (float)r;
+  const int ilo = max((int)floorf((a - 0.5f) * inv - 0.5f) - 1, 0);
+  const int ihi = min((int)ceilf((a + 1.5f) * inv - 0.5f) + 1, S - 1);
+  const int jlo = max((int)floorf((b - 0.5f) * inv - 0.5f) - 1, 0);
+  const int jhi = min((int)ceilf((b + 1.5f) * inv - 0.5f) + 1, S - 1);
+  const long long plane = (long long)S * S;
+  float acc[2] = {0.f, 0.f};
+  for (int i = ilo; i <= ihi; ++i) {
+    const float wr = upsample_weight(i, a, r, scale);
+    if (wr == 0.f) continue;
+    float rs[2] = {0.f, 0.f};
+    for (int j = jlo; j <= jhi; ++j) {
+      const float wc = upsample_weight(j, b, r, scale);
+      if (wc == 0.f) continue;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) rs[c] += wc * g_up[(2LL * n + c) * plane + (long long)i * S + j];
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) acc[c] += wr * rs[c];
+  }
+  float* out = g_xyz + (long long)n * 3 * rr + t;
+  out[0] = acc[0];
+  out[rr] = acc[1];
+  out[2 * rr] = 0.f;
+}
+
 }  // namespace
 
 // image [N,C,S,S] f32 (the SR image), front [N,C,Hf,Wf] f32 (the image to
@@ -371,4 +489,29 @@ PANIC3D_EXPORT int paste_front_occ(const float* image, const float* front, int C
                             out_image, paste, mask, wmask, smask, fmask, dmask, N, S, r, bw,
                             thresh_weight, thresh_edges, thresh_dxyz, near_h, near_w, occ,
                             stream);
+}
+
+// K8's backward form: mask [N,1,S,S] f32 (the forward's), g_out [N,C,S,S]
+// f32 (the blended image's gradient), g_paste [N,C,S,S] f32 or null (the
+// paste output's), front [N,C,Hf,Wf] f32 (the image pasted), xyz [N,3,r,r]
+// f32 (the render's image_xyz); writes g_image [N,C,S,S] (the rendered
+// image's gradient) and g_xyz [N,3,r,r] (channel 2 zero) through g_up
+// [N,2,S,S] f32 scratch. bw: the box warp.
+PANIC3D_EXPORT int paste_front_grad(const float* mask, const float* g_out, const float* g_paste,
+                                    const float* front, int C, int Hf, int Wf, const float* xyz,
+                                    float* g_image, float* g_up, float* g_xyz, int N, int S,
+                                    int r, float bw, void* stream) {
+  if (N < 1 || S < 1 || r < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale = (float)r / (float)S;
+  const long long pixels = (long long)N * S * S, texels = (long long)N * r * r;
+  paste_grad_pixels_kernel<<<(unsigned)((pixels + GRAD_THREADS - 1) / GRAD_THREADS),
+                             GRAD_THREADS, 0, st>>>(mask, g_out, g_paste, front, C, Hf, Wf, xyz,
+                                                    g_image, g_up, N, S, r, bw * 0.5f, 1.f / bw,
+                                                    scale);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  paste_grad_texels_kernel<<<(unsigned)((texels + GRAD_THREADS - 1) / GRAD_THREADS),
+                             GRAD_THREADS, 0, st>>>(g_up, g_xyz, N, S, r, scale);
+  return (int)cudaGetLastError();
 }

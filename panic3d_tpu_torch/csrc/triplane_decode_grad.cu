@@ -19,7 +19,8 @@
 // tensor cores in 3xTF32 (three TF32 products each); and it adds 3 x 4 x C
 // f32 values into the plane gradient. The tensor cores' TF32 rate bounds
 // it (0.238 ms at a training pass of 1,572,864 points), its bytes next
-// (0.188 ms: the inputs once, the f32 plane gradient zeroed and written).
+// (0.098 ms: the inputs once, the bf16 plane gradient written once; the f32
+// scratch the atomics need, zeroed and cast back, is this design's cost).
 //
 // Design (an earlier form ran a point a thread in f32 and wrote four
 // per-point blocks, 772 B a point, for torch.matmul to form the weight
@@ -57,6 +58,21 @@
 // The decoder's gained weights sit in shared memory in f32 as each product
 // reads its B operand (layer 1, dL/df: w0 and its transpose; layer 2,
 // dL/dh: w1 and its transpose), split as they are read.
+//
+// K10's backward form (triplane_decode_deep_grad) is the same kernel on the
+// deep planes (triplane_depth D > 1), templated on DEEP. It replaces what
+// XLA's autodiff makes of panic3d_tpu/ops/grid_sample.py:
+// grid_sample_3d_points (:266) where sample_from_planes runs it at depth
+// (renderer.py:86-92), with the plane mean, OSGDecoder and the filters. The
+// gather reads K10's channels-last volumes [N*3, D, H, W, C]: a plane's
+// point has a third projected coordinate that indexes D, and its 8 corners
+// (zeros outside the volume) are lerped as K10's forward lerps them
+// (csrc/triplane_decode.cu:deep_plane_sample). The scatter's runs are runs
+// of points in one 3-D cell; a run's item keeps the cell's corner (x0, y0,
+// z0) and the points' (wx, wy, wz), and adds each of the 8 corners inside
+// the volume once. The MLP, its backward and the weight gradients are K1's.
+// Per point it reads twice K1's corner rows (1,536 B at C = 32 in bf16, L2
+// hits) and adds 3 x 8 x C f32 values; the TF32 products are K1's.
 #include "common.cuh"
 #include "tf32_mma.cuh"
 
@@ -82,7 +98,7 @@ constexpr int OS = N2 + 4;      // output rows' stride
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Proj {
-  float m[3][3][2];   // [plane][xyz][uv]: the inverse plane axes' first two columns
+  float m[3][3][3];   // [plane][xyz][uvw]: the inverse plane axes (w, the depth: DEEP only)
 };
 
 // net2's row in padded output column c: rgb channel c (row c + 1) for
@@ -147,6 +163,17 @@ __device__ __forceinline__ void plane_geom(const Proj& pr, int p, float sx, floa
   y0 = (int)fminf(fmaxf(fy, -2.f), (float)H);
 }
 
+// a deep plane's third coordinate (the volume's depth, D slices) of a
+// (scaled) point, as K10's gather computes it: the lower slice and its weight
+__device__ __forceinline__ void depth_geom(const Proj& pr, int p, float sx, float sy, float sz,
+                                           int D, int& z0, float& wz) {
+  const float gz = sx * pr.m[p][0][2] + sy * pr.m[p][1][2] + sz * pr.m[p][2][2];
+  const float iz = ((gz + 1.f) * (float)D - 1.f) / 2.f;
+  const float fz = floorf(iz);
+  wz = iz - fz;
+  z0 = (int)fminf(fmaxf(fz, -2.f), (float)D);
+}
+
 __device__ __forceinline__ void unpack8(const uint4& r, float* v, const float*) {
   v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
   v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
@@ -161,14 +188,64 @@ __device__ __forceinline__ void unpack8(const uint4& r, float* v, const __nv_bfl
   }
 }
 
+// one deep plane's trilinear sample of a lane's CH channels at c0, added to
+// feat: K10's forward order (csrc/triplane_decode.cu:deep_plane_sample), per
+// z slice the xy lerps, then 0 + s(z0) (1 - wz) + s(z1) wz
+template <typename T, int C>
+__device__ __forceinline__ void deep_sample(const T* __restrict__ vols, int n, int p, int D,
+                                            int H, int W, const Proj& pr, float sx, float sy,
+                                            float sz, int c0, float* feat) {
+  constexpr int CH = 16 / (int)sizeof(T);
+  int x0, y0, z0;
+  float wx, wy, wz;
+  plane_geom(pr, p, sx, sy, sz, H, W, x0, y0, wx, wy);
+  depth_geom(pr, p, sx, sy, sz, D, z0, wz);
+  const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
+  const bool vy0 = y0 >= 0 && y0 < H, vy1 = y0 + 1 >= 0 && y0 + 1 < H;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  uint4 r[2][4];
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz) {
+    const int z = z0 + dz;
+    const bool vz = z >= 0 && z < D;
+    const T* r00 = vols + ((((long long)(n * 3 + p) * D + z) * H + y0) * W + x0) * C + c0;
+    const T* r10 = r00 + (long long)W * C;
+    r[dz][0] = vz && vy0 && vx0 ? __ldg(reinterpret_cast<const uint4*>(r00)) : zero;
+    r[dz][1] = vz && vy0 && vx1 ? __ldg(reinterpret_cast<const uint4*>(r00 + C)) : zero;
+    r[dz][2] = vz && vy1 && vx0 ? __ldg(reinterpret_cast<const uint4*>(r10)) : zero;
+    r[dz][3] = vz && vy1 && vx1 ? __ldg(reinterpret_cast<const uint4*>(r10 + C)) : zero;
+  }
+  float v[CH];
+#pragma unroll
+  for (int k = 0; k < CH; ++k) v[k] = 0.f;
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz) {
+    const float wzz = dz ? wz : 1.f - wz;
+    float v00[CH], v01[CH], v10[CH], v11[CH];
+    unpack8(r[dz][0], v00, vols);
+    unpack8(r[dz][1], v01, vols);
+    unpack8(r[dz][2], v10, vols);
+    unpack8(r[dz][3], v11, vols);
+#pragma unroll
+    for (int k = 0; k < CH; ++k) {
+      const float top = v00[k] + (v01[k] - v00[k]) * wx;
+      const float bot = v10[k] + (v11[k] - v10[k]) * wx;
+      v[k] += (top + (bot - top) * wy) * wzz;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < CH; ++k) feat[k] += v[k];
+}
+
 // the plane-mean features of the tile's 16 points into f[point][C + 4]
 // (zeros past the end): C / CH neighbouring lanes a point, one 16-byte
 // chunk of CH channels of every corner each; the lerps and the mean in
-// K1's order (ops/grid_sample.py:grid_sample_2d_points)
-template <typename T, int C>
+// K1's order (ops/grid_sample.py:grid_sample_2d_points), or with DEEP
+// K10's (deep_sample)
+template <typename T, int C, bool DEEP>
 __device__ __forceinline__ void gather_tile(const T* __restrict__ planes,
                                             const float* __restrict__ coords, long long t0,
-                                            long long total, int M, int H, int W,
+                                            long long total, int M, int D, int H, int W,
                                             const Proj& pr, float scale, int lane, float* f) {
   constexpr int CH = 16 / (int)sizeof(T), TPP = C / CH, PPP = 32 / TPP;
   constexpr int PASSES = (PTS + PPP - 1) / PPP, FS = C + 4;
@@ -187,29 +264,33 @@ __device__ __forceinline__ void gather_tile(const T* __restrict__ planes,
       const float sz = scale * coords[pt * 3 + 2];
 #pragma unroll
       for (int p = 0; p < 3; ++p) {
-        int x0, y0;
-        float wx, wy;
-        plane_geom(pr, p, sx, sy, sz, H, W, x0, y0, wx, wy);
-        const T* r00 = planes + ((long long)(n * 3 + p) * H * W + (long long)y0 * W + x0) * C +
-                       cc * CH;
-        uint4 v[4];
+        if constexpr (DEEP) {
+          deep_sample<T, C>(planes, n, p, D, H, W, pr, sx, sy, sz, cc * CH, feat);
+        } else {
+          int x0, y0;
+          float wx, wy;
+          plane_geom(pr, p, sx, sy, sz, H, W, x0, y0, wx, wy);
+          const T* r00 = planes + ((long long)(n * 3 + p) * H * W + (long long)y0 * W + x0) * C +
+                         cc * CH;
+          uint4 v[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int xx = x0 + (k & 1), yy = y0 + (k >> 1);
-          v[k] = make_uint4(0u, 0u, 0u, 0u);
-          if (xx >= 0 && xx < W && yy >= 0 && yy < H)
-            v[k] = __ldg(reinterpret_cast<const uint4*>(r00 + ((k >> 1) * W + (k & 1)) * C));
-        }
-        float v00[CH], v01[CH], v10[CH], v11[CH];
-        unpack8(v[0], v00, planes);
-        unpack8(v[1], v01, planes);
-        unpack8(v[2], v10, planes);
-        unpack8(v[3], v11, planes);
+          for (int k = 0; k < 4; ++k) {
+            const int xx = x0 + (k & 1), yy = y0 + (k >> 1);
+            v[k] = make_uint4(0u, 0u, 0u, 0u);
+            if (xx >= 0 && xx < W && yy >= 0 && yy < H)
+              v[k] = __ldg(reinterpret_cast<const uint4*>(r00 + ((k >> 1) * W + (k & 1)) * C));
+          }
+          float v00[CH], v01[CH], v10[CH], v11[CH];
+          unpack8(v[0], v00, planes);
+          unpack8(v[1], v01, planes);
+          unpack8(v[2], v10, planes);
+          unpack8(v[3], v11, planes);
 #pragma unroll
-        for (int k = 0; k < CH; ++k) {
-          const float top = v00[k] + (v01[k] - v00[k]) * wx;
-          const float bot = v10[k] + (v11[k] - v10[k]) * wx;
-          feat[k] += top + (bot - top) * wy;
+          for (int k = 0; k < CH; ++k) {
+            const float top = v00[k] + (v01[k] - v00[k]) * wx;
+            const float bot = v10[k] + (v11[k] - v10[k]) * wx;
+            feat[k] += top + (bot - top) * wy;
+          }
         }
       }
 #pragma unroll
@@ -261,11 +342,11 @@ __device__ __forceinline__ bool sigma_passes(float sigma, float x, float z, int 
 // one tile: the decode again and its backward. The slot holds f, h,
 // dL/dpre and dL/dout for the round's weight products, and dL/df for the
 // tile's scatter.
-template <typename T, int C>
+template <typename T, int C, bool DEEP>
 __device__ __forceinline__ void tile_grad(
     GradSmem<C>& sm, Slot<C>& s, const T* __restrict__ planes, const float* __restrict__ coords,
     const T* __restrict__ g_rgb, const float* __restrict__ g_sigma, long long t0,
-    long long total, int M, int H, int W, const Proj& pr, float scale, float rgb_scale,
+    long long total, int M, int D, int H, int W, const Proj& pr, float scale, float rgb_scale,
     int use_crop, float crop_lim, int cull_mode, float cull_thresh, int lane) {
   constexpr int FS = C + 4, NTC = C / 8;
   const int g = lane >> 2, t = lane & 3;
@@ -277,7 +358,7 @@ __device__ __forceinline__ void tile_grad(
     cz = coords[pl * 3 + 2];
   }
   if (K1G_PARTS & 1)
-    gather_tile<T, C>(planes, coords, t0, total, M, H, W, pr, scale, lane, &s.f[0][0]);
+    gather_tile<T, C, DEEP>(planes, coords, t0, total, M, D, H, W, pr, scale, lane, &s.f[0][0]);
   __syncwarp();
 
   // layer 1: pre = W0 f + b0 -> h = softplus(pre), sigmoid(pre)
@@ -411,11 +492,15 @@ __device__ __forceinline__ void tile_grad(
 // 4 lanes an item: each sums weight x dL/df over the run's points (in point
 // order) for the 4 corners from one read of each point's dL/df chunk, and
 // adds each corner inside the plane once, a 16-byte red.global.add.f32, so
-// a warp instruction adds 128 / C whole corner rows.
-template <int C>
+// a warp instruction adds 128 / C whole corner rows. With DEEP a cell is
+// 3-D: the slot keeps the point's (wx, wy, wz) in place of the 4 weights,
+// the item's mask holds 8 corners (bit k: x + (k & 1), y + (k >> 1 & 1), z
+// + (k >> 2)), and a run's 8 sums are formed from one read of each point's
+// dL/df chunk.
+template <int C, bool DEEP>
 __device__ __forceinline__ void scatter_tile(Slot<C>& s, float* __restrict__ g_planes,
                                              const float* __restrict__ coords, long long t0,
-                                             long long total, int M, int H, int W,
+                                             long long total, int M, int D, int H, int W,
                                              const Proj& pr, float scale, int lane) {
   constexpr int LPR = C / 4, RPI = 32 / LPR;   // lanes an item, items an instruction
   const long long pl = t0 + (lane & 15);
@@ -439,7 +524,22 @@ __device__ __forceinline__ void scatter_tile(Slot<C>& s, float* __restrict__ g_p
       int x0, y0;
       float wx, wy;
       plane_geom(pr, p, sx, sy, sz, H, W, x0, y0, wx, wy);
-      if (x0 >= -1 && x0 < W && y0 >= -1 && y0 < H) {   // a corner is inside the plane
+      if constexpr (DEEP) {
+        int z0;
+        float wz;
+        depth_geom(pr, p, sx, sy, sz, D, z0, wz);
+        // a corner is inside the volume
+        if (x0 >= -1 && x0 < W && y0 >= -1 && y0 < H && z0 >= -1 && z0 < D) {
+          key = (((ln * 3 + p) * (D + 2) + z0 + 1) * (H + 2) + y0 + 1) * (W + 2) + x0 + 1;
+          row = (((ln * 3 + p) * D + z0) * H + y0) * W + x0;
+          const bool in_x[2] = {x0 >= 0, x0 + 1 < W}, in_y[2] = {y0 >= 0, y0 + 1 < H};
+          const bool in_z[2] = {z0 >= 0, z0 + 1 < D};
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            mask |= (in_x[k & 1] && in_y[k >> 1 & 1] && in_z[k >> 2]) << k;
+          w4 = make_float4(wx, wy, wz, 0.f);
+        }
+      } else if (x0 >= -1 && x0 < W && y0 >= -1 && y0 < H) {   // a corner is inside the plane
         key = ((ln * 3 + p) * (H + 2) + y0 + 1) * (W + 2) + x0 + 1;
         row = ((ln * 3 + p) * H + y0) * W + x0;
         const bool in_x0 = x0 >= 0, in_x1 = x0 + 1 < W, in_y0 = y0 >= 0, in_y1 = y0 + 1 < H;
@@ -467,6 +567,41 @@ __device__ __forceinline__ void scatter_tile(Slot<C>& s, float* __restrict__ g_p
   }
   __syncwarp();
   const int c4 = 4 * (lane % LPR);
+  if constexpr (DEEP) {
+    for (int it = lane / LPR; it < n_items; it += RPI) {
+      const int item = s.items[it], e0 = item & 255, e1 = (item >> 8) & 255, mask = item >> 16;
+      float4 a[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) a[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int e = e0; e < e1; ++e) {
+        const float4 d = *reinterpret_cast<const float4*>(&s.df[e & 15][c4]);
+        const float4 w = s.w4[e];
+        const float fx[2] = {1.f - w.x, w.x}, fy[2] = {1.f - w.y, w.y};
+        const float fz[2] = {(1.f - w.z) / 3.f, w.z / 3.f};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float wk = fx[k & 1] * fy[k >> 1 & 1] * fz[k >> 2];
+          a[k].x = fmaf(wk, d.x, a[k].x);
+          a[k].y = fmaf(wk, d.y, a[k].y);
+          a[k].z = fmaf(wk, d.z, a[k].z);
+          a[k].w = fmaf(wk, d.w, a[k].w);
+        }
+      }
+      const long long r0 = s.irow[it];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (mask >> k & 1) {
+          const long long off = ((long long)(k >> 2) * H + (k >> 1 & 1)) * W + (k & 1);
+          float4* dst = reinterpret_cast<float4*>(g_planes + (r0 + off) * C + c4);
+          if (K1G_PARTS & 8)
+            atomicAdd(dst, a[k]);
+          else
+            *dst = a[k];
+        }
+    }
+    __syncwarp();   // the slot's scratch is the next tile's
+    return;
+  }
   for (int it = lane / LPR; it < n_items; it += RPI) {
     const int item = s.items[it], e0 = item & 255, e1 = (item >> 8) & 255, mask = item >> 16;
     float4 a[4];
@@ -545,13 +680,13 @@ __device__ __forceinline__ float sum_over_t(float v) {
   return v + __shfl_xor_sync(FULL, v, 2);
 }
 
-template <typename T, int C>
+template <typename T, int C, bool DEEP>
 __global__ void __launch_bounds__(32 * GW, CTAS_PER_SM) triplane_decode_grad_kernel(
     const T* __restrict__ planes, const float* __restrict__ coords,
     const float* __restrict__ w0, const float* __restrict__ b0, const float* __restrict__ w1,
     const float* __restrict__ b1, const T* __restrict__ g_rgb,
     const float* __restrict__ g_sigma, float* __restrict__ g_planes,
-    float* __restrict__ partials, int N, int M, int H, int W, Proj pr, float scale,
+    float* __restrict__ partials, int N, int M, int D, int H, int W, Proj pr, float scale,
     float gain0, float gain1, float lr_mul, float rgb_scale, int use_crop, float crop_lim,
     int cull_mode, float cull_thresh) {
   extern __shared__ uint4 smem_raw[];
@@ -588,10 +723,12 @@ __global__ void __launch_bounds__(32 * GW, CTAS_PER_SM) triplane_decode_grad_ker
   // zero output gradients, so they add nothing)
   for (long long round = blockIdx.x; round * GW < tiles; round += gridDim.x) {
     const long long t0 = (round * GW + warp) * PTS;
-    tile_grad<T, C>(sm, sm.slot[warp], planes, coords, g_rgb, g_sigma, t0, total, M, H, W, pr,
-                    scale, rgb_scale, use_crop, crop_lim, cull_mode, cull_thresh, lane);
+    tile_grad<T, C, DEEP>(sm, sm.slot[warp], planes, coords, g_rgb, g_sigma, t0, total, M, D,
+                          H, W, pr, scale, rgb_scale, use_crop, crop_lim, cull_mode,
+                          cull_thresh, lane);
     if (K1G_PARTS & 2)
-      scatter_tile<C>(sm.slot[warp], g_planes, coords, t0, total, M, H, W, pr, scale, lane);
+      scatter_tile<C, DEEP>(sm.slot[warp], g_planes, coords, t0, total, M, D, H, W, pr, scale,
+                            lane);
     __syncthreads();
     if (K1G_PARTS & 4) weight_products<C>(sm, warp, lane, aw0, aw1, ab0, ab1);
     __syncthreads();
@@ -649,28 +786,28 @@ __global__ void triplane_decode_grad_finish(const float* __restrict__ partials, 
   out[e] = (float)(sum * gain);
 }
 
-template <typename T, int C>
+template <typename T, int C, bool DEEP>
 cudaError_t launch(const void* planes, const float* coords, const float* w0, const float* b0,
                    const float* w1, const float* b1, const void* g_rgb, const float* g_sigma,
                    float* g_planes, float* partials, float* g_weights, int ctas, int N, int M,
-                   int H, int W, const Proj& pr, float scale, float gain0, float gain1,
+                   int D, int H, int W, const Proj& pr, float scale, float gain0, float gain1,
                    float lr_mul, float rgb_scale, int use_crop, float crop_lim, int cull_mode,
                    float cull_thresh, cudaStream_t stream) {
   // above 48 KB of shared memory a block must ask for it; two CTAs an SM
   // need the largest shared-memory carveout (once per kernel)
   static const cudaError_t attr = [] {
-    const cudaError_t e = cudaFuncSetAttribute(triplane_decode_grad_kernel<T, C>,
+    const cudaError_t e = cudaFuncSetAttribute(triplane_decode_grad_kernel<T, C, DEEP>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)sizeof(GradSmem<C>));
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(triplane_decode_grad_kernel<T, C>,
+    return cudaFuncSetAttribute(triplane_decode_grad_kernel<T, C, DEEP>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 (int)cudaSharedmemCarveoutMaxShared);
   }();
   if (attr != cudaSuccess) return attr;
-  triplane_decode_grad_kernel<T, C><<<ctas, 32 * GW, sizeof(GradSmem<C>), stream>>>(
+  triplane_decode_grad_kernel<T, C, DEEP><<<ctas, 32 * GW, sizeof(GradSmem<C>), stream>>>(
       static_cast<const T*>(planes), coords, w0, b0, w1, b1, static_cast<const T*>(g_rgb),
-      g_sigma, g_planes, partials, N, M, H, W, pr, scale, gain0, gain1, lr_mul, rgb_scale,
+      g_sigma, g_planes, partials, N, M, D, H, W, pr, scale, gain0, gain1, lr_mul, rgb_scale,
       use_crop, crop_lim, cull_mode, cull_thresh);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -702,14 +839,17 @@ PANIC3D_EXPORT int triplane_decode_grad(
   if (N < 1 || M < 1 || H < 1 || W < 1 || ctas < 1 ||
       (long long)N * 3 * (H + 2) * (W + 2) >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  Proj pr;
-  for (int i = 0; i < 18; ++i) (&pr.m[0][0][0])[i] = proj[i];
+  Proj pr{};
+  for (int p = 0; p < 3; ++p)
+    for (int c = 0; c < 3; ++c)
+      for (int d = 0; d < 2; ++d) pr.m[p][c][d] = proj[(p * 3 + c) * 2 + d];
   const float rgb_scale = force_sigmoid ? 1.f : 1.f + 2.f * 0.001f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define P3D_K1G(T, CC)                                                                     \
-  return (int)launch<T, CC>(planes, coords, w0, b0, w1, b1, g_rgb, g_sigma, g_planes,      \
-                            partials, g_weights, ctas, N, M, H, W, pr, scale, gain0, gain1, \
-                            lr_mul, rgb_scale, use_crop, crop_lim, cull_mode, cull_thresh, s)
+#define P3D_K1G(T, CC)                                                                      \
+  return (int)launch<T, CC, false>(planes, coords, w0, b0, w1, b1, g_rgb, g_sigma, g_planes, \
+                                   partials, g_weights, ctas, N, M, 1, H, W, pr, scale, gain0, \
+                                   gain1, lr_mul, rgb_scale, use_crop, crop_lim, cull_mode,    \
+                                   cull_thresh, s)
   if (dtype == DT_BF16) {
     if (C == 32) P3D_K1G(__nv_bfloat16, 32);
     if (C == 16) P3D_K1G(__nv_bfloat16, 16);
@@ -720,5 +860,42 @@ PANIC3D_EXPORT int triplane_decode_grad(
     if (C == 8) P3D_K1G(float, 8);
   }
 #undef P3D_K1G
+  return (int)cudaErrorInvalidValue;
+}
+
+// K10's backward form: vols [N*3,D,H,W,C] channels-last (K10's deep
+// volumes, f32 or bf16, 16-byte aligned; N 3 (D + 2) (H + 2) (W + 2) <
+// 2^31), proj: the inverse plane axes [3][3][3] (w indexes D); adds into
+// g_vols [N*3,D,H,W,C] f32, zeroed by the caller; the rest as
+// triplane_decode_grad.
+PANIC3D_EXPORT int triplane_decode_deep_grad(
+    const void* vols, int dtype, const float* coords, const float* w0, const float* b0,
+    const float* w1, const float* b1, const void* g_rgb, const float* g_sigma,
+    float* g_vols, float* partials, float* g_weights, int ctas, int N, int M, int D, int H,
+    int W, int C, const float* proj, float scale, float gain0, float gain1, float lr_mul,
+    int force_sigmoid, int use_crop, float crop_lim, int cull_mode, float cull_thresh,
+    void* stream) {
+  if (N < 1 || M < 1 || D < 1 || H < 1 || W < 1 || ctas < 1 ||
+      (long long)N * 3 * (D + 2) * (H + 2) * (W + 2) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  Proj pr{};
+  for (int i = 0; i < 27; ++i) (&pr.m[0][0][0])[i] = proj[i];
+  const float rgb_scale = force_sigmoid ? 1.f : 1.f + 2.f * 0.001f;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define P3D_K10G(T, CC)                                                                    \
+  return (int)launch<T, CC, true>(vols, coords, w0, b0, w1, b1, g_rgb, g_sigma, g_vols,     \
+                                  partials, g_weights, ctas, N, M, D, H, W, pr, scale, gain0, \
+                                  gain1, lr_mul, rgb_scale, use_crop, crop_lim, cull_mode,    \
+                                  cull_thresh, s)
+  if (dtype == DT_BF16) {
+    if (C == 32) P3D_K10G(__nv_bfloat16, 32);
+    if (C == 16) P3D_K10G(__nv_bfloat16, 16);
+    if (C == 8) P3D_K10G(__nv_bfloat16, 8);
+  } else {
+    if (C == 32) P3D_K10G(float, 32);
+    if (C == 16) P3D_K10G(float, 16);
+    if (C == 8) P3D_K10G(float, 8);
+  }
+#undef P3D_K10G
   return (int)cudaErrorInvalidValue;
 }

@@ -8,15 +8,20 @@ ran, in ``variants``. ``chip_smoke.py`` zeroes the counts before it drives
 the main path and reads them after, to show the path went through every
 kernel.
 
-Five kernels have a backward form, each run by an autograd.Function
+Seven kernels have a backward form, each run by an autograd.Function
 around the forward launch: K1 (``triplane_decode_grad``, to the planes and
 the decoder's weights), K2 (``ray_composite_grad``, to the colours and
 sigmas), K4 (the transposed upfirdn2d, K4's own entry point, counted under
 ``grad_<variant>``), K5 (``modconv_epilogue_grad``, differentiable again
-for R1) and K14 (``grid_sample_2d_grad``, to the sampled image,
-differentiable again through K14's forward). Their wrappers still refuse,
-through ``require_no_grad``, the inputs they give no gradient: K1's and
-K2's sample coordinates and depths, K4's filter, K5's noise and K14's grid.
+for R1), K8 (``paste_front_grad``, both entries: to the rendered image and
+image_xyz), K10 (``triplane_decode_deep_grad``, to the deep volumes and
+the decoder's weights) and K14 (``grid_sample_2d_grad``, to the sampled
+image, differentiable again through K14's forward). Their wrappers still
+refuse, through ``require_no_grad``, the inputs they give no gradient:
+K1's, K10's and K2's sample coordinates and depths, K4's filter, K5's
+noise, K8's front image and front-weight mask, and K14's grid; K8's other
+maps (the weights, occlusion and discrepancy) are masks, stop-gradiented
+as in the JAX package, and take none without a refusal.
 Every other wrapper calls ``require_no_grad`` on all its inputs before it
 launches: under grad mode an input that requires grad would otherwise leave
 the outputs cut off from it without an error.
@@ -117,6 +122,11 @@ KERNELS = {
             "panic3d_tpu/models/triplane.py:730",
         ),
         Kernel(
+            "paste_front_grad",
+            "panic3d_tpu_torch/csrc/paste_front.cu",
+            "panic3d_tpu/models/triplane.py:730",
+        ),
+        Kernel(
             "point_mesh_distance",
             "panic3d_tpu_torch/csrc/mesh_distance.cu",
             "panic3d_tpu/eval/mesh_metrics.py:61",
@@ -129,6 +139,11 @@ KERNELS = {
         Kernel(
             "triplane_decode_deep",
             "panic3d_tpu_torch/csrc/triplane_decode.cu",
+            "panic3d_tpu/ops/grid_sample.py:266",
+        ),
+        Kernel(
+            "triplane_decode_deep_grad",
+            "panic3d_tpu_torch/csrc/triplane_decode_grad.cu",
             "panic3d_tpu/ops/grid_sample.py:266",
         ),
         Kernel(

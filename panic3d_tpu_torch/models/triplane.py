@@ -20,7 +20,9 @@ is accepted and changes nothing: the JAX package's z-aligned gather is a
 TPU row trick, bit-equal to the plain render). Kernel K8
 (csrc/paste_front.cu) does paste-front's per-pixel work, on the card with
 the grid occlusion's read of the volume in the same launch; its wrappers
-sit here beside their plain versions.
+sit here beside their plain versions, and its backward form
+(``paste_front_grad``, PasteComposite) gives the rendered image and
+image_xyz their gradients in training.
 """
 
 from __future__ import annotations
@@ -708,11 +710,9 @@ def _k8_operands(image, front, maps, fwmask):
     return image, front.to(torch.float32).contiguous(), ins, fwmask, out
 
 
-def paste_composite_kernel(image, front, weights, xyz, occ_bin, dxyz, bw: float,
-                           thresh_weight: float, thresh_edges: float, thresh_dxyz: float,
-                           fwmask=None):
-    """Launch K8 on CUDA tensors: same contract as paste_composite_plain."""
-    require_no_grad("paste_front", image, front, weights, xyz, occ_bin, dxyz, fwmask)
+def _launch_k8(image, front, weights, xyz, occ_bin, dxyz, bw: float, thresh_weight: float,
+               thresh_edges: float, thresh_dxyz: float, fwmask=None):
+    """One launch of K8's paste_front entry (see paste_composite_kernel)."""
     image, front, maps, fwmask, out = _k8_operands(
         image, front, ((weights, 1), (xyz, 3), (occ_bin, 1), (dxyz, 1)), fwmask)
     (N, C, S, _), r = image.shape, maps[0].shape[-1]
@@ -723,6 +723,109 @@ def paste_composite_kernel(image, front, weights, xyz, occ_bin, dxyz, bw: float,
         N, S, r, float(bw), float(thresh_weight), float(thresh_edges), float(thresh_dxyz),
         float(r / S), float(r / S), vr._stream(image))
     KERNELS["paste_front"].launches += 1
+    return out
+
+
+_K8G_ARGS = (kb.PTR,) * 4 + (kb.INT,) * 3 + (kb.PTR,) * 4 + (kb.INT,) * 3 + (kb.FLOAT, kb.PTR)
+
+
+def paste_front_grad_plain(mask, g_image, g_paste, front, xyz, bw: float):
+    """The plain version of K8's backward form: the gradient of the blend
+    image + (paste - image) * mask with the masks held (the JAX package
+    stop-gradients them): g - g mask to the rendered image [N,C,S,S], and
+    g mask (+ ``g_paste``, the paste output's own gradient, or None) back
+    through sample_orthofront of ``front`` at upsample_bilinear(xyz, S) by
+    autograd to the render's image_xyz [N,3,r,r]. -> (g_image, g_xyz)."""
+    g_image = g_image.to(torch.float32)
+    gp = g_image * mask
+    if g_paste is not None:
+        gp = gp + g_paste.to(torch.float32)
+    with torch.enable_grad():
+        leaf = xyz.detach().to(torch.float32).requires_grad_(True)
+        paste = sample_orthofront(front.to(torch.float32),
+                                  upsample_bilinear(leaf, mask.shape[-1]), bw)
+        (g_xyz,) = torch.autograd.grad(paste, leaf, gp)
+    return g_image - g_image * mask, g_xyz
+
+
+def paste_front_grad_kernel(mask, g_image, g_paste, front, xyz, bw: float):
+    """Launch K8's backward form on CUDA tensors: same contract as
+    paste_front_grad_plain. Two launches (the pixels, then the render's
+    texels gathering their footprints), no atomics: the same bits on every
+    run."""
+    N, C, S, _ = g_image.shape
+    r, dev = xyz.shape[-1], g_image.device
+    vr._require(tuple(mask.shape) == (N, 1, S, S) and tuple(xyz.shape) == (N, 3, r, r)
+                and front.shape[:2] == (N, C) and r <= S and front.device == dev
+                and xyz.device == dev and mask.device == dev,
+                "K8's backward takes mask [N,1,S,S], g_image [N,C,S,S], front [N,C,Hf,Wf] and "
+                "xyz [N,3,r,r] (r <= S) on one device")
+    g_out = g_image.to(torch.float32).contiguous()
+    if g_paste is not None:
+        vr._require(tuple(g_paste.shape) == (N, C, S, S), "K8's backward: g_paste [N,C,S,S]")
+        g_paste = g_paste.to(torch.float32).contiguous()
+    mask, front = mask.to(torch.float32).contiguous(), front.to(torch.float32).contiguous()
+    xyz = xyz.to(torch.float32).contiguous()
+    g_img = torch.empty_like(g_out)
+    g_up = torch.empty((N, 2, S, S), dtype=torch.float32, device=dev)
+    g_xyz = torch.empty((N, 3, r, r), dtype=torch.float32, device=dev)
+    kb.launch(
+        "paste_front_grad", _K8G_ARGS, mask.data_ptr(), g_out.data_ptr(),
+        g_paste.data_ptr() if g_paste is not None else None, front.data_ptr(), C,
+        *front.shape[2:], xyz.data_ptr(), g_img.data_ptr(), g_up.data_ptr(), g_xyz.data_ptr(),
+        N, S, r, float(bw), vr._stream(g_out))
+    KERNELS["paste_front_grad"].launches += 1
+    return g_img, g_xyz
+
+
+class PasteComposite(torch.autograd.Function):
+    """K8 (either entry) with its backward form: ``launch(image, xyz)`` runs
+    the entry (its other operands bound in) -> the dict of K8_OUTPUTS; the
+    rendered image and image_xyz take their gradients from the blended
+    image's and the paste's, by the kernel on CUDA tensors and by
+    paste_front_grad_plain on CPU ones. The masks are outputs without a
+    gradient, and the maps they come from (weights, occlusion, discrepancy,
+    the front weights) take none: the JAX package stop-gradients them. The
+    front image takes none (the wrappers refuse one that requires grad).
+    -> the outputs in K8_OUTPUTS' order."""
+
+    @staticmethod
+    def forward(ctx, launch, bw, image, xyz, front):
+        out = launch(image, xyz)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(out["mask"], front, xyz)
+        ctx.bw, ctx.image_dtype = bw, image.dtype
+        masks = tuple(out[k] for k in K8_OUTPUTS[2:])
+        ctx.mark_non_differentiable(*masks)
+        return (out["image"], out["paste"]) + masks
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_image, g_paste, *_):
+        mask, front, xyz = ctx.saved_tensors
+        if g_image is None:
+            g_image = torch.zeros((mask.shape[0], front.shape[1], *mask.shape[2:]),
+                                  dtype=torch.float32, device=mask.device)
+        fn = paste_front_grad_kernel if mask.is_cuda else paste_front_grad_plain
+        g_img, g_xyz = fn(mask, g_image, g_paste, front, xyz, ctx.bw)
+        return None, None, g_img.to(ctx.image_dtype), g_xyz.to(xyz.dtype), None
+
+
+def _paste_apply(launch, bw, image, xyz, front):
+    """PasteComposite's outputs as K8's dict."""
+    return dict(zip(K8_OUTPUTS, PasteComposite.apply(launch, bw, image, xyz, front)))
+
+
+def paste_composite_kernel(image, front, weights, xyz, occ_bin, dxyz, bw: float,
+                           thresh_weight: float, thresh_edges: float, thresh_dxyz: float,
+                           fwmask=None):
+    """Launch K8 on CUDA tensors: same contract as paste_composite_plain,
+    differentiable in the image and xyz (PasteComposite). A front image or
+    fwmask that requires grad raises under grad mode."""
+    require_no_grad("paste_front", front, fwmask)
+    out = _paste_apply(
+        lambda im, xz: _launch_k8(im, front, weights, xz, occ_bin, dxyz, bw, thresh_weight,
+                                  thresh_edges, thresh_dxyz, fwmask), bw, image, xyz, front)
     out["mask_frontweight"] = torch.ones_like(out["mask"]) if fwmask is None else fwmask
     return out
 
@@ -748,14 +851,12 @@ def paste_composite_occ_plain(image, front, weights, xyz, vol, rays, bw: float,
                                  thresh_edges, thresh_dxyz, fwmask)
 
 
-def paste_composite_occ_kernel(image, front, weights, xyz, vol, rays, bw: float,
-                               offset_occ: float, seg_len: float, thresh_occ: float,
-                               thresh_weight: float, thresh_edges: float, thresh_dxyz: float,
-                               fwmask=None):
-    """Launch K8's paste_front_occ entry on CUDA tensors: same contract as
-    paste_composite_occ_plain."""
+def _launch_k8_occ(image, front, weights, xyz, vol, rays, bw: float, offset_occ: float,
+                   seg_len: float, thresh_occ: float, thresh_weight: float, thresh_edges: float,
+                   thresh_dxyz: float, fwmask=None):
+    """One launch of K8's paste_front_occ entry (see
+    paste_composite_occ_kernel)."""
     A, ro, rd = vol["A"], rays["ray_origins"], rays["ray_directions"]
-    require_no_grad("paste_front_occ", image, front, weights, xyz, A, ro, rd, fwmask)
     image, front, maps, fwmask, out = _k8_operands(
         image, front, ((weights, 1), (xyz, 3), (ro, 3), (rd, 3)), fwmask)
     (N, C, S, _), r, dev = image.shape, maps[0].shape[-1], image.device
@@ -775,9 +876,27 @@ def paste_composite_occ_kernel(image, front, weights, xyz, vol, rays, bw: float,
         float(r / S), float(r / S), 2.0 / box, box / 2, float(offset_occ), float(seg_len),
         float(thresh_occ), vr._stream(image))
     KERNELS["paste_front_occ"].launches += 1
+    return out
+
+
+def paste_composite_occ_kernel(image, front, weights, xyz, vol, rays, bw: float,
+                               offset_occ: float, seg_len: float, thresh_occ: float,
+                               thresh_weight: float, thresh_edges: float, thresh_dxyz: float,
+                               fwmask=None):
+    """Launch K8's paste_front_occ entry on CUDA tensors: same contract as
+    paste_composite_occ_plain, differentiable in the image and xyz
+    (PasteComposite; the occlusion and the discrepancy are masks and take no
+    gradient). A front image or fwmask that requires grad raises under grad
+    mode."""
+    require_no_grad("paste_front_occ", front, fwmask)
+    out = _paste_apply(
+        lambda im, xz: _launch_k8_occ(im, front, weights, xz, vol, rays, bw, offset_occ,
+                                      seg_len, thresh_occ, thresh_weight, thresh_edges,
+                                      thresh_dxyz, fwmask), bw, image, xyz, front)
     # no front-weight mask: ones, as a view of a cached constant (no launch)
-    out["mask_frontweight"] = (constant((1.0,), dev).expand(N, 1, S, S) if fwmask is None
-                               else fwmask)
+    N, _, S, _ = out["mask"].shape
+    out["mask_frontweight"] = (constant((1.0,), out["mask"].device).expand(N, 1, S, S)
+                               if fwmask is None else fwmask)
     return out
 
 

@@ -39,7 +39,9 @@ Deep planes (triplane_depth D > 1: planes [N,3,C*D,H,W], channel c*D + d
 is feature c at depth d) take ``triplane_decode_deep`` in place of K1: K10,
 the trilinear K1 form (csrc/triplane_decode.cu), samples the N*3
 channels-last volumes [D,H,W,C] and runs K1's plane mean, decoder MLP and
-density filters in the same kernel. The JAX package's ESS and grid paste
+density filters in the same kernel; its backward form
+(``triplane_decode_deep_grad``, TriplaneDecodeDeep) is K1's on the
+volumes. The JAX package's ESS and grid paste
 occlusion fail at D > 1 (ROADMAP F12); the port refuses them there with a
 NotImplementedError that names F12.
 
@@ -631,11 +633,9 @@ _K10_ARGS = ((kb.PTR, kb.INT) + (kb.PTR,) * 7 + (kb.INT,) * 6 + (kb.PTR,) + (kb.
              + (kb.INT, kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
 
 
-def triplane_decode_deep_kernel(volumes_cl, coords, dec: Decoder, box_warp: float,
-                                plane_axes, filters: DensityFilters = DensityFilters()):
-    """Launch K10 on CUDA tensors: same contract as
-    triplane_decode_deep_plain; rgb in the volumes' dtype, sigma in f32."""
-    require_no_grad("triplane_decode_deep", volumes_cl, coords, dec)
+def _launch_k10(volumes_cl, coords, dec: Decoder, box_warp: float, plane_axes,
+                filters: DensityFilters = DensityFilters()):
+    """One launch of K10 (see :func:`triplane_decode_deep_kernel`)."""
     _require(volumes_cl.dtype in _DTYPES,
              f"K10 volumes must be f32 or bf16, got {volumes_cl.dtype}")
     _require(coords.dtype == torch.float32 and coords.is_contiguous() and coords.ndim == 3
@@ -665,6 +665,122 @@ def triplane_decode_deep_kernel(volumes_cl, coords, dec: Decoder, box_warp: floa
     )
     KERNELS["triplane_decode_deep"].launches += 1
     return rgb, sigma
+
+
+def triplane_decode_deep_grad_plain(volumes_cl, coords, dec: Decoder, box_warp: float,
+                                    plane_axes, filters: DensityFilters, g_rgb, g_sigma):
+    """The plain version of K10's backward form: autograd of
+    :func:`triplane_decode_deep_plain`, to the volumes and the decoder's
+    four tensors. -> (g_volumes_cl, g_w0, g_b0, g_w1, g_b1)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (volumes_cl, dec.w0, dec.b0, dec.w1, dec.b1)]
+        rgb, sigma = triplane_decode_deep_plain(leaves[0], coords.detach(),
+                                                dec._replace(w0=leaves[1], b0=leaves[2],
+                                                             w1=leaves[3], b1=leaves[4]),
+                                                box_warp, plane_axes, filters)
+        grads = torch.autograd.grad((rgb, sigma), leaves, (g_rgb, g_sigma), allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads))
+
+
+_K10G_ARGS = ((kb.PTR, kb.INT) + (kb.PTR,) * 10 + (kb.INT,) * 7 + (kb.PTR,) + (kb.FLOAT,) * 4
+              + (kb.INT, kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
+
+
+def triplane_decode_deep_grad_kernel(volumes_cl, coords, dec: Decoder, box_warp: float,
+                                     plane_axes, filters: DensityFilters, g_rgb, g_sigma):
+    """Launch K10's backward form on CUDA tensors: same contract as
+    :func:`triplane_decode_deep_grad_plain`. K1's backward form on the deep
+    volumes (csrc/triplane_decode_grad.cu, DEEP): the decode again and its
+    backward in 3xTF32, each 3-D cell's run of points added once into its 8
+    corners of an f32 volume gradient (cast to the volumes' dtype here),
+    the weight gradients as CTA partials summed in a fixed order."""
+    NP, D, H, W, C = volumes_cl.shape
+    N, M = coords.shape[:2]
+    dev = volumes_cl.device
+    _require(volumes_cl.is_contiguous() and coords.is_contiguous() and NP == 3 * N
+             and coords.dtype == torch.float32, "K10's backward takes K10's inputs")
+    _require(volumes_cl.dtype in _DTYPES and C in (8, 16, 32)
+             and volumes_cl.data_ptr() % 16 == 0,
+             "K10's backward takes K10's volumes: f32 or bf16, 8, 16 or 32 channels, aligned")
+    _require(N * 3 * (D + 2) * (H + 2) * (W + 2) < 2 ** 31,
+             "K10's backward indexes the volume cells in 32 bits")
+    _require(tuple(g_rgb.shape) == (N, M, 32) and g_rgb.dtype == volumes_cl.dtype
+             and tuple(g_sigma.shape) == (N, M, 1),
+             "K10's backward takes g_rgb [N,M,32] in the volumes' dtype and g_sigma [N,M,1]")
+    w0, b0, w1, b1 = _decoder_f32(dec, dev)
+    g_rgb = g_rgb.contiguous()
+    g_sigma = g_sigma.to(torch.float32).contiguous()
+    g_vols = torch.zeros(volumes_cl.shape, dtype=torch.float32, device=dev)
+    ctas = k1_grad_ctas(N * M, _sm_count(dev.index))
+    sizes = (64 * C, 33 * 64, 64, 33)
+    partials = torch.empty((ctas, sum(sizes)), dtype=torch.float32, device=dev)
+    g_w = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    kb.launch(
+        "triplane_decode_deep_grad", _K10G_ARGS, volumes_cl.data_ptr(),
+        _DTYPES[volumes_cl.dtype], coords.data_ptr(), w0.data_ptr(), b0.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), g_rgb.data_ptr(), g_sigma.data_ptr(), g_vols.data_ptr(),
+        partials.data_ptr(), g_w.data_ptr(), ctas, N, M, D, H, W, C,
+        kb.f32_array(deep_proj(plane_axes)), 2.0 / box_warp, dec.lr_mul / math.sqrt(C),
+        dec.lr_mul / math.sqrt(64), dec.lr_mul, int(dec.force_sigmoid),
+        *_filter_args(filters, box_warp), _stream(volumes_cl),
+    )
+    KERNELS["triplane_decode_deep_grad"].launches += 1
+    g_w0, g_w1, g_b0, g_b1 = g_w.split(sizes)
+    return (g_vols.to(volumes_cl.dtype),) + tuple(
+        g.reshape(t.shape).to(t.dtype)
+        for g, t in zip((g_w0, g_b0, g_w1, g_b1), (dec.w0, dec.b0, dec.w1, dec.b1)))
+
+
+class TriplaneDecodeDeep(torch.autograd.Function):
+    """K10 with its backward form, as :class:`TriplaneDecode` is K1 with
+    its: the forward launches K10 on CUDA tensors (the plain version on CPU
+    ones); the backward gives the deep volumes [N*3,D,H,W,C] and the
+    decoder's weights their gradients, by the kernel on CUDA tensors and by
+    autograd of the plain version on CPU ones (the volumes' gradient reaches
+    the planes through deep_volumes_cl's permute). ``meta`` = (lr_mul,
+    force_sigmoid, box_warp, plane_axes, filters). The coordinates take
+    none."""
+
+    @staticmethod
+    def forward(ctx, volumes_cl, coords, w0, b0, w1, b1, meta):
+        lr_mul, force_sigmoid, box_warp, plane_axes, filters = meta
+        dec = Decoder(w0, b0, w1, b1, lr_mul, force_sigmoid)
+        fn = _launch_k10 if volumes_cl.is_cuda else triplane_decode_deep_plain
+        rgb, sigma = fn(volumes_cl, coords, dec, box_warp, plane_axes, filters)
+        ctx.save_for_backward(volumes_cl, coords, w0, b0, w1, b1)
+        ctx.meta = meta
+        return rgb, sigma
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_rgb, g_sigma):
+        volumes_cl, coords, w0, b0, w1, b1 = ctx.saved_tensors
+        lr_mul, force_sigmoid, box_warp, plane_axes, filters = ctx.meta
+        dec = Decoder(w0, b0, w1, b1, lr_mul, force_sigmoid)
+        N, M = coords.shape[:2]
+        if g_rgb is None:
+            g_rgb = torch.zeros((N, M, 32), dtype=volumes_cl.dtype, device=volumes_cl.device)
+        if g_sigma is None:
+            g_sigma = torch.zeros((N, M, 1), dtype=torch.float32, device=volumes_cl.device)
+        fn = (triplane_decode_deep_grad_kernel if volumes_cl.is_cuda
+              else triplane_decode_deep_grad_plain)
+        g_vols, g_w0, g_b0, g_w1, g_b1 = fn(volumes_cl, coords, dec, box_warp, plane_axes,
+                                            filters, g_rgb, g_sigma)
+        return g_vols, None, g_w0, g_b0, g_w1, g_b1, None
+
+
+def triplane_decode_deep_kernel(volumes_cl, coords, dec: Decoder, box_warp: float,
+                                plane_axes, filters: DensityFilters = DensityFilters()):
+    """K10 on CUDA tensors, differentiable in the volumes and the decoder's
+    weights (:class:`TriplaneDecodeDeep`): same contract as
+    triplane_decode_deep_plain; rgb in the volumes' dtype, sigma in f32.
+    Coordinates that require grad raise under grad mode."""
+    require_no_grad("triplane_decode_deep", coords)
+    _require(volumes_cl.is_cuda, f"K10 runs on CUDA tensors, got volumes on {volumes_cl.device}")
+    return TriplaneDecodeDeep.apply(volumes_cl, coords, dec.w0, dec.b0, dec.w1, dec.b1,
+                                    (dec.lr_mul, dec.force_sigmoid, box_warp, plane_axes,
+                                     filters))
 
 
 def triplane_decode_deep(volumes_cl, coords, dec: Decoder, box_warp: float, plane_axes,

@@ -17,8 +17,9 @@ Dmain's generator pass); R1 is ``torch.autograd.grad(create_graph=True)``.
 With an ``augment_fn`` (ADA) the discriminator's inputs go through the
 augment pipe at the step's ``aug_p`` in Gmain, Dmain and Dreg, drawing from
 the phase's generator before D's own draws, as the JAX package splits its
-key. The fused recon modes and the path-length phase are not ported (the
-trainer refuses them, ROADMAP Queue 1 item 5).
+key. Greg takes the l1 TV and both monotonic forms. The fused recon modes
+and the path-length phase are not ported (the trainer refuses them,
+ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ..models.stylegan2 import resize_bilinear
 from ..ops.grid_sample import grid_sample_2d
 from ..ops.upfirdn2d import filter2d
 from ..utils import draws
+from ..utils.device import constant
 from ..utils.imageops import dilation, erosion
 
 
@@ -368,25 +370,48 @@ class OrthoCondLoss:
 
     # -- Greg: density regularisation -----------------------------------------
 
-    def g_reg_loss(self, batch, z, c, generator, cur_nimg, gain=1.0):
-        """Density TV (l1) regulariser (loss:579-688)."""
-        cfg = self.cfg
-        cond = batch["cond"]
-        c_gen = self._c_gen(c, cfg.swapping_prob(cur_nimg), generator, ())
-        ws = self.G_mapping(z, c_gen, cond)
-        if cfg.reg_type != "l1":
-            raise NotImplementedError(f"reg_type {cfg.reg_type!r}: the port's Greg takes 'l1' "
-                                      "(ROADMAP Queue 1 item 5)")
+    def _density_tv(self, ws, cond, generator, n: int, spread: float):
+        """The l1 TV of the densities at n uniform points and their
+        neighbours at a normal perturbation of ``spread``, x density_reg."""
         dev = ws.device
-        coords = draws.uniform((ws.shape[0], 1000, 3), generator, dev, "Greg coords") * 2 - 1
+        coords = draws.uniform((ws.shape[0], n, 3), generator, dev, "Greg coords") * 2 - 1
         pert = coords + draws.normal(tuple(coords.shape), generator, dev, "Greg perturbation") \
-            * cfg.density_reg_p_dist
+            * spread
         allc = torch.cat([coords, pert], 1)
         dirs = draws.normal(tuple(allc.shape), generator, dev, "Greg directions")
         sigma = self.G_sample_mixed(allc, dirs, ws, cond)["sigma"]
         half = sigma.shape[1] // 2
-        tv = (sigma[:, :half] - sigma[:, half:]).abs().mean() * cfg.density_reg
-        return tv * gain, {"Loss/G/reg": tv}
+        return (sigma[:, :half] - sigma[:, half:]).abs().mean() * self.cfg.density_reg
+
+    def g_reg_loss(self, batch, z, c, generator, cur_nimg, gain=1.0):
+        """Density regulariser (loss:579-688): the l1 TV, or a monotonic
+        term (the density must not fall from a point to its neighbour
+        box_warp/256 behind it along -z: 10 mean(relu(sigma - sigma_behind)),
+        sigma detached under monotonic-detach) plus the TV at a spread of
+        box_warp/256. The port draws each value on its own, in the JAX
+        package's order, where the JAX phase reuses its keys."""
+        cfg = self.cfg
+        cond = batch["cond"]
+        c_gen = self._c_gen(c, cfg.swapping_prob(cur_nimg), generator, ())
+        ws = self.G_mapping(z, c_gen, cond)
+        if cfg.reg_type == "l1":
+            tv = self._density_tv(ws, cond, generator, 1000, cfg.density_reg_p_dist)
+            return tv * gain, {"Loss/G/reg": tv}
+        if cfg.reg_type not in ("monotonic-detach", "monotonic-fixed"):
+            raise ValueError(f"reg_type {cfg.reg_type!r}")
+        dev = ws.device
+        coords = draws.uniform((ws.shape[0], 2000, 3), generator, dev, "Greg coords") * 2 - 1
+        step = constant((0.0, 0.0, -1.0), dev) * (1 / 256) * cfg.box_warp
+        allc = torch.cat([coords, coords + step], 1)
+        dirs = draws.normal(tuple(allc.shape), generator, dev, "Greg directions")
+        sigma = self.G_sample_mixed(allc, dirs, ws, cond)["sigma"]
+        half = sigma.shape[1] // 2
+        s_init, s_behind = sigma[:, :half], sigma[:, half:]
+        if cfg.reg_type == "monotonic-detach":
+            s_init = s_init.detach()
+        mono = F.relu(s_init - s_behind).mean() * 10
+        tv = self._density_tv(ws, cond, generator, 1000, (1 / 256) * cfg.box_warp)
+        return (mono + tv) * gain, {"Loss/G/reg": mono + tv}
 
     # -- D phases --------------------------------------------------------------
 

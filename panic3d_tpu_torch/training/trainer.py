@@ -23,11 +23,15 @@ appends metric-<name>.jsonl to the run directory; the dataset's
 statistics are cached under <outdir>/.metric_cache. The feature nets are
 seeded unless --inception-weights / --clip-weights name converted ones.
 
+--paste-params-mode A|Agrad pastes the front view into every G render of
+the loss (K8 and its backward form); --triplane-depth 2 trains the deep
+planes (K10 and its backward form; the flagship only: --tiny keeps its own
+planes, as the JAX trainer does); --reg-type monotonic-detach|
+monotonic-fixed takes Greg's monotonic density term.
+
 Options whose path is not ported yet raise NotImplementedError naming the
 ROADMAP item that will port them: --fuse-recon sum|seq, --remat,
---mesh-rays > 1 and several processes,
---paste-params-mode A|Agrad, --pl-weight > 0, --triplane-depth 2 and
---tensorboard.
+--mesh-rays > 1 and several processes, --pl-weight > 0 and --tensorboard.
 """
 
 from __future__ import annotations
@@ -166,11 +170,7 @@ def refuse_unported(args) -> None:
         (args.remat is not None, f"--remat, {q5}"),
         (args.mesh_rays > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1,
          f"--mesh-rays > 1 and several processes (torch.distributed), {q5}"),
-        (args.paste_params_mode in ("A", "Agrad"),
-         f"--paste-params-mode {args.paste_params_mode} (K8's backward), {q5}"),
         (args.pl_weight > 0, f"--pl-weight > 0 (Gpl), {q5}"),
-        (args.triplane_depth > 1, f"--triplane-depth {args.triplane_depth} (K10's backward), "
-                                  f"{q5}"),
         (args.tensorboard, f"--tensorboard, {q5}"),
     ]
     for refused, what in refusals:

@@ -1,18 +1,20 @@
 """The port's kernels without a backward form refuse an input that
 requires grad under grad mode (kernels/__init__.py:require_no_grad), and
-the five with one (K1, K2, K4, K5, K14) carry the gradient, on the CPU:
+the seven with one (K1, K2, K4, K5, K8, K10, K14) carry the gradient, on
+the CPU:
 
 - the helper raises only with grad mode on and a tensor that requires grad,
   found in nested tuples (the decoder's NamedTuple), lists and dicts;
-- each of the 14 kernel wrappers without a backward raises at its first
+- each of the 11 kernel wrappers without a backward raises at its first
   statement when one of its tensor inputs requires grad, before it checks
   the device or launches; so do the keyed forms' new inputs (K3's u, K6b's
-  per-ray bounds and jitter) and the inputs the five backward forms give no
-  gradient (K5's noise, K4's filter, K1's coordinates, K2's depths, K14's
-  grid);
-- K1, K2, K4, K5 and K14 and their four backward entry points are wired:
-  each autograd.Function, on CPU tensors (its kernel's plain version),
-  gives its differentiable inputs a finite gradient and counts no launch;
+  per-ray bounds and jitter) and the inputs the backward forms give no
+  gradient (K5's noise, K4's filter, K1's and K10's coordinates, K2's
+  depths, K8's front image (both entries), K14's grid);
+- K1, K2, K4, K5, K8, K10 and K14 and their six backward entry points are
+  wired: each autograd.Function, on CPU tensors (its kernel's plain
+  version), gives its differentiable inputs a finite gradient and counts
+  no launch;
 - the plain CPU forward of the tiny config (G.f) still back-propagates to
   the mapping, the backbone and the decoder.
 """
@@ -86,20 +88,22 @@ WRAPPERS = {
         [(leaf(1, 4, 4, 8), 0, 1)] * 3, _decoder(True), 0.7, (4, 4, 4), vr.DensityFilters()),
     "occlusion_sample": lambda: vlat.occlusion_sample_kernel(
         leaf(1, 4, 4, 4, grad=True), leaf(1), leaf(1, 5, 3), 0.7, 0.01, 1.0),
+    # K8: the front image takes no gradient (the image and xyz do)
     "paste_front": lambda: tp.paste_composite_kernel(
-        leaf(1, 3, 8, 8, grad=True), leaf(1, 3, 8, 8), leaf(1, 1, 8, 8), leaf(1, 3, 8, 8),
+        leaf(1, 3, 8, 8), leaf(1, 3, 8, 8, grad=True), leaf(1, 1, 8, 8), leaf(1, 3, 8, 8),
         leaf(1, 1, 8, 8), leaf(1, 1, 8, 8), 0.7, 0.5, 0.5, 0.5),
     "paste_front_occ": lambda: tp.paste_composite_occ_kernel(
-        leaf(1, 3, 8, 8), leaf(1, 3, 8, 8), leaf(1, 1, 8, 8), leaf(1, 3, 8, 8),
-        {"A": leaf(1, 4, 4, 4, grad=True), "density0": leaf(1), "box_warp": 0.7},
+        leaf(1, 3, 8, 8), leaf(1, 3, 8, 8, grad=True), leaf(1, 1, 8, 8), leaf(1, 3, 8, 8),
+        {"A": leaf(1, 4, 4, 4), "density0": leaf(1), "box_warp": 0.7},
         {"ray_origins": leaf(1, 3, 8, 8), "ray_directions": leaf(1, 3, 8, 8)}, 0.7, 0.01, 1.0,
         0.05, 0.5, 0.5, 0.5),
     "point_mesh_distance": lambda: mm.point_mesh_distance_sq_kernel(
         leaf(5, 3, grad=True), leaf(3, 3), torch.zeros((1, 3), dtype=torch.int32)),
     "winding_number": lambda: gltf.winding_numbers_kernel(
         leaf(4, 3, grad=True), torch.zeros((1, 3), dtype=torch.int64), leaf(2, 3)),
+    # K10: the coordinates take no gradient (the volumes and decoder do)
     "triplane_decode_deep": lambda: vr.triplane_decode_deep_kernel(
-        leaf(3, 2, 4, 4, 8, grad=True), leaf(1, 5, 3), _decoder(False), 0.7,
+        leaf(3, 2, 4, 4, 8), leaf(1, 5, 3, grad=True), _decoder(False), 0.7,
         vr.generate_plane_axes(True), vr.DensityFilters()),
     "volume_density_deep": lambda: vol.density_grid_deep_kernel(
         leaf(1, 3, 16, 4, 4), _decoder(True), 16, 0.7, vr.generate_plane_axes(True),
@@ -188,6 +192,30 @@ def _k5_grad_wiring():   # the backward form differentiated again (R1)
     return [x, b], gx.square().sum() + dz.sum()
 
 
+def _k8_grad_wiring():
+    r = np.random.RandomState(6)
+    image = _rand(1, 3, 16, 16).requires_grad_(True)
+    xyz = torch.from_numpy(r.uniform(-0.3, 0.3, (1, 3, 4, 4)).astype(np.float32))
+    xyz = xyz.requires_grad_(True)
+    front = _rand(1, 3, 16, 16, seed=7)
+    ones = torch.ones(1, 1, 4, 4)
+    weights = torch.cat([0 * ones[..., :2], ones[..., 2:]], -1)   # the mask on the right half
+    out = tp._paste_apply(lambda im, xz: tp.paste_composite_plain(
+        im, front, weights, xz, ones, 0 * ones, 0.7, 0.5, 10.0, 1.0), 0.7, image, xyz, front)
+    return [image, xyz], (out["image"] * _rand(1, 3, 16, 16, seed=8)).sum()
+
+
+def _k10_grad_wiring():
+    planes = _rand(1, 3, 16, 4, 4).requires_grad_(True)
+    coords = torch.from_numpy(np.random.RandomState(1).uniform(-0.3, 0.3, (1, 5, 3))).float()
+    dec = [_rand(64, 8, seed=2).requires_grad_(True), _rand(64, seed=3).requires_grad_(True),
+           _rand(33, 64, seed=4).requires_grad_(True), _rand(33, seed=5).requires_grad_(True)]
+    rgb, sigma = vr.TriplaneDecodeDeep.apply(
+        vr.deep_volumes_cl(planes, 2), coords, *dec,
+        (1.0, False, 0.7, vr.generate_plane_axes(True), vr.DensityFilters()))
+    return [planes, *dec], rgb.sum() + sigma.sum()
+
+
 def _k14_wiring():
     x = _rand(1, 2, 6, 6).requires_grad_(True)
     grid = torch.from_numpy(np.random.RandomState(1).uniform(-1.2, 1.2, (1, 4, 5, 2))).float()
@@ -216,6 +244,8 @@ BACKWARD = {
     "modconv_epilogue_grad": _k5_grad_wiring,
     "grid_sample_2d": _k14_wiring,
     "grid_sample_2d_grad": _k14_grad_wiring,
+    "paste_front_grad": _k8_grad_wiring,
+    "triplane_decode_deep_grad": _k10_grad_wiring,
 }
 
 

@@ -12,7 +12,9 @@ the CPU with the trainer's tiny models:
 - --batch-gpu: the trainer's accumulation runs (batch 4 in micro-batches
   of 2);
 - options outside the slice raise NotImplementedError naming their ROADMAP
-  item.
+  item; the options ported since (paste-front A and Agrad, the deep
+  planes, Greg's monotonic terms) pass the refusals with the flagship's
+  flags and are taken by the tiny trainer (a dry run).
 """
 
 import os
@@ -132,14 +134,26 @@ def test_trainer_accumulates_over_batch_gpu(tmp_path):
 REFUSED = {
     "fuse_sum": ["--fuse-recon", "sum"], "fuse_seq": ["--fuse-recon", "seq"],
     "remat": ["--remat", "full"],
-    "mesh_rays": ["--mesh-rays", "2"], "paste": ["--paste-params-mode", "A"],
-    "gpl": ["--pl-weight", "2"],
-    "depth2": ["--triplane-depth", "2"], "tensorboard": ["--tensorboard"],
+    "mesh_rays": ["--mesh-rays", "2"], "gpl": ["--pl-weight", "2"],
+    "tensorboard": ["--tensorboard"],
+}
+# refused until their backward forms were ported (K8's, K10's), and Greg's
+# monotonic term: each is now taken
+PORTED = {
+    "paste": ["--paste-params-mode", "A"], "paste_agrad": ["--paste-params-mode", "Agrad"],
+    "depth2": ["--triplane-depth", "2"], "monotonic": ["--reg-type", "monotonic-fixed"],
+    "monotonic_detach": ["--reg-type", "monotonic-detach"],
 }
 
 
-@pytest.mark.parametrize("name", list(REFUSED))
+@pytest.mark.parametrize("name", list(REFUSED) + list(PORTED))
 def test_unported_options_raise(name, tmp_path):
+    argv = ["--name", "x", "--outdir", str(tmp_path), "--tiny", "--device", "cpu"]
+    if name in PORTED:
+        # the flagship's flags (--tiny ignores --triplane-depth) pass the
+        # refusals, and the tiny trainer takes the option (a dry run)
+        trainer.refuse_unported(trainer.parse_args(argv[:4] + PORTED[name]))
+        assert trainer.main(argv + PORTED[name] + ["--dry-run"]) is None
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item [45]"):
-        trainer.main(["--name", "x", "--outdir", str(tmp_path), "--tiny", "--device", "cpu",
-                      *REFUSED[name]])
+        trainer.main(argv + REFUSED[name])

@@ -63,6 +63,13 @@ D_KW = dict(c_dim=25, img_resolution=IMG, img_channels=3, channel_base=1024, cha
 LOSS_KW = dict(r1_gamma=4.0, neural_rendering_resolution_initial=RAW)
 
 
+def g_kw(depth: int = 1) -> dict:
+    """G_KW at triplane_depth ``depth`` (deep planes when > 1)."""
+    if depth == 1:
+        return G_KW
+    return dict(G_KW, rendering_kwargs=dict(G_KW["rendering_kwargs"], triplane_depth=depth))
+
+
 def fill(seed):
     """N(0,1) weights, biases 0.1 N(0,1) (around 1 for the affines),
     noise strengths 0.1 N(0,1), +2.5 on sigma's bias."""
@@ -92,10 +99,11 @@ def torch_tree(tree):
     return torch.from_numpy(np.array(tree, dtype=np.float32))
 
 
-@functools.lru_cache(maxsize=1)
-def rig():
-    """(g, d, vars_G, vars_D, lpips_vars, batch) of the JAX package, numpy."""
-    g, d = jcfg.tiny(**G_KW), JD(**D_KW)
+@functools.lru_cache(maxsize=None)
+def rig(depth: int = 1):
+    """(g, d, vars_G, vars_D, lpips_vars, batch) of the JAX package, numpy;
+    G at triplane_depth ``depth``."""
+    g, d = jcfg.tiny(**g_kw(depth)), JD(**D_KW)
     batch = jax_batch()
     xin = {"z": jnp.zeros((BS, g.z_dim)), "camera_params": batch["camera"],
            "cond": batch["cond"]}
@@ -119,16 +127,16 @@ def rig():
     return g, d, vars_G, vars_D, lpips_vars, batch
 
 
-def jax_loss(**loss_kw):
-    g, d, _, _, lpips_vars, _ = rig()
+def jax_loss(depth: int = 1, **loss_kw):
+    g, d, _, _, lpips_vars, _ = rig(depth)
     cfg = JLossConfig(**dict(LOSS_KW, **loss_kw))
     return j_make_loss(g, d, lpips_vars, cfg, noise_mode="const", deterministic=True)
 
 
-def torch_models():
+def torch_models(depth: int = 1):
     """The port's G, D and LPIPS with the rig's weights (CPU, f32)."""
-    _, _, vars_G, vars_D, lpips_vars, _ = rig()
-    G = tcfg.tiny(device="cpu", **G_KW)
+    _, _, vars_G, vars_D, lpips_vars, _ = rig(depth)
+    G = tcfg.tiny(device="cpu", **g_kw(depth))
     G.load_state_dict(state_dict_from_flax(vars_G), strict=True)
     D = TD(**D_KW)
     D.load_state_dict(state_dict_from_flax(vars_D), strict=True)
