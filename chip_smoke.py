@@ -134,8 +134,11 @@
    and G_ema moved; one step of every phase on the trained state timed
    phase by phase, its host waits counted (0 required), one profiled for the device's
    busy share; then each backward form against its plain version's autograd
-   at the training shapes (K4 at the step's own transposed calls, beside
-   their library calls; K1 at a training render's samples and at Gcond's
+   at the training shapes (K4 at the step's own transposed calls, its
+   forward 4x4-form calls and the generator's 512-channel up=2 calls,
+   beside their library calls, with --parent bit for bit against the
+   parent's kernel; the five small transposed calls of K4_SMALL_TRANSPOSED
+   no slower than their conv2d; K1 at a training render's samples and at Gcond's
    ortho front render, coarse and fine, its weight gradients bit-equal
    from launch to launch, with --parent against the parent's form; K2 at a
    training render's samples; K5 at
@@ -168,7 +171,10 @@
    --training-only runs the build and these phases alone; --ada-only
    runs the build, K14's checks, the augment check and ADA's training path
    alone; --forms-only runs the build, K4's forms of the calls the generic
-   kernel lost (k4_form_checks) and K1's and K2's backward checks alone,
+   kernel lost (k4_form_checks), K4's 4x4 form at training's five
+   small-plane transposed calls, its b512 and SR calls and their forward
+   calls (k4_fir4_calls, through k4_backward_checks) and K1's and K2's
+   backward checks alone,
    and with --k1-grad-parts times K1's backward built with parts left out;
    K12's own path, the gather-decode probe; the deep-plane generator
    (configs.flagship(eval_mode=True, rendering_kwargs=dict(triplane_depth=2)),
@@ -260,7 +266,8 @@ NO_SPILL = ("triplane_decode_kernel", "factor_terms_kernel", "occlusion_volume_k
             "point_mesh_distance_kernel", "winding_number_kernel",
             "importance_sample_kernel", "ess_narrow_kernel",
             "paste_front_kernel", "ess_occupancy_kernel", "upfirdn2d_rows_kernel",
-            "upfirdn2d_cols_kernel", "upfirdn2d_fir4_kernel",
+            "upfirdn2d_cols_kernel", "upfirdn2d_fir4_kernel", "upfirdn2d_fir4_planes_kernel",
+            "upfirdn2d_fir4_flat_kernel",
             "upfirdn2d_large_phase_kernel", "upfirdn2d_rows2_kernel",
             "upfirdn2d_cols2_kernel", "triplane_decode_grad_kernel",
             "grid_sample_kernel", "grid_sample_grad_kernel", "paste_grad_pixels_kernel",
@@ -795,10 +802,14 @@ def k4_form_checks(device, parent, gen):
         summ.update(parent_and_sass(
             parent, "upfirdn2d", "upfirdn2d", "upfirdn2d_kernel",
             lambda: upfirdn2d_kernel(xg, *spec), yg.numel(), "output", None, 1, None,
-            profiled=form_kernel))
+            profiled=form_kernel, adapt=k4_parent_adapt(parent)))
         if "parent" in summ:
             require(summ["parent"]["values_not_bit_equal"] == 0,
                     f"K4 {label}: the outputs differ from the parent's generic kernel's")
+            if variant in K4_FIR4_VARIANTS:   # the 4x4 form: no slower than the parent's
+                summ["parent"].update(k4_require_parent(
+                    parent, lambda: upfirdn2d_kernel(xg, *spec), f"K4 {label}",
+                    summ["parent"]["ms_parent_this_this_parent"]))
         if key == "fir_small":
             out[key] = summ
         else:
@@ -819,8 +830,9 @@ def k4_checks(G, x, device, parent):
     beside its plain version and its library call (a depthwise F.conv2d of
     stride 2, or of stride 1; each must be faster than it), with its SASS
     instructions an output, and with ``parent`` (--parent) equal bit for
-    bit to the parent's generic kernel and timed against it; its other
-    instantiations checked at f32, unaligned rows and padding 0. The forms
+    bit to the parent's kernel and timed against it; its other
+    instantiations checked at f32, unaligned rows, padding 0, small planes
+    (the planes plan) and an input not 16-byte aligned. The forms
     of the calls the generic kernel lost, and the generic kernel at a call
     it keeps (k4_form_checks). bf16 within 1 bf16 ulp of the largest value,
     f32 within 1e-5 (summation order). -> {"upfirdn2d": summary}."""
@@ -893,19 +905,22 @@ def k4_checks(G, x, device, parent):
         require(summ["ms"] < summ["library_ms"],
                 f"K4 {variant}: {summ['ms']} ms, not faster than the library call's "
                 f"{summ['library_ms']} ms")
-        # the instantiation this call runs: bf16, 16-byte staging (256-wide
-        # rows), an odd first column at padding 1; no loop (the staging and
-        # the strip of 8 outputs a lane unrolled)
+        # the instantiation this call runs: the rows plan (256-wide rows,
+        # 16-byte aligned) in bf16, an odd first column at padding 1; no
+        # loop (the staging and the strip of 8 outputs a lane unrolled)
         odd = int(down == 2 and pad % 2 == 1)
         summ.update(parent_and_sass(
             parent, "upfirdn2d", "upfirdn2d", "upfirdn2d_fir4_kernel",
             lambda: upfirdn2d_kernel(xd, *spec_d), yd.numel(), "output", {}, 1 / 8, None,
-            new_kernel=f"upfirdn2d_fir4_kernelI13__nv_bfloat16Li{down}ELb1ELb{odd}ELi4ELi4E",
-            parent_kernel="upfirdn2d_kernel"))
+            new_kernel=f"upfirdn2d_fir4_kernelI13__nv_bfloat16Li{down}ELb1ELb{odd}ELi4ELi4EE",
+            parent_kernel="upfirdn2d_fir4_kernel", adapt=k4_parent_adapt(parent)))
         if "parent" in summ:
             require(summ["parent"]["values_not_bit_equal"] == 0,
-                    f"K4 {variant}: the outputs differ from the parent's generic kernel's "
+                    f"K4 {variant}: the outputs differ from the parent's kernel's "
                     "(the same taps in the same order)")
+            summ["parent"].update(k4_require_parent(
+                parent, lambda: upfirdn2d_kernel(xd, *spec_d), f"K4 {variant}",
+                summ["parent"]["ms_parent_this_this_parent"]))
         forms[variant] = summ
         del xd, yd, ypd
     # the form's other instantiations (dtype, DOWN, 16-byte staging, an odd
@@ -915,8 +930,10 @@ def k4_checks(G, x, device, parent):
     # (downsample2d at padding -1 of a 2 size + 2 image: padding 0, rows not
     # 16-byte aligned) in bf16 and f32; the filter pass at up = down = 1
     # with aligned rows in f32 (the resnet skip's, padding 1) and unaligned
-    # rows in bf16 and f32
-    for shape, dtype, down, pad in (((BATCH, 64, 256, 256), torch.float32, 2, 1),
+    # rows in bf16 and f32; small planes (the planes plan) at down 2 and 1
+    for shape, dtype, down, pad in (((BATCH, 64, 34, 34), torch.bfloat16, 2, 0),
+                                    ((BATCH, 64, 9, 9), torch.float32, 1, 1),
+                                    ((BATCH, 64, 256, 256), torch.float32, 2, 1),
                                     ((BATCH, 64, 128, 128), torch.float32, 2, 0),
                                     ((BATCH, 64, 256, 256), torch.bfloat16, 2, 0),
                                     ((BATCH, 3, 258, 258), torch.bfloat16, 2, 0),
@@ -927,13 +944,32 @@ def k4_checks(G, x, device, parent):
         variant = "down2" if down == 2 else "fir4"
         n_form = KERNELS["upfirdn2d"].variants.get(variant, 0)
         spec_o = (f.flip([0, 1]) / 4, (1, 1), (down, down), (pad,) * 4)
-        _, yo, ypo, e_o, _ = one(shape, dtype, *spec_o, "4x4 form")
+        xo, yo, ypo, e_o, _ = one(shape, dtype, *spec_o, "4x4 form")
         require(KERNELS["upfirdn2d"].variants.get(variant, 0) > n_form,
                 f"K4: the 4x4 call {list(shape)} at down={down} did not take the {variant} form")
         tol_o = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * float(ypo.abs().max())
         check("  within its tolerance x max|out|", e_o, tol_o)
         err = max(err, e_o)
-        del yo, ypo
+        k4_require_parent(parent, lambda: upfirdn2d_kernel(xo, *spec_o),
+                          f"K4 4x4 form {list(shape)} {str(dtype)[6:]}")
+        del xo, yo, ypo
+    # the flat plan's chunks counted from the 16-byte boundary before an
+    # input whose data is not 16-byte aligned (a contiguous view one element
+    # into its storage; its 128-wide rows would take the rows plan aligned)
+    for dtype in (torch.bfloat16, torch.float32):
+        shape_u = (BATCH, 8, 70, 128)
+        flat = torch.randn(int(np.prod(shape_u)) + 1, generator=gen, device=device).to(dtype)
+        xu = flat[1:].view(shape_u)
+        require(xu.data_ptr() % 16 != 0, "K4: the unaligned check's input is aligned")
+        spec_u = (f.flip([0, 1]) / 4, (1, 1), (2, 2), (1,) * 4)
+        yu, ypu = upfirdn2d_kernel(xu, *spec_u), upfirdn2d_plain(xu, *spec_u)
+        tol_u = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * float(ypu.abs().max())
+        check(f"4x4 form, input not 16-byte aligned {list(shape_u)} {str(dtype)[6:]}",
+              max_err(yu, ypu), tol_u)
+        k4_require_parent(parent, lambda: upfirdn2d_kernel(xu, *spec_u),
+                          f"K4 4x4 form, unaligned input {list(shape_u)} {str(dtype)[6:]}")
+        err = max(err, max_err(yu, ypu))
+        del flat, xu, yu, ypu
 
     new_forms = k4_form_checks(device, parent, gen)
     err = max(err, new_forms.pop("max_abs_err"))
@@ -1086,7 +1122,7 @@ def k4_equivariance_checks(device, parent):
             lambda: upfirdn2d_kernel(xx, f2d, upp, down, pad), yk.numel(), "output",
             {"FFMA": per_thread * fh * fw / (upp[0] * upp[1])}, 1 / per_thread, None,
             new_kernel=f"upfirdn2d_large_phase_kernelIfLi{g.nch}ELb{int(upp[0] == 1)}EE",
-            parent_kernel="upfirdn2d_large_kernel"))
+            parent_kernel="upfirdn2d_large_kernel", adapt=k4_parent_adapt(parent)))
         if "parent" in summ:
             require(summ["parent"]["values_not_bit_equal"] == 0,
                     f"K4 {what}: the phase-blocked kernel's outputs differ from the parent's "
@@ -1126,7 +1162,7 @@ def k4_equivariance_checks(device, parent):
     summ.update(parent_and_sass(
         parent, "upfirdn2d", "upfirdn2d", "upfirdn2d_large_kernel",
         lambda: upfirdn2d_kernel(xx, f2d, upp, down, pad), yk.numel(), "output", None, 1,
-        None))
+        None, adapt=k4_parent_adapt(parent)))
     if "parent" in summ:
         require(summ["parent"]["values_not_bit_equal"] == 0,
                 "K4 12x12 at down 2: the tiled kernel's outputs differ from the parent's")
@@ -1169,7 +1205,8 @@ def k4_equivariance_checks(device, parent):
         summ.update(parent_and_sass(
             parent, "upfirdn2d", "upfirdn2d", kernel,
             lambda: upfirdn2d_kernel(xx, f2d, upp, down, pad), yk.numel(), "output",
-            {}, scale, None, new_kernel=inst, parent_kernel="upfirdn2d_kernel"))
+            {}, scale, None, new_kernel=inst, parent_kernel="upfirdn2d_kernel",
+            adapt=k4_parent_adapt(parent)))
         if "parent" in summ:
             require(summ["parent"]["values_not_bit_equal"] == 0,
                     f"K4 {what}: the {form} form's outputs differ from the parent's generic "
@@ -5028,50 +5065,208 @@ def k4_backward_library(xx, f2d, up, down, pad, out_hw):
     return lambda: F.conv2d(xx, w, stride=(down[1], down[0]), padding=(py0, px0), groups=C)
 
 
-def k4_backward_checks(calls, device):
-    """K4's backward form (the transposed passes, K4's own forms) at every
-    distinct transposed call of one training step (``calls``: {(shape,
-    dtype, up, down, pad): [count, f2d]}), each against its plain version
-    (bf16 within 1 bf16 ulp of the largest value, f32 within 1e-5) and
-    timed beside its plain version and its library call. The summary's own
-    numbers are the largest call's. -> summary."""
+K4_FIR4_VARIANTS = ("down2", "fir4", "fir_small")   # K4's 4x4 form
+# the five small transposed calls of a training step that lost to their
+# depthwise conv2d before the 4x4 form's planes plan: (shape, dtype name,
+# down); each must now take no more time than it
+K4_SMALL_TRANSPOSED = {((8, 512, 34, 34), "bfloat16", 2), ((8, 512, 18, 18), "float32", 2),
+                       ((8, 512, 10, 10), "float32", 2), ((8, 512, 9, 9), "float32", 1),
+                       ((8, 512, 7, 7), "float32", 1)}
+
+
+def k4_fir4_calls():
+    """The 4x4 form's calls of a training step that --forms-only holds
+    without training, keyed as training_path collects them ({(transposed,
+    shape, dtype, up, down, pad): [count, f2d]}): the generator's up=2 calls
+    (conv2d_resample's 3x3 conv, padding (3, 2, 3, 2)) on 512 channels of
+    16^2 (bf16), 8^2 and 4^2 (f32), forward, and their transposed passes
+    (34^2, 18^2, 10^2 -> 16^2, 8^2, 4^2 at down 2); the discriminator's
+    filter passes (padding 2 before its 3x3 down-conv, 1 before its 1x1
+    skip) at b8 (f32, 512 channels) and b512 (bf16, 64 channels), forward
+    and transposed (9^2 and 7^2 -> 8^2; 513^2 and 511^2 -> 512^2); and the
+    transposed pass of the SR's up=2 call (bf16 [8,256,514,514] -> 256^2).
+    Counts 1."""
+    import importlib
+
+    import torch
+
+    uf = importlib.import_module("panic3d_tpu_torch.ops.upfirdn2d")
+    f = uf.setup_filter([1, 3, 3, 1])
+    calls = {}
+
+    def add(shape, dtype, spec):
+        f2d, up, down, pad = spec
+        out_hw = uf._out_size(shape[2], shape[3], 4, 4, up, down, pad)
+        calls[(False, tuple(shape), dtype, tuple(up), tuple(down), tuple(pad))] = [1, f2d]
+        t = uf.transposed_pass(f2d, up, down, pad, tuple(shape[2:]), out_hw)
+        calls[(True, (*shape[:2], *out_hw), dtype, tuple(t[1]), tuple(t[2]),
+               tuple(t[3]))] = [1, t[0]]
+
+    up2 = uf.fir_passes(f, up=2, padding=[3, 2, 3, 2], gain=4)[0]
+    for res, dtype in ((16, torch.bfloat16), (8, torch.float32), (4, torch.float32)):
+        add((TRAIN_BATCH, 512, res, res), dtype, up2)
+    for c, res, dtype in ((512, 8, torch.float32), (64, 512, torch.bfloat16)):
+        for pad in (2, 1):
+            add((TRAIN_BATCH, c, res, res), dtype, uf.fir_passes(f, padding=pad)[0])
+    add((TRAIN_BATCH, 256, 256, 256), torch.bfloat16, up2)
+    del calls[(False, (TRAIN_BATCH, 256, 256, 256), torch.bfloat16, (2, 2), (1, 1),
+               (3, 2, 3, 2))]   # the SR's forward call is the view path's (k4_checks)
+    return calls
+
+
+def k4_parent_adapt(parent):
+    """parent_entries' adapt for the parent's K4 (--parent): None where its
+    entry point takes this tree's arguments (or there is no parent K4), else
+    one that drops the 4x4 form's block plan (f4_plan, f4_rows: the two
+    arguments before the stream), which its entry point predates."""
+    from pathlib import Path
+
+    src = PARENT_SOURCES.get("upfirdn2d") if "upfirdn2d" in parent else None
+    if src is None or "f4_plan" in Path(src).read_text():
+        return None
+    return lambda argtypes, args: (argtypes[:-3] + argtypes[-1:], args[:-3] + args[-1:])
+
+
+K4_PARENT_ROUNDS = 3   # parent / this / this / parent rounds before a call counts as slower
+
+
+def k4_slower(times) -> bool:
+    """A parent / this / this / parent round (ms) in which this tree's
+    faster time exceeds the parent's slower one by more than the round's
+    spread: the larger max / min - 1 of the two parent times and of the two
+    of this tree."""
+    p, t = (times[0], times[3]), (times[1], times[2])
+    spread = max(max(p) / min(p), max(t) / min(t)) - 1
+    return min(t) > max(p) * (1 + spread)
+
+
+def k4_parent_compare(parent, fn):
+    """fn() (a K4 launch) against the same launch of the parent's entry
+    point (--parent DIR holding upfirdn2d.cu): values not equal bit for bit,
+    and the times in the order parent / this / this / parent, timed again
+    while a round is slower (k4_slower), up to K4_PARENT_ROUNDS rounds;
+    "slower": every round was. None without the parent's K4."""
+    if "upfirdn2d" not in parent:
+        return None
+    swap = {"upfirdn2d": (parent["upfirdn2d"][0], k4_parent_adapt(parent))}
+    got = fn()
+    with parent_entries(swap):
+        want = fn()
+    rounds = []
+    while len(rounds) < K4_PARENT_ROUNDS and (not rounds or k4_slower(rounds[-1])):
+        with parent_entries(swap):
+            p1 = cuda_ms(fn)
+        n1, n2 = cuda_ms(fn), cuda_ms(fn)
+        with parent_entries(swap):
+            p2 = cuda_ms(fn)
+        rounds.append([p1, n1, n2, p2])
+    return {"ms_parent_this_this_parent": rounds[-1], "rounds": rounds,
+            "slower": k4_slower(rounds[-1]),
+            "values_not_bit_equal": int((got != want).sum()), "values": got.numel()}
+
+
+def k4_require_parent(parent, fn, label, times=None):
+    """Require a 4x4-form call (fn) bit-equal to the parent's kernel and no
+    slower than it (k4_parent_compare; ``times``: a first round already
+    timed, kept where it is not slower), and print the round that decides.
+    -> the comparison, or None without the parent's K4."""
+    cmp_ = None
+    if times is None or k4_slower(times):
+        cmp_ = k4_parent_compare(parent, fn)
+    if cmp_ is None:
+        return None if times is None else {"ms_parent_this_this_parent": times, "slower": False}
+    t = cmp_["ms_parent_this_this_parent"]
+    print(f"    parent / this / this / parent {t[0]:.6f} / {t[1]:.6f} / {t[2]:.6f} / "
+          f"{t[3]:.6f} ms (round {len(cmp_['rounds'])}); values not equal bit for bit: "
+          f"{cmp_['values_not_bit_equal']} of {cmp_['values']}")
+    require(cmp_["values_not_bit_equal"] == 0,
+            f"{label}: the outputs differ from the parent kernel's")
+    require(not cmp_["slower"], f"{label}: slower than the parent kernel in each of "
+                                f"{len(cmp_['rounds'])} rounds: {cmp_['rounds']}")
+    return cmp_
+
+
+def k4_backward_checks(calls, device, parent):
+    """K4 at every distinct 4x4-form call of one training step, in both
+    directions (``calls``: {(transposed, shape, dtype, up, down, pad):
+    [count, f2d]}): the transposed passes (K4's backward form, K4's own
+    forms), the forward "down2", "fir4" and "fir_small" calls, and the
+    generator's forward "up2" calls at 512 channels of 4^2..16^2; each
+    against its plain version (bf16 within 1 bf16 ulp of the largest value,
+    f32 within 1e-5), timed beside its plain version, its bound and its
+    library call (a depthwise conv2d; conv_transpose2d for "up2"), and with
+    ``parent`` (--parent; {} without) bit for bit against the parent's
+    kernel, timed parent / this / this / parent (k4_parent_compare), the
+    4x4-form calls required no slower than it (k4_require_parent). The
+    calls of K4_SMALL_TRANSPOSED must take no more time than their conv2d.
+    The summary's own numbers are the largest transposed call's. ->
+    summary."""
     import importlib
 
     import torch
 
     uf = importlib.import_module("panic3d_tpu_torch.ops.upfirdn2d")
     gen = torch.Generator(device=device).manual_seed(SEED)
-    rows, head = [], None
-    for (shape, dtype, up, down, pad), (count, f2d) in sorted(
-            calls.items(), key=lambda kv: -np.prod(kv[0][0])):
+    rows, head, lost = [], None, []
+    for (transposed, shape, dtype, up, down, pad), (count, f2d) in sorted(
+            calls.items(), key=lambda kv: (not kv[0][0], -np.prod(kv[0][1]), kv[0][5])):
         xx = torch.randn(shape, generator=gen, device=device).to(dtype)
         spec = (f2d, up, down, pad)
         with torch.no_grad():
-            yk = uf._launch_k4(xx, *spec, True)
+            yk = uf._launch_k4(xx, *spec, transposed)
             yp = uf.upfirdn2d_plain(xx, *spec)
         e = max_err(yk, yp)
         tol = 2.0 ** -7 * float(yp.abs().max()) if dtype == torch.bfloat16 else 1e-5
         variant = uf.k4_plan(*spec).variant
-        check(f"K4 backward x{count} {list(shape)} {str(dtype)[6:]} up={up[0]} down={down[0]} "
-              f"pad={list(pad)} -> {yk.shape[-2]}x{yk.shape[-1]} ({variant})", e, tol)
+        plan = (uf.fir4_block_plan(shape[0] * shape[1], *shape[2:], *yk.shape[-2:], down[0],
+                                   dtype, *f2d.shape,
+                                   shift=xx.data_ptr() % 16 // xx.element_size()).plan
+                if variant in K4_FIR4_VARIANTS else None)
+        label = "K4 backward" if transposed else "K4 forward"
+        check(f"{label} x{count} {list(shape)} {str(dtype)[6:]} up={up[0]} down={down[0]} "
+              f"pad={list(pad)} -> {yk.shape[-2]}x{yk.shape[-1]} ({variant}"
+              + (f", {plan}" if plan else "") + ")", e, tol)
         lib = k4_backward_library(xx, f2d, up, down, pad, tuple(yk.shape[-2:]))
         fh, fw = f2d.shape
-        row = dict(record(e, lambda: uf._launch_k4(xx, *spec, True),
-                          lambda: uf.upfirdn2d_plain(xx, *spec), nbytes(xx, yk),
+
+        def fn(xx=xx, spec=spec, transposed=transposed):
+            return uf._launch_k4(xx, *spec, transposed)
+
+        row = dict(record(e, fn, lambda: uf.upfirdn2d_plain(xx, *spec), nbytes(xx, yk),
                           yk.numel() * fh * fw * 2.0 / (up[0] * up[1]), library_fn=lib,
                           plain_iters=3),
-                   shape=list(shape), dtype=str(dtype)[6:], up=up[0], down=down[0],
-                   pad=list(pad), variant=variant, calls_per_step=count)
+                   direction="transposed" if transposed else "forward", shape=list(shape),
+                   dtype=str(dtype)[6:], up=up[0], down=down[0], pad=list(pad),
+                   variant=variant, plan=plan, calls_per_step=count)
         print(f"    ms {row['ms']:.6f}  plain {row['plain_ms']:.6f}  bound {row['bound_ms']:.6f} "
-              f"({row['bound_by']})  library "
+              f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f} %)  library "
               + (f"{row['library_ms']:.6f}" if row["library_ms"] is not None else "none"))
+        if plan:   # the 4x4 form: bit-equal to the parent's and no slower
+            cmp_ = k4_require_parent(parent, fn, f"{label} {list(shape)} ({variant}, {plan})")
+        else:
+            cmp_ = k4_parent_compare(parent, fn)
+            if cmp_ is not None:
+                t = cmp_["ms_parent_this_this_parent"]
+                print(f"    parent / this / this / parent {t[0]:.6f} / {t[1]:.6f} / "
+                      f"{t[2]:.6f} / {t[3]:.6f} ms; values not equal bit for bit: "
+                      f"{cmp_['values_not_bit_equal']} of {cmp_['values']}")
+                require(cmp_["values_not_bit_equal"] == 0,
+                        f"{label} {list(shape)}: the outputs differ from the parent kernel's")
+        if cmp_ is not None:
+            row["parent"] = cmp_
+        if (transposed and (tuple(shape), str(dtype)[6:], down[0]) in K4_SMALL_TRANSPOSED
+                and row["library_ms"] is not None and row["ms"] > row["library_ms"]):
+            lost.append((list(shape), row["ms"], row["library_ms"]))
         rows.append(row)
-        head = head or row
-    require(rows, "K4 backward: no transposed call in the training step")
+        if transposed:
+            head = head or row
+        del xx, yk, yp
+    require(head is not None, "K4 backward: no transposed call in the training step")
+    require(not lost, f"K4: small transposed calls slower than their conv2d: {lost}")
     return dict({k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")},
-                max_abs_err=max(r["max_abs_err"] for r in rows), calls=rows,
-                variants=sorted({r["variant"] for r in rows}))
+                max_abs_err=max(r["max_abs_err"] for r in rows if r["direction"] == "transposed"),
+                calls=rows, variants=sorted({r["variant"] for r in rows}))
 
 
 def r1_checks(device, res=512):
@@ -5241,11 +5436,12 @@ def training_path(device, card, run="default", capture=None):
     weights; then, on the trained state, one step of every phase timed
     phase by phase (CUDA events), one counted for its host waits (0
     required), one profiled for the device's busy share, and K4's
-    transposed calls of one step collected for k4_backward_checks. With
+    transposed calls of one step, its forward 4x4-form calls and the
+    generator's 512-channel up=2 calls collected for k4_backward_checks. With
     ``capture`` (a list) the first call of
     triplane.py:paste_composite_occ_kernel is appended to it (K8's backward
     check takes training's paste from it). -> (launch counts, summary, K4's
-    transposed calls)."""
+    calls)."""
     import importlib
     import shutil
 
@@ -5330,8 +5526,10 @@ def training_path(device, card, run="default", capture=None):
     launch, calls, events = uf._launch_k4, {}, []
 
     def spy(x, f2d, up, down, pad, transposed=False):
-        if transposed:
-            key = (tuple(x.shape), x.dtype, tuple(up), tuple(down), tuple(pad))
+        variant = uf.k4_plan(f2d, up, down, pad).variant
+        if (transposed or variant in K4_FIR4_VARIANTS
+                or (variant == "up2" and x.shape[1] == 512 and x.shape[2] <= 16)):
+            key = (transposed, tuple(x.shape), x.dtype, tuple(up), tuple(down), tuple(pad))
             calls.setdefault(key, [0, f2d.detach().clone()])[0] += 1
         return launch(x, f2d, up, down, pad, transposed)
 
@@ -5376,7 +5574,9 @@ def training_path(device, card, run="default", capture=None):
 
 def training_checks(device, card, parent):
     """The training path (training_path), then the backward forms at its
-    shapes (K4 at the step's own transposed calls, K1 and K2 at a training
+    shapes (K4 at the step's own transposed calls, beside its forward
+    4x4-form and 512-channel up=2 calls, with --parent against the parent's
+    kernel; K1 and K2 at a training
     render's, K5 at a discriminator layer), R1's second order and one whole
     step against the plain ops, then ADA's training path
     (ada_training_path). -> (kernel summaries, the path's launch counts,
@@ -5387,7 +5587,7 @@ def training_checks(device, card, parent):
 
     with torch.enable_grad():
         counts, summary, calls = training_path(device, card)
-    checks = {"upfirdn2d_grad": k4_backward_checks(calls, device)}
+    checks = {"upfirdn2d_grad": k4_backward_checks(calls, device, parent)}
     summary["k4_grad_launches"] = sum(n for v, n in summary["k4_variants_per_step"].items()
                                       if v.startswith("grad_")) * summary["steps"]
     G = configs.flagship(device=device).init_weights(SEED)
@@ -6354,7 +6554,9 @@ def main(argv=None) -> int:
                          "and the Hybrid8X card-vs-CPU check, then stop")
     ap.add_argument("--forms-only", action="store_true",
                     help="build, then check only K4's forms of the calls the generic kernel "
-                         "lost (k4_form_checks) and K1's and K2's backward forms "
+                         "lost (k4_form_checks), K4's 4x4 form at training's small-plane and "
+                         "b512 calls in both directions (k4_fir4_calls) and K1's and K2's "
+                         "backward forms "
                          "(k1_k2_grad_checks), with --parent against the parent's kernels, "
                          "then stop: a redesign's first short call")
     ap.add_argument("--k1-grad-parts", action="store_true",
@@ -6425,11 +6627,13 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=device).manual_seed(SEED)
         with torch.no_grad():
             forms = k4_form_checks(device, parent, gen)
+            fir4 = k4_backward_checks(k4_fir4_calls(), device, parent)
         Gt = configs.flagship(device=device).init_weights(SEED)
         grads = k1_k2_grad_checks(Gt, device, parent)
         parts = k1_grad_parts(Gt, device) if args.k1_grad_parts else None
         print(f"wall time {time.perf_counter() - t_start:.1f} s")
-        print(json.dumps({"upfirdn2d": forms, **grads, "k1_grad_parts": parts}, default=str))
+        print(json.dumps({"upfirdn2d": forms, "upfirdn2d_grad": fir4, **grads,
+                          "k1_grad_parts": parts}, default=str))
         print(card)
         return 0
 

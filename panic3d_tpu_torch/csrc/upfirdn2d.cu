@@ -58,27 +58,40 @@
 // leaves the image, and sum each output's taps in order with fmaf from 0,
 // as the generic kernel does, so their outputs equal its bit for bit.
 //
-// upfirdn2d_fir4_kernel, a 4x4 filter at up = 1 and down = 2 on both axes
-// (the "down2" form: the discriminator's downsample2d, models/stylegan2.py's
-// skip images and the dual discriminator's image resize) or down = 1 (the
-// "fir4" form: conv2d_resample's filter pass before a conv of stride 2,
-// ops/conv.py). Bound: bytes (at down=2 each output reads 4 inputs' worth:
-// bf16 [2,256,256,256] -> 128^2 moves ~84 MB, ~25 us). The generic kernel
-// spent its instructions on index arithmetic (a division a staged element,
-// floor_div / floor_mod a tap) and read its window with 2-way bank
-// conflicts. Here a block stages a 32 x 64 output tile's input window once
-// (16-byte loads and stores of aligned chunks, bf16 widened as it is
-// staged), and each lane walks down 8 outputs of its column, keeping the 4
-// window rows of an output in registers and reading DOWN new rows a step
-// (8-byte shared reads at down=2); the 16 taps are constant operands,
-// summed in the generic kernel's order (a then b, fmaf from 0), so the
-// output equals the generic kernel's bit for bit; stores are coalesced.
-//
-// The same kernel, templated on the filter's size, takes any other 2-D
-// filter of at most 4x4 at up = down = 1 ("fir_small": a 3x3 blur, fh x fw
-// of 2 to 4), in the same tap order, so its output equals the generic
-// kernel's bit for bit; the generic kernel was 2.2x slower than a depthwise
-// conv2d at a 3x3 (its index arithmetic again).
+// The 4x4 form: a 4x4 filter at up = 1 and down = 2 on both axes (the
+// "down2" form: the discriminator's downsample2d, models/stylegan2.py's
+// skip images and the dual discriminator's image resize, and the transposed
+// pass of every up=2 call in training) or down = 1 (the "fir4" form:
+// conv2d_resample's filter pass before a conv of stride 2, ops/conv.py, and
+// its transposed pass), templated on the filter's size for any other 2-D
+// filter of at most 4x4 at up = down = 1 ("fir_small": a 3x3 blur). Bound:
+// bytes (at down=2 each output reads 4 inputs' worth: bf16 [8,256,514,514]
+// -> 256^2 moves 1.35 GB, 0.40 ms). Every output sums its taps in the
+// generic kernel's order (a then b, fmaf from 0), so each plan's outputs
+// equal that kernel's bit for bit. Its block plans
+// (ops/upfirdn2d.py:fir4_block_plan chooses):
+// - upfirdn2d_fir4_planes_kernel, rows of at most 32 outputs, 16 where
+//   the rows are 16-byte aligned (training's 512-channel calls of 4^2..16^2
+//   outputs, 4,096 planes a call): a thread an output column of a strip of
+//   up to 4 rows of one plane, so a block of 256 threads takes 4 to 16
+//   planes; it reads its strip's window straight from global memory (every
+//   load in flight at once, the overlap through L1). A block a plane,
+//   staging a 32 x 64 tile's 36 KB window for a ~2 KB plane, ran these
+//   calls 1.8-5.8x slower than a depthwise conv2d.
+// - upfirdn2d_fir4_kernel, wider rows: a block a 32 x 64 output tile, its
+//   window staged once as f32, with 16-byte loads of aligned chunks where
+//   the rows are 16-byte aligned (the "rows" plan), else element by element
+//   ("rows_scalar", for a call of fewer than 528 64-row tiles), a lane a
+//   column walking 8 outputs down a register window.
+// - upfirdn2d_fir4_flat_kernel, wider rows that are not 16-byte aligned, in
+//   a call of at least 528 64-row tiles (the "flat" plan: training's large
+//   calls have odd or 2 mod 8 widths, 513, 511, 514, which the rows plan
+//   could only stage element by element, at 40-46 % of the bound): the
+//   window staged by cp.async in the input's dtype as 16-byte chunks of the
+//   flat tensor, each row from the chunk that holds its first column,
+//   widened as read; a lane owns 2 adjacent output columns of a 64 x 64
+//   tile and stores them as one pair. Taking the aligned rows too, it ran
+//   10-31 % slower than the rows plan there (scripts/k4_fir4_variants.py).
 //
 // upfirdn2d_rows2_kernel and upfirdn2d_cols2_kernel, a 1-D pass at up 2 or
 // down 2 on its axis, the other unscaled, at most 16 taps ("row_up2",
@@ -422,14 +435,88 @@ cudaError_t launch_1d(const void* x, void* y, int NC, int H, int W, int OH, int 
 #undef P3D_1D
 }
 
-// ---- a 4x4 filter at up = 1, down = 2 (or 1) on both axes: the 4x4 form ----
+// ---- a filter of at most 4x4 at up = 1, down = 1 or 2 on both axes: the 4x4 form ----
+//
+// Four block plans. ops/upfirdn2d.py:fir4_block_plan picks one for each
+// call from its shape and x's alignment, and the entry point launches the
+// plan it names (F4_PLAN_*), refusing one the call cannot take: "planes"
+// (rows of few outputs), "rows" (16-byte aligned rows, staged by 16-byte
+// chunks), "rows_scalar" (the same tiles staged element by element:
+// unaligned rows of few tiles), "flat" (unaligned rows of many tiles). The
+// -D macros below are design choices; scripts/k4_fir4_variants.py builds
+// and times the others.
 
-constexpr int F4_X = 64;      // output columns a block: one a lane, two warps across
-constexpr int F4_WARPS = 8;   // warps a block: 2 across, 4 down the tile
-constexpr int F4_R = 8;       // output rows a warp: its strip
-constexpr int F4_Y = F4_WARPS / 2 * F4_R;   // output rows a block
+#ifndef F4_PAIR
+#define F4_PAIR 2       // adjacent output columns a lane of the flat plan (1 or 2)
+#endif
+#ifndef F4_Y
+#define F4_Y 64         // output rows a flat tile
+#endif
+#ifndef F4_MINB
+#define F4_MINB 6       // blocks of the flat plan an SM must hold (caps its registers)
+#endif
+
+enum { F4_PLAN_PLANES = 1, F4_PLAN_ROWS = 2, F4_PLAN_ROWS_SCALAR = 3, F4_PLAN_FLAT = 4 };
+
+constexpr int F4_THREADS = 256;             // threads a block, every plan
+constexpr int F4_TX = 64;                   // output columns a tile (rows and flat plans)
+constexpr int F4_P = F4_PAIR;
+constexpr int F4_WX = F4_TX / (32 * F4_P);  // warps across a flat tile
+constexpr int F4_PR = 4;                    // most output rows a thread of the planes plan
+static_assert(F4_P == 1 || F4_P == 2, "a lane takes 1 or 2 columns of a flat tile");
 
 struct Taps16 { float f[16]; };   // [a][b], flipped and gained: correlate
+
+// The planes plan: a thread owns output column ox of a strip of `rows`
+// (<= F4_PR) output rows of one (n, c) plane, threads in the order of
+// column, strip, plane, so a block takes F4_THREADS / (OW x strips)
+// planes. The thread reads its strip's window, DOWN (rows - 1) + FH rows of
+// FW columns (zero outside the image), straight from global memory: every
+// load in flight before the first tap, the neighbours' overlap served by
+// L1; no shared memory, no barrier. Each output sums its taps in the
+// generic kernel's order, a then b, with fmaf from 0.
+template <typename T, int DOWN, int FH, int FW>
+__global__ void __launch_bounds__(F4_THREADS) upfirdn2d_fir4_planes_kernel(
+    const T* __restrict__ x, T* __restrict__ y, int NC, int H, int W, int OH, int OW, int px0,
+    int py0, int rows, int strips, Taps16 taps) {
+  constexpr int NR = DOWN * (F4_PR - 1) + FH;   // window rows of the longest strip
+  const unsigned t = blockIdx.x * F4_THREADS + threadIdx.x;
+  const unsigned per = (unsigned)strips * (unsigned)OW;   // threads a plane
+  const unsigned nc = t / per;
+  if (nc >= (unsigned)NC) return;
+  const int rem = (int)(t - nc * per), s = rem / OW, ox = rem - s * OW, oy0 = s * rows;
+  const int ix0 = DOWN * ox - px0, iy0 = DOWN * oy0 - py0, nr = DOWN * (rows - 1) + FH;
+  const T* src = x + (long long)nc * H * W;
+  bool col_in[FW];
+#pragma unroll
+  for (int b = 0; b < FW; ++b) col_in[b] = ix0 + b >= 0 && ix0 + b < W;
+  float w[NR][FW];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int iy = iy0 + i;
+    const bool row_in = i < nr && iy >= 0 && iy < H;
+#pragma unroll
+    for (int b = 0; b < FW; ++b)
+      w[i][b] = row_in && col_in[b] ? to_f(src[(long long)iy * W + ix0 + b]) : 0.f;
+  }
+  T* dst = y + ((long long)nc * OH + oy0) * OW + ox;
+#pragma unroll
+  for (int r = 0; r < F4_PR; ++r) {
+    if (r < rows && oy0 + r < OH) {
+      float acc = 0.f;
+#pragma unroll
+      for (int a = 0; a < FH; ++a)
+#pragma unroll
+        for (int b = 0; b < FW; ++b) acc = fmaf(taps.f[a * FW + b], w[DOWN * r + a][b], acc);
+      dst[(long long)r * OW] = from_f<T>(acc);
+    }
+  }
+}
+
+// ---- the rows plans: "rows" (16-byte aligned rows) and "rows_scalar" ----
+
+constexpr int FR_R = 8;                                  // output rows a warp: its strip
+constexpr int FR_Y = F4_THREADS / 32 / 2 * FR_R;         // output rows a tile: 32
 
 // the window's values a lane reads from one staged row (p: the row at the
 // lane's first column): w[b] = input column DOWN * ox + b - px0. At DOWN = 2
@@ -454,44 +541,43 @@ __device__ __forceinline__ void fir4_row(const float* p, float w[FW]) {
   }
 }
 
-// A block: an F4_Y x F4_X output tile of one image. (1) It stages the
-// tile's input window, DOWN (F4_Y - 1) + 4 rows of DOWN (F4_X - 1) + 4
-// columns, once, as f32 in shared memory, zero outside the image: where
-// the rows are aligned (VEC), with 16-byte loads of aligned chunks, all of
-// a thread's loads in flight before its 16-byte stores (the staged row then
-// starts at the chunk holding the first column, `off` columns before it),
-// else with scalar accesses. (2) Each
-// warp walks down its strip of F4_R output rows, a lane an output column,
-// keeping the 4 window rows of its current output row in registers and
-// reading DOWN new rows a step. Each output sums its 16 taps (constant
-// operands) in the generic kernel's order, a then b, with fmaf from 0, so
-// it equals the generic kernel's output bit for bit. Stores are coalesced
-// (32 consecutive outputs a warp).
+// A block: an FR_Y x F4_TX output tile of one image. (1) It stages the
+// tile's input window, DOWN (FR_Y - 1) + FH rows of DOWN (F4_TX - 1) + FW
+// columns, once, as f32 in shared memory, zero outside the image: with
+// aligned rows (VEC, the "rows" plan) by 16-byte loads of aligned chunks
+// (a chunk lies inside its row or outside it as a whole), all of a
+// thread's loads in flight before its 16-byte stores (the staged rows
+// start at the chunk holding the first column, `off` columns before it);
+// else ("rows_scalar") element by element. (2) Each warp walks down its
+// strip of FR_R output rows, a lane an output column, keeping the FH window
+// rows of its current output row in registers and reading DOWN new rows a
+// step. Each output sums its taps (constant operands) in the generic
+// kernel's order, a then b, with fmaf from 0, so it equals the generic
+// kernel's output bit for bit. Stores are coalesced (32 consecutive
+// outputs a warp).
 template <typename T, int DOWN, bool VEC, bool ODD, int FH, int FW>
-__global__ void __launch_bounds__(32 * F4_WARPS) upfirdn2d_fir4_kernel(
+__global__ void __launch_bounds__(F4_THREADS) upfirdn2d_fir4_kernel(
     const T* __restrict__ x, T* __restrict__ y, int H, int W, int OH, int OW, int px0,
     int py0, Taps16 taps) {
-  constexpr int WIN_X = DOWN * (F4_X - 1) + FW, WIN_Y = DOWN * (F4_Y - 1) + FH;
-  constexpr int V = 16 / (int)sizeof(T);              // elements of a 16-byte chunk
-  constexpr int NCH = (WIN_X + 2 * (V - 1)) / V;      // chunks a staged row, at most
-  constexpr int SW = VEC ? V * NCH : (WIN_X + 1) & ~1;  // staged row stride, floats (even)
+  constexpr int WIN_X = DOWN * (F4_TX - 1) + FW, WIN_Y = DOWN * (FR_Y - 1) + FH;
+  constexpr int V = 16 / (int)sizeof(T);                 // elements of a 16-byte chunk
+  constexpr int NCH = (WIN_X + 2 * (V - 1)) / V;         // chunks a staged row, at most
+  constexpr int SW = VEC ? V * NCH : (WIN_X + 1) & ~1;   // staged row stride, floats (even)
   __shared__ __align__(16) float win[WIN_Y * SW];
-  constexpr int NT = 32 * F4_WARPS;
-  const int tid = threadIdx.y * 32 + threadIdx.x;
+  const int tid = threadIdx.x;
   const long long nc = blockIdx.z;
-  const int ox0 = blockIdx.x * F4_X, oy0 = blockIdx.y * F4_Y;
+  const int ox0 = blockIdx.x * F4_TX, oy0 = blockIdx.y * FR_Y;
   const int sx = DOWN * ox0 - px0, sy = DOWN * oy0 - py0;   // the window's first input
   const T* src = x + nc * H * W;
   int off = 0;
   if constexpr (VEC) {
-    // W % V == 0: a chunk is inside the row or outside it as a whole
-    constexpr int ITER = (WIN_Y * NCH + NT - 1) / NT;
+    constexpr int ITER = (WIN_Y * NCH + F4_THREADS - 1) / F4_THREADS;
     const int base = sx & ~(V - 1);
     off = sx - base;
     uint4 raw[ITER];
 #pragma unroll
     for (int k = 0; k < ITER; ++k) {
-      const int i = tid + k * NT, r = i / NCH, c = i - r * NCH;
+      const int i = tid + k * F4_THREADS, r = i / NCH, c = i - r * NCH;
       const int iy = sy + r, g = base + V * c;
       raw[k] = make_uint4(0u, 0u, 0u, 0u);
       if (i < WIN_Y * NCH && iy >= 0 && iy < H && g >= 0 && g < W)
@@ -499,7 +585,7 @@ __global__ void __launch_bounds__(32 * F4_WARPS) upfirdn2d_fir4_kernel(
     }
 #pragma unroll
     for (int k = 0; k < ITER; ++k) {
-      const int i = tid + k * NT;
+      const int i = tid + k * F4_THREADS;
       if (i >= WIN_Y * NCH) break;
       const int r = i / NCH, c = i - r * NCH;
       float4* dst = reinterpret_cast<float4*>(win + r * SW + V * c);
@@ -516,7 +602,7 @@ __global__ void __launch_bounds__(32 * F4_WARPS) upfirdn2d_fir4_kernel(
       }
     }
   } else {
-    for (int i = tid; i < WIN_Y * WIN_X; i += NT) {
+    for (int i = tid; i < WIN_Y * WIN_X; i += F4_THREADS) {
       const int r = i / WIN_X, c = i - r * WIN_X;
       const int iy = sy + r, ix = sx + c;
       win[r * SW + c] = iy >= 0 && iy < H && ix >= 0 && ix < W
@@ -525,20 +611,20 @@ __global__ void __launch_bounds__(32 * F4_WARPS) upfirdn2d_fir4_kernel(
   }
   __syncthreads();
 
-  const int lx = (threadIdx.y & 1) * 32 + threadIdx.x, ox = ox0 + lx;
-  const int r0 = (threadIdx.y >> 1) * F4_R;        // the strip's first output row in the tile
+  const int lx = (threadIdx.x >> 5 & 1) * 32 + (threadIdx.x & 31), ox = ox0 + lx;
+  const int r0 = (threadIdx.x >> 6) * FR_R;        // the strip's first output row in the tile
   if (oy0 + r0 >= OH) return;                      // uniform across the warp
   const float* col = win + off + DOWN * lx;        // the lane's first window column
   // the strip's outputs in this column: one pointer, moved a row at a time
   T* dst = y + (nc * OH + oy0 + r0) * OW + ox;
-  const int rows = ox < OW ? min(F4_R, OH - oy0 - r0) : 0;
+  const int rows = ox < OW ? min(FR_R, OH - oy0 - r0) : 0;
   // w[k]: window row DOWN * (row - oy0) + k of the current output row
   float w[FH][FW];
 #pragma unroll
   for (int k = 0; k < FH - DOWN; ++k)
     fir4_row<DOWN, ODD, FW>(col + (DOWN * r0 + k) * SW, w[k]);
 #pragma unroll
-  for (int r = 0; r < F4_R; ++r) {
+  for (int r = 0; r < FR_R; ++r) {
     const int wr = DOWN * (r0 + r);
 #pragma unroll
     for (int k = FH - DOWN; k < FH; ++k) fir4_row<DOWN, ODD, FW>(col + (wr + k) * SW, w[k]);
@@ -557,19 +643,15 @@ __global__ void __launch_bounds__(32 * F4_WARPS) upfirdn2d_fir4_kernel(
   }
 }
 
-template <typename T, int DOWN, int FH = 4, int FW = 4>
-cudaError_t launch_fir4(const void* x, void* y, int NC, int H, int W, int OH, int OW, int px0,
-                        int py0, const Taps16& taps, cudaStream_t s) {
-  constexpr int V = 16 / (int)sizeof(T);
-  const bool vec = W % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  dim3 grid((OW + F4_X - 1) / F4_X, (OH + F4_Y - 1) / F4_Y, NC);
+template <typename T, int DOWN, int FH, int FW>
+cudaError_t launch_fir4_rows(const T* x, T* y, int NC, int H, int W, int OH, int OW, int px0,
+                             int py0, bool vec, const Taps16& taps, cudaStream_t s) {
+  dim3 grid((OW + F4_TX - 1) / F4_TX, (OH + FR_Y - 1) / FR_Y, NC);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  const dim3 block(32, F4_WARPS);
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-#define P3D_FIR4(VEC, ODD)                                                                \
-  upfirdn2d_fir4_kernel<T, DOWN, VEC, ODD, FH, FW><<<grid, block, 0, s>>>(xt, yt, H, W, OH, OW, \
-                                                                          px0, py0, taps)
+#define P3D_FIR4(VEC, ODD)                                                          \
+  upfirdn2d_fir4_kernel<T, DOWN, VEC, ODD, FH, FW><<<grid, F4_THREADS, 0, s>>>(x, y, H, W, \
+                                                                              OH, OW, px0, \
+                                                                              py0, taps)
   if (!vec) P3D_FIR4(false, false);
   else if constexpr (DOWN == 1) P3D_FIR4(true, false);
   // ODD: with the aligned staging the lanes' first columns lie at odd
@@ -578,6 +660,255 @@ cudaError_t launch_fir4(const void* x, void* y, int NC, int H, int W, int OH, in
   else P3D_FIR4(true, false);
 #undef P3D_FIR4
   return cudaGetLastError();
+}
+
+// ---- the flat plan: unaligned rows of many tiles ----
+
+// The flat plan's geometry: a TY x F4_TX output tile and its input window
+// (WIN_Y x WIN_X), staged as rows of NCH 16-byte chunks (V elements), SW
+// elements a row, in the input's dtype
+template <typename T, int DOWN, int FH, int FW>
+struct F4Geom {
+  static constexpr int TY = F4_Y;
+  static constexpr int R = TY * F4_WX / (F4_THREADS / 32);   // output rows a warp walks
+  static constexpr int WIN_X = DOWN * (F4_TX - 1) + FW, WIN_Y = DOWN * (TY - 1) + FH;
+  static constexpr int V = 16 / (int)sizeof(T);
+  static constexpr int NCH = (WIN_X + 2 * (V - 1)) / V;
+  static constexpr int SW = V * NCH;
+  static constexpr int BUF = WIN_Y * SW;                     // elements of the staged window
+  static_assert(R >= 1 && R * (F4_THREADS / 32) == TY * F4_WX, "whole strips");
+};
+
+// 16 bytes global -> shared by cp.async: the first `bytes` read from src,
+// the rest zero-filled (bytes 0: src is not read)
+__device__ __forceinline__ void f4_cp_async(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+
+struct F4Tile { int nc, oy0, ox0; };
+
+// Stage a flat tile's window (first input (sy, sx) of its plane) into buf:
+// the nrows x ncols inputs its valid outputs read, in the input's dtype, by
+// cp.async. x is read through xa, the 16-byte boundary at or before it;
+// `plane` is the plane's first element counted from xa. So every chunk is
+// aligned: window row k holds the 16-byte chunks from the one that holds
+// (sy + k, sx), its column j at k SW + off_k + j, off_k = (plane + (sy + k)
+// W + sx) mod V, rows of any width alike. A warp stages 32 / NCH rows at
+// once, a lane a chunk; a chunk's elements past its row's end, and whole
+// chunks outside the row or the image, are zero-filled by the copy; the
+// elements before the row's start in the chunk that straddles it are the
+// previous row's (or, before the tensor, the same allocation's) until
+// f4_fix_left zeroes them.
+template <typename T, int DOWN, int FH, int FW>
+__device__ __forceinline__ void f4_stage(T* buf, const T* __restrict__ xa, long long plane,
+                                         int H, int W, int sy, int sx, int nrows, int ncols) {
+  using G = F4Geom<T, DOWN, FH, FW>;
+  constexpr int RPW = G::NCH < 32 ? 32 / G::NCH : 1;   // rows a warp stages at once
+  const int lane = threadIdx.x & 31, kk = lane / G::NCH, c0 = lane - kk * G::NCH;
+  if (kk >= RPW) return;
+  for (int k = (threadIdx.x >> 5) * RPW + kk; k < nrows; k += F4_THREADS / 32 * RPW) {
+    const int iy = sy + k;
+    const long long f = plane + (long long)iy * W + sx;   // (sy + k, sx), counted from xa
+    const int off = (int)(f & (G::V - 1));
+    const T* src = xa + (f - off);
+    const int need = off + ncols, col0 = sx - off;         // col0: the first chunk's column
+    const bool row_in = iy >= 0 && iy < H;
+    T* drow = buf + k * G::SW;
+    for (int c = c0; c * G::V < need; c += 32) {
+      const int col = col0 + c * G::V;
+      const int in = row_in && col + G::V > 0 ? min(W - col, G::V) : 0;
+      const int bytes = in > 0 ? in * (int)sizeof(T) : 0;
+      f4_cp_async(drow + c * G::V, bytes ? src + c * G::V : xa, bytes);
+    }
+  }
+}
+
+// zero the staged columns left of the image (j < lo = -sx) of a left-edge
+// tile's rows; f0: the low bits of plane + sy W + sx
+template <typename T, int DOWN, int FH, int FW>
+__device__ __forceinline__ void f4_fix_left(T* buf, unsigned f0, int W, int lo, int nrows) {
+  using G = F4Geom<T, DOWN, FH, FW>;
+  const int lane = threadIdx.x & 31;
+  for (int k = threadIdx.x >> 5; k < nrows; k += F4_THREADS / 32) {
+    T* row = buf + k * G::SW + (int)((f0 + (unsigned)k * (unsigned)W) & (G::V - 1));
+    for (int j = lane; j < lo; j += 32) row[j] = from_f<T>(0.f);
+  }
+}
+
+// two adjacent outputs: one 4-byte (bf16x2) or 8-byte (float2) store where
+// the pair is aligned (paired), else scalar ones
+__device__ __forceinline__ void f4_store2(__nv_bfloat16* p, float a, float b, bool paired,
+                                          bool second) {
+  if (paired && second) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    p[0] = __float2bfloat16(a);
+    if (second) p[1] = __float2bfloat16(b);
+  }
+}
+__device__ __forceinline__ void f4_store2(float* p, float a, float b, bool paired, bool second) {
+  if (paired && second) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = a;
+    if (second) p[1] = b;
+  }
+}
+
+// A flat tile's outputs from its staged window: a lane owns F4_P adjacent
+// output columns and walks down its warp's strip of R rows, keeping the FH
+// window rows of its current output row in registers (widened to f32 as
+// read) and reading DOWN new rows a step; F4_P = 2: the pair goes out as
+// one store. Each output sums its taps in the generic kernel's order, a then b,
+// with fmaf from 0, so it equals that kernel's output bit for bit. Lanes
+// past the tile's valid outputs read what the buffer holds and store
+// nothing.
+template <typename T, int DOWN, int FH, int FW>
+__device__ __forceinline__ void f4_compute(const T* buf, T* __restrict__ y, int OH, int OW,
+                                           int W, F4Tile tl, unsigned f0, const Taps16& taps) {
+  using G = F4Geom<T, DOWN, FH, FW>;
+  constexpr int NW = DOWN * (F4_P - 1) + FW;   // window columns a lane reads
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lx = (warp % F4_WX) * 32 + lane;    // the lane's column group in the tile
+  const int r0 = (warp / F4_WX) * G::R;         // the strip's first output row in the tile
+  const int oy = tl.oy0 + r0;
+  // uniform across the warp: a strip below the image or right of it
+  if (oy >= OH || tl.ox0 + F4_P * (lx - lane) >= OW) return;
+  const int ox = tl.ox0 + F4_P * lx;
+  const T* col = buf + DOWN * F4_P * lx;
+  const unsigned fr = f0 + (unsigned)(DOWN * r0) * (unsigned)W;   // the strip's first row
+  auto load = [&](int k, float (&w)[NW]) {      // window row DOWN r0 + k, widened
+    const T* p = col + (DOWN * r0 + k) * G::SW +
+                 (int)((fr + (unsigned)k * (unsigned)W) & (G::V - 1));
+#pragma unroll
+    for (int j = 0; j < NW; ++j) w[j] = to_f(p[j]);
+  };
+  float w[FH][NW];
+#pragma unroll
+  for (int k = 0; k < FH - DOWN; ++k) load(k, w[k]);
+  T* dst = y + ((long long)tl.nc * OH + oy) * OW + ox;
+  const int rows = ox < OW ? min(G::R, OH - oy) : 0;
+  const bool paired = (OW & 1) == 0, second = ox + 1 < OW;
+#pragma unroll
+  for (int r = 0; r < G::R; ++r) {
+#pragma unroll
+    for (int k = FH - DOWN; k < FH; ++k) load(DOWN * r + k, w[k]);
+    float o[F4_P];
+#pragma unroll
+    for (int p = 0; p < F4_P; ++p) {
+      float acc = 0.f;
+#pragma unroll
+      for (int a = 0; a < FH; ++a)
+#pragma unroll
+        for (int b = 0; b < FW; ++b) acc = fmaf(taps.f[a * FW + b], w[a][DOWN * p + b], acc);
+      o[p] = acc;
+    }
+    if (r < rows) {
+      if constexpr (F4_P == 2) f4_store2(dst, o[0], o[1], paired, second);
+      else *dst = from_f<T>(o[0]);
+    }
+    dst += OW;
+#pragma unroll
+    for (int k = 0; k < FH - DOWN; ++k)
+#pragma unroll
+      for (int j = 0; j < NW; ++j) w[k][j] = w[k + DOWN][j];
+  }
+}
+
+// The flat plan: a block a TY x F4_TX output tile, tiles in the order of
+// column, row, plane: its window staged in shared memory (f4_stage), the
+// columns left of the image zeroed in a left-edge tile (f4_fix_left), then
+// its outputs (f4_compute).
+template <typename T, int DOWN, int FH, int FW>
+__global__ void __launch_bounds__(F4_THREADS, F4_MINB) upfirdn2d_fir4_flat_kernel(
+    const T* __restrict__ xa, int e0, T* __restrict__ y, int H, int W, int OH, int OW,
+    int px0, int py0, int tiles_x, int tiles_y, Taps16 taps) {
+  using G = F4Geom<T, DOWN, FH, FW>;
+  extern __shared__ __align__(16) unsigned char f4_smem[];
+  T* const buf = reinterpret_cast<T*>(f4_smem);
+  const int per = tiles_x * tiles_y, nc = blockIdx.x / per, rem = blockIdx.x - nc * per;
+  const int r = rem / tiles_x;
+  const F4Tile tl{nc, r * G::TY, (rem - r * tiles_x) * F4_TX};
+  // the rows and columns of the tile's window its valid outputs read
+  const int nrows = DOWN * (min(G::TY, OH - tl.oy0) - 1) + FH;
+  const int ncols = DOWN * (min(F4_TX, OW - tl.ox0) - 1) + FW;
+  const int sy = DOWN * tl.oy0 - py0, sx = DOWN * tl.ox0 - px0;
+  f4_stage<T, DOWN, FH, FW>(buf, xa, e0 + (long long)nc * H * W, H, W, sy, sx, nrows, ncols);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const unsigned f0 = (unsigned)(e0 + ((long long)nc * H + sy) * W + sx);
+  if (sx < 0) {   // uniform across the block
+    f4_fix_left<T, DOWN, FH, FW>(buf, f0, W, min(-sx, ncols), nrows);
+    __syncthreads();
+  }
+  f4_compute<T, DOWN, FH, FW>(buf, y, OH, OW, W, tl, f0, taps);
+}
+
+template <typename T, int DOWN, int FH, int FW>
+cudaError_t launch_fir4_flat(const T* x, T* y, int NC, int H, int W, int OH, int OW, int px0,
+                             int py0, const Taps16& taps, cudaStream_t s) {
+  using G = F4Geom<T, DOWN, FH, FW>;
+  const int tiles_x = (OW + F4_TX - 1) / F4_TX, tiles_y = (OH + G::TY - 1) / G::TY;
+  const long long n_tiles = (long long)NC * tiles_x * tiles_y;
+  if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
+  if (addr % sizeof(T) != 0) return cudaErrorMisalignedAddress;
+  const int e0 = (int)(addr % 16 / sizeof(T));   // x's elements past a 16-byte boundary
+  const auto kernel = upfirdn2d_fir4_flat_kernel<T, DOWN, FH, FW>;
+  const size_t smem = (size_t)G::BUF * sizeof(T);
+  if (smem > 48 * 1024) {
+    // this instantiation's limit, raised at its first launch on each device
+    static unsigned raised = 0;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= 32 || !(raised >> dev & 1u)) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      if (dev < 32) raised |= 1u << dev;
+    }
+  }
+  kernel<<<(unsigned)n_tiles, F4_THREADS, smem, s>>>(x - e0, e0, y, H, W, OH, OW, px0, py0,
+                                                     tiles_x, tiles_y, taps);
+  return cudaGetLastError();
+}
+
+// The plan that ops/upfirdn2d.py:fir4_block_plan chose (F4_PLAN_*; `rows`:
+// the planes plan's output rows a thread). A plan the call cannot take (the
+// rows plan on rows that are not 16-byte aligned, `rows` outside 1..F4_PR)
+// is refused, not replaced.
+template <typename T, int DOWN, int FH = 4, int FW = 4>
+cudaError_t launch_fir4(const void* x, void* y, int NC, int H, int W, int OH, int OW, int px0,
+                        int py0, const Taps16& taps, int plan, int rows, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  switch (plan) {
+    case F4_PLAN_PLANES: {
+      if (rows < 1 || rows > F4_PR) return cudaErrorInvalidValue;
+      const int strips = (OH + rows - 1) / rows;
+      const long long n = (long long)NC * OW * strips;
+      if (n > 0x7fffffffLL) return cudaErrorInvalidValue;
+      upfirdn2d_fir4_planes_kernel<T, DOWN, FH, FW>
+          <<<(unsigned)((n + F4_THREADS - 1) / F4_THREADS), F4_THREADS, 0, s>>>(
+              xt, yt, NC, H, W, OH, OW, px0, py0, rows, strips, taps);
+      return cudaGetLastError();
+    }
+    case F4_PLAN_ROWS:
+      if (W % (16 / (int)sizeof(T)) != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+        return cudaErrorMisalignedAddress;
+      return launch_fir4_rows<T, DOWN, FH, FW>(xt, yt, NC, H, W, OH, OW, px0, py0, true, taps,
+                                               s);
+    case F4_PLAN_ROWS_SCALAR:
+      return launch_fir4_rows<T, DOWN, FH, FW>(xt, yt, NC, H, W, OH, OW, px0, py0, false, taps,
+                                               s);
+    case F4_PLAN_FLAT:
+      return launch_fir4_flat<T, DOWN, FH, FW>(xt, yt, NC, H, W, OH, OW, px0, py0, taps, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // ---- more than MAX_TAPS taps: the large-filter kernel ----
@@ -1382,12 +1713,14 @@ cudaError_t launch_poly(const void* x, void* y, int NC, int H, int W, int OH, in
 // (the other unscaled, at most 16 taps) the 1-D polyphase row or column
 // form; any other call the generic kernel (ops/upfirdn2d.py:k4_plan names
 // the same variant). Both tables may be null for a call outside the
-// polyphase family.
+// polyphase family. f4_plan / f4_rows: a 4x4-form call's block plan
+// (F4_PLAN_*) and the planes plan's output rows a thread, as
+// ops/upfirdn2d.py:fir4_block_plan chose them; 0 for another call.
 PANIC3D_EXPORT int upfirdn2d(const void* x, void* y, int dtype, int NC, int H, int W,
                              int OH, int OW, int upx, int upy, int downx, int downy,
                              int px0, int py0, const float* f, int fw, int fh,
                              const float* phase_taps, const int* phase_src,
-                             const float* f_dev, void* stream) {
+                             const float* f_dev, int f4_plan, int f4_rows, void* stream) {
   if (fw < 1 || fh < 1 || NC < 1 || NC > 65535 || OH < 1 || OW < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1424,7 +1757,8 @@ PANIC3D_EXPORT int upfirdn2d(const void* x, void* y, int dtype, int NC, int H, i
       (downx == 1 || downx == 2)) {
     Taps16 t16;
     for (int i = 0; i < 16; ++i) t16.f[i] = f[i];
-#define P3D_F4(T, D) return (int)launch_fir4<T, D>(x, y, NC, H, W, OH, OW, px0, py0, t16, s)
+#define P3D_F4(T, D) \
+  return (int)launch_fir4<T, D>(x, y, NC, H, W, OH, OW, px0, py0, t16, f4_plan, f4_rows, s)
     if (dtype == DT_BF16) {
       if (downx == 2) P3D_F4(__nv_bfloat16, 2);
       P3D_F4(__nv_bfloat16, 1);
@@ -1437,12 +1771,13 @@ PANIC3D_EXPORT int upfirdn2d(const void* x, void* y, int dtype, int NC, int H, i
   if (unit && fw >= 2 && fh >= 2 && fw <= 4 && fh <= 4) {   // a small 2-D filter, not 4x4
     Taps16 t16;
     for (int i = 0; i < fw * fh; ++i) t16.f[i] = f[i];
-#define P3D_FS(FH, FW)                                                                  \
-  if (fh == FH && fw == FW)                                                             \
-    return (int)(dtype == DT_BF16                                                       \
+#define P3D_FS(FH, FW)                                                                   \
+  if (fh == FH && fw == FW)                                                              \
+    return (int)(dtype == DT_BF16                                                        \
                      ? launch_fir4<__nv_bfloat16, 1, FH, FW>(x, y, NC, H, W, OH, OW, px0, \
-                                                             py0, t16, s)                \
-                     : launch_fir4<float, 1, FH, FW>(x, y, NC, H, W, OH, OW, px0, py0, t16, s))
+                                                             py0, t16, f4_plan, f4_rows, s) \
+                     : launch_fir4<float, 1, FH, FW>(x, y, NC, H, W, OH, OW, px0, py0, t16,  \
+                                                     f4_plan, f4_rows, s))
     P3D_FS(2, 2); P3D_FS(2, 3); P3D_FS(2, 4);
     P3D_FS(3, 2); P3D_FS(3, 3); P3D_FS(3, 4);
     P3D_FS(4, 2); P3D_FS(4, 3);

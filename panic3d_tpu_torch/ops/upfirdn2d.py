@@ -124,7 +124,8 @@ def upfirdn2d_plain(x, f2d, up, down, pad):
 
 
 _K4_ARGS = ((kb.PTR, kb.PTR) + (kb.INT,) * 12
-            + (kb.PTR, kb.INT, kb.INT, kb.PTR, kb.PTR, kb.PTR, kb.PTR))
+            + (kb.PTR, kb.INT, kb.INT, kb.PTR, kb.PTR, kb.PTR, kb.INT, kb.INT, kb.PTR))
+FIR4_VARIANTS = ("down2", "fir4", "fir_small")   # the 4x4 form's variants
 MAX_TAPS = 64   # the most taps the kernel takes by value (csrc/upfirdn2d.cu:MAX_TAPS)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -238,6 +239,88 @@ def large_phase_geometry(fh: int, fw: int, up, down) -> Optional[LargePhase]:
     return LargePhase(nch, nbands, smem) if smem <= SMEM_MAX else None
 
 
+# the 4x4 form's tiles (csrc/upfirdn2d.cu: F4_*, FR_*): threads a block, a
+# tile's output columns, the planes plan's most rows a thread, the rows
+# plans' tile rows, the flat plan's columns a lane and tile rows
+F4_THREADS, F4_TX, F4_PR, FR_Y, F4_P, F4_Y = 256, 64, 4, 32, 2, 64
+# the entry point's codes of the plans (csrc/upfirdn2d.cu: F4_PLAN_*)
+F4_PLANS = {"planes": 1, "rows": 2, "rows_scalar": 3, "flat": 4}
+
+
+class Fir4Limits(NamedTuple):
+    """Where :func:`fir4_block_plan` changes plan (scripts/k4_fir4_variants.py
+    times other values)."""
+    pack_w: int = 32            # the widest output row the planes plan takes (0: none)
+    pack_wa: int = 16           # the same where the rows are 16-byte aligned
+    pack_threads: int = 1 << 17  # the planes plan halves a thread's rows while it has fewer
+    tall_min: int = 528         # unaligned rows: the fewest 64-row tiles the flat plan takes
+    aligned_rows: bool = True   # 16-byte aligned rows take "rows" (False: as unaligned ones)
+
+
+F4_LIMITS = Fir4Limits()
+
+
+class Fir4BlockPlan(NamedTuple):
+    """How the 4x4 form's kernels cover one call (:func:`fir4_block_plan`)."""
+    plan: str             # "planes", "rows", "rows_scalar" or "flat" (the kernel:
+                          # upfirdn2d_fir4_planes_kernel, upfirdn2d_fir4_kernel staged by
+                          # 16-byte chunks or element by element, upfirdn2d_fir4_flat_kernel)
+    planes_a_block: float  # (n, c) planes a block of F4_THREADS threads takes (else 1 / tiles a plane)
+    tile: tuple           # output (rows, columns) of a thread's strip ("planes") or of a block's tile
+    window: tuple         # input (rows, columns) a thread reads ("planes") or a tile's window
+    rows: int             # output rows a thread ("planes") or a warp walks
+    lanes: tuple          # (adjacent output columns a lane, warps across a tile)
+    stage_w: int          # a staged row's stride in elements
+    shift: int            # x's elements past a 16-byte boundary (the flat plan's chunks' frame)
+    blocks: int           # "planes": the grid; else the tiles, a block each
+
+
+@functools.lru_cache(maxsize=1024)
+def fir4_block_plan(NC: int, H: int, W: int, OH: int, OW: int, down: int, dtype,
+                    fh: int = 4, fw: int = 4, shift: int = 0,
+                    limits: Fir4Limits = F4_LIMITS) -> Fir4BlockPlan:
+    """The 4x4 form's block plan for a call of NC planes H x W -> OH x OW at
+    ``down`` (1 or 2), a filter of fh x fw <= 4x4, x's data ``shift``
+    elements past a 16-byte boundary; the wrapper launches the plan it
+    names. An output row of at most ``limits.pack_w`` columns
+    (``pack_wa`` where x and its rows are 16-byte aligned) takes
+    "planes", a thread a column of a strip of F4_PR rows, halved while the
+    call has fewer than ``pack_threads`` threads; a wider one "rows" where
+    x and its rows are 16-byte aligned (FR_Y x F4_TX tiles staged by
+    16-byte chunks, a lane a column); else "flat" where the call has at
+    least ``tall_min`` tiles of F4_Y x F4_TX (F4_P columns a lane, windows
+    staged as 16-byte chunks of the flat tensor), and "rows_scalar" below
+    that (the rows plan's tiles staged element by element)."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    v = 16 // esize
+    aligned = shift == 0 and W % v == 0
+    if OW <= (limits.pack_wa if aligned else limits.pack_w):
+        rows = F4_PR
+        while rows > 1 and NC * OW * -(-OH // rows) < limits.pack_threads:
+            rows //= 2
+        strips = -(-OH // rows)
+        n = NC * OW * strips
+        if n <= 2**31 - 1:
+            return Fir4BlockPlan("planes", F4_THREADS / (OW * strips), (rows, 1),
+                                 (down * (rows - 1) + fh, fw), rows, (1, 1), 0, shift,
+                                 -(-n // F4_THREADS))
+    tiles_x = -(-OW // F4_TX)
+    if aligned and limits.aligned_rows:
+        plan = "rows"
+    elif NC * tiles_x * -(-OH // F4_Y) >= limits.tall_min:
+        plan = "flat"
+    else:
+        plan = "rows_scalar"
+    ty, p = (F4_Y, F4_P) if plan == "flat" else (FR_Y, 1)
+    wx = F4_TX // (32 * p)
+    win_x, win_y = down * (F4_TX - 1) + fw, down * (ty - 1) + fh
+    stage_w = (win_x + 1) & ~1 if plan == "rows_scalar" else (win_x + 2 * (v - 1)) // v * v
+    per_plane = tiles_x * -(-OH // ty)
+    return Fir4BlockPlan(plan, 1 / per_plane, (ty, F4_TX), (win_y, win_x),
+                         ty * wx // (F4_THREADS // 32), (p, wx), stage_w, shift,
+                         NC * per_plane)
+
+
 def k4_plan(f2d, up, down, pad) -> K4Plan:
     """The cached plan of a call (f2d [fh, fw] flipped and gained, up/down
     (x, y) pairs, pad (px0, px1, py0, py1)); a filter of more than MAX_TAPS
@@ -267,12 +350,17 @@ def _launch_k4(x, f2d, up, down, pad, transposed=False):
     if plan.taps is None:   # a large filter: its taps as a device buffer, copied without a wait
         f_dev = (to_device(f2d.detach().numpy(), x.device) if f2d.device.type == "cpu"
                  else f2d.detach().to(x.device, torch.float32).contiguous())
+    f4_plan = f4_rows = 0
+    if plan.variant in FIR4_VARIANTS:
+        bp = fir4_block_plan(n * c, h, w, oh, ow, down[0], x.dtype, fh, fw,
+                             x.data_ptr() % 16 // x.element_size(), F4_LIMITS)
+        f4_plan, f4_rows = F4_PLANS[bp.plan], bp.rows
     y = torch.empty((n, c, oh, ow), device=x.device, dtype=x.dtype)
     kb.launch(
         "upfirdn2d", _K4_ARGS, x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype],
         n * c, h, w, oh, ow, up[0], up[1], down[0], down[1], pad[0], pad[2],
         plan.taps, fw, fh, plan.c_phase_taps, plan.c_phase_src,
-        f_dev.data_ptr() if f_dev is not None else None,
+        f_dev.data_ptr() if f_dev is not None else None, f4_plan, f4_rows,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     k = KERNELS["upfirdn2d"]

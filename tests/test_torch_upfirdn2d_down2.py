@@ -4,13 +4,13 @@ A 4x4 filter at up 1 and down 2 on both axes (the discriminator's
 downsample2d: models/stylegan2.py's skip images at padding 0, the dual
 discriminator's image resize at padding -1) runs the "down2" form, and at
 up = down = 1 (conv2d_resample's filter pass before a conv of stride 2)
-the "fir4" form. A block stages the input window of a 32 x 64 output tile
-(zero outside the image; with aligned 16-byte chunks, the staged row starts
-up to a chunk before the window's first column), and each lane sums its
-output's 16 taps from the staged rows in order, a then b, with fmaf from 0,
-as the generic kernel does. Here that staging and that order run in plain
-torch (an f32 product is exact in f64, so each fmaf is the f64 sum rounded
-to f32) on numpy-seeded images, and must match the port's upfirdn2d_plain
+the "fir4" form. tests/torch_fir4_form.py emulates the kernel's block plan
+(ops/upfirdn2d.py:fir4_block_plan: the planes plan below 33 output columns,
+else tiles whose windows are staged as 16-byte chunks of the flat tensor,
+zero outside the image), with each lane summing its output's 16 taps from
+its window in order, a then b, with fmaf from 0, as the generic kernel
+does (an f32 product is exact in f64, so each fmaf is the f64 sum rounded
+to f32), on numpy-seeded images, and must match the port's upfirdn2d_plain
 and the JAX package's downsample2d / upfirdn2d within 1e-6 x max|out| in f32
 (sixteen products an output, summed in another order), and in bf16 the
 port's plain version within one bf16 ulp of max|out| (the f32 sums round to
@@ -29,17 +29,10 @@ import pytest
 import torch
 
 from panic3d_tpu_torch.ops.conv import conv2d_resample
+from torch_fir4_form import fir4_emulate
 
 jup = importlib.import_module("panic3d_tpu.ops.upfirdn2d")
 tup = importlib.import_module("panic3d_tpu_torch.ops.upfirdn2d")
-
-F4_X, F4_Y = 64, 32   # a block's output tile (csrc/upfirdn2d.cu:F4_X, F4_Y)
-
-
-def fma(a, b, c):
-    """fmaf in f32: the product exact in f64, one rounding of the sum."""
-    return (a.double() * b.double() + c.double()).float()
-
 
 def captured(monkeypatch, fn):
     """The (f2d, up, down, pad) of every K4 call fn makes, by a spy on the
@@ -57,38 +50,8 @@ def captured(monkeypatch, fn):
 
 
 def fir4_form(x, f2d, down, pad):
-    """The 4x4 form's outputs: each block's window staged as the kernel
-    stages it (aligned chunks of 16 bytes where the rows allow, zeros
-    outside the image), each lane's 4 window rows read at its staged
-    columns, the taps summed a then b with fmaf from 0 in f32, rounded to
-    x's dtype."""
-    n, c, h, w = x.shape
-    px0, _, py0, _ = pad
-    oh, ow = tup._out_size(h, w, 4, 4, (1, 1), (down, down), pad)
-    V = 16 // x.element_size()
-    vec = w % V == 0
-    win_x, win_y = down * (F4_X - 1) + 4, down * (F4_Y - 1) + 4
-    nch = (win_x + 2 * (V - 1)) // V
-    sw = V * nch if vec else (win_x + 1) & ~1
-    xf = x.float()
-    oy, ox = torch.meshgrid(torch.arange(oh), torch.arange(ow), indexing="ij")
-    # the block of each output, its window's first input and the staged row's start
-    sx = down * (ox // F4_X) * F4_X - px0
-    sy = down * (oy // F4_Y) * F4_Y - py0
-    base = (sx // V) * V if vec else sx
-    col = sx - base + down * (ox % F4_X)        # the lane's first staged column
-    row = down * (oy % F4_Y)                    # the output's first window row
-    assert int(col.max()) + 3 < sw and int(row.max()) + 3 < win_y
-    acc = torch.zeros(n, c, oh, ow)
-    taps = f2d.float()
-    for a in range(4):
-        iy = sy + row + a
-        for b in range(4):
-            ix = base + col + b
-            inside = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
-            v = torch.where(inside, xf[:, :, iy.clamp(0, h - 1), ix.clamp(0, w - 1)], 0.0)
-            acc = fma(taps[a, b].expand_as(acc), v, acc)
-    return acc.to(x.dtype)
+    """The 4x4 form's outputs under its block plan (torch_fir4_form)."""
+    return fir4_emulate(x, f2d, down, pad)[0]
 
 
 FILT = [1, 3, 3, 1]
