@@ -271,7 +271,7 @@ NO_SPILL = ("triplane_decode_kernel", "factor_terms_kernel", "occlusion_volume_k
             "upfirdn2d_large_phase_kernel", "upfirdn2d_rows2_kernel",
             "upfirdn2d_cols2_kernel", "triplane_decode_grad_kernel",
             "grid_sample_kernel", "grid_sample_grad_kernel", "paste_grad_pixels_kernel",
-            "paste_grad_texels_kernel")   # must not spill
+            "paste_grad_texels_kernel", "filtered_lrelu_strip_kernel")   # must not spill
 PASTE_KEYS = ("mask_weights", "mask_edges", "mask_occ", "mask_dxyz")
 MESH_RES = 256     # eval generate's mesh resolution
 LEVEL = 0.5        # eval generate's iso level
@@ -3585,7 +3585,18 @@ def k11_ops(plan, n, c, h_in):
     return 2.0 * n * c * (up_macs + down_macs)
 
 
-def k11_one(layer, label, device, gen):
+def k11_parent(parent, fn, label):
+    """K11's call fn against the parent's K11 (--parent DIR holding
+    filtered_lrelu.cu; its entry point reads the plan's leading fields,
+    the tile form's layout): equal bits, not slower in every round
+    (parent_rounds). None without the parent's K11."""
+    if "filtered_lrelu" not in parent:
+        return None
+    return require_parent(parent_rounds({"filtered_lrelu": parent["filtered_lrelu"][0]}, fn),
+                          label)
+
+
+def k11_one(layer, label, device, gen, parent):
     """K11 at one layer's geometry, batch SG3_BATCH, in the layer's dtype:
     the kernel and its plain version each against an f64 evaluation of the
     plain version (the kernel's error at most the plain version's in bf16,
@@ -3598,7 +3609,8 @@ def k11_one(layer, label, device, gen):
     plain K5 and K11: K5 exact against its plain version on the layer's own
     conv output (demodulation only, or nothing at the toRGB), and each
     layer's output against the f64 evaluation of the plain K11 on its own
-    K11 input, held as the kernel alone is. -> summary."""
+    K11 input, held as the kernel alone is. With --parent, the kernel
+    against the parent's (k11_parent). -> summary."""
     import importlib
 
     import torch
@@ -3606,7 +3618,7 @@ def k11_one(layer, label, device, gen):
     from panic3d_tpu_torch.ops.bias_act import (
         bias_act, modconv_epilogue_kernel, modconv_epilogue_plain)
     from panic3d_tpu_torch.ops.filtered_lrelu import (
-        filtered_lrelu_kernel, filtered_lrelu_plain, k11_plan)
+        TILE, filtered_lrelu_kernel, filtered_lrelu_plain, k11_plan)
     from panic3d_tpu_torch.ops.upfirdn2d import upfirdn2d
 
     sg3 = importlib.import_module("panic3d_tpu_torch.models.stylegan3")
@@ -3648,6 +3660,11 @@ def k11_one(layer, label, device, gen):
     require(peak <= layer.conv_clamp * fd_abs, f"K11 {label}: |out| {peak} beyond the clamp")
     if layer.is_torgb:
         require(peak <= layer.conv_clamp, f"K11 {label}: |out| {peak} > clamp")
+    plan = k11_plan(x.shape, kw["fu"], kw["fd"], kw["up"], kw["down"], kw["padding"],
+                    kw["gain"], kw["slope"], kw["clamp"])
+    tile = (list(plan.strip.t) + [plan.strip.smem] if plan.strip else [TILE, TILE, None])
+    print(f"    form {plan.form}, output tile {tile[0]}x{tile[1]}, shared memory {tile[2]} B")
+    vs_parent = k11_parent(parent, lambda: filtered_lrelu_kernel(x, **kw), f"K11 {label}")
 
     def composition():
         y = bias_act(x, b)
@@ -3656,12 +3673,11 @@ def k11_one(layer, label, device, gen):
         return upfirdn2d(y, kw["fd"], down=kw["down"])
 
     e_comp = max_err(composition(), yp)
-    plan = k11_plan(x.shape, kw["fu"], kw["fd"], kw["up"], kw["down"], kw["padding"],
-                    kw["gain"], kw["slope"], kw["clamp"])
     n_bytes, flops = nbytes(x, yk) + 4 * c, k11_ops(plan, SG3_BATCH, c, n_in)
     summ = record(e, lambda: filtered_lrelu_kernel(x, **kw),
                   lambda: filtered_lrelu_plain(x, **kw), n_bytes, flops, plain_iters=3)
-    summ.update(composition_ms=cuda_ms(composition), bytes=n_bytes, flops=flops)
+    summ.update(composition_ms=cuda_ms(composition), bytes=n_bytes, flops=flops,
+                form=plan.form, tile=tile, parent=vs_parent)
     del yk, yp
 
     # the whole layer: cuDNN conv + K5 + K11, against the layer with the
@@ -3715,18 +3731,19 @@ def k11_one(layer, label, device, gen):
     return summ
 
 
-def k11_general_checks(device, gen):
+def k11_general_checks(device, gen, parent):
     """K11's general form (the geometries outside StyleGAN3's compiled ones)
     at two: up 2 with 24 up taps (12 a phase) and 12 down taps, f32, and up
     4 with 12 up taps (3 a phase) and the 12x12 radial filter, bf16, each on
-    [4,64,60,60], held to f64 as k11_one holds the layers. -> max error vs
-    the plain version."""
+    [4,64,60,60], held to f64 as k11_one holds the layers; with --parent,
+    against the parent's (k11_parent). -> (max error vs the plain version,
+    the parent comparisons)."""
     import torch
 
     from panic3d_tpu_torch.models.stylegan3 import design_lowpass_filter
     from panic3d_tpu_torch.ops.filtered_lrelu import filtered_lrelu_kernel, filtered_lrelu_plain
 
-    err = 0.0
+    err, vs_parent = 0.0, []
     for up, ut, dtype, radial in ((2, 24, torch.float32, False), (4, 12, torch.bfloat16, True)):
         fu = torch.from_numpy(design_lowpass_filter(ut, cutoff=10.0, width=6.0, fs=64.0))
         fd = torch.from_numpy(design_lowpass_filter(12, cutoff=9.0, width=7.0, fs=64.0,
@@ -3746,8 +3763,10 @@ def k11_general_checks(device, gen):
               f"{e:.3e}; vs f64: kernel {err_k:.3e}, plain {err_p:.3e} (limit {factor:g}x)")
         require(err_k <= factor * err_p, f"K11 general form: error vs f64 {err_k} > {factor} x "
                                          f"the plain version's {err_p}")
+        vs_parent.append(k11_parent(parent, lambda: filtered_lrelu_kernel(x, **kw),
+                                    f"K11 general form, up {up}"))
         err = max(err, e)
-    return err
+    return err, vs_parent
 
 
 def sg3_layers(cfg, device, radial_only=False):
@@ -3767,10 +3786,11 @@ def sg3_layers(cfg, device, radial_only=False):
     return out
 
 
-def k11_checks(device):
+def k11_checks(device, parent):
     """K11 at every stylegan3-t geometry and the 12 radial stylegan3-r ones
-    (k11_one), and in its general form (k11_general_checks); the sums over
-    the 15 T layers on a line of their own.
+    (k11_one), and in its general form (k11_general_checks), with --parent
+    each against the parent's K11; the sums over the 15 T layers on a line
+    of their own.
     -> {"filtered_lrelu": summary}: its top-level numbers are the 15 T
     layers' sums (the bound from their summed bytes and operations)."""
     import torch
@@ -3782,10 +3802,10 @@ def k11_checks(device):
     per = {}
     for cfg, radial in (("stylegan3-t", False), ("stylegan3-r", True)):
         print(f"K11 filtered_lrelu, {cfg}{' radial layers' if radial else ''} (batch {SG3_BATCH})")
-        per[cfg] = [k11_one(layer, label, device, gen)
+        per[cfg] = [k11_one(layer, label, device, gen, parent)
                     for label, layer in sg3_layers(cfg, device, radial_only=radial)]
         torch.cuda.empty_cache()
-    e_general = k11_general_checks(device, gen)
+    e_general, general_parent = k11_general_checks(device, gen, parent)
     require(KERNELS["filtered_lrelu"].launches > n0, "K11 did not launch")
     t = per["stylegan3-t"]
     sums = {k: sum(g[k] for g in t) for k in ("ms", "plain_ms", "composition_ms", "layer_ms")}
@@ -3797,11 +3817,19 @@ def k11_checks(device):
           f"{sum(g['bound_ms'] for g in t):.6f}), plain {sums['plain_ms']:.6f} ms, unfused "
           f"composition {sums['composition_ms']:.6f} ms; the layers' forwards "
           f"{sums['layer_ms']:.6f} ms")
+    parent_sums = None
+    if t[0]["parent"] is not None:
+        # each layer's last round: the parent's two times and this tree's two
+        parent_sums = [sum(g["parent"]["ms_parent_this_this_parent"][i] for g in t)
+                       for i in range(4)]
+        print(f"K11 over the 15 stylegan3-t layers, parent / this / this / parent "
+              + " / ".join(f"{v:.6f}" for v in parent_sums) + " ms")
     return {"filtered_lrelu": {
         "max_abs_err": max([e_general] + [g["max_abs_err"] for cfg in per for g in per[cfg]]),
         "ms": sums["ms"], "plain_ms": sums["plain_ms"], "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None, "composition_ms": sums["composition_ms"],
         "layers_forward_ms": sums["layer_ms"], "batch": SG3_BATCH,
+        "parent_ms_parent_this_this_parent": parent_sums, "general_parent": general_parent,
         "geometries": {cfg: per[cfg] for cfg in per}}}
 
 
@@ -4751,39 +4779,60 @@ def k1_grad_bytes(planes_cl, coords, g_rgb, g_sigma) -> int:
     return nbytes(planes_cl, coords, g_rgb, g_sigma) + planes_cl.numel() * planes_cl.element_size()
 
 
-def parent_k1_grad(lib, planes_cl, coords, dec, box_warp, plane_axes, filters, g_rgb, g_sigma):
-    """The parent's K1 backward form (its csrc/triplane_decode_grad.cu: a
-    point a thread writing the per-point blocks f, h, dL/dpre, dL/dout)
-    with its wrapper as it was (the weight gradients by torch.matmul over
-    the blocks): the same contract as triplane_decode_grad_kernel."""
-    import ctypes
+def k1g_parent_adapt():
+    """parent_entries' adapt for the parent's K1 / K10 backward form: where
+    its entry point predates the quads argument, the call without it; where
+    its source also predates the quads (2 CTAs of 4 warps an SM, a weight
+    partial a CTA), its persistent grid as its wrapper sized it: min(2 x
+    the SMs, the rounds of 4 tiles of 16 points); the partials' scratch this
+    tree allocates (ctas x quads rows) holds its partials. None where its
+    entry point takes this tree's arguments."""
+    from pathlib import Path
 
     import torch
 
-    from panic3d_tpu_torch.kernels import build as kb
-    from panic3d_tpu_torch.models.volumetric import renderer as vr
+    src = PARENT_SOURCES.get("triplane_decode_grad")
+    text = "" if src is None else Path(src).read_text()
+    if src is None or "int ctas, int quads" in text:
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    old_grid = "QUADS" not in text
 
-    N, _, H, W, C = planes_cl.shape
-    M, dev, P = coords.shape[1], planes_cl.device, planes_cl.shape[0] * coords.shape[1]
-    w0, b0, w1, b1 = vr._decoder_f32(dec, dev)
-    g_rgb, g_sigma = g_rgb.contiguous(), g_sigma.to(torch.float32).contiguous()
-    g_planes = torch.zeros(planes_cl.shape, dtype=torch.float32, device=dev)
-    blocks = [torch.empty((P, n), dtype=torch.float32, device=dev) for n in (C, 64, 64, 33)]
-    gain0, gain1 = dec.lr_mul / math.sqrt(C), dec.lr_mul / math.sqrt(64)
-    fn = lib.triplane_decode_grad
-    fn.argtypes = list((kb.PTR, kb.INT) + (kb.PTR,) * 12 + (kb.INT,) * 5 + (kb.PTR,)
-                       + (kb.FLOAT,) * 4 + (kb.INT, kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
-    fn.restype = ctypes.c_int
-    rc = fn(planes_cl.data_ptr(), vr._DTYPES[planes_cl.dtype], coords.data_ptr(),
-            w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), g_rgb.data_ptr(),
-            g_sigma.data_ptr(), g_planes.data_ptr(), *(b.data_ptr() for b in blocks), N, M, H,
-            W, C, kb.f32_array(np.linalg.inv(plane_axes)[:, :, :2].reshape(-1)),
-            2.0 / box_warp, gain0, gain1, dec.lr_mul, int(dec.force_sigmoid),
-            *vr._filter_args(filters, box_warp), torch.cuda.current_stream(dev).cuda_stream)
-    require(rc == 0, f"parent triplane_decode_grad: CUDA error {rc}")
-    feats, hid, g_pre, g_out = blocks
-    return (g_planes.to(planes_cl.dtype), (g_pre.T @ feats) * gain0, g_pre.sum(0) * dec.lr_mul,
-            (g_out.T @ hid) * gain1, g_out.sum(0) * dec.lr_mul)
+    def adapt(argtypes, args):
+        ctas = args[12]
+        if old_grid:
+            points = args[14] * args[15]   # N, M
+            ctas = max(1, min(2 * sms, -(-points // 64)))
+        return argtypes[:13] + argtypes[14:], args[:12] + (ctas,) + args[14:]
+
+    return adapt
+
+
+def k1g_parent(parent, name, fn, label):
+    """K1's or K10's backward form (fn: a wrapper call, its entry point
+    ``name``) against the parent's kernel (--parent DIR holding
+    triplane_decode_grad.cu), run on its own grid (k1g_parent_adapt): the
+    largest difference from the parent's outputs relative to each one's
+    max (the scatter's atomics and the partials' grouping differ), and
+    parent / this / this / parent rounds (parent_rounds), failing a call
+    slower than the parent in each of 3 rounds. None without the parent."""
+    if "triplane_decode_grad" not in parent:
+        return None
+
+    def compare(got, want):
+        return {"relative_err_vs_parent": max(rel_max_err(a.double(), b.double())
+                                              for a, b in zip(got, want))}
+
+    cmp_ = parent_rounds({name: (parent["triplane_decode_grad"][0], k1g_parent_adapt())},
+                         fn, compare)
+    t = cmp_["ms_parent_this_this_parent"]
+    print(f"  {label}: parent / this / this / parent " + " / ".join(f"{v:.6f}" for v in t)
+          + f" ms (round {len(cmp_['rounds'])}; this / parent "
+          f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}); largest difference from the parent's "
+          f"relative to each max {cmp_['relative_err_vs_parent']:.3e}")
+    require(not cmp_["slower"], f"{label}: slower than the parent kernel in each of "
+                                f"{len(cmp_['rounds'])} rounds: {cmp_['rounds']}")
+    return cmp_
 
 
 def training_render_samples(G, device, ortho=False):
@@ -4849,7 +4898,8 @@ def k1_grad_check(label, t, x, parent, timed_plain=True):
     each tensor's max. Timed beside its bound and (``timed_plain``) its
     plain version, and with ``parent`` (--parent: the parent's
     triplane_decode_grad.cu) against the parent's form, parent / this / this /
-    parent. -> summary."""
+    parent, failing a call slower in each of 3 rounds (k1g_parent).
+    -> summary."""
     import torch
 
     from panic3d_tpu_torch.models.volumetric import renderer as vr
@@ -4902,20 +4952,11 @@ def k1_grad_check(label, t, x, parent, timed_plain=True):
                     ("triplane_decode_grad_kernel", "triplane_decode_grad_finish")))
     print(f"  ms {summ['ms']:.6f}  bound_ms {summ['bound_ms']:.6f} ({summ['bound_by']})  "
           f"kernels alone (torch.profiler) {summ['kernel_us_profiler']} us")
-    if "triplane_decode_grad" in parent:
-        lib = parent["triplane_decode_grad"][0]
-        with torch.no_grad():
-            gq = parent_k1_grad(lib, *args)
-            e_parent = max(rel_max_err(a.double(), b.double()) for a, b in zip(gk, gq))
-            run = [lambda: parent_k1_grad(lib, *args),
-                   lambda: vr.triplane_decode_grad_kernel(*args)]
-            ms = [cuda_ms(run[i]) for i in (0, 1, 1, 0)]
-        summ["parent"] = {"ms_parent_this_this_parent": ms,
-                          "relative_err_vs_parent": e_parent}
-        print(f"  K1 backward, {label}: parent / this / this / parent "
-              + " / ".join(f"{v:.6f}" for v in ms) + f" ms; largest difference from the "
-              f"parent's relative to each max {e_parent:.3e}")
     del gk, gp
+    with torch.no_grad():
+        summ["parent"] = k1g_parent(parent, "triplane_decode_grad",
+                                    lambda: vr.triplane_decode_grad_kernel(*args),
+                                    f"K1 backward, {label}")
     return summ
 
 
@@ -4928,8 +4969,10 @@ def k1_grad_parts(G, device):
     machine): csrc/triplane_decode_grad.cu built with parts left out
     (-DK1G_PARTS, K1G_PARTS), each variant's main kernel timed alone by
     torch.profiler at the pinhole training pass and Gcond's ortho front
-    coarse pass. A variant without a part gives wrong values: only the
-    full build is checked (k1_grad_check). -> {pass: {variant: us}}."""
+    coarse pass, and as K10's backward form at depth 2's coarse training
+    pass (k10_grad_inputs). A variant without a part gives wrong values:
+    only the full build is checked (k1_grad_check, k10_grad_check).
+    -> {pass: {variant: us}}."""
     import ctypes
     from pathlib import Path
 
@@ -4970,6 +5013,16 @@ def k1_grad_parts(G, device):
         print(f"K1 backward by parts, {label} (main kernel alone, us): " + ", ".join(
             f"{k} {v:.1f}" for k, v in result[label].items()))
         del t, args
+    label, args = "depth 2 coarse pass (K10)", k10_grad_inputs(device)
+    result[label] = {}
+    with torch.no_grad():
+        for name, lib in libs.items():
+            with parent_entries({"triplane_decode_deep_grad": lib}):
+                result[label][name] = kernel_device_us(
+                    lambda: vr.triplane_decode_deep_grad_kernel(*args),
+                    "triplane_decode_grad_kernel")
+    print(f"K10 backward by parts, {label} (main kernel alone, us): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in result[label].items()))
     return result
 
 
@@ -5140,18 +5193,18 @@ def k4_slower(times) -> bool:
     return min(t) > max(p) * (1 + spread)
 
 
-def k4_parent_compare(parent, fn):
-    """fn() (a K4 launch) against the same launch of the parent's entry
-    point (--parent DIR holding upfirdn2d.cu): values not equal bit for bit,
-    and the times in the order parent / this / this / parent, timed again
-    while a round is slower (k4_slower), up to K4_PARENT_ROUNDS rounds;
-    "slower": every round was. None without the parent's K4."""
-    if "upfirdn2d" not in parent:
-        return None
-    swap = {"upfirdn2d": (parent["upfirdn2d"][0], k4_parent_adapt(parent))}
+def parent_rounds(swap, fn, compare=None):
+    """fn() against the same launches of the parent's entry points (``swap``:
+    parent_entries' map): values not equal bit for bit (or ``compare(this,
+    parent)``'s dict), and the times in the order parent / this / this /
+    parent, timed again while a round is slower (k4_slower), up to
+    K4_PARENT_ROUNDS rounds; "slower": every round was."""
     got = fn()
     with parent_entries(swap):
         want = fn()
+    differ = (compare(got, want) if compare is not None else
+              {"values_not_bit_equal": int((got != want).sum()), "values": got.numel()})
+    del got, want
     rounds = []
     while len(rounds) < K4_PARENT_ROUNDS and (not rounds or k4_slower(rounds[-1])):
         with parent_entries(swap):
@@ -5161,8 +5214,31 @@ def k4_parent_compare(parent, fn):
             p2 = cuda_ms(fn)
         rounds.append([p1, n1, n2, p2])
     return {"ms_parent_this_this_parent": rounds[-1], "rounds": rounds,
-            "slower": k4_slower(rounds[-1]),
-            "values_not_bit_equal": int((got != want).sum()), "values": got.numel()}
+            "slower": k4_slower(rounds[-1]), **differ}
+
+
+def require_parent(cmp_, label):
+    """Print the round of a parent_rounds comparison that decides, and
+    require the outputs bit-equal to the parent's and not slower than it in
+    every round. -> cmp_."""
+    t = cmp_["ms_parent_this_this_parent"]
+    print(f"    parent / this / this / parent {t[0]:.6f} / {t[1]:.6f} / {t[2]:.6f} / "
+          f"{t[3]:.6f} ms (round {len(cmp_['rounds'])}); values not equal bit for bit: "
+          f"{cmp_['values_not_bit_equal']} of {cmp_['values']}")
+    require(cmp_["values_not_bit_equal"] == 0,
+            f"{label}: the outputs differ from the parent kernel's")
+    require(not cmp_["slower"], f"{label}: slower than the parent kernel in each of "
+                                f"{len(cmp_['rounds'])} rounds: {cmp_['rounds']}")
+    return cmp_
+
+
+def k4_parent_compare(parent, fn):
+    """fn() (a K4 launch) against the same launch of the parent's entry
+    point (--parent DIR holding upfirdn2d.cu): parent_rounds. None without
+    the parent's K4."""
+    if "upfirdn2d" not in parent:
+        return None
+    return parent_rounds({"upfirdn2d": (parent["upfirdn2d"][0], k4_parent_adapt(parent))}, fn)
 
 
 def k4_require_parent(parent, fn, label, times=None):
@@ -5175,15 +5251,7 @@ def k4_require_parent(parent, fn, label, times=None):
         cmp_ = k4_parent_compare(parent, fn)
     if cmp_ is None:
         return None if times is None else {"ms_parent_this_this_parent": times, "slower": False}
-    t = cmp_["ms_parent_this_this_parent"]
-    print(f"    parent / this / this / parent {t[0]:.6f} / {t[1]:.6f} / {t[2]:.6f} / "
-          f"{t[3]:.6f} ms (round {len(cmp_['rounds'])}); values not equal bit for bit: "
-          f"{cmp_['values_not_bit_equal']} of {cmp_['values']}")
-    require(cmp_["values_not_bit_equal"] == 0,
-            f"{label}: the outputs differ from the parent kernel's")
-    require(not cmp_["slower"], f"{label}: slower than the parent kernel in each of "
-                                f"{len(cmp_['rounds'])} rounds: {cmp_['rounds']}")
-    return cmp_
+    return require_parent(cmp_, label)
 
 
 def k4_backward_checks(calls, device, parent):
@@ -6204,16 +6272,11 @@ def k10_grad_ops(points: int, C: int):
     return points * 3 * C * (14 + 16), k1_grad_ops(points, C)[1]
 
 
-def k10_grad_check(device, card):
-    """K10's backward form against its plain version (autograd of
-    triplane_decode_deep_plain) on the card at depth 2's coarse training
-    pass: bf16 volumes [24,2,256,256,32] (seeded planes), 8 x 4,096 rays of
-    random pinhole cameras x 48 jittered depths, a seeded decoder, random
-    output gradients. K1's backward's tolerances (k1_grad_check): the
-    volumes' gradient within 2^-7 of its max; the decoder's against an f64
-    evaluation, the kernel's within 10x the f32 plain version's error (or
-    1e-4) of each max; the weight gradients equal bit for bit over two
-    launches. Timed beside its bound and the plain version. -> summary."""
+def k10_grad_inputs(device):
+    """Depth 2's coarse training pass for K10's backward form: bf16 volumes
+    [24,2,256,256,32] (seeded planes), 8 x 4,096 rays of random pinhole
+    cameras x 48 jittered depths, a seeded decoder, random output
+    gradients -> the wrappers' arguments."""
     import torch
 
     from panic3d_tpu_torch import configs
@@ -6239,7 +6302,27 @@ def k10_grad_check(device, card):
     P = x.shape[1]
     g_rgb = (torch.randn((N, P, 32), generator=gen, device=device) * 1e-3).to(torch.bfloat16)
     g_sig = torch.randn((N, P, 1), generator=gen, device=device) * 1e-3
-    args = (vols, x, dec, bw, axes, nof, g_rgb, g_sig)
+    return (vols, x, dec, bw, axes, nof, g_rgb, g_sig)
+
+
+def k10_grad_check(device, card, parent):
+    """K10's backward form against its plain version (autograd of
+    triplane_decode_deep_plain) on the card at depth 2's coarse training
+    pass: bf16 volumes [24,2,256,256,32] (seeded planes), 8 x 4,096 rays of
+    random pinhole cameras x 48 jittered depths, a seeded decoder, random
+    output gradients. K1's backward's tolerances (k1_grad_check): the
+    volumes' gradient within 2^-7 of its max; the decoder's against an f64
+    evaluation, the kernel's within 10x the f32 plain version's error (or
+    1e-4) of each max; the weight gradients equal bit for bit over two
+    launches. Timed beside its bound and the plain version, and with
+    --parent against the parent's kernel (k1g_parent). -> summary."""
+    import torch
+
+    from panic3d_tpu_torch.models.volumetric import renderer as vr
+
+    args = k10_grad_inputs(device)
+    vols, x, dec, bw, axes, nof, g_rgb, g_sig = args
+    N, P, C, D = x.shape[0], x.shape[1], vols.shape[-1], vols.shape[1]
     print(f"K10's backward form, depth {D} coarse training pass: volumes {tuple(vols.shape)} "
           f"bf16, coords {tuple(x.shape)}")
     with torch.no_grad():
@@ -6282,10 +6365,14 @@ def k10_grad_check(device, card):
     print(f"  {runs} calls profiled, by launch (recorded, mean ms): " + ", ".join(
         f"{k} {n} {ms:.6f}" for k, (n, ms) in means.items())
         + f"; the means sum to {sum(ms for _, ms in means.values()):.6f}  [{card}]")
+    with torch.no_grad():
+        summ["parent"] = k1g_parent(parent, "triplane_decode_deep_grad",
+                                    lambda: vr.triplane_decode_deep_grad_kernel(*args),
+                                    "K10 backward")
     return summ
 
 
-def training_options_path(device, card, default=None):
+def training_options_path(device, card, default=None, parent=None):
     """The trainer's paste-front and depth-2 options on the card: K8's
     backward form at training's paste (k8_grad_checks) and K10's at depth
     2's coarse pass (k10_grad_check) against their plain versions, and
@@ -6310,7 +6397,7 @@ def training_options_path(device, card, default=None):
     torch.cuda.empty_cache()
     with torch.enable_grad():
         counts["depth2"], summary["depth2"], _ = training_path(device, card, "depth2")
-    checks["triplane_decode_deep_grad"] = k10_grad_check(device, card)
+    checks["triplane_decode_deep_grad"] = k10_grad_check(device, card, parent or {})
     torch.cuda.empty_cache()
     base, base_busy = default["s_per_step_median"], default["profiled_step"]["busy_ms"]
     for run in ("paste", "depth2"):
@@ -6560,7 +6647,8 @@ def main(argv=None) -> int:
                          "(k1_k2_grad_checks), with --parent against the parent's kernels, "
                          "then stop: a redesign's first short call")
     ap.add_argument("--k1-grad-parts", action="store_true",
-                    help="with --forms-only, also time K1's backward form built with parts "
+                    help="with --forms-only or --decode-grad-only, also time K1's (and K10's) "
+                         "backward form built with parts "
                          "left out (k1_grad_parts)")
     ap.add_argument("--training-only", action="store_true",
                     help="build, then run only the training path (trainer.main at the "
@@ -6580,6 +6668,14 @@ def main(argv=None) -> int:
                     help="build, then run only the GAN metrics path (calc_metrics.main with "
                          "the six metrics, fid50k_full's card work timed, InceptionV3 card vs "
                          "CPU and under the TF32 flags, the trainer's --metrics), then stop")
+    ap.add_argument("--decode-grad-only", action="store_true",
+                    help="build, then run only K1's and K2's backward checks "
+                         "(k1_k2_grad_checks) and K10's (k10_grad_check), with --parent each "
+                         "against the parent's kernel; with --k1-grad-parts, the parts' times")
+    ap.add_argument("--sg3-only", action="store_true",
+                    help="build, then run only K11's checks (k11_checks: the 15 stylegan3-t "
+                         "layers, stylegan3-r's radial ones, the general form; with --parent "
+                         "each against the parent's K11) and the stylegan3-t layers path")
     ap.add_argument("--parent", metavar="DIR",
                     help="a directory of the parent commit's kernel sources (e.g. "
                          "upfirdn2d.cu, front_occlusion.cu, paste_front.cu): time this "
@@ -6637,6 +6733,30 @@ def main(argv=None) -> int:
         print(card)
         return 0
 
+    if args.decode_grad_only:
+        Gt = configs.flagship(device=device).init_weights(SEED)
+        grads = k1_k2_grad_checks(Gt, device, parent)
+        grads["triplane_decode_deep_grad"] = k10_grad_check(device, card, parent)
+        parts = k1_grad_parts(Gt, device) if args.k1_grad_parts else None
+        print(f"wall time {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({**grads, "k1_grad_parts": parts}, default=str))
+        print(card)
+        return 0
+
+    if args.sg3_only:
+        with torch.no_grad():
+            checks = k11_checks(device, parent)
+            counts_sg3, sg3 = sg3_layers_path(device, card)
+        kernels = [dict(name="filtered_lrelu", route="cuda",
+                        source=KERNELS["filtered_lrelu"].source,
+                        replaces=KERNELS["filtered_lrelu"].replaces,
+                        launches=counts_sg3["filtered_lrelu"], **checks["filtered_lrelu"])]
+        print(f"wall time {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"paths": {"stylegan3_t_layers": sg3}, "kernels": kernels},
+                         default=str))
+        print(card)
+        return 0
+
     if args.ada_only:
         checks = k14_checks(device, parent)
         checks["grid_sample_2d"]["augment_pipe"] = augment_check(device, card)
@@ -6652,7 +6772,7 @@ def main(argv=None) -> int:
 
     if args.options_only:
         grad_guard_checks(device)
-        checks, counts_opts, options = training_options_path(device, card)
+        checks, counts_opts, options = training_options_path(device, card, parent=parent)
         kernels = [dict(name=n, route="cuda", source=KERNELS[n].source,
                         replaces=KERNELS[n].replaces, launches=counts_opts[run][n], **checks[n])
                    for n, run in (("paste_front_grad", "paste"),
@@ -6719,7 +6839,7 @@ def main(argv=None) -> int:
         checks.update(volume_checks)
         checks.update(k13_checks(device))
         checks.update(k10_checks(Gd, device, parent))
-        checks.update(k11_checks(device))
+        checks.update(k11_checks(device, parent))
         checks.update(k14_checks(device, parent))
         checks["grid_sample_2d"]["augment_pipe"] = augment_check(device, card)
         grad_guard_checks(device)
@@ -6799,7 +6919,7 @@ def main(argv=None) -> int:
         checks.update(train_checks)
         # the trainer's options: paste-front and depth 2 (K8's and K10's
         # backward forms), each with a monotonic Greg
-        opt_checks, counts_opts, options = training_options_path(device, card, training)
+        opt_checks, counts_opts, options = training_options_path(device, card, training, parent)
         checks.update(opt_checks)
         for name in ("grid_sample_2d", "grid_sample_2d_grad"):
             checks[name]["launches_per_ada_step"] = training["ada"]["ada"][

@@ -34,17 +34,20 @@
 //   dL/dout from the accumulators (rgb: g s (1 - s) x the MipNeRF scale,
 //   sigma: its gradient where no density filter replaced it); then the
 //   backward on the tensor cores too: dL/dh = dL/dout W1, dL/dpre = dL/dh
-//   sigmoid(pre), dL/df = dL/dpre W0. h, sigmoid(pre), dL/dpre, dL/dout
-//   and dL/df live in the warp's slot of shared memory between the
-//   products (the A operands), never in device memory.
-// - The weight gradients inside the kernel: a persistent grid of 2 CTAs
-//   an SM, 4 warps each. A round is one tile a warp; after it the CTA's
-//   warps each take one 16-row m-tile of dW0 += dL/dpre^T f and dW1^T +=
-//   h^T dL/dout over the round's 64 points (the same 3xTF32 mma; db0 and
-//   db1 as sums of the operands the lane loads), kept in registers across
-//   the rounds. Each CTA writes one partial; a second launch sums the
-//   partials in a fixed order (f64) and applies the gains, so the weight
-//   gradients come out the same from run to run.
+//   sigmoid(pre), and after the round's weight products dL/df = dL/dpre
+//   W0. h, sigmoid(pre), dL/dpre, dL/dout and dL/df live in the warp's
+//   slot of shared memory between the products (the A operands), never in
+//   device memory.
+// - The weight gradients inside the kernel: a persistent grid of one CTA
+//   an SM, 3 quads of 4 warps each (2 on f32 planes). A quad's round is one
+//   tile a warp; after it (a named barrier, the quad's alone) the quad's
+//   warps each take one 16-row
+//   m-tile of dW0 += dL/dpre^T f and dW1^T += h^T dL/dout over the round's
+//   64 points (the same 3xTF32 mma; db0 and db1 as sums of the operands
+//   the lane loads), kept in registers across the rounds. Each quad writes
+//   one partial; a second launch sums the partials in a fixed order (f64)
+//   and applies the gains, so the weight gradients come out the same from
+//   run to run.
 // - The scatter (scatter_tile): a point's cell on each plane, its 4
 //   corners' weights; a run of consecutive points in one cell (a ray's
 //   samples: on the ortho front view every sample of a ray hits the same
@@ -55,9 +58,21 @@
 //   replaced by plain stores took as long: the scatter's instructions, not
 //   the L2's atomics, bound it, so a lane reads a point's dL/df chunk once
 //   for its 4 corners (TMA bulk reductions of whole rows were slower).
-// The decoder's gained weights sit in shared memory in f32 as each product
-// reads its B operand (layer 1, dL/df: w0 and its transpose; layer 2,
-// dL/dh: w1 and its transpose), split as they are read.
+// What holds a warp back is latency: its tile is one long dependent chain
+// (the gather's L2 reads, five products, libm's expf and log1pf, the
+// scatter's atomics), its instructions a quarter of the SM's issue slots
+// or less (counted from the code), so the design buys warps. The CTA holds
+// the decoder's gained weights once an SM, split into TF32 (hi, lo) pairs
+// as they are loaded,
+// w0 [64][C] and w1 [40][64] in one orientation each: a B fragment is two
+// 8-byte loads, with no split, in either orientation (layer 1 and dL/df
+// read w0 as it is and transposed, layer 2 and dL/dh w1), conflict-free at
+// a row stride of 4 mod 16 pairs. (A layout of whole fragments, 16 bytes a
+// lane, needs both orientations: 72 KB, which leaves room for 10 warps.) A
+// warp's slot holds f, h, sigmoid(pre) and dL/dout for the round's
+// products; dL/df then takes f's place and the scatter's items dL/dout's,
+// 13.5 KB a warp at C = 32. The weights (40 KB) and 12 slots take ~202
+// KB: 12 warps an SM.
 //
 // K10's backward form (triplane_decode_deep_grad) is the same kernel on the
 // deep planes (triplane_depth D > 1), templated on DEEP. It replaces what
@@ -68,11 +83,13 @@
 // point has a third projected coordinate that indexes D, and its 8 corners
 // (zeros outside the volume) are lerped as K10's forward lerps them
 // (csrc/triplane_decode.cu:deep_plane_sample). The scatter's runs are runs
-// of points in one 3-D cell; a run's item keeps the cell's corner (x0, y0,
-// z0) and the points' (wx, wy, wz), and adds each of the 8 corners inside
-// the volume once. The MLP, its backward and the weight gradients are K1's.
-// Per point it reads twice K1's corner rows (1,536 B at C = 32 in bf16, L2
-// hits) and adds 3 x 8 x C f32 values; the TF32 products are K1's.
+// of points in one 3-D cell; a (plane, point)'s 8 corner weights are formed
+// once, as K1's 4 are, and a run's item adds each of the cell's 8 corners
+// inside the volume once. The MLP, its backward and the weight gradients
+// are K1's. Per point it reads twice K1's corner rows (1,536 B at C = 32 in
+// bf16, L2 hits) and adds 3 x 8 x C f32 values; the TF32 products are K1's.
+// On the H100 the scatter takes a third of its time, the gather a quarter
+// (chip_smoke.py --k1-grad-parts), neither held by device memory.
 #include "common.cuh"
 #include "tf32_mma.cuh"
 
@@ -91,10 +108,24 @@ constexpr int NOUT = 33;
 constexpr int N2 = 40;          // the outputs padded to 5 n-tiles of 8
 constexpr int SIGMA_COL = 32;   // net2's sigma row sits after its 32 rgb rows
 constexpr int PTS = 16;         // points a warp tile: the mma's M
-constexpr int GW = 4;           // warps a CTA; a round is one tile a warp
-constexpr int CTAS_PER_SM = 2;  // resident CTAs an SM (ops: renderer.py K1G_CTAS_PER_SM)
+constexpr int GW = 4;           // warps a quad; a round is one tile a warp
+constexpr int CTAS_PER_SM = 1;  // one CTA an SM (renderer.py: K1G_WARPS, K1G_QUADS,
+                                // K1G_CTAS_PER_SM)
+
+// quads a CTA: 3 (12 warps an SM) on bf16 planes; 2 on f32 ones, whose
+// gather holds more registers than 384 threads an SM leave a thread. The
+// host sizes the grid and the partials by the same count
+// (renderer.py:k1_grad_quads) and passes it; the entry points refuse
+// another.
+template <typename T>
+__host__ __device__ constexpr int quads_of() { return sizeof(T) == 2 ? 3 : 2; }
 constexpr int HS = HID + 4;     // hidden rows' stride (+ 4: conflict-free A reads)
 constexpr int OS = N2 + 4;      // output rows' stride
+
+// the stride of a (hi, lo) weight array: n rounded up to 4 mod 16 pairs, so
+// a B fragment's 16 lanes of 8-byte loads meet no bank conflict in either
+// orientation (row g, column t: 4g + t; row t, column g: 4t + g)
+__host__ __device__ constexpr int hl_stride(int n) { return n + ((4 - n % 16) + 16) % 16; }
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Proj {
@@ -108,36 +139,61 @@ __device__ __forceinline__ int net2_row(int c) {
 }
 
 // a warp's tile: what the products read as A operands, and the scatter's
-// scratch
+// scratch. A round's first phase fills f, h, p and o; its weight products
+// read them; then dL/df takes f's place and the scatter's items o's.
 template <int C>
 struct Slot {
-  float f[PTS][C + 4];    // the plane-mean features
-  float df[PTS][C + 4];   // dL/df
+  float f[PTS][C + 4];    // the plane-mean features, then dL/df
   float h[PTS][HS];       // softplus(pre)
   float p[PTS][HS];       // sigmoid(pre), then dL/dpre in its place
-  float o[PTS][OS];       // dL/dout, net2's padded order
-  float4 w4[48];          // the scatter: a (plane, point)'s 4 corner weights / 3
-  int items[48];          // its runs: first | end << 8 | the corners inside << 16
-  int irow[48];           // the run's cell: corner (y0, x0)'s texel row
+  union {
+    float o[PTS][OS];     // dL/dout, net2's padded order
+    struct {
+      float4 w4[2][48];   // the scatter: a (plane, point)'s corner weights / 3 (corners
+                          // 0-3; DEEP's 4-7 in w4[1])
+      int items[48];      // its runs: first | end << 8 | the corners inside << 16
+      int irow[48];       // the run's cell: corner (y0, x0)'s texel row
+    } sc;
+  };
 };
 
+// a CTA's shared memory: the weights, then a slot a warp
 template <int C>
 struct __align__(16) GradSmem {
-  float w0[HID][C + 4];   // w0[j][c] (gained): layer 1's B
-  float w0t[C][HS];       // its transpose: dL/df's B
-  float w1[N2][HS];       // w1[o'][j] (gained, padded order): layer 2's B
-  float w1t[HID][OS];     // its transpose: dL/dh's B
+  uint2 w0[HID][hl_stride(C)];   // w0[j][c] (gained) as TF32 (hi, lo): layer 1's and dL/df's B
+  uint2 w1[N2][hl_stride(HID)];  // w1[o'][j] (gained, padded order) as (hi, lo): layer 2's and
+                                 // dL/dh's B
   float b0[HID];
   float b1[N2];
-  Slot<C> slot[GW];
 };
 
-// a B fragment of the 8x8 block (ks, nt) of B[k][n] = m[n][k] (m with row
-// stride `stride`), split: b0 = B[t][g], b1 = B[t + 4][g]
-__device__ __forceinline__ uint4 load_b(const float* m, int stride, int nt, int ks, int g,
+template <typename T, int C>
+constexpr size_t smem_bytes() {
+  return sizeof(GradSmem<C>) + sizeof(Slot<C>) * GW * quads_of<T>();
+}
+
+// a B fragment of the 8x8 block (ks, nt) of B[k][n] = m[n][k], m a (hi, lo)
+// array with row stride `stride`: b0 = B[t][g], b1 = B[t + 4][g], as
+// split_pair gives it (b0 hi, b1 hi, b0 lo, b1 lo)
+__device__ __forceinline__ uint4 load_b(const uint2* m, int stride, int nt, int ks, int g,
                                         int t) {
-  const float* r = m + (nt * 8 + g) * stride + ks * 8 + t;
-  return split_pair(r[0], r[4]);
+  const uint2* r = m + (nt * 8 + g) * stride + ks * 8 + t;
+  const uint2 b0 = r[0], b1 = r[4];
+  return make_uint4(b0.x, b1.x, b0.y, b1.y);
+}
+
+// the same of B[k][n] = m[k][n] (the transposed product): b0 = m[8 ks + t][8
+// nt + g], b1 = m[8 ks + t + 4][8 nt + g]
+__device__ __forceinline__ uint4 load_bt(const uint2* m, int stride, int nt, int ks, int g,
+                                         int t) {
+  const uint2* r = m + (ks * 8 + t) * stride + nt * 8 + g;
+  const uint2 b0 = r[0], b1 = r[4 * stride];
+  return make_uint4(b0.x, b1.x, b0.y, b1.y);
+}
+
+// a quad's barrier: its 4 warps, named barrier 1 + quad (0 is __syncthreads)
+__device__ __forceinline__ void quad_sync(int quad) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + quad), "r"(32 * GW) : "memory");
 }
 
 __device__ __forceinline__ void split4(const float (&a)[4], uint32_t hi[4], uint32_t lo[4]) {
@@ -208,7 +264,8 @@ __device__ __forceinline__ void deep_sample(const T* __restrict__ vols, int n, i
   for (int dz = 0; dz < 2; ++dz) {
     const int z = z0 + dz;
     const bool vz = z >= 0 && z < D;
-    const T* r00 = vols + ((((long long)(n * 3 + p) * D + z) * H + y0) * W + x0) * C + c0;
+    const long long row = (((long long)(n * 3 + p) * D + z) * H + y0) * W + x0;
+    const T* r00 = vols + row * C + c0;
     const T* r10 = r00 + (long long)W * C;
     r[dz][0] = vz && vy0 && vx0 ? __ldg(reinterpret_cast<const uint4*>(r00)) : zero;
     r[dz][1] = vz && vy0 && vx1 ? __ldg(reinterpret_cast<const uint4*>(r00 + C)) : zero;
@@ -339,16 +396,15 @@ __device__ __forceinline__ bool sigma_passes(float sigma, float x, float z, int 
   return true;
 }
 
-// one tile: the decode again and its backward. The slot holds f, h,
-// dL/dpre and dL/dout for the round's weight products, and dL/df for the
-// tile's scatter.
+// one tile: the decode again and its backward up to dL/dpre. The slot
+// holds f, h, dL/dpre and dL/dout for the round's weight products.
 template <typename T, int C, bool DEEP>
 __device__ __forceinline__ void tile_grad(
     GradSmem<C>& sm, Slot<C>& s, const T* __restrict__ planes, const float* __restrict__ coords,
     const T* __restrict__ g_rgb, const float* __restrict__ g_sigma, long long t0,
     long long total, int M, int D, int H, int W, const Proj& pr, float scale, float rgb_scale,
     int use_crop, float crop_lim, int cull_mode, float cull_thresh, int lane) {
-  constexpr int FS = C + 4, NTC = C / 8;
+  constexpr int FS = C + 4;
   const int g = lane >> 2, t = lane & 3;
   // the point of lane & 15: its world x and z (the crop)
   const long long pl = t0 + (lane & 15);
@@ -372,7 +428,7 @@ __device__ __forceinline__ void tile_grad(
       load_a(&s.f[0][0] + ks * 8 + t, g, FS, hi, lo);
 #pragma unroll
       for (int nt = 0; nt < HID / 8; ++nt)
-        mma_3xtf32(acc[nt], hi, lo, load_b(&sm.w0[0][0], FS, nt, ks, g, t));
+        mma_3xtf32(acc[nt], hi, lo, load_b(&sm.w0[0][0], hl_stride(C), nt, ks, g, t));
     }
 #pragma unroll
     for (int nt = 0; nt < HID / 8; ++nt) {
@@ -402,7 +458,7 @@ __device__ __forceinline__ void tile_grad(
       load_a(&s.h[0][0] + ks * 8 + t, g, HS, hi, lo);
 #pragma unroll
       for (int nt = 0; nt < N2 / 8; ++nt)
-        mma_3xtf32(o[nt], hi, lo, load_b(&sm.w1[0][0], HS, nt, ks, g, t));
+        mma_3xtf32(o[nt], hi, lo, load_b(&sm.w1[0][0], hl_stride(HID), nt, ks, g, t));
     }
     // rows g and g + 8: their world x and z from lanes g and g + 8 (the crop)
     const float xr[2] = {__shfl_sync(FULL, cx, g), __shfl_sync(FULL, cx, g + 8)};
@@ -443,7 +499,7 @@ __device__ __forceinline__ void tile_grad(
       load_a(&s.o[0][0] + ks * 8 + t, g, OS, hi, lo);
 #pragma unroll
       for (int nt = 0; nt < HID / 8; ++nt)
-        mma_3xtf32(dh[nt], hi, lo, load_b(&sm.w1t[0][0], OS, nt, ks, g, t));
+        mma_3xtf32(dh[nt], hi, lo, load_bt(&sm.w1[0][0], hl_stride(HID), nt, ks, g, t));
     }
 #pragma unroll
     for (int nt = 0; nt < HID / 8; ++nt) {
@@ -457,8 +513,14 @@ __device__ __forceinline__ void tile_grad(
     }
   }
   __syncwarp();
+}
 
-  // dL/df = dL/dpre W0
+// after the round's weight products: dL/df = dL/dpre W0 into the slot, in
+// the features' place
+template <int C>
+__device__ __forceinline__ void tile_df(const GradSmem<C>& sm, Slot<C>& s, int lane) {
+  constexpr int NTC = C / 8;
+  const int g = lane >> 2, t = lane & 3;
   {
     float df[NTC][4];
 #pragma unroll
@@ -469,17 +531,16 @@ __device__ __forceinline__ void tile_grad(
       load_a(&s.p[0][0] + ks * 8 + t, g, HS, hi, lo);
 #pragma unroll
       for (int nt = 0; nt < NTC; ++nt)
-        mma_3xtf32(df[nt], hi, lo, load_b(&sm.w0t[0][0], HS, nt, ks, g, t));
+        mma_3xtf32(df[nt], hi, lo, load_bt(&sm.w0[0][0], hl_stride(C), nt, ks, g, t));
     }
 #pragma unroll
     for (int nt = 0; nt < NTC; ++nt) {
       const int col = nt * 8 + 2 * t;
-      store2(&s.df[g][col], df[nt][0], df[nt][1]);
-      store2(&s.df[g + 8][col], df[nt][2], df[nt][3]);
+      store2(&s.f[g][col], df[nt][0], df[nt][1]);
+      store2(&s.f[g + 8][col], df[nt][2], df[nt][3]);
     }
   }
   __syncwarp();
-
 }
 
 // the scatter of a tile's dL/df into the plane gradient. (1) Each lane
@@ -493,16 +554,17 @@ __device__ __forceinline__ void tile_grad(
 // order) for the 4 corners from one read of each point's dL/df chunk, and
 // adds each corner inside the plane once, a 16-byte red.global.add.f32, so
 // a warp instruction adds 128 / C whole corner rows. With DEEP a cell is
-// 3-D: the slot keeps the point's (wx, wy, wz) in place of the 4 weights,
-// the item's mask holds 8 corners (bit k: x + (k & 1), y + (k >> 1 & 1), z
-// + (k >> 2)), and a run's 8 sums are formed from one read of each point's
-// dL/df chunk.
+// 3-D: step (1) forms the point's 8 corner weights / 3 (bit k of the
+// item's mask: x + (k & 1), y + (k >> 1 & 1), z + (k >> 2)) once, so the
+// item's lanes read them as K1's read its 4, and a run's 8 sums are formed
+// from one read of each point's dL/df chunk.
 template <int C, bool DEEP>
 __device__ __forceinline__ void scatter_tile(Slot<C>& s, float* __restrict__ g_planes,
                                              const float* __restrict__ coords, long long t0,
                                              long long total, int M, int D, int H, int W,
                                              const Proj& pr, float scale, int lane) {
   constexpr int LPR = C / 4, RPI = 32 / LPR;   // lanes an item, items an instruction
+  constexpr int NK = DEEP ? 8 : 4;             // corners a cell
   const long long pl = t0 + (lane & 15);
   const bool lv = pl < total;
   float sx = 0.f, sy = 0.f, sz = 0.f;
@@ -519,7 +581,6 @@ __device__ __forceinline__ void scatter_tile(Slot<C>& s, float* __restrict__ g_p
     const int e = lane + 32 * h, p = h ? 2 : lane >> 4;
     const bool on = h == 0 || lane < 16;
     int key = -1, row = 0, mask = 0;
-    float4 w4 = make_float4(0.f, 0.f, 0.f, 0.f);
     if (on && lv) {
       int x0, y0;
       float wx, wy;
@@ -534,10 +595,16 @@ __device__ __forceinline__ void scatter_tile(Slot<C>& s, float* __restrict__ g_p
           row = (((ln * 3 + p) * D + z0) * H + y0) * W + x0;
           const bool in_x[2] = {x0 >= 0, x0 + 1 < W}, in_y[2] = {y0 >= 0, y0 + 1 < H};
           const bool in_z[2] = {z0 >= 0, z0 + 1 < D};
+          const float fx[2] = {1.f - wx, wx}, fy[2] = {1.f - wy, wy};
+          const float fz[2] = {(1.f - wz) / 3.f, wz / 3.f};
+          float wk[8];
 #pragma unroll
-          for (int k = 0; k < 8; ++k)
+          for (int k = 0; k < 8; ++k) {
             mask |= (in_x[k & 1] && in_y[k >> 1 & 1] && in_z[k >> 2]) << k;
-          w4 = make_float4(wx, wy, wz, 0.f);
+            wk[k] = fx[k & 1] * fy[k >> 1 & 1] * fz[k >> 2];
+          }
+          s.sc.w4[0][e] = make_float4(wk[0], wk[1], wk[2], wk[3]);
+          s.sc.w4[1][e] = make_float4(wk[4], wk[5], wk[6], wk[7]);
         }
       } else if (x0 >= -1 && x0 < W && y0 >= -1 && y0 < H) {   // a corner is inside the plane
         key = ((ln * 3 + p) * (H + 2) + y0 + 1) * (W + 2) + x0 + 1;
@@ -545,10 +612,9 @@ __device__ __forceinline__ void scatter_tile(Slot<C>& s, float* __restrict__ g_p
         const bool in_x0 = x0 >= 0, in_x1 = x0 + 1 < W, in_y0 = y0 >= 0, in_y1 = y0 + 1 < H;
         mask = (in_y0 && in_x0) | (in_y0 && in_x1) << 1 | (in_y1 && in_x0) << 2 |
                (in_y1 && in_x1) << 3;
-        w4 = make_float4((1.f - wx) * (1.f - wy) / 3.f, wx * (1.f - wy) / 3.f,
-                         (1.f - wx) * wy / 3.f, wx * wy / 3.f);
+        s.sc.w4[0][e] = make_float4((1.f - wx) * (1.f - wy) / 3.f, wx * (1.f - wy) / 3.f,
+                                    (1.f - wx) * wy / 3.f, wx * wy / 3.f);
       }
-      s.w4[e] = w4;
     }
     const int prev = __shfl_up_sync(FULL, key, 1);
     const int seg = h ? 0 : 16 * (lane >> 4);   // the first lane of this plane's 16
@@ -560,70 +626,43 @@ __device__ __forceinline__ void scatter_tile(Slot<C>& s, float* __restrict__ g_p
     const int end = later ? min(__ffs(later) - 1, seg_end) : seg_end;
     if (start && key >= 0) {
       const int idx = n_items + __popc(heads & ((1u << lane) - 1u));
-      s.items[idx] = e | (end + 32 * h) << 8 | mask << 16;
-      s.irow[idx] = row;
+      s.sc.items[idx] = e | (end + 32 * h) << 8 | mask << 16;
+      s.sc.irow[idx] = row;
     }
     n_items += __popc(heads);
   }
   __syncwarp();
   const int c4 = 4 * (lane % LPR);
-  if constexpr (DEEP) {
-    for (int it = lane / LPR; it < n_items; it += RPI) {
-      const int item = s.items[it], e0 = item & 255, e1 = (item >> 8) & 255, mask = item >> 16;
-      float4 a[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) a[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int e = e0; e < e1; ++e) {
-        const float4 d = *reinterpret_cast<const float4*>(&s.df[e & 15][c4]);
-        const float4 w = s.w4[e];
-        const float fx[2] = {1.f - w.x, w.x}, fy[2] = {1.f - w.y, w.y};
-        const float fz[2] = {(1.f - w.z) / 3.f, w.z / 3.f};
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const float wk = fx[k & 1] * fy[k >> 1 & 1] * fz[k >> 2];
-          a[k].x = fmaf(wk, d.x, a[k].x);
-          a[k].y = fmaf(wk, d.y, a[k].y);
-          a[k].z = fmaf(wk, d.z, a[k].z);
-          a[k].w = fmaf(wk, d.w, a[k].w);
-        }
-      }
-      const long long r0 = s.irow[it];
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        if (mask >> k & 1) {
-          const long long off = ((long long)(k >> 2) * H + (k >> 1 & 1)) * W + (k & 1);
-          float4* dst = reinterpret_cast<float4*>(g_planes + (r0 + off) * C + c4);
-          if (K1G_PARTS & 8)
-            atomicAdd(dst, a[k]);
-          else
-            *dst = a[k];
-        }
-    }
-    __syncwarp();   // the slot's scratch is the next tile's
-    return;
-  }
   for (int it = lane / LPR; it < n_items; it += RPI) {
-    const int item = s.items[it], e0 = item & 255, e1 = (item >> 8) & 255, mask = item >> 16;
-    float4 a[4];
+    const int item = s.sc.items[it], e0 = item & 255, e1 = (item >> 8) & 255, mask = item >> 16;
+    float4 a[NK];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) a[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < NK; ++k) a[k] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int e = e0; e < e1; ++e) {
-      const float4 d = *reinterpret_cast<const float4*>(&s.df[e & 15][c4]);
-      const float4 w = s.w4[e];
-      const float wk[4] = {w.x, w.y, w.z, w.w};
+      const float4 d = *reinterpret_cast<const float4*>(&s.f[e & 15][c4]);
+      float wk[NK];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
+      for (int q = 0; q < NK / 4; ++q) {
+        const float4 w = s.sc.w4[q][e];
+        wk[4 * q] = w.x;
+        wk[4 * q + 1] = w.y;
+        wk[4 * q + 2] = w.z;
+        wk[4 * q + 3] = w.w;
+      }
+#pragma unroll
+      for (int k = 0; k < NK; ++k) {
         a[k].x = fmaf(wk[k], d.x, a[k].x);
         a[k].y = fmaf(wk[k], d.y, a[k].y);
         a[k].z = fmaf(wk[k], d.z, a[k].z);
         a[k].w = fmaf(wk[k], d.w, a[k].w);
       }
     }
-    const long long r0 = s.irow[it];
+    const long long r0 = s.sc.irow[it];
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
+    for (int k = 0; k < NK; ++k)
       if (mask >> k & 1) {
-        float4* dst = reinterpret_cast<float4*>(g_planes + (r0 + (k >> 1) * W + (k & 1)) * C + c4);
+        const long long off = ((long long)(k >> 2) * H + (k >> 1 & 1)) * W + (k & 1);
+        float4* dst = reinterpret_cast<float4*>(g_planes + (r0 + off) * C + c4);
         if (K1G_PARTS & 8)
           atomicAdd(dst, a[k]);
         else
@@ -633,18 +672,18 @@ __device__ __forceinline__ void scatter_tile(Slot<C>& s, float* __restrict__ g_p
   __syncwarp();   // the slot's scratch is the next tile's
 }
 
-// the round's weight products: warp w's m-tile (hidden units 16 w + g, + 8)
-// of dW0 (columns: the features) and of dW1^T (columns: the padded
-// outputs) over the round's 4 x 16 points, 8 a k-step; the biases' sums
-// from the same operands (db1: warp 0)
+// the round's weight products: the quad's warp w's m-tile (hidden units 16
+// w + g, + 8) of dW0 (columns: the features) and of dW1^T (columns: the
+// padded outputs) over the round's 4 x 16 points (the quad's slots), 8 a
+// k-step; the biases' sums from the same operands (db1: warp 0)
 template <int C>
-__device__ __forceinline__ void weight_products(const GradSmem<C>& sm, int warp, int lane,
+__device__ __forceinline__ void weight_products(const Slot<C>* slots, int warp, int lane,
                                                 float (&aw0)[C / 8][4], float (&aw1)[N2 / 8][4],
                                                 float (&ab0)[2], float (&ab1)[N2 / 8]) {
   const int g = lane >> 2, t = lane & 3, j0 = 16 * warp + g;
 #pragma unroll 1
   for (int ks = 0; ks < 2 * GW; ++ks) {
-    const Slot<C>& sl = sm.slot[ks >> 1];
+    const Slot<C>& sl = slots[ks >> 1];
     const int r = ((ks & 1) << 3) + t;   // the point row of a0 (a2: r + 4)
     uint32_t hi[4], lo[4];
     {   // A[j][p] = dL/dpre[p][j], B[p][c] = f[p][c]
@@ -681,7 +720,8 @@ __device__ __forceinline__ float sum_over_t(float v) {
 }
 
 template <typename T, int C, bool DEEP>
-__global__ void __launch_bounds__(32 * GW, CTAS_PER_SM) triplane_decode_grad_kernel(
+__global__ void __launch_bounds__(32 * GW * quads_of<T>(), CTAS_PER_SM)
+triplane_decode_grad_kernel(
     const T* __restrict__ planes, const float* __restrict__ coords,
     const float* __restrict__ w0, const float* __restrict__ b0, const float* __restrict__ w1,
     const float* __restrict__ b1, const T* __restrict__ g_rgb,
@@ -690,26 +730,33 @@ __global__ void __launch_bounds__(32 * GW, CTAS_PER_SM) triplane_decode_grad_ker
     float gain0, float gain1, float lr_mul, float rgb_scale, int use_crop, float crop_lim,
     int cull_mode, float cull_thresh) {
   extern __shared__ uint4 smem_raw[];
+  constexpr int QUADS = quads_of<T>();
   GradSmem<C>& sm = *reinterpret_cast<GradSmem<C>*>(smem_raw);
   const int tid = threadIdx.x;
+  // the gained weights once a CTA, split into TF32 (hi, lo) as the products read them
   for (int i = tid; i < HID * C; i += blockDim.x) {
     const int j = i / C, c = i - j * C;
-    const float v = w0[i] * gain0;
-    sm.w0[j][c] = v;
-    sm.w0t[c][j] = v;
+    uint32_t hi, lo;
+    split_tf32(w0[i] * gain0, hi, lo);
+    sm.w0[j][c] = make_uint2(hi, lo);
   }
   for (int i = tid; i < N2 * HID; i += blockDim.x) {
     const int oc = i / HID, j = i - oc * HID, o = net2_row(oc);
-    const float v = o >= 0 ? w1[o * HID + j] * gain1 : 0.f;
-    sm.w1[oc][j] = v;
-    sm.w1t[j][oc] = v;
+    uint32_t hi, lo;
+    split_tf32(o >= 0 ? w1[o * HID + j] * gain1 : 0.f, hi, lo);
+    sm.w1[oc][j] = make_uint2(hi, lo);
   }
   for (int i = tid; i < HID; i += blockDim.x) sm.b0[i] = b0[i] * lr_mul;
   for (int i = tid; i < N2; i += blockDim.x)
     sm.b1[i] = net2_row(i) >= 0 ? b1[net2_row(i)] * lr_mul : 0.f;
   __syncthreads();
 
-  const int warp = tid >> 5, lane = tid & 31;
+  // each quad of 4 warps runs rounds of its own (a tile a warp), with its
+  // own barrier and its own partial of the weight gradients
+  const int quad = tid >> 7, warp = (tid >> 5) & (GW - 1), lane = tid & 31;
+  const int qg = blockIdx.x * QUADS + quad;
+  Slot<C>* slots = reinterpret_cast<Slot<C>*>(&sm + 1) + quad * GW;
+  Slot<C>& mine = slots[warp];
   const long long total = (long long)N * M, tiles = (total + PTS - 1) / PTS;
   float aw0[C / 8][4], aw1[N2 / 8][4], ab0[2] = {0.f, 0.f}, ab1[N2 / 8];
 #pragma unroll
@@ -721,22 +768,21 @@ __global__ void __launch_bounds__(32 * GW, CTAS_PER_SM) triplane_decode_grad_ker
   }
   // round r: tiles GW r .. GW r + GW - 1 (past the end: zero features and
   // zero output gradients, so they add nothing)
-  for (long long round = blockIdx.x; round * GW < tiles; round += gridDim.x) {
+  for (long long round = qg; round * GW < tiles; round += (long long)gridDim.x * QUADS) {
     const long long t0 = (round * GW + warp) * PTS;
-    tile_grad<T, C, DEEP>(sm, sm.slot[warp], planes, coords, g_rgb, g_sigma, t0, total, M, D,
-                          H, W, pr, scale, rgb_scale, use_crop, crop_lim, cull_mode,
-                          cull_thresh, lane);
+    tile_grad<T, C, DEEP>(sm, mine, planes, coords, g_rgb, g_sigma, t0, total, M, D, H, W, pr,
+                          scale, rgb_scale, use_crop, crop_lim, cull_mode, cull_thresh, lane);
+    quad_sync(quad);
+    if (K1G_PARTS & 4) weight_products<C>(slots, warp, lane, aw0, aw1, ab0, ab1);
+    quad_sync(quad);
+    tile_df<C>(sm, mine, lane);
     if (K1G_PARTS & 2)
-      scatter_tile<C, DEEP>(sm.slot[warp], g_planes, coords, t0, total, M, D, H, W, pr, scale,
-                            lane);
-    __syncthreads();
-    if (K1G_PARTS & 4) weight_products<C>(sm, warp, lane, aw0, aw1, ab0, ab1);
-    __syncthreads();
+      scatter_tile<C, DEEP>(mine, g_planes, coords, t0, total, M, D, H, W, pr, scale, lane);
   }
 
-  // this CTA's partial: dW0 [64][C], dW1 [33][64], db0 [64], db1 [33] (no gains)
+  // this quad's partial: dW0 [64][C], dW1 [33][64], db0 [64], db1 [33] (no gains)
   const int g = lane >> 2, t = lane & 3, j0 = 16 * warp + g;
-  float* part = partials + (long long)blockIdx.x * (HID * C + NOUT * HID + HID + NOUT);
+  float* part = partials + (long long)qg * (HID * C + NOUT * HID + HID + NOUT);
 #pragma unroll
   for (int nt = 0; nt < C / 8; ++nt) {
     const int c = nt * 8 + 2 * t;
@@ -793,19 +839,20 @@ cudaError_t launch(const void* planes, const float* coords, const float* w0, con
                    int D, int H, int W, const Proj& pr, float scale, float gain0, float gain1,
                    float lr_mul, float rgb_scale, int use_crop, float crop_lim, int cull_mode,
                    float cull_thresh, cudaStream_t stream) {
-  // above 48 KB of shared memory a block must ask for it; two CTAs an SM
-  // need the largest shared-memory carveout (once per kernel)
+  // above 48 KB of shared memory a block must ask for it, and the CTA's
+  // ~206 KB (C = 32) needs the largest shared-memory carveout (once per kernel)
   static const cudaError_t attr = [] {
     const cudaError_t e = cudaFuncSetAttribute(triplane_decode_grad_kernel<T, C, DEEP>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)sizeof(GradSmem<C>));
+                                               (int)smem_bytes<T, C>());
     if (e != cudaSuccess) return e;
     return cudaFuncSetAttribute(triplane_decode_grad_kernel<T, C, DEEP>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 (int)cudaSharedmemCarveoutMaxShared);
   }();
   if (attr != cudaSuccess) return attr;
-  triplane_decode_grad_kernel<T, C, DEEP><<<ctas, 32 * GW, sizeof(GradSmem<C>), stream>>>(
+  triplane_decode_grad_kernel<T, C, DEEP>
+      <<<ctas, 32 * GW * quads_of<T>(), smem_bytes<T, C>(), stream>>>(
       static_cast<const T*>(planes), coords, w0, b0, w1, b1, static_cast<const T*>(g_rgb),
       g_sigma, g_planes, partials, N, M, D, H, W, pr, scale, gain0, gain1, lr_mul, rgb_scale,
       use_crop, crop_lim, cull_mode, cull_thresh);
@@ -813,7 +860,8 @@ cudaError_t launch(const void* planes, const float* coords, const float* w0, con
   if (e != cudaSuccess) return e;
   const int nw = HID * C + NOUT * HID + HID + NOUT;
   triplane_decode_grad_finish<<<(nw + 255) / 256, 256, 0, stream>>>(
-      partials, ctas, nw, HID * C, NOUT * HID, gain0, gain1, lr_mul, g_weights);
+      partials, ctas * quads_of<T>(), nw, HID * C, NOUT * HID, gain0, gain1, lr_mul,
+      g_weights);
   return cudaGetLastError();
 }
 
@@ -826,14 +874,16 @@ cudaError_t launch(const void* planes, const float* coords, const float* w0, con
 // and g_sigma [N,M] f32: the gradients of K1's outputs. Adds into g_planes
 // [N,3,H,W,C] f32, zeroed by the caller; writes g_weights [64 C + 33 * 64 +
 // 64 + 33] f32 (dW0, dW1, db0, db1, the gains applied), through partials
-// [ctas, the same] f32 scratch. ctas: the persistent grid, at most
-// CTAS_PER_SM x the SMs and at least 1. proj: the inverse plane axes
-// [3][3][2]; the filter arguments are K1's.
+// [ctas x quads, the same] f32 scratch (a partial a quad). ctas: the
+// persistent grid, at most CTAS_PER_SM x the SMs and at least 1; quads:
+// the quads a CTA its wrapper sized the grid and the partials by, which
+// must be this dtype's (quads_of: 3 on bf16 planes, 2 on f32 ones). proj:
+// the inverse plane axes [3][3][2]; the filter arguments are K1's.
 PANIC3D_EXPORT int triplane_decode_grad(
     const void* planes, int dtype, const float* coords, const float* w0, const float* b0,
     const float* w1, const float* b1, const void* g_rgb, const float* g_sigma,
-    float* g_planes, float* partials, float* g_weights, int ctas, int N, int M, int H, int W,
-    int C, const float* proj, float scale, float gain0, float gain1, float lr_mul,
+    float* g_planes, float* partials, float* g_weights, int ctas, int quads, int N, int M,
+    int H, int W, int C, const float* proj, float scale, float gain0, float gain1, float lr_mul,
     int force_sigmoid, int use_crop, float crop_lim, int cull_mode, float cull_thresh,
     void* stream) {
   if (N < 1 || M < 1 || H < 1 || W < 1 || ctas < 1 ||
@@ -846,10 +896,12 @@ PANIC3D_EXPORT int triplane_decode_grad(
   const float rgb_scale = force_sigmoid ? 1.f : 1.f + 2.f * 0.001f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define P3D_K1G(T, CC)                                                                      \
-  return (int)launch<T, CC, false>(planes, coords, w0, b0, w1, b1, g_rgb, g_sigma, g_planes, \
-                                   partials, g_weights, ctas, N, M, 1, H, W, pr, scale, gain0, \
-                                   gain1, lr_mul, rgb_scale, use_crop, crop_lim, cull_mode,    \
-                                   cull_thresh, s)
+  return quads != quads_of<T>()                                                             \
+             ? (int)cudaErrorInvalidValue                                                   \
+             : (int)launch<T, CC, false>(planes, coords, w0, b0, w1, b1, g_rgb, g_sigma,    \
+                                         g_planes, partials, g_weights, ctas, N, M, 1, H, W, \
+                                         pr, scale, gain0, gain1, lr_mul, rgb_scale,         \
+                                         use_crop, crop_lim, cull_mode, cull_thresh, s)
   if (dtype == DT_BF16) {
     if (C == 32) P3D_K1G(__nv_bfloat16, 32);
     if (C == 16) P3D_K1G(__nv_bfloat16, 16);
@@ -871,8 +923,8 @@ PANIC3D_EXPORT int triplane_decode_grad(
 PANIC3D_EXPORT int triplane_decode_deep_grad(
     const void* vols, int dtype, const float* coords, const float* w0, const float* b0,
     const float* w1, const float* b1, const void* g_rgb, const float* g_sigma,
-    float* g_vols, float* partials, float* g_weights, int ctas, int N, int M, int D, int H,
-    int W, int C, const float* proj, float scale, float gain0, float gain1, float lr_mul,
+    float* g_vols, float* partials, float* g_weights, int ctas, int quads, int N, int M, int D,
+    int H, int W, int C, const float* proj, float scale, float gain0, float gain1, float lr_mul,
     int force_sigmoid, int use_crop, float crop_lim, int cull_mode, float cull_thresh,
     void* stream) {
   if (N < 1 || M < 1 || D < 1 || H < 1 || W < 1 || ctas < 1 ||
@@ -883,10 +935,12 @@ PANIC3D_EXPORT int triplane_decode_deep_grad(
   const float rgb_scale = force_sigmoid ? 1.f : 1.f + 2.f * 0.001f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define P3D_K10G(T, CC)                                                                    \
-  return (int)launch<T, CC, true>(vols, coords, w0, b0, w1, b1, g_rgb, g_sigma, g_vols,     \
-                                  partials, g_weights, ctas, N, M, D, H, W, pr, scale, gain0, \
-                                  gain1, lr_mul, rgb_scale, use_crop, crop_lim, cull_mode,    \
-                                  cull_thresh, s)
+  return quads != quads_of<T>()                                                            \
+             ? (int)cudaErrorInvalidValue                                                  \
+             : (int)launch<T, CC, true>(vols, coords, w0, b0, w1, b1, g_rgb, g_sigma,      \
+                                        g_vols, partials, g_weights, ctas, N, M, D, H, W,  \
+                                        pr, scale, gain0, gain1, lr_mul, rgb_scale,        \
+                                        use_crop, crop_lim, cull_mode, cull_thresh, s)
   if (dtype == DT_BF16) {
     if (C == 32) P3D_K10G(__nv_bfloat16, 32);
     if (C == 16) P3D_K10G(__nv_bfloat16, 16);

@@ -27,8 +27,9 @@ Training differentiates K1 and K2: each runs inside an autograd.Function
 (``TriplaneDecode``, ``RayComposite``) whose backward is a kernel too, K1's
 (csrc/triplane_decode_grad.cu: the decode redone and run backward by a warp
 a tile of 16 points on the tensor cores, the weight gradients formed in the
-kernel, a partial a CTA summed in a fixed order, the plane gradient by
-vector atomics, a corner of a run of points in one cell at a time) and
+kernel, a partial a quad of warps summed in a fixed order, the plane
+gradient by vector atomics, a corner of a run of points in one cell at a
+time) and
 K2's (``ray_composite_grad``: the merge redone, the alphas' gradient by a
 reverse recurrence), each with its plain
 version beside it (autograd of the plain forward). The importance depths
@@ -476,11 +477,15 @@ def triplane_decode_grad_plain(planes_cl, coords, dec: Decoder, box_warp: float,
     return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads))
 
 
-_K1G_ARGS = ((kb.PTR, kb.INT) + (kb.PTR,) * 10 + (kb.INT,) * 6 + (kb.PTR,) + (kb.FLOAT,) * 4
+_K1G_ARGS = ((kb.PTR, kb.INT) + (kb.PTR,) * 10 + (kb.INT,) * 7 + (kb.PTR,) + (kb.FLOAT,) * 4
              + (kb.INT, kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
-# csrc/triplane_decode_grad.cu: warps a CTA (a tile of 16 points each a
-# round), resident CTAs an SM (the persistent grid)
-K1G_WARPS, K1G_CTAS_PER_SM = 4, 2
+# csrc/triplane_decode_grad.cu: warps a quad (a tile of 16 points each a
+# round), resident CTAs an SM (the persistent grid), and quads a CTA by the
+# planes' dtype (each quad with its own rounds and weight partial; the f32
+# gather holds more registers, so fewer threads). The kernel refuses a
+# quads count other than its dtype's (quads_of).
+K1G_WARPS, K1G_CTAS_PER_SM = 4, 1
+K1G_QUADS = {torch.bfloat16: 3, torch.float32: 2}
 
 
 @functools.lru_cache(maxsize=None)
@@ -488,11 +493,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def k1_grad_ctas(points: int, sms: int) -> int:
-    """The persistent grid of K1's backward form: 2 CTAs an SM, fewer where
-    the points' rounds (4 tiles of 16) are fewer."""
+def k1_grad_ctas(points: int, sms: int, quads: int) -> int:
+    """The persistent grid of K1's (and K10's) backward form: a CTA an SM,
+    fewer where the points' rounds (4 tiles of 16) fill fewer CTAs of
+    ``quads`` quads (K1G_QUADS of the planes' dtype). The weight partials
+    are a quad's: ctas x quads rows."""
     rounds = -(-points // (16 * K1G_WARPS))
-    return max(1, min(K1G_CTAS_PER_SM * sms, rounds))
+    return max(1, min(K1G_CTAS_PER_SM * sms, -(-rounds // quads)))
 
 
 def triplane_decode_grad_kernel(planes_cl, coords, dec: Decoder, box_warp: float, plane_axes,
@@ -501,7 +508,7 @@ def triplane_decode_grad_kernel(planes_cl, coords, dec: Decoder, box_warp: float
     :func:`triplane_decode_grad_plain`. The kernel adds each corner of a
     run of points in one cell once into an f32 plane gradient (cast to the
     planes' dtype here) and forms the weight gradients itself: a partial a
-    CTA, summed in a fixed order by its second launch."""
+    quad of warps, summed in a fixed order by its second launch."""
     N, _, H, W, C = planes_cl.shape
     M = coords.shape[1]
     dev = planes_cl.device
@@ -518,17 +525,18 @@ def triplane_decode_grad_kernel(planes_cl, coords, dec: Decoder, box_warp: float
     g_rgb = g_rgb.contiguous()
     g_sigma = g_sigma.to(torch.float32).contiguous()
     g_planes = torch.zeros(planes_cl.shape, dtype=torch.float32, device=dev)
-    ctas = k1_grad_ctas(N * M, _sm_count(dev.index))
+    quads = K1G_QUADS[planes_cl.dtype]
+    ctas = k1_grad_ctas(N * M, _sm_count(dev.index), quads)
     sizes = (64 * C, 33 * 64, 64, 33)
-    partials = torch.empty((ctas, sum(sizes)), dtype=torch.float32, device=dev)
+    partials = torch.empty((ctas * quads, sum(sizes)), dtype=torch.float32, device=dev)
     g_w = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     proj = np.linalg.inv(plane_axes)[:, :, :2]
     kb.launch(
         "triplane_decode_grad", _K1G_ARGS, planes_cl.data_ptr(), _DTYPES[planes_cl.dtype],
         coords.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         g_rgb.data_ptr(), g_sigma.data_ptr(), g_planes.data_ptr(), partials.data_ptr(),
-        g_w.data_ptr(), ctas, N, M, H, W, C, kb.f32_array(proj.reshape(-1)), 2.0 / box_warp,
-        dec.lr_mul / math.sqrt(C), dec.lr_mul / math.sqrt(64), dec.lr_mul,
+        g_w.data_ptr(), ctas, quads, N, M, H, W, C, kb.f32_array(proj.reshape(-1)),
+        2.0 / box_warp, dec.lr_mul / math.sqrt(C), dec.lr_mul / math.sqrt(64), dec.lr_mul,
         int(dec.force_sigmoid), *_filter_args(filters, box_warp), _stream(planes_cl),
     )
     KERNELS["triplane_decode_grad"].launches += 1
@@ -683,7 +691,7 @@ def triplane_decode_deep_grad_plain(volumes_cl, coords, dec: Decoder, box_warp: 
     return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads))
 
 
-_K10G_ARGS = ((kb.PTR, kb.INT) + (kb.PTR,) * 10 + (kb.INT,) * 7 + (kb.PTR,) + (kb.FLOAT,) * 4
+_K10G_ARGS = ((kb.PTR, kb.INT) + (kb.PTR,) * 10 + (kb.INT,) * 8 + (kb.PTR,) + (kb.FLOAT,) * 4
               + (kb.INT, kb.INT, kb.FLOAT, kb.INT, kb.FLOAT, kb.PTR))
 
 
@@ -694,7 +702,7 @@ def triplane_decode_deep_grad_kernel(volumes_cl, coords, dec: Decoder, box_warp:
     volumes (csrc/triplane_decode_grad.cu, DEEP): the decode again and its
     backward in 3xTF32, each 3-D cell's run of points added once into its 8
     corners of an f32 volume gradient (cast to the volumes' dtype here),
-    the weight gradients as CTA partials summed in a fixed order."""
+    the weight gradients as quads' partials summed in a fixed order."""
     NP, D, H, W, C = volumes_cl.shape
     N, M = coords.shape[:2]
     dev = volumes_cl.device
@@ -712,15 +720,16 @@ def triplane_decode_deep_grad_kernel(volumes_cl, coords, dec: Decoder, box_warp:
     g_rgb = g_rgb.contiguous()
     g_sigma = g_sigma.to(torch.float32).contiguous()
     g_vols = torch.zeros(volumes_cl.shape, dtype=torch.float32, device=dev)
-    ctas = k1_grad_ctas(N * M, _sm_count(dev.index))
+    quads = K1G_QUADS[volumes_cl.dtype]
+    ctas = k1_grad_ctas(N * M, _sm_count(dev.index), quads)
     sizes = (64 * C, 33 * 64, 64, 33)
-    partials = torch.empty((ctas, sum(sizes)), dtype=torch.float32, device=dev)
+    partials = torch.empty((ctas * quads, sum(sizes)), dtype=torch.float32, device=dev)
     g_w = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     kb.launch(
         "triplane_decode_deep_grad", _K10G_ARGS, volumes_cl.data_ptr(),
         _DTYPES[volumes_cl.dtype], coords.data_ptr(), w0.data_ptr(), b0.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), g_rgb.data_ptr(), g_sigma.data_ptr(), g_vols.data_ptr(),
-        partials.data_ptr(), g_w.data_ptr(), ctas, N, M, D, H, W, C,
+        partials.data_ptr(), g_w.data_ptr(), ctas, quads, N, M, D, H, W, C,
         kb.f32_array(deep_proj(plane_axes)), 2.0 / box_warp, dec.lr_mul / math.sqrt(C),
         dec.lr_mul / math.sqrt(64), dec.lr_mul, int(dec.force_sigmoid),
         *_filter_args(filters, box_warp), _stream(volumes_cl),

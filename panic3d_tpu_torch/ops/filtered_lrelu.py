@@ -8,8 +8,11 @@ a CPU tensor, CUDA kernel K11 (csrc/filtered_lrelu.cu) on a CUDA tensor.
 port's plain ``bias_act`` and ``upfirdn2d_plain`` called pass by pass: the
 CPU path and the kernel's oracle. ``k11_plan`` is what the kernel wrapper
 hands the kernel for one geometry, made on the host and cached: the taps,
-each 32x32 output tile's input window and, for each position of a tile's
-intermediate window, the first up tap of its phase and the input it meets.
+the form (the strip form at StyleGAN3's geometries, with the output tile
+it picks and its buffers' layout, ``strip_layout``; else the tile form),
+and the tile form's 32x32 tiles: each tile's input window and, for each
+position of a tile's intermediate window, the first up tap of its phase
+and the input it meets.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from .bias_act import bias_act
 from .upfirdn2d import _parse_padding, _parse_scaling, fir_passes, upfirdn2d_plain
 
 SQRT2 = math.sqrt(2)
-TILE = 32          # output tile side (csrc/filtered_lrelu.cu:TO)
+TILE = 32          # the tile form's output tile side (csrc/filtered_lrelu.cu:TO)
 MAX_TILES = 64     # tiles an axis (MAXT)
 MAX_WINDOW = 96    # intermediate window side (MAXI)
 MAX_FU = 32
@@ -50,25 +53,140 @@ def filtered_lrelu_plain(x, fu=None, fd=None, b=None, up: int = 1, down: int = 1
     return x
 
 
+class _Strip(ctypes.Structure):
+    """csrc/filtered_lrelu.cu:Strip, field for field."""
+    _fields_ = [(n, ctypes.c_int) for n in ("t_y", "t_x", "tiles_y", "tiles_x")] + [
+        ("in0", ctypes.c_int * (2 * MAX_TILES))] + [
+        (n, ctypes.c_int) for n in ("rh", "in_cols", "si", "sh", "sm", "sd", "nq1", "nqi", "nqj",
+                                    "nqo", "nq4", "ti_y", "off_b", "smem")]
+
+
 class _Plan(ctypes.Structure):
-    """csrc/filtered_lrelu.cu:Plan, field for field."""
+    """csrc/filtered_lrelu.cu:Plan, field for field: the tile form's fields
+    (the first plan's, unchanged), then the form and the strip form's layout."""
     _fields_ = [("fu", ctypes.c_float * MAX_FU), ("fd", ctypes.c_float * MAX_FD),
                 ("in0", ctypes.c_int * (2 * MAX_TILES)),
                 ("k0", ctypes.c_short * (2 * MAX_WINDOW)),
                 ("src", ctypes.c_short * (2 * MAX_WINDOW))] + [
         (n, ctypes.c_int) for n in ("fuh", "fdn", "fd2d", "up", "down", "ti", "tin", "tiles_y",
                                     "tiles_x", "H", "W", "OH", "OW")] + [
-        (n, ctypes.c_float) for n in ("gain", "slope", "clamp")]
+        (n, ctypes.c_float) for n in ("gain", "slope", "clamp")] + [
+        ("form", ctypes.c_int), ("st", _Strip)]
+
+
+# csrc/filtered_lrelu.cu:Form
+FORMS = {"tile": 0, "tile_up1": 1, "strip_up2": 2, "strip_up2_radial": 3, "strip_up4": 4,
+         "strip_up4_radial": 5}
+# the strip form's compiled geometries: up -> the padding's phase p0 mod up
+STRIP_PHASE = {2: 1, 4: 2}
+STRIP_TPP, STRIP_FDN, STRIP_DOWN = 6, 12, 2
+STRIP_SMEM = 74 * 1024      # bytes a block at most: 3 blocks an SM
+STRIP_TILES = range(8, 64)  # output tile sides the plan weighs
+
+
+class StripLayout(NamedTuple):
+    """The strip form's layout at output tile sides ``t`` (y, x): the
+    fields of csrc/filtered_lrelu.cu:Strip, and ``fmas``, the multiply-adds
+    a tile's passes do, strips' padding included (the plan's cost)."""
+    t: tuple
+    tiles: tuple
+    in0: tuple          # per axis: each tile's input-window start
+    rh: int             # staged input rows, pass 1's rows
+    in_cols: int        # staged input columns
+    si: int
+    sh: int
+    sm: int
+    sd: int
+    nq1: int            # pass 1: strips of 4 up intermediate columns
+    nqi: int            # pass 2: strips of 8 intermediate rows ...
+    nqj: int            # ... by 4 columns
+    nqo: int            # pass 3: strips of 8 outputs along x (radial: 2)
+    nq4: int            # pass 4: strips of 8 output rows (radial: 4)
+    ti_y: int
+    off_b: int
+    smem: int
+    fmas: int
+
+
+def _stride(n):
+    """The smallest stride >= n that is 4 mod 8 floats: 16-byte rows, and 8
+    neighbouring rows' float4 on 8 different groups of 4 banks."""
+    return n + (4 - n % 8) % 8
+
+
+def _src(u, up, s):
+    """Intermediate position u of a window starting at a multiple of up:
+    its first tap's input, from the window's first (csrc: src_of)."""
+    return -(-(u - s) // up)
+
+
+def strip_layout(t, up, radial, p0, n_out):
+    """The strip form's layout at output tile sides t = (t_y, t_x), up 2 or
+    4, down 2 with 12 taps; p0 = (py0, px0), n_out = (OH, OW). Mirrors the
+    kernel's strips (csrc/filtered_lrelu.cu: strip_up_columns, strip_up_rows,
+    strip_down_rows, strip_down_columns, strip_down_radial)."""
+    s = STRIP_PHASE[up]
+    ti = [2 * (ta - 1) + STRIP_FDN for ta in t]
+    tiles = tuple(-(-n // ta) for n, ta in zip(n_out, t))
+    in0 = tuple(tuple(k * ta * STRIP_DOWN // up - p // up for k in range(nt))
+                for ta, nt, p in zip(t, tiles, p0))
+    u1 = 4 * up
+    if radial:
+        nqo, nq4 = -(-t[1] // 2), -(-t[0] // 4)
+        mid_cols = 4 * (nqo - 1) + 16               # pass 3' reads
+        mid_rows = 8 * (nq4 - 1) + 18
+    else:
+        nqo, nq4 = -(-t[1] // 8), -(-t[0] // 8)
+        mid_cols = 16 * (nqo - 1) + 28              # pass 3 reads
+        mid_rows = ti[0]
+    nqj = -(-ti[1] // 4)
+    nqi = -(-mid_rows // 8)
+    nq1 = -(-4 * nqj // u1)
+    rh = 8 * (nqi - 1) // up + _src(7, up, s) + STRIP_TPP   # pass 2's reads
+    in_cols = (nq1 - 1) * u1 // up + 12                     # pass 1's reads
+    si, sh = _stride(in_cols), _stride(nq1 * u1)
+    sm = _stride(max(4 * nqj, mid_cols))
+    sd = 0 if radial else _stride(8 * nqo)
+    d_rows = 16 * (nq4 - 1) + 26                            # pass 4's reads
+    a = max(rh * si, 8 * nqi * sm)
+    b = rh * sh if radial else max(rh * sh, d_rows * sd)
+    a += -a % 4
+    fmas = rh * nq1 * u1 * STRIP_TPP + 8 * nqi * 4 * nqj * STRIP_TPP
+    fmas += (4 * nq4 * 2 * nqo * STRIP_FDN ** 2 if radial else
+             ti[0] * 8 * nqo * STRIP_FDN + 8 * nq4 * t[1] * STRIP_FDN)
+    return StripLayout(tuple(t), tiles, in0, rh, in_cols, si, sh, sm, sd, nq1, nqi, nqj, nqo,
+                       nq4, ti[0], a, 4 * (a + b), fmas)
+
+
+def _strip_plan(up, radial, p0, n_out):
+    """The strip form's layout with the fewest multiply-adds over the image
+    (halo and padding counted) among square tiles whose block fits in
+    STRIP_SMEM, a tile starting at a multiple of up in the intermediate;
+    the larger tile at a tie. None where no tile fits."""
+    best = None
+    for t in STRIP_TILES:
+        if (t * STRIP_DOWN) % up:
+            continue
+        lay = strip_layout((t, t), up, radial, p0, n_out)
+        if lay.smem > STRIP_SMEM or max(lay.tiles) > MAX_TILES:
+            continue
+        cost = lay.fmas * lay.tiles[0] * lay.tiles[1]
+        if best is None or cost <= best[0]:
+            best = (cost, lay)
+    return None if best is None else best[1]
 
 
 class K11Plan(NamedTuple):
-    """One geometry's plan. Per axis (y, x): ``in0[t]``, the input row or
-    column where tile t's window starts; ``mid0[t]``, the intermediate one
-    (t * TILE * down); and for window position i, ``k0[i]``, the first up
-    tap of its phase (then k0 + up, k0 + 2 up, ...), and ``src[i]``, the
-    window's input index that tap meets (then src + 1, ...). ``ti`` and
-    ``tin`` are the intermediate and input windows' sides; ``mid`` and
-    ``out`` the intermediate's and output's (H, W)."""
+    """One geometry's plan. ``form``: the kernel's form (FORMS): a strip
+    form where ``strip`` (its StripLayout) is given, else the tile form,
+    whose fields follow. Per axis (y, x): ``in0[t]``, the input row or
+    column where 32x32 tile t's window starts; ``mid0[t]``, the
+    intermediate one (t * TILE * down); and for window position i,
+    ``k0[i]``, the first up tap of its phase (then k0 + up, k0 + 2 up,
+    ...), and ``src[i]``, the window's input index that tap meets (then
+    src + 1, ...). ``ti`` and ``tin`` are the tile form's intermediate and
+    input windows' sides; ``mid`` and ``out`` the intermediate's and
+    output's (H, W)."""
     fu: tuple          # flipped, gained by up: one axis
     fd: tuple          # flipped: fdn taps, or fdn * fdn when fd2d
     fd2d: bool
@@ -83,6 +201,8 @@ class K11Plan(NamedTuple):
     mid0: tuple
     k0: tuple
     src: tuple
+    form: str
+    strip: Optional[StripLayout]
     c_plan: Optional[_Plan]
 
 
@@ -99,6 +219,20 @@ def _axis(n_in, p0, p1, fuh, fdn, up, down):
     return n_mid, n_out, tiles, ti, in0, mid0, k0, src, reach
 
 
+def _form(fuh, fdn, fd2d, up, down, py0, px0):
+    """The kernel's form for a geometry (csrc/filtered_lrelu.cu: dispatch):
+    the strip form at StyleGAN3's (up 2 or 4 with 6 taps a phase, down 2
+    with 12 taps, the padding's phase STRIP_PHASE[up] on both axes), the
+    tile form's compiled one for the toRGB's single taps, else the tile
+    form."""
+    if (up in STRIP_PHASE and fuh == up * STRIP_TPP and fdn == STRIP_FDN
+            and down == STRIP_DOWN and py0 % up == px0 % up == STRIP_PHASE[up]):
+        return f"strip_up{up}{'_radial' if fd2d else ''}"
+    if up == 1 and fuh == 1 and fdn == 1:
+        return "tile_up1"
+    return "tile"
+
+
 @functools.lru_cache(maxsize=256)
 def _plan(fu: tuple, fd: tuple, fd2d: bool, up: int, down: int, pad: tuple, h: int, w: int,
           gain: float, slope: float, clamp: Optional[float]) -> K11Plan:
@@ -110,9 +244,14 @@ def _plan(fu: tuple, fd: tuple, fd2d: bool, up: int, down: int, pad: tuple, h: i
     if min(ay[1], ax[1]) < 1:
         raise ValueError(f"filtered_lrelu: empty output {ay[1]}x{ax[1]}")
     tin = max(ay[8], ax[8])
+    form = _form(fuh, fdn, fd2d, up, down, py0, px0)
+    strip = (_strip_plan(up, fd2d, (py0, px0), (ay[1], ax[1])) if form.startswith("strip")
+             else None)
+    if form.startswith("strip") and strip is None:
+        form = "tile"
     plan = K11Plan(fu, fd, fd2d, up, down, (ay[0], ax[0]), (ay[1], ax[1]), (ay[2], ax[2]),
                    ay[3], tin, (ay[4], ax[4]), (ay[5], ax[5]), (ay[6], ax[6]), (ay[7], ax[7]),
-                   None)
+                   form, strip, None)
     fits = (fuh <= MAX_FU and len(fd) <= MAX_FD and plan.ti <= MAX_WINDOW
             and max(plan.tiles) <= MAX_TILES and (TILE * down) % up == 0)
     if not fits:
@@ -128,6 +267,16 @@ def _plan(fu: tuple, fd: tuple, fd2d: bool, up: int, down: int, pad: tuple, h: i
     c.tiles_y, c.tiles_x, c.H, c.W = plan.tiles[0], plan.tiles[1], h, w
     c.OH, c.OW = plan.out
     c.gain, c.slope, c.clamp = gain, slope, -1.0 if clamp is None else clamp
+    c.form = FORMS[form]
+    if strip is not None:
+        st = c.st
+        st.t_y, st.t_x = strip.t
+        st.tiles_y, st.tiles_x = strip.tiles
+        for a in (0, 1):
+            st.in0[a * MAX_TILES:a * MAX_TILES + strip.tiles[a]] = strip.in0[a]
+        for n in _Strip._fields_:
+            if n[0] not in ("t_y", "t_x", "tiles_y", "tiles_x", "in0"):
+                setattr(st, n[0], getattr(strip, n[0]))
     return plan._replace(c_plan=c)
 
 

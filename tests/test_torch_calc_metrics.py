@@ -24,6 +24,9 @@ are cast to f32), so the bound is stated instead. At ten items in ten
 splits is50k is 1 (a split of one image) and the fakes lie apart from the
 noise reals (precision 0, recall 1), so IS in two splits and precision /
 recall between two sets of fakes are held on the captured outputs too.
+The JAX CLI's generator runs its apply jitted (JitApply: compiled once per
+method and flags; eager JAX compiles every primitive on first use, most of
+this test's time).
 """
 
 import json
@@ -33,6 +36,7 @@ import sys
 import jax
 import numpy as np
 
+import panic3d_tpu.configs as jconfigs
 import panic3d_tpu.eval.gan_metrics as jgm
 import panic3d_tpu.training.metric_eval as jme
 import panic3d_tpu_torch.eval.gan_metrics as tgm
@@ -107,6 +111,33 @@ class Record:
         monkeypatch.setattr(metric_eval, "compute_ppl", compute_ppl)
 
 
+class JitApply:
+    """A flax module whose apply runs jitted, compiled once per method,
+    keyword arguments and non-array leaves of the positional arguments
+    (flags such as normalize_images); every other attribute is the
+    module's."""
+
+    def __init__(self, module):
+        self.module, self.fns = module, {}
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
+
+    def apply(self, variables, *args, method=None, **kwargs):
+        leaves, tree = jax.tree_util.tree_flatten(args)
+        flags = tuple((i, x) for i, x in enumerate(leaves) if isinstance(x, (bool, str)))
+        key = (method, tuple(sorted(kwargs.items())), tree, flags)
+        if key not in self.fns:
+            def fn(v, arrays):
+                merged = list(arrays)
+                for i, x in flags:
+                    merged[i] = x
+                return self.module.apply(v, *tree.unflatten(merged), method=method, **kwargs)
+            self.fns[key] = jax.jit(fn)
+        arrays = [None if isinstance(x, (bool, str)) else x for x in leaves]
+        return self.fns[key](variables, arrays)
+
+
 def results(run_dir):
     out = {}
     for name in METRICS:
@@ -142,8 +173,11 @@ def test_calc_metrics_cli_matches_jax(tmp_path, monkeypatch):
     jrec = Record(monkeypatch, jme, jgm)
     trec = Record(monkeypatch, tme, tme)
     os.makedirs(tmp_path / "jax")
+    from_snapshot_config = jconfigs.from_snapshot_config
     with monkeypatch.context() as m:
         m.setattr(jax.random, "normal", spy)
+        m.setattr(jconfigs, "from_snapshot_config",
+                  lambda *a, **k: JitApply(from_snapshot_config(*a, **k)))
         jcm.main(argv + ["--run-dir", str(tmp_path / "jax")])
     # fid (1 batch), fid_clip (1), kid (1), pr (1), is (1): a z each; ppl: z0, z1
     assert [d.shape for d in draws] == [(ITEMS, G.z_dim)] * 7

@@ -5,12 +5,14 @@ tensor cores: layer 1 and layer 2 again, dL/dh = dL/dout W1, dL/df =
 dL/dpre W0, and the weight gradients dW0 = dL/dpre^T f and dW1 = dL/dout^T
 h over each round of 64 points (4 warps x 16), each product in TF32 with
 the 3xTF32 split (hi = v rounded to TF32 by cvt.rna, lo = (v - hi) rounded
-to TF32; a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with f32 accumulation). A CTA
-adds its rounds' products into its f32 partial; a second launch sums the
-partials in CTA order in f64 and applies the gains. Here the same rounding
-is done on the f32 bits, the three products are f32 matmuls, the rounds
-go to the partials round-robin as the persistent grid takes them, and the
-plane gradient is the sampler's transpose of dL/df / 3 in f32.
+to TF32; a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with f32 accumulation). A
+quad of 4 warps adds its rounds' products into its f32 partial; a second
+launch sums the partials in order in f64 and applies the gains. Here the
+same rounding is done on the f32 bits, the three products are f32
+matmuls, the rounds go to the partials round-robin as the persistent grid's
+quads take them, and the plane gradient is the sampler's transpose of
+dL/df / 3 in f32. The grid itself (renderer.py:k1_grad_ctas) must hand
+every round to exactly one quad.
 
 At flagship widths (C=32, 64 hidden, 33 outputs; seeded weights at the
 seeded flagship's scale, the +2.5 sigma bias) the emulation must stay
@@ -22,6 +24,8 @@ weight products alone must not hold the weight gradients there.
 """
 
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +40,7 @@ from panic3d_tpu_torch.models.volumetric import renderer as tvr
 C, HIDDEN, OUT = 32, 64, 33
 BW = 0.7
 N, M, H = 1, 1536, 24        # 24 rounds of 64 points
-CTAS = 5                     # partials: rounds 0, 5, 10, ... go to CTA 0
+CTAS = 5                     # partials: rounds 0, 5, 10, ... go to quad 0
 PLANE_TOL, WEIGHT_TOL = 2.0 ** -7, 1e-4
 
 
@@ -150,3 +154,37 @@ def test_one_tf32_pass_in_the_weight_products_is_not_enough(case, jax_grads):
     errs3 = rel_errors(emulated_grads(case, matmul_3xtf32), jax_grads)
     assert max(errs[1:]) > WEIGHT_TOL, errs
     assert max(errs3[1:]) < max(errs[1:]) / 10, (errs3, errs)
+
+
+@pytest.mark.parametrize("points", [1_572_864, 786_432, 1536, 64 * 3 * 132 + 1, 1])
+def test_persistent_grid_takes_every_round_once(points):
+    """The wrapper's grid and partials (renderer.py:k1_grad_ctas,
+    K1G_QUADS) against the kernel's loop (csrc/triplane_decode_grad.cu) on
+    bf16 and f32 planes: the quads a CTA are the kernel's for the dtype
+    (quads_of, which the entry points hold the wrapper to); quad qg = CTA x
+    quads + quad takes rounds qg, qg + ctas x quads, ... and writes
+    partial row qg, and the finish sums ctas x quads rows, so no quad
+    writes past the scratch and no CTA is launched without a round; a
+    grid of fewer CTAs than the SMs leaves no round for another."""
+    src = (Path(tvr.__file__).resolve().parents[2] / "csrc" / "triplane_decode_grad.cu")
+    m = re.search(r"quads_of\(\) \{ return sizeof\(T\) == 2 \? (\d+) : (\d+); \}",
+                  src.read_text())
+    assert m, "quads_of not found in triplane_decode_grad.cu"
+    kernel_quads = {torch.bfloat16: int(m.group(1)), torch.float32: int(m.group(2))}
+    assert tvr.K1G_QUADS == kernel_quads
+    sms = 132
+    rounds = -(-points // (16 * tvr.K1G_WARPS))
+    for dtype, quads in tvr.K1G_QUADS.items():
+        ctas = tvr.k1_grad_ctas(points, sms, quads)
+        assert 1 <= ctas <= tvr.K1G_CTAS_PER_SM * sms
+        rows = ctas * quads    # the wrapper's partials, the finish's sum
+        taken = {}
+        for qg in range(rows):
+            for r in range(qg, rounds, rows):
+                taken[r] = qg
+        assert sorted(taken) == list(range(rounds))
+        assert max(taken.values()) < rows
+        # every CTA has a round: none launched for nothing
+        assert all(b * quads < rounds for b in range(ctas)), dtype
+        # a grid short of the SMs runs every round in one pass of its quads
+        assert ctas == tvr.K1G_CTAS_PER_SM * sms or rounds <= rows, dtype

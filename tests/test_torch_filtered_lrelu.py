@@ -19,6 +19,15 @@ activation, and the down pass, in f32; it must equal the plain f32 version
 within 2e-6 x max|out| (the same products, summed in another order), and
 every intermediate position must meet exactly the inputs the zero-inserted
 image puts under its taps.
+
+The strip check does the same for the strip form (StyleGAN3's geometries:
+up 2 and 4 at their paddings' phases, the separable and the radial down
+filter, the tile the plan picks at a 36^2, 52^2 and 84^2 output and tiles
+it does not pick, the last one partial): each pass strip by strip as the
+kernel walks it (pass 1: 4 x up columns from a window at 4q; pass 2: 8
+rows from h row 8q / up; the down passes at stride 2), its buffers the
+layout's sizes and strides, filled with NaN before each pass writes them,
+so an output that reads a value no pass wrote comes out NaN.
 """
 
 import importlib
@@ -34,7 +43,7 @@ import torch.nn.functional as F
 from panic3d_tpu_torch.kernels import launch_counts
 from panic3d_tpu_torch.models.stylegan3 import design_lowpass_filter
 from panic3d_tpu_torch.ops.filtered_lrelu import (
-    TILE, filtered_lrelu, filtered_lrelu_plain, k11_plan)
+    STRIP_PHASE, TILE, filtered_lrelu, filtered_lrelu_plain, k11_plan, strip_layout)
 
 SQRT2 = math.sqrt(2)
 # the module (panic3d_tpu.ops re-exports its function of the same name)
@@ -167,6 +176,13 @@ def test_plan_rebuilds_plain(name):
     got = kernel_from_plan(xt, bt, plan, kw["clamp"], kw["gain"], kw["slope"])
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                atol=2e-6 * float(want.abs().max()))
+    if plan.strip is not None:   # the strip form (StyleGAN3's phase: the crop) too
+        assert plan.form.startswith("strip")
+        got = strip_from_layout(xt, bt, plan, plan.strip, kw["clamp"], kw["gain"], kw["slope"])
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=2e-6 * float(want.abs().max()))
+    else:
+        assert plan.form.startswith("tile")
     # each tile's intermediate window starts at tile * TILE * down, a multiple
     # of up, and its first position's tap meets input in0 + src
     up = kw["up"]
@@ -188,3 +204,130 @@ def test_kernel_refuses_what_it_does_not_take():
     # an output of more than 64 tiles a side is outside the kernel's plan
     assert k11_plan((1, 1, 1100, 1100), torch.from_numpy(fu), torch.from_numpy(fd), 2, 1,
                     10).c_plan is None
+
+
+# name: (C, size, up, down taps radial, padding, t): StyleGAN3's geometries
+# (stylegan3-t L0 / L3 / L4 / L5 / L7, stylegan3-r L0 / L2 / L4), at the
+# plan's tile (t None) or a forced one
+STRIP_CASES = {
+    "t_L0_up2_36": (2, 38, 2, False, [9, 8, 9, 8], None),
+    "t_L3_up2_52": (2, 54, 2, False, [9, 8, 9, 8], None),
+    "t_L4_up4_84": (2, 54, 4, False, [-6, -9, -6, -9], None),
+    "t_L5_up2_84_t40": (1, 86, 2, False, [9, 8, 9, 8], (40, 40)),
+    "t_L13_up2_crop_t30": (1, 70, 2, False, [-11, -12, -11, -12], (30, 30)),
+    "r_L0_radial_up2_36": (2, 36, 2, True, [11, 10, 11, 10], None),
+    "r_L2_radial_up4_52": (1, 36, 4, True, [-2, -5, -2, -5], None),
+    "r_L4_radial_up4_84_t32": (1, 52, 4, True, [-2, -5, -2, -5], (32, 32)),
+}
+
+
+def strip_from_layout(x, b, plan, lay, clamp, gain, slope):
+    """What the strip form (csrc/filtered_lrelu.cu:filtered_lrelu_strip_kernel)
+    computes from the plan and its layout ``lay``, in f32, strip by strip,
+    each buffer NaN where its pass did not write."""
+    N, C, H, W = x.shape
+    up, s = plan.up, STRIP_PHASE[plan.up]
+    fu = torch.tensor(plan.fu, dtype=torch.float32)
+    fd = torch.tensor(plan.fd, dtype=torch.float32)
+    xb = x.float() + b.float()[:, None, None]
+    n_a, n_b = lay.off_b, lay.smem // 4 - lay.off_b
+    u1 = 4 * up
+
+    def src(u):
+        return -(-(u - s) // up)
+
+    def k0(u):
+        return (s - u) % up
+
+    def buf(n, rows, stride):
+        assert stride % 8 == 4 and rows * stride <= n
+        return torch.full((N, C, rows, stride), float("nan"))
+
+    out = torch.full((N, C) + plan.out, float("nan"))
+    for ty, iy0 in enumerate(lay.in0[0]):
+        for tx, ix0 in enumerate(lay.in0[1]):
+            s_in = buf(n_a, lay.rh, lay.si)
+            r0, r1 = max(iy0, 0), min(iy0 + lay.rh, H)
+            c0, c1 = max(ix0, 0), min(ix0 + lay.in_cols, W)
+            s_in[..., :lay.in_cols] = 0.0
+            s_in[:, :, r0 - iy0:r1 - iy0, c0 - ix0:c1 - ix0] = xb[:, :, r0:r1, c0:c1]
+            s_h = buf(n_b, lay.rh, lay.sh)                 # pass 1
+            for q in range(lay.nq1):
+                for u in range(u1):
+                    acc = torch.zeros(N, C, lay.rh)
+                    for m in range(6):
+                        assert 4 * q + src(u) + m < 4 * q + 12
+                        acc = acc + fu[k0(u) + m * up] * s_in[..., 4 * q + src(u) + m]
+                    s_h[..., u1 * q + u] = acc
+            s_mid = buf(n_a, 8 * lay.nqi, lay.sm)          # pass 2
+            for qi in range(lay.nqi):
+                for u in range(8):
+                    acc = torch.zeros(N, C, 4 * lay.nqj)
+                    for m in range(6):
+                        acc = acc + fu[k0(u) + m * up] * s_h[:, :, 8 * qi // up + src(u) + m,
+                                                             :4 * lay.nqj]
+                    acc = torch.where(acc >= 0, acc, acc * slope) * gain
+                    s_mid[:, :, 8 * qi + u, :4 * lay.nqj] = acc.clamp(-clamp, clamp)
+            if plan.fd2d:                                  # pass 3'
+                rows, cols = 8 * (lay.nq4 - 1) + 18, 4 * (lay.nqo - 1) + 16
+                assert cols <= lay.sm
+                y = F.conv2d(s_mid[:, :, :rows, :cols].reshape(N * C, 1, rows, cols),
+                             fd.reshape(1, 1, 12, 12), stride=2)
+            else:                                          # passes 3 and 4
+                cols = 16 * (lay.nqo - 1) + 28
+                assert cols <= lay.sm and 8 * lay.nqo <= lay.sd
+                s_d = buf(n_b, 16 * (lay.nq4 - 1) + 26, lay.sd)
+                d = F.conv2d(s_mid[:, :, :lay.ti_y, :cols].reshape(N * C, 1, lay.ti_y, cols),
+                             fd.reshape(1, 1, 1, 12), stride=(1, 2))
+                s_d[:, :, :lay.ti_y, :8 * lay.nqo] = d[..., :8 * lay.nqo].reshape(
+                    N, C, lay.ti_y, 8 * lay.nqo)
+                y = F.conv2d(s_d[..., :lay.t[1]].reshape(N * C, 1, -1, lay.t[1]),
+                             fd.reshape(1, 1, 12, 1), stride=(2, 1))
+            y = y.reshape(N, C, y.shape[-2], y.shape[-1])
+            oy, ox = ty * lay.t[0], tx * lay.t[1]
+            hh, ww = min(lay.t[0], plan.out[0] - oy), min(lay.t[1], plan.out[1] - ox)
+            assert y.shape[-2] >= hh and y.shape[-1] >= ww
+            out[:, :, oy:oy + hh, ox:ox + ww] = y[:, :, :hh, :ww]
+    return out
+
+
+@pytest.mark.parametrize("name", list(STRIP_CASES))
+def test_strip_plan_rebuilds_plain(name):
+    C, size, up, radial, pad, t = STRIP_CASES[name]
+    r = np.random.RandomState(3)
+    x = (r.randn(1, C, size, size) * 40.0).astype(np.float32)   # x sqrt(2): the clamp is hit
+    b = (r.randn(C) * 0.5).astype(np.float32)
+    fu, fd = _filters(6 * up, 12, radial)
+    kw = dict(up=up, down=2, padding=pad, clamp=256.0, gain=SQRT2, slope=0.2)
+    xt, bt = torch.from_numpy(x), torch.from_numpy(b)
+    plan = k11_plan(xt.shape, _torch(fu), _torch(fd), up, 2, pad, SQRT2, 0.2, 256.0)
+    assert plan.form == f"strip_up{up}{'_radial' if radial else ''}" and plan.c_plan is not None
+    lay = plan.strip
+    assert plan.c_plan.form == {"strip_up2": 2, "strip_up2_radial": 3, "strip_up4": 4,
+                                "strip_up4_radial": 5}[plan.form]
+    assert (plan.c_plan.st.t_y, plan.c_plan.st.smem) == (lay.t[0], lay.smem)
+    if t is None:   # the plan's tile: the whole output up to 36^2, 42^2 at 84^2
+        n = plan.out[0]
+        assert lay.t[0] == {36: 36, 52: 26 if up == 2 and not radial else 52, 84: 42}[n]
+    else:
+        lay = strip_layout(t, up, radial, (pad[2], pad[0]), plan.out)
+    assert lay.smem <= 74 * 1024
+    want = filtered_lrelu_plain(xt, _torch(fu), _torch(fd), bt, **kw)
+    got = strip_from_layout(xt, bt, plan, lay, 256.0, SQRT2, 0.2)
+    assert bool(torch.isfinite(got).all())
+    tol = 2e-6 * float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=tol)
+    # every window position's first tap meets the input the zero-inserted
+    # image puts under it
+    s = STRIP_PHASE[up]
+    for a, p0 in ((0, pad[2]), (1, pad[0])):
+        assert p0 % up == s
+        for k, i0 in enumerate(lay.in0[a]):
+            m0 = k * lay.t[a] * 2
+            assert m0 % up == 0
+            for u in range(2 * lay.t[a] + 10):
+                q = m0 + u + (s - u) % up - p0
+                assert q % up == 0 and q // up == i0 + -(-(u - s) // up)
+    # the JAX filtered_lrelu at the same geometry
+    ref = np.asarray(jax.jit(lambda x, b: jfl.filtered_lrelu(x, fu, fd, b, **kw))(x, b))
+    np.testing.assert_allclose(want.numpy(), ref, rtol=0, atol=tol)

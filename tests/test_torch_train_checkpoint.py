@@ -17,6 +17,7 @@ the CPU with the trainer's tiny models:
   flags and are taken by the tiny trainer (a dry run).
 """
 
+import functools
 import os
 
 import jax
@@ -47,9 +48,10 @@ def _threads():
 BS = 2
 
 
-def jax_tiny_state(seed=0):
-    """The JAX trainer's tiny models (training/trainer.py:build_models) with
-    seeded weights and Adam state, as a GANTrainState of numpy leaves."""
+@functools.lru_cache(maxsize=None)
+def _tiny_shapes():
+    """The shapes of the JAX trainer's tiny G's and D's variables (one
+    eval_shape of each init a process)."""
     g = jcfg.tiny(cond_mode="ortho_front.add_4.reschonk_add_16")
     d = JD(c_dim=25, img_resolution=g.img_resolution, channel_base=1024, channel_max=32,
            epilogue_kwargs=dict(mbstd_group_size=2))
@@ -60,6 +62,13 @@ def jax_tiny_state(seed=0):
     k = jax.random.PRNGKey(0)
     sg = jax.eval_shape(lambda: g.init({"params": k}, xin, method=JG.f, noise_mode="const"))
     sd = jax.eval_shape(lambda: d.init({"params": k}, img, b["camera"], b["cond"]))
+    return sg, sd
+
+
+def jax_tiny_state(seed=0):
+    """The JAX trainer's tiny models (training/trainer.py:build_models) with
+    seeded weights and Adam state, as a GANTrainState of numpy leaves."""
+    sg, sd = _tiny_shapes()
     r = np.random.RandomState(seed)
 
     def rand(leaf, scale=1.0, positive=False):

@@ -99,10 +99,15 @@ def torch_tree(tree):
     return torch.from_numpy(np.array(tree, dtype=np.float32))
 
 
-@functools.lru_cache(maxsize=None)
 def rig(depth: int = 1):
     """(g, d, vars_G, vars_D, lpips_vars, batch) of the JAX package, numpy;
-    G at triplane_depth ``depth``."""
+    G at triplane_depth ``depth``; built once a depth (rig() and rig(1) are
+    one rig)."""
+    return _rig(depth)
+
+
+@functools.lru_cache(maxsize=None)
+def _rig(depth):
     g, d = jcfg.tiny(**g_kw(depth)), JD(**D_KW)
     batch = jax_batch()
     xin = {"z": jnp.zeros((BS, g.z_dim)), "camera_params": batch["camera"],
